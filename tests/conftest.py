@@ -21,6 +21,11 @@ import pytest
 from tpusparse.io import builder, mtx
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (tpusparse_torch kernels); skips without one")
+
+
 @pytest.fixture
 def small_coo():
     """Small power-law matrix, the default correctness fixture."""

@@ -1,0 +1,112 @@
+"""tpusparse_torch's CUDA kernels on the card: each kernel against its plain
+version for every kt and mode, and the default SpMM path at a medium size.
+Marked ``gpu``; without a CUDA device every test skips (the ``cuda``
+fixture decides, so every pytest worker collects the same tests).  Run on
+the card with ``python -m pytest tests/test_torch_gpu.py -q -m gpu``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import tpusparse_torch
+from tpusparse_torch.io import builder
+from tpusparse_torch.kernels import dg_gather as dg
+from tpusparse_torch.oracle import check_result, spmm_reference
+from tpusparse_torch.schedule import default_schedule
+from tpusparse_torch.tune import tune
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def mat():
+    return builder.power_law_coo(4096, 4096, avg_nnz_per_row=16.0, seed=21)
+
+
+def _rows_vs_plain(fmt, k, kt, mode, dev):
+    """Max error of the kernel against its plain version, relative to
+    |A|·|x| (they differ only in the order of their atomic fp32 sums)."""
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal((fmt.shape[1], k)),
+                        dtype=torch.float32, device=dev)
+    args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p)
+    abs_args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals.abs(), fmt.nc_p)
+    if kt == 1:
+        x = x[:, 0].contiguous()
+        before = dg.dg1_rows_cuda.launches
+        got = dg.dg1_rows_cuda(*args, x, rb=fmt.rb)
+        assert dg.dg1_rows_cuda.launches == before + 1
+        want = dg.dg1_rows_plain(*args, x, rb=fmt.rb)
+        scale = dg.dg1_rows_plain(*abs_args, x.abs(), rb=fmt.rb)
+    else:
+        x = dg.pad_dense_cols(x, -(-k // kt) * kt).contiguous()
+        before = dg.dg_rows_cuda.launches
+        got = dg.dg_rows_cuda(*args, x, rb=fmt.rb, kt=kt, mode=mode)
+        assert dg.dg_rows_cuda.launches == before + 1
+        want = dg.dg_rows_plain(*args, x, rb=fmt.rb, kt=kt, mode=mode)
+        scale = dg.dg_rows_plain(*abs_args, x.abs(), rb=fmt.rb, kt=kt, mode="fp32x2")
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.is_cuda
+    denom = torch.maximum(scale.double(), torch.ones((), dtype=torch.float64, device=dev))
+    return float(((got.double() - want.double()).abs() / denom).max())
+
+
+@pytest.mark.parametrize("kt,mode,k,rb", [
+    (8, "fp32x2", 8, 1024), (8, "bf16", 8, 1024), (16, "fp32x2", 16, 1024),
+    (16, "bf16", 16, 1024), (32, "fp32x2", 32, 512), (32, "bf16", 32, 512),
+    (8, "fp32x2", 3, 256), (16, "fp32x2", 40, 512), (32, "fp32x2", 64, 512),
+    (32, "fp32x2", 32, 2048),  # 256 KB tile: the global-atomic branch
+    (1, "fp32x2", 1, 4096),
+])
+def test_kernel_matches_plain(cuda, mat, kt, mode, k, rb):
+    fmt = dg.pack_dg(mat, rb=rb, ns=4 if kt == 1 else 8, g=2048 if kt == 1 else 512,
+                     kt=kt, mode=mode, device=cuda)
+    assert _rows_vs_plain(fmt, k, kt, mode, cuda) <= 1e-5
+    if (kt, rb) == (32, 2048):
+        assert not dg.dg_uses_shared_tile(rb, kt)
+    elif kt > 1:
+        assert dg.dg_uses_shared_tile(rb, kt)
+
+
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_spmm_default_path_on_card(cuda, mat, k):
+    x = np.random.default_rng(k).standard_normal((4096, k)).astype(np.float32)
+    counter = dg.dg1_rows_cuda if k == 1 else dg.dg_rows_cuda
+    before = counter.launches
+    y = tpusparse_torch.spmm(mat, x)
+    assert y.is_cuda and y.shape == (4096, k)
+    assert counter.launches == before + 1
+    assert default_schedule(mat, k).family == "dg_span"
+    check_result(y.cpu().numpy(), spmm_reference(mat, x.astype(np.float64)), rtol=2e-3)
+
+
+def test_tune_on_card(cuda, mat, tmp_path):
+    x = np.random.default_rng(5).standard_normal((4096, 8)).astype(np.float32)
+    with tpusparse_torch.config_override(cache_dir=str(tmp_path)):
+        res = tune(mat, x, iters=3)
+    assert all(r["ok"] and r["device"] == torch.cuda.get_device_name(cuda) for r in res.table)
+    assert res.best_schedule.family == "dg_span" and res.best_seconds > 0
+    check_result(res.best(x).cpu().numpy(), spmm_reference(mat, x.astype(np.float64)),
+                 rtol=2e-3)
+
+
+def test_wrapper_refuses_bad_inputs(cuda, mat):
+    fmt = dg.pack_dg(mat, rb=1024, ns=8, g=512, kt=8, device=cuda)
+    args = [fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p]
+    x = torch.zeros((4096, 8), device=cuda)
+    with pytest.raises(ValueError):
+        dg.dg_rows_cuda(*args, x.double(), rb=1024, kt=8, mode="fp32x2")
+    with pytest.raises(ValueError):
+        dg.dg_rows_cuda(*args, torch.zeros((4096, 12), device=cuda), rb=1024, kt=8,
+                        mode="fp32x2")
+    with pytest.raises(ValueError):
+        dg.dg_rows_cuda(fmt.c0, fmt.cols.long(), *args[2:], x, rb=1024, kt=8, mode="fp32x2")
+    with pytest.raises(ValueError):
+        dg.dg_spmm(fmt, torch.zeros((4096, 8)))   # X on the CPU, format on the card

@@ -1,0 +1,42 @@
+"""tpusparse_torch stands alone: importing it loads no JAX and no module of
+the JAX package, and no file of the port (nor chip_smoke.py) imports them."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+tpusparse(\.|\s|$|,)"
+                       r"|from\s+tpusparse(\.|\s))", re.M)
+
+
+def test_import_loads_no_jax_and_no_tpusparse():
+    code = ("import sys, tpusparse_torch, tpusparse_torch.tune, "
+            "tpusparse_torch.schedule, tpusparse_torch.kernels.dg_gather; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'tpusparse' or m.startswith('tpusparse.')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in
+    [*(ROOT / "tpusparse_torch").rglob("*.py"), ROOT / "chip_smoke.py"]))
+def test_no_jax_or_tpusparse_import_in_source(path):
+    text = (ROOT / path).read_text()
+    assert not FORBIDDEN.search(text), FORBIDDEN.search(text).group(0)
+
+
+def test_forbidden_pattern_spares_the_port_name():
+    assert FORBIDDEN.search("import jax.numpy as jnp")
+    assert FORBIDDEN.search("from tpusparse.io import builder")
+    assert FORBIDDEN.search("import tpusparse")
+    assert not FORBIDDEN.search("import tpusparse_torch")
+    assert not FORBIDDEN.search("from tpusparse_torch.io import builder")

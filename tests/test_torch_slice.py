@@ -1,0 +1,193 @@
+"""The port's default SpMM path as a whole, on the CPU, against the JAX
+package: builders, the schedule decision tree, build_plan, spmm and tune.
+The JAX side runs its Pallas kernels in interpret mode (tests/conftest.py).
+"""
+
+import io
+
+import numpy as np
+import pytest
+import torch
+
+import tpusparse
+import tpusparse_torch
+from tpusparse import schedule as jsched
+from tpusparse import tune as jtune
+from tpusparse.io import builder as jbuilder
+from tpusparse.oracle import check_result, spmm_reference
+from tpusparse_torch import schedule as tsched
+from tpusparse_torch import tune as ttune
+from tpusparse_torch.io import builder as tbuilder
+from tpusparse_torch.io.mtx import CooMatrix, read_mtx, write_mtx
+
+
+def _mat(m=300, n=400, avg=6.0, seed=0):
+    return tbuilder.power_law_coo(m, n, avg_nnz_per_row=avg, seed=seed)
+
+
+def _x(n, k, seed=1):
+    return np.random.default_rng(seed).standard_normal((n, k)).astype(np.float32)
+
+
+@pytest.mark.parametrize("name,args,kw", [
+    ("power_law_coo", (300, 400), dict(avg_nnz_per_row=6.0, seed=3)),
+    ("power_law_coo", (2000, 1600), dict(avg_nnz_per_row=7.0, alpha=2.2, max_row=50, seed=11)),
+    ("uniform_coo", (64, 48), dict(nnz_per_row=4, seed=1)),
+])
+def test_builders_equal_jax(name, args, kw):
+    a = getattr(jbuilder, name)(*args, **kw)
+    b = getattr(tbuilder, name)(*args, **kw)
+    assert a.shape == b.shape
+    for f in ("rows", "cols", "vals"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+def test_mtx_roundtrip_and_coo_helpers(tmp_path):
+    mat = _mat(seed=2)
+    write_mtx(tmp_path / "a.mtx", mat)
+    back = read_mtx(tmp_path / "a.mtx")
+    assert back.shape == mat.shape and back.is_row_major_sorted()
+    np.testing.assert_array_equal(back.rows, mat.rows)
+    np.testing.assert_allclose(back.vals, mat.vals)
+    sym = read_mtx(io.StringIO("%%MatrixMarket matrix coordinate real symmetric\n"
+                               "3 3 2\n2 1 5.0\n3 3 1.0\n"))
+    np.testing.assert_array_equal(sym.to_dense(), [[0, 5, 0], [5, 0, 0], [0, 0, 1]])
+    dup = CooMatrix(np.array([0, 0, 1]), np.array([1, 1, 0]), np.array([1.0, 2.0, 3.0]), (2, 2))
+    np.testing.assert_array_equal(dup.sum_duplicates().vals, [3.0, 3.0])
+    np.testing.assert_array_equal(dup.dedup().vals, [1.0, 3.0])
+    np.testing.assert_array_equal(mat.row_lengths(), np.bincount(mat.rows, minlength=300))
+
+
+@pytest.mark.parametrize("text", [
+    "%%MatrixMarket matrix coordinate real general\n% c\n3 4 3\n1 2 0.5\n3 1 -2\n2 4 7\n",
+    "%%MatrixMarket matrix coordinate pattern general\n2 2 2\n2 1\n1 2\n",
+    "%%MatrixMarket matrix coordinate real skew-symmetric\n3 3 2\n2 1 4.0\n3 2 -1.5\n",
+    "3 3 2\n1 1 2.0\n3 2 1.0\n",      # bare "rows cols nnz" first line
+    "2 3\n2 3 1.0\n",                  # bare "rows cols"
+])
+def test_read_mtx_equals_jax(text):
+    a = tpusparse.io.read_mtx(io.StringIO(text))
+    b = read_mtx(io.StringIO(text))
+    assert a.shape == b.shape
+    for f in ("rows", "cols", "vals"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+@pytest.mark.parametrize("text", ["%%MatrixMarket matrix coordinate real general\n3\n",
+                                  "3 3 2 9\n1 1 1.0\n", "% only comments\n"])
+def test_read_mtx_rejects_malformed(text):
+    with pytest.raises(ValueError):
+        read_mtx(io.StringIO(text))
+
+
+def test_time_fn_refuses_a_cpu_output():
+    from tpusparse_torch.bench.harness import time_fn, time_fn_host
+
+    with pytest.raises(RuntimeError, match="times the card"):
+        time_fn(lambda v: v * 2, torch.ones(4))
+    assert time_fn_host(lambda v: v * 2, torch.ones(4), iters=2, warmup=1) > 0
+
+
+@pytest.mark.parametrize("n,k", [(400, 1), (400, 3), (400, 8), (400, 40), (400, 64),
+                                 (400, 200), (2_000_000, 1), (300_000, 3), (400_000, 8),
+                                 (1_000_000, 8), (100_000, 64), (2_000_000, 64), (400, None)])
+def test_default_schedule_equals_jax(n, k):
+    tmat = CooMatrix(np.array([0]), np.array([0]), np.array([1.0]), (10, n))
+    jmat = tpusparse.CooMatrix(np.array([0]), np.array([0]), np.array([1.0]), (10, n))
+    assert tsched.default_schedule(tmat, k).describe() == \
+        jsched.default_schedule(jmat, k).describe()
+
+
+@pytest.mark.parametrize("k,full", [(1, False), (8, False), (40, False), (8, True)])
+def test_default_candidates_equal_jax_dg_block(k, full):
+    jmat = jbuilder.power_law_coo(500, 600, avg_nnz_per_row=8.0, seed=4)
+    tmat = CooMatrix(jmat.rows, jmat.cols, jmat.vals, jmat.shape)
+    want = [s.describe() for s in jtune.default_candidates(jmat, k, full=full)
+            if s.family == "dg_span"]
+    assert [s.describe() for s in ttune.default_candidates(tmat, k, full=full)] == want
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 40, 64])
+def test_spmm_cpu_matches_jax_and_oracle(k):
+    tmat = _mat()
+    jmat = tpusparse.CooMatrix(tmat.rows, tmat.cols, tmat.vals, tmat.shape)
+    x = _x(400, k)
+    y = tpusparse_torch.spmm(tmat, x, device="cpu")
+    assert isinstance(y, torch.Tensor) and y.device.type == "cpu" and y.shape == (300, k)
+    want = spmm_reference(jmat, x.astype(np.float64))
+    check_result(y.numpy(), np.asarray(tpusparse.spmm(jmat, x)), rtol=5e-4)
+    check_result(y.numpy(), want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("sched", [
+    dict(rb=128, ns=4, g=128, ktile=8),
+    dict(rb=64, ns=2, g=256, ktile=16),
+    dict(rb=128, ns=4, g=128, ktile=8, precision="bf16"),
+    dict(rb=256, ns=2, g=128, ktile=1),
+])
+def test_build_plan_explicit_dg_schedules(sched):
+    mat = _mat(seed=5)
+    s = tsched.Schedule(family="dg_span", unroll=8, **sched)
+    k = 1 if s.ktile == 1 else 12
+    x = _x(400, k, seed=6)
+    plan = tsched.build_plan(mat, s, device="cpu")
+    fmt = plan.formats[0]
+    assert fmt.rb == s.rb and fmt.ns == s.ns and fmt.chunk_g == s.g
+    assert plan.meta["schedule"] == s.describe()
+    assert "grid_block" in plan.meta["operator_history"]
+    summary = plan.cost_summary(k)
+    assert summary["nnz"] == mat.nnz and summary["format_bytes"] == fmt.memory_bytes
+    check_result(plan(x).numpy(), spmm_reference(mat, x.astype(np.float64)),
+                 rtol=8e-2 if s.precision == "bf16" else 1e-5)
+
+
+def test_tune_cpu_picks_a_dg_candidate(tmp_path):
+    mat = _mat(seed=7)
+    x = _x(400, 8, seed=8)
+    with tpusparse_torch.config_override(cache_dir=str(tmp_path)):
+        res = ttune.tune(mat, x, iters=2, device="cpu")
+        again = ttune.tune(mat, x, iters=2, device="cpu", budget=1)
+    assert res.best_schedule.family == "dg_span"
+    assert all(r["ok"] and r["device"] == "cpu" for r in res.table)
+    assert len(res.table) == len(ttune.default_candidates(mat, 8))
+    check_result(res.best(x).numpy(), spmm_reference(mat, x.astype(np.float64)), rtol=2e-3)
+    assert again.table[0]["schedule"] == res.best_schedule.describe()  # cached winner first
+    assert (tmp_path / "results.jsonl").read_text().count("\n") == len(res.table) + 1
+
+
+def test_tune_drops_cached_schedule_of_unported_family(tmp_path):
+    import json
+
+    mat = _mat(seed=7)
+    x = _x(400, 8, seed=8)
+    sig = ttune.matrix_signature(mat)
+    (tmp_path / f"tune_{sig}_k8.json").write_text(json.dumps(
+        {"schedule": tsched.Schedule(family="dgt_span").describe()}))
+    with tpusparse_torch.config_override(cache_dir=str(tmp_path)):
+        res = ttune.tune(mat, x, iters=1, device="cpu", budget=1)
+    assert res.table[0]["schedule"]["family"] == "dg_span"
+
+
+@pytest.mark.parametrize("family", [f for f in tsched.KERNEL_FAMILIES if f != "dg_span"])
+def test_unported_family_raises(family):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.\d"):
+        tsched.build_plan(_mat(), tsched.Schedule(family=family), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(sort=True), dict(bucket_bounds=(8,))])
+def test_unported_converting_options_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.7"):
+        tsched.build_plan(_mat(), tsched.Schedule(family="dg_span", ktile=8, **kw),
+                          device="cpu")
+
+
+def test_no_card_means_no_quiet_cpu_run():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device runs")
+    mat, x = _mat(), _x(400, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpusparse_torch.spmm(mat, x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttune.tune(mat, x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsched.build_plan(mat, tsched.default_schedule(mat, 8))

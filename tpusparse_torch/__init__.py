@@ -1,0 +1,73 @@
+"""tpusparse_torch — the PyTorch/CUDA port of tpusparse for NVIDIA Hopper.
+
+The JAX package ``tpusparse`` is the reference; this package mirrors its
+layout and names (config, levels, io, meta, ops, oracle, generator,
+kernels, schedule, bench, tune) and imports nothing from it.  Its kernels
+are written by hand in CUDA C++ for sm_90a (``tpusparse_torch/csrc``), each
+beside a plain PyTorch version of the same function.
+
+Entry points run on the card (``device="cuda"``, the default) and raise
+when there is none; only ``device="cpu"`` runs the plain versions.  This
+slice ports the default SpMM path: ``spmm`` and ``tune.tune`` with the
+``dg_span`` schedule family.
+"""
+
+from tpusparse_torch.config import Config, config_override, get_config, set_config
+from tpusparse_torch.io.mtx import CooMatrix, read_mtx, write_mtx
+from tpusparse_torch.levels import Level
+from tpusparse_torch.meta.item import MetaDataItem
+from tpusparse_torch.meta.set import MetaDataSet
+
+__version__ = "0.1.0"
+
+
+def spmm(mat, x, schedule=None, device="cuda"):
+    """One-shot SpMM: Y = A @ X as a tensor on ``device``.  X is [N, K]
+    (numpy or a tensor on ``device``).  With no schedule, takes the JAX
+    package's default for the K regime (``dg_span`` at K <= 128 where X
+    passes the size gate); pass a Schedule to control it, or use
+    ``tpusparse_torch.tune.tune`` for the autotuned path."""
+    from tpusparse_torch.schedule import build_plan, default_schedule
+
+    if schedule is None:
+        schedule = default_schedule(mat, x.shape[-1])
+    plan = build_plan(mat, schedule, device=device)
+    return plan(x)
+
+
+def _lazy(name):
+    import importlib
+
+    mod, attr = name.rsplit(".", 1)
+    return getattr(importlib.import_module(mod), attr)
+
+
+def __getattr__(name):
+    lazy_map = {
+        "Schedule": "tpusparse_torch.schedule.Schedule",
+        "build_plan": "tpusparse_torch.schedule.build_plan",
+        "autotune": "tpusparse_torch.tune.tune",
+        "SpmmPlan": "tpusparse_torch.generator.SpmmPlan",
+    }
+    if name in lazy_map:
+        return _lazy(lazy_map[name])
+    raise AttributeError(name)
+
+
+__all__ = [
+    "Config",
+    "get_config",
+    "set_config",
+    "config_override",
+    "Level",
+    "MetaDataSet",
+    "MetaDataItem",
+    "CooMatrix",
+    "read_mtx",
+    "write_mtx",
+    "spmm",
+    "Schedule",
+    "build_plan",
+    "autotune",
+    "SpmmPlan",
+]

@@ -1,0 +1,170 @@
+"""Matrix-Market COO I/O.
+
+The reference reads row-major-sorted COO ``.mtx`` files: lines starting with
+``%`` are comments, the first data line is ``rows cols [nnz]``, entries are
+1-based ``row col [val]`` converted to 0-based (reference: struct.cc:49-130,
+and the generated-program reader cuda_code/kernel_lib.hpp:237-560 which is a
+full mmio implementation supporting pattern/symmetric banners).
+
+Counterpart of ``tpusparse/io/mtx.py`` on the numpy path: general /
+pattern / symmetric real & integer matrices, 1-based indices, comment lines,
+rows sorted row-major on load.  The native C++ parser of the JAX package is
+a host helper still to be ported; file paths use the Python reader here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import io as _io
+import os
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class CooMatrix:
+    """A COO sparse matrix, always kept row-major sorted (rows, then cols).
+
+    Equivalent of the reference's initial metadata triple ``nz_row_indices`` /
+    ``nz_col_indices`` / ``nz_vals`` plus the dimension scalars
+    (metadata_set.cc:612-707).
+    """
+
+    rows: np.ndarray  # int64 [nnz]
+    cols: np.ndarray  # int64 [nnz]
+    vals: np.ndarray  # float [nnz]
+    shape: tuple[int, int]
+
+    def __post_init__(self) -> None:
+        self.rows = np.asarray(self.rows, dtype=np.int64)
+        self.cols = np.asarray(self.cols, dtype=np.int64)
+        self.vals = np.asarray(self.vals)
+        assert self.rows.shape == self.cols.shape == self.vals.shape
+
+    @property
+    def nnz(self) -> int:
+        return int(self.rows.size)
+
+    @property
+    def density(self) -> float:
+        m, n = self.shape
+        return self.nnz / float(max(m * n, 1))
+
+    def sort_row_major(self) -> "CooMatrix":
+        order = np.lexsort((self.cols, self.rows))
+        return CooMatrix(self.rows[order], self.cols[order], self.vals[order], self.shape)
+
+    def is_row_major_sorted(self) -> bool:
+        key = self.rows * (self.shape[1] + 1) + self.cols
+        return bool(np.all(np.diff(key) >= 0))
+
+    def dedup(self) -> "CooMatrix":
+        """Remove duplicate (row, col) entries keeping the first occurrence."""
+        key = self.rows * self.shape[1] + self.cols
+        _, idx = np.unique(key, return_index=True)
+        idx.sort()
+        return CooMatrix(self.rows[idx], self.cols[idx], self.vals[idx], self.shape)
+
+    def sum_duplicates(self) -> "CooMatrix":
+        """Sum values of duplicate (row, col) entries (BCOO / scipy COO
+        semantics, and what this package's own kernels compute)."""
+        key = self.rows * self.shape[1] + self.cols
+        uniq, inv = np.unique(key, return_inverse=True)
+        vals = np.zeros(uniq.size, dtype=np.asarray(self.vals).dtype)
+        np.add.at(vals, inv, self.vals)
+        return CooMatrix(uniq // self.shape[1], uniq % self.shape[1], vals, self.shape)
+
+    def row_lengths(self) -> np.ndarray:
+        return np.bincount(self.rows, minlength=self.shape[0]).astype(np.int64)
+
+    def to_dense(self, dtype=np.float32) -> np.ndarray:
+        out = np.zeros(self.shape, dtype=dtype)
+        np.add.at(out, (self.rows, self.cols), self.vals.astype(dtype))
+        return out
+
+
+def read_mtx(path_or_file) -> CooMatrix:
+    """Read a Matrix-Market (or bare COO) file into a row-major CooMatrix."""
+    if hasattr(path_or_file, "read"):
+        text_iter = iter(path_or_file.read().splitlines())
+    else:
+        with open(path_or_file, "r") as f:
+            text_iter = iter(f.read().splitlines())
+
+    symmetric = False
+    skew = False
+    pattern = False
+    header_seen = False
+    dims: tuple[int, int] | None = None
+    rows_l: list[int] = []
+    cols_l: list[int] = []
+    vals_l: list[float] = []
+
+    first_line = True
+    for line in text_iter:
+        line = line.strip()
+        if not line:
+            continue
+        if line.startswith("%"):
+            if first_line and line.startswith("%%MatrixMarket"):
+                banner = line.lower().split()
+                skew = "skew-symmetric" in banner
+                symmetric = skew or "symmetric" in banner
+                pattern = "pattern" in banner
+                header_seen = True
+            first_line = False
+            continue
+        first_line = False
+        parts = line.split()
+        if dims is None:
+            # "rows cols [nnz]"; a bare file (reference .mtx.coo style) has
+            # no banner and at most three fields
+            if len(parts) < 2 or (len(parts) > 3 and not header_seen):
+                raise ValueError(f"malformed size line: {line!r}")
+            dims = (int(parts[0]), int(parts[1]))
+            continue
+        r = int(parts[0]) - 1
+        c = int(parts[1]) - 1
+        v = 1.0 if (pattern or len(parts) < 3) else float(parts[2])
+        if skew and r == c:
+            raise ValueError(
+                f"diagonal entry ({r + 1}, {c + 1}) in skew-symmetric matrix"
+            )
+        rows_l.append(r)
+        cols_l.append(c)
+        vals_l.append(v)
+        if symmetric and r != c:
+            rows_l.append(c)
+            cols_l.append(r)
+            # skew-symmetric: A = -A^T, the mirrored entry is negated
+            vals_l.append(-v if skew else v)
+
+    if dims is None:
+        raise ValueError("no size line found in matrix file")
+    if rows_l:
+        if min(rows_l) < 0 or max(rows_l) >= dims[0] or min(cols_l) < 0 or max(cols_l) >= dims[1]:
+            raise ValueError(
+                f"entry index out of range for declared shape {dims}: "
+                f"rows [{min(rows_l)}, {max(rows_l)}], cols [{min(cols_l)}, {max(cols_l)}] (0-based)"
+            )
+    return CooMatrix(
+        np.asarray(rows_l, dtype=np.int64),
+        np.asarray(cols_l, dtype=np.int64),
+        np.asarray(vals_l, dtype=np.float64),
+        dims,
+    ).sort_row_major()
+
+
+def write_mtx(path: str | os.PathLike, mat: CooMatrix, comment: str = "") -> None:
+    """Write a CooMatrix as a Matrix-Market 'coordinate real general' file."""
+    buf = _io.StringIO()
+    buf.write("%%MatrixMarket matrix coordinate real general\n")
+    if comment:
+        for line in comment.splitlines():
+            buf.write(f"% {line}\n")
+    m, n = mat.shape
+    buf.write(f"{m} {n} {mat.nnz}\n")
+    for r, c, v in zip(mat.rows, mat.cols, mat.vals):
+        buf.write(f"{r + 1} {c + 1} {v:.17g}\n")
+    with open(path, "w") as f:
+        f.write(buf.getvalue())

@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels for Hopper (counterpart of
+``tpusparse/kernels``), each beside a plain PyTorch version of the same
+function.  Sources live in ``tpusparse_torch/csrc`` and are built by
+``kernels.build`` at first use.
+
+  dg_gather   the K <= 128 / SpMV workhorse of the default schedule
+              (family dg_span): replaces _dg_kernel and _dg1_kernel.
+"""

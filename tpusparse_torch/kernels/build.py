@@ -1,0 +1,90 @@
+"""Build and load the package's CUDA sources.
+
+Each ``tpusparse_torch/csrc/<name>.cu`` has a plain C interface and is
+compiled by ``nvcc`` for ``sm_90a`` into a shared library under
+``tpusparse_torch/_build/`` at first use, then loaded with ``ctypes``.  The
+library's file name carries a hash of the source and the flags, so a stale
+build is never loaded and processes that build at once do not collide.
+A missing ``nvcc`` or a failed build raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+SOURCES = ("dg_gather",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+#: per source: {"seconds": build time (0.0 when a finished build was found),
+#: "log": nvcc's output with the -Xptxas -v register/shared/spill lines}
+build_info: dict[str, dict] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the CUDA kernels are built from source at first use")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names=SOURCES) -> dict[str, dict]:
+    """Compile every source in ``names`` that has no finished build, all
+    ``nvcc`` processes started together; returns ``build_info``."""
+    with _lock:
+        todo = [n for n in names if not _lib_path(n).exists()]
+        for n in names:
+            if n not in todo:
+                build_info.setdefault(n, {"seconds": 0.0, "log": "(found a finished build)"})
+        if not todo:
+            return build_info
+        nvcc = nvcc_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        t0 = time.perf_counter()
+        for n in todo:
+            tmp = _lib_path(n).with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True), tmp)
+        failed = []
+        for n, (proc, tmp) in procs.items():
+            log, _ = proc.communicate()
+            build_info[n] = {"seconds": time.perf_counter() - t0, "log": log}
+            if proc.returncode:
+                failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, _lib_path(n))
+        if failed:
+            raise RuntimeError("CUDA build failed: " + "\n".join(failed))
+        return build_info
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        build((name,))
+        lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+    return lib

@@ -1,0 +1,500 @@
+"""dg_gather — dynamic-gather SpMM/SpMV (counterpart of
+``tpusparse/kernels/dg_gather.py``).
+
+The format and its packer are the JAX package's, array for array: rows are
+dealt to P programs of ``rb`` rows, each program's nonzeros are sorted by
+column and cut into chunks of ``g`` slots whose columns fall in one window
+of ``ns`` aligned tiles of ``wt`` columns (``dg_geometry``).  The TPU kernels
+needed that window to realize ``x[col]`` as a 128-lane VPU gather; on the
+card a thread loads the row of X it needs, so the window only bounds the
+chunk.  Keeping the format unchanged lets the tests feed the JAX packer's
+arrays to the port's kernels and back (``dg_format_from_numpy``).
+
+Kernels (CUDA C++, ``tpusparse_torch/csrc/dg_gather.cu``), each beside its
+plain PyTorch version of the same function:
+
+  dg_rows_cuda   / dg_rows_plain    replace ``_dg_kernel``  (kt 8/16/32,
+                                    fp32x2 and bf16)
+  dg1_rows_cuda  / dg1_rows_plain   replace ``_dg1_kernel`` (kt 1, SpMV)
+
+Each computes the pre-unpack row block ``y_rows[p*rb + lrow] += v * X[c0 +
+cols]``; ``_unpack_rows`` then maps program slots back to matrix rows as
+torch ops.  A wrapper launches its kernel for CUDA tensors and raises on
+any failure; only CPU tensors take the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Any
+
+import numpy as np
+import torch
+
+from tpusparse_torch.io.mtx import CooMatrix
+from tpusparse_torch.kernels import build
+from tpusparse_torch.kernels.common import cdiv, pad_dense_cols, resolve_device
+from tpusparse_torch.levels import Level
+
+PRECISIONS = ("fp32x2", "bf16")
+DG_KTS = (1, 8, 16, 32)
+
+
+def choose_kt_dg(k: int) -> int:
+    """Smallest supported K-tile covering k (k <= 8 pads to kt=8; K=1 has
+    its own kernel)."""
+    if k == 1:
+        return 1
+    for kt in (8, 16, 32):
+        if k <= kt:
+            return kt
+    return 32
+
+
+def dg_geometry(kt: int, mode: str) -> tuple[int, int, int]:
+    """(wt, nhl, ngrp): window-tile width, hi/lo planes, output lane groups
+    of the TPU kernels.  The packer keeps them because they define the
+    format: ``wt`` aligns the chunk windows and ``rb`` must be a multiple of
+    ``ngrp``."""
+    assert kt in DG_KTS, f"kt={kt} not in {DG_KTS}"
+    assert mode in PRECISIONS, mode
+    if kt == 1:
+        assert mode == "fp32x2", "kt=1 runs the fp32x2 candidate-fold kernel"
+        return 1024, 2, 64
+    nhl = 2 if mode == "fp32x2" else 1
+    assert nhl * kt >= 8, (kt, mode)
+    return 128, nhl, 128 // (nhl * kt)
+
+
+@dataclasses.dataclass
+class DgFormat:
+    """Aligned-window span-chunked format (P programs, NC chunks, G nz),
+    torch tensors on one device:
+      c0    [P, 1, NC] int32  window start column (multiple of wt)
+      cols  [P, NC, G] int32  column offset within the window (< ns*wt)
+      lrow  [P, NC, G] int32  row local to the program (< RB)
+      vals  [P, NC, G] f32
+      nc_p  [P, 1, 1]  int32  real chunk count
+      slot_of_origrow [M] int32
+    ``perm_of_nz`` (numpy, host) maps each COO nonzero to its flat slot.
+    """
+
+    c0: Any
+    cols: Any
+    lrow: Any
+    vals: Any
+    nc_p: Any
+    slot_of_origrow: Any
+    n_programs: int
+    n_chunks: int
+    chunk_g: int
+    rb: int
+    ns: int
+    kt: int
+    mode: str
+    shape: tuple[int, int]
+    nnz_real: int
+    perm_of_nz: Any = None
+    deal: str = "arbitrary"  # 'blocks' | 'index' | 'arbitrary'
+
+    @property
+    def device(self) -> torch.device:
+        return self.c0.device
+
+    @property
+    def padding_rate(self) -> float:
+        return self.n_programs * self.n_chunks * self.chunk_g / max(self.nnz_real, 1)
+
+    @property
+    def memory_bytes(self) -> int:
+        return sum(a.numel() * a.element_size()
+                   for a in (self.c0, self.cols, self.lrow, self.vals))
+
+    @property
+    def window(self) -> int:
+        wt, _, _ = dg_geometry(self.kt, self.mode)
+        return self.ns * wt
+
+
+FIELDS = ("c0", "cols", "lrow", "vals", "nc_p", "slot_of_origrow")
+_DTYPES = {"c0": torch.int32, "cols": torch.int32, "lrow": torch.int32,
+           "vals": torch.float32, "nc_p": torch.int32, "slot_of_origrow": torch.int32}
+
+
+def dg_format_from_numpy(fields: dict, *, device="cuda", **static) -> DgFormat:
+    """A DgFormat from numpy arrays — the JAX ``DgFormat``'s ``c0``,
+    ``cols``, ``lrow``, ``vals``, ``nc_p``, ``slot_of_origrow`` and
+    ``perm_of_nz`` — plus its static fields (``n_programs``, ``n_chunks``,
+    ``chunk_g``, ``rb``, ``ns``, ``kt``, ``mode``, ``shape``, ``nnz_real``,
+    ``deal``).  The arrays come from outside this package, so their shapes
+    and index ranges are checked here: the kernels read X and write Y at
+    these indices without bounds checks."""
+    dev = resolve_device(device)
+    arrs = {k: np.asarray(fields[k]) for k in FIELDS}
+    P, NC, G = static["n_programs"], static["n_chunks"], static["chunk_g"]
+    rb, (m, n) = static["rb"], static["shape"]
+    want = {"c0": (P, 1, NC), "cols": (P, NC, G), "lrow": (P, NC, G),
+            "vals": (P, NC, G), "nc_p": (P, 1, 1), "slot_of_origrow": (m,)}
+    for k, shp in want.items():
+        if arrs[k].shape != shp:
+            raise ValueError(f"DgFormat.{k}: shape {arrs[k].shape}, want {shp}")
+    live = arrs["vals"] != 0
+    col = arrs["c0"].reshape(P, NC, 1).astype(np.int64) + arrs["cols"]
+    if (live.any() and (col[live].min() < 0 or col[live].max() >= n)) or \
+            arrs["lrow"].min(initial=0) < 0 or arrs["lrow"].max(initial=0) >= rb or \
+            arrs["nc_p"].min(initial=0) < 0 or arrs["nc_p"].max(initial=0) > NC or \
+            arrs["slot_of_origrow"].max(initial=-1) >= P * rb:
+        raise ValueError("DgFormat indices out of range")
+    tensors = {k: torch.tensor(arrs[k], dtype=_DTYPES[k], device=dev) for k in FIELDS}
+    perm = fields.get("perm_of_nz")
+    return DgFormat(**tensors, **static,
+                    perm_of_nz=None if perm is None else np.asarray(perm))
+
+
+def _aligned_chunk_numpy(cols_s, lrow_s, vals_s, starts, g, W, align, *,
+                         keep_perm=False):
+    """The packer's chunk walk: per program, cut the column-sorted nonzeros
+    into chunks of at most g slots within one aligned window of W columns
+    (the same walk as the JAX package's native span_pack_aligned)."""
+    p_count = len(starts) - 1
+    chunks: list[list[tuple[int, int, int]]] = [[] for _ in range(p_count)]
+    for p in range(p_count):
+        lo, hi = int(starts[p]), int(starts[p + 1])
+        colp = cols_s[lo:hi]
+        i = lo
+        while i < hi:
+            c0 = int(cols_s[i]) & ~(align - 1)
+            j_span = lo + int(np.searchsorted(colp, c0 + W, side="left"))
+            j = min(i + g, j_span, hi)
+            chunks[p].append((c0, i, j))
+            i = j
+    nc = max(max((len(c) for c in chunks), default=1), 1)
+    c0_2d = np.zeros((p_count, nc), dtype=np.int32)
+    cols_f = np.zeros((p_count, nc, g), dtype=np.int32)
+    lrow_f = np.zeros((p_count, nc, g), dtype=np.int32)
+    vals_f = np.zeros((p_count, nc, g), dtype=np.float32)
+    dest = np.zeros(cols_s.size, dtype=np.int64) if keep_perm else None
+    for p in range(p_count):
+        for ci, (c0, i, j) in enumerate(chunks[p]):
+            n = j - i
+            c0_2d[p, ci] = c0
+            cols_f[p, ci, :n] = cols_s[i:j] - c0
+            lrow_f[p, ci, :n] = lrow_s[i:j]
+            vals_f[p, ci, :n] = vals_s[i:j]
+            if keep_perm:
+                dest[i:j] = (p * nc + ci) * g + np.arange(n)
+    nc_arr = np.asarray([len(c) for c in chunks], dtype=np.int64)
+    return c0_2d, cols_f, lrow_f, vals_f, nc_arr, dest
+
+
+def pack_dg(
+    mat_or_ms,
+    sub: int = 0,
+    *,
+    out_rows: int | None = None,
+    rb: int = 1024,
+    ns: int = 8,
+    g: int = 512,
+    kt: int = 8,
+    mode: str = "fp32x2",
+    balance: bool = True,
+    deal: str | None = None,
+    keep_perm: bool = False,
+    device="cuda",
+) -> DgFormat:
+    """Pack into DgFormat on ``device`` (aligned-window chunking; row
+    dealing and the affine-unpack detection as in the JAX packer)."""
+    dev = resolve_device(device)
+    wt, nhl, ngrp = dg_geometry(kt, mode)
+    W = ns * wt
+    assert rb % ngrp == 0, f"rb={rb} must be a multiple of ngrp={ngrp}"
+    assert g % 128 == 0, f"g={g} must be a multiple of the 128-lane tile"
+
+    if isinstance(mat_or_ms, CooMatrix):
+        rows = mat_or_ms.rows.astype(np.int64)
+        cols = mat_or_ms.cols.astype(np.int64)
+        vals = np.asarray(mat_or_ms.vals)
+        row_num, col_num = mat_or_ms.shape
+        rec = np.arange(row_num, dtype=np.int64)
+        if out_rows is None:
+            out_rows = row_num
+    else:
+        ms = mat_or_ms
+        rows, cols, vals = ms.coo(sub)
+        rows = rows.astype(np.int64)
+        cols = cols.astype(np.int64)
+        row_num = ms.row_num(sub)
+        col_num = ms.col_num(sub)
+        if ms.has(Level.ROW, "original_row_of_sorted", sub):
+            rec = ms.get(Level.ROW, "original_row_of_sorted", sub)[:row_num]
+        else:
+            rec = np.arange(row_num, dtype=np.int64)
+        assert out_rows is not None
+
+    p_count = max(-(-row_num // rb), 1)
+    if deal is None:
+        deal = "length" if (balance and p_count > 1) else "blocks"
+    assert deal in ("length", "index", "blocks"), deal
+
+    if deal == "length" and row_num:
+        lengths = np.bincount(rows, minlength=row_num)
+        by_len = np.argsort(-lengths, kind="stable")
+        p_of_row = np.empty(row_num, dtype=np.int64)
+        lrow_of_row = np.empty(row_num, dtype=np.int64)
+        ranks = np.arange(row_num)
+        p_of_row[by_len] = ranks % p_count
+        lrow_of_row[by_len] = ranks // p_count
+        p_arr = p_of_row[rows]
+        lrow_arr = lrow_of_row[rows]
+        slot_of_local = p_of_row * rb + lrow_of_row
+    elif deal == "index" and row_num:
+        p_arr = rows % p_count
+        lrow_arr = rows // p_count
+        r = np.arange(row_num)
+        slot_of_local = (r % p_count) * rb + r // p_count
+    else:
+        p_arr = rows // rb
+        lrow_arr = rows % rb
+        slot_of_local = (np.arange(row_num) // rb) * rb + np.arange(row_num) % rb
+    order = np.lexsort((cols, p_arr))
+    lrow_s, cols_s, vals_s = lrow_arr[order], cols[order], np.asarray(vals)[order]
+    starts = np.searchsorted(p_arr[order], np.arange(p_count + 1))
+
+    c0_2d, cols_f, lrow_f, vals_f, nc_arr, dest_sorted = _aligned_chunk_numpy(
+        cols_s, lrow_s, vals_s, starts, g, W, wt, keep_perm=keep_perm)
+    nc = c0_2d.shape[1]
+
+    slot_of_origrow = np.full(out_rows, -1, dtype=np.int32)
+    keep = rec >= 0
+    slot_of_origrow[rec[keep]] = slot_of_local[keep].astype(np.int32)
+
+    def _affine_ok(aff):
+        if out_rows > p_count * rb:
+            return False
+        got = slot_of_origrow >= 0
+        if not np.array_equal(slot_of_origrow[got], aff[got]):
+            return False
+        occ = np.zeros(p_count * rb, dtype=bool)
+        occ[slot_of_origrow[got]] = True
+        return not occ[aff[~got]].any()
+
+    unpack = "arbitrary"
+    ar = np.arange(out_rows, dtype=np.int64)
+    if deal == "blocks" and _affine_ok(ar):
+        unpack = "blocks"
+    elif deal == "index" and _affine_ok((ar % p_count) * rb + ar // p_count):
+        unpack = "index"
+
+    def dev_t(a, dt):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+
+    return DgFormat(
+        c0=dev_t(c0_2d[:, None, :], torch.int32),
+        cols=dev_t(cols_f, torch.int32),
+        lrow=dev_t(lrow_f, torch.int32),
+        vals=dev_t(vals_f, torch.float32),
+        nc_p=dev_t(np.asarray(nc_arr, np.int32).reshape(p_count, 1, 1), torch.int32),
+        slot_of_origrow=dev_t(slot_of_origrow, torch.int32),
+        n_programs=p_count,
+        n_chunks=nc,
+        chunk_g=g,
+        rb=rb,
+        ns=ns,
+        kt=kt,
+        mode=mode,
+        shape=(out_rows, col_num),
+        nnz_real=int(np.count_nonzero(vals_f)),
+        perm_of_nz=(None if dest_sorted is None
+                    else np.asarray(dest_sorted)[np.argsort(order, kind="stable")]),
+        deal=unpack,
+    )
+
+
+def with_values(fmt: DgFormat, new_vals) -> DgFormat:
+    """Values-only update (same pattern; requires pack_dg(keep_perm=True))."""
+    assert fmt.perm_of_nz is not None, "pack_dg(..., keep_perm=True) required"
+    new_vals = np.asarray(new_vals, dtype=np.float32)
+    flat = np.zeros(fmt.n_programs * fmt.n_chunks * fmt.chunk_g, dtype=np.float32)
+    flat[np.asarray(fmt.perm_of_nz)] = new_vals
+    vals = flat.reshape(fmt.n_programs, fmt.n_chunks, fmt.chunk_g)
+    return dataclasses.replace(
+        fmt,
+        vals=torch.from_numpy(vals).to(fmt.device),
+        nnz_real=int(np.count_nonzero(vals)),
+    )
+
+
+# --------------------------------------------------------------- plain versions
+
+def _rows_plain(c0, cols, lrow, vals, x, rb, bf16):
+    P, NC, G = cols.shape
+    live = (vals != 0).reshape(-1)
+    col = (c0.reshape(P, NC, 1).long() + cols.long()).reshape(-1)[live]
+    row = (torch.arange(P, device=cols.device).view(P, 1, 1) * rb
+           + lrow.long()).reshape(-1)[live]
+    v = vals.reshape(-1)[live]
+    prod = v.view(-1, *([1] * (x.ndim - 1))) * x[col]
+    if bf16:
+        prod = prod.to(torch.bfloat16).float()
+    y = torch.zeros((P * rb,) + tuple(x.shape[1:]), dtype=torch.float32, device=x.device)
+    return y.index_add_(0, row, prod)
+
+
+def dg_rows_plain(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode):
+    """Plain PyTorch ``_dg_kernel``: y_rows [P*rb, Kp] with
+    ``y_rows[p*rb + lrow] += vals * X[c0 + cols]`` over the slots whose value
+    is not zero (bf16 rounds each product as the kernel does).  Chunks past
+    ``nc_p`` hold only zero values, so ``nc_p`` and ``kt`` change nothing."""
+    return _rows_plain(c0, cols, lrow, vals, x, rb, mode == "bf16")
+
+
+def dg1_rows_plain(c0, cols, lrow, vals, nc_p, x, *, rb):
+    """Plain PyTorch ``_dg1_kernel``: y_rows [P*rb] for x [N]."""
+    return _rows_plain(c0, cols, lrow, vals, x, rb, False)
+
+
+# ---------------------------------------------------------------- CUDA kernels
+
+@functools.cache
+def _lib():
+    """csrc/dg_gather.cu, built at first use, with its C signatures."""
+    lib = build.library("dg_gather")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.dg_spmm_launch.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
+    lib.dg_spmm_launch.restype = i32
+    lib.dg_spmv_launch.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+    lib.dg_spmv_launch.restype = i32
+    lib.dg_uses_shared_tile.argtypes = [i32, i32]
+    lib.dg_uses_shared_tile.restype = i32
+    return lib
+
+
+def _check_format(c0, cols, lrow, vals, nc_p, x, rb):
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, X is on {dev}")
+    P, NC, G = cols.shape
+    for name, t, dt, shp in (("c0", c0, torch.int32, (P, 1, NC)),
+                             ("cols", cols, torch.int32, (P, NC, G)),
+                             ("lrow", lrow, torch.int32, (P, NC, G)),
+                             ("vals", vals, torch.float32, (P, NC, G)),
+                             ("nc_p", nc_p, torch.int32, (P, 1, 1))):
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shp or not t.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous {dt} tensor {shp} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("X must be a contiguous, 16-byte aligned float32 tensor")
+    if P > 65535:
+        raise ValueError(f"P={P} programs exceed the grid's y dimension (65535)")
+
+
+def _splits(dev, blocks_per_split: int, nc: int) -> int:
+    """Blocks per program: enough for about four blocks per SM."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return max(1, min(nc, cdiv(4 * sms, max(blocks_per_split, 1))))
+
+
+def dg_uses_shared_tile(rb: int, kt: int) -> bool:
+    """Whether a launch of (rb, kt) keeps its row tile in shared memory
+    (False: the kernel's global-atomic branch)."""
+    return bool(_lib().dg_uses_shared_tile(rb, kt))
+
+
+def dg_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode):
+    """CUDA ``_dg_kernel`` (tpusparse/kernels/dg_gather.py:318): y_rows
+    [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in {8, 16, 32}."""
+    _check_format(c0, cols, lrow, vals, nc_p, x, rb)
+    if kt not in (8, 16, 32) or mode not in PRECISIONS or x.ndim != 2 or x.shape[1] % kt:
+        raise ValueError(f"dg kernel: kt={kt}, mode={mode}, X {tuple(x.shape)}")
+    P, NC, G = cols.shape
+    kp = x.shape[1]
+    y = torch.zeros((P * rb, kp), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _lib().dg_spmm_launch(
+            c0.data_ptr(), cols.data_ptr(), lrow.data_ptr(), vals.data_ptr(),
+            nc_p.data_ptr(), x.data_ptr(), y.data_ptr(), P, NC, G, rb, kp, kt,
+            int(mode == "bf16"), _splits(x.device, P * (kp // kt), NC),
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"dg_spmm_launch failed with CUDA error {rc}")
+    dg_rows_cuda.launches += 1
+    return y
+
+
+def dg1_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb):
+    """CUDA ``_dg1_kernel`` (tpusparse/kernels/dg_gather.py:382): y_rows
+    [P*rb] for x [N] fp32."""
+    _check_format(c0, cols, lrow, vals, nc_p, x, rb)
+    if x.ndim != 1:
+        raise ValueError(f"dg1 kernel: x must be 1-D, got {tuple(x.shape)}")
+    P, NC, G = cols.shape
+    y = torch.zeros(P * rb, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _lib().dg_spmv_launch(
+            c0.data_ptr(), cols.data_ptr(), lrow.data_ptr(), vals.data_ptr(),
+            nc_p.data_ptr(), x.data_ptr(), y.data_ptr(), P, NC, G, rb,
+            _splits(x.device, P, NC), torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"dg_spmv_launch failed with CUDA error {rc}")
+    dg1_rows_cuda.launches += 1
+    return y
+
+
+dg_rows_cuda.launches = 0
+dg1_rows_cuda.launches = 0
+
+
+# ----------------------------------------------------------------- entry points
+
+def _prep_x(fmt: DgFormat, x) -> torch.Tensor:
+    """X as a contiguous fp32 tensor on the format's device.  A tensor on
+    another device is refused rather than moved, so nothing quietly runs
+    on the CPU."""
+    if isinstance(x, torch.Tensor):
+        if x.device != fmt.device:
+            raise ValueError(f"X is on {x.device}, the format on {fmt.device}")
+        return x.to(torch.float32).contiguous()
+    return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=fmt.device).contiguous()
+
+
+def _unpack_rows(fmt: DgFormat, y_rows):
+    if fmt.deal == "blocks":
+        return y_rows[: fmt.shape[0]]
+    if fmt.deal == "index":
+        P = fmt.n_programs
+        return (y_rows.reshape(P, fmt.rb, *y_rows.shape[1:])
+                .transpose(0, 1).reshape(P * fmt.rb, *y_rows.shape[1:])[: fmt.shape[0]])
+    slot = fmt.slot_of_origrow.long()
+    got = y_rows.index_select(0, slot.clamp(min=0))
+    valid = (slot >= 0).view(-1, *([1] * (y_rows.ndim - 1)))
+    return torch.where(valid, got, torch.zeros((), dtype=got.dtype, device=got.device))
+
+
+def _fmt_args(fmt):
+    return fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p
+
+
+def dg_spmm(fmt: DgFormat, x) -> torch.Tensor:
+    """Y[M, K] = A . X[N, K] with A in DgFormat (kt >= 8; K > kt runs
+    kt-wide tiles as a grid dimension).  CUDA formats run the kernel, CPU
+    formats the plain version."""
+    assert fmt.kt >= 8, "kt=1 formats run dg_spmv"
+    x = _prep_x(fmt, x)
+    m, n_cols = fmt.shape
+    k = x.shape[1]
+    assert x.shape[0] == n_cols, f"X rows {x.shape[0]} != A cols {n_cols}"
+    x = pad_dense_cols(x, cdiv(k, fmt.kt) * fmt.kt).contiguous()
+    rows_fn = dg_rows_cuda if fmt.device.type == "cuda" else dg_rows_plain
+    y_rows = rows_fn(*_fmt_args(fmt), x, rb=fmt.rb, kt=fmt.kt, mode=fmt.mode)
+    return _unpack_rows(fmt, y_rows)[:, :k]
+
+
+def dg_spmv(fmt: DgFormat, x) -> torch.Tensor:
+    """y[M] = A . x[N] with A in a kt=1 DgFormat."""
+    assert fmt.kt == 1, "pack with kt=1 for SpMV"
+    x = _prep_x(fmt, x).reshape(-1)
+    assert x.shape[0] == fmt.shape[1], f"x length {x.shape[0]} != A cols {fmt.shape[1]}"
+    rows_fn = dg1_rows_cuda if fmt.device.type == "cuda" else dg1_rows_plain
+    return _unpack_rows(fmt, rows_fn(*_fmt_args(fmt), x, rb=fmt.rb))

@@ -1,0 +1,135 @@
+"""MetaDataSet — the in-memory metadata database (counterpart of
+``tpusparse/meta/set.py``, reference L2).
+
+A dict of numpy arrays keyed ``(level, name, sub_matrix_id)`` as in the
+reference's ``meta_data_set`` (metadata_set.hpp:104-154), bootstrapped from
+a COO matrix, with per-item ``check()`` and a ``logical_check()`` that
+cross-validates the COO arrays.  Trimmed to what the ``dg_span`` path
+reads: the blocking-level checks and the ``.npz`` format cache come with
+the families that write blocking metadata.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+import numpy as np
+
+from tpusparse_torch.io.mtx import CooMatrix
+from tpusparse_torch.levels import Level
+from tpusparse_torch.meta.item import MetaDataItem
+from tpusparse_torch.meta.provenance import TransformTrace
+
+Key = tuple[Level, str, int]
+
+
+class MetaDataSet:
+    """Dict of metadata items keyed (level, name, sub_matrix_id)."""
+
+    def __init__(self) -> None:
+        self._items: dict[Key, MetaDataItem] = {}
+        self.trace = TransformTrace()
+
+    def add(
+        self,
+        level: Level,
+        name: str,
+        sub_matrix_id: int,
+        data,
+        *,
+        needed_by_format: bool = False,
+        replace: bool = False,
+    ) -> MetaDataItem:
+        item = MetaDataItem(level, name, sub_matrix_id, np.asarray(data), needed_by_format)
+        if not replace and item.key in self._items:
+            raise KeyError(f"metadata item already exists: {item.item_name}")
+        self._items[item.key] = item
+        return item
+
+    def get(self, level: Level, name: str, sub_matrix_id: int) -> np.ndarray:
+        return self._items[(level, name, sub_matrix_id)].data
+
+    def get_scalar(self, level: Level, name: str, sub_matrix_id: int) -> int | float:
+        return self.get(level, name, sub_matrix_id).item()
+
+    def has(self, level: Level, name: str, sub_matrix_id: int) -> bool:
+        return (level, name, sub_matrix_id) in self._items
+
+    def items(self) -> Iterable[MetaDataItem]:
+        return self._items.values()
+
+    def sub_matrix_ids(self) -> list[int]:
+        return sorted({k[2] for k in self._items if k[2] >= 0})
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    def nnz(self, sub: int) -> int:
+        return int(self.get(Level.VAL, "nz_vals", sub).size)
+
+    def row_num(self, sub: int) -> int:
+        return int(self.get_scalar(Level.GLOBAL, "end_row_index", sub)) - int(
+            self.get_scalar(Level.GLOBAL, "begin_row_index", sub)
+        )
+
+    def col_num(self, sub: int) -> int:
+        return int(self.get_scalar(Level.GLOBAL, "end_col_index", sub)) - int(
+            self.get_scalar(Level.GLOBAL, "begin_col_index", sub)
+        )
+
+    def coo(self, sub: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        return (
+            self.get(Level.ROW, "nz_row_indices", sub),
+            self.get(Level.COL, "nz_col_indices", sub),
+            self.get(Level.VAL, "nz_vals", sub),
+        )
+
+    def check(self) -> None:
+        for item in self._items.values():
+            item.check()
+
+    def logical_check(self) -> None:
+        """Cross-validate the COO arrays of every sub-matrix (reference:
+        metadata_set.cc:806+).  Raises AssertionError on inconsistency."""
+        self.check()
+        for sub in self.sub_matrix_ids():
+            if not self.has(Level.VAL, "nz_vals", sub):
+                continue
+            rows, cols, vals = self.coo(sub)
+            assert rows.size == cols.size == vals.size, f"sub {sub}: COO length mismatch"
+            if vals.size:
+                assert rows.min() >= 0 and rows.max() < self.row_num(sub), (
+                    f"sub {sub}: row index range")
+                assert cols.min() >= 0 and cols.max() < self.col_num(sub), (
+                    f"sub {sub}: col index range")
+                assert np.all(np.diff(rows.astype(np.int64)) >= 0), f"sub {sub}: rows not sorted"
+
+
+def create_init_metadata_set(mat: CooMatrix) -> MetaDataSet:
+    """Bootstrap a MetaDataSet from a COO matrix (reference:
+    create_init_metadata_set_from_file, metadata_set.cc:612-707): 7 scalars
+    (global dims under sub_matrix_id=-1, boundary scalars under sub 0) plus
+    the 3 COO arrays under sub_matrix_id=0."""
+    if not mat.is_row_major_sorted():
+        mat = mat.sort_row_major()
+    ms = MetaDataSet()
+    m, n = mat.shape
+    ms.add(Level.GLOBAL, "origin_row_num", -1, np.int64(m))
+    ms.add(Level.GLOBAL, "origin_col_num", -1, np.int64(n))
+    ms.add(Level.GLOBAL, "origin_nnz_num", -1, np.int64(mat.nnz))
+    ms.add(Level.GLOBAL, "begin_row_index", 0, np.int64(0))
+    ms.add(Level.GLOBAL, "end_row_index", 0, np.int64(m))
+    ms.add(Level.GLOBAL, "begin_col_index", 0, np.int64(0))
+    ms.add(Level.GLOBAL, "end_col_index", 0, np.int64(n))
+    ms.add(Level.ROW, "nz_row_indices", 0, mat.rows.copy())
+    ms.add(Level.COL, "nz_col_indices", 0, mat.cols.copy())
+    ms.add(Level.VAL, "nz_vals", 0, mat.vals.copy())
+    ms.trace.record(
+        "create_init_metadata_set",
+        [],
+        ["global_origin_row_num_-1", "row_nz_row_indices_0", "col_nz_col_indices_0", "val_nz_vals_0"],
+        rows=m,
+        cols=n,
+        nnz=mat.nnz,
+    )
+    return ms
