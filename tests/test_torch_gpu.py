@@ -1,5 +1,6 @@
 """tpusparse_torch's CUDA kernels on the card: each kernel against its plain
-version for every kt and mode, and the default SpMM path at a medium size.
+version for every kt and mode, the default SpMM path, tune and the SpMV
+entry points at a medium size.
 Marked ``gpu``; without a CUDA device every test skips (the ``cuda``
 fixture decides, so every pytest worker collects the same tests).  Run on
 the card with ``python -m pytest tests/test_torch_gpu.py -q -m gpu``.
@@ -12,8 +13,10 @@ import torch
 import tpusparse_torch
 from tpusparse_torch.io import builder
 from tpusparse_torch.kernels import dg_gather as dg
+from tpusparse_torch.kernels import dgt_gather as dgt
 from tpusparse_torch.oracle import check_result, spmm_reference
 from tpusparse_torch.schedule import default_schedule
+from tpusparse_torch.spmv import spmv_fn, spmv_multi_fn
 from tpusparse_torch.tune import tune
 
 pytestmark = pytest.mark.gpu
@@ -92,7 +95,8 @@ def test_tune_on_card(cuda, mat, tmp_path):
     with tpusparse_torch.config_override(cache_dir=str(tmp_path)):
         res = tune(mat, x, iters=3)
     assert all(r["ok"] and r["device"] == torch.cuda.get_device_name(cuda) for r in res.table)
-    assert res.best_schedule.family == "dg_span" and res.best_seconds > 0
+    assert {r["schedule"]["family"] for r in res.table} == {"dg_span", "dgt_span"}
+    assert res.best_schedule.family in ("dg_span", "dgt_span") and res.best_seconds > 0
     check_result(res.best(x).cpu().numpy(), spmm_reference(mat, x.astype(np.float64)),
                  rtol=2e-3)
 
@@ -110,3 +114,61 @@ def test_wrapper_refuses_bad_inputs(cuda, mat):
         dg.dg_rows_cuda(fmt.c0, fmt.cols.long(), *args[2:], x, rb=1024, kt=8, mode="fp32x2")
     with pytest.raises(ValueError):
         dg.dg_spmm(fmt, torch.zeros((4096, 8)))   # X on the CPU, format on the card
+
+
+def _dgt_vs_plain(fmt, k, dev, stream):
+    """Max error of a dgt kernel against its plain version, relative to
+    |A|·|x|, and the launch count it added."""
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal((fmt.shape[1], k)),
+                        dtype=torch.float32, device=dev)
+    x = dg.pad_dense_cols(x, -(-k // fmt.kt) * fmt.kt).contiguous()
+    args = (fmt.wins, fmt.cols, fmt.lrw, fmt.vals, fmt.nc_p)
+    abs_args = (fmt.wins, fmt.cols, fmt.lrw, fmt.vals.abs(), fmt.nc_p)
+    kw = dict(rb=fmt.rb, kt=fmt.kt, mode=fmt.mode)
+    wrapper = dgt.dgt_stream_rows_cuda if stream else dgt.dgt_rows_cuda
+    before = wrapper.launches
+    if stream:
+        got = dgt.dgt_stream_rows_cuda(*args, x, nw=fmt.nw, **kw)
+        want = dgt.dgt_stream_rows_plain(*args, x, nw=fmt.nw, **kw)
+    else:
+        got = dgt.dgt_rows_cuda(*args, x, resid=fmt.resid, **kw)
+        want = dgt.dgt_rows_plain(*args, x, resid=fmt.resid, **kw)
+    scale = dgt.dgt_rows_plain(*abs_args, x.abs(), resid=fmt.resid, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and got.shape == want.shape and got.is_cuda
+    denom = torch.maximum(scale.double(), torch.ones((), dtype=torch.float64, device=dev))
+    return float(((got.double() - want.double()).abs() / denom).max())
+
+
+@pytest.mark.parametrize("kt,mode,k,rb,nw,resid,stream", [
+    (8, "fp32x2", 8, 512, 8, True, False), (8, "bf16", 8, 512, 4, True, False),
+    (16, "fp32x2", 16, 512, 4, True, False), (16, "bf16", 16, 512, 4, True, False),
+    (32, "fp32x2", 32, 256, 4, True, False), (32, "bf16", 32, 256, 1, True, False),
+    (8, "fp32x2", 8, 256, 8, False, False), (16, "fp32x2", 40, 512, 4, True, False),
+    (32, "fp32x2", 32, 2048, 4, True, False),  # 256 KB tile: the global-atomic branch
+    (8, "fp32x2", 8, 2560, 4, True, False),    # 80 KB tile: the shared-memory opt-in
+    (8, "fp32x2", 8, 512, 4, True, True), (8, "fp32x2", 8, 512, 8, True, True),
+    (32, "bf16", 32, 256, 8, True, True),
+    (8, "fp32x2", 8, 2560, 4, True, True),     # 80 KB tile + 4 KB window, opted in
+])
+def test_dgt_kernels_match_plain(cuda, mat, kt, mode, k, rb, nw, resid, stream):
+    fmt = dgt.pack_dgt(mat, rb=rb, g=512, kt=kt, mode=mode, nw=nw, resid=resid, device=cuda)
+    assert _dgt_vs_plain(fmt, k, cuda, stream) <= 1e-5
+    assert dgt.dgt_uses_shared_tile(rb, kt, stream=stream) == (rb * kt * 4 <= 200 * 1024)
+
+
+def test_spmv_entry_points_on_card(cuda, mat):
+    x = np.random.default_rng(7).standard_normal(4096).astype(np.float32)
+    want = spmm_reference(mat, x.astype(np.float64))
+    for method, counter in (("auto", dg.dg1_rows_cuda), ("dgt8", dgt.dgt_rows_cuda)):
+        before = counter.launches
+        y = spmv_fn(mat, method)(x)
+        assert y.is_cuda and y.shape == (4096,) and counter.launches == before + 1
+        check_result(y.cpu().numpy(), want, rtol=2e-3)
+    xs = np.random.default_rng(8).standard_normal((4096, 8)).astype(np.float32)
+    for col_split in (None, 2):
+        fn = spmv_multi_fn(mat, 8, col_split=col_split)
+        before = dgt.dgt_rows_cuda.launches
+        y = fn(xs)
+        assert y.is_cuda and dgt.dgt_rows_cuda.launches == before + fn.n_splits
+        check_result(y.cpu().numpy(), spmm_reference(mat, xs.astype(np.float64)), rtol=2e-3)

@@ -98,13 +98,27 @@ def test_default_schedule_equals_jax(n, k):
         jsched.default_schedule(jmat, k).describe()
 
 
-@pytest.mark.parametrize("k,full", [(1, False), (8, False), (40, False), (8, True)])
+@pytest.mark.parametrize("k,full", [(1, False), (8, False), (32, False), (40, False),
+                                    (64, False), (8, True)])
 def test_default_candidates_equal_jax_dg_block(k, full):
+    # the JAX list restricted to the ported families, dg_span and dgt_span
     jmat = jbuilder.power_law_coo(500, 600, avg_nnz_per_row=8.0, seed=4)
     tmat = CooMatrix(jmat.rows, jmat.cols, jmat.vals, jmat.shape)
     want = [s.describe() for s in jtune.default_candidates(jmat, k, full=full)
-            if s.family == "dg_span"]
-    assert [s.describe() for s in ttune.default_candidates(tmat, k, full=full)] == want
+            if s.family in tsched.PORTED_FAMILIES]
+    got = [s.describe() for s in ttune.default_candidates(tmat, k, full=full)]
+    assert got == want
+    assert any(s["family"] == "dgt_span" for s in got) == (k > 1)
+
+
+def test_default_candidates_insert_auto_rb_dgt_like_jax():
+    # a sparse wide matrix: auto_rb_dgt exceeds 512 and leads the dgt block
+    jmat = jbuilder.power_law_coo(8192, 60000, avg_nnz_per_row=2.0, seed=9)
+    tmat = CooMatrix(jmat.rows, jmat.cols, jmat.vals, jmat.shape)
+    want = [s.describe() for s in jtune.default_candidates(jmat, 8)
+            if s.family in tsched.PORTED_FAMILIES]
+    got = [s.describe() for s in ttune.default_candidates(tmat, 8)]
+    assert got == want and [s["rb"] for s in got if s["family"] == "dgt_span"][0] > 512
 
 
 @pytest.mark.parametrize("k", [1, 3, 8, 40, 64])
@@ -141,18 +155,80 @@ def test_build_plan_explicit_dg_schedules(sched):
                  rtol=8e-2 if s.precision == "bf16" else 1e-5)
 
 
+@pytest.mark.parametrize("sched", [
+    dict(rb=128, g=256, nw=4, ktile=8),
+    dict(rb=128, g=128, nw=8, ktile=16, resid=False, walk="single"),
+    dict(rb=128, g=256, nw=2, ktile=8, precision="bf16", rowhot_i8=True),
+    dict(rb=64, g=128, nw=1, ktile=32, scatter="fullrow", pipe=True),
+])
+def test_build_plan_explicit_dgt_schedules(sched):
+    mat = _mat(seed=5)
+    s = tsched.Schedule(family="dgt_span", unroll=8, **sched)
+    x = _x(400, 12, seed=6)
+    plan = tsched.build_plan(mat, s, device="cpu")
+    fmt = plan.formats[0]
+    assert (fmt.rb, fmt.chunk_g, fmt.nw, fmt.resid) == (s.rb, s.g, s.nw, s.resid)
+    assert fmt.kt == s.ktile and plan.meta["schedule"] == s.describe()
+    assert "grid_block" in plan.meta["operator_history"]
+    assert plan.cost_summary(12)["format_bytes"] == fmt.memory_bytes
+    check_result(plan(x).numpy(), spmm_reference(mat, x.astype(np.float64)),
+                 rtol=8e-2 if s.precision == "bf16" else 1e-5)
+
+
+def test_build_plan_dgt_span_matches_jax():
+    tmat = _mat(seed=16)
+    jmat = tpusparse.CooMatrix(tmat.rows, tmat.cols, tmat.vals, tmat.shape)
+    kw = dict(family="dgt_span", rb=128, g=256, nw=8, unroll=8, ktile=8)
+    jplan = jsched.build_plan(jmat, jsched.Schedule(**kw))
+    tplan = tsched.build_plan(tmat, tsched.Schedule(**kw), device="cpu")
+    dg_plan = tsched.build_plan(tmat, tsched.Schedule(family="dg_span", ktile=8), device="cpu")
+    assert set(tplan.meta) == set(dg_plan.meta)
+    assert tplan.meta["schedule"] == jplan.meta["schedule"]
+    assert tplan.meta["padding_rate"] == pytest.approx(jplan.meta["padding_rate"])
+    for f in ("wins", "cols", "lrw", "vals", "slot_of_origrow"):
+        np.testing.assert_array_equal(getattr(tplan.formats[0], f).numpy(),
+                                      np.asarray(getattr(jplan.formats[0], f)), err_msg=f)
+    x = _x(400, 8, seed=17)
+    want = spmm_reference(jmat, x.astype(np.float64))
+    np.testing.assert_allclose(tplan(x).numpy(), np.asarray(jplan(x)), rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+    check_result(tplan(x).numpy(), want, rtol=1e-5)
+
+
 def test_tune_cpu_picks_a_dg_candidate(tmp_path):
+    # a candidate of either ported family, dg_span or dgt_span
     mat = _mat(seed=7)
     x = _x(400, 8, seed=8)
     with tpusparse_torch.config_override(cache_dir=str(tmp_path)):
         res = ttune.tune(mat, x, iters=2, device="cpu")
         again = ttune.tune(mat, x, iters=2, device="cpu", budget=1)
-    assert res.best_schedule.family == "dg_span"
+    assert res.best_schedule.family in ("dg_span", "dgt_span")
+    assert {r["schedule"]["family"] for r in res.table} == {"dg_span", "dgt_span"}
     assert all(r["ok"] and r["device"] == "cpu" for r in res.table)
     assert len(res.table) == len(ttune.default_candidates(mat, 8))
     check_result(res.best(x).numpy(), spmm_reference(mat, x.astype(np.float64)), rtol=2e-3)
     assert again.table[0]["schedule"] == res.best_schedule.describe()  # cached winner first
     assert (tmp_path / "results.jsonl").read_text().count("\n") == len(res.table) + 1
+
+
+def test_tune_times_one_plan_once(tmp_path):
+    # candidates that differ only in TPU-only knobs are one plan on the card
+    mat = _mat(seed=7)
+    x = _x(400, 8, seed=8)
+    base = tsched.Schedule(family="dgt_span", rb=128, g=256, nw=2, unroll=8, ktile=8)
+    cands = [base, tsched.dataclasses.replace(base, rowhot_i8=True, unroll=16),
+             tsched.dataclasses.replace(base, nw=4),
+             tsched.dataclasses.replace(base, scatter="fullrow", pipe=True)]
+    assert len({c.plan_key() for c in cands}) == 2
+    with tpusparse_torch.config_override(cache_dir=str(tmp_path)):
+        res = ttune.tune(mat, x, iters=1, device="cpu", candidates=cands)
+    first, dup, other, dup2 = res.table
+    assert [r["schedule"] for r in res.table] == [c.describe() for c in cands]
+    assert "same_plan_as" not in first and "same_plan_as" not in other
+    for d in (dup, dup2):
+        assert d["same_plan_as"] == first["schedule"] and d["ok"]
+        assert d["seconds"] == first["seconds"] and d["pack_seconds"] == first["pack_seconds"]
+    assert res.best_schedule in (base, cands[2])
 
 
 def test_tune_drops_cached_schedule_of_unported_family(tmp_path):
@@ -162,13 +238,27 @@ def test_tune_drops_cached_schedule_of_unported_family(tmp_path):
     x = _x(400, 8, seed=8)
     sig = ttune.matrix_signature(mat)
     (tmp_path / f"tune_{sig}_k8.json").write_text(json.dumps(
-        {"schedule": tsched.Schedule(family="dgt_span").describe()}))
+        {"schedule": tsched.Schedule(family="radix_span").describe()}))
     with tpusparse_torch.config_override(cache_dir=str(tmp_path)):
         res = ttune.tune(mat, x, iters=1, device="cpu", budget=1)
     assert res.table[0]["schedule"]["family"] == "dg_span"
 
 
-@pytest.mark.parametrize("family", [f for f in tsched.KERNEL_FAMILIES if f != "dg_span"])
+def test_tune_accepts_cached_dgt_schedule(tmp_path):
+    import json
+
+    mat = _mat(seed=7)
+    x = _x(400, 8, seed=8)
+    cached = tsched.Schedule(family="dgt_span", rb=128, g=256, nw=2, unroll=8, ktile=8)
+    (tmp_path / f"tune_{ttune.matrix_signature(mat)}_k8.json").write_text(json.dumps(
+        {"schedule": cached.describe()}))
+    with tpusparse_torch.config_override(cache_dir=str(tmp_path)):
+        res = ttune.tune(mat, x, iters=1, device="cpu", budget=1)
+    assert res.table[0]["schedule"] == cached.describe() and res.best_schedule == cached
+
+
+@pytest.mark.parametrize("family", [f for f in tsched.KERNEL_FAMILIES
+                                    if f not in tsched.PORTED_FAMILIES])
 def test_unported_family_raises(family):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.\d"):
         tsched.build_plan(_mat(), tsched.Schedule(family=family), device="cpu")

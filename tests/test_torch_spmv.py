@@ -1,0 +1,119 @@
+"""tpusparse_torch.spmv against the JAX package's spmv, on the CPU.
+
+Each method's y is held against the port's spmv_reference and the JAX
+oracle (1e-5: the port computes in fp32), and one dgt8 and one
+spmv_multi_fn call against the JAX functions (Pallas interpret mode) at
+tests/test_dgt_kernel.py's atol 1e-4 * max|ref| for fp32x2.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import tpusparse_torch
+from tpusparse import spmv as jspmv
+from tpusparse.io import builder as jbuilder
+from tpusparse.io.mtx import CooMatrix as JCoo
+from tpusparse.oracle import check_result, spmm_reference, spmv_reference
+from tpusparse_torch import oracle as toracle
+from tpusparse_torch import spmv as tspmv
+from tpusparse_torch.io.mtx import CooMatrix
+from tpusparse_torch.kernels.dg_gather import DgFormat
+from tpusparse_torch.kernels.dgt_gather import DgtFormat
+
+
+def _mats(m=300, n=400, avg=6.0, seed=12):
+    jmat = jbuilder.power_law_coo(m, n, avg_nnz_per_row=avg, seed=seed)
+    return jmat, CooMatrix(jmat.rows, jmat.cols, jmat.vals, jmat.shape)
+
+
+@pytest.mark.parametrize("method,fmt_type", [("auto", DgFormat), ("dg", DgFormat),
+                                             ("dgt8", DgtFormat), ("segment", None)])
+def test_spmv_fn_matches_oracle(method, fmt_type):
+    jmat, tmat = _mats()
+    x = np.random.default_rng(2).standard_normal(400).astype(np.float32)
+    fn = tspmv.spmv_fn(tmat, method, device="cpu")
+    assert type(getattr(fn, "format", None)) is (fmt_type or type(None))
+    y = fn(x)
+    assert isinstance(y, torch.Tensor) and y.device.type == "cpu" and y.shape == (300,)
+    want = spmv_reference(jmat, x.astype(np.float64))
+    np.testing.assert_allclose(toracle.spmv_reference(tmat, x.astype(np.float64)), want)
+    check_result(y.numpy(), want, rtol=1e-5)
+    check_result(fn(torch.from_numpy(x)).numpy(), want, rtol=1e-5)
+    check_result(tspmv.spmv(tmat, x, method, device="cpu").numpy(), want, rtol=1e-5)
+
+
+def test_auto_takes_segment_past_the_size_gate():
+    tmat = CooMatrix(np.array([0, 3]), np.array([5, 1_999_999]), np.array([2.0, -1.0]),
+                     (4, 2_000_000))
+    fn = tspmv.spmv_fn(tmat, "auto", device="cpu")
+    assert not hasattr(fn, "format")                    # segment: no kernel format
+    x = np.zeros(2_000_000, np.float32)
+    x[5], x[-1] = 3.0, 4.0
+    np.testing.assert_array_equal(fn(x).numpy(), [6.0, 0.0, 0.0, -4.0])
+
+
+def test_dgt8_matches_jax():
+    jmat, tmat = _mats(seed=13)
+    x = np.random.default_rng(3).standard_normal(400).astype(np.float32)
+    yj = np.asarray(jspmv.spmv_fn(jmat, "dgt8")(x))
+    yt = tspmv.spmv_fn(tmat, "dgt8", device="cpu")(x).numpy()
+    ref = spmv_reference(jmat, x.astype(np.float64))
+    np.testing.assert_allclose(yt, yj, rtol=0, atol=1e-4 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("col_split", [None, 1, 2, 3])
+def test_spmv_multi_fn_matches_oracle(col_split):
+    jmat, tmat = _mats(seed=14)
+    xs = np.random.default_rng(4).standard_normal((400, 5)).astype(np.float32)
+    fn = tspmv.spmv_multi_fn(tmat, 5, col_split=col_split, device="cpu")
+    assert fn.n_splits == (col_split or 1) and len(fn.formats) == fn.n_splits
+    if col_split and col_split > 1:
+        assert fn.n_splits == jspmv.spmv_multi_fn(jmat, 5, col_split=col_split).n_splits
+    y = fn(xs)
+    assert y.shape == (300, 5)
+    check_result(y.numpy(), spmm_reference(jmat, xs.astype(np.float64)), rtol=1e-5)
+
+
+def test_spmv_multi_fn_auto_split_equals_jax():
+    # X of 600000 x 8 fp32 is 19.2 MB, past the 16 MB rule: 3 ranges of <= 8 MB
+    rng = np.random.default_rng(5)
+    rows = np.sort(rng.integers(0, 64, 500))
+    cols = rng.integers(0, 600_000, 500)
+    jmat = JCoo(rows, cols, rng.standard_normal(500), (64, 600_000)).sort_row_major()
+    tmat = CooMatrix(jmat.rows, jmat.cols, jmat.vals, jmat.shape)
+    fn = tspmv.spmv_multi_fn(tmat, 2, device="cpu")
+    assert fn.n_splits == jspmv.spmv_multi_fn(jmat, 2).n_splits == 3
+    xs = rng.standard_normal((600_000, 2)).astype(np.float32)
+    check_result(fn(xs).numpy(), spmm_reference(jmat, xs.astype(np.float64)), rtol=1e-5)
+
+
+def test_spmv_multi_fn_matches_jax():
+    jmat, tmat = _mats(seed=15)
+    xs = np.random.default_rng(6).standard_normal((400, 8)).astype(np.float32)
+    yj = np.asarray(jspmv.spmv_multi_fn(jmat, 8)(xs))
+    yt = tspmv.spmv_multi_fn(tmat, 8, device="cpu")(xs).numpy()
+    ref = spmm_reference(jmat, xs.astype(np.float64))
+    np.testing.assert_allclose(yt, yj, rtol=0, atol=1e-4 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("method,item", [("radix", "A.7"), ("stripe", "A.7"), ("span", "A.6")])
+def test_unported_methods_raise(method, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+        tspmv.spmv_fn(_mats()[1], method, device="cpu")
+    with pytest.raises(ValueError, match="unknown"):
+        tspmv.spmv_fn(_mats()[1], "bogus", device="cpu")
+
+
+def test_lazy_export_and_no_quiet_cpu_run():
+    assert tpusparse_torch.__getattr__("spmv") is tspmv.spmv
+    tmat = _mats()[1]
+    fn = tspmv.spmv_fn(tmat, "segment", device="cpu")
+    with pytest.raises(ValueError, match="x is on"):
+        fn(torch.zeros(400, device="meta"))
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device runs")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tspmv.spmv(tmat, np.zeros(400, np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tspmv.spmv_multi_fn(tmat, 8)

@@ -7,9 +7,10 @@ are written by hand in CUDA C++ for sm_90a (``tpusparse_torch/csrc``), each
 beside a plain PyTorch version of the same function.
 
 Entry points run on the card (``device="cuda"``, the default) and raise
-when there is none; only ``device="cpu"`` runs the plain versions.  This
-slice ports the default SpMM path: ``spmm`` and ``tune.tune`` with the
-``dg_span`` schedule family.
+when there is none; only ``device="cpu"`` runs the plain versions.  Ported
+so far: ``spmm``, ``tune.tune`` and ``schedule.build_plan`` with the
+``dg_span`` and ``dgt_span`` schedule families, and SpMV (``spmv``,
+``spmv.spmv_fn`` with methods auto/dg/dgt8/segment, ``spmv.spmv_multi_fn``).
 """
 
 from tpusparse_torch.config import Config, config_override, get_config, set_config
@@ -48,6 +49,7 @@ def __getattr__(name):
         "build_plan": "tpusparse_torch.schedule.build_plan",
         "autotune": "tpusparse_torch.tune.tune",
         "SpmmPlan": "tpusparse_torch.generator.SpmmPlan",
+        "spmv": "tpusparse_torch.spmv.spmv",
     }
     if name in lazy_map:
         return _lazy(lazy_map[name])
@@ -70,4 +72,5 @@ __all__ = [
     "build_plan",
     "autotune",
     "SpmmPlan",
+    "spmv",
 ]

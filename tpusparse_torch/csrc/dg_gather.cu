@@ -19,137 +19,55 @@
 //
 // Precision.  fp32x2: product and sum in fp32 (the TPU's hi/lo bf16 split
 // kept about 16 bits of each product, so this is at least its class).
-// bf16: the fp32 product is rounded to bf16 (__float2bfloat16_rn) and summed
-// in fp32, as `p.astype(bf16)` feeds the TPU kernel's fp32-accumulating dot.
+// bf16: each product rounded to bf16, summed in fp32.
 //
-// Design (simple and right first).  One block per (share s of program p's
-// chunk range, program p, K-tile t): the TPU geometry gives few programs
-// (P = 32 at the 32768-row headline with rb = 1024), so each program's chunks
-// are split over `splits` blocks to fill 132 SMs.  A block's threads take
-// the slots of a chunk in order; each slot is served by KT/4 threads that
-// each load 4 contiguous floats of the slot's X row as one 16-byte load (a
-// thread per slot with a scalar load at KT = 1).  Products go by shared
-// atomics into an [rb, KT] fp32 tile in shared memory, which is then added
-// into the zeroed y_rows with global atomics, skipping entries still zero.
-// Where the tile exceeds the shared memory a block may opt into (rb = 2048
-// at KT = 32 is 256 KB), the same kernel adds every product straight into
-// y_rows with global atomics instead.
+// Design (simple and right first): gather_common.cuh's gather_kernel with
+// the DgSlots decode below.  The [rb, KT] row tile lives in shared memory
+// where it fits the opt-in limit; rb = 2048 at KT = 32 (256 KB) takes the
+// global-atomic branch.
 //
 // Bound.  Memory: 12 bytes per slot of the format (cols, lrow, vals) plus
 // the X rows gathered and Y; the arithmetic is 2 flops per slot and column.
 // See PERF.md for its time against the bound on the card.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gather_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using gather::OptIn;
 
-template <int KT, bool BF16, bool SHARED_TILE>
-__global__ void __launch_bounds__(kThreads)
-dg_kernel(const int* __restrict__ c0, const int* __restrict__ cols,
-          const int* __restrict__ lrow, const float* __restrict__ vals,
-          const int* __restrict__ nc_p, const float* __restrict__ x,
-          float* __restrict__ y, int NC, int G, int rb, int Kp, int splits) {
-  constexpr int VEC = KT >= 4 ? 4 : 1;   // floats per thread per slot
-  constexpr int TPS = KT / VEC;          // threads per slot
-  constexpr int SPI = kThreads / TPS;    // slots per block iteration
-  extern __shared__ float tile[];        // [rb, KT] when SHARED_TILE
+// A dg slot: column c0[chunk] + cols, row lrow.
+struct DgSlots {
+  const int* c0;
+  const int* cols;
+  const int* lrow;
 
-  const int p = blockIdx.y;
-  const int t = blockIdx.z;
-  const int ncp = nc_p[p];
-  const int per = (ncp + splits - 1) / splits;
-  const int j0 = min(static_cast<int>(blockIdx.x) * per, ncp);
-  const int j1 = min(j0 + per, ncp);
-  if (j0 >= j1) return;  // uniform over the block
-
-  if constexpr (SHARED_TILE) {
-    for (int e = threadIdx.x; e < rb * KT; e += kThreads) tile[e] = 0.f;
-    __syncthreads();
-  }
-
-  const int sub = threadIdx.x % TPS;
-  const int kcol = t * KT + sub * VEC;   // first column of X and Y this thread adds
-  float* yprog = y + static_cast<int64_t>(p) * rb * Kp;
-  for (int j = j0; j < j1; ++j) {
-    const int64_t chunk = static_cast<int64_t>(p) * NC + j;
-    const int64_t cstart = c0[chunk];
-    const int64_t base = chunk * G;
-    for (int s = threadIdx.x / TPS; s < G; s += SPI) {
-      const float v = vals[base + s];
-      if (v == 0.f) continue;
-      const int64_t col = cstart + cols[base + s];
-      const int r = lrow[base + s];
-      const float* xp = x + col * Kp + kcol;
-      float xv[VEC];
-      if constexpr (VEC == 4) {
-        const float4 q = *reinterpret_cast<const float4*>(xp);
-        xv[0] = q.x; xv[1] = q.y; xv[2] = q.z; xv[3] = q.w;
-      } else {
-        xv[0] = xp[0];
-      }
-#pragma unroll
-      for (int q = 0; q < VEC; ++q) {
-        float prod = v * xv[q];
-        if constexpr (BF16) prod = __bfloat162float(__float2bfloat16_rn(prod));
-        if constexpr (SHARED_TILE) {
-          atomicAdd(&tile[r * KT + sub * VEC + q], prod);
-        } else {
-          atomicAdd(&yprog[static_cast<int64_t>(r) * Kp + kcol + q], prod);
-        }
-      }
+  struct Chunk {
+    int64_t cstart;
+    const int* cols;
+    const int* lrow;
+    __device__ __forceinline__ bool operator()(int64_t i, int, int64_t& col, int& row) const {
+      col = cstart + cols[i];
+      row = lrow[i];
+      return true;
     }
-  }
-
-  if constexpr (SHARED_TILE) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < rb * KT; e += kThreads) {
-      const float acc = tile[e];
-      if (acc != 0.f) {
-        atomicAdd(&yprog[static_cast<int64_t>(e / KT) * Kp + t * KT + e % KT], acc);
-      }
-    }
-  }
-}
-
-int optin_shared_bytes() {
-  int dev = 0, bytes = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return 0;
-  return bytes;
-}
+  };
+  __device__ __forceinline__ Chunk chunk(int64_t c) const { return {c0[c], cols, lrow}; }
+};
 
 template <int KT, bool BF16>
 int launch(const void* c0, const void* cols, const void* lrow, const void* vals,
            const void* nc_p, const void* x, void* y, int P, int NC, int G, int rb,
            int Kp, int splits, cudaStream_t stream) {
-  const dim3 grid(splits, P, Kp / KT);
-  const size_t tile_bytes = static_cast<size_t>(rb) * KT * sizeof(float);
-  const auto* c0_ = static_cast<const int*>(c0);
-  const auto* cols_ = static_cast<const int*>(cols);
-  const auto* lrow_ = static_cast<const int*>(lrow);
-  const auto* vals_ = static_cast<const float*>(vals);
-  const auto* ncp_ = static_cast<const int*>(nc_p);
-  const auto* x_ = static_cast<const float*>(x);
-  auto* y_ = static_cast<float*>(y);
-  if (tile_bytes <= static_cast<size_t>(optin_shared_bytes())) {
-    if (tile_bytes > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          dg_kernel<KT, BF16, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(tile_bytes));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    dg_kernel<KT, BF16, true><<<grid, kThreads, tile_bytes, stream>>>(
-        c0_, cols_, lrow_, vals_, ncp_, x_, y_, NC, G, rb, Kp, splits);
-  } else {
-    dg_kernel<KT, BF16, false><<<grid, kThreads, 0, stream>>>(
-        c0_, cols_, lrow_, vals_, ncp_, x_, y_, NC, G, rb, Kp, splits);
-  }
-  return static_cast<int>(cudaGetLastError());
+  static OptIn optin;  // of this instantiation's shared-tile kernel
+  const DgSlots slots{static_cast<const int*>(c0), static_cast<const int*>(cols),
+                      static_cast<const int*>(lrow)};
+  return gather::launch_tiled(
+      gather::gather_kernel<DgSlots, KT, BF16, true>,
+      gather::gather_kernel<DgSlots, KT, BF16, false>, optin, dim3(splits, P, Kp / KT),
+      gather::tile_bytes(rb, KT), 0, stream, slots, static_cast<const float*>(vals),
+      static_cast<const int*>(nc_p), static_cast<const float*>(x), static_cast<float*>(y), NC,
+      G, rb, Kp, splits);
 }
 
 }  // namespace
@@ -159,8 +77,7 @@ extern "C" {
 // 1 when a block of (rb, kt) keeps its [rb, kt] tile in shared memory,
 // 0 when it takes the global-atomic branch.
 int dg_uses_shared_tile(int rb, int kt) {
-  return static_cast<size_t>(rb) * kt * sizeof(float) <=
-         static_cast<size_t>(optin_shared_bytes());
+  return gather::tile_bytes(rb, kt) <= static_cast<size_t>(gather::optin_shared_bytes());
 }
 
 // y [P*rb, Kp] must be zeroed; x is [N, Kp] fp32, Kp a multiple of kt.

@@ -1,0 +1,197 @@
+// gather_common.cuh - the gather machinery that dg_gather.cu and
+// dgt_gather.cu share.  The two formats differ only in how a slot names its
+// column of X and its row of y_rows; everything else is here:
+//
+//   gather_kernel<Slots, KT, BF16, SHARED_TILE>  one block per (share of
+//       program p's chunk range, p, K-tile t).  Its threads take a chunk's
+//       slots in order; each live slot (value not zero) is served by KT/4
+//       threads that each load 4 contiguous floats of the slot's X row as
+//       one 16-byte load (one thread and a scalar load at KT = 1), straight
+//       from device memory through L2.  Products go by shared atomics into
+//       an [rb, KT] fp32 row tile, which is then added into the zeroed
+//       y_rows with global atomics, skipping entries still zero.  Where the
+//       tile exceeds the shared memory a block may opt into, the same
+//       kernel adds every product straight into y_rows with global atomics
+//       (SHARED_TILE false).
+//   Slots  the format's decode: Slots::chunk(c) reads what a chunk shares
+//       (dg: its window start; dgt: its tiles' window bases), and the
+//       chunk's decode maps slot s at flat index i to (col, row); it returns
+//       false for a slot that must be skipped.
+//   launch_tiled  picks the shared-tile or the global-atomic instantiation
+//       and launches it, opting into more than 48 KB of dynamic shared
+//       memory once per kernel and device.
+//
+// The programs' chunk ranges are split over `splits` blocks because the
+// TPU geometry gives few programs (P = 32 to 139 at the 32768-row headline)
+// against 132 SMs.  Chunks at or past nc_p[p] hold only zeros and are not
+// walked.
+//
+// Precision.  fp32: product and sum in fp32.  BF16: the fp32 product is
+// rounded to bf16 (__float2bfloat16_rn) and summed in fp32, as the TPU
+// kernels feed `p.astype(bf16)` to their fp32-accumulating dot.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
+
+namespace gather {
+
+constexpr int kThreads = 256;
+constexpr int kMaxDevices = 64;
+constexpr size_t kDefaultSmem = 48 * 1024;  // dynamic shared memory without opt-in
+
+template <int VEC>
+__device__ __forceinline__ void load_x(const float* xp, float (&xv)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(xp);
+    xv[0] = q.x; xv[1] = q.y; xv[2] = q.z; xv[3] = q.w;
+  } else {
+    xv[0] = xp[0];
+  }
+}
+
+// Adds the VEC products v * xv[i] of one slot into the row tile (shared) or
+// into y_rows: columns tcol.. of the tile are columns kcol.. of y_rows.
+template <int KT, int VEC, bool BF16, bool SHARED_TILE>
+__device__ __forceinline__ void scatter(float* tile, float* yprog, int row, int tcol, int kcol,
+                                        int Kp, float v, const float (&xv)[VEC]) {
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    float prod = v * xv[i];
+    if constexpr (BF16) prod = __bfloat162float(__float2bfloat16_rn(prod));
+    if constexpr (SHARED_TILE) {
+      atomicAdd(&tile[row * KT + tcol + i], prod);
+    } else {
+      atomicAdd(&yprog[static_cast<int64_t>(row) * Kp + kcol + i], prod);
+    }
+  }
+}
+
+// The chunk range [j0, j1) of this block's share of program p; false when
+// empty (uniform over the block).
+__device__ __forceinline__ bool chunk_range(const int* nc_p, int p, int splits, int& j0,
+                                            int& j1) {
+  const int ncp = nc_p[p];
+  const int per = (ncp + splits - 1) / splits;
+  j0 = min(static_cast<int>(blockIdx.x) * per, ncp);
+  j1 = min(j0 + per, ncp);
+  return j0 < j1;
+}
+
+template <int KT>
+__device__ __forceinline__ void zero_tile(float* tile, int rb) {
+  for (int e = threadIdx.x; e < rb * KT; e += kThreads) tile[e] = 0.f;
+  __syncthreads();
+}
+
+template <int KT>
+__device__ __forceinline__ void flush_tile(const float* tile, float* yprog, int rb, int Kp,
+                                           int t) {
+  __syncthreads();
+  for (int e = threadIdx.x; e < rb * KT; e += kThreads) {
+    const float acc = tile[e];
+    if (acc != 0.f) atomicAdd(&yprog[static_cast<int64_t>(e / KT) * Kp + t * KT + e % KT], acc);
+  }
+}
+
+// Every kernel of the two sources takes its dynamic shared memory here.
+extern __shared__ float4 gather_smem[];
+
+template <class Slots, int KT, bool BF16, bool SHARED_TILE>
+__global__ void __launch_bounds__(kThreads)
+gather_kernel(Slots slots, const float* __restrict__ vals, const int* __restrict__ nc_p,
+              const float* __restrict__ x, float* __restrict__ y, int NC, int G, int rb,
+              int Kp, int splits) {
+  constexpr int VEC = KT >= 4 ? 4 : 1;  // one 16-byte load, or one float at KT = 1
+  constexpr int TPS = KT / VEC;        // threads per slot
+  constexpr int SPI = kThreads / TPS;  // slots per block iteration
+  float* tile = reinterpret_cast<float*>(gather_smem);  // [rb, KT] when SHARED_TILE
+
+  const int p = blockIdx.y;
+  const int t = blockIdx.z;
+  int j0, j1;
+  if (!chunk_range(nc_p, p, splits, j0, j1)) return;
+  if constexpr (SHARED_TILE) zero_tile<KT>(tile, rb);
+
+  const int tcol = (threadIdx.x % TPS) * VEC;
+  const int kcol = t * KT + tcol;  // first column of X and Y this thread adds
+  float* yprog = y + static_cast<int64_t>(p) * rb * Kp;
+  for (int j = j0; j < j1; ++j) {
+    const int64_t chunk = static_cast<int64_t>(p) * NC + j;
+    const auto slot = slots.chunk(chunk);
+    const int64_t base = chunk * G;
+    for (int s = threadIdx.x / TPS; s < G; s += SPI) {
+      const float v = vals[base + s];
+      if (v == 0.f) continue;
+      int64_t col;
+      int row;
+      if (!slot(base + s, s, col, row)) continue;
+      float xv[VEC];
+      load_x<VEC>(x + col * Kp + kcol, xv);
+      scatter<KT, VEC, BF16, SHARED_TILE>(tile, yprog, row, tcol, kcol, Kp, v, xv);
+    }
+  }
+  if constexpr (SHARED_TILE) flush_tile<KT>(tile, yprog, rb, Kp, t);
+}
+
+// The most dynamic shared memory a block of the current device may opt
+// into, read once per device; 0 when it cannot be read.
+inline int optin_shared_bytes() {
+  static std::atomic<int> bytes_of[kMaxDevices];  // 0 until read
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 0;
+  int bytes = bytes_of[dev].load(std::memory_order_relaxed);
+  if (bytes == 0) {
+    if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+        cudaSuccess)
+      return 0;
+    bytes_of[dev].store(bytes, std::memory_order_relaxed);
+  }
+  return bytes;
+}
+
+inline size_t tile_bytes(int rb, int kt) { return static_cast<size_t>(rb) * kt * sizeof(float); }
+
+// A kernel's dynamic shared-memory limit, raised to the device's opt-in
+// size once per device.  One object per kernel instantiation.
+class OptIn {
+ public:
+  cudaError_t ensure(const void* kernel) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (set_[dev].load(std::memory_order_acquire)) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin_shared_bytes());
+    if (err == cudaSuccess) set_[dev].store(true, std::memory_order_release);
+    return err;
+  }
+
+ private:
+  std::atomic<bool> set_[kMaxDevices] = {};
+};
+
+// Launches `shared_kernel` with the [rb, KT] row tile (`tile` bytes) and
+// `extra` bytes of dynamic shared memory where both fit, else
+// `global_kernel` with `extra` bytes; `optin` belongs to `shared_kernel`.
+// Returns the cudaError_t of the launch.
+template <typename Kernel, typename... Args>
+int launch_tiled(Kernel shared_kernel, Kernel global_kernel, OptIn& optin, dim3 grid,
+                 size_t tile, size_t extra, cudaStream_t stream, Args... args) {
+  const bool shared = tile + extra <= static_cast<size_t>(optin_shared_bytes());
+  if (!shared && extra > kDefaultSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (shared ? tile : 0) + extra;
+  if (shared && smem > kDefaultSmem) {
+    const cudaError_t err = optin.ensure(reinterpret_cast<const void*>(shared_kernel));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  (shared ? shared_kernel : global_kernel)<<<grid, kThreads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace gather

@@ -1,5 +1,5 @@
 from tpusparse_torch.io.mtx import CooMatrix, read_mtx, write_mtx
-from tpusparse_torch.io.builder import power_law_coo, uniform_coo
+from tpusparse_torch.io.builder import banded_coo, power_law_coo, uniform_coo
 
 __all__ = [
     "CooMatrix",
@@ -7,4 +7,5 @@ __all__ = [
     "write_mtx",
     "uniform_coo",
     "power_law_coo",
+    "banded_coo",
 ]

@@ -5,6 +5,7 @@ JAX package's, so both packages can be fed one matrix from one seed:
 
   uniform_coo    -> the reference's dataset_builder (uniform nnz per row)
   power_law_coo  -> SuiteSparse/graph-like skewed row lengths (IG5-18 class)
+  banded_coo     -> PDE/banded scientific matrices (strong column locality)
 """
 
 from __future__ import annotations
@@ -45,5 +46,17 @@ def power_law_coo(
     lengths = np.minimum(lengths, n)
     rows = np.repeat(np.arange(m, dtype=np.int64), lengths)
     cols = rng.integers(0, n, size=int(lengths.sum()), dtype=np.int64)
+    vals = rng.standard_normal(rows.size)
+    return _finish(rows, cols, vals, (m, n))
+
+
+def banded_coo(m: int, n: int, bandwidth: int, fill: float = 0.6, seed: int = 0) -> CooMatrix:
+    """Banded matrix: nnz clustered within +-bandwidth of the diagonal."""
+    rng = np.random.default_rng(seed)
+    per_row = max(int(bandwidth * fill), 1)
+    rows = np.repeat(np.arange(m, dtype=np.int64), per_row)
+    centers = (rows * n) // max(m, 1)
+    offs = rng.integers(-bandwidth, bandwidth + 1, size=rows.size)
+    cols = np.clip(centers + offs, 0, n - 1).astype(np.int64)
     vals = rng.standard_normal(rows.size)
     return _finish(rows, cols, vals, (m, n))

@@ -5,4 +5,6 @@ function.  Sources live in ``tpusparse_torch/csrc`` and are built by
 
   dg_gather   the K <= 128 / SpMV workhorse of the default schedule
               (family dg_span): replaces _dg_kernel and _dg1_kernel.
+  dgt_gather  the tile-window co-champion (family dgt_span, SpMV 'dgt8',
+              spmv_multi_fn): replaces _dgt_kernel and _dgt_kernel_stream.
 """

@@ -1,6 +1,7 @@
 """Build and load the package's CUDA sources.
 
-Each ``tpusparse_torch/csrc/<name>.cu`` has a plain C interface and is
+Each ``tpusparse_torch/csrc/<name>.cu`` has a plain C interface (the
+machinery the sources share is in ``csrc/gather_common.cuh``) and is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``tpusparse_torch/_build/`` at first use, then loaded with ``ctypes``.  The
 library's file name carries a hash of the source and the flags, so a stale
@@ -22,7 +23,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("dg_gather",)
+SOURCES = ("dg_gather", "dgt_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,7 +44,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library's path, named by a hash of the source, the headers it
+    may include (every ``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -39,3 +41,47 @@ def pad_dense_cols(x: torch.Tensor, target_cols: int) -> torch.Tensor:
     if x.shape[-1] == target_cols:
         return x
     return F.pad(x, [0, target_cols - x.shape[-1]])
+
+
+# ------------------------------------------- launching the csrc gather kernels
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_splits(dev: torch.device, blocks_per_split: int, nc: int) -> int:
+    """Blocks per program of a gather kernel: enough for about four blocks
+    per SM, at most one per chunk."""
+    sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+    return max(1, min(nc, cdiv(4 * sms, max(blocks_per_split, 1))))
+
+
+def check_operands(x: torch.Tensor, fields, *, ndim: int) -> None:
+    """Raises unless X is an ``ndim``-D contiguous, 16-byte aligned float32
+    CUDA tensor and every ``(name, tensor, dtype, shape)`` of ``fields`` a
+    contiguous tensor of that dtype and shape on X's device, with at most
+    65535 programs (the grid's y dimension; the first dim of the first
+    field)."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, X is on {dev}")
+    for name, t, dt, shp in fields:
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shp or not t.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous {dt} tensor {shp} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if x.dtype != torch.float32 or x.ndim != ndim or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"X must be a contiguous, 16-byte aligned {ndim}-D float32 tensor")
+    if fields[0][3][0] > 65535:
+        raise ValueError(f"P={fields[0][3][0]} programs exceed the grid's y dimension (65535)")
+
+
+def launch_checked(fn, name: str, tensors, ints) -> None:
+    """Calls a csrc launcher ``fn(*pointers, *ints, stream)`` with the
+    tensors' pointers on the current stream of their device; raises on a
+    nonzero cudaError_t."""
+    with torch.cuda.device(tensors[0].device):
+        rc = fn(*(t.data_ptr() for t in tensors), *ints,
+                torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"{name} failed with CUDA error {rc}")

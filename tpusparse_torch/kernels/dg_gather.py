@@ -35,7 +35,8 @@ import torch
 
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import build
-from tpusparse_torch.kernels.common import cdiv, pad_dense_cols, resolve_device
+from tpusparse_torch.kernels.common import (cdiv, check_operands, launch_checked,
+                                            launch_splits, pad_dense_cols, resolve_device)
 from tpusparse_torch.levels import Level
 
 PRECISIONS = ("fp32x2", "bf16")
@@ -371,29 +372,13 @@ def _lib():
     return lib
 
 
-def _check_format(c0, cols, lrow, vals, nc_p, x, rb):
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, X is on {dev}")
+def _check_format(c0, cols, lrow, vals, nc_p, x, ndim):
     P, NC, G = cols.shape
-    for name, t, dt, shp in (("c0", c0, torch.int32, (P, 1, NC)),
-                             ("cols", cols, torch.int32, (P, NC, G)),
-                             ("lrow", lrow, torch.int32, (P, NC, G)),
-                             ("vals", vals, torch.float32, (P, NC, G)),
-                             ("nc_p", nc_p, torch.int32, (P, 1, 1))):
-        if t.device != dev or t.dtype != dt or tuple(t.shape) != shp or not t.is_contiguous():
-            raise ValueError(f"{name}: want a contiguous {dt} tensor {shp} on {dev}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if x.dtype != torch.float32 or not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("X must be a contiguous, 16-byte aligned float32 tensor")
-    if P > 65535:
-        raise ValueError(f"P={P} programs exceed the grid's y dimension (65535)")
-
-
-def _splits(dev, blocks_per_split: int, nc: int) -> int:
-    """Blocks per program: enough for about four blocks per SM."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(nc, cdiv(4 * sms, max(blocks_per_split, 1))))
+    check_operands(x, (("c0", c0, torch.int32, (P, 1, NC)),
+                       ("cols", cols, torch.int32, (P, NC, G)),
+                       ("lrow", lrow, torch.int32, (P, NC, G)),
+                       ("vals", vals, torch.float32, (P, NC, G)),
+                       ("nc_p", nc_p, torch.int32, (P, 1, 1))), ndim=ndim)
 
 
 def dg_uses_shared_tile(rb: int, kt: int) -> bool:
@@ -405,20 +390,15 @@ def dg_uses_shared_tile(rb: int, kt: int) -> bool:
 def dg_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode):
     """CUDA ``_dg_kernel`` (tpusparse/kernels/dg_gather.py:318): y_rows
     [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in {8, 16, 32}."""
-    _check_format(c0, cols, lrow, vals, nc_p, x, rb)
-    if kt not in (8, 16, 32) or mode not in PRECISIONS or x.ndim != 2 or x.shape[1] % kt:
+    _check_format(c0, cols, lrow, vals, nc_p, x, 2)
+    if kt not in (8, 16, 32) or mode not in PRECISIONS or x.shape[1] % kt:
         raise ValueError(f"dg kernel: kt={kt}, mode={mode}, X {tuple(x.shape)}")
     P, NC, G = cols.shape
     kp = x.shape[1]
     y = torch.zeros((P * rb, kp), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _lib().dg_spmm_launch(
-            c0.data_ptr(), cols.data_ptr(), lrow.data_ptr(), vals.data_ptr(),
-            nc_p.data_ptr(), x.data_ptr(), y.data_ptr(), P, NC, G, rb, kp, kt,
-            int(mode == "bf16"), _splits(x.device, P * (kp // kt), NC),
-            torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"dg_spmm_launch failed with CUDA error {rc}")
+    launch_checked(_lib().dg_spmm_launch, "dg_spmm_launch", (c0, cols, lrow, vals, nc_p, x, y),
+                   (P, NC, G, rb, kp, kt, int(mode == "bf16"),
+                    launch_splits(x.device, P * (kp // kt), NC)))
     dg_rows_cuda.launches += 1
     return y
 
@@ -426,18 +406,11 @@ def dg_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode):
 def dg1_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb):
     """CUDA ``_dg1_kernel`` (tpusparse/kernels/dg_gather.py:382): y_rows
     [P*rb] for x [N] fp32."""
-    _check_format(c0, cols, lrow, vals, nc_p, x, rb)
-    if x.ndim != 1:
-        raise ValueError(f"dg1 kernel: x must be 1-D, got {tuple(x.shape)}")
+    _check_format(c0, cols, lrow, vals, nc_p, x, 1)
     P, NC, G = cols.shape
     y = torch.zeros(P * rb, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _lib().dg_spmv_launch(
-            c0.data_ptr(), cols.data_ptr(), lrow.data_ptr(), vals.data_ptr(),
-            nc_p.data_ptr(), x.data_ptr(), y.data_ptr(), P, NC, G, rb,
-            _splits(x.device, P, NC), torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"dg_spmv_launch failed with CUDA error {rc}")
+    launch_checked(_lib().dg_spmv_launch, "dg_spmv_launch", (c0, cols, lrow, vals, nc_p, x, y),
+                   (P, NC, G, rb, launch_splits(x.device, P, NC)))
     dg1_rows_cuda.launches += 1
     return y
 

@@ -23,6 +23,12 @@ def spmm_reference(mat: CooMatrix, x: np.ndarray) -> np.ndarray:
     return y
 
 
+def spmv_reference(mat: CooMatrix, x: np.ndarray) -> np.ndarray:
+    """y[M] = A[M, N] . x[N] on the host."""
+    assert x.ndim == 1
+    return spmm_reference(mat, x)
+
+
 def tolerance_for(dtype) -> float:
     cfg = get_config()
     dt = np.dtype(dtype) if dtype != "bfloat16" else None

@@ -5,8 +5,8 @@ implementing parameters; ``build_plan`` runs the operator pipeline through
 the OperatorExecutor, packs the format on the device and returns a plan.
 ``Schedule`` keeps the JAX package's fields and defaults, so one
 ``describe()`` dict means the same thing in both packages.  Of the
-families, this port runs ``dg_span``; every other family raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+families, this port runs ``dg_span`` and ``dgt_span``; every other family
+raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels.common import resolve_device
 from tpusparse_torch.kernels.dg_gather import (PRECISIONS, choose_kt_dg, dg_spmm,
                                                dg_spmv, pack_dg)
+from tpusparse_torch.kernels.dgt_gather import dgt_spmm, pack_dgt
 from tpusparse_torch.levels import Level
 from tpusparse_torch.meta.set import create_init_metadata_set
 from tpusparse_torch.ops import GridBlockOperator, OperatorExecutor
@@ -27,10 +28,9 @@ KERNEL_FAMILIES = ("stripe_total", "stripe_nested", "nnz_segment",
                    "segment_span", "tile_onehot", "span_onehot",
                    "span_colsplit", "radix_span", "brick_ell", "dg_span",
                    "dgt_span", "bucketed", "dense", "block_ell", "hybrid_cols")
-PORTED_FAMILIES = ("dg_span",)
+PORTED_FAMILIES = ("dg_span", "dgt_span")
 #: the ROADMAP.md queue-A item that ports each family still missing
 ROADMAP_ITEM = {
-    "dgt_span": "A.3",
     "tile_onehot": "A.6", "span_onehot": "A.6", "span_colsplit": "A.6",
     "stripe_total": "A.7", "stripe_nested": "A.7", "nnz_segment": "A.7",
     "segment_span": "A.7", "radix_span": "A.7", "brick_ell": "A.7",
@@ -75,6 +75,17 @@ class Schedule:
 
     def describe(self) -> dict[str, Any]:
         return dataclasses.asdict(self)
+
+    def plan_key(self) -> "Schedule":
+        """This schedule with the fields that only steered the TPU kernels'
+        code (``unroll``, ``scatter``, ``pipe``, ``rowhot_i8``) at their
+        defaults: two schedules with one key build the same format and
+        launch the same kernel on the card."""
+        return dataclasses.replace(self, **{f: getattr(Schedule, f) for f in TPU_ONLY_FIELDS})
+
+
+#: Schedule fields that change the TPU kernels' code but not the card's
+TPU_ONLY_FIELDS = ("unroll", "scatter", "pipe", "rowhot_i8")
 
 
 def _choose_kt_radix(k: int) -> int:
@@ -138,6 +149,17 @@ def _build_sub_plan(ms, ex, sub: int, sched: Schedule, out_rows: int, device):
     kt_meta = (int(ms.get(Level.GLOBAL, "ktile", sub))
                if ms.has(Level.GLOBAL, "ktile", sub) else None)
     mode = sched.precision if sched.precision in PRECISIONS else "fp32x2"
+    if sched.family == "dgt_span":
+        kt = choose_kt_dg(max(kt_meta or 8, 2))  # kt=1 stays dg_span
+        fmt = pack_dgt(ms, sub, out_rows=out_rows, rb=sched.rb, g=sched.g, kt=kt,
+                       mode=mode, resid=sched.resid, nw=sched.nw, walk=sched.walk,
+                       device=device)
+
+        def fn(x, fmt=fmt):
+            return dgt_spmm(fmt, x, unroll=sched.unroll, scatter=sched.scatter,
+                            pipe=sched.pipe, rowhot_i8=sched.rowhot_i8)
+
+        return fmt, fn
     kt = choose_kt_dg(kt_meta) if kt_meta else 8
     if kt == 1:
         mode = "fp32x2"

@@ -1,0 +1,156 @@
+"""SpMV: y[M] = A . x[N] (counterpart of ``tpusparse/spmv.py``).
+
+Methods, decision for decision as in the JAX package:
+
+  'dg'       the dg kernel at kt = 1 (``dg1_rows_cuda``), rb = 4096, ns = 4.
+  'dgt8'     the dgt kernel at kt = 8 (``dgt_rows_cuda``) on x zero-padded
+             to 8 columns, rb from ``auto_rb_dgt``.
+  'segment'  plain torch: ``index_add_`` of vals * x[cols] over rows.  The
+             JAX version is XLA code, no Pallas kernel, so no kernel here.
+  'auto'     'dg' when x passes the JAX package's size gate (N*4 bytes
+             <= 6 MB), else 'segment'.
+
+``spmv_multi_fn`` fuses m <= 8 independent SpMVs into one K = m dgt call,
+with the JAX package's column split for large N.  The size gates are
+TPU-derived (the v5e's VMEM residency limits for X) and kept so both
+packages take the same decisions until they are re-derived for the card
+(ROADMAP.md A.4).  Every entry point runs on ``device`` ("cuda" by
+default; no card raises unless ``device="cpu"``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpusparse_torch.io.mtx import CooMatrix
+from tpusparse_torch.kernels.common import cdiv, resolve_device
+
+#: the ROADMAP.md queue-A item that ports each SpMV method still missing
+ROADMAP_ITEM = {"radix": "A.7", "stripe": "A.7", "span": "A.6"}
+
+
+def _as_x(x, dev: torch.device) -> torch.Tensor:
+    """x as an fp32 tensor on ``dev``; a tensor on another device is
+    refused rather than moved."""
+    if isinstance(x, torch.Tensor):
+        if x.device != dev:
+            raise ValueError(f"x is on {x.device}, the matrix on {dev}")
+        return x.to(torch.float32)
+    return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+
+
+def spmv_fn(mat: CooMatrix, method: str = "auto", *, device="cuda"):
+    """Returns ``fn(x[N]) -> y[M]`` for repeated application, the matrix
+    packed once on ``device``."""
+    dev = resolve_device(device)
+    m, n = mat.shape
+    if method == "auto":
+        method = "dg" if n * 4 <= 6 * 1024 * 1024 else "segment"  # TPU-derived gate
+    if method == "dg":
+        from tpusparse_torch.kernels.dg_gather import dg_spmv, pack_dg
+
+        rb = 4096 if m >= 4096 else max(64, 64 * cdiv(m, 64))
+        fmt = pack_dg(mat, rb=rb, ns=4, g=2048 if mat.nnz > 1 << 20 else 512,
+                      kt=1, mode="fp32x2", device=dev)
+
+        def fn(x):
+            assert tuple(x.shape) == (n,), f"x shape {tuple(x.shape)} != ({n},)"
+            return dg_spmv(fmt, x)
+
+        fn.format = fmt
+        return fn
+    if method == "dgt8":
+        from tpusparse_torch.kernels.dgt_gather import auto_rb_dgt, dgt_spmv, pack_dgt
+
+        assert n * 32 <= 9 * 1024 * 1024, "x3 resident would bust VMEM"  # TPU-derived gate
+        rb = auto_rb_dgt(m, n, mat.nnz) if m >= 256 else max(8, 8 * cdiv(m, 8))
+        fmt = pack_dgt(mat, rb=rb, g=512, kt=8, mode="fp32x2", resid=True, nw=4,
+                       device=dev)
+
+        def fn(x):
+            assert tuple(x.shape) == (n,), f"x shape {tuple(x.shape)} != ({n},)"
+            return dgt_spmv(fmt, x)
+
+        fn.format = fmt
+        return fn
+    if method == "segment":
+        rows = torch.as_tensor(mat.rows, dtype=torch.int64, device=dev)
+        cols = torch.as_tensor(mat.cols, dtype=torch.int64, device=dev)
+        vals = torch.as_tensor(np.asarray(mat.vals), dtype=torch.float32, device=dev)
+
+        def fn(x):
+            assert tuple(x.shape) == (n,), f"x shape {tuple(x.shape)} != ({n},)"
+            y = torch.zeros(m, dtype=torch.float32, device=dev)
+            return y.index_add_(0, rows, vals * _as_x(x, dev)[cols])
+
+        return fn
+    if method in ROADMAP_ITEM:
+        raise NotImplementedError(f"spmv method {method!r} is not ported to tpusparse_torch "
+                                  f"yet (ROADMAP.md {ROADMAP_ITEM[method]})")
+    raise ValueError(f"unknown spmv method {method!r}")
+
+
+def spmv(mat: CooMatrix, x, method: str = "auto", *, device="cuda"):
+    return spmv_fn(mat, method, device=device)(x)
+
+
+def spmv_multi_fn(mat: CooMatrix, n_vectors: int = 8, col_split: int | None = None, *,
+                  device="cuda"):
+    """Returns ``fn(X[N, m]) -> Y[M, m]``: m independent SpMVs fused into
+    one K = m dgt call (kt = 8).  ``col_split`` packs each column range as
+    its own dgt format and sums the partial products; by default X of more
+    than 16 MB is split into ranges of at most 8 MB (the JAX package's
+    rule, from its compile limits on the v5e: TPU-derived).  ``fn.n_splits``
+    is the number of formats."""
+    from tpusparse_torch.kernels.dgt_gather import auto_rb_dgt, dgt_spmm, pack_dgt
+
+    dev = resolve_device(device)
+    m, n = mat.shape
+    kt = 8
+    assert 1 <= n_vectors <= kt, "pack with ktile > 8 for more vectors"
+    if col_split is None:
+        x_bytes = n * kt * 4
+        col_split = (1 if x_bytes <= 16 * 1024 * 1024  # TPU-derived gate
+                     else max(2, -(-x_bytes // (8 * 1024 * 1024))))
+
+    def _pack(sub, width):
+        rb = auto_rb_dgt(m, width, sub.nnz) if m >= 256 else max(8, 8 * cdiv(m, 8))
+        return pack_dgt(sub, rb=rb, g=512, kt=kt, mode="fp32x2", resid=True, nw=4,
+                        device=dev)
+
+    if col_split <= 1:
+        fmt = _pack(mat, n)
+
+        def fn(xs):
+            assert tuple(xs.shape) == (n, n_vectors), tuple(xs.shape)
+            return dgt_spmm(fmt, xs)
+
+        fn.n_splits = 1
+        fn.formats = [fmt]
+        return fn
+
+    width = -(-n // col_split)
+    rows_a, cols_a, vals_a = np.asarray(mat.rows), np.asarray(mat.cols), np.asarray(mat.vals)
+    fmts, ranges = [], []
+    for s in range(col_split):
+        lo, hi = s * width, min((s + 1) * width, n)
+        sel = (cols_a >= lo) & (cols_a < hi)
+        if not sel.any():
+            continue
+        sub = CooMatrix(rows_a[sel], cols_a[sel] - lo, vals_a[sel], (m, hi - lo)).sort_row_major()
+        fmts.append(_pack(sub, hi - lo))
+        ranges.append((lo, hi))
+
+    def fn(xs):
+        assert tuple(xs.shape) == (n, n_vectors), tuple(xs.shape)
+        xs = _as_x(xs, dev)
+        y = None
+        for fmt, (lo, hi) in zip(fmts, ranges):
+            part = dgt_spmm(fmt, xs[lo:hi])
+            y = part if y is None else y + part
+        return y
+
+    fn.n_splits = len(fmts)
+    fn.formats = fmts
+    return fn

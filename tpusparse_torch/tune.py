@@ -3,8 +3,12 @@
 As in the reference (token_test.cc:1625-1847): enumerate Schedule
 candidates, check each against the oracle, time it, keep the min, cache the
 winner per matrix signature under the config cache_dir, and append every
-measurement to results.jsonl.  Candidates are the ``dg_span`` block of the
-JAX package's list; a cached winner of a family not yet ported is dropped.
+measurement to results.jsonl.  Candidates are the ``dg_span`` and
+``dgt_span`` blocks of the JAX package's list, in its order; a cached
+winner of a family not yet ported is dropped.  Candidates that differ only
+in knobs of the TPU kernels' code (``Schedule.plan_key``) are one plan on
+the card: it is packed and timed once, and each such row carries that
+measurement and ``same_plan_as``.
 On the card each candidate is timed with CUDA events; on the CPU (the
 tests) with the host clock, and its rows say so.
 """
@@ -28,6 +32,7 @@ from tpusparse_torch.generator import SpmmPlan
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels.common import resolve_device
 from tpusparse_torch.kernels.dg_gather import choose_kt_dg
+from tpusparse_torch.kernels.dgt_gather import auto_rb_dgt, dgt_geometry
 from tpusparse_torch.oracle import check_result, spmm_reference
 from tpusparse_torch.schedule import PORTED_FAMILIES, Schedule, build_plan
 
@@ -46,11 +51,14 @@ def matrix_signature(mat: CooMatrix) -> str:
 
 
 def default_candidates(mat: CooMatrix, k: int, *, full: bool = False) -> list[Schedule]:
-    """The dg_span candidates of the JAX package's list (tpusparse/tune.py:
-    111-150): density-sized (rb, ns, g) points, the kt=8 alternative at
-    K > 16, and with ``full`` the wider grid, unrolls and bf16.  The X-size
-    gate (6 MB) is the JAX package's VMEM gate, TPU-derived and queued for
-    re-derivation (ROADMAP.md A.4)."""
+    """The dg_span and dgt_span candidates of the JAX package's list
+    (tpusparse/tune.py:111-194), in its order: dg's density-sized (rb, ns,
+    g) points, the kt=8 alternative at K > 16, and with ``full`` the wider
+    grid, unrolls and bf16; then dgt's (resid, rb, nw, g, unroll,
+    rowhot_i8) points, an ``auto_rb_dgt`` point first where it exceeds 512,
+    and with ``full`` seven more.  The X-size gates (6 MB) are the JAX
+    package's VMEM gates, TPU-derived and queued for re-derivation
+    (ROADMAP.md A.4)."""
     cands: list[Schedule] = []
     kt_dg = choose_kt_dg(k)
     if k <= 128 and mat.shape[1] * kt_dg * 4 <= 6 * 1024 * 1024:
@@ -81,6 +89,23 @@ def default_candidates(mat: CooMatrix, k: int, *, full: bool = False) -> list[Sc
                     cands.append(Schedule(family="dg_span", rb=rb, ns=ns,
                                           g=g, unroll=8, ktile=kt_c,
                                           precision="bf16"))
+    if 2 <= kt_dg <= 32 and k <= 128 and \
+            mat.shape[1] * max(kt_dg, 8) * 4 <= 6 * 1024 * 1024:  # TPU-derived gate
+        _, ngrp_dgt = dgt_geometry(max(kt_dg, 8), "fp32x2")
+        rb_auto = auto_rb_dgt(mat.shape[0], mat.shape[1], mat.nnz, ngrp=ngrp_dgt)
+        dgt_cfgs = [(True, 512, 8, 512, 8, False), (True, 256, 4, 512, 8, False),
+                    (False, 256, 8, 512, 8, False), (True, 512, 8, 1024, 16, False),
+                    (True, 256, 4, 512, 8, True), (True, 512, 8, 512, 8, True)]
+        if rb_auto > 512:
+            dgt_cfgs.insert(0, (True, rb_auto, 4, 512, 8, False))
+        if full:
+            dgt_cfgs += [(True, 512, 4, 512, 8, False), (True, 256, 8, 512, 8, False),
+                         (False, 512, 8, 512, 8, False), (True, 1024, 2, 512, 8, False),
+                         (True, 512, 8, 512, 16, False), (True, 512, 8, 1024, 8, False),
+                         (True, 512, 8, 1024, 16, True)]
+        for resid, rb, nw, g_c, u_c, i8 in dgt_cfgs:
+            cands.append(Schedule(family="dgt_span", rb=rb, nw=nw, resid=resid, g=g_c,
+                                  unroll=u_c, ktile=max(kt_dg, 8), rowhot_i8=i8))
     return cands
 
 
@@ -160,8 +185,18 @@ def tune(
 
     table: list[dict] = []
     best = None
+    timed: dict[Schedule, dict] = {}  # plan_key -> the row that packed and timed it
     for sched in candidates:
         row = {"schedule": sched.describe(), "matrix": sig, "k": k, "device": where}
+        same = timed.get(sched.plan_key())
+        if same is not None:
+            # only a TPU-only knob differs: the same format and kernel, so
+            # the row repeats that measurement instead of timing host noise
+            row.update({key: v for key, v in same.items() if key not in row and key != "ts"},
+                       same_plan_as=same["schedule"], ts=time.time())
+            table.append(row)
+            continue
+        timed[sched.plan_key()] = row
         try:
             t_pack = time.time()
             plan = build_plan(mat, sched, device=dev)
