@@ -15,7 +15,13 @@ entry points a user calls:
   nonzeros per row on average (seed 9, about 10.2M nonzeros):
   ``spmv_fn(mat, "auto")`` (dg1), ``spmv_fn(mat, "dgt8")`` and
   ``spmv_multi_fn(mat, 8)``; ``spmv_multi_fn(..., col_split=2)`` at the
-  headline size; ``dgt_spmm(..., stream_x=True)`` at both sizes.
+  headline size; ``dgt_spmm(..., stream_x=True)`` at both sizes;
+- the wide-K and large-N paths: ``spmm`` at the headline size with K = 256
+  (``tile_onehot``, the stream kernel) and at the SpMV size with K = 8
+  (``span_colsplit``: two span launches), ``tune`` at the headline size at
+  K = 8 (now with span and tile rows) and K = 256 (tile rows),
+  ``span_spmm(stream=True)`` at both sizes, ``tile_spmm`` resident at
+  K = 32 and ``spmv_fn(mat, "span")`` at the SpMV size.
 
 Every result is checked against the host oracle; the kernels are timed
 against their bound, their plain versions and cuSPARSE.  Any failure
@@ -86,10 +92,15 @@ def main() -> int:
     try:
         import tpusparse_torch
         from tpusparse_torch.bench.harness import gflops, time_fn
+        from tpusparse_torch.format import pack_tile
         from tpusparse_torch.io import builder
+        from tpusparse_torch.io.mtx import CooMatrix
         from tpusparse_torch.kernels import build
         from tpusparse_torch.kernels import dg_gather as dg
         from tpusparse_torch.kernels import dgt_gather as dgt
+        from tpusparse_torch.kernels import span_gather as span
+        from tpusparse_torch.kernels import tile_onehot as tile
+        from tpusparse_torch.meta.set import create_init_metadata_set
         from tpusparse_torch.oracle import check_result, spmm_reference
         from tpusparse_torch.schedule import Schedule, build_plan, default_schedule
         from tpusparse_torch.spmv import spmv_fn, spmv_multi_fn
@@ -100,6 +111,8 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     dg_src, dgt_src = "tpusparse_torch/csrc/dg_gather.cu", "tpusparse_torch/csrc/dgt_gather.cu"
+    tile_src, span_src = ("tpusparse_torch/csrc/tile_onehot.cu",
+                          "tpusparse_torch/csrc/span_gather.cu")
     kernels = {  # the ported kernels, by their wrapper
         "dg": {"wrapper": dg.dg_rows_cuda, "name": "dg_rows_cuda", "source": dg_src,
                "replaces": "tpusparse/kernels/dg_gather.py:318", "err": 0.0},
@@ -110,6 +123,20 @@ def main() -> int:
         "dgt_stream": {"wrapper": dgt.dgt_stream_rows_cuda, "name": "dgt_stream_rows_cuda",
                        "source": dgt_src, "replaces": "tpusparse/kernels/dgt_gather.py:882",
                        "err": 0.0},
+        "tile": {"wrapper": tile.tile_rows_cuda, "plain": tile.tile_rows_plain,
+                 "name": "tile_rows_cuda", "source": tile_src,
+                 "replaces": "tpusparse/kernels/tile_onehot.py:44", "err": 0.0},
+        "tile_stream": {"wrapper": tile.tile_stream_rows_cuda,
+                        "plain": tile.tile_stream_rows_plain, "name": "tile_stream_rows_cuda",
+                        "source": tile_src, "replaces": "tpusparse/kernels/tile_onehot.py:119",
+                        "err": 0.0},
+        "span": {"wrapper": span.span_rows_cuda, "plain": span.span_rows_plain,
+                 "name": "span_rows_cuda", "source": span_src,
+                 "replaces": "tpusparse/kernels/span_gather.py:270", "err": 0.0},
+        "span_stream": {"wrapper": span.span_stream_rows_cuda,
+                        "plain": span.span_stream_rows_plain, "name": "span_stream_rows_cuda",
+                        "source": span_src, "replaces": "tpusparse/kernels/span_gather.py:329",
+                        "err": 0.0},
     }
 
     # ---- 1. device
@@ -234,6 +261,67 @@ def main() -> int:
         dgt_vs_plain(label, pack(rb=2048, kt=32), 32, tol)                # 256 KB: global
     log(f"[kernel] dgt checks (packing included): {time.perf_counter() - t0:.1f} s")
 
+    def win_vs_plain(which, label, fmt, k, mode, vals=None):
+        """A tile or span kernel (``which``) against its plain version on
+        ``fmt`` at K = k (X padded to the kernel's K-tile)."""
+        is_tile, stream = which.startswith("tile"), which.endswith("_stream")
+        kt = tile.choose_kt(min(tile.default_ktile(k), 32))
+        x = dg.pad_dense_cols(rand_x(fmt.shape[1], k), -(-k // kt) * kt).contiguous()
+        start = fmt.chunk_tile if is_tile else fmt.c0
+        v = fmt.vals.float() if vals is None else vals
+        kw = dict(rb=fmt.rb, kt=kt, **(dict(ct=fmt.ct) if is_tile or stream else {}))
+        plain = kernels[which]["plain"]
+        got = kernels[which]["wrapper"](start, fmt.cols, fmt.lrow, v, fmt.nc_p, x, mode=mode,
+                                        **kw)
+        want = plain(start, fmt.cols, fmt.lrow, v, fmt.nc_p, x, mode=mode, **kw)
+        scale = plain(start, fmt.cols, fmt.lrow, v.abs(), fmt.nc_p, x.abs(), mode="fp32", **kw)
+        if is_tile:
+            shared = tile.tile_uses_shared_tile(fmt.rb, kt, stream=stream)
+        else:
+            shared = span.span_uses_shared_tile(fmt.rb, kt, g=fmt.chunk_g, ct=fmt.ct,
+                                                stream=stream)
+        branch = "shared tile" if shared else "global atomics"
+        if which == "span_stream":
+            rows = span.span_stream_slice_rows(fmt.rb, kt, fmt.chunk_g, fmt.ct)
+            branch += f", window slice {rows}"
+        check_vs_plain(which, label,
+                       f"kt={kt} {mode} K={k} rb={fmt.rb} ct={fmt.ct} g={fmt.chunk_g} "
+                       f"P={fmt.n_programs} NC={fmt.n_chunks} pad={fmt.padding_rate:.3f}"
+                       + (" vals plane" if vals is not None else "") + f", {branch}",
+                       got, want, scale, tol)
+
+    t0 = time.perf_counter()
+    for label, m_ in (("small", small), ("headline", mat)):
+        head = label == "headline"
+        ms_ = create_init_metadata_set(m_)
+        rb_t, ct_t, g_t = (1024, 1024, 512) if head else (128, 128, 64)
+        ftile = pack_tile(ms_, 0, out_rows=m_.shape[0], rb=rb_t, ct=ct_t, g=g_t, device=dev)
+        for mode, k in (("fp32x2", 8), ("fp32", 32), ("bf16", 16), ("fp32x2", 5),
+                        ("fp32x2", 100), ("fp32x2", 256)):
+            win_vs_plain("tile", label, ftile, k, mode)
+        for mode, k in (("fp32x2", 256), ("bf16", 8), ("fp32", 5), ("fp32x2", 100)):
+            win_vs_plain("tile_stream", label, ftile, k, mode)
+        ftile_g = pack_tile(ms_, 0, out_rows=m_.shape[0], rb=2048, ct=ct_t, g=g_t, device=dev)
+        win_vs_plain("tile", label, ftile_g, 32, "fp32x2")          # 256 KB: global atomics
+        win_vs_plain("tile_stream", label, ftile_g, 32, "fp32x2")
+        rb_s, ct_s, g_s = (512, 1024, 512) if head else (64, 128, 32)
+        fspan = span.pack_span(m_, rb=rb_s, ct=ct_s, g=g_s, keep_perm=True, device=dev)
+        for mode, k in (("fp32x2", 8), ("fp32", 32), ("bf16", 16), ("fp32x2", 5),
+                        ("fp32x2", 100), ("fp32x2", 256)):
+            win_vs_plain("span", label, fspan, k, mode)
+        for mode, k in (("fp32x2", 8), ("bf16", 32), ("fp32", 5), ("fp32x2", 256)):
+            win_vs_plain("span_stream", label, fspan, k, mode)
+        new_vals = np.random.default_rng(5).standard_normal(m_.nnz).astype(np.float32)
+        plane = span.with_values(fspan, new_vals).vals                  # the vals= override
+        win_vs_plain("span", label, fspan, 8, "fp32x2", vals=plane)
+        win_vs_plain("span_stream", label, fspan, 8, "fp32x2", vals=plane)
+        fspan_g = span.pack_span(m_, rb=2048, ct=ct_s, g=g_s, device=dev)
+        win_vs_plain("span", label, fspan_g, 32, "fp32x2")            # 256 KB: global atomics
+        win_vs_plain("span_stream", label, fspan_g, 32, "fp32x2")
+        fspan_w = span.pack_span(m_, rb=1024 if head else 128, ct=4096, g=g_s, device=dev)
+        win_vs_plain("span_stream", label, fspan_w, 100, "fp32")      # window in slices
+    log(f"[kernel] tile and span checks (packing included): {time.perf_counter() - t0:.1f} s")
+
     # ---- 4. the main paths through the entry points.  Each path runs with
     # every count set to 0 just before it and read just after, so each
     # kernel's launches are known path by path.
@@ -250,6 +338,28 @@ def main() -> int:
         if n_l < 1:
             raise AssertionError(f"path {path} did not launch {kernels[which]['name']}")
         return n_l
+
+    def run_entry(path, which, make, x, want, shape, tag="path"):
+        """Makes an entry point's fn (packing included) and calls it once,
+        with every launch count set to 0 just before and read just after;
+        checks the result against the oracle."""
+        zero_counts()
+        t0 = time.perf_counter()
+        fn = make()
+        torch.cuda.synchronize()
+        t_pack = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        y = fn(x)
+        torch.cuda.synchronize()
+        t_call = time.perf_counter() - t0
+        read_counts(path)
+        assert y.is_cuda and tuple(y.shape) == shape and bool(torch.isfinite(y).all())
+        check_result(y.cpu().numpy(), want, rtol=2e-3)
+        n_l = need(path, which)
+        log(f"[{tag}] {path}: oracle ok at rtol 2e-3, {n_l} launch(es) of "
+            f"{kernels[which]['name']}, making the fn {t_pack:.2f} s (packing included), "
+            f"first call {t_call:.3f} s")
+        return fn, t_pack
 
     for rec in kernels.values():
         rec["paths"] = {}
@@ -291,42 +401,100 @@ def main() -> int:
         dgt_fmts[k] = build_plan(mat, sched).formats[0]
         dgt_vs_plain("headline", dgt_fmts[k], k, tol)  # at the path's own shape
 
-    # ---- 5. tune over the dg and dgt candidates at the headline size
+    # P1: the default schedule at K > 128 is tile_onehot, on the stream
+    # kernel (X is 16 MB in the TPU's layout, past its 6 MB gate)
+    xs[256] = np.random.default_rng(0).standard_normal((N, 256)).astype(np.float32)
+    ref_h256 = spmm_reference(mat, xs[256].astype(np.float64))
+    zero_counts()
+    t0 = time.perf_counter()
+    y = tpusparse_torch.spmm(mat, xs[256])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    read_counts("spmm_k256")
+    sched256 = default_schedule(mat, 256)
+    assert sched256.family == "tile_onehot"
+    assert y.is_cuda and y.shape == (M, 256) and bool(torch.isfinite(y).all())
+    check_result(y.cpu().numpy(), ref_h256, rtol=2e-3)
+    n_l = need("spmm_k256", "tile_stream")
+    t0 = time.perf_counter()
+    plan256 = build_plan(mat, sched256)
+    t_pack256 = time.perf_counter() - t0
+    f256 = plan256.formats[0]
+    log(f"[spmm] K=256: tile_onehot rb={f256.rb} ct={f256.ct} g={f256.chunk_g} "
+        f"P={f256.n_programs} NC={f256.n_chunks} pad={f256.padding_rate:.3f} "
+        f"{f256.memory_bytes / 2**20:.1f} MiB, pack {t_pack256:.2f} s: oracle ok at rtol 2e-3, "
+        f"{n_l} launch(es) of tile_stream_rows_cuda, first call {dt:.2f} s (packing included)")
+    win_vs_plain("tile_stream", "headline", f256, 256, "fp32x2")    # the path's own format
+
+    # P6: the resident tile kernel at K = 32 (X 4 MB in the TPU's layout)
+    assert not tile.uses_stream(N, f256.ct, 32, "fp32x2")
+    ref_h32 = spmm_reference(mat, xs[32].astype(np.float64))
+    tile32, _ = run_entry("tile_k32", "tile",
+                          lambda: functools.partial(tile.tile_spmm, f256), xs[32], ref_h32,
+                          (M, 32))
+    win_vs_plain("tile", "headline", f256, 32, "fp32x2")
+
+    # ---- 5. tune at the headline size: K = 8 (P3: dg, dgt, span and tile
+    # rows) and K = 256 (P4: the tile rows)
     cache = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tpusparse_torch",
                          "_build", "tune_cache")
-    with tpusparse_torch.config_override(cache_dir=cache):
-        zero_counts()
-        res = tune(mat, xs[8], use_cache=False)
-        read_counts("tune_k8")
-    best_by_family = {}
-    for row in res.table:
-        s = row["schedule"]
-        if not row["ok"]:
-            raise AssertionError(f"tune candidate failed: {row['error']}")
-        geo = (f"ns={s['ns']}" if s["family"] == "dg_span" else
-               f"nw={s['nw']} resid={s['resid']} u={s['unroll']} i8={s['rowhot_i8']}")
-        log(f"[tune] {s['family']} rb={s['rb']} {geo} g={s['g']} kt={s['ktile']} "
-            f"{s['precision']}: {row['seconds'] * 1e3:.4f} ms, {row['gflops']:.2f} GF/s, "
-            f"pad {row['padding_rate']:.3f}, pack {row['pack_seconds']:.2f} s  ({power})"
-            + ("  [same plan as an earlier row: not timed again]" if "same_plan_as" in row
-               else ""))
-        fam = s["family"]
-        if fam not in best_by_family or row["seconds"] < best_by_family[fam]["seconds"]:
-            best_by_family[fam] = row
+
+    def run_tune(path, x):
+        with tpusparse_torch.config_override(cache_dir=cache):
+            zero_counts()
+            res_ = tune(mat, x, use_cache=False)
+            read_counts(path)
+        best_of = {}
+        for row in res_.table:
+            s = row["schedule"]
+            if not row["ok"]:
+                raise AssertionError(f"tune candidate failed: {row['error']}")
+            fam = s["family"]
+            geo = {"dg_span": f"ns={s['ns']}",
+                   "dgt_span": f"nw={s['nw']} resid={s['resid']} u={s['unroll']} "
+                               f"i8={s['rowhot_i8']}"}.get(fam, f"ct={s['ct']} u={s['unroll']}")
+            same = row.get("same_plan_as")
+            log(f"[tune] {path} {fam} rb={s['rb']} {geo} g={s['g']} kt={s['ktile']} "
+                f"{s['precision']}: {row['seconds'] * 1e3:.4f} ms, {row['gflops']:.2f} GF/s, "
+                f"pad {row['padding_rate']:.3f}, pack {row['pack_seconds']:.2f} s, "
+                f"{row['format_bytes'] / 2**20:.1f} MiB, same_plan_as "
+                + (f"{same['family']} rb={same['rb']} g={same['g']} (not timed again)"
+                   if same else "-") + f"  ({power})")
+            if fam not in best_of or row["seconds"] < best_of[fam]["seconds"]:
+                best_of[fam] = row
+        b = res_.best_schedule
+        log(f"[tune] {path} winner: family {b.family} rb={b.rb} g={b.g} kt={b.ktile}, "
+            f"{res_.best_seconds * 1e3:.4f} ms; launches "
+            + ", ".join(f"{rec['paths'][path]} {rec['name']}" for rec in kernels.values()
+                        if rec["paths"][path]))
+        return res_, best_of
+
+    def plan_of(row):
+        sched = Schedule(**{k: tuple(v) if isinstance(v, list) else v
+                            for k, v in row["schedule"].items()})
+        return build_plan(mat, sched)
+
+    res, best_by_family = run_tune("tune_k8", xs[8])
+    assert set(best_by_family) == {"dg_span", "dgt_span", "span_onehot", "tile_onehot"}
+    for which in ("dg", "dgt", "span", "tile"):
+        need("tune_k8", which)
     best = res.best_schedule
-    log(f"[tune] winner: {best.family} rb={best.rb} g={best.g} kt={best.ktile}, "
-        f"{res.best_seconds * 1e3:.4f} ms; launches {kernels['dg']['paths']['tune_k8']} "
-        f"dg_rows_cuda, {kernels['dgt']['paths']['tune_k8']} dgt_rows_cuda")
-    need("tune_k8", "dg")
-    need("tune_k8", "dgt")
     # the tuner's winner, held against its plain version at its own geometry
     # (the best row of each family follows with the yardsticks)
     win = res.best
     wf = win.formats[0]
     if best.family == "dgt_span":
         dgt_vs_plain("headline", wf, 8, tol)
-    else:
+    elif best.family == "dg_span":
         vs_plain("headline", wf, 8, wf.kt, wf.mode, tol)
+    else:
+        win_vs_plain("span" if best.family == "span_onehot" else "tile", "headline", wf, 8,
+                     "fp32x2")
+
+    res256, best256 = run_tune("tune_k256", xs[256])
+    assert set(best256) == {"tile_onehot"} and len(res256.table) == 3
+    need("tune_k256", "tile_stream")
+    win_vs_plain("tile_stream", "headline", res256.best.formats[0], 256, "fp32x2")
 
     # ---- 6. SpMV at the SpMV workload's size, and the column split and the
     # stream kernel through dgt_spmm
@@ -340,22 +508,8 @@ def main() -> int:
     spmv_fns, pack_s = {}, {}
 
     def run_path(path, which, make, x, want, shape):
-        """Makes the entry point's fn (packing included) and calls it once,
-        with every launch count set to 0 just before."""
-        zero_counts()
-        t0 = time.perf_counter()
-        fn = make()
-        torch.cuda.synchronize()
-        t_pack = time.perf_counter() - t0
-        y = fn(x)
-        torch.cuda.synchronize()
-        read_counts(path)
-        assert y.is_cuda and tuple(y.shape) == shape and bool(torch.isfinite(y).all())
-        check_result(y.cpu().numpy(), want, rtol=2e-3)
-        n_l = need(path, which)
-        log(f"[spmv] {path}: oracle ok at rtol 2e-3, {n_l} launch(es) of "
-            f"{kernels[which]['name']}, making the fn {t_pack:.2f} s (packing included)")
-        spmv_fns[path], pack_s[path] = fn, t_pack
+        fn, pack_s[path] = run_entry(path, which, make, x, want, shape, tag="spmv")
+        spmv_fns[path] = fn
         return fn
 
     # each path's kernel is then held against its plain version at the
@@ -387,6 +541,57 @@ def main() -> int:
     dgt_vs_plain("headline", fmt_s, 8, tol, stream=True)
     dgt_vs_plain("spmv", multi.formats[0], 8, tol, stream=True)
 
+    # P2: the default at 262144 x 262144, K = 8 is span_colsplit(2): X is
+    # 8 MB, past every dg and radix gate of the TPU-derived decision tree
+    sched_b8 = default_schedule(big, 8)
+    assert (sched_b8.family, sched_b8.col_split) == ("span_colsplit", 2)
+    zero_counts()
+    t0 = time.perf_counter()
+    y = tpusparse_torch.spmm(big, xb8)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    read_counts("spmm_262k_k8")
+    assert y.is_cuda and y.shape == (SPMV_N, 8) and bool(torch.isfinite(y).all())
+    check_result(y.cpu().numpy(), ref_b8, rtol=2e-3)
+    assert need("spmm_262k_k8", "span") == 2
+    log(f"[spmm] 262144^2 K=8: span_colsplit(2) rb={sched_b8.rb} ct={sched_b8.ct} "
+        f"g={sched_b8.g}: oracle ok at rtol 2e-3, 2 launches of span_rows_cuda, first call "
+        f"{dt:.2f} s (packing included)")
+    plan_b8 = build_plan(big, sched_b8)
+    for f, (lo, hi), t_p in zip(plan_b8.formats, plan_b8.meta["col_ranges"],
+                                plan_b8.meta["pack_seconds"]):
+        log(f"[spmm]   columns [{lo}, {hi}): ct={f.ct} P={f.n_programs} NC={f.n_chunks} "
+            f"G={f.chunk_g} nnz={f.nnz_real} pad={f.padding_rate:.3f} "
+            f"{f.memory_bytes / 2**20:.1f} MiB, pack {t_p:.2f} s")
+        win_vs_plain("span", "spmv", f, 8, "fp32x2")                # the path's own formats
+
+    # P5: the span stream kernel, on the headline's best span tune row at
+    # K = 8 and on P2's first sub-format
+    best_span = plan_of(best_by_family["span_onehot"])
+    f_span = best_span.formats[0]
+    lo0, hi0 = plan_b8.meta["col_ranges"][0]
+    f_b0 = plan_b8.formats[0]
+    sub0 = CooMatrix(big.rows[big.cols < hi0], big.cols[big.cols < hi0],
+                     big.vals[big.cols < hi0], (SPMV_N, hi0 - lo0))
+    xb8_0 = xb8[lo0:hi0]
+    ref_b8_0 = spmm_reference(sub0, xb8_0.astype(np.float64))
+    sstream_h, _ = run_entry("span_stream_headline", "span_stream",
+                             lambda: functools.partial(span.span_spmm, f_span, stream=True),
+                             xs[8], ref_h8, (M, 8))
+    sstream_b, _ = run_entry("span_stream_262k", "span_stream",
+                             lambda: functools.partial(span.span_spmm, f_b0, stream=True),
+                             xb8_0, ref_b8_0, (SPMV_N, 8))
+    win_vs_plain("span_stream", "headline", f_span, 8, "fp32x2")
+    win_vs_plain("span_stream", "spmv", f_b0, 8, "fp32x2")
+
+    # P7: SpMV through the span kernel, x widened to 8 columns
+    run_path("spmv_span_262k", "span", lambda: spmv_fn(big, "span"), xv, ref_v, (SPMV_N,))
+    f_sv = spmv_fns["spmv_span_262k"].format
+    log(f"[spmv]   span format: rb={f_sv.rb} ct={f_sv.ct} g={f_sv.chunk_g} "
+        f"P={f_sv.n_programs} NC={f_sv.n_chunks} pad={f_sv.padding_rate:.3f} "
+        f"{f_sv.memory_bytes / 2**20:.1f} MiB")
+    win_vs_plain("span", "spmv", f_sv, 8, "fp32x2")
+
     launches = {w: sum(rec["paths"].values()) for w, rec in kernels.items()}
     for w, n_l in launches.items():
         if n_l < 1:
@@ -395,15 +600,22 @@ def main() -> int:
         log(f"[path] launches of {rec['name']} by path: {rec['paths']}")
 
     # ---- 7. yardsticks: kernel, plain version, whole call, cuSPARSE, bound
-    def csr_of(a, m, n):
-        rows_t = torch.from_numpy(a.rows)
+    csr_cache = {}
+
+    def csr_of(a):
+        """A as a CSR tensor on the card, for cuSPARSE (made once per matrix)."""
+        if id(a) in csr_cache:
+            return csr_cache[id(a)][1]
+        m, n = a.shape
+        rows_t = torch.from_numpy(np.asarray(a.rows, np.int64))
         crow = torch.zeros(m + 1, dtype=torch.int64)
         crow[1:] = torch.cumsum(torch.bincount(rows_t, minlength=m), 0)
-        return torch.sparse_csr_tensor(crow, torch.from_numpy(a.cols),
-                                       torch.from_numpy(a.vals.astype(np.float32)),
-                                       size=(m, n)).to(dev)
-
-    a_csr = {"headline": csr_of(mat, M, N), "spmv": csr_of(big, SPMV_N, SPMV_N)}
+        order = np.lexsort((a.cols, a.rows))
+        csr = torch.sparse_csr_tensor(crow, torch.from_numpy(np.asarray(a.cols, np.int64)[order]),
+                                      torch.from_numpy(a.vals[order].astype(np.float32)),
+                                      size=(m, n)).to(dev)
+        csr_cache[id(a)] = (a, csr)  # holds a, so its id is not reused
+        return csr
 
     def time_cold(fn, x, iters=20):
         """Median seconds of one call with L2 cold: a 1 GiB buffer, twenty
@@ -424,12 +636,66 @@ def main() -> int:
         torch.cuda.synchronize()
         return float(np.median([s.elapsed_time(e) for s, e in times])) / 1e3
 
-    def yardstick(which, label, fmt, size, k, x, whole, pack=None):
-        """Times the kernel of ``which`` on ``fmt`` (kt-padded X of K
-        columns), its plain version, cuSPARSE on the same product and the
-        whole entry-point call ``whole(x)``."""
-        a_ = a_csr[size]
-        nnz, m, n = ((mat.nnz, M, N) if size == "headline" else (big.nnz, SPMV_N, SPMV_N))
+    def measure(which, label, fmts, a, k, kern, plain, xk, xd, whole, pack=None, bound_k=None):
+        """Times ``kern(xk)`` (the kernel launches of one product), its plain
+        version, cuSPARSE on the same product (A = ``a``) and the whole
+        entry-point call ``whole(xd)``; ``fmts`` are the formats launched."""
+        a_csr = csr_of(a)
+        nnz, (m, n) = a.nnz, a.shape
+        x2 = xd.view(-1, 1) if xd.ndim == 1 else xd
+
+        def lib(v):
+            return torch.sparse.mm(a_csr, v)
+
+        # REPS back-to-back readings each, interleaved; a number is their
+        # median, since one reading of a call this short moves with the host
+        runs = {"kernel": [], "plain": [], "library": [], "whole": []}
+        for _ in range(REPS):
+            for name, f, arg in (("kernel", kern, xk), ("plain", plain, xk),
+                                 ("library", lib, x2), ("whole", whole, xd)):
+                runs[name].append(time_fn(f, arg))
+        t = {name: float(np.median(v)) for name, v in runs.items()}
+        t["kernel_cold"] = time_cold(kern, xk)
+        t["library_cold"] = time_cold(lib, x2)
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        whole(xd)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        kb = k if bound_k is None else bound_k
+        b_ms, b_by = bound_ms(nnz, m, n, kb)
+        k_ms, p_ms = t["kernel"] * 1e3, t["plain"] * 1e3
+        desc = "; ".join(
+            f"rb={f.rb} " + (f"ns={f.ns}" if which in ("dg", "dg1") else
+                             f"nw={f.nw} resid={f.resid}" if which.startswith("dgt") else
+                             f"ct={f.ct}")
+            + f" g={f.chunk_g} P={f.n_programs} NC={f.n_chunks} pad={f.padding_rate:.3f}"
+            for f in fmts)
+        mib = sum(f.memory_bytes for f in fmts) / 2**20
+
+        def readings(name):
+            return " ".join(f"{v * 1e3:.4f}" for v in runs[name])
+
+        log(f"[yardstick] {kernels[which]['name']} {label} K={k} x{len(fmts)} launch(es): "
+            f"{desc}  ({power})")
+        log(f"[yardstick]   back to back, median of {REPS}: kernel {k_ms:.4f} ms "
+            f"({gflops(nnz, kb, k_ms / 1e3):.1f} GF/s, {nnz / k_ms / 1e6:.2f} Gnnz/s), "
+            f"plain {p_ms:.4f} ms, whole call {t['whole'] * 1e3:.4f} ms, cuSPARSE "
+            f"{t['library'] * 1e3:.4f} ms")
+        log(f"[yardstick]   readings (ms): kernel {readings('kernel')}; plain "
+            f"{readings('plain')}; whole {readings('whole')}; cuSPARSE {readings('library')}")
+        log(f"[yardstick]   cold L2 (median of 20): kernel {t['kernel_cold'] * 1e3:.4f} ms, "
+            f"cuSPARSE {t['library_cold'] * 1e3:.4f} ms")
+        log(f"[yardstick]   bound {b_ms:.4f} ms ({b_by}, K={kb}); kernel at "
+            f"{100 * b_ms / k_ms:.1f}% of it; format {mib:.1f} MiB"
+            + (f", pack {pack:.2f} s" if pack is not None else "")
+            + f"; peak device memory of one call {peak / 2**20:.1f} MiB")
+        return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": t["library"] * 1e3}
+
+    def yardstick(which, label, fmt, a, k, x, whole, pack=None, bound_k=None):
+        """``measure`` for a dg or dgt kernel on one format (X padded to
+        its kt, or x [N] for dg1)."""
         xd = torch.as_tensor(x, device=dev)
         x2 = xd.view(-1, 1) if xd.ndim == 1 else xd
         plain_fn = {"dg": dg.dg_rows_plain, "dg1": dg.dg1_rows_plain,
@@ -449,114 +715,119 @@ def main() -> int:
                 kw["nw"] = fmt.nw
         kern = functools.partial(kernels[which]["wrapper"], *args, rb=fmt.rb, **kw)
         plain = functools.partial(plain_fn, *args, rb=fmt.rb, **kw)
+        return measure(which, label, [fmt], a, k, kern, plain, xk, xd, whole, pack, bound_k)
 
-        def lib(v):
-            return torch.sparse.mm(a_, v)
+    def win_yardstick(which, label, parts, a, k, x, whole, pack=None, bound_k=None):
+        """``measure`` for a tile or span kernel over ``parts``, a list of
+        (format, first column of X): the launches of one product."""
+        xd = torch.as_tensor(x, device=dev)
+        x2 = xd.view(-1, 1) if xd.ndim == 1 else xd
+        kt = tile.choose_kt(min(tile.default_ktile(x2.shape[1]), 32))
+        xp = dg.pad_dense_cols(x2, -(-x2.shape[1] // kt) * kt)
+        is_tile, stream = which.startswith("tile"), which.endswith("_stream")
+        calls = []
+        for f, lo in parts:
+            start = f.chunk_tile if is_tile else f.c0
+            kw = dict(rb=f.rb, kt=kt, mode="fp32x2",
+                      **(dict(ct=f.ct) if is_tile or stream else {}))
+            calls.append(((start, f.cols, f.lrow, f.vals, f.nc_p), kw))
+        xk = [xp[lo:lo + f.shape[1]].contiguous() for f, lo in parts]
 
-        # REPS back-to-back readings each, interleaved; a number is their
-        # median, since one reading of a call this short moves with the host
-        runs = {"kernel": [], "plain": [], "library": [], "whole": []}
-        for _ in range(REPS):
-            for name, f, arg in (("kernel", kern, xk), ("plain", plain, xk),
-                                 ("library", lib, x2), ("whole", whole, xd)):
-                runs[name].append(time_fn(f, arg))
-        t = {name: float(np.median(v)) for name, v in runs.items()}
-        t["kernel_cold"] = time_cold(kern, xk)
-        t["library_cold"] = time_cold(lib, x2)
-        torch.cuda.reset_peak_memory_stats()
-        base_mem = torch.cuda.memory_allocated()
-        whole(xd)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base_mem
-        b_ms, b_by = bound_ms(nnz, m, n, k)
-        k_ms = t["kernel"] * 1e3
-        p_ms = t["plain"] * 1e3
-        geo = (f"ns={fmt.ns}" if which in ("dg", "dg1") else
-               f"nw={fmt.nw} resid={fmt.resid} P={fmt.n_programs} NC={fmt.n_chunks}")
+        def run(fn):
+            return lambda xs_: [fn(*args, xi, **kw) for (args, kw), xi in zip(calls, xs_)]
 
-        def readings(name):
-            return " ".join(f"{v * 1e3:.4f}" for v in runs[name])
-
-        log(f"[yardstick] {kernels[which]['name']} {label} K={k} rb={fmt.rb} {geo} "
-            f"g={fmt.chunk_g} pad={fmt.padding_rate:.3f}  ({power})")
-        log(f"[yardstick]   back to back, median of {REPS}: kernel {k_ms:.4f} ms "
-            f"({gflops(nnz, k, k_ms / 1e3):.1f} GF/s, {nnz / k_ms / 1e6:.2f} Gnnz/s), "
-            f"plain {p_ms:.4f} ms, whole call {t['whole'] * 1e3:.4f} ms, cuSPARSE "
-            f"{t['library'] * 1e3:.4f} ms")
-        log(f"[yardstick]   readings (ms): kernel {readings('kernel')}; plain "
-            f"{readings('plain')}; whole {readings('whole')}; cuSPARSE {readings('library')}")
-        log(f"[yardstick]   cold L2 (median of 20): kernel {t['kernel_cold'] * 1e3:.4f} ms, "
-            f"cuSPARSE {t['library_cold'] * 1e3:.4f} ms")
-        log(f"[yardstick]   bound {b_ms:.4f} ms ({b_by}); kernel at "
-            f"{100 * b_ms / k_ms:.1f}% of it; format {fmt.memory_bytes / 2**20:.1f} MiB"
-            + (f", pack {pack:.2f} s" if pack is not None else "")
-            + f"; peak device memory of one call {peak / 2**20:.1f} MiB")
-        return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": t["library"] * 1e3}
-
-    def plan_of(row):
-        sched = Schedule(**{k: tuple(v) if isinstance(v, list) else v
-                            for k, v in row["schedule"].items()})
-        return build_plan(mat, sched)
+        return measure(which, label, [f for f, _ in parts], a, k,
+                       run(kernels[which]["wrapper"]), run(kernels[which]["plain"]), xk, xd,
+                       whole, pack, bound_k)
 
     best_dg, best_dgt = plan_of(best_by_family["dg_span"]), plan_of(best_by_family["dgt_span"])
+    best_tile = plan_of(best_by_family["tile_onehot"])
     f_dg = best_dg.formats[0]
     vs_plain("headline", f_dg, 8, f_dg.kt, f_dg.mode, tol)
     dgt_vs_plain("headline", best_dgt.formats[0], 8, tol)
+    win_vs_plain("tile", "headline", best_tile.formats[0], 8, "fp32x2")
     plan1, plan64 = (build_plan(mat, default_schedule(mat, k)) for k in (1, 64))
+    tile256 = functools.partial(tile.tile_spmm, f256)
     stats = {
-        "dg": yardstick("dg", "headline, best dg tune row", best_dg.formats[0], "headline", 8,
+        "dg": yardstick("dg", "headline, best dg tune row", best_dg.formats[0], mat, 8,
                         xs[8], best_dg.fn, best_by_family["dg_span"]["pack_seconds"]),
-        "dg1": yardstick("dg1", "headline, default schedule", plan1.formats[0], "headline", 1,
+        "dg1": yardstick("dg1", "headline, default schedule", plan1.formats[0], mat, 1,
                          xs[1][:, 0].copy(), lambda v: plan1.fn(v.view(-1, 1))),
-        "dgt": yardstick("dgt", "headline, best dgt tune row", best_dgt.formats[0], "headline",
+        "dgt": yardstick("dgt", "headline, best dgt tune row", best_dgt.formats[0], mat,
                          8, xs[8], best_dgt.fn, best_by_family["dgt_span"]["pack_seconds"]),
-        "dgt_stream": yardstick("dgt_stream", "headline, stream_x", fmt_s, "headline", 8,
+        "dgt_stream": yardstick("dgt_stream", "headline, stream_x", fmt_s, mat, 8,
                                 xs[8], stream_h),
+        "tile": win_yardstick("tile", "headline, resident (P6)", [(f256, 0)], mat, 32, xs[32],
+                              tile32, t_pack256),
+        "tile_stream": win_yardstick("tile_stream", "headline, spmm default (P1)", [(f256, 0)],
+                                     mat, 256, xs[256], tile256, t_pack256),
+        "span": win_yardstick("span", "262144^2, spmm default span_colsplit(2) (P2)",
+                              [(f, lo) for f, (lo, _) in zip(plan_b8.formats,
+                                                             plan_b8.meta["col_ranges"])],
+                              big, 8, xb8, plan_b8.fn, sum(plan_b8.meta["pack_seconds"])),
+        "span_stream": win_yardstick("span_stream", "headline, best span tune row (P5)",
+                                     [(f_span, 0)], mat, 8, xs[8], sstream_h,
+                                     best_by_family["span_onehot"]["pack_seconds"]),
     }
-    yardstick("dg", "headline, default schedule", plan64.formats[0], "headline", 64, xs[64],
+    # the resident kernel on P1's product: what staging X buys at K = 256
+    win_yardstick("tile", "headline, P1's product on the resident kernel", [(f256, 0)], mat,
+                  256, xs[256], tile256)
+    win_yardstick("span", "headline, best span tune row", [(f_span, 0)], mat, 8, xs[8],
+                  best_span.fn, best_by_family["span_onehot"]["pack_seconds"])
+    win_yardstick("tile", "headline, best tile tune row", [(best_tile.formats[0], 0)], mat, 8,
+                  xs[8], best_tile.fn, best_by_family["tile_onehot"]["pack_seconds"])
+    win_yardstick("span_stream", "262144^2, P2's first sub-format (P5)", [(f_b0, 0)], sub0, 8,
+                  xb8_0, sstream_b)
+    win_yardstick("span", "262144^2, spmv_fn('span') (P7)", [(f_sv, 0)], big, 8,
+                  xv, spmv_fns["spmv_span_262k"], pack_s["spmv_span_262k"], bound_k=1)
+    yardstick("dg", "headline, default schedule", plan64.formats[0], mat, 64, xs[64],
               plan64.fn)
-    yardstick("dgt", "spmv dgt8", fmt8, "spmv", 1, xv, spmv_fns["spmv_dgt8_262k"],
+    yardstick("dgt", "spmv dgt8", fmt8, big, 1, xv, spmv_fns["spmv_dgt8_262k"],
               pack_s["spmv_dgt8_262k"])
-    yardstick("dgt", "spmv_multi_fn(8)", multi.formats[0], "spmv", 8, xb8, multi,
+    yardstick("dgt", "spmv_multi_fn(8)", multi.formats[0], big, 8, xb8, multi,
               pack_s["spmv_multi_262k"])
-    yardstick("dgt_stream", "spmv size, stream_x", multi.formats[0], "spmv", 8, xb8,
-              stream_b)
-    yardstick("dg1", "spmv auto", spmv_fns["spmv_auto_262k"].format, "spmv", 1, xv,
+    yardstick("dgt_stream", "spmv size, stream_x", multi.formats[0], big, 8, xb8, stream_b)
+    yardstick("dg1", "spmv auto", spmv_fns["spmv_auto_262k"].format, big, 1, xv,
               spmv_fns["spmv_auto_262k"], pack_s["spmv_auto_262k"])
 
-    # ---- 8. where the time of one spmm call goes (the tuner's winner, K=8)
+    # ---- 8. where the time of one call goes: the tuner's winner at K = 8,
+    # P1 (K = 256) and P2 (262144^2, K = 8)
     from torch.profiler import ProfilerActivity, profile
 
-    x8 = torch.as_tensor(xs[8], device=dev)
-    calls = 20
+    def profile_call(label, fn, x, calls=20):
+        def back_to_back():
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(x)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e6 / calls
 
-    def back_to_back():
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            win.fn(x8)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e6 / calls
+        back_to_back()
+        plain_wall_us = back_to_back()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall_us = back_to_back()
+        dev_us = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue  # host ops carry their kernels' time too: count kernels once
+            t_dev = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+            if t_dev > 0:
+                dev_us[e.key] = (t_dev / calls, e.count / calls)
+        busy = sum(t for t, _ in dev_us.values())
+        log(f"[profile] {label}, {calls} calls back to back (warm L2), per call: host wall "
+            f"{plain_wall_us:.1f} us ({wall_us:.1f} us under the profiler), device busy "
+            f"{busy:.1f} us"
+            + (f", device idle share {max(0.0, 1 - busy / plain_wall_us):.2f}" if busy else
+               " (the profiler saw no device time: not measured)"))
+        for key, (t_dev, n) in sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:8]:
+            log(f"[profile]   {t_dev:8.2f} us  x{n:g}  {key[:90]}")
 
-    back_to_back()
-    plain_wall_us = back_to_back()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall_us = back_to_back()
-    dev_us = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host ops carry their kernels' time too: count kernels once
-        t_dev = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-        if t_dev > 0:
-            dev_us[e.key] = (t_dev / calls, e.count / calls)
-    busy = sum(t for t, _ in dev_us.values())
-    log(f"[profile] spmm K=8 winner ({best.family}), {calls} calls back to back (warm L2), "
-        f"per call: host wall {plain_wall_us:.1f} us ({wall_us:.1f} us under the profiler), "
-        f"device busy {busy:.1f} us"
-        + (f", device idle share {max(0.0, 1 - busy / plain_wall_us):.2f}" if busy else
-           " (the profiler saw no device time: not measured)"))
-    for key, (t_dev, n) in sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:8]:
-        log(f"[profile]   {t_dev:8.2f} us  x{n:g}  {key[:90]}")
+    profile_call(f"spmm K=8 tune winner ({best.family})", win.fn,
+                 torch.as_tensor(xs[8], device=dev))
+    profile_call("P1 spmm K=256 (tile_onehot, stream kernel)", plan256.fn,
+                 torch.as_tensor(xs[256], device=dev), calls=10)
+    profile_call("P2 spmm 262144^2 K=8 (span_colsplit(2))", plan_b8.fn,
+                 torch.as_tensor(xb8, device=dev), calls=10)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     line = {"kernels": [

@@ -1,6 +1,7 @@
 """tpusparse_torch's CUDA kernels on the card: each kernel against its plain
-version for every kt and mode, the default SpMM path, tune and the SpMV
-entry points at a medium size.
+version for every kt and mode, the default SpMM paths (dg, tile, span and
+the column split), tune, build_tile_plan and the SpMV entry points at a
+medium size.
 Marked ``gpu``; without a CUDA device every test skips (the ``cuda``
 fixture decides, so every pytest worker collects the same tests).  Run on
 the card with ``python -m pytest tests/test_torch_gpu.py -q -m gpu``.
@@ -12,10 +13,15 @@ import torch
 
 import tpusparse_torch
 from tpusparse_torch.io import builder
+from tpusparse_torch.format import pack_tile
+from tpusparse_torch.generator import build_tile_plan
 from tpusparse_torch.kernels import dg_gather as dg
 from tpusparse_torch.kernels import dgt_gather as dgt
+from tpusparse_torch.kernels import span_gather as span
+from tpusparse_torch.kernels import tile_onehot as tile
+from tpusparse_torch.meta.set import create_init_metadata_set
 from tpusparse_torch.oracle import check_result, spmm_reference
-from tpusparse_torch.schedule import default_schedule
+from tpusparse_torch.schedule import PORTED_FAMILIES, default_schedule
 from tpusparse_torch.spmv import spmv_fn, spmv_multi_fn
 from tpusparse_torch.tune import tune
 
@@ -95,8 +101,9 @@ def test_tune_on_card(cuda, mat, tmp_path):
     with tpusparse_torch.config_override(cache_dir=str(tmp_path)):
         res = tune(mat, x, iters=3)
     assert all(r["ok"] and r["device"] == torch.cuda.get_device_name(cuda) for r in res.table)
-    assert {r["schedule"]["family"] for r in res.table} == {"dg_span", "dgt_span"}
-    assert res.best_schedule.family in ("dg_span", "dgt_span") and res.best_seconds > 0
+    assert {r["schedule"]["family"] for r in res.table} == {"dg_span", "dgt_span",
+                                                             "span_onehot", "tile_onehot"}
+    assert res.best_schedule.family in PORTED_FAMILIES and res.best_seconds > 0
     check_result(res.best(x).cpu().numpy(), spmm_reference(mat, x.astype(np.float64)),
                  rtol=2e-3)
 
@@ -172,3 +179,142 @@ def test_spmv_entry_points_on_card(cuda, mat):
         y = fn(xs)
         assert y.is_cuda and dgt.dgt_rows_cuda.launches == before + fn.n_splits
         check_result(y.cpu().numpy(), spmm_reference(mat, xs.astype(np.float64)), rtol=2e-3)
+
+
+def _window_vs_plain(which, fmt, k, dev, stream, mode, vals=None):
+    """Max error of a tile or span kernel against its plain version,
+    relative to |A|·|x|; checks that the wrapper counted one launch."""
+    x = torch.as_tensor(np.random.default_rng(4).standard_normal((fmt.shape[1], k)),
+                        dtype=torch.float32, device=dev)
+    kt = tile.choose_kt(min(tile.default_ktile(k), 32))
+    x = dg.pad_dense_cols(x, -(-k // kt) * kt).contiguous()
+    vals = fmt.vals if vals is None else vals
+    if which == "tile":
+        start = fmt.chunk_tile
+        kw = dict(rb=fmt.rb, ct=fmt.ct, kt=kt)
+        wrapper, plain = ((tile.tile_stream_rows_cuda, tile.tile_stream_rows_plain) if stream
+                          else (tile.tile_rows_cuda, tile.tile_rows_plain))
+    else:
+        start = fmt.c0
+        kw = dict(rb=fmt.rb, kt=kt, **(dict(ct=fmt.ct) if stream else {}))
+        wrapper, plain = ((span.span_stream_rows_cuda, span.span_stream_rows_plain) if stream
+                          else (span.span_rows_cuda, span.span_rows_plain))
+    args = (start, fmt.cols, fmt.lrow, vals, fmt.nc_p)
+    before = wrapper.launches
+    got = wrapper(*args, x, mode=mode, **kw)
+    want = plain(*args, x, mode=mode, **kw)
+    scale = plain(start, fmt.cols, fmt.lrow, vals.abs(), fmt.nc_p, x.abs(), mode="fp32", **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and got.shape == want.shape and got.is_cuda
+    denom = torch.maximum(scale.double(), torch.ones((), dtype=torch.float64, device=dev))
+    return float(((got.double() - want.double()).abs() / denom).max())
+
+
+@pytest.mark.parametrize("mode,k,rb,ct,g,stream", [
+    ("fp32x2", 8, 1024, 1024, 512, False), ("fp32", 32, 1024, 512, 256, False),
+    ("bf16", 16, 512, 1024, 256, False), ("fp32x2", 5, 512, 1024, 256, False),
+    ("fp32x2", 100, 1024, 1024, 512, False),     # K-tiled: four tiles of 32
+    ("fp32x2", 32, 2048, 1024, 512, False),      # 256 KB tile: the global-atomic branch
+    ("fp32x2", 256, 1024, 1024, 512, True), ("bf16", 8, 1024, 1024, 512, True),
+    ("fp32", 5, 512, 512, 256, True), ("fp32x2", 32, 2048, 1024, 512, True),
+])
+def test_tile_kernels_match_plain(cuda, mat, mode, k, rb, ct, g, stream):
+    fmt = pack_tile(create_init_metadata_set(mat), 0, out_rows=4096, rb=rb, ct=ct, g=g,
+                    device=cuda)
+    assert _window_vs_plain("tile", fmt, k, cuda, stream, mode) <= 1e-5
+    kt = tile.choose_kt(min(k, 32))
+    assert tile.tile_uses_shared_tile(rb, kt, stream=stream) == (rb * kt * 4 <= 200 * 1024)
+
+
+@pytest.mark.parametrize("mode,k,rb,ct,g,stream", [
+    ("fp32x2", 8, 512, 1024, 512, False), ("fp32", 32, 1024, 1024, 256, False),
+    ("bf16", 16, 512, 512, 512, False), ("fp32x2", 5, 256, 1024, 256, False),
+    ("fp32x2", 100, 512, 1024, 512, False),
+    ("fp32x2", 32, 2048, 1024, 512, False),      # 256 KB tile: the global-atomic branch
+    ("fp32x2", 8, 512, 1024, 512, True), ("bf16", 32, 512, 1024, 512, True),
+    ("fp32", 100, 1024, 4096, 512, True),        # window staged in slices
+    ("fp32x2", 8, 2048, 4096, 512, True),        # 64 KB tile + 128 KB window, opted in
+    ("fp32x2", 32, 2048, 1024, 512, True),       # global-atomic branch, window staged
+])
+def test_span_kernels_match_plain(cuda, mat, mode, k, rb, ct, g, stream):
+    fmt = span.pack_span(mat, rb=rb, ct=ct, g=g, device=cuda)
+    assert _window_vs_plain("span", fmt, k, cuda, stream, mode) <= 1e-5
+    kt = tile.choose_kt(min(k, 32))
+    assert span.span_uses_shared_tile(rb, kt, g=g, ct=ct, stream=stream) == \
+        (rb * kt * 4 <= 200 * 1024)
+    if stream and (k, ct) == (100, 4096):
+        assert span.span_stream_slice_rows(rb, kt, g, ct) < ct
+
+
+def test_span_value_plane_on_card(cuda, mat):
+    fmt = span.pack_span(mat, rb=512, ct=1024, g=512, keep_perm=True, device=cuda)
+    new = np.random.default_rng(9).standard_normal(mat.nnz).astype(np.float32)
+    plane = span.with_values(fmt, new).vals
+    assert _window_vs_plain("span", fmt, 8, cuda, False, "fp32x2", vals=plane) <= 1e-5
+    x = np.random.default_rng(10).standard_normal((4096, 8)).astype(np.float32)
+    from tpusparse_torch.io.mtx import CooMatrix
+    want = spmm_reference(CooMatrix(mat.rows, mat.cols, new, mat.shape), x.astype(np.float64))
+    for stream in (False, True):
+        y = span.span_spmm(fmt, x, vals=plane, stream=stream)
+        check_result(y.cpu().numpy(), want, rtol=2e-3)
+
+
+@pytest.fixture(scope="module")
+def wide():
+    # 262144 columns: X of 8 fp32 columns is 8 MB, past every dg and radix
+    # gate, so K = 8 takes span_colsplit(2) and K = 5 span_onehot
+    return builder.power_law_coo(4096, 262144, avg_nnz_per_row=16.0, seed=22)
+
+
+@pytest.mark.parametrize("k,family,counter,launches", [
+    (8, "span_colsplit", "span", 2), (5, "span_onehot", "span", 1),
+    (200, "tile_onehot", "tile", 1),
+])
+def test_spmm_wide_and_large_paths_on_card(cuda, mat, wide, k, family, counter, launches):
+    a = mat if family == "tile_onehot" else wide
+    x = np.random.default_rng(k).standard_normal((a.shape[1], k)).astype(np.float32)
+    assert default_schedule(a, k).family == family
+    wrapper = span.span_rows_cuda if counter == "span" else tile.tile_rows_cuda
+    before = wrapper.launches
+    y = tpusparse_torch.spmm(a, x)
+    assert y.is_cuda and y.shape == (a.shape[0], k)
+    assert wrapper.launches == before + launches
+    check_result(y.cpu().numpy(), spmm_reference(a, x.astype(np.float64)), rtol=2e-3)
+
+
+def test_tile_plan_and_spmv_span_on_card(cuda, mat):
+    x = np.random.default_rng(11).standard_normal((4096, 40)).astype(np.float32)
+    before = tile.tile_rows_cuda.launches
+    plan = build_tile_plan(mat, rb=512, ct=512, g=256)
+    check_result(plan(x).cpu().numpy(), spmm_reference(mat, x.astype(np.float64)), rtol=2e-3)
+    assert tile.tile_rows_cuda.launches == before + 1
+    v = np.random.default_rng(12).standard_normal(4096).astype(np.float32)
+    want = spmm_reference(mat, v.astype(np.float64))
+    fn = spmv_fn(mat, "span")
+    for arg in (v, torch.as_tensor(v, device=cuda)):   # a tensor on the card is taken as is
+        before = span.span_rows_cuda.launches
+        y = fn(arg)
+        assert y.is_cuda and y.shape == (4096,) and span.span_rows_cuda.launches == before + 1
+        check_result(y.cpu().numpy(), want, rtol=2e-3)
+    xs = torch.as_tensor(np.stack([v] * 3, axis=1), device=cuda)
+    check_result(spmv_multi_fn(mat, 3, col_split=2)(xs).cpu().numpy(),
+                 np.stack([want] * 3, axis=1), rtol=2e-3)
+    check_result(spmv_fn(mat, "segment")(xs[:, 0]).cpu().numpy(), want, rtol=2e-3)
+
+
+@pytest.mark.parametrize("rb,kt", [(512, 32), (1792, 8)])
+def test_opt_in_is_per_library(cuda, mat, rb, kt):
+    # dg, tile and span each launch gather_kernel from their own library; an
+    # opt-in past 48 KB made by one (dg first) must not be taken for another's
+    x = torch.as_tensor(np.random.default_rng(13).standard_normal((4096, kt)),
+                        dtype=torch.float32, device=cuda)
+    f = dg.pack_dg(mat, rb=rb, ns=8, g=512, kt=kt, device=cuda)
+    args = (f.c0, f.cols, f.lrow, f.vals, f.nc_p, x)
+    torch.testing.assert_close(dg.dg_rows_cuda(*args, rb=rb, kt=kt, mode="fp32x2"),
+                               dg.dg_rows_plain(*args, rb=rb, kt=kt, mode="fp32x2"),
+                               rtol=1e-5, atol=1e-4)
+    t = pack_tile(create_init_metadata_set(mat), 0, out_rows=4096, rb=rb, ct=512, g=256,
+                  device=cuda)
+    assert _window_vs_plain("tile", t, kt, cuda, False, "fp32") <= 1e-5
+    s = span.pack_span(mat, rb=rb, ct=1024, g=512, device=cuda)
+    assert _window_vs_plain("span", s, kt, cuda, False, "fp32") <= 1e-5

@@ -17,7 +17,10 @@ FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+tpusparse(\.|
 def test_import_loads_no_jax_and_no_tpusparse():
     code = ("import sys, tpusparse_torch, tpusparse_torch.tune, "
             "tpusparse_torch.schedule, tpusparse_torch.kernels.dg_gather, "
-            "tpusparse_torch.kernels.dgt_gather, tpusparse_torch.spmv; "
+            "tpusparse_torch.kernels.dgt_gather, tpusparse_torch.kernels.tile_onehot, "
+            "tpusparse_torch.kernels.span_gather, tpusparse_torch.format, "
+            "tpusparse_torch.generator, tpusparse_torch.transforms, tpusparse_torch.ops, "
+            "tpusparse_torch.spmv; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'tpusparse' or m.startswith('tpusparse.')]; "
             "print(bad); sys.exit(1 if bad else 0)")

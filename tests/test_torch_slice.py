@@ -90,7 +90,8 @@ def test_time_fn_refuses_a_cpu_output():
 
 @pytest.mark.parametrize("n,k", [(400, 1), (400, 3), (400, 8), (400, 40), (400, 64),
                                  (400, 200), (2_000_000, 1), (300_000, 3), (400_000, 8),
-                                 (1_000_000, 8), (100_000, 64), (2_000_000, 64), (400, None)])
+                                 (1_000_000, 8), (100_000, 64), (2_000_000, 64), (400, None),
+                                 (32768, 256), (262144, 8), (262144, 5)])
 def test_default_schedule_equals_jax(n, k):
     tmat = CooMatrix(np.array([0]), np.array([0]), np.array([1.0]), (10, n))
     jmat = tpusparse.CooMatrix(np.array([0]), np.array([0]), np.array([1.0]), (10, n))
@@ -109,6 +110,24 @@ def test_default_candidates_equal_jax_dg_block(k, full):
     got = [s.describe() for s in ttune.default_candidates(tmat, k, full=full)]
     assert got == want
     assert any(s["family"] == "dgt_span" for s in got) == (k > 1)
+
+
+@pytest.mark.parametrize("k,full", [(8, False), (64, False), (200, False), (200, True)])
+@pytest.mark.parametrize("n", [600, 60000])
+def test_default_candidates_equal_jax_without_unported_families(k, full, n):
+    # at n = 60000 X passes no span gate at K = 64 (span_colsplit) and K = 8
+    # takes the dgt block only where dg's gate holds
+    jmat = jbuilder.power_law_coo(500, n, avg_nnz_per_row=8.0, seed=4)
+    tmat = CooMatrix(jmat.rows, jmat.cols, jmat.vals, jmat.shape)
+    want = [s.describe() for s in jtune.default_candidates(jmat, k, full=full)
+            if s.family in tsched.PORTED_FAMILIES]
+    got = [s.describe() for s in ttune.default_candidates(tmat, k, full=full)]
+    assert got == want
+    fams = [s["family"] for s in got]
+    assert fams.count("tile_onehot") == (9 if full else 3)
+    assert ("span_colsplit" in fams) == (k == 64 and n == 60000)
+    assert ("span_onehot" in fams) == (k <= 128 and not (k == 64 and n == 60000))
+    assert ttune._span_configs(jmat.density) == jtune._span_configs(jmat.density)
 
 
 def test_default_candidates_insert_auto_rb_dgt_like_jax():
@@ -195,15 +214,65 @@ def test_build_plan_dgt_span_matches_jax():
     check_result(tplan(x).numpy(), want, rtol=1e-5)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(family="span_onehot", rb=64, ct=128, g=32, unroll=4),
+    dict(family="tile_onehot", rb=64, ct=64, g=32, unroll=4),
+    dict(family="span_colsplit", col_split=2, rb=64, ct=128, g=32, unroll=4),
+    dict(family="span_colsplit", col_split=3, rb=64, ct=128, g=32, unroll=4),
+])
+def test_build_plan_tile_and_span_families_match_jax(kw):
+    tmat = _mat(seed=16)
+    jmat = tpusparse.CooMatrix(tmat.rows, tmat.cols, tmat.vals, tmat.shape)
+    jplan = jsched.build_plan(jmat, jsched.Schedule(**kw))
+    tplan = tsched.build_plan(tmat, tsched.Schedule(**kw), device="cpu")
+    assert tplan.meta["schedule"] == jplan.meta["schedule"]
+    assert tplan.meta["n_subs"] == jplan.meta["n_subs"] == len(tplan.formats)
+    assert tplan.meta["padding_rate"] == pytest.approx(jplan.meta["padding_rate"])
+    if kw["family"] == "span_colsplit":
+        assert tplan.meta["operator_history"] == jplan.meta["operator_history"]
+    else:
+        assert kw["family"] in tplan.meta["operator_history"] or "grid_block" in \
+            tplan.meta["operator_history"]
+    for tf, jf in zip(tplan.formats, jplan.formats):
+        fields = ("c0", "cols", "lrow", "vals", "slot_of_origrow") if hasattr(jf, "c0") else \
+            ("chunk_tile", "cols", "lrow", "vals", "slot_of_origrow")
+        for f in fields:
+            np.testing.assert_array_equal(getattr(tf, f).numpy(), np.asarray(getattr(jf, f)),
+                                          err_msg=f)
+        assert (tf.ct, tf.rb, tf.chunk_g) == (jf.ct, jf.rb, jf.chunk_g)
+    x = _x(400, 8, seed=17)
+    want = spmm_reference(jmat, x.astype(np.float64))
+    np.testing.assert_allclose(tplan(x).numpy(), np.asarray(jplan(x)), rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+    check_result(tplan(x).numpy(), want, rtol=1e-5)
+    assert tplan.cost_summary(8)["format_bytes"] == sum(f.memory_bytes for f in tplan.formats)
+
+
+def test_spmm_default_tile_path_at_wide_k_matches_jax():
+    # K > 128: the default schedule is tile_onehot, two K tiles on the TPU
+    tmat = _mat(m=120, n=100, seed=18)
+    jmat = tpusparse.CooMatrix(tmat.rows, tmat.cols, tmat.vals, tmat.shape)
+    x = _x(100, 200, seed=19)
+    assert tsched.default_schedule(tmat, 200).family == "tile_onehot"
+    y = tpusparse_torch.spmm(tmat, x, device="cpu")
+    assert y.shape == (120, 200)
+    want = spmm_reference(jmat, x.astype(np.float64))
+    np.testing.assert_allclose(y.numpy(), np.asarray(tpusparse.spmm(jmat, x)), rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+    check_result(y.numpy(), want, rtol=1e-5)
+
+
 def test_tune_cpu_picks_a_dg_candidate(tmp_path):
-    # a candidate of either ported family, dg_span or dgt_span
+    # a candidate of a ported family: at K = 8 dg_span, dgt_span, span_onehot
+    # and tile_onehot are all in the list
     mat = _mat(seed=7)
     x = _x(400, 8, seed=8)
     with tpusparse_torch.config_override(cache_dir=str(tmp_path)):
         res = ttune.tune(mat, x, iters=2, device="cpu")
         again = ttune.tune(mat, x, iters=2, device="cpu", budget=1)
-    assert res.best_schedule.family in ("dg_span", "dgt_span")
-    assert {r["schedule"]["family"] for r in res.table} == {"dg_span", "dgt_span"}
+    assert res.best_schedule.family in tsched.PORTED_FAMILIES
+    assert {r["schedule"]["family"] for r in res.table} == {"dg_span", "dgt_span",
+                                                             "span_onehot", "tile_onehot"}
     assert all(r["ok"] and r["device"] == "cpu" for r in res.table)
     assert len(res.table) == len(ttune.default_candidates(mat, 8))
     check_result(res.best(x).numpy(), spmm_reference(mat, x.astype(np.float64)), rtol=2e-3)

@@ -1,0 +1,176 @@
+"""tpusparse_torch.kernels.span_gather against the JAX package's span_gather.
+
+The packer must emit the JAX packer's arrays (the JAX side may run its
+native span_pack; the port runs the numpy walk, which must agree), and the
+port's span_spmm on the CPU (the kernels' plain versions) must match the
+JAX span_spmm (Pallas interpret mode, as tests/test_span_kernel.py runs it)
+and the oracle.  Tolerances: fp32 1e-5 of max|ref|; fp32x2 1e-4 of
+max|ref| (the JAX side's hi/lo bf16 split of X; the port computes fp32 and
+is held to 1e-5 against the oracle); bf16 5e-2.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpusparse.io import builder as jbuilder
+from tpusparse.kernels import span_gather as jspan
+from tpusparse.oracle import check_result, spmm_reference
+from tpusparse_torch.io.mtx import CooMatrix
+from tpusparse_torch.kernels import span_gather as tspan
+
+STATIC = ("n_programs", "n_chunks", "chunk_g", "rb", "ct", "shape", "nnz_real")
+TOL = {"fp32": 1e-5, "fp32x2": 1e-4, "bf16": 5e-2}
+
+
+def _case(m=300, n=400, k=8, avg=6.0, seed=0):
+    jmat = jbuilder.power_law_coo(m, n, avg_nnz_per_row=avg, seed=seed)
+    x = np.random.default_rng(seed + 1).standard_normal((n, k)).astype(np.float32)
+    return jmat, CooMatrix(jmat.rows, jmat.cols, jmat.vals, jmat.shape), x
+
+
+def _assert_same_format(jfmt, tfmt):
+    for k in tspan.SPAN_FIELDS:
+        want = np.asarray(getattr(jfmt, k))
+        got = getattr(tfmt, k)
+        if got.dtype == torch.bfloat16:
+            got, want = got.float(), want.astype(np.float32)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=k)
+    for k in STATIC:
+        assert getattr(tfmt, k) == getattr(jfmt, k), k
+    if jfmt.perm_of_nz is None:
+        assert tfmt.perm_of_nz is None
+    else:
+        np.testing.assert_array_equal(tfmt.perm_of_nz, jfmt.perm_of_nz)
+
+
+@pytest.mark.parametrize("balance", [True, False])
+@pytest.mark.parametrize("rb,ct,g", [(64, 128, 32), (128, 64, 16), (32, 256, 64)])
+def test_pack_span_equals_jax(balance, rb, ct, g):
+    jmat, tmat, _ = _case(m=200, n=2000, avg=9.0, seed=7)
+    kw = dict(rb=rb, ct=ct, g=g, balance=balance, keep_perm=True)
+    jfmt = jspan.pack_span(jmat, **kw)
+    tfmt = tspan.pack_span(tmat, device="cpu", **kw)
+    _assert_same_format(jfmt, tfmt)
+    assert tfmt.memory_bytes == jfmt.memory_bytes
+    # nc_p is the walk's chunk count; every chunk past it is padding
+    vals = np.asarray(jfmt.vals)
+    nc_p = tfmt.nc_p.numpy().reshape(-1)
+    assert nc_p.max() == jfmt.n_chunks
+    for p in range(jfmt.n_programs):
+        assert not vals[p, nc_p[p]:].any() and vals[p, nc_p[p] - 1].any()
+
+
+def test_span_chunk_walk_equals_jax():
+    rng = np.random.default_rng(3)
+    starts = np.array([0, 40, 40, 130])            # an empty program
+    cols_s = np.concatenate([np.sort(rng.integers(0, 900, 40)), np.sort(rng.integers(0, 900, 90))])
+    lrow_s = rng.integers(0, 16, 130)
+    vals_s = rng.standard_normal(130).astype(np.float32)
+    want = jspan.span_chunk_numpy(cols_s, lrow_s, vals_s, starts, 16, 120, keep_perm=True)
+    got = tspan.span_chunk_numpy(cols_s, lrow_s, vals_s, starts, 16, 120, keep_perm=True)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_pack_span_metadata_set_input_val_dtype_and_out_rows():
+    from tpusparse.meta.set import create_init_metadata_set as jms
+    from tpusparse_torch.meta.set import create_init_metadata_set as tms
+
+    jmat, tmat, x = _case(seed=5)
+    kw = dict(out_rows=320, rb=64, ct=128, g=32)
+    _assert_same_format(jspan.pack_span(jms(jmat), 0, **kw),
+                        tspan.pack_span(tms(tmat), 0, device="cpu", **kw))
+    jfmt = jspan.pack_span(jmat, rb=64, ct=128, g=32, val_dtype="bfloat16")
+    tfmt = tspan.pack_span(tmat, rb=64, ct=128, g=32, val_dtype="bfloat16", device="cpu")
+    assert tfmt.vals.dtype == torch.bfloat16
+    _assert_same_format(jfmt, tfmt)
+    ref = spmm_reference(jmat, x.astype(np.float64))
+    np.testing.assert_allclose(tspan.span_spmm(tfmt, x, precision="bf16").numpy(),
+                               np.asarray(jspan.span_spmm(jfmt, x, precision="bf16")),
+                               rtol=0, atol=TOL["bf16"] * np.abs(ref).max())
+    with pytest.raises(ValueError, match="float dtype"):
+        tspan.pack_span(tmat, val_dtype="int32", device="cpu")
+
+
+@pytest.mark.parametrize("precision,k,stream", [
+    ("fp32", 8, False), ("fp32x2", 5, False), ("bf16", 16, False), ("fp32x2", 100, False),
+    ("fp32", 8, True), ("fp32x2", 12, True),
+])
+def test_span_spmm_matches_jax(precision, k, stream):
+    jmat, tmat, x = _case(k=k, seed=2)
+    kw = dict(rb=64, ct=128, g=32)
+    jfmt = jspan.pack_span(jmat, **kw)
+    ref = spmm_reference(jmat, x.astype(np.float64))
+    yj = np.asarray(jspan.span_spmm(jfmt, x, precision=precision, stream=stream))
+    fields = {f: np.asarray(getattr(jfmt, f)) for f in tspan.SPAN_FIELDS}
+    from_jax = tspan.span_format_from_numpy(fields, device="cpu",
+                                            **{f: getattr(jfmt, f) for f in STATIC})
+    for fmt in (tspan.pack_span(tmat, device="cpu", **kw), from_jax):
+        yt = tspan.span_spmm(fmt, x, precision=precision, stream=stream)
+        assert isinstance(yt, torch.Tensor) and yt.shape == (300, k)
+        np.testing.assert_allclose(yt.numpy(), yj, rtol=0, atol=TOL[precision] * np.abs(ref).max())
+        check_result(yt.numpy(), ref, rtol=8e-2 if precision == "bf16" else 1e-5)
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_with_values_and_value_plane_match_jax(stream):
+    jmat, tmat, x = _case(seed=9)
+    kw = dict(rb=64, ct=128, g=32, keep_perm=True)
+    jfmt = jspan.pack_span(jmat, **kw)
+    tfmt = tspan.pack_span(tmat, device="cpu", **kw)
+    new = np.random.default_rng(4).standard_normal(jmat.nnz).astype(np.float32)
+    jnew, tnew = jspan.with_values(jfmt, new), tspan.with_values(tfmt, new)
+    _assert_same_format(jnew, tnew)
+    ref = spmm_reference(CooMatrix(tmat.rows, tmat.cols, new, tmat.shape), x.astype(np.float64))
+    # the value plane as an override of the packed one (the trainable path)
+    yj = np.asarray(jspan.span_spmm(jfmt, x, precision="fp32", stream=stream, vals=jnew.vals))
+    yt = tspan.span_spmm(tfmt, x, precision="fp32", stream=stream, vals=tnew.vals)
+    np.testing.assert_allclose(yt.numpy(), yj, rtol=0, atol=1e-5 * np.abs(ref).max())
+    check_result(yt.numpy(), ref, rtol=1e-5)
+    check_result(tspan.span_spmm(tnew, x).numpy(), ref, rtol=1e-5)
+    with pytest.raises(ValueError, match="vals must be"):
+        tspan.span_spmm(tfmt, x, vals=tnew.vals[:, :1])
+
+
+def test_span_format_from_numpy_checks_indices():
+    jmat, _, _ = _case(seed=11)
+    jfmt = jspan.pack_span(jmat, rb=64, ct=128, g=32)
+    fields = {k: np.asarray(getattr(jfmt, k)).copy() for k in tspan.SPAN_FIELDS}
+    static = {k: getattr(jfmt, k) for k in STATIC}
+    fmt = tspan.span_format_from_numpy(fields, device="cpu", **static)
+    np.testing.assert_array_equal(fmt.nc_p.numpy(), tspan.pack_span(
+        CooMatrix(jmat.rows, jmat.cols, jmat.vals, jmat.shape), rb=64, ct=128, g=32,
+        device="cpu").nc_p.numpy())
+    for name, bad in (("cols", 128), ("lrow", 64), ("c0", 400)):
+        broken = dict(fields)
+        broken[name] = fields[name].copy()
+        broken[name][0, 0, 0] = bad
+        with pytest.raises(ValueError, match="out of range"):
+            tspan.span_format_from_numpy(broken, device="cpu", **static)
+    with pytest.raises(ValueError, match="shape"):
+        tspan.span_format_from_numpy(dict(fields, lrow=fields["lrow"][:1]), device="cpu",
+                                     **static)
+
+
+def test_plain_versions_and_wrappers():
+    _, tmat, x = _case(seed=12)
+    fmt = tspan.pack_span(tmat, rb=64, ct=128, g=32, device="cpu")
+    xt = torch.from_numpy(x)
+    args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p, xt)
+    torch.testing.assert_close(tspan.span_stream_rows_plain(*args, rb=64, ct=128, kt=8,
+                                                            mode="fp32x2"),
+                               tspan.span_rows_plain(*args, rb=64, kt=8, mode="fp32x2"))
+    # a value past a program's real chunks adds nothing, as in the kernels
+    p = int(torch.argmin(fmt.nc_p.reshape(-1)))
+    vals = fmt.vals.clone()
+    vals[p, -1, 0] = 5.0
+    assert int(fmt.nc_p.reshape(-1)[p]) < fmt.n_chunks
+    torch.testing.assert_close(
+        tspan.span_rows_plain(fmt.c0, fmt.cols, fmt.lrow, vals, fmt.nc_p, xt, rb=64, kt=8,
+                              mode="fp32"),
+        tspan.span_rows_plain(*args, rb=64, kt=8, mode="fp32"))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tspan.span_rows_cuda(*args, rb=64, kt=8, mode="fp32")
+    with pytest.raises(ValueError, match="X is on"):
+        tspan.span_spmm(fmt, torch.zeros((400, 8), device="meta"))

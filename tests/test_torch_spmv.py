@@ -20,6 +20,7 @@ from tpusparse_torch import spmv as tspmv
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels.dg_gather import DgFormat
 from tpusparse_torch.kernels.dgt_gather import DgtFormat
+from tpusparse_torch.kernels.span_gather import SpanFormat
 
 
 def _mats(m=300, n=400, avg=6.0, seed=12):
@@ -28,7 +29,8 @@ def _mats(m=300, n=400, avg=6.0, seed=12):
 
 
 @pytest.mark.parametrize("method,fmt_type", [("auto", DgFormat), ("dg", DgFormat),
-                                             ("dgt8", DgtFormat), ("segment", None)])
+                                             ("dgt8", DgtFormat), ("span", SpanFormat),
+                                             ("segment", None)])
 def test_spmv_fn_matches_oracle(method, fmt_type):
     jmat, tmat = _mats()
     x = np.random.default_rng(2).standard_normal(400).astype(np.float32)
@@ -60,6 +62,20 @@ def test_dgt8_matches_jax():
     yt = tspmv.spmv_fn(tmat, "dgt8", device="cpu")(x).numpy()
     ref = spmv_reference(jmat, x.astype(np.float64))
     np.testing.assert_allclose(yt, yj, rtol=0, atol=1e-4 * np.abs(ref).max())
+
+
+def test_span_matches_jax():
+    # x widened to 8 columns through the span kernel, at the tuner's first
+    # span point (tpusparse/spmv.py:118-133)
+    from tpusparse.tune import _span_configs
+
+    jmat, tmat = _mats(seed=16)
+    x = np.random.default_rng(5).standard_normal(400).astype(np.float32)
+    fn = tspmv.spmv_fn(tmat, "span", device="cpu")
+    yj = np.asarray(jspmv.spmv_fn(jmat, "span")(x))
+    ref = spmv_reference(jmat, x.astype(np.float64))
+    assert (fn.format.rb, fn.format.ct, fn.format.chunk_g) == _span_configs(jmat.density)[0]
+    np.testing.assert_allclose(fn(x).numpy(), yj, rtol=0, atol=1e-4 * np.abs(ref).max())
 
 
 @pytest.mark.parametrize("col_split", [None, 1, 2, 3])
@@ -97,7 +113,7 @@ def test_spmv_multi_fn_matches_jax():
     np.testing.assert_allclose(yt, yj, rtol=0, atol=1e-4 * np.abs(ref).max())
 
 
-@pytest.mark.parametrize("method,item", [("radix", "A.7"), ("stripe", "A.7"), ("span", "A.6")])
+@pytest.mark.parametrize("method,item", [("radix", "A.7"), ("stripe", "A.7")])
 def test_unported_methods_raise(method, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         tspmv.spmv_fn(_mats()[1], method, device="cpu")

@@ -9,8 +9,10 @@ beside a plain PyTorch version of the same function.
 Entry points run on the card (``device="cuda"``, the default) and raise
 when there is none; only ``device="cpu"`` runs the plain versions.  Ported
 so far: ``spmm``, ``tune.tune`` and ``schedule.build_plan`` with the
-``dg_span`` and ``dgt_span`` schedule families, and SpMV (``spmv``,
-``spmv.spmv_fn`` with methods auto/dg/dgt8/segment, ``spmv.spmv_multi_fn``).
+``dg_span``, ``dgt_span``, ``tile_onehot``, ``span_onehot`` and
+``span_colsplit`` schedule families, ``generator.build_tile_plan``, and
+SpMV (``spmv``, ``spmv.spmv_fn`` with methods auto/dg/dgt8/span/segment,
+``spmv.spmv_multi_fn``).
 """
 
 from tpusparse_torch.config import Config, config_override, get_config, set_config
@@ -26,7 +28,8 @@ def spmm(mat, x, schedule=None, device="cuda"):
     """One-shot SpMM: Y = A @ X as a tensor on ``device``.  X is [N, K]
     (numpy or a tensor on ``device``).  With no schedule, takes the JAX
     package's default for the K regime (``dg_span`` at K <= 128 where X
-    passes the size gate); pass a Schedule to control it, or use
+    passes the size gate, ``span_onehot`` or ``span_colsplit`` past it,
+    ``tile_onehot`` at K > 128); pass a Schedule to control it, or use
     ``tpusparse_torch.tune.tune`` for the autotuned path."""
     from tpusparse_torch.schedule import build_plan, default_schedule
 

@@ -22,55 +22,15 @@
 // bf16: each product rounded to bf16, summed in fp32.
 //
 // Design (simple and right first): gather_common.cuh's gather_kernel with
-// the DgSlots decode below.  The [rb, KT] row tile lives in shared memory
-// where it fits the opt-in limit; rb = 2048 at KT = 32 (256 KB) takes the
-// global-atomic branch.
+// its WindowSlots decode (column c0 + cols, shared with span_gather.cu).
+// The [rb, KT] row tile lives in shared memory where it fits the opt-in
+// limit; rb = 2048 at KT = 32 (256 KB) takes the global-atomic branch.
 //
 // Bound.  Memory: 12 bytes per slot of the format (cols, lrow, vals) plus
 // the X rows gathered and Y; the arithmetic is 2 flops per slot and column.
 // See PERF.md for its time against the bound on the card.
 
 #include "gather_common.cuh"
-
-namespace {
-
-using gather::OptIn;
-
-// A dg slot: column c0[chunk] + cols, row lrow.
-struct DgSlots {
-  const int* c0;
-  const int* cols;
-  const int* lrow;
-
-  struct Chunk {
-    int64_t cstart;
-    const int* cols;
-    const int* lrow;
-    __device__ __forceinline__ bool operator()(int64_t i, int, int64_t& col, int& row) const {
-      col = cstart + cols[i];
-      row = lrow[i];
-      return true;
-    }
-  };
-  __device__ __forceinline__ Chunk chunk(int64_t c) const { return {c0[c], cols, lrow}; }
-};
-
-template <int KT, bool BF16>
-int launch(const void* c0, const void* cols, const void* lrow, const void* vals,
-           const void* nc_p, const void* x, void* y, int P, int NC, int G, int rb,
-           int Kp, int splits, cudaStream_t stream) {
-  static OptIn optin;  // of this instantiation's shared-tile kernel
-  const DgSlots slots{static_cast<const int*>(c0), static_cast<const int*>(cols),
-                      static_cast<const int*>(lrow)};
-  return gather::launch_tiled(
-      gather::gather_kernel<DgSlots, KT, BF16, true>,
-      gather::gather_kernel<DgSlots, KT, BF16, false>, optin, dim3(splits, P, Kp / KT),
-      gather::tile_bytes(rb, KT), 0, stream, slots, static_cast<const float*>(vals),
-      static_cast<const int*>(nc_p), static_cast<const float*>(x), static_cast<float*>(y), NC,
-      G, rb, Kp, splits);
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -82,31 +42,23 @@ int dg_uses_shared_tile(int rb, int kt) {
 
 // y [P*rb, Kp] must be zeroed; x is [N, Kp] fp32, Kp a multiple of kt.
 // Returns the cudaError_t of the launch (0 on success).
-int dg_spmm_launch(const void* c0, const void* cols, const void* lrow,
-                   const void* vals, const void* nc_p, const void* x, void* y,
-                   int P, int NC, int G, int rb, int Kp, int kt, int bf16,
-                   int splits, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-#define DG_CASE(KT)                                                              \
-  if (kt == KT) {                                                                \
-    return bf16 ? launch<KT, true>(c0, cols, lrow, vals, nc_p, x, y, P, NC, G, rb, \
-                                   Kp, splits, s)                                \
-                : launch<KT, false>(c0, cols, lrow, vals, nc_p, x, y, P, NC, G,  \
-                                    rb, Kp, splits, s);                          \
-  }
-  DG_CASE(8)
-  DG_CASE(16)
-  DG_CASE(32)
-#undef DG_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+int dg_spmm_launch(const void* c0, const void* cols, const void* lrow, const void* vals,
+                   const void* nc_p, const void* x, void* y, int P, int NC, int G, int rb,
+                   int N, int Kp, int kt, int bf16, int splits, void* stream) {
+  if (kt == 1) return static_cast<int>(cudaErrorInvalidValue);
+  const gather::WindowSlots slots{static_cast<const int*>(c0), static_cast<const int*>(cols),
+                                  static_cast<const int*>(lrow), 1, N};
+  return gather::launch_window(slots, vals, nc_p, x, y, P, NC, G, rb, Kp, kt, bf16, splits,
+                               stream);
 }
 
 // y [P*rb] must be zeroed; x is [N] fp32.
-int dg_spmv_launch(const void* c0, const void* cols, const void* lrow,
-                   const void* vals, const void* nc_p, const void* x, void* y,
-                   int P, int NC, int G, int rb, int splits, void* stream) {
-  return launch<1, false>(c0, cols, lrow, vals, nc_p, x, y, P, NC, G, rb, 1, splits,
-                          static_cast<cudaStream_t>(stream));
+int dg_spmv_launch(const void* c0, const void* cols, const void* lrow, const void* vals,
+                   const void* nc_p, const void* x, void* y, int P, int NC, int G, int rb,
+                   int N, int splits, void* stream) {
+  const gather::WindowSlots slots{static_cast<const int*>(c0), static_cast<const int*>(cols),
+                                  static_cast<const int*>(lrow), 1, N};
+  return gather::launch_window(slots, vals, nc_p, x, y, P, NC, G, rb, 1, 1, 0, splits, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
-// gather_common.cuh - the gather machinery that dg_gather.cu and
-// dgt_gather.cu share.  The two formats differ only in how a slot names its
-// column of X and its row of y_rows; everything else is here:
+// gather_common.cuh - the gather machinery that dg_gather.cu,
+// dgt_gather.cu, tile_onehot.cu and span_gather.cu share.  The formats
+// differ only in how a slot names its column of X and its row of y_rows;
+// everything else is here:
 //
 //   gather_kernel<Slots, KT, BF16, SHARED_TILE>  one block per (share of
 //       program p's chunk range, p, K-tile t).  Its threads take a chunk's
@@ -14,17 +15,29 @@
 //       kernel adds every product straight into y_rows with global atomics
 //       (SHARED_TILE false).
 //   Slots  the format's decode: Slots::chunk(c) reads what a chunk shares
-//       (dg: its window start; dgt: its tiles' window bases), and the
-//       chunk's decode maps slot s at flat index i to (col, row); it returns
-//       false for a slot that must be skipped.
+//       (dg, span: its window start; tile: its column tile; dgt: its
+//       tiles' window bases), and the chunk's decode maps slot s at flat
+//       index i to (col, row); it returns false for a slot that must be
+//       skipped.  WindowSlots below is the decode of the three formats
+//       whose slot names start[chunk] * scale + cols.
 //   launch_tiled  picks the shared-tile or the global-atomic instantiation
 //       and launches it, opting into more than 48 KB of dynamic shared
-//       memory once per kernel and device.
+//       memory once per kernel and device; launch_window does so for
+//       gather_kernel<WindowSlots> at a kt chosen at run time.
+//   cp_async*  the cp.async copies (global to shared, bypassing registers)
+//       with which the stream kernels stage X and the slot planes.
 //
 // The programs' chunk ranges are split over `splits` blocks because the
 // TPU geometry gives few programs (P = 32 to 139 at the 32768-row headline)
 // against 132 SMs.  Chunks at or past nc_p[p] hold only zeros and are not
 // walked.
+//
+// Linkage.  Every definition below is internal to the library that includes
+// this header (an unnamed namespace): the four sources are four shared
+// libraries in one process, and the static OptIn objects of inline and
+// template functions would otherwise be unique process-wide objects
+// (STB_GNU_UNIQUE) shared between libraries, so one library's opt-in would
+// be taken for another's kernel.
 //
 // Precision.  fp32: product and sum in fp32.  BF16: the fp32 product is
 // rounded to bf16 (__float2bfloat16_rn) and summed in fp32, as the TPU
@@ -39,6 +52,11 @@
 #include <atomic>
 
 namespace gather {
+
+// Every kernel of the four sources takes its dynamic shared memory here.
+extern __shared__ float4 gather_smem[];
+
+namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxDevices = 64;
@@ -82,6 +100,59 @@ __device__ __forceinline__ bool chunk_range(const int* nc_p, int p, int splits, 
   return j0 < j1;
 }
 
+// A slot of a window format: column start[chunk] * scale + cols, row lrow.
+// dg and span store each chunk's window start column (scale 1); tile stores
+// each chunk's column tile (scale ct).  A column at or past N is skipped; a
+// checked format has none, so X is never read past N.
+struct WindowSlots {
+  const int* start;  // [P * NC]
+  const int* cols;   // [P * NC * G]
+  const int* lrow;   // [P * NC * G]
+  int scale;
+  int N;
+
+  struct Chunk {
+    int64_t cstart;
+    const int* cols;
+    const int* lrow;
+    int N;
+    __device__ __forceinline__ bool operator()(int64_t i, int, int64_t& col, int& row) const {
+      col = cstart + cols[i];
+      row = lrow[i];
+      return col < N;
+    }
+  };
+  __device__ __forceinline__ Chunk chunk(int64_t c) const {
+    return {static_cast<int64_t>(start[c]) * scale, cols, lrow, N};
+  }
+};
+
+// cp.async: `bytes` (4 or 16) from global to shared without passing through
+// registers; with valid false nothing is read and the destination is zeroed.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, bool valid) {
+  static_assert(BYTES == 4 || BYTES == 16, "cp.async copies 4, 8 or 16 bytes");
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int src_bytes = valid ? BYTES : 0;
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+                 "r"(src_bytes));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+                 "r"(src_bytes));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Waits until at most N of this thread's committed groups are in flight;
+// their writes are then visible to this thread (to the block after a
+// __syncthreads).
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 template <int KT>
 __device__ __forceinline__ void zero_tile(float* tile, int rb) {
   for (int e = threadIdx.x; e < rb * KT; e += kThreads) tile[e] = 0.f;
@@ -97,9 +168,6 @@ __device__ __forceinline__ void flush_tile(const float* tile, float* yprog, int 
     if (acc != 0.f) atomicAdd(&yprog[static_cast<int64_t>(e / KT) * Kp + t * KT + e % KT], acc);
   }
 }
-
-// Every kernel of the two sources takes its dynamic shared memory here.
-extern __shared__ float4 gather_smem[];
 
 template <class Slots, int KT, bool BF16, bool SHARED_TILE>
 __global__ void __launch_bounds__(kThreads)
@@ -194,4 +262,44 @@ int launch_tiled(Kernel shared_kernel, Kernel global_kernel, OptIn& optin, dim3 
   return static_cast<int>(cudaGetLastError());
 }
 
+// gather_kernel<Slots> for KT = kt (1 without bf16, or 8, 16, 32): y
+// [P*rb, Kp] must be zeroed; x is [N, Kp] fp32, Kp a multiple of kt.  Only
+// the libraries that call launch_window (a template for that reason)
+// compile its kernels.
+template <int KT, bool BF16, class Slots>
+int launch_window_kt(const Slots& slots, const float* vals, const int* nc_p, const float* x,
+                     float* y, int P, int NC, int G, int rb, int Kp, int splits,
+                     cudaStream_t stream) {
+  static OptIn optin;  // of this instantiation's shared-tile kernel, in this library
+  return launch_tiled(gather_kernel<Slots, KT, BF16, true>,
+                      gather_kernel<Slots, KT, BF16, false>, optin,
+                      dim3(splits, P, Kp / KT), tile_bytes(rb, KT), 0, stream, slots, vals, nc_p,
+                      x, y, NC, G, rb, Kp, splits);
+}
+
+template <class Slots>
+int launch_window(const Slots& slots, const void* vals, const void* nc_p, const void* x,
+                  void* y, int P, int NC, int G, int rb, int Kp, int kt, int bf16, int splits,
+                  void* stream) {
+  const auto* v = static_cast<const float*>(vals);
+  const auto* n = static_cast<const int*>(nc_p);
+  const auto* x_ = static_cast<const float*>(x);
+  auto* y_ = static_cast<float*>(y);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (kt == 1 && !bf16) {
+    return launch_window_kt<1, false>(slots, v, n, x_, y_, P, NC, G, rb, Kp, splits, s);
+  }
+#define WINDOW_CASE(KT)                                                                      \
+  if (kt == KT) {                                                                            \
+    return bf16 ? launch_window_kt<KT, true>(slots, v, n, x_, y_, P, NC, G, rb, Kp, splits, s) \
+                : launch_window_kt<KT, false>(slots, v, n, x_, y_, P, NC, G, rb, Kp, splits, s); \
+  }
+  WINDOW_CASE(8)
+  WINDOW_CASE(16)
+  WINDOW_CASE(32)
+#undef WINDOW_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
 }  // namespace gather

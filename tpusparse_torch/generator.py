@@ -1,13 +1,18 @@
-"""Plans (counterpart of ``tpusparse/generator.py:23-59``).
+"""Plans (counterpart of ``tpusparse/generator.py``).
 
 A plan is the packed format plus a Python callable that runs the kernel on
-it; ``build_plan`` in ``tpusparse_torch.schedule`` makes one.
+it; ``build_plan`` in ``tpusparse_torch.schedule`` makes one, and so does
+``build_tile_plan`` here (the tile pipeline without a Schedule).  The
+stripe pipeline (``build_stripe_plan``) waits for the stripe kernel
+(ROADMAP.md A.7).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
+
+import numpy as np
 
 
 @dataclasses.dataclass
@@ -44,3 +49,50 @@ class SpmmPlan:
         if k is not None and nnz_real:
             out["useful_gflop_per_call"] = 2.0 * nnz_real * k / 1e9
         return out
+
+
+def prepare_tile_format(mat, *, rb: int = 256, ct: int = 512, g: int = 128,
+                        sort: bool = False, val_dtype=np.float32, device="cuda"):
+    """The tile pipeline (tpusparse/generator.py:126): fixed-interval row
+    blocking (RB) and column tiling (CT) inside the packer; returns
+    (format on ``device``, metadata set).  ``sort=True`` (the length sort)
+    needs the sort transforms, not ported yet."""
+    from tpusparse_torch.format import pack_tile
+    from tpusparse_torch.meta.set import create_init_metadata_set
+
+    if sort:
+        raise NotImplementedError("prepare_tile_format(sort=True) needs the sort transforms, "
+                                  "not ported to tpusparse_torch yet (ROADMAP.md A.7)")
+    ms = create_init_metadata_set(mat)
+    fmt = pack_tile(ms, 0, out_rows=mat.shape[0], rb=rb, ct=ct, g=g, val_dtype=val_dtype,
+                    device=device)
+    return fmt, ms
+
+
+def build_tile_plan(mat, *, rb: int = 256, ct: int = 512, g: int = 128, sort: bool = False,
+                    ktile: int | None = None, precision: str = "fp32x2",
+                    val_dtype=np.float32, device="cuda") -> SpmmPlan:
+    """A tile plan without a Schedule (tpusparse/generator.py:147)."""
+    from tpusparse_torch.kernels.tile_onehot import tile_spmm
+
+    fmt, _ = prepare_tile_format(mat, rb=rb, ct=ct, g=g, sort=sort, val_dtype=val_dtype,
+                                 device=device)
+
+    def fn(x):
+        return tile_spmm(fmt, x, ktile=ktile, precision=precision)
+
+    return SpmmPlan(
+        fn=fn,
+        formats=[fmt],
+        shape=mat.shape,
+        meta={
+            "kernel": "tile_onehot",
+            "precision": precision,
+            "n_programs": fmt.n_programs,
+            "n_chunks": fmt.n_chunks,
+            "chunk_g": fmt.chunk_g,
+            "rb": rb,
+            "ct": ct,
+            "padding_rate": fmt.padding_rate,
+        },
+    )

@@ -7,4 +7,8 @@ function.  Sources live in ``tpusparse_torch/csrc`` and are built by
               (family dg_span): replaces _dg_kernel and _dg1_kernel.
   dgt_gather  the tile-window co-champion (family dgt_span, SpMV 'dgt8',
               spmv_multi_fn): replaces _dgt_kernel and _dgt_kernel_stream.
+  tile_onehot the column-tiled family (tile_onehot, the default at K > 128):
+              replaces _tile_kernel and _tile_kernel_stream.
+  span_gather the span-chunked family (span_onehot, span_colsplit, SpMV
+              'span'): replaces _span_kernel and _span_kernel_stream.
 """

@@ -4,12 +4,14 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 
 def resolve_device(device="cuda") -> torch.device:
-    """The device an entry point runs on.  CUDA is the default and there is
+    """The device an entry point runs on, with its index (``cuda`` becomes
+    the current device, ``cuda:0`` say).  CUDA is the default and there is
     no quiet fallback: asking for CUDA without a card raises.  Only a caller
     that passes ``device="cpu"`` gets the plain PyTorch versions."""
     dev = torch.device(device)
@@ -18,6 +20,9 @@ def resolve_device(device="cuda") -> torch.device:
                            "to run the plain PyTorch versions of the kernels")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}: 'cuda' or 'cpu'")
+    if dev.type == "cuda" and dev.index is None:
+        # the index the tensors made on it carry, so that devices compare equal
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -41,6 +46,46 @@ def pad_dense_cols(x: torch.Tensor, target_cols: int) -> torch.Tensor:
     if x.shape[-1] == target_cols:
         return x
     return F.pad(x, [0, target_cols - x.shape[-1]])
+
+
+def prep_x(x, device: torch.device) -> torch.Tensor:
+    """X as a contiguous fp32 tensor on the format's ``device``.  A tensor
+    on another device is refused rather than moved, so nothing quietly runs
+    on the CPU."""
+    if isinstance(x, torch.Tensor):
+        if x.device != device:
+            raise ValueError(f"X is on {x.device}, the format on {device}")
+        return x.to(torch.float32).contiguous()
+    return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device).contiguous()
+
+
+def unpack_slots(y_rows: torch.Tensor, slot_of_origrow: torch.Tensor) -> torch.Tensor:
+    """Y's rows from the pre-unpack row block: row r is y_rows[slot[r]], or
+    zero where slot[r] < 0 (a row the format holds no slot for)."""
+    slot = slot_of_origrow.long()
+    got = y_rows.index_select(0, slot.clamp(min=0))
+    valid = (slot >= 0).view(-1, *([1] * (y_rows.ndim - 1)))
+    return torch.where(valid, got, torch.zeros((), dtype=got.dtype, device=got.device))
+
+
+def window_rows_plain(start, cols, lrow, vals, nc_p, x, *, rb, scale=1, bf16=False):
+    """Plain PyTorch version of the window-format gather kernels (dg, span,
+    tile): y_rows [P*rb, ...] with ``y_rows[p*rb + lrow] += vals *
+    X[start[p, j]*scale + cols]`` over the live slots — chunk j < nc_p[p],
+    value not zero — as an ``index_add_``; bf16 rounds each product, as
+    the kernels do."""
+    P, NC, G = cols.shape
+    live = ((vals != 0) & (torch.arange(NC, device=cols.device).view(1, NC, 1)
+                           < nc_p.reshape(P, 1, 1))).reshape(-1)
+    col = (start.reshape(P, NC, 1).long() * scale + cols.long()).reshape(-1)[live]
+    row = (torch.arange(P, device=cols.device).view(P, 1, 1) * rb
+           + lrow.long()).reshape(-1)[live]
+    v = vals.reshape(-1)[live].float()
+    prod = v.view(-1, *([1] * (x.ndim - 1))) * x[col]
+    if bf16:
+        prod = prod.to(torch.bfloat16).float()
+    y = torch.zeros((P * rb,) + tuple(x.shape[1:]), dtype=torch.float32, device=x.device)
+    return y.index_add_(0, row, prod)
 
 
 # ------------------------------------------- launching the csrc gather kernels

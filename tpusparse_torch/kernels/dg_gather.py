@@ -36,7 +36,8 @@ import torch
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import build
 from tpusparse_torch.kernels.common import (cdiv, check_operands, launch_checked,
-                                            launch_splits, pad_dense_cols, resolve_device)
+                                            launch_splits, pad_dense_cols, prep_x,
+                                            resolve_device, unpack_slots, window_rows_plain)
 from tpusparse_torch.levels import Level
 
 PRECISIONS = ("fp32x2", "bf16")
@@ -329,31 +330,17 @@ def with_values(fmt: DgFormat, new_vals) -> DgFormat:
 
 # --------------------------------------------------------------- plain versions
 
-def _rows_plain(c0, cols, lrow, vals, x, rb, bf16):
-    P, NC, G = cols.shape
-    live = (vals != 0).reshape(-1)
-    col = (c0.reshape(P, NC, 1).long() + cols.long()).reshape(-1)[live]
-    row = (torch.arange(P, device=cols.device).view(P, 1, 1) * rb
-           + lrow.long()).reshape(-1)[live]
-    v = vals.reshape(-1)[live]
-    prod = v.view(-1, *([1] * (x.ndim - 1))) * x[col]
-    if bf16:
-        prod = prod.to(torch.bfloat16).float()
-    y = torch.zeros((P * rb,) + tuple(x.shape[1:]), dtype=torch.float32, device=x.device)
-    return y.index_add_(0, row, prod)
-
-
 def dg_rows_plain(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode):
     """Plain PyTorch ``_dg_kernel``: y_rows [P*rb, Kp] with
     ``y_rows[p*rb + lrow] += vals * X[c0 + cols]`` over the slots whose value
-    is not zero (bf16 rounds each product as the kernel does).  Chunks past
-    ``nc_p`` hold only zero values, so ``nc_p`` and ``kt`` change nothing."""
-    return _rows_plain(c0, cols, lrow, vals, x, rb, mode == "bf16")
+    is not zero in a chunk before ``nc_p`` (bf16 rounds each product as the
+    kernel does); ``kt`` changes nothing."""
+    return window_rows_plain(c0, cols, lrow, vals, nc_p, x, rb=rb, bf16=mode == "bf16")
 
 
 def dg1_rows_plain(c0, cols, lrow, vals, nc_p, x, *, rb):
     """Plain PyTorch ``_dg1_kernel``: y_rows [P*rb] for x [N]."""
-    return _rows_plain(c0, cols, lrow, vals, x, rb, False)
+    return window_rows_plain(c0, cols, lrow, vals, nc_p, x, rb=rb)
 
 
 # ---------------------------------------------------------------- CUDA kernels
@@ -363,9 +350,9 @@ def _lib():
     """csrc/dg_gather.cu, built at first use, with its C signatures."""
     lib = build.library("dg_gather")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.dg_spmm_launch.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
+    lib.dg_spmm_launch.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
     lib.dg_spmm_launch.restype = i32
-    lib.dg_spmv_launch.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+    lib.dg_spmv_launch.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
     lib.dg_spmv_launch.restype = i32
     lib.dg_uses_shared_tile.argtypes = [i32, i32]
     lib.dg_uses_shared_tile.restype = i32
@@ -394,10 +381,10 @@ def dg_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode):
     if kt not in (8, 16, 32) or mode not in PRECISIONS or x.shape[1] % kt:
         raise ValueError(f"dg kernel: kt={kt}, mode={mode}, X {tuple(x.shape)}")
     P, NC, G = cols.shape
-    kp = x.shape[1]
+    n, kp = x.shape
     y = torch.zeros((P * rb, kp), dtype=torch.float32, device=x.device)
     launch_checked(_lib().dg_spmm_launch, "dg_spmm_launch", (c0, cols, lrow, vals, nc_p, x, y),
-                   (P, NC, G, rb, kp, kt, int(mode == "bf16"),
+                   (P, NC, G, rb, n, kp, kt, int(mode == "bf16"),
                     launch_splits(x.device, P * (kp // kt), NC)))
     dg_rows_cuda.launches += 1
     return y
@@ -410,7 +397,7 @@ def dg1_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb):
     P, NC, G = cols.shape
     y = torch.zeros(P * rb, dtype=torch.float32, device=x.device)
     launch_checked(_lib().dg_spmv_launch, "dg_spmv_launch", (c0, cols, lrow, vals, nc_p, x, y),
-                   (P, NC, G, rb, launch_splits(x.device, P, NC)))
+                   (P, NC, G, rb, x.shape[0], launch_splits(x.device, P, NC)))
     dg1_rows_cuda.launches += 1
     return y
 
@@ -421,17 +408,6 @@ dg1_rows_cuda.launches = 0
 
 # ----------------------------------------------------------------- entry points
 
-def _prep_x(fmt: DgFormat, x) -> torch.Tensor:
-    """X as a contiguous fp32 tensor on the format's device.  A tensor on
-    another device is refused rather than moved, so nothing quietly runs
-    on the CPU."""
-    if isinstance(x, torch.Tensor):
-        if x.device != fmt.device:
-            raise ValueError(f"X is on {x.device}, the format on {fmt.device}")
-        return x.to(torch.float32).contiguous()
-    return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=fmt.device).contiguous()
-
-
 def _unpack_rows(fmt: DgFormat, y_rows):
     if fmt.deal == "blocks":
         return y_rows[: fmt.shape[0]]
@@ -439,10 +415,7 @@ def _unpack_rows(fmt: DgFormat, y_rows):
         P = fmt.n_programs
         return (y_rows.reshape(P, fmt.rb, *y_rows.shape[1:])
                 .transpose(0, 1).reshape(P * fmt.rb, *y_rows.shape[1:])[: fmt.shape[0]])
-    slot = fmt.slot_of_origrow.long()
-    got = y_rows.index_select(0, slot.clamp(min=0))
-    valid = (slot >= 0).view(-1, *([1] * (y_rows.ndim - 1)))
-    return torch.where(valid, got, torch.zeros((), dtype=got.dtype, device=got.device))
+    return unpack_slots(y_rows, fmt.slot_of_origrow)
 
 
 def _fmt_args(fmt):
@@ -454,7 +427,7 @@ def dg_spmm(fmt: DgFormat, x) -> torch.Tensor:
     kt-wide tiles as a grid dimension).  CUDA formats run the kernel, CPU
     formats the plain version."""
     assert fmt.kt >= 8, "kt=1 formats run dg_spmv"
-    x = _prep_x(fmt, x)
+    x = prep_x(x, fmt.device)
     m, n_cols = fmt.shape
     k = x.shape[1]
     assert x.shape[0] == n_cols, f"X rows {x.shape[0]} != A cols {n_cols}"
@@ -467,7 +440,7 @@ def dg_spmm(fmt: DgFormat, x) -> torch.Tensor:
 def dg_spmv(fmt: DgFormat, x) -> torch.Tensor:
     """y[M] = A . x[N] with A in a kt=1 DgFormat."""
     assert fmt.kt == 1, "pack with kt=1 for SpMV"
-    x = _prep_x(fmt, x).reshape(-1)
+    x = prep_x(x, fmt.device).reshape(-1)
     assert x.shape[0] == fmt.shape[1], f"x length {x.shape[0]} != A cols {fmt.shape[1]}"
     rows_fn = dg1_rows_cuda if fmt.device.type == "cuda" else dg1_rows_plain
     return _unpack_rows(fmt, rows_fn(*_fmt_args(fmt), x, rb=fmt.rb))

@@ -45,8 +45,9 @@ import torch
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import build
 from tpusparse_torch.kernels.common import (cdiv, check_operands, launch_checked,
-                                            launch_splits, pad_dense_cols, resolve_device)
-from tpusparse_torch.kernels.dg_gather import PRECISIONS, _prep_x
+                                            launch_splits, pad_dense_cols, prep_x,
+                                            resolve_device)
+from tpusparse_torch.kernels.dg_gather import PRECISIONS
 from tpusparse_torch.levels import Level
 
 DGT_KTS = (8, 16, 32)
@@ -769,7 +770,7 @@ def dgt_spmm(
         _, ngrp = dgt_geometry(fmt.kt, fmt.mode)
         want = (fmt.n_programs, fmt.n_chunks, fmt.rb // ngrp, fmt.chunk_g)
         assert tuple(rowhot.shape) == want, f"rowhot {tuple(rowhot.shape)}, want {want}"
-    x = _prep_x(fmt, x)
+    x = prep_x(x, fmt.device)
     k = x.shape[1]
     assert x.shape[0] == fmt.shape[1], f"X rows {x.shape[0]} != A cols {fmt.shape[1]}"
     x = pad_dense_cols(x, cdiv(k, fmt.kt) * fmt.kt).contiguous()
@@ -789,6 +790,6 @@ def dgt_spmm(
 def dgt_spmv(fmt: DgtFormat, x, *, unroll: int = 8) -> torch.Tensor:
     """y[M] = A . x[N]: SpMV through the kt-wide SpMM kernel (x zero-padded
     to kt columns)."""
-    x = _prep_x(fmt, x)
+    x = prep_x(x, fmt.device)
     assert x.ndim == 1 and x.shape[0] == fmt.shape[1], f"x shape {tuple(x.shape)}"
     return dgt_spmm(fmt, x[:, None], unroll=unroll)[:, 0]

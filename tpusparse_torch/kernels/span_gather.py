@@ -1,0 +1,424 @@
+"""span_gather — span-chunked SpMM (counterpart of
+``tpusparse/kernels/span_gather.py``).
+
+The format and its packer are the JAX package's, array for array: rows are
+dealt to P programs of ``rb`` rows (round-robin by descending length with
+``balance``), each program's nonzeros are sorted by column and cut into
+chunks of at most ``g`` slots whose columns fit one window of ``ct``
+columns starting at ``c0`` (a multiple of 8).  On the TPU the window
+bounded a one-hot MXU gather over an X block that had to stay in VMEM; on
+the card a thread loads the row of X it needs, so the window only bounds
+the chunk.  ``span_chunk_numpy`` is the packer's walk (the JAX package may
+run its native ``span_pack`` instead, which gives the same arrays; the
+port's native host helpers are ROADMAP.md A.4).  The TPU's bf16 hi/lo
+packing of X and its one-hot dots are not ported: fp32 and fp32x2 compute
+in fp32, bf16 rounds each product.
+
+Kernels (CUDA C++, ``tpusparse_torch/csrc/span_gather.cu``), each beside its
+plain PyTorch version of the same function:
+
+  span_rows_cuda        / span_rows_plain         replace ``_span_kernel``
+  span_stream_rows_cuda / span_stream_rows_plain  replace ``_span_kernel_stream``
+
+Each computes ``y_rows[p*rb + lrow] += v * X[c0 + cols]``; the slot gather
+through ``slot_of_origrow`` then gives Y.  A wrapper launches its kernel for
+CUDA tensors and raises on any failure; only CPU tensors take the plain
+version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Any
+
+import numpy as np
+import torch
+
+from tpusparse_torch.format import live_chunk_counts
+from tpusparse_torch.io.mtx import CooMatrix
+from tpusparse_torch.kernels import build
+from tpusparse_torch.kernels.common import (cdiv, check_operands, launch_checked,
+                                            launch_splits, pad_dense_cols, prep_x,
+                                            resolve_device, unpack_slots, window_rows_plain)
+from tpusparse_torch.kernels.tile_onehot import PRECISIONS, choose_kt, default_ktile
+from tpusparse_torch.levels import Level
+
+
+@dataclasses.dataclass
+class SpanFormat:
+    """Per-program column-sorted chunks with dynamic window starts, torch
+    tensors on one device (P programs, NC chunks each, G slots per chunk):
+
+      c0    [P, 1, NC] int32  window start column (multiple of 8)
+      cols  [P, NC, G] int32  column offset within the window (< CT)
+      lrow  [P, NC, G] int32  row local to the program (< RB)
+      vals  [P, NC, G] f32    value (0 for padding), or ``val_dtype``
+      nc_p  [P, 1, 1]  int32  real chunk count per program
+      slot_of_origrow [M] int32
+
+    ``nc_p`` is the port's own field (the chunk walk's count per program):
+    the kernels walk only a program's real chunks.  Every other field
+    equals the JAX ``SpanFormat``'s.  ``perm_of_nz`` (numpy, host) maps each
+    input nonzero to its flat slot (``pack_span(keep_perm=True)``).
+    """
+
+    c0: Any
+    cols: Any
+    lrow: Any
+    vals: Any
+    nc_p: Any
+    slot_of_origrow: Any
+    n_programs: int
+    n_chunks: int
+    chunk_g: int
+    rb: int
+    ct: int
+    shape: tuple[int, int]
+    nnz_real: int
+    perm_of_nz: Any = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.c0.device
+
+    @property
+    def padding_rate(self) -> float:
+        return self.n_programs * self.n_chunks * self.chunk_g / max(self.nnz_real, 1)
+
+    @property
+    def memory_bytes(self) -> int:
+        return sum(a.numel() * a.element_size()
+                   for a in (self.c0, self.cols, self.lrow, self.vals))
+
+
+SPAN_FIELDS = ("c0", "cols", "lrow", "vals", "slot_of_origrow")
+
+
+def span_chunk_numpy(cols_s, lrow_s, vals_s, starts, g, span_budget, *, keep_perm=False):
+    """The packer's span chunker: cut each program's column-sorted nz into
+    chunks of <= G nz whose columns fit a ``span_budget``-wide window.
+    Returns (c0 [P, NC], cols/lrow [P, NC, G], vals [P, NC, G], dest_sorted
+    or None, nc_per_program [P])."""
+    p_count = len(starts) - 1
+    chunks: list[list[tuple[int, int, int]]] = [[] for _ in range(p_count)]
+    for p in range(p_count):
+        lo, hi = int(starts[p]), int(starts[p + 1])
+        colp = cols_s[lo:hi]
+        i = lo
+        while i < hi:
+            c0 = int(cols_s[i]) & ~7
+            j_span = lo + int(np.searchsorted(colp, c0 + span_budget + 8, side="left"))
+            j = min(i + g, j_span, hi)
+            chunks[p].append((c0, i, j))
+            i = j
+
+    nc = max(max((len(c) for c in chunks), default=1), 1)
+    c0_2d = np.zeros((p_count, nc), dtype=np.int32)
+    cols_f = np.zeros((p_count, nc, g), dtype=np.int32)
+    lrow_f = np.zeros((p_count, nc, g), dtype=np.int32)
+    vals_f = np.zeros((p_count, nc, g), dtype=np.float32)
+    dest_sorted = np.zeros(cols_s.size, dtype=np.int64) if keep_perm else None
+    for p in range(p_count):
+        for ci, (c0, i, j) in enumerate(chunks[p]):
+            n = j - i
+            c0_2d[p, ci] = c0
+            cols_f[p, ci, :n] = cols_s[i:j] - c0
+            lrow_f[p, ci, :n] = lrow_s[i:j]
+            vals_f[p, ci, :n] = vals_s[i:j]
+            if keep_perm:
+                dest_sorted[i:j] = (p * nc + ci) * g + np.arange(n)
+    nc_arr = np.asarray([len(c) for c in chunks], dtype=np.int64)
+    return c0_2d, cols_f, lrow_f, vals_f, dest_sorted, nc_arr
+
+
+def _torch_dtype(val_dtype) -> torch.dtype:
+    """The value plane's dtype: None is float32; else a torch dtype or its
+    name ("bfloat16", "float16", "float32")."""
+    if val_dtype is None:
+        return torch.float32
+    if isinstance(val_dtype, torch.dtype):
+        return val_dtype
+    name = val_dtype if isinstance(val_dtype, str) else np.dtype(val_dtype).name
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError(f"val_dtype {val_dtype!r} is not a float dtype")
+    return dt
+
+
+def pack_span(
+    mat_or_ms,
+    sub: int = 0,
+    *,
+    out_rows: int | None = None,
+    rb: int = 512,
+    ct: int = 512,
+    g: int = 128,
+    balance: bool = True,
+    val_dtype=None,
+    keep_perm: bool = False,
+    device="cuda",
+) -> SpanFormat:
+    """Pack a CooMatrix (or a MetaDataSet sub-matrix) into SpanFormat on
+    ``device``.  ``balance`` deals rows to programs round-robin in
+    descending-length order, so every program carries ~nnz/P work and the
+    uniform chunk count NC pads only the tail; output recovery is the slot
+    gather.  ``val_dtype`` (torch dtype or name; float32 by default) is the
+    value plane's dtype — the reference's half mode is bf16."""
+    dev = resolve_device(device)
+    if isinstance(mat_or_ms, CooMatrix):
+        rows = mat_or_ms.rows.astype(np.int64)
+        cols = mat_or_ms.cols.astype(np.int64)
+        vals = np.asarray(mat_or_ms.vals)
+        row_num, col_num = mat_or_ms.shape
+        rec = np.arange(row_num, dtype=np.int64)
+        if out_rows is None:
+            out_rows = row_num
+    else:
+        ms = mat_or_ms
+        rows, cols, vals = ms.coo(sub)
+        rows = rows.astype(np.int64)
+        cols = cols.astype(np.int64)
+        row_num = ms.row_num(sub)
+        col_num = ms.col_num(sub)
+        if ms.has(Level.ROW, "original_row_of_sorted", sub):
+            rec = ms.get(Level.ROW, "original_row_of_sorted", sub)[:row_num]
+        else:
+            rec = np.arange(row_num, dtype=np.int64)
+        assert out_rows is not None
+
+    p_count = max(-(-row_num // rb), 1)
+    span_budget = ct - 8  # the window start is rounded down to a multiple of 8
+
+    if balance and row_num:
+        lengths = np.bincount(rows, minlength=row_num)
+        by_len = np.argsort(-lengths, kind="stable")
+        p_of_row = np.empty(row_num, dtype=np.int64)
+        lrow_of_row = np.empty(row_num, dtype=np.int64)
+        ranks = np.arange(row_num)
+        p_of_row[by_len] = ranks % p_count
+        lrow_of_row[by_len] = ranks // p_count
+        p_arr = p_of_row[rows]
+        lrow_arr = lrow_of_row[rows]
+        slot_of_local = p_of_row * rb + lrow_of_row
+    else:
+        p_arr = rows // rb
+        lrow_arr = rows % rb
+        slot_of_local = (np.arange(row_num) // rb) * rb + np.arange(row_num) % rb
+    order = np.lexsort((cols, p_arr))
+    lrow_s, cols_s, vals_s = lrow_arr[order], cols[order], np.asarray(vals)[order]
+    starts = np.searchsorted(p_arr[order], np.arange(p_count + 1))
+
+    c0_2d, cols_f, lrow_f, vals_f, dest_sorted, nc_arr = span_chunk_numpy(
+        cols_s, lrow_s, vals_s, starts, g, span_budget, keep_perm=keep_perm)
+    nc = c0_2d.shape[1]
+
+    slot_of_origrow = np.full(out_rows, -1, dtype=np.int32)
+    keep = rec >= 0
+    slot_of_origrow[rec[keep]] = slot_of_local[keep].astype(np.int32)
+
+    def dev_t(a, dt=None):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.to(dev, dt) if dt is not None else t.to(dev)
+
+    return SpanFormat(
+        c0=dev_t(c0_2d[:, None, :]),
+        cols=dev_t(cols_f),
+        lrow=dev_t(lrow_f),
+        vals=dev_t(vals_f, _torch_dtype(val_dtype)),
+        nc_p=dev_t(nc_arr.astype(np.int32).reshape(p_count, 1, 1)),
+        slot_of_origrow=dev_t(slot_of_origrow),
+        n_programs=p_count,
+        n_chunks=nc,
+        chunk_g=g,
+        rb=rb,
+        ct=ct,
+        shape=(out_rows, col_num),
+        nnz_real=int(np.count_nonzero(vals_f)),
+        perm_of_nz=(None if dest_sorted is None
+                    else np.asarray(dest_sorted)[np.argsort(order, kind="stable")]),
+    )
+
+
+def with_values(fmt: SpanFormat, new_vals) -> SpanFormat:
+    """Values-only update: the same pattern with new values, in the nonzero
+    order given to pack_span (requires keep_perm=True).  The index planes
+    are reused untouched."""
+    assert fmt.perm_of_nz is not None, "pack_span(..., keep_perm=True) required"
+    new_vals = np.asarray(new_vals, dtype=np.float32)
+    flat = np.zeros(fmt.n_programs * fmt.n_chunks * fmt.chunk_g, dtype=np.float32)
+    flat[np.asarray(fmt.perm_of_nz)] = new_vals
+    vals = flat.reshape(fmt.n_programs, fmt.n_chunks, fmt.chunk_g)
+    return dataclasses.replace(
+        fmt,
+        vals=torch.from_numpy(vals).to(fmt.device, fmt.vals.dtype),
+        nnz_real=int(np.count_nonzero(vals)),
+    )
+
+
+def span_format_from_numpy(fields: dict, *, device="cuda", **static) -> SpanFormat:
+    """A SpanFormat from numpy arrays — the JAX ``SpanFormat``'s ``c0``,
+    ``cols``, ``lrow``, ``vals``, ``slot_of_origrow`` and ``perm_of_nz``
+    (``nc_p`` is derived from ``vals`` unless given) — plus its static
+    fields (``n_programs``, ``n_chunks``, ``chunk_g``, ``rb``, ``ct``,
+    ``shape``, ``nnz_real``).  The arrays come from outside this package,
+    so their shapes and index ranges are checked here: the kernels read X
+    and write Y at these indices without bounds checks."""
+    dev = resolve_device(device)
+    arrs = {k: np.asarray(fields[k]) for k in SPAN_FIELDS}
+    vals = arrs["vals"].astype(np.float32)
+    P, NC, G = static["n_programs"], static["n_chunks"], static["chunk_g"]
+    rb, ct, (m, n) = static["rb"], static["ct"], static["shape"]
+    arrs["nc_p"] = (np.asarray(fields["nc_p"]) if fields.get("nc_p") is not None
+                    else live_chunk_counts(vals))
+    want = {"c0": (P, 1, NC), "cols": (P, NC, G), "lrow": (P, NC, G), "vals": (P, NC, G),
+            "nc_p": (P, 1, 1), "slot_of_origrow": (m,)}
+    for k, shp in want.items():
+        if arrs[k].shape != shp:
+            raise ValueError(f"SpanFormat.{k}: shape {arrs[k].shape}, want {shp}")
+    live = vals != 0
+    col = arrs["c0"].reshape(P, NC, 1).astype(np.int64) + arrs["cols"]
+    if (live.any() and (col[live].min() < 0 or col[live].max() >= n)) or \
+            arrs["cols"].min(initial=0) < 0 or arrs["cols"].max(initial=0) >= ct or \
+            arrs["lrow"].min(initial=0) < 0 or arrs["lrow"].max(initial=0) >= rb or \
+            arrs["nc_p"].min(initial=0) < 0 or arrs["nc_p"].max(initial=0) > NC or \
+            arrs["slot_of_origrow"].max(initial=-1) >= P * rb:
+        raise ValueError("SpanFormat indices out of range")
+    arrs["vals"] = vals
+    tensors = {k: torch.tensor(a, dtype=torch.float32 if k == "vals" else torch.int32,
+                               device=dev) for k, a in arrs.items()}
+    perm = fields.get("perm_of_nz")
+    return SpanFormat(**tensors, **static,
+                      perm_of_nz=None if perm is None else np.asarray(perm))
+
+
+# --------------------------------------------------------------- plain versions
+
+def span_rows_plain(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode):
+    """Plain PyTorch ``_span_kernel``: y_rows [P*rb, Kp] with
+    ``y_rows[p*rb + lrow] += vals * X[c0 + cols]`` over the slots whose value
+    is not zero in a chunk before ``nc_p`` (bf16 rounds each product as the
+    kernel does); ``kt`` changes nothing."""
+    return window_rows_plain(c0, cols, lrow, vals, nc_p, x, rb=rb, bf16=mode == "bf16")
+
+
+def span_stream_rows_plain(c0, cols, lrow, vals, nc_p, x, *, rb, ct, kt, mode):
+    """Plain PyTorch ``_span_kernel_stream``: the same function as
+    ``span_rows_plain`` (``ct`` sizes only the stream kernel's window)."""
+    return span_rows_plain(c0, cols, lrow, vals, nc_p, x, rb=rb, kt=kt, mode=mode)
+
+
+# ---------------------------------------------------------------- CUDA kernels
+
+@functools.cache
+def _lib():
+    """csrc/span_gather.cu, built at first use, with its C signatures."""
+    lib = build.library("span_gather")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.span_spmm_launch.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
+    lib.span_spmm_launch.restype = i32
+    lib.span_stream_launch.argtypes = [ptr] * 7 + [i32] * 10 + [ptr]
+    lib.span_stream_launch.restype = i32
+    lib.span_uses_shared_tile.argtypes = [i32] * 5
+    lib.span_uses_shared_tile.restype = i32
+    lib.span_stream_slice_rows.argtypes = [i32] * 4
+    lib.span_stream_slice_rows.restype = i32
+    return lib
+
+
+def span_uses_shared_tile(rb: int, kt: int, *, g: int = 0, ct: int = 0,
+                          stream: bool = False) -> bool:
+    """Whether a launch of (rb, kt) keeps its row tile in shared memory
+    (False: the kernel's global-atomic branch).  ``stream`` counts the
+    stream kernel's staged planes (``g``) and X window (``ct``) too."""
+    return bool(_lib().span_uses_shared_tile(rb, kt, g, ct, int(stream)))
+
+
+def span_stream_slice_rows(rb: int, kt: int, g: int, ct: int) -> int:
+    """The rows of a chunk's X window the stream kernel stages at once
+    (``ct`` where the whole window fits)."""
+    return int(_lib().span_stream_slice_rows(rb, kt, g, ct))
+
+
+def _launch(name, c0, cols, lrow, vals, nc_p, x, rb, kt, mode, extra=()):
+    P, NC, G = cols.shape
+    check_operands(x, (("c0", c0, torch.int32, (P, 1, NC)),
+                       ("cols", cols, torch.int32, (P, NC, G)),
+                       ("lrow", lrow, torch.int32, (P, NC, G)),
+                       ("vals", vals, torch.float32, (P, NC, G)),
+                       ("nc_p", nc_p, torch.int32, (P, 1, 1))), ndim=2)
+    if kt not in (8, 16, 32) or mode not in PRECISIONS or x.shape[1] % kt:
+        raise ValueError(f"span kernel: kt={kt}, mode={mode}, X {tuple(x.shape)}")
+    n, kp = x.shape
+    y = torch.zeros((P * rb, kp), dtype=torch.float32, device=x.device)
+    launch_checked(getattr(_lib(), name), name, (c0, cols, lrow, vals, nc_p, x, y),
+                   (P, NC, G, rb, *extra, n, kp, kt, int(mode == "bf16"),
+                    launch_splits(x.device, P * (kp // kt), NC)))
+    return y
+
+
+def span_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode):
+    """CUDA ``_span_kernel`` (tpusparse/kernels/span_gather.py:270): y_rows
+    [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in {8, 16, 32}."""
+    y = _launch("span_spmm_launch", c0, cols, lrow, vals, nc_p, x, rb, kt, mode)
+    span_rows_cuda.launches += 1
+    return y
+
+
+def span_stream_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, ct, kt, mode):
+    """CUDA ``_span_kernel_stream`` (tpusparse/kernels/span_gather.py:329):
+    the same y_rows, each chunk's planes and its [c0, c0+ct) X window staged
+    in shared memory before its slots gather."""
+    y = _launch("span_stream_launch", c0, cols, lrow, vals, nc_p, x, rb, kt, mode, (ct,))
+    span_stream_rows_cuda.launches += 1
+    return y
+
+
+span_rows_cuda.launches = 0
+span_stream_rows_cuda.launches = 0
+
+
+# ----------------------------------------------------------------- entry point
+
+def span_spmm(
+    fmt: SpanFormat,
+    x,
+    *,
+    ktile: int | None = None,
+    precision: str = "fp32x2",
+    unroll: int = 4,
+    stream: bool = False,
+    vals=None,
+) -> torch.Tensor:
+    """Y[M, K] = A . X[N, K] with A in SpanFormat.  ``stream=True`` runs the
+    stream kernel, as the JAX package's grid-over-chunks variant.  ``vals``
+    overrides the packed [P, NC, G] value plane (the trainable-values path);
+    it is read only at the format's slots, so it must be zero where the
+    packed plane's padding is.  ``unroll`` steered the TPU kernel's loop
+    only and changes nothing here.  CUDA formats run a kernel, CPU formats
+    its plain version."""
+    assert precision in PRECISIONS, precision
+    if vals is None:
+        vals = fmt.vals
+    if not isinstance(vals, torch.Tensor) or vals.device != fmt.device or \
+            vals.shape != fmt.cols.shape:
+        raise ValueError(f"vals must be a {tuple(fmt.cols.shape)} tensor on {fmt.device}")
+    vals = vals.float().contiguous()  # a bf16 plane widens exactly
+    x = prep_x(x, fmt.device)
+    m, n_cols = fmt.shape
+    k = x.shape[1]
+    assert x.shape[0] == n_cols, f"X rows {x.shape[0]} != A cols {n_cols}"
+    if ktile is None:
+        ktile = default_ktile(k)
+    kt = choose_kt(min(ktile, 32))
+    x = pad_dense_cols(x, cdiv(k, kt) * kt).contiguous()
+    on_card = fmt.device.type == "cuda"
+    args = (fmt.c0, fmt.cols, fmt.lrow, vals, fmt.nc_p, x)
+    if stream:
+        rows_fn = span_stream_rows_cuda if on_card else span_stream_rows_plain
+        y_rows = rows_fn(*args, rb=fmt.rb, ct=fmt.ct, kt=kt, mode=precision)
+    else:
+        rows_fn = span_rows_cuda if on_card else span_rows_plain
+        y_rows = rows_fn(*args, rb=fmt.rb, kt=kt, mode=precision)
+    return unpack_slots(y_rows, fmt.slot_of_origrow)[:, :k]

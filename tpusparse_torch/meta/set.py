@@ -4,9 +4,10 @@
 A dict of numpy arrays keyed ``(level, name, sub_matrix_id)`` as in the
 reference's ``meta_data_set`` (metadata_set.hpp:104-154), bootstrapped from
 a COO matrix, with per-item ``check()`` and a ``logical_check()`` that
-cross-validates the COO arrays.  Trimmed to what the ``dg_span`` path
-reads: the blocking-level checks and the ``.npz`` format cache come with
-the families that write blocking metadata.
+cross-validates the COO arrays and the blocking metadata.  Trimmed to what
+the ported families read and write (block boundaries and column tiles);
+the other blocking checks and the ``.npz`` format cache come with the
+families that write them.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Iterable
 import numpy as np
 
 from tpusparse_torch.io.mtx import CooMatrix
-from tpusparse_torch.levels import Level
+from tpusparse_torch.levels import PARALLEL_LEVELS, Level
 from tpusparse_torch.meta.item import MetaDataItem
 from tpusparse_torch.meta.provenance import TransformTrace
 
@@ -84,25 +85,74 @@ class MetaDataSet:
             self.get(Level.VAL, "nz_vals", sub),
         )
 
+    def set_coo(self, sub: int, rows, cols, vals) -> None:
+        self.add(Level.ROW, "nz_row_indices", sub, rows, replace=True)
+        self.add(Level.COL, "nz_col_indices", sub, cols, replace=True)
+        self.add(Level.VAL, "nz_vals", sub, vals, replace=True)
+
     def check(self) -> None:
         for item in self._items.values():
             item.check()
 
     def logical_check(self) -> None:
-        """Cross-validate the COO arrays of every sub-matrix (reference:
-        metadata_set.cc:806+).  Raises AssertionError on inconsistency."""
+        """Cross-validate the COO arrays and the blocking metadata of every
+        sub-matrix (reference: metadata_set.cc:806+).  Raises AssertionError
+        on inconsistency."""
         self.check()
         for sub in self.sub_matrix_ids():
-            if not self.has(Level.VAL, "nz_vals", sub):
-                continue
-            rows, cols, vals = self.coo(sub)
-            assert rows.size == cols.size == vals.size, f"sub {sub}: COO length mismatch"
-            if vals.size:
-                assert rows.min() >= 0 and rows.max() < self.row_num(sub), (
-                    f"sub {sub}: row index range")
-                assert cols.min() >= 0 and cols.max() < self.col_num(sub), (
-                    f"sub {sub}: col index range")
+            self._logical_check_sub(sub)
+
+    def _logical_check_sub(self, sub: int) -> None:
+        if not self.has(Level.VAL, "nz_vals", sub):
+            return
+        rows, cols, vals = self.coo(sub)
+        nnz = vals.size
+        assert rows.size == cols.size == nnz, f"sub {sub}: COO length mismatch"
+        row_num = self.row_num(sub)
+        if nnz:
+            assert rows.min() >= 0 and rows.max() < row_num, f"sub {sub}: row index range"
+            assert cols.min() >= 0 and cols.max() < self.col_num(sub), (
+                f"sub {sub}: col index range")
+            tiled = [lv for lv in PARALLEL_LEVELS if self.has(lv, "col_tile_indices", sub)]
+            if tiled:
+                # col-direction blocking stores nz by (col tile, row): rows
+                # must be sorted within each tile
+                fnz = self.get(tiled[0], "first_nz_indices", sub).astype(np.int64)
+                for a, b in zip(fnz[:-1], fnz[1:]):
+                    assert np.all(np.diff(rows[a:b].astype(np.int64)) >= 0), (
+                        f"sub {sub}: rows not sorted within col tile")
+            else:
                 assert np.all(np.diff(rows.astype(np.int64)) >= 0), f"sub {sub}: rows not sorted"
+        for level in PARALLEL_LEVELS:
+            self._check_level_blocks(sub, level, nnz, row_num)
+
+    def _check_level_blocks(self, sub: int, level: Level, nnz: int, row_num: int) -> None:
+        has_nz = self.has(level, "first_nz_indices", sub)
+        has_row = self.has(level, "first_row_indices", sub)
+        n_blocks = None
+        if has_nz:
+            fnz = self.get(level, "first_nz_indices", sub).astype(np.int64)
+            assert fnz.ndim == 1 and fnz.size >= 2, f"{level.block_name} first_nz_indices shape"
+            assert fnz[0] == 0 and fnz[-1] == nnz, (
+                f"{level.block_name} first_nz_indices must span [0, nnz]: "
+                f"{fnz[0]}..{fnz[-1]} vs {nnz}")
+            assert np.all(np.diff(fnz) >= 0), f"{level.block_name} first_nz_indices not sorted"
+            n_blocks = fnz.size - 1
+        if has_row:
+            frow = self.get(level, "first_row_indices", sub).astype(np.int64)
+            assert frow.ndim == 1 and frow.size >= 2
+            assert frow[0] >= 0 and frow[-1] <= row_num, (
+                f"{level.block_name} first_row_indices range")
+            assert np.all(np.diff(frow) >= 0), f"{level.block_name} first_row_indices not sorted"
+            if n_blocks is not None:
+                assert frow.size - 1 == n_blocks, (
+                    f"{level.block_name}: first_row ({frow.size - 1}) vs first_nz "
+                    f"({n_blocks}) count")
+        if self.has(level, "first_row_indices_without_ending", sub):
+            fwe = self.get(level, "first_row_indices_without_ending", sub)
+            frow = self.get(level, "first_row_indices", sub)
+            assert fwe.size == frow.size - 1
+            assert np.array_equal(fwe.astype(np.int64), frow[:-1].astype(np.int64))
 
 
 def create_init_metadata_set(mat: CooMatrix) -> MetaDataSet:

@@ -5,7 +5,8 @@ from tpusparse_torch.ops.base import (
     OperatorExecutor,
     Stage,
 )
-from tpusparse_torch.ops.implementing import GridBlockOperator
+from tpusparse_torch.ops.distributing import FixedIntervalColBlockingOperator
+from tpusparse_torch.ops.implementing import GridBlockOperator, TileOneHotImplementOperator
 
 __all__ = [
     "BasicOperator",
@@ -13,5 +14,7 @@ __all__ = [
     "OperatorContext",
     "OperatorExecutor",
     "Stage",
+    "FixedIntervalColBlockingOperator",
     "GridBlockOperator",
+    "TileOneHotImplementOperator",
 ]

@@ -1,9 +1,10 @@
 """Implementing-stage operators (counterpart of
 ``tpusparse/ops/implementing.py``).
 
-Only the launch-geometry operator is ported: it is the one operator the
-``dg_span`` branch of the plan builder runs.  The reduction-style and
-padding operators arrive with the families that use them.
+Ported so far: the launch-geometry operator, which every ported family
+runs, and the reduction-style operator that selects the ``tile_onehot``
+kernel.  The other reduction-style and padding operators arrive with the
+families that use them.
 """
 
 from __future__ import annotations
@@ -13,6 +14,45 @@ import numpy as np
 from tpusparse_torch.levels import Level
 from tpusparse_torch.meta.set import MetaDataSet
 from tpusparse_torch.ops.base import BasicOperator, OperatorContext, Stage
+
+
+class _ReduceOperator(BasicOperator):
+    stage = Stage.IMPLEMENTING
+
+    def __init__(self, sub_matrix_id=0, level: Level = Level.TBLOCK):
+        super().__init__(sub_matrix_id)
+        self.level = level
+
+    def is_valid_according_to_metadata(self, ms: MetaDataSet) -> bool:
+        return super().is_valid_according_to_metadata(ms) and ms.has(
+            self.level, "first_nz_indices", self.sub_matrix_id
+        )
+
+    def _set_style(self, ms: MetaDataSet, style: int) -> None:
+        ms.add(Level.GLOBAL, "reduce_style", self.sub_matrix_id, np.int64(style), replace=True)
+
+
+class TileOneHotImplementOperator(_ReduceOperator):
+    """Selects the tile kernel; carries its static parameters."""
+
+    name = "tile_onehot"
+    STYLE = 2
+
+    def __init__(self, sub_matrix_id=0, rb: int = 1024, ct: int = 1024, g: int = 512,
+                 precision: str = "fp32x2", unroll: int = 4):
+        super().__init__(sub_matrix_id, Level.TBLOCK)
+        self.rb = rb
+        self.ct = ct
+        self.g = g
+        self.precision = precision
+        self.unroll = unroll
+
+    def is_valid_according_to_metadata(self, ms: MetaDataSet) -> bool:
+        # the tile packer does its own blocking; only the sub must exist
+        return BasicOperator.is_valid_according_to_metadata(self, ms)
+
+    def run(self, ms: MetaDataSet, ctx: OperatorContext) -> None:
+        self._set_style(ms, self.STYLE)
 
 
 class GridBlockOperator(BasicOperator):

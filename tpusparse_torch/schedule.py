@@ -5,33 +5,41 @@ implementing parameters; ``build_plan`` runs the operator pipeline through
 the OperatorExecutor, packs the format on the device and returns a plan.
 ``Schedule`` keeps the JAX package's fields and defaults, so one
 ``describe()`` dict means the same thing in both packages.  Of the
-families, this port runs ``dg_span`` and ``dgt_span``; every other family
-raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+families, this port runs ``dg_span``, ``dgt_span``, ``tile_onehot``,
+``span_onehot`` and ``span_colsplit`` (the sum of column-range span
+sub-plans); every other family raises ``NotImplementedError`` naming the
+ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
+import numpy as np
+
+from tpusparse_torch.format import pack_tile
 from tpusparse_torch.generator import SpmmPlan
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels.common import resolve_device
 from tpusparse_torch.kernels.dg_gather import (PRECISIONS, choose_kt_dg, dg_spmm,
                                                dg_spmv, pack_dg)
 from tpusparse_torch.kernels.dgt_gather import dgt_spmm, pack_dgt
+from tpusparse_torch.kernels.span_gather import pack_span, span_spmm
+from tpusparse_torch.kernels.tile_onehot import tile_spmm
 from tpusparse_torch.levels import Level
 from tpusparse_torch.meta.set import create_init_metadata_set
-from tpusparse_torch.ops import GridBlockOperator, OperatorExecutor
+from tpusparse_torch.ops import (FixedIntervalColBlockingOperator, GridBlockOperator,
+                                 OperatorExecutor, TileOneHotImplementOperator)
 
 KERNEL_FAMILIES = ("stripe_total", "stripe_nested", "nnz_segment",
                    "segment_span", "tile_onehot", "span_onehot",
                    "span_colsplit", "radix_span", "brick_ell", "dg_span",
                    "dgt_span", "bucketed", "dense", "block_ell", "hybrid_cols")
-PORTED_FAMILIES = ("dg_span", "dgt_span")
+PORTED_FAMILIES = ("dg_span", "dgt_span", "tile_onehot", "span_onehot", "span_colsplit")
 #: the ROADMAP.md queue-A item that ports each family still missing
 ROADMAP_ITEM = {
-    "tile_onehot": "A.6", "span_onehot": "A.6", "span_colsplit": "A.6",
     "stripe_total": "A.7", "stripe_nested": "A.7", "nnz_segment": "A.7",
     "segment_span": "A.7", "radix_span": "A.7", "brick_ell": "A.7",
     "bucketed": "A.7",
@@ -148,6 +156,27 @@ def _build_sub_plan(ms, ex, sub: int, sched: Schedule, out_rows: int, device):
     ex.add_and_run(GridBlockOperator(sub, ktile=sched.ktile, unroll=sched.unroll))
     kt_meta = (int(ms.get(Level.GLOBAL, "ktile", sub))
                if ms.has(Level.GLOBAL, "ktile", sub) else None)
+    if sched.family == "span_onehot":
+        fmt = pack_span(ms, sub, out_rows=out_rows, rb=sched.rb, ct=sched.ct, g=sched.g,
+                        device=device)
+
+        def fn(x, fmt=fmt):
+            return span_spmm(fmt, x, ktile=kt_meta, precision=sched.precision,
+                             unroll=sched.unroll)
+
+        return fmt, fn
+    if sched.family == "tile_onehot":
+        ex.add_and_run(TileOneHotImplementOperator(
+            sub, rb=sched.rb, ct=sched.ct, g=sched.g, precision=sched.precision,
+            unroll=sched.unroll))
+        fmt = pack_tile(ms, sub, out_rows=out_rows, rb=sched.rb, ct=sched.ct, g=sched.g,
+                        device=device)
+
+        def fn(x, fmt=fmt):
+            return tile_spmm(fmt, x, ktile=kt_meta, precision=sched.precision,
+                             unroll=sched.unroll)
+
+        return fmt, fn
     mode = sched.precision if sched.precision in PRECISIONS else "fp32x2"
     if sched.family == "dgt_span":
         kt = choose_kt_dg(max(kt_meta or 8, 2))  # kt=1 stays dg_span
@@ -177,6 +206,54 @@ def _build_sub_plan(ms, ex, sub: int, sched: Schedule, out_rows: int, device):
     return fmt, fn
 
 
+def _build_span_colsplit_plan(mat: CooMatrix, sched: Schedule, device) -> SpmmPlan:
+    """Column-partitioned span family (tpusparse/schedule.py:476): the
+    matrix is split into ``col_split`` column ranges by the
+    FixedIntervalColBlockingOperator, each range packed as its own span
+    format, and the plan sums the partial products with a torch add on the
+    format's device.  Every sub-format gathers back to the full output rows,
+    so the sum is a plain add.  The split exists because the TPU kernel
+    needed X resident in VMEM; the port keeps the JAX decision."""
+    m, n = mat.shape
+    s = max(int(sched.col_split), 2)
+    width = -(-n // s)
+    ms = create_init_metadata_set(mat)
+    ex = OperatorExecutor(ms)
+    ex.add_and_run(FixedIntervalColBlockingOperator(0, Level.TBLOCK, width))
+    first_nzs = ms.get(Level.TBLOCK, "first_nz_indices", 0)
+    col_tiles = ms.get(Level.TBLOCK, "col_tile_indices", 0)
+    rows_s, cols_s, vals_s = ms.coo(0)
+    fmts, ranges, pack_seconds = [], [], []
+    for t in range(len(col_tiles)):
+        lo = int(col_tiles[t])
+        hi = min(lo + width, n)
+        a, b = int(first_nzs[t]), int(first_nzs[t + 1])
+        sub = CooMatrix(rows_s[a:b], cols_s[a:b] - lo, vals_s[a:b],
+                        (m, hi - lo)).sort_row_major()
+        t0 = time.perf_counter()
+        fmts.append(pack_span(sub, rb=sched.rb, ct=min(sched.ct, hi - lo + 8), g=sched.g,
+                              device=device))
+        pack_seconds.append(time.perf_counter() - t0)
+        ranges.append((lo, hi))
+
+    def fn(x):
+        y = None
+        for fmt, (lo, hi) in zip(fmts, ranges):
+            part = span_spmm(fmt, x[lo:hi], ktile=sched.ktile, precision=sched.precision,
+                             unroll=sched.unroll)
+            y = part if y is None else y + part
+        return y
+
+    pads = [f.padding_rate for f in fmts]
+    return SpmmPlan(
+        fn=fn, formats=fmts, shape=mat.shape,
+        meta={"schedule": sched.describe(), "n_subs": len(fmts),
+              "padding_rate": float(np.mean(pads)) if pads else 1.0,
+              "operator_history": f"fixed_col_blocking[{width}] + span_colsplit[{s}]",
+              "device": str(device), "col_ranges": ranges, "pack_seconds": pack_seconds},
+    )
+
+
 def build_plan(mat: CooMatrix, sched: Schedule, *, device="cuda") -> SpmmPlan:
     """Plan for ``sched`` with its format on ``device`` (CUDA by default;
     raises when no card is present unless ``device="cpu"``)."""
@@ -185,6 +262,8 @@ def build_plan(mat: CooMatrix, sched: Schedule, *, device="cuda") -> SpmmPlan:
         raise ValueError(f"unknown family {sched.family!r}")
     if sched.family not in PORTED_FAMILIES:
         raise _not_ported(f"schedule family {sched.family!r}", ROADMAP_ITEM[sched.family])
+    if sched.family == "span_colsplit":  # as in the JAX package, before sort and buckets
+        return _build_span_colsplit_plan(mat, sched, dev)
     if sched.sort:
         raise _not_ported("Schedule(sort=True) (SortOperator)", "A.7")
     if sched.bucket_bounds:

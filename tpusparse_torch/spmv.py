@@ -5,6 +5,8 @@ Methods, decision for decision as in the JAX package:
   'dg'       the dg kernel at kt = 1 (``dg1_rows_cuda``), rb = 4096, ns = 4.
   'dgt8'     the dgt kernel at kt = 8 (``dgt_rows_cuda``) on x zero-padded
              to 8 columns, rb from ``auto_rb_dgt``.
+  'span'     the span kernel (``span_rows_cuda``) on x widened to 8
+             columns, at the first of the tuner's span points.
   'segment'  plain torch: ``index_add_`` of vals * x[cols] over rows.  The
              JAX version is XLA code, no Pallas kernel, so no kernel here.
   'auto'     'dg' when x passes the JAX package's size gate (N*4 bytes
@@ -27,7 +29,7 @@ from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels.common import cdiv, resolve_device
 
 #: the ROADMAP.md queue-A item that ports each SpMV method still missing
-ROADMAP_ITEM = {"radix": "A.7", "stripe": "A.7", "span": "A.6"}
+ROADMAP_ITEM = {"radix": "A.7", "stripe": "A.7"}
 
 
 def _as_x(x, dev: torch.device) -> torch.Tensor:
@@ -73,6 +75,20 @@ def spmv_fn(mat: CooMatrix, method: str = "auto", *, device="cuda"):
             return dgt_spmv(fmt, x)
 
         fn.format = fmt
+        return fn
+    if method == "span":
+        from tpusparse_torch.schedule import Schedule, build_plan
+        from tpusparse_torch.tune import _span_configs
+
+        rb, ct, g = _span_configs(mat.density)[0]
+        plan = build_plan(mat, Schedule(family="span_onehot", rb=rb, ct=ct, g=g, unroll=4),
+                          device=dev)
+
+        def fn(x):
+            assert tuple(x.shape) == (n,), f"x shape {tuple(x.shape)} != ({n},)"
+            return plan(_as_x(x, dev)[:, None].expand(n, 8))[:, 0]
+
+        fn.format = plan.formats[0]
         return fn
     if method == "segment":
         rows = torch.as_tensor(mat.rows, dtype=torch.int64, device=dev)

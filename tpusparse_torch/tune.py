@@ -3,9 +3,10 @@
 As in the reference (token_test.cc:1625-1847): enumerate Schedule
 candidates, check each against the oracle, time it, keep the min, cache the
 winner per matrix signature under the config cache_dir, and append every
-measurement to results.jsonl.  Candidates are the ``dg_span`` and
-``dgt_span`` blocks of the JAX package's list, in its order; a cached
-winner of a family not yet ported is dropped.  Candidates that differ only
+measurement to results.jsonl.  Candidates are the blocks of the JAX
+package's list whose families are ported (``dg_span``, ``dgt_span``,
+``span_onehot`` or ``span_colsplit``, ``tile_onehot``), in its order; a
+cached winner of a family not yet ported is dropped.  Candidates that differ only
 in knobs of the TPU kernels' code (``Schedule.plan_key``) are one plan on
 the card: it is packed and timed once, and each such row carries that
 measurement and ``same_plan_as``.
@@ -50,15 +51,42 @@ def matrix_signature(mat: CooMatrix) -> str:
     return h.hexdigest()[:16]
 
 
+def _span_configs(density: float) -> list[tuple[int, int, int]]:
+    """Density-adaptive (rb, ct, g) for the span family
+    (tpusparse/tune.py:39): a G-chunk of column-sorted nz spans about
+    G/(density*RB) columns, so the window needs CT*RB ~ 1.3*G/density; the
+    TPU's one-hot cost (CT+RB) put both near the square root.  TPU-derived
+    and kept so both packages time the same points."""
+    density = max(density, 1e-8)
+
+    def pow2(v, lo, hi, up=False):
+        f = math.ceil if up else round
+        return int(min(max(2 ** f(math.log2(max(v, 1))), lo), hi))
+
+    out = []
+    for g in (512, 256):
+        prod = min(max(1.3 * g / density, 512 * 512), 2048 * 4096)
+        side = prod ** 0.5
+        rb = pow2(side, 256, 2048)
+        ct = pow2(prod / rb, 256, 4096, up=True)  # the window must cover the span
+        for cand in ((rb, ct, g), (max(rb // 2, 256), ct, g)):
+            if cand not in out:
+                out.append(cand)
+    return out[:4]
+
+
 def default_candidates(mat: CooMatrix, k: int, *, full: bool = False) -> list[Schedule]:
-    """The dg_span and dgt_span candidates of the JAX package's list
-    (tpusparse/tune.py:111-194), in its order: dg's density-sized (rb, ns,
-    g) points, the kt=8 alternative at K > 16, and with ``full`` the wider
-    grid, unrolls and bf16; then dgt's (resid, rb, nw, g, unroll,
-    rowhot_i8) points, an ``auto_rb_dgt`` point first where it exceeds 512,
-    and with ``full`` seven more.  The X-size gates (6 MB) are the JAX
-    package's VMEM gates, TPU-derived and queued for re-derivation
-    (ROADMAP.md A.4)."""
+    """The candidates of the JAX package's list (tpusparse/tune.py:111-250)
+    whose families are ported, in its order: dg's density-sized (rb, ns, g)
+    points, the kt=8 alternative at K > 16, and with ``full`` the wider
+    grid, unrolls and bf16; dgt's (resid, rb, nw, g, unroll, rowhot_i8)
+    points, an ``auto_rb_dgt`` point first where it exceeds 512, and with
+    ``full`` seven more; the span points (``span_onehot`` where X passes the
+    gate, else ``span_colsplit``) at K <= 128; the three tile points (with
+    ``full`` at K > 128 also ktile 64 and 128).  The radix, brick-ELL,
+    stripe, segment, bucketed and dense blocks are skipped until ported.
+    The X-size gates (6 MB) are the JAX package's VMEM gates, TPU-derived
+    and queued for re-derivation (ROADMAP.md A.4)."""
     cands: list[Schedule] = []
     kt_dg = choose_kt_dg(k)
     if k <= 128 and mat.shape[1] * kt_dg * 4 <= 6 * 1024 * 1024:
@@ -106,6 +134,25 @@ def default_candidates(mat: CooMatrix, k: int, *, full: bool = False) -> list[Sc
         for resid, rb, nw, g_c, u_c, i8 in dgt_cfgs:
             cands.append(Schedule(family="dgt_span", rb=rb, nw=nw, resid=resid, g=g_c,
                                   unroll=u_c, ktile=max(kt_dg, 8), rowhot_i8=i8))
+    x_bytes = mat.shape[1] * 2 * min(k, 128) * 2  # TPU-derived: X as hi+lo bf16
+    if k <= 128:
+        if x_bytes <= 6 * 1024 * 1024:  # TPU-derived gate
+            unrolls = (2, 4, 8) if full else (4,)
+            precisions = ("fp32x2", "bf16") if full else ("fp32x2",)
+            for rb, ct, g in _span_configs(mat.density):
+                for u in unrolls:
+                    for prec in precisions:
+                        cands.append(Schedule(family="span_onehot", rb=rb, ct=ct, g=g,
+                                              unroll=u, precision=prec))
+        else:
+            s = -(-x_bytes // (4 * 1024 * 1024))
+            for rb, ct, g in _span_configs(mat.density)[:2]:
+                cands.append(Schedule(family="span_colsplit", col_split=s, rb=rb, ct=ct,
+                                      g=g, unroll=4))
+    for rb, ct, g in ((1024, 1024, 512), (1024, 512, 256), (512, 1024, 256)):
+        for kt in ((None, 64, 128) if full and k > 128 else (None,)):
+            cands.append(Schedule(family="tile_onehot", rb=rb, ct=ct, g=g, unroll=4,
+                                  ktile=kt))
     return cands
 
 
