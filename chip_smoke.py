@@ -21,7 +21,16 @@ entry points a user calls:
   (``span_colsplit``: two span launches), ``tune`` at the headline size at
   K = 8 (now with span and tile rows) and K = 256 (tile rows),
   ``span_spmm(stream=True)`` at both sizes, ``tile_spmm`` resident at
-  K = 32 and ``spmv_fn(mat, "span")`` at the SpMV size.
+  K = 32 and ``spmv_fn(mat, "span")`` at the SpMV size;
+- the radix, stripe and segment families: ``spmm`` at the SpMV size with
+  K = 4 (P8: the ``radix_span`` default), ``tune`` at the headline size at
+  K = 8 with the JAX package's 25 candidates in its order (P9: radix,
+  brick-ELL, stripe, segment and bucketed rows too), ``build_plan`` with
+  ``stripe_total``, ``stripe_nested``, ``nnz_segment``, ``segment_span``
+  and ``bucketed`` at the headline size and ``build_stripe_plan`` (P10),
+  ``brick_ell`` on a banded 32768 x 32768 matrix (P11), and
+  ``spmv_fn(mat, "radix")`` and ``spmv_fn(mat, "stripe")`` at the SpMV
+  size (P12).
 
 Every result is checked against the host oracle; the kernels are timed
 against their bound, their plain versions and cuSPARSE.  Any failure
@@ -53,6 +62,20 @@ SPMV_SEED = 9
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores, published
 REPS = 5                    # back-to-back readings per yardstick, interleaved
+# P9: the JAX package's default_candidates(headline, 8), all 25 rows in its
+# order (tpusparse/tune.py:90-313), by family and as a digest of every
+# row's describe() (tests/test_torch_slice.py holds both to the JAX list)
+TUNE_K8_FAMILIES = (["dg_span"] * 3 + ["dgt_span"] * 6 + ["radix_span"] * 3 + ["brick_ell"]
+                    + ["span_onehot"] * 4 + ["tile_onehot"] * 3 + ["stripe_total"] * 2
+                    + ["segment_span", "nnz_segment", "bucketed"])
+TUNE_K8_DIGEST = "732d834f35bea5d0"
+
+
+def candidates_digest(described) -> str:
+    """A digest of a candidate list's describe() dicts, in order."""
+    import hashlib
+
+    return hashlib.sha256(json.dumps(list(described), sort_keys=True).encode()).hexdigest()[:16]
 
 
 def log(*args):
@@ -93,18 +116,21 @@ def main() -> int:
         import tpusparse_torch
         from tpusparse_torch.bench.harness import gflops, time_fn
         from tpusparse_torch.format import pack_tile
+        from tpusparse_torch.generator import build_stripe_plan, prepare_stripe_format
         from tpusparse_torch.io import builder
         from tpusparse_torch.io.mtx import CooMatrix
         from tpusparse_torch.kernels import build
         from tpusparse_torch.kernels import dg_gather as dg
         from tpusparse_torch.kernels import dgt_gather as dgt
+        from tpusparse_torch.kernels import radix_gather as radix
         from tpusparse_torch.kernels import span_gather as span
+        from tpusparse_torch.kernels import stripe_gather as stripe
         from tpusparse_torch.kernels import tile_onehot as tile
         from tpusparse_torch.meta.set import create_init_metadata_set
         from tpusparse_torch.oracle import check_result, spmm_reference
         from tpusparse_torch.schedule import Schedule, build_plan, default_schedule
         from tpusparse_torch.spmv import spmv_fn, spmv_multi_fn
-        from tpusparse_torch.tune import tune
+        from tpusparse_torch.tune import default_candidates, tune
     except ImportError as e:
         print(f"chip_smoke: cannot import tpusparse_torch ({e}); run it from the repo root",
               file=sys.stderr)
@@ -113,6 +139,8 @@ def main() -> int:
     dg_src, dgt_src = "tpusparse_torch/csrc/dg_gather.cu", "tpusparse_torch/csrc/dgt_gather.cu"
     tile_src, span_src = ("tpusparse_torch/csrc/tile_onehot.cu",
                           "tpusparse_torch/csrc/span_gather.cu")
+    radix_src, stripe_src = ("tpusparse_torch/csrc/radix_gather.cu",
+                             "tpusparse_torch/csrc/stripe_gather.cu")
     kernels = {  # the ported kernels, by their wrapper
         "dg": {"wrapper": dg.dg_rows_cuda, "name": "dg_rows_cuda", "source": dg_src,
                "replaces": "tpusparse/kernels/dg_gather.py:318", "err": 0.0},
@@ -137,6 +165,16 @@ def main() -> int:
                         "plain": span.span_stream_rows_plain, "name": "span_stream_rows_cuda",
                         "source": span_src, "replaces": "tpusparse/kernels/span_gather.py:329",
                         "err": 0.0},
+        "radix": {"wrapper": radix.radix_rows_cuda, "plain": radix.radix_rows_plain,
+                  "name": "radix_rows_cuda", "source": radix_src,
+                  "replaces": "tpusparse/kernels/radix_gather.py:441", "err": 0.0},
+        "stripe": {"wrapper": stripe.stripe_rows_cuda, "plain": stripe.stripe_rows_plain,
+                   "name": "stripe_rows_cuda", "source": stripe_src,
+                   "replaces": "tpusparse/kernels/stripe_gather.py:35", "err": 0.0},
+        "stripe_nested": {"wrapper": stripe.stripe_nested_rows_cuda,
+                          "plain": stripe.stripe_nested_rows_plain,
+                          "name": "stripe_nested_rows_cuda", "source": stripe_src,
+                          "replaces": "tpusparse/kernels/stripe_gather.py:156", "err": 0.0},
     }
 
     # ---- 1. device
@@ -286,7 +324,7 @@ def main() -> int:
             branch += f", window slice {rows}"
         check_vs_plain(which, label,
                        f"kt={kt} {mode} K={k} rb={fmt.rb} ct={fmt.ct} g={fmt.chunk_g} "
-                       f"P={fmt.n_programs} NC={fmt.n_chunks} pad={fmt.padding_rate:.3f}"
+                       f"P={fmt.cols.shape[0]} NC={fmt.n_chunks} pad={fmt.padding_rate:.3f}"
                        + (" vals plane" if vals is not None else "") + f", {branch}",
                        got, want, scale, tol)
 
@@ -321,6 +359,92 @@ def main() -> int:
         fspan_w = span.pack_span(m_, rb=1024 if head else 128, ct=4096, g=g_s, device=dev)
         win_vs_plain("span_stream", label, fspan_w, 100, "fp32")      # window in slices
     log(f"[kernel] tile and span checks (packing included): {time.perf_counter() - t0:.1f} s")
+
+    def radix_vs_plain(label, fmt, k, kt=None):
+        """The radix kernel against its plain version on ``fmt`` at K = k,
+        X padded to the launch's K-tile (the format's kt unless given)."""
+        kt = fmt.kt if kt is None else kt
+        x = dg.pad_dense_cols(rand_x(fmt.shape[1], k), -(-k // kt) * kt).contiguous()
+        args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p)
+        kw = dict(rb=fmt.rb, kt=kt, mode=fmt.mode)
+        got = radix.radix_rows_cuda(*args, x, **kw)
+        want = radix.radix_rows_plain(*args, x, **kw)
+        scale = radix.radix_rows_plain(fmt.c0, fmt.cols, fmt.lrow, fmt.vals.abs(), fmt.nc_p,
+                                       x.abs(), **dict(kw, mode="fp32x2"))
+        branch = "shared tile" if radix.radix_uses_shared_tile(fmt.rb, kt) else "global atomics"
+        check_vs_plain("radix", label,
+                       f"kt={kt} {fmt.mode} K={k} rb={fmt.rb} S={fmt.S} g={fmt.chunk_g} "
+                       f"P={fmt.n_programs} NC={fmt.n_chunks} pad={fmt.padding_rate:.3f}, "
+                       f"{branch}", got, want, scale, tol)
+
+    def stripe_vs_plain(label, fmt, k):
+        """A stripe kernel against its plain version on a stripe, nested
+        stripe or segment format at K = k (X padded to the K-tile)."""
+        which = "stripe_nested" if hasattr(fmt, "wnz") else "stripe"
+        kt = stripe.choose_kt(k)
+        x = dg.pad_dense_cols(rand_x(fmt.shape[1], k), -(-k // kt) * kt).contiguous()
+        rb = getattr(fmt, "max_rows_per_stripe", None) or fmt.max_segments
+        extra = (fmt.wnz, fmt.wrow) if which == "stripe_nested" else ()
+        got = kernels[which]["wrapper"](fmt.cols, fmt.lrow, fmt.vals, *extra, x, rb=rb, kt=kt)
+        want = kernels[which]["plain"](fmt.cols, fmt.lrow, fmt.vals, *extra, x, rb=rb)
+        scale = kernels[which]["plain"](fmt.cols, fmt.lrow, fmt.vals.abs(), *extra, x.abs(), rb=rb)
+        branch = "shared tile" if stripe.stripe_uses_shared_tile(rb, kt) else "global atomics"
+        check_vs_plain(which, label,
+                       f"{type(fmt).__name__} kt={kt} K={k} vals {fmt.vals.dtype} rb={rb} "
+                       f"P={fmt.cols.shape[0]} C={fmt.cols.shape[2]} "
+                       f"pad={fmt.padding_rate:.3f}, {branch}", got, want, scale, tol)
+
+    t0 = time.perf_counter()
+    for label, m_ in (("small", small), ("headline", mat)):
+        head = label == "headline"
+        for kt in (1, 2, 4, 8):
+            for mode in ("fp32x2", "bf16"):
+                fr = radix.pack_radix(m_, rb=1024 if head else 128, S=128,
+                                      g=1024 if head else 256, kt=kt, mode=mode, device=dev)
+                radix_vs_plain(label, fr, kt)
+                if (kt, mode) == (4, "fp32x2"):
+                    radix_vs_plain(label, fr, 3)              # K = 3 padded to the tile
+                    radix_vs_plain(label, fr, 8)              # K-tiling: two tiles of 4
+                    radix_vs_plain(label, fr, 4, kt=8)        # the same X at KT = 8
+        fr = radix.pack_radix(m_, rb=2048, S=128, g=512, kt=32, device=dev)
+        radix_vs_plain(label, fr, 32)                         # 256 KB: global atomics
+        for work, vd in ((512, None), (2048, None), (2048, "bfloat16")):
+            fs, _ = prepare_stripe_format(m_, work_per_stripe=work, val_dtype=vd, device=dev)
+            for k in (1, 4, 8, 40):
+                stripe_vs_plain(label, fs, k)
+        for sched in (Schedule(family="stripe_nested", work_per_block=4096, unroll=8),
+                      Schedule(family="nnz_segment", work_per_block=2048, unroll=8)):
+            for k in (1, 8, 32):
+                stripe_vs_plain(label, build_plan(m_, sched).formats[0], k)
+    log(f"[kernel] radix and stripe checks (packing included): {time.perf_counter() - t0:.1f} s")
+
+    def fmt_geometry(f) -> str:
+        kind = type(f).__name__
+        if kind in ("StripeFormat", "NestedStripeFormat", "SegmentFormat"):
+            rb = getattr(f, "max_rows_per_stripe", None) or f.max_segments
+            return (f"{kind} P={f.cols.shape[0]} C={f.cols.shape[2]} rb={rb}"
+                    + (f" W={f.n_warps}" if kind == "NestedStripeFormat" else "")
+                    + f" pad={f.padding_rate:.3f}")
+        geo = {"DgFormat": lambda: f"ns={f.ns}",
+               "DgtFormat": lambda: f"nw={f.nw} resid={f.resid}",
+               "RadixFormat": lambda: f"S={f.S} kt={f.kt} {f.mode}"}.get(
+                   kind, lambda: f"ct={f.ct}")()
+        return (f"{kind} rb={f.rb} {geo} g={f.chunk_g} P={f.cols.shape[0]} NC={f.n_chunks} "
+                f"pad={f.padding_rate:.3f}")
+
+    def fmt_vs_plain(label, fmt, k):
+        """Whichever kernel runs ``fmt``, against its plain version at K = k."""
+        kind = type(fmt).__name__
+        if kind == "DgFormat":
+            vs_plain(label, fmt, k, fmt.kt, fmt.mode, tol)
+        elif kind == "DgtFormat":
+            dgt_vs_plain(label, fmt, k, tol)
+        elif kind == "RadixFormat":
+            radix_vs_plain(label, fmt, k)
+        elif kind in ("StripeFormat", "NestedStripeFormat", "SegmentFormat"):
+            stripe_vs_plain(label, fmt, k)
+        else:  # span, segment-span and tile formats, resident
+            win_vs_plain("tile" if kind == "TileFormat" else "span", label, fmt, k, "fp32x2")
 
     # ---- 4. the main paths through the entry points.  Each path runs with
     # every count set to 0 just before it and read just after, so each
@@ -447,12 +571,25 @@ def main() -> int:
         best_of = {}
         for row in res_.table:
             s = row["schedule"]
-            if not row["ok"]:
-                raise AssertionError(f"tune candidate failed: {row['error']}")
             fam = s["family"]
             geo = {"dg_span": f"ns={s['ns']}",
                    "dgt_span": f"nw={s['nw']} resid={s['resid']} u={s['unroll']} "
-                               f"i8={s['rowhot_i8']}"}.get(fam, f"ct={s['ct']} u={s['unroll']}")
+                               f"i8={s['rowhot_i8']}",
+                   "radix_span": f"S={s['sublanes']}", "brick_ell": f"S={s['sublanes']}",
+                   "stripe_total": f"{s['blocking']} work={s['work_per_block']}",
+                   "stripe_nested": f"work={s['work_per_block']}",
+                   "nnz_segment": f"work={s['work_per_block']}",
+                   "segment_span": f"work={s['work_per_block']} ct={s['ct']}",
+                   "bucketed": f"bounds={s['bucket_bounds']}"}.get(
+                       fam, f"ct={s['ct']} u={s['unroll']}")
+            if not row["ok"]:
+                # the padding bound and brick_ell's gate refuse rows, as the
+                # JAX tuner does; anything else is a fault
+                if "CandidateRejected" not in row["error"]:
+                    raise AssertionError(f"tune candidate failed: {row['error']}")
+                log(f"[tune] {path} {fam} rb={s['rb']} {geo} g={s['g']} kt={s['ktile']}: "
+                    f"refused, {row['error']}")
+                continue
             same = row.get("same_plan_as")
             log(f"[tune] {path} {fam} rb={s['rb']} {geo} g={s['g']} kt={s['ktile']} "
                 f"{s['precision']}: {row['seconds'] * 1e3:.4f} ms, {row['gflops']:.2f} GF/s, "
@@ -474,27 +611,35 @@ def main() -> int:
                             for k, v in row["schedule"].items()})
         return build_plan(mat, sched)
 
+    # P3 / P9: the JAX package's 25 candidates in its order; brick_ell is
+    # refused at its gate and rows past the padding bound are refused, as
+    # there
     res, best_by_family = run_tune("tune_k8", xs[8])
-    assert set(best_by_family) == {"dg_span", "dgt_span", "span_onehot", "tile_onehot"}
-    for which in ("dg", "dgt", "span", "tile"):
+    rows_k8 = [row["schedule"] for row in res.table]
+    assert [r["family"] for r in rows_k8] == TUNE_K8_FAMILIES, [r["family"] for r in rows_k8]
+    assert candidates_digest(rows_k8) == TUNE_K8_DIGEST
+    assert candidates_digest(c.describe() for c in default_candidates(mat, 8)) == TUNE_K8_DIGEST
+    brick_row = res.table[TUNE_K8_FAMILIES.index("brick_ell")]
+    assert not brick_row["ok"] and "brick_ell chunk blocks" in brick_row["error"]
+    assert {"dg_span", "dgt_span", "radix_span", "span_onehot", "tile_onehot", "stripe_total",
+            "nnz_segment", "bucketed"} <= set(best_by_family)
+    for which in ("dg", "dgt", "span", "tile", "radix", "stripe"):
         need("tune_k8", which)
     best = res.best_schedule
     # the tuner's winner, held against its plain version at its own geometry
     # (the best row of each family follows with the yardsticks)
     win = res.best
-    wf = win.formats[0]
-    if best.family == "dgt_span":
-        dgt_vs_plain("headline", wf, 8, tol)
-    elif best.family == "dg_span":
-        vs_plain("headline", wf, 8, wf.kt, wf.mode, tol)
-    else:
-        win_vs_plain("span" if best.family == "span_onehot" else "tile", "headline", wf, 8,
-                     "fp32x2")
+    for wf in win.formats:
+        fmt_vs_plain("headline", wf, 8)
 
     res256, best256 = run_tune("tune_k256", xs[256])
-    assert set(best256) == {"tile_onehot"} and len(res256.table) == 3
+    assert "tile_onehot" in best256 and len(res256.table) == len(default_candidates(mat, 256))
     need("tune_k256", "tile_stream")
-    win_vs_plain("tile_stream", "headline", res256.best.formats[0], 256, "fp32x2")
+    for wf in res256.best.formats:
+        if res256.best_schedule.family == "tile_onehot":
+            win_vs_plain("tile_stream", "headline", wf, 256, "fp32x2")
+        else:
+            fmt_vs_plain("headline", wf, 256)
 
     # ---- 6. SpMV at the SpMV workload's size, and the column split and the
     # stream kernel through dgt_spmm
@@ -592,6 +737,85 @@ def main() -> int:
         f"{f_sv.memory_bytes / 2**20:.1f} MiB")
     win_vs_plain("span", "spmv", f_sv, 8, "fp32x2")
 
+    # P8: the default at 262144 x 262144, K = 4 is radix_span: X of K = 4
+    # padded to dg's kt of 8 is 8 MB, past its gate; radix's kt = 4 makes
+    # 4 MB, inside it
+    xb4 = np.random.default_rng(4).standard_normal((SPMV_N, 4)).astype(np.float32)
+    ref_b4 = spmm_reference(big, xb4.astype(np.float64))
+    sched_b4 = default_schedule(big, 4)
+    assert (sched_b4.family, sched_b4.ktile) == ("radix_span", 4)
+    zero_counts()
+    t0 = time.perf_counter()
+    y = tpusparse_torch.spmm(big, xb4)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    read_counts("spmm_262k_k4")
+    assert y.is_cuda and y.shape == (SPMV_N, 4) and bool(torch.isfinite(y).all())
+    check_result(y.cpu().numpy(), ref_b4, rtol=2e-3)
+    assert need("spmm_262k_k4", "radix") == 1
+    t0 = time.perf_counter()
+    plan_b4 = build_plan(big, sched_b4)
+    t_pack_b4 = time.perf_counter() - t0
+    f_b4 = plan_b4.formats[0]
+    log(f"[spmm] 262144^2 K=4: radix_span rb={f_b4.rb} S={f_b4.S} g={f_b4.chunk_g} kt={f_b4.kt} "
+        f"P={f_b4.n_programs} NC={f_b4.n_chunks} window {f_b4.window} pad={f_b4.padding_rate:.3f} "
+        f"{f_b4.memory_bytes / 2**20:.1f} MiB, pack {t_pack_b4:.2f} s: oracle ok at rtol 2e-3, "
+        f"1 launch of radix_rows_cuda, first call {dt:.2f} s (packing included)")
+    radix_vs_plain("spmv", f_b4, 4)                        # the path's own format
+    radix_vs_plain("spmv", f_b4, 4, kt=8)
+
+    # P10: the stripe and segment families at the headline size, K = 8, each
+    # with the tuner's parameters, and build_stripe_plan
+    bucket = (max(int(8 * float(mat.row_lengths().mean())), 32),)
+    p10 = {"stripe_merge_path_512": ("stripe", Schedule(family="stripe_total",
+                                                        work_per_block=512, unroll=8)),
+           "stripe_merge_path_2048": ("stripe", Schedule(family="stripe_total",
+                                                         work_per_block=2048, unroll=8)),
+           "stripe_nested": ("stripe_nested", Schedule(family="stripe_nested",
+                                                       work_per_block=4096, unroll=8)),
+           "nnz_segment": ("stripe", Schedule(family="nnz_segment", work_per_block=2048,
+                                              unroll=8)),
+           "segment_span": ("span", Schedule(family="segment_span", work_per_block=4096,
+                                             ct=512, g=256, unroll=4)),
+           "bucketed": ("span", Schedule(family="bucketed", bucket_bounds=bucket))}
+    p10_plans, p10_pack = {}, {}
+    for name, (which, sched) in p10.items():
+        p10_plans[name], p10_pack[name] = run_entry(
+            name, which, lambda sched=sched: build_plan(mat, sched), xs[8], ref_h8, (M, 8),
+            tag="p10")
+    p10_plans["build_stripe_plan"], p10_pack["build_stripe_plan"] = run_entry(
+        "build_stripe_plan", "stripe", lambda: build_stripe_plan(mat), xs[8], ref_h8, (M, 8),
+        tag="p10")
+    for name, plan in p10_plans.items():
+        for f in plan.formats:
+            log(f"[p10]   {name}: {fmt_geometry(f)}, {f.memory_bytes / 2**20:.1f} MiB")
+            fmt_vs_plain("headline", f, 8)
+    assert kernels["span"]["paths"]["bucketed"] == p10_plans["bucketed"].meta["n_subs"] == 2
+
+    # P11: brick_ell (the tuner's row) on a banded matrix, whose bricks keep
+    # their columns together, so the chunk blocks pass its gate
+    band = builder.banded_coo(M, N, bandwidth=16, seed=3)
+    ref_band = spmm_reference(band, xs[8].astype(np.float64))
+    sched_be = Schedule(family="brick_ell", sort=True, rb=1024, sublanes=256, g=512, unroll=4,
+                        ktile=8)
+    plan_be, t_pack_be = run_entry("brick_ell_banded", "radix", lambda: build_plan(band, sched_be),
+                                   xs[8], ref_band, (M, 8))
+    f_be = plan_be.formats[0]
+    log(f"[matrix] banded: {M}x{N}, nnz={band.nnz}, bandwidth 16 seed 3; brick_ell "
+        f"{fmt_geometry(f_be)}, chunk blocks {f_be.n_chunks * f_be.chunk_g * 12 / 2**20:.2f} MB "
+        f"(gate 4 MB), {f_be.memory_bytes / 2**20:.1f} MiB")
+    radix_vs_plain("banded", f_be, 8)
+
+    # P12: SpMV through the radix (kt = 1) and stripe kernels at 262144^2
+    run_path("spmv_radix_262k", "radix", lambda: spmv_fn(big, "radix"), xv, ref_v, (SPMV_N,))
+    f_rv = spmv_fns["spmv_radix_262k"].format
+    log(f"[spmv]   radix format: {fmt_geometry(f_rv)} {f_rv.memory_bytes / 2**20:.1f} MiB")
+    radix_vs_plain("spmv", f_rv, 1)
+    run_path("spmv_stripe_262k", "stripe", lambda: spmv_fn(big, "stripe"), xv, ref_v, (SPMV_N,))
+    f_stv = spmv_fns["spmv_stripe_262k"].format
+    log(f"[spmv]   stripe format: {fmt_geometry(f_stv)} {f_stv.memory_bytes / 2**20:.1f} MiB")
+    stripe_vs_plain("spmv", f_stv, 8)
+
     launches = {w: sum(rec["paths"].values()) for w, rec in kernels.items()}
     for w, n_l in launches.items():
         if n_l < 1:
@@ -665,12 +889,7 @@ def main() -> int:
         kb = k if bound_k is None else bound_k
         b_ms, b_by = bound_ms(nnz, m, n, kb)
         k_ms, p_ms = t["kernel"] * 1e3, t["plain"] * 1e3
-        desc = "; ".join(
-            f"rb={f.rb} " + (f"ns={f.ns}" if which in ("dg", "dg1") else
-                             f"nw={f.nw} resid={f.resid}" if which.startswith("dgt") else
-                             f"ct={f.ct}")
-            + f" g={f.chunk_g} P={f.n_programs} NC={f.n_chunks} pad={f.padding_rate:.3f}"
-            for f in fmts)
+        desc = "; ".join(fmt_geometry(f) for f in fmts)
         mib = sum(f.memory_bytes for f in fmts) / 2**20
 
         def readings(name):
@@ -740,6 +959,28 @@ def main() -> int:
                        run(kernels[which]["wrapper"]), run(kernels[which]["plain"]), xk, xd,
                        whole, pack, bound_k)
 
+    def rows_yardstick(which, label, fmt, a, k, x, whole, pack=None, kt=None, bound_k=None):
+        """``measure`` for the radix or a stripe kernel on one format, X
+        zero-padded to the launch's K-tile ``kt`` (by default the radix
+        format's kt, or the stripe K-tile for X's columns)."""
+        xd = torch.as_tensor(x, device=dev)
+        x2 = xd.view(-1, 1) if xd.ndim == 1 else xd
+        if which == "radix":
+            kt = fmt.kt if kt is None else kt
+            args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p)
+            kw = pkw = dict(rb=fmt.rb, kt=kt, mode=fmt.mode)
+        else:
+            kt = stripe.choose_kt(x2.shape[1]) if kt is None else kt
+            rb = getattr(fmt, "max_rows_per_stripe", None) or fmt.max_segments
+            extra = (fmt.wnz, fmt.wrow) if which == "stripe_nested" else ()
+            args = (fmt.cols, fmt.lrow, fmt.vals, *extra)
+            kw, pkw = dict(rb=rb, kt=kt), dict(rb=rb)
+        xk = dg.pad_dense_cols(x2, -(-x2.shape[1] // kt) * kt).contiguous()
+        kern = functools.partial(kernels[which]["wrapper"], *args, **kw)
+        plain = functools.partial(kernels[which]["plain"], *args, **pkw)
+        return measure(which, f"{label}, KT={kt}", [fmt], a, k, kern, plain, xk, xd, whole, pack,
+                       bound_k)
+
     best_dg, best_dgt = plan_of(best_by_family["dg_span"]), plan_of(best_by_family["dgt_span"])
     best_tile = plan_of(best_by_family["tile_onehot"])
     f_dg = best_dg.formats[0]
@@ -768,7 +1009,31 @@ def main() -> int:
         "span_stream": win_yardstick("span_stream", "headline, best span tune row (P5)",
                                      [(f_span, 0)], mat, 8, xs[8], sstream_h,
                                      best_by_family["span_onehot"]["pack_seconds"]),
+        "radix": rows_yardstick("radix", "262144^2, spmm default radix_span (P8)", f_b4, big,
+                                4, xb4, plan_b4.fn, t_pack_b4),
+        "stripe": rows_yardstick("stripe", "headline, stripe_total merge_path 2048 (P10)",
+                                 p10_plans["stripe_merge_path_2048"].formats[0], mat, 8, xs[8],
+                                 p10_plans["stripe_merge_path_2048"],
+                                 p10_pack["stripe_merge_path_2048"]),
+        "stripe_nested": rows_yardstick("stripe_nested", "headline, stripe_nested (P10)",
+                                        p10_plans["stripe_nested"].formats[0], mat, 8, xs[8],
+                                        p10_plans["stripe_nested"], p10_pack["stripe_nested"]),
     }
+    # P8's format with X padded to KT = 8, as the window kernels would run
+    # it, and at K = 8 (two K-tiles of 4, or one of 8)
+    rows_yardstick("radix", "262144^2, P8's format, K=4 padded", f_b4, big, 4, xb4, plan_b4.fn,
+                   kt=8)
+    for kt_ in (4, 8):
+        rows_yardstick("radix", "262144^2, P8's format at K=8", f_b4, big, 8, xb8, plan_b4.fn,
+                       kt=kt_)
+    rows_yardstick("radix", "262144^2, spmv_fn('radix') (P12)", f_rv, big, 1, xv,
+                   spmv_fns["spmv_radix_262k"], pack_s["spmv_radix_262k"])
+    rows_yardstick("radix", "banded 32768^2, brick_ell (P11)", f_be, band, 8, xs[8], plan_be,
+                   t_pack_be)
+    rows_yardstick("stripe", "headline, nnz_segment (P10)", p10_plans["nnz_segment"].formats[0],
+                   mat, 8, xs[8], p10_plans["nnz_segment"], p10_pack["nnz_segment"])
+    rows_yardstick("stripe", "262144^2, spmv_fn('stripe') (P12), x as 8 columns", f_stv, big, 1,
+                   xv, spmv_fns["spmv_stripe_262k"], pack_s["spmv_stripe_262k"], kt=8, bound_k=1)
     # the resident kernel on P1's product: what staging X buys at K = 256
     win_yardstick("tile", "headline, P1's product on the resident kernel", [(f256, 0)], mat,
                   256, xs[256], tile256)
@@ -828,6 +1093,8 @@ def main() -> int:
                  torch.as_tensor(xs[256], device=dev), calls=10)
     profile_call("P2 spmm 262144^2 K=8 (span_colsplit(2))", plan_b8.fn,
                  torch.as_tensor(xb8, device=dev), calls=10)
+    profile_call("P8 spmm 262144^2 K=4 (radix_span)", plan_b4.fn,
+                 torch.as_tensor(xb4, device=dev), calls=10)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     line = {"kernels": [

@@ -1,7 +1,8 @@
 """tpusparse_torch's CUDA kernels on the card: each kernel against its plain
-version for every kt and mode, the default SpMM paths (dg, tile, span and
-the column split), tune, build_tile_plan and the SpMV entry points at a
-medium size.
+version for every kt and mode, the default SpMM paths (dg, radix, tile, span
+and the column split), tune, the stripe and segment families,
+build_tile_plan, build_stripe_plan and the SpMV entry points at a medium
+size.
 Marked ``gpu``; without a CUDA device every test skips (the ``cuda``
 fixture decides, so every pytest worker collects the same tests).  Run on
 the card with ``python -m pytest tests/test_torch_gpu.py -q -m gpu``.
@@ -14,14 +15,16 @@ import torch
 import tpusparse_torch
 from tpusparse_torch.io import builder
 from tpusparse_torch.format import pack_tile
-from tpusparse_torch.generator import build_tile_plan
+from tpusparse_torch.generator import build_stripe_plan, build_tile_plan, prepare_stripe_format
 from tpusparse_torch.kernels import dg_gather as dg
 from tpusparse_torch.kernels import dgt_gather as dgt
+from tpusparse_torch.kernels import radix_gather as radix
 from tpusparse_torch.kernels import span_gather as span
+from tpusparse_torch.kernels import stripe_gather as stripe
 from tpusparse_torch.kernels import tile_onehot as tile
 from tpusparse_torch.meta.set import create_init_metadata_set
 from tpusparse_torch.oracle import check_result, spmm_reference
-from tpusparse_torch.schedule import PORTED_FAMILIES, default_schedule
+from tpusparse_torch.schedule import PORTED_FAMILIES, Schedule, build_plan, default_schedule
 from tpusparse_torch.spmv import spmv_fn, spmv_multi_fn
 from tpusparse_torch.tune import tune
 
@@ -100,9 +103,12 @@ def test_tune_on_card(cuda, mat, tmp_path):
     x = np.random.default_rng(5).standard_normal((4096, 8)).astype(np.float32)
     with tpusparse_torch.config_override(cache_dir=str(tmp_path)):
         res = tune(mat, x, iters=3)
-    assert all(r["ok"] and r["device"] == torch.cuda.get_device_name(cuda) for r in res.table)
-    assert {r["schedule"]["family"] for r in res.table} == {"dg_span", "dgt_span",
-                                                             "span_onehot", "tile_onehot"}
+    assert all(r["device"] == torch.cuda.get_device_name(cuda) for r in res.table)
+    # rows may fail only at the padding bound or brick_ell's gate
+    assert all(r["ok"] or "CandidateRejected" in r["error"] for r in res.table)
+    assert {r["schedule"]["family"] for r in res.table} == {
+        "dg_span", "dgt_span", "radix_span", "brick_ell", "span_onehot", "tile_onehot",
+        "stripe_total", "segment_span", "nnz_segment", "bucketed"}   # skewed: segment rows
     assert res.best_schedule.family in PORTED_FAMILIES and res.best_seconds > 0
     check_result(res.best(x).cpu().numpy(), spmm_reference(mat, x.astype(np.float64)),
                  rtol=2e-3)
@@ -318,3 +324,122 @@ def test_opt_in_is_per_library(cuda, mat, rb, kt):
     assert _window_vs_plain("tile", t, kt, cuda, False, "fp32") <= 1e-5
     s = span.pack_span(mat, rb=rb, ct=1024, g=512, device=cuda)
     assert _window_vs_plain("span", s, kt, cuda, False, "fp32") <= 1e-5
+
+
+def _err(got, want, scale, dev):
+    torch.cuda.synchronize()
+    denom = torch.maximum(scale.double(), torch.ones((), dtype=torch.float64, device=dev))
+    return float(((got.double() - want.double()).abs() / denom).max())
+
+
+@pytest.mark.parametrize("kt,mode,k,rb", [
+    (1, "fp32x2", 1, 2048), (2, "fp32x2", 2, 1024), (4, "fp32x2", 4, 1024),
+    (4, "fp32x2", 3, 1024), (8, "fp32x2", 8, 1024), (16, "fp32x2", 40, 1024),
+    (32, "fp32x2", 32, 768), (1, "bf16", 1, 2048), (2, "bf16", 2, 1024), (4, "bf16", 4, 1024),
+    (8, "bf16", 16, 1024), (32, "bf16", 32, 2048),  # 256 KB tile: the global-atomic branch
+])
+def test_radix_kernel_matches_plain(cuda, mat, kt, mode, k, rb):
+    fmt = radix.pack_radix(mat, rb=rb, S=128, g=1024, kt=kt, mode=mode, device=cuda)
+    x = torch.as_tensor(np.random.default_rng(14).standard_normal((4096, -(-k // kt) * kt)),
+                        dtype=torch.float32, device=cuda)
+    args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p, x)
+    before = radix.radix_rows_cuda.launches
+    got = radix.radix_rows_cuda(*args, rb=rb, kt=kt, mode=mode)
+    assert radix.radix_rows_cuda.launches == before + 1
+    want = radix.radix_rows_plain(*args, rb=rb, kt=kt, mode=mode)
+    scale = radix.radix_rows_plain(fmt.c0, fmt.cols, fmt.lrow, fmt.vals.abs(), fmt.nc_p,
+                                   x.abs(), rb=rb, kt=kt, mode="fp32x2")
+    assert _err(got, want, scale, cuda) <= 1e-5
+    assert radix.radix_uses_shared_tile(rb, kt) == (rb * kt * 4 <= 200 * 1024)
+
+
+@pytest.mark.parametrize("work,val_dtype,k", [
+    (512, None, 8), (2048, None, 1), (2048, "bfloat16", 4), (512, "bfloat16", 40),
+    (20000, None, 32),                     # rb = 2500 at KT = 32: the global-atomic branch
+])
+def test_stripe_kernel_matches_plain(cuda, mat, work, val_dtype, k):
+    fmt, _ = prepare_stripe_format(mat, work_per_stripe=work, val_dtype=val_dtype, device=cuda)
+    kt = stripe.choose_kt(k)
+    x = torch.as_tensor(np.random.default_rng(15).standard_normal((4096, -(-k // kt) * kt)),
+                        dtype=torch.float32, device=cuda)
+    rb = fmt.max_rows_per_stripe
+    before = stripe.stripe_rows_cuda.launches
+    got = stripe.stripe_rows_cuda(fmt.cols, fmt.lrow, fmt.vals, x, rb=rb, kt=kt)
+    assert stripe.stripe_rows_cuda.launches == before + 1
+    want = stripe.stripe_rows_plain(fmt.cols, fmt.lrow, fmt.vals, x, rb=rb)
+    scale = stripe.stripe_rows_plain(fmt.cols, fmt.lrow, fmt.vals.abs(), x.abs(), rb=rb)
+    assert _err(got, want, scale, cuda) <= 1e-5
+    assert stripe.stripe_uses_shared_tile(rb, kt) == (rb * kt * 4 <= 200 * 1024)
+
+
+@pytest.mark.parametrize("work,k", [(4096, 8), (4096, 1), (60000, 32)])
+def test_stripe_nested_kernel_matches_plain(cuda, mat, work, k):
+    fmt = build_plan(mat, Schedule(family="stripe_nested", work_per_block=work, unroll=8),
+                     device=cuda).formats[0]
+    kt = stripe.choose_kt(k)
+    x = torch.as_tensor(np.random.default_rng(16).standard_normal((4096, kt)),
+                        dtype=torch.float32, device=cuda)
+    args = (fmt.cols, fmt.lrow, fmt.vals, fmt.wnz, fmt.wrow, x)
+    rb = fmt.max_rows_per_stripe
+    before = stripe.stripe_nested_rows_cuda.launches
+    got = stripe.stripe_nested_rows_cuda(*args, rb=rb, kt=kt)
+    assert stripe.stripe_nested_rows_cuda.launches == before + 1
+    want = stripe.stripe_nested_rows_plain(*args, rb=rb)
+    scale = stripe.stripe_nested_rows_plain(fmt.cols, fmt.lrow, fmt.vals.abs(), fmt.wnz,
+                                            fmt.wrow, x.abs(), rb=rb)
+    assert _err(got, want, scale, cuda) <= 1e-5
+
+
+@pytest.fixture(scope="module")
+def spmv_size():
+    # P8: the SpMV workload's matrix, where spmm's default at K = 4 is radix
+    return builder.power_law_coo(262144, 262144, avg_nnz_per_row=40.0, seed=9)
+
+
+def test_spmm_radix_default_on_card(cuda, spmv_size):
+    x = torch.as_tensor(np.random.default_rng(17).standard_normal((262144, 4)),
+                        dtype=torch.float32, device=cuda)
+    sched = default_schedule(spmv_size, 4)
+    assert (sched.family, sched.ktile) == ("radix_span", 4)
+    before = radix.radix_rows_cuda.launches
+    y = tpusparse_torch.spmm(spmv_size, x)
+    assert y.is_cuda and y.shape == (262144, 4) and radix.radix_rows_cuda.launches == before + 1
+    check_result(y.cpu().numpy(), spmm_reference(spmv_size, x.cpu().numpy().astype(np.float64)),
+                 rtol=2e-3)
+
+
+@pytest.mark.parametrize("kw,counter,launches", [
+    (dict(family="stripe_total", work_per_block=512), "stripe", 1),
+    (dict(family="stripe_total", blocking="fixed_rows", row_interval=256), "stripe", 1),
+    (dict(family="stripe_nested", work_per_block=4096), "nested", 1),
+    (dict(family="nnz_segment", work_per_block=2048), "stripe", 1),
+    (dict(family="segment_span", work_per_block=4096, ct=512, g=256), "span", 1),
+    (dict(family="bucketed", bucket_bounds=(128,)), "span", 2),
+    (dict(family="brick_ell", sort=True, rb=1024, sublanes=256, g=512, ktile=8), "radix", 1),
+])
+def test_stripe_segment_families_on_card(cuda, kw, counter, launches):
+    a = builder.banded_coo(4096, 4096, bandwidth=8, seed=23) if kw["family"] == "brick_ell" \
+        else builder.power_law_coo(4096, 4096, avg_nnz_per_row=16.0, seed=21)
+    wrapper = {"stripe": stripe.stripe_rows_cuda, "nested": stripe.stripe_nested_rows_cuda,
+               "span": span.span_rows_cuda, "radix": radix.radix_rows_cuda}[counter]
+    x = np.random.default_rng(18).standard_normal((4096, 8)).astype(np.float32)
+    plan = build_plan(a, Schedule(**kw))
+    before = wrapper.launches
+    y = plan(x)
+    assert y.is_cuda and wrapper.launches == before + launches
+    check_result(y.cpu().numpy(), spmm_reference(a, x.astype(np.float64)), rtol=2e-3)
+
+
+def test_stripe_plan_and_spmv_radix_stripe_on_card(cuda, mat):
+    x = np.random.default_rng(19).standard_normal((4096, 8)).astype(np.float32)
+    check_result(build_stripe_plan(mat)(x).cpu().numpy(),
+                 spmm_reference(mat, x.astype(np.float64)), rtol=2e-3)
+    v = np.random.default_rng(20).standard_normal(4096).astype(np.float32)
+    want = spmm_reference(mat, v.astype(np.float64))
+    for method, wrapper in (("radix", radix.radix_rows_cuda), ("stripe", stripe.stripe_rows_cuda)):
+        fn = spmv_fn(mat, method)
+        for arg in (v, torch.as_tensor(v, device=cuda)):
+            before = wrapper.launches
+            y = fn(arg)
+            assert y.is_cuda and y.shape == (4096,) and wrapper.launches == before + 1
+            check_result(y.cpu().numpy(), want, rtol=2e-3)

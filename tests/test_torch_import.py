@@ -18,7 +18,9 @@ def test_import_loads_no_jax_and_no_tpusparse():
     code = ("import sys, tpusparse_torch, tpusparse_torch.tune, "
             "tpusparse_torch.schedule, tpusparse_torch.kernels.dg_gather, "
             "tpusparse_torch.kernels.dgt_gather, tpusparse_torch.kernels.tile_onehot, "
-            "tpusparse_torch.kernels.span_gather, tpusparse_torch.format, "
+            "tpusparse_torch.kernels.span_gather, tpusparse_torch.kernels.radix_gather, "
+            "tpusparse_torch.kernels.stripe_gather, tpusparse_torch.kernels.nnz_split, "
+            "tpusparse_torch.format, "
             "tpusparse_torch.generator, tpusparse_torch.transforms, tpusparse_torch.ops, "
             "tpusparse_torch.spmv; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
@@ -44,3 +46,10 @@ def test_forbidden_pattern_spares_the_port_name():
     assert FORBIDDEN.search("import tpusparse")
     assert not FORBIDDEN.search("import tpusparse_torch")
     assert not FORBIDDEN.search("from tpusparse_torch.io import builder")
+
+
+def test_build_sources_are_every_csrc_file():
+    # chip_smoke.py builds build.SOURCES in parallel: every kernel source is there
+    from tpusparse_torch.kernels import build
+
+    assert sorted(build.SOURCES) == sorted(p.stem for p in build.CSRC.glob("*.cu"))

@@ -263,16 +263,18 @@ def test_spmm_default_tile_path_at_wide_k_matches_jax():
 
 
 def test_tune_cpu_picks_a_dg_candidate(tmp_path):
-    # a candidate of a ported family: at K = 8 dg_span, dgt_span, span_onehot
-    # and tile_onehot are all in the list
+    # a candidate of a ported family: at K = 8 every ported family's rows are
+    # in the list
     mat = _mat(seed=7)
     x = _x(400, 8, seed=8)
     with tpusparse_torch.config_override(cache_dir=str(tmp_path)):
         res = ttune.tune(mat, x, iters=2, device="cpu")
         again = ttune.tune(mat, x, iters=2, device="cpu", budget=1)
     assert res.best_schedule.family in tsched.PORTED_FAMILIES
-    assert {r["schedule"]["family"] for r in res.table} == {"dg_span", "dgt_span",
-                                                             "span_onehot", "tile_onehot"}
+    # a skewed matrix (longest row 254 > 32 x the mean): every ported block
+    assert {r["schedule"]["family"] for r in res.table} == {
+        "dg_span", "dgt_span", "radix_span", "brick_ell", "span_onehot", "tile_onehot",
+        "stripe_total", "segment_span", "nnz_segment", "bucketed"}
     assert all(r["ok"] and r["device"] == "cpu" for r in res.table)
     assert len(res.table) == len(ttune.default_candidates(mat, 8))
     check_result(res.best(x).numpy(), spmm_reference(mat, x.astype(np.float64)), rtol=2e-3)
@@ -307,7 +309,7 @@ def test_tune_drops_cached_schedule_of_unported_family(tmp_path):
     x = _x(400, 8, seed=8)
     sig = ttune.matrix_signature(mat)
     (tmp_path / f"tune_{sig}_k8.json").write_text(json.dumps(
-        {"schedule": tsched.Schedule(family="radix_span").describe()}))
+        {"schedule": tsched.Schedule(family="dense").describe()}))
     with tpusparse_torch.config_override(cache_dir=str(tmp_path)):
         res = ttune.tune(mat, x, iters=1, device="cpu", budget=1)
     assert res.table[0]["schedule"]["family"] == "dg_span"
@@ -335,9 +337,132 @@ def test_unported_family_raises(family):
 
 @pytest.mark.parametrize("kw", [dict(sort=True), dict(bucket_bounds=(8,))])
 def test_unported_converting_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.7"):
-        tsched.build_plan(_mat(), tsched.Schedule(family="dg_span", ktile=8, **kw),
-                          device="cpu")
+    # the converting options were unported until the sort and row-nnz div
+    # operators came (ROADMAP.md A.7): now they build the JAX package's plan
+    tmat = _mat(seed=19)
+    jmat = tpusparse.CooMatrix(tmat.rows, tmat.cols, tmat.vals, tmat.shape)
+    sk = dict(family="dg_span", ktile=8, rb=128, ns=4, g=128, **kw)
+    tplan = tsched.build_plan(tmat, tsched.Schedule(**sk), device="cpu")
+    jplan = jsched.build_plan(jmat, jsched.Schedule(**sk))
+    assert tplan.meta["operator_history"] == jplan.meta["operator_history"]
+    assert tplan.meta["n_subs"] == jplan.meta["n_subs"] == (2 if "bucket_bounds" in kw else 1)
+    x = _x(400, 8, seed=20)
+    want = spmm_reference(jmat, x.astype(np.float64))
+    np.testing.assert_allclose(tplan(x).numpy(), np.asarray(jplan(x)), rtol=0,
+                               atol=2e-3 * np.abs(want).max())
+    check_result(tplan(x).numpy(), want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(family="stripe_total", work_per_block=128, unroll=8),
+    dict(family="stripe_total", blocking="balanced", work_per_block=96, unroll=4),
+    dict(family="stripe_total", blocking="fixed_rows", row_interval=32, unroll=8, sort=True),
+    dict(family="stripe_nested", work_per_block=256, unroll=4),
+    dict(family="nnz_segment", work_per_block=128, unroll=8),
+    dict(family="segment_span", work_per_block=256, ct=64, g=32),
+    dict(family="radix_span", rb=128, sublanes=16, g=128, ktile=4),
+    dict(family="radix_span", rb=64, sublanes=32, g=64, ktile=8, precision="bf16"),
+    dict(family="brick_ell", sort=True, rb=128, sublanes=32, g=64, ktile=8),
+    dict(family="bucketed", bucket_bounds=(8,)),
+    dict(family="bucketed", bucket_bounds=(4, 16), bucket_schedules=(
+        tsched.Schedule(family="stripe_total", work_per_block=64),
+        tsched.Schedule(family="radix_span", rb=64, sublanes=16, g=64, ktile=8),
+        tsched.Schedule(family="nnz_segment", work_per_block=64)), sort=True),
+    dict(family="span_onehot", rb=64, ct=128, g=32, sort=True),
+    dict(family="tile_onehot", rb=64, ct=64, g=32, sort=True),
+])
+def test_build_plan_new_families_match_jax(kw):
+    tmat = _mat(seed=21)
+    jmat = tpusparse.CooMatrix(tmat.rows, tmat.cols, tmat.vals, tmat.shape)
+    jkw = dict(kw)
+    if "bucket_schedules" in kw:
+        jkw["bucket_schedules"] = tuple(jsched.Schedule(**s.describe())
+                                        for s in kw["bucket_schedules"])
+    jplan = jsched.build_plan(jmat, jsched.Schedule(**jkw))
+    tplan = tsched.build_plan(tmat, tsched.Schedule(**kw), device="cpu")
+    assert tplan.meta["schedule"] == jplan.meta["schedule"]
+    assert tplan.meta["n_subs"] == jplan.meta["n_subs"] == len(tplan.formats)
+    assert tplan.meta["padding_rate"] == pytest.approx(jplan.meta["padding_rate"])
+    assert tplan.meta["operator_history"] == jplan.meta["operator_history"]
+    for tf, jf in zip(tplan.formats, jplan.formats):
+        assert type(tf).__name__ == type(jf).__name__
+        for f in ("c0", "cols", "lrow", "vals", "wnz", "wrow", "chunk_tile",
+                  "slot_of_origrow", "row_of_slot"):
+            if hasattr(jf, f):
+                np.testing.assert_array_equal(getattr(tf, f).float().numpy(),
+                                              np.asarray(getattr(jf, f), np.float32),
+                                              err_msg=f)
+    x = _x(400, 8, seed=22)
+    want = spmm_reference(jmat, x.astype(np.float64))
+    y = tplan(x).numpy()
+    np.testing.assert_allclose(y, np.asarray(jplan(x)), rtol=0,
+                               atol=(1e-2 if kw.get("precision") == "bf16" else 2e-3)
+                               * np.abs(want).max())
+    check_result(y, want, rtol=8e-2 if kw.get("precision") == "bf16" else 1e-5)
+    assert tplan.cost_summary(8)["format_bytes"] == sum(f.memory_bytes for f in tplan.formats)
+
+
+def test_brick_ell_gate_is_jax():
+    # no column locality: the interleaved chunks need more than the TPU's
+    # 4 MB of chunk blocks, and both packages refuse the schedule there
+    tmat = tbuilder.uniform_coo(2048, 1 << 20, nnz_per_row=48, seed=3)
+    jmat = tpusparse.CooMatrix(tmat.rows, tmat.cols, tmat.vals, tmat.shape)
+    sk = dict(family="brick_ell", sort=True, rb=1024, sublanes=256, g=512, ktile=8)
+    with pytest.raises(RuntimeError, match="brick_ell chunk blocks"):
+        jsched.build_plan(jmat, jsched.Schedule(**sk))
+    with pytest.raises(tsched.CandidateRejected, match="brick_ell chunk blocks"):
+        tsched.build_plan(tmat, tsched.Schedule(**sk), device="cpu")
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_spmm_default_takes_radix_span_like_jax(k):
+    # 262144 columns at K = 2..4: dg's gate (kt 8) fails, radix's (kt = K
+    # rounded up to a power of two) holds
+    tmat = tbuilder.power_law_coo(64, 262144, avg_nnz_per_row=8.0, seed=5)
+    jmat = tpusparse.CooMatrix(tmat.rows, tmat.cols, tmat.vals, tmat.shape)
+    sched = tsched.default_schedule(tmat, k)
+    assert sched.family == "radix_span" and sched.ktile == k
+    assert sched.describe() == jsched.default_schedule(jmat, k).describe()
+    x = _x(262144, k, seed=23)
+    y = tpusparse_torch.spmm(tmat, x, device="cpu")
+    want = spmm_reference(jmat, x.astype(np.float64))
+    assert y.shape == (64, k)
+    np.testing.assert_allclose(y.numpy(), np.asarray(tpusparse.spmm(jmat, x)), rtol=0,
+                               atol=2e-3 * np.abs(want).max())
+    check_result(y.numpy(), want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("k", [1, 4, 8, 32, 256])
+def test_default_candidates_equal_jax(k, full):
+    # a skewed matrix (its longest row past 32x the mean) takes the segment
+    # and bucketed rows too; only the families of ROADMAP.md A.8 are left out
+    tmat = tbuilder.power_law_coo(600, 800, avg_nnz_per_row=5.0, seed=24)
+    jmat = tpusparse.CooMatrix(tmat.rows, tmat.cols, tmat.vals, tmat.shape)
+    jall = jtune.default_candidates(jmat, k, full=full)
+    got = [s.describe() for s in ttune.default_candidates(tmat, k, full=full)]
+    assert got == [s.describe() for s in jall if s.family in tsched.PORTED_FAMILIES]
+    assert {s.family for s in jall} - {s["family"] for s in got} <= {"dense", "block_ell",
+                                                                       "hybrid_cols"}
+    fams = {s["family"] for s in got}
+    assert ("radix_span" in fams) == (k <= 128) and "stripe_total" in fams
+    assert ("stripe_nested" in fams) == full and "nnz_segment" in fams
+    for kt in (1, 2, 4, 8, 16, 32):
+        assert ttune._radix_configs(tmat.density, kt) == jtune._radix_configs(jmat.density, kt)
+
+
+def test_chip_smoke_tune_list_is_jax():
+    # chip_smoke.py's P9 holds tune(config #1, K = 8) to the JAX package's 25
+    # candidates through two constants, since the card machine has no jax
+    import chip_smoke
+
+    jmat = jbuilder.power_law_coo(32768, 32768, avg_nnz_per_row=32.0, alpha=1.8, seed=42)
+    jlist = jtune.default_candidates(jmat, 8)
+    assert [s.family for s in jlist] == chip_smoke.TUNE_K8_FAMILIES
+    assert chip_smoke.candidates_digest(s.describe() for s in jlist) == chip_smoke.TUNE_K8_DIGEST
+    tmat = CooMatrix(jmat.rows, jmat.cols, jmat.vals, jmat.shape)
+    assert chip_smoke.candidates_digest(
+        s.describe() for s in ttune.default_candidates(tmat, 8)) == chip_smoke.TUNE_K8_DIGEST
 
 
 def test_no_card_means_no_quiet_cpu_run():

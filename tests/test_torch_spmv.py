@@ -20,6 +20,8 @@ from tpusparse_torch import spmv as tspmv
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels.dg_gather import DgFormat
 from tpusparse_torch.kernels.dgt_gather import DgtFormat
+from tpusparse_torch.format import StripeFormat
+from tpusparse_torch.kernels.radix_gather import RadixFormat
 from tpusparse_torch.kernels.span_gather import SpanFormat
 
 
@@ -30,6 +32,7 @@ def _mats(m=300, n=400, avg=6.0, seed=12):
 
 @pytest.mark.parametrize("method,fmt_type", [("auto", DgFormat), ("dg", DgFormat),
                                              ("dgt8", DgtFormat), ("span", SpanFormat),
+                                             ("radix", RadixFormat), ("stripe", StripeFormat),
                                              ("segment", None)])
 def test_spmv_fn_matches_oracle(method, fmt_type):
     jmat, tmat = _mats()
@@ -115,10 +118,28 @@ def test_spmv_multi_fn_matches_jax():
 
 @pytest.mark.parametrize("method,item", [("radix", "A.7"), ("stripe", "A.7")])
 def test_unported_methods_raise(method, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        tspmv.spmv_fn(_mats()[1], method, device="cpu")
+    # radix and stripe were unported until ROADMAP.md A.7; now only an
+    # unknown method raises
+    fn = tspmv.spmv_fn(_mats()[1], method, device="cpu")
+    assert fn(np.ones(400, np.float32)).shape == (300,)
     with pytest.raises(ValueError, match="unknown"):
         tspmv.spmv_fn(_mats()[1], "bogus", device="cpu")
+
+
+@pytest.mark.parametrize("method", ["radix", "stripe"])
+def test_radix_and_stripe_match_jax(method):
+    # radix: kt = 1, rb = 2048, S = 128, g = 1024; stripe: build_stripe_plan
+    # (work 1024, unroll 8) on x widened to 8 columns (tpusparse/spmv.py:85-116)
+    jmat, tmat = _mats(seed=17)
+    x = np.random.default_rng(7).standard_normal(400).astype(np.float32)
+    fn = tspmv.spmv_fn(tmat, method, device="cpu")
+    ref = spmv_reference(jmat, x.astype(np.float64))
+    if method == "radix":
+        assert (fn.format.rb, fn.format.S, fn.format.chunk_g, fn.format.kt) == (2048, 128, 1024, 1)
+    else:
+        assert fn.format.stripe_nnz % 8 == 0
+    np.testing.assert_allclose(fn(x).numpy(), np.asarray(jspmv.spmv_fn(jmat, method)(x)), rtol=0,
+                               atol=2e-3 * np.abs(ref).max())
 
 
 def test_lazy_export_and_no_quiet_cpu_run():

@@ -140,8 +140,13 @@ def test_build_tile_plan_matches_jax():
                                atol=1e-5 * np.abs(ref).max())
     check_result(tplan(x).numpy(), ref, rtol=1e-5)
     assert tplan.cost_summary(12)["format_bytes"] == tplan.formats[0].memory_bytes
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.7"):
-        tgen.build_tile_plan(tmat, sort=True, device="cpu")
+    # sort=True: the length sort first, as in the JAX package
+    jsort = jbuild_tile_plan(jmat, rb=64, ct=32, g=32, sort=True, precision="fp32")
+    tsort = tgen.build_tile_plan(tmat, rb=64, ct=32, g=32, sort=True, precision="fp32",
+                                 device="cpu")
+    assert tsort.meta == jsort.meta
+    _assert_same_format(jsort.formats[0], tsort.formats[0])
+    check_result(tsort(x).numpy(), ref, rtol=1e-5)
 
 
 @pytest.mark.parametrize("n,ct,ktile,precision,stream", [

@@ -8,11 +8,11 @@ beside a plain PyTorch version of the same function.
 
 Entry points run on the card (``device="cuda"``, the default) and raise
 when there is none; only ``device="cpu"`` runs the plain versions.  Ported
-so far: ``spmm``, ``tune.tune`` and ``schedule.build_plan`` with the
-``dg_span``, ``dgt_span``, ``tile_onehot``, ``span_onehot`` and
-``span_colsplit`` schedule families, ``generator.build_tile_plan``, and
-SpMV (``spmv``, ``spmv.spmv_fn`` with methods auto/dg/dgt8/span/segment,
-``spmv.spmv_multi_fn``).
+so far: ``spmm``, ``tune.tune`` and ``schedule.build_plan`` with every
+schedule family but ``dense``, ``block_ell`` and ``hybrid_cols`` (the sort
+and bucket options included), ``generator.build_stripe_plan`` and
+``build_tile_plan``, and SpMV (``spmv``, ``spmv.spmv_fn`` with every
+method, ``spmv.spmv_multi_fn``).
 """
 
 from tpusparse_torch.config import Config, config_override, get_config, set_config
@@ -28,8 +28,9 @@ def spmm(mat, x, schedule=None, device="cuda"):
     """One-shot SpMM: Y = A @ X as a tensor on ``device``.  X is [N, K]
     (numpy or a tensor on ``device``).  With no schedule, takes the JAX
     package's default for the K regime (``dg_span`` at K <= 128 where X
-    passes the size gate, ``span_onehot`` or ``span_colsplit`` past it,
-    ``tile_onehot`` at K > 128); pass a Schedule to control it, or use
+    passes the size gate, ``radix_span`` at K <= 32 where only its gate
+    holds, ``span_onehot`` or ``span_colsplit`` past them, ``tile_onehot``
+    at K > 128); pass a Schedule to control it, or use
     ``tpusparse_torch.tune.tune`` for the autotuned path."""
     from tpusparse_torch.schedule import build_plan, default_schedule
 

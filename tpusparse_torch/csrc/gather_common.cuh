@@ -1,5 +1,6 @@
 // gather_common.cuh - the gather machinery that dg_gather.cu,
-// dgt_gather.cu, tile_onehot.cu and span_gather.cu share.  The formats
+// dgt_gather.cu, tile_onehot.cu, span_gather.cu and radix_gather.cu share,
+// and the shared-memory helpers stripe_gather.cu uses.  The formats
 // differ only in how a slot names its column of X and its row of y_rows;
 // everything else is here:
 //
@@ -7,13 +8,13 @@
 //       program p's chunk range, p, K-tile t).  Its threads take a chunk's
 //       slots in order; each live slot (value not zero) is served by KT/4
 //       threads that each load 4 contiguous floats of the slot's X row as
-//       one 16-byte load (one thread and a scalar load at KT = 1), straight
-//       from device memory through L2.  Products go by shared atomics into
-//       an [rb, KT] fp32 row tile, which is then added into the zeroed
-//       y_rows with global atomics, skipping entries still zero.  Where the
-//       tile exceeds the shared memory a block may opt into, the same
-//       kernel adds every product straight into y_rows with global atomics
-//       (SHARED_TILE false).
+//       one 16-byte load (below KT = 4, one thread loads the whole row),
+//       straight from device memory through L2.  Products go by shared
+//       atomics into an [rb, KT] fp32 row tile, which is then added into
+//       the zeroed y_rows with global atomics, skipping entries still
+//       zero.  Where the tile exceeds the shared memory a block may opt
+//       into, the same kernel adds every product straight into y_rows with
+//       global atomics (SHARED_TILE false).
 //   Slots  the format's decode: Slots::chunk(c) reads what a chunk shares
 //       (dg, span: its window start; tile: its column tile; dgt: its
 //       tiles' window bases), and the chunk's decode maps slot s at flat
@@ -33,7 +34,7 @@
 // walked.
 //
 // Linkage.  Every definition below is internal to the library that includes
-// this header (an unnamed namespace): the four sources are four shared
+// this header (an unnamed namespace): the sources are separate shared
 // libraries in one process, and the static OptIn objects of inline and
 // template functions would otherwise be unique process-wide objects
 // (STB_GNU_UNIQUE) shared between libraries, so one library's opt-in would
@@ -53,7 +54,7 @@
 
 namespace gather {
 
-// Every kernel of the four sources takes its dynamic shared memory here.
+// Every kernel of the sources takes its dynamic shared memory here.
 extern __shared__ float4 gather_smem[];
 
 namespace {
@@ -62,11 +63,19 @@ constexpr int kThreads = 256;
 constexpr int kMaxDevices = 64;
 constexpr size_t kDefaultSmem = 48 * 1024;  // dynamic shared memory without opt-in
 
+// Threads per slot carry VEC contiguous columns each: 4 (one 16-byte load)
+// at KT >= 4, else the whole KT-wide row (8 bytes at KT = 2, 4 at KT = 1).
+template <int KT>
+constexpr int kVec = KT >= 4 ? 4 : KT;
+
 template <int VEC>
 __device__ __forceinline__ void load_x(const float* xp, float (&xv)[VEC]) {
   if constexpr (VEC == 4) {
     const float4 q = *reinterpret_cast<const float4*>(xp);
     xv[0] = q.x; xv[1] = q.y; xv[2] = q.z; xv[3] = q.w;
+  } else if constexpr (VEC == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(xp);
+    xv[0] = q.x; xv[1] = q.y;
   } else {
     xv[0] = xp[0];
   }
@@ -174,7 +183,7 @@ __global__ void __launch_bounds__(kThreads)
 gather_kernel(Slots slots, const float* __restrict__ vals, const int* __restrict__ nc_p,
               const float* __restrict__ x, float* __restrict__ y, int NC, int G, int rb,
               int Kp, int splits) {
-  constexpr int VEC = KT >= 4 ? 4 : 1;  // one 16-byte load, or one float at KT = 1
+  constexpr int VEC = kVec<KT>;
   constexpr int TPS = KT / VEC;        // threads per slot
   constexpr int SPI = kThreads / TPS;  // slots per block iteration
   float* tile = reinterpret_cast<float*>(gather_smem);  // [rb, KT] when SHARED_TILE
@@ -262,7 +271,8 @@ int launch_tiled(Kernel shared_kernel, Kernel global_kernel, OptIn& optin, dim3 
   return static_cast<int>(cudaGetLastError());
 }
 
-// gather_kernel<Slots> for KT = kt (1 without bf16, or 8, 16, 32): y
+// gather_kernel<Slots> for KT = kt (dg, span, tile: 1 without bf16, or 8,
+// 16, 32; radix: any of 1, 2, 4, 8, 16, 32 with or without bf16): y
 // [P*rb, Kp] must be zeroed; x is [N, Kp] fp32, Kp a multiple of kt.  Only
 // the libraries that call launch_window (a template for that reason)
 // compile its kernels.

@@ -1,11 +1,14 @@
 """Packed sparse formats built by the operator pipeline (counterpart of
 ``tpusparse/format.py``).
 
-Ported so far: the column-tiled ``TileFormat`` and its packer.  The
-stripe, segment and nested-stripe formats arrive with the families that
-run them (ROADMAP.md A.7).  As in the JAX package, every format carries
-``slot_of_origrow``: the output-recovery gather that undoes sorting and
-padding in one index_select.
+The row-aligned ``StripeFormat`` (stripe_total), the nnz-direction
+``SegmentFormat`` (nnz_segment), the two-level ``NestedStripeFormat``
+(stripe_nested) and the column-tiled ``TileFormat``, each with its packer
+and a ``*_format_from_numpy`` twin that takes the JAX format's arrays.
+Every format holds torch tensors on one device and carries the output
+recovery: ``slot_of_origrow`` (the gather that undoes sorting and padding
+in one index_select) or, for segments, ``row_of_slot`` (the combine's
+scatter).
 """
 
 from __future__ import annotations
@@ -16,9 +19,374 @@ from typing import Any
 import numpy as np
 import torch
 
-from tpusparse_torch.kernels.common import resolve_device
+from tpusparse_torch.kernels.common import resolve_device, to_device, value_dtype
 from tpusparse_torch.levels import Level
 from tpusparse_torch.meta.set import MetaDataSet
+
+
+def _slot_of_origrow(ms: MetaDataSet, sub: int, out_rows: int, slot_of_local) -> np.ndarray:
+    """Original row -> slot, -1 for rows absent from this sub-matrix."""
+    row_num = ms.row_num(sub)
+    if ms.has(Level.ROW, "original_row_of_sorted", sub):
+        rec = ms.get(Level.ROW, "original_row_of_sorted", sub)[:row_num]
+    else:
+        rec = np.arange(row_num, dtype=np.int64)
+    out = np.full(out_rows, -1, dtype=np.int64)
+    keep = rec >= 0
+    out[rec[keep]] = slot_of_local[keep]
+    return out
+
+
+def _tensor_bytes(*arrays) -> int:
+    return sum(a.numel() * a.element_size() for a in arrays)
+
+
+@dataclasses.dataclass
+class StripeFormat:
+    """Row-aligned stripe format (the reference's thread-total blocking
+    with padding): one stripe is a contiguous run of rows with a uniform
+    nnz budget C, and no row straddles stripes, so each stripe's rows are
+    written by one block (the reference's direct store,
+    total_BMT_result_...token.cc).
+
+      cols  [P, 1, C] int32  global column of each nz
+      lrow  [P, 1, C] int32  row local to the stripe (< RB)
+      vals  [P, 1, C] float  value (0 for padding, whose column repeats a
+                             real one); float32 or the packer's val_dtype
+      slot_of_origrow [M] int32  p * RB + local row per original row (-1
+                                 for rows absent from this sub-matrix)
+
+    RB is the most rows any stripe holds.  The arrays equal the JAX
+    ``StripeFormat``'s; ``memory_bytes`` is a property here (a method
+    there).
+    """
+
+    cols: Any
+    lrow: Any
+    vals: Any
+    slot_of_origrow: Any
+    n_stripes: int
+    stripe_nnz: int
+    max_rows_per_stripe: int
+    shape: tuple[int, int]
+    nnz_real: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.cols.device
+
+    @property
+    def padding_rate(self) -> float:
+        return self.n_stripes * self.stripe_nnz / max(self.nnz_real, 1)
+
+    @property
+    def memory_bytes(self) -> int:
+        return _tensor_bytes(self.cols, self.lrow, self.vals)
+
+
+STRIPE_FIELDS = ("cols", "lrow", "vals", "slot_of_origrow")
+
+
+def pack_stripe(ms: MetaDataSet, sub: int, *, out_rows: int, level: Level = Level.TBLOCK,
+                val_dtype=None, device="cuda") -> StripeFormat:
+    """Pack a row-aligned, uniform-nnz blocked sub-matrix into StripeFormat
+    on ``device`` (tpusparse/format.py:65).  Preconditions: ``level`` has
+    first_row_indices / first_nz_indices with the same nnz in every block
+    (UniformBlockPadOperator) and row-major nz order.  ``out_rows`` is the
+    original matrix's row count; ``val_dtype`` the value plane's dtype
+    (float32 by default)."""
+    dev = resolve_device(device)
+    first_rows = ms.get(level, "first_row_indices", sub).astype(np.int64)
+    first_nzs = ms.get(level, "first_nz_indices", sub).astype(np.int64)
+    rows, cols, vals = ms.coo(sub)
+    sizes = np.diff(first_nzs)
+    assert sizes.size >= 1 and (sizes == sizes[0]).all(), "stripe nnz must be uniform"
+    c, p = int(sizes[0]), int(sizes.size)
+    assert p * c == rows.size
+
+    lrow = rows - first_rows[np.repeat(np.arange(p, dtype=np.int64), c)]
+    rb = max(int(np.diff(first_rows).max()), 1)
+    assert lrow.min() >= 0 and lrow.max() < rb
+
+    local_rows = np.arange(ms.row_num(sub), dtype=np.int64)
+    blk = np.clip(np.searchsorted(first_rows, local_rows, side="right") - 1, 0, p - 1)
+    slot = _slot_of_origrow(ms, sub, out_rows, blk * rb + (local_rows - first_rows[blk]))
+    vals32 = np.asarray(vals, dtype=np.float32).reshape(p, 1, c)
+    return StripeFormat(
+        cols=to_device(dev, cols.reshape(p, 1, c)),
+        lrow=to_device(dev, lrow.reshape(p, 1, c)),
+        vals=to_device(dev, vals32, value_dtype(val_dtype)),
+        slot_of_origrow=to_device(dev, slot),
+        n_stripes=p,
+        stripe_nnz=c,
+        max_rows_per_stripe=rb,
+        shape=(out_rows, ms.col_num(sub)),
+        nnz_real=int(np.count_nonzero(vals)),
+    )
+
+
+@dataclasses.dataclass
+class SegmentFormat:
+    """nnz-direction format for the segment-reduce path (the reference's
+    bit-map and segment reduction templates): blocks own equal nnz ranges,
+    rows straddle blocks, and each (block, row) segment's partial sum is
+    combined into Y afterwards.  The arrays mirror StripeFormat's, but
+    ``lrow`` holds the segment id local to the block (< ``max_segments``)
+    and ``row_of_slot`` [P * max_segments] int32 maps each (block,
+    segment) slot to its original row (-1 for unused slots)."""
+
+    cols: Any
+    lrow: Any
+    vals: Any
+    row_of_slot: Any
+    n_blocks: int
+    block_nnz: int
+    max_segments: int
+    shape: tuple[int, int]
+    nnz_real: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.cols.device
+
+    @property
+    def padding_rate(self) -> float:
+        return self.n_blocks * self.block_nnz / max(self.nnz_real, 1)
+
+    @property
+    def memory_bytes(self) -> int:
+        return _tensor_bytes(self.cols, self.lrow, self.vals, self.row_of_slot)
+
+
+SEGMENT_FIELDS = ("cols", "lrow", "vals", "row_of_slot")
+
+
+def pack_segment(ms: MetaDataSet, sub: int, *, out_rows: int, level: Level = Level.TBLOCK,
+                 val_dtype=None, device="cuda") -> SegmentFormat:
+    """Pack an nnz-direction blocked sub-matrix (uniform block nnz, the
+    bitmap of SegmentReduceOperator) into SegmentFormat on ``device``
+    (tpusparse/format.py:294)."""
+    dev = resolve_device(device)
+    first_nzs = ms.get(level, "first_nz_indices", sub).astype(np.int64)
+    rows, cols, vals = ms.coo(sub)
+    bm = ms.get(level, "bit_map_of_thread", sub).astype(np.int64)
+    nnz = rows.size
+    sizes = np.diff(first_nzs)
+    assert sizes.size >= 1 and (sizes == sizes[0]).all(), "block nnz must be uniform"
+    c, p = int(sizes[0]), int(sizes.size)
+    assert p * c == nnz
+
+    # segment id local to the block: the bitmap's running count inside it
+    seg_global = np.cumsum(bm) - 1
+    block_of_nz = np.repeat(np.arange(p, dtype=np.int64), c)
+    lseg = seg_global - seg_global[first_nzs[:-1]][block_of_nz]
+    rb = int(lseg.max()) + 1 if nnz else 1
+
+    if ms.has(Level.ROW, "original_row_of_sorted", sub):
+        rec = ms.get(Level.ROW, "original_row_of_sorted", sub)[: ms.row_num(sub)]
+    else:
+        rec = np.arange(ms.row_num(sub), dtype=np.int64)
+    row_of_slot = np.full(p * rb, -1, dtype=np.int64)
+    starts = bm.astype(bool)
+    local_row = rows[starts]
+    row_of_slot[block_of_nz[starts] * rb + lseg[starts]] = np.where(
+        local_row < rec.size, rec[np.minimum(local_row, rec.size - 1)], -1)
+    vals32 = np.asarray(vals, dtype=np.float32).reshape(p, 1, c)
+    return SegmentFormat(
+        cols=to_device(dev, cols.reshape(p, 1, c)),
+        lrow=to_device(dev, lseg.reshape(p, 1, c)),
+        vals=to_device(dev, vals32, value_dtype(val_dtype)),
+        row_of_slot=to_device(dev, row_of_slot),
+        n_blocks=p,
+        block_nnz=c,
+        max_segments=rb,
+        shape=(out_rows, ms.col_num(sub)),
+        nnz_real=int(np.count_nonzero(vals)),
+    )
+
+
+@dataclasses.dataclass
+class NestedStripeFormat:
+    """Two-level stripe format: TBLOCK programs holding WARP sub-blocks
+    addressed by parent-relative offsets (the reference's nested BMTB > BMW
+    loops with ..._relative_to_BMTB indices, code_generator.cc:1655-1871).
+
+      cols  [P, 1, C]       int32  global column per nz
+      lrow  [P, 1, C]       int32  row local to the warp sub-block
+      vals  [P, 1, C]       f32
+      wnz   [P, 1, Wmax+1]  int32  warp first-nz offsets in the stripe
+                                   (multiples of ``unroll``; the entries
+                                   past a stripe's warps hold its end)
+      wrow  [P, 1, Wmax+1]  int32  warp first rows relative to the stripe's
+      slot_of_origrow [M]   int32
+    """
+
+    cols: Any
+    lrow: Any
+    vals: Any
+    wnz: Any
+    wrow: Any
+    slot_of_origrow: Any
+    n_stripes: int
+    stripe_nnz: int
+    n_warps: int
+    max_rows_per_stripe: int
+    shape: tuple[int, int]
+    nnz_real: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.cols.device
+
+    @property
+    def padding_rate(self) -> float:
+        return self.n_stripes * self.stripe_nnz / max(self.nnz_real, 1)
+
+    @property
+    def memory_bytes(self) -> int:
+        return _tensor_bytes(self.cols, self.lrow, self.vals, self.wnz, self.wrow)
+
+
+NESTED_FIELDS = ("cols", "lrow", "vals", "wnz", "wrow", "slot_of_origrow")
+
+
+def pack_stripe_nested(ms: MetaDataSet, sub: int, *, out_rows: int, unroll: int = 8,
+                       device="cuda") -> NestedStripeFormat:
+    """Pack a TBLOCK > WARP two-level blocking into NestedStripeFormat on
+    ``device`` (tpusparse/format.py:387).  Preconditions: TBLOCK boundaries
+    nest the WARP ones (GroupChildrenBlockingOperator), with the child
+    offsets (ChildOffsetsOperator) and parent-relative arrays
+    (RelativeIndexOperator).  Each warp's run is padded to a multiple of
+    ``unroll``, padding repeating the warp's last column."""
+    dev = resolve_device(device)
+    w_rows = ms.get(Level.WARP, "first_row_indices", sub).astype(np.int64)
+    w_nzs = ms.get(Level.WARP, "first_nz_indices", sub).astype(np.int64)
+    p_rows = ms.get(Level.TBLOCK, "first_row_indices", sub).astype(np.int64)
+    p_nzs = ms.get(Level.TBLOCK, "first_nz_indices", sub).astype(np.int64)
+    offs = ms.get(Level.TBLOCK, "first_BMW_indices", sub).astype(np.int64)
+    assert ms.has(Level.WARP, "first_nz_indices_relative_to_BMTB", sub), \
+        "run RelativeIndexOperator(WARP, TBLOCK) first"
+    rows, cols, vals = ms.coo(sub)
+
+    p = p_nzs.size - 1
+    wmax = int(np.diff(offs).max()) if p else 1
+    wsz_pad = -(-np.diff(w_nzs) // unroll) * unroll
+    c_per_p = np.add.reduceat(wsz_pad, offs[:-1]) if wsz_pad.size else np.zeros(p, np.int64)
+    c = int(c_per_p.max()) if p else unroll
+    c = max(-(-c // unroll) * unroll, unroll)
+
+    cols_a = np.zeros((p, 1, c), dtype=np.int32)
+    lrow_a = np.zeros((p, 1, c), dtype=np.int32)
+    vals_a = np.zeros((p, 1, c), dtype=np.float32)
+    wnz_a = np.zeros((p, 1, wmax + 1), dtype=np.int32)
+    wrow_a = np.zeros((p, 1, wmax + 1), dtype=np.int32)
+    for b in range(p):
+        pos = 0
+        wlo, whi = int(offs[b]), int(offs[b + 1])
+        for wi, w in enumerate(range(wlo, whi)):
+            lo, hi = int(w_nzs[w]), int(w_nzs[w + 1])
+            nreal = hi - lo
+            wnz_a[b, 0, wi] = pos
+            wrow_a[b, 0, wi] = int(w_rows[w] - p_rows[b])
+            cols_a[b, 0, pos:pos + nreal] = cols[lo:hi]
+            lrow_a[b, 0, pos:pos + nreal] = rows[lo:hi] - w_rows[w]
+            vals_a[b, 0, pos:pos + nreal] = vals[lo:hi]
+            if nreal:  # padding repeats the warp's last column (index stays valid)
+                cols_a[b, 0, pos + nreal:pos + int(wsz_pad[w])] = cols[hi - 1]
+            pos += int(wsz_pad[w])
+        wnz_a[b, 0, whi - wlo:] = pos
+        wrow_a[b, 0, whi - wlo:] = int(p_rows[b + 1] - p_rows[b])
+
+    rb = max(int(np.diff(p_rows).max()) if p else 1, 1)
+    local_rows = np.arange(ms.row_num(sub), dtype=np.int64)
+    blk = np.clip(np.searchsorted(p_rows, local_rows, side="right") - 1, 0, p - 1)
+    slot = _slot_of_origrow(ms, sub, out_rows, blk * rb + (local_rows - p_rows[blk]))
+    return NestedStripeFormat(
+        cols=to_device(dev, cols_a), lrow=to_device(dev, lrow_a),
+        vals=to_device(dev, vals_a, torch.float32), wnz=to_device(dev, wnz_a),
+        wrow=to_device(dev, wrow_a), slot_of_origrow=to_device(dev, slot),
+        n_stripes=p, stripe_nnz=c, n_warps=wmax, max_rows_per_stripe=rb,
+        shape=(out_rows, ms.col_num(sub)),
+        nnz_real=int(np.count_nonzero(vals_a)),
+    )
+
+
+def _checked_tensors(kind: str, fields: dict, names, want: dict, dev, bad: bool):
+    """The arrays of ``names`` as tensors on ``dev`` (vals float32, or
+    bfloat16 where the JAX plane was, the rest int32) after the shape checks
+    of ``want`` and the index check ``bad``."""
+    arrs = {k: np.asarray(fields[k]) for k in names}
+    for k, shp in want.items():
+        if arrs[k].shape != shp:
+            raise ValueError(f"{kind}.{k}: shape {arrs[k].shape}, want {shp}")
+    if bad(arrs):
+        raise ValueError(f"{kind} indices out of range")
+    vals_dt = torch.bfloat16 if arrs["vals"].dtype.name == "bfloat16" else torch.float32
+    return {k: to_device(dev, a.astype(np.float32), vals_dt) if k == "vals"
+            else to_device(dev, a) for k, a in arrs.items()}
+
+
+def stripe_format_from_numpy(fields: dict, *, device="cuda", **static) -> StripeFormat:
+    """A StripeFormat from the JAX ``StripeFormat``'s arrays (``cols``,
+    ``lrow``, ``vals``, ``slot_of_origrow``) and static fields; shapes and
+    index ranges are checked, since the kernels read X and write Y at these
+    indices without bounds checks."""
+    P, C, rb = static["n_stripes"], static["stripe_nnz"], static["max_rows_per_stripe"]
+    m, n = static["shape"]
+    want = {"cols": (P, 1, C), "lrow": (P, 1, C), "vals": (P, 1, C), "slot_of_origrow": (m,)}
+
+    def bad(a):
+        return (a["cols"].min(initial=0) < 0 or a["cols"].max(initial=0) >= n
+                or a["lrow"].min(initial=0) < 0 or a["lrow"].max(initial=0) >= rb
+                or a["slot_of_origrow"].max(initial=-1) >= P * rb)
+
+    return StripeFormat(**_checked_tensors("StripeFormat", fields, STRIPE_FIELDS, want,
+                                           resolve_device(device), bad), **static)
+
+
+def segment_format_from_numpy(fields: dict, *, device="cuda", **static) -> SegmentFormat:
+    """A SegmentFormat from the JAX ``SegmentFormat``'s arrays, checked."""
+    P, C, rb = static["n_blocks"], static["block_nnz"], static["max_segments"]
+    m, n = static["shape"]
+    want = {"cols": (P, 1, C), "lrow": (P, 1, C), "vals": (P, 1, C), "row_of_slot": (P * rb,)}
+
+    def bad(a):
+        return (a["cols"].min(initial=0) < 0 or a["cols"].max(initial=0) >= n
+                or a["lrow"].min(initial=0) < 0 or a["lrow"].max(initial=0) >= rb
+                or a["row_of_slot"].max(initial=-1) >= m)
+
+    return SegmentFormat(**_checked_tensors("SegmentFormat", fields, SEGMENT_FIELDS, want,
+                                            resolve_device(device), bad), **static)
+
+
+def nested_format_from_numpy(fields: dict, *, device="cuda", **static) -> NestedStripeFormat:
+    """A NestedStripeFormat from the JAX ``NestedStripeFormat``'s arrays,
+    checked: every warp's run lies in [0, C) in order, and every slot's row
+    (its warp's base row plus its lrow) in [0, RB)."""
+    P, C, W = static["n_stripes"], static["stripe_nnz"], static["n_warps"]
+    rb, (m, n) = static["max_rows_per_stripe"], static["shape"]
+    want = {"cols": (P, 1, C), "lrow": (P, 1, C), "vals": (P, 1, C), "wnz": (P, 1, W + 1),
+            "wrow": (P, 1, W + 1), "slot_of_origrow": (m,)}
+
+    def bad(a):
+        wnz = a["wnz"].reshape(P, W + 1).astype(np.int64)
+        if (a["cols"].min(initial=0) < 0 or a["cols"].max(initial=0) >= n
+                or wnz.min(initial=0) < 0 or wnz.max(initial=0) > C
+                or (np.diff(wnz, axis=1) < 0).any()
+                or a["slot_of_origrow"].max(initial=-1) >= P * rb):
+            return True
+        wrow = a["wrow"].reshape(P, W + 1).astype(np.int64)
+        lrow = a["lrow"].reshape(P, C).astype(np.int64)
+        for p in range(P):
+            w_of = np.searchsorted(wnz[p], np.arange(C), side="right") - 1
+            inside = (w_of >= 0) & (w_of < W) & (np.arange(C) < wnz[p, W])
+            r = wrow[p, np.clip(w_of, 0, W)] + lrow[p]
+            if inside.any() and (r[inside].min() < 0 or r[inside].max() >= rb):
+                return True
+        return False
+
+    return NestedStripeFormat(**_checked_tensors("NestedStripeFormat", fields, NESTED_FIELDS,
+                                                 want, resolve_device(device), bad), **static)
 
 
 @dataclasses.dataclass

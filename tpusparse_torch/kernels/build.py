@@ -23,7 +23,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("dg_gather", "dgt_gather", "tile_onehot", "span_gather")
+SOURCES = ("dg_gather", "dgt_gather", "tile_onehot", "span_gather", "radix_gather",
+           "stripe_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -26,6 +26,25 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def value_dtype(val_dtype) -> torch.dtype:
+    """The value plane's dtype: None is float32; else a torch dtype or its
+    name ("bfloat16", "float16", "float32")."""
+    if val_dtype is None:
+        return torch.float32
+    if isinstance(val_dtype, torch.dtype):
+        return val_dtype
+    name = val_dtype if isinstance(val_dtype, str) else np.dtype(val_dtype).name
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError(f"val_dtype {val_dtype!r} is not a float dtype")
+    return dt
+
+
+def to_device(dev: torch.device, a, dtype=torch.int32) -> torch.Tensor:
+    """A packer's numpy array as a contiguous tensor of ``dtype`` on ``dev``."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -66,6 +85,20 @@ def unpack_slots(y_rows: torch.Tensor, slot_of_origrow: torch.Tensor) -> torch.T
     got = y_rows.index_select(0, slot.clamp(min=0))
     valid = (slot >= 0).view(-1, *([1] * (y_rows.ndim - 1)))
     return torch.where(valid, got, torch.zeros((), dtype=got.dtype, device=got.device))
+
+
+def unpack_by_deal(fmt, y_rows: torch.Tensor) -> torch.Tensor:
+    """Y's rows from the pre-unpack row block of a dealt format (dg, radix):
+    ``fmt.deal`` 'blocks' (slot == row) slices, 'index' (slot = (r % P) *
+    rb + r // P) reshapes and transposes, anything else gathers through
+    ``slot_of_origrow``."""
+    if fmt.deal == "blocks":
+        return y_rows[: fmt.shape[0]]
+    if fmt.deal == "index":
+        P = fmt.n_programs
+        return (y_rows.reshape(P, fmt.rb, *y_rows.shape[1:])
+                .transpose(0, 1).reshape(P * fmt.rb, *y_rows.shape[1:])[: fmt.shape[0]])
+    return unpack_slots(y_rows, fmt.slot_of_origrow)
 
 
 def window_rows_plain(start, cols, lrow, vals, nc_p, x, *, rb, scale=1, bf16=False):

@@ -18,7 +18,7 @@ plain PyTorch version of the same function:
   dg1_rows_cuda  / dg1_rows_plain   replace ``_dg1_kernel`` (kt 1, SpMV)
 
 Each computes the pre-unpack row block ``y_rows[p*rb + lrow] += v * X[c0 +
-cols]``; ``_unpack_rows`` then maps program slots back to matrix rows as
+cols]``; ``unpack_by_deal`` then maps program slots back to matrix rows as
 torch ops.  A wrapper launches its kernel for CUDA tensors and raises on
 any failure; only CPU tensors take the plain version.
 """
@@ -37,7 +37,8 @@ from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import build
 from tpusparse_torch.kernels.common import (cdiv, check_operands, launch_checked,
                                             launch_splits, pad_dense_cols, prep_x,
-                                            resolve_device, unpack_slots, window_rows_plain)
+                                            resolve_device, unpack_by_deal,
+                                            window_rows_plain)
 from tpusparse_torch.levels import Level
 
 PRECISIONS = ("fp32x2", "bf16")
@@ -408,16 +409,6 @@ dg1_rows_cuda.launches = 0
 
 # ----------------------------------------------------------------- entry points
 
-def _unpack_rows(fmt: DgFormat, y_rows):
-    if fmt.deal == "blocks":
-        return y_rows[: fmt.shape[0]]
-    if fmt.deal == "index":
-        P = fmt.n_programs
-        return (y_rows.reshape(P, fmt.rb, *y_rows.shape[1:])
-                .transpose(0, 1).reshape(P * fmt.rb, *y_rows.shape[1:])[: fmt.shape[0]])
-    return unpack_slots(y_rows, fmt.slot_of_origrow)
-
-
 def _fmt_args(fmt):
     return fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p
 
@@ -434,7 +425,7 @@ def dg_spmm(fmt: DgFormat, x) -> torch.Tensor:
     x = pad_dense_cols(x, cdiv(k, fmt.kt) * fmt.kt).contiguous()
     rows_fn = dg_rows_cuda if fmt.device.type == "cuda" else dg_rows_plain
     y_rows = rows_fn(*_fmt_args(fmt), x, rb=fmt.rb, kt=fmt.kt, mode=fmt.mode)
-    return _unpack_rows(fmt, y_rows)[:, :k]
+    return unpack_by_deal(fmt, y_rows)[:, :k]
 
 
 def dg_spmv(fmt: DgFormat, x) -> torch.Tensor:
@@ -443,4 +434,4 @@ def dg_spmv(fmt: DgFormat, x) -> torch.Tensor:
     x = prep_x(x, fmt.device).reshape(-1)
     assert x.shape[0] == fmt.shape[1], f"x length {x.shape[0]} != A cols {fmt.shape[1]}"
     rows_fn = dg1_rows_cuda if fmt.device.type == "cuda" else dg1_rows_plain
-    return _unpack_rows(fmt, rows_fn(*_fmt_args(fmt), x, rb=fmt.rb))
+    return unpack_by_deal(fmt, rows_fn(*_fmt_args(fmt), x, rb=fmt.rb))

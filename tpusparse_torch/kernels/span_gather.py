@@ -41,7 +41,8 @@ from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import build
 from tpusparse_torch.kernels.common import (cdiv, check_operands, launch_checked,
                                             launch_splits, pad_dense_cols, prep_x,
-                                            resolve_device, unpack_slots, window_rows_plain)
+                                            resolve_device, unpack_slots, value_dtype,
+                                            window_rows_plain)
 from tpusparse_torch.kernels.tile_onehot import PRECISIONS, choose_kt, default_ktile
 from tpusparse_torch.levels import Level
 
@@ -133,20 +134,6 @@ def span_chunk_numpy(cols_s, lrow_s, vals_s, starts, g, span_budget, *, keep_per
     return c0_2d, cols_f, lrow_f, vals_f, dest_sorted, nc_arr
 
 
-def _torch_dtype(val_dtype) -> torch.dtype:
-    """The value plane's dtype: None is float32; else a torch dtype or its
-    name ("bfloat16", "float16", "float32")."""
-    if val_dtype is None:
-        return torch.float32
-    if isinstance(val_dtype, torch.dtype):
-        return val_dtype
-    name = val_dtype if isinstance(val_dtype, str) else np.dtype(val_dtype).name
-    dt = getattr(torch, name, None)
-    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
-        raise ValueError(f"val_dtype {val_dtype!r} is not a float dtype")
-    return dt
-
-
 def pack_span(
     mat_or_ms,
     sub: int = 0,
@@ -226,7 +213,7 @@ def pack_span(
         c0=dev_t(c0_2d[:, None, :]),
         cols=dev_t(cols_f),
         lrow=dev_t(lrow_f),
-        vals=dev_t(vals_f, _torch_dtype(val_dtype)),
+        vals=dev_t(vals_f, value_dtype(val_dtype)),
         nc_p=dev_t(nc_arr.astype(np.int32).reshape(p_count, 1, 1)),
         slot_of_origrow=dev_t(slot_of_origrow),
         n_programs=p_count,

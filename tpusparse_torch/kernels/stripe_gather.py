@@ -1,0 +1,188 @@
+"""stripe_gather — row-aligned stripe SpMM (counterpart of
+``tpusparse/kernels/stripe_gather.py``).
+
+The reference's total-reduce family
+(total_BMT/total_warp/total_block_result_reduce_to_one_register_token): each
+stripe owns whole rows, loops its nonzeros, accumulates, and stores its rows
+of Y once.  The formats are ``tpusparse_torch.format``'s ``StripeFormat`` and
+``NestedStripeFormat``, array for array the JAX package's.
+
+Kernels (CUDA C++, ``tpusparse_torch/csrc/stripe_gather.cu``), each beside its
+plain PyTorch version of the same function:
+
+  stripe_rows_cuda        / stripe_rows_plain         replace ``_stripe_kernel``
+  stripe_nested_rows_cuda / stripe_nested_rows_plain  replace ``_stripe_nested_kernel``
+
+Each computes the stripe slots ``y_slots[p*rb + row] += v * X[col]``; the
+slot gather through ``slot_of_origrow`` then gives Y.  The K-tile is the
+card's own choice (1, 2, 4, 8, 16 or 32 columns, X padded to it): the JAX
+ktile rule is Mosaic's 128-lane fallback, and its model-driven index
+compression (``tpusparse/transforms/compress.py``) lets the TPU compute a
+stripe's rows instead of loading them, which changes no Y; neither is
+ported.  ``unroll`` steered the TPU loop only.  A wrapper launches its
+kernel for CUDA tensors and raises on any failure; only CPU tensors take
+the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from tpusparse_torch.format import NestedStripeFormat, StripeFormat
+from tpusparse_torch.kernels import build
+from tpusparse_torch.kernels.common import (cdiv, check_operands, launch_checked, pad_dense_cols,
+                                            prep_x, unpack_slots)
+# the stripe kernels take radix's K-tiles: 1, 2, 4, 8, 16 or 32 columns
+from tpusparse_torch.kernels.radix_gather import RADIX_KTS as STRIPE_KTS
+from tpusparse_torch.kernels.radix_gather import choose_kt
+
+
+# --------------------------------------------------------------- plain versions
+
+def _slots_plain(live, row, col, v, x, n_rows):
+    prod = v[live].view(-1, 1) * x[col[live]]
+    y = torch.zeros((n_rows, x.shape[1]), dtype=torch.float32, device=x.device)
+    return y.index_add_(0, row[live], prod)
+
+
+def stripe_rows_plain(cols, lrow, vals, x, *, rb):
+    """Plain PyTorch ``_stripe_kernel``: y_slots [P*rb, Kp] with
+    ``y_slots[p*rb + lrow] += vals * X[cols]`` over the slots whose value is
+    not zero, as an ``index_add_`` (bf16 values widen exactly)."""
+    P, _, C = cols.shape
+    v = vals.reshape(-1).float()
+    row = (torch.arange(P, device=cols.device).view(P, 1) * rb
+           + lrow.reshape(P, C).long()).reshape(-1)
+    return _slots_plain(v != 0, row, cols.reshape(-1).long(), v, x, P * rb)
+
+
+def stripe_nested_rows_plain(cols, lrow, vals, wnz, wrow, x, *, rb):
+    """Plain PyTorch ``_stripe_nested_kernel``: slot i of stripe p in warp
+    sub-block w (wnz[p, w] <= i < wnz[p, w + 1]) adds ``vals * X[cols]`` to
+    row ``p*rb + wrow[p, w] + lrow``; slots past the last sub-block are not
+    walked."""
+    P, _, C = cols.shape
+    W = wnz.shape[-1] - 1
+    wnz2, wrow2 = wnz.reshape(P, W + 1).long(), wrow.reshape(P, W + 1).long()
+    slot = torch.arange(C, device=cols.device).expand(P, C).contiguous()
+    w_of = torch.searchsorted(wnz2, slot, right=True) - 1
+    walked = (w_of >= 0) & (w_of < W) & (slot < wnz2[:, W:])
+    base = wrow2.gather(1, w_of.clamp(0, W))
+    row = (torch.arange(P, device=cols.device).view(P, 1) * rb + base
+           + lrow.reshape(P, C).long()).reshape(-1)
+    v = vals.reshape(-1).float()
+    return _slots_plain(walked.reshape(-1) & (v != 0), row, cols.reshape(-1).long(), v, x,
+                        P * rb)
+
+
+# ---------------------------------------------------------------- CUDA kernels
+
+@functools.cache
+def _lib():
+    """csrc/stripe_gather.cu, built at first use, with its C signatures."""
+    lib = build.library("stripe_gather")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.stripe_spmm_launch.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.stripe_spmm_launch.restype = i32
+    lib.stripe_nested_launch.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+    lib.stripe_nested_launch.restype = i32
+    lib.stripe_uses_shared_tile.argtypes = [i32, i32]
+    lib.stripe_uses_shared_tile.restype = i32
+    return lib
+
+
+def stripe_uses_shared_tile(rb: int, kt: int) -> bool:
+    """Whether a block of (rb, kt) keeps its row tile in shared memory
+    (False: the kernels' global-atomic branch)."""
+    return bool(_lib().stripe_uses_shared_tile(rb, kt))
+
+
+def _check_kt(kt, x, what):
+    if kt not in STRIPE_KTS or x.shape[1] % kt:
+        raise ValueError(f"{what}: kt={kt}, X {tuple(x.shape)}")
+
+
+def stripe_rows_cuda(cols, lrow, vals, x, *, rb, kt):
+    """CUDA ``_stripe_kernel`` (tpusparse/kernels/stripe_gather.py:35):
+    y_slots [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt; vals fp32 or
+    bf16."""
+    P, _, C = cols.shape
+    vdt = vals.dtype if vals.dtype in (torch.float32, torch.bfloat16) else torch.float32
+    check_operands(x, (("cols", cols, torch.int32, (P, 1, C)),
+                       ("lrow", lrow, torch.int32, (P, 1, C)),
+                       ("vals", vals, vdt, (P, 1, C))), ndim=2)
+    _check_kt(kt, x, "stripe kernel")
+    n, kp = x.shape
+    y = torch.empty((P * rb, kp), dtype=torch.float32, device=x.device)
+    launch_checked(_lib().stripe_spmm_launch, "stripe_spmm_launch", (cols, lrow, vals, x, y),
+                   (P, C, rb, n, kp, kt, int(vals.dtype == torch.bfloat16)))
+    stripe_rows_cuda.launches += 1
+    return y
+
+
+def stripe_nested_rows_cuda(cols, lrow, vals, wnz, wrow, x, *, rb, kt):
+    """CUDA ``_stripe_nested_kernel`` (tpusparse/kernels/stripe_gather.py:156):
+    y_slots [P*rb, Kp] for X [N, Kp] fp32, each WARP sub-block on a warp."""
+    P, _, C = cols.shape
+    W = wnz.shape[-1] - 1
+    check_operands(x, (("cols", cols, torch.int32, (P, 1, C)),
+                       ("lrow", lrow, torch.int32, (P, 1, C)),
+                       ("vals", vals, torch.float32, (P, 1, C)),
+                       ("wnz", wnz, torch.int32, (P, 1, W + 1)),
+                       ("wrow", wrow, torch.int32, (P, 1, W + 1))), ndim=2)
+    _check_kt(kt, x, "nested stripe kernel")
+    n, kp = x.shape
+    y = torch.empty((P * rb, kp), dtype=torch.float32, device=x.device)
+    launch_checked(_lib().stripe_nested_launch, "stripe_nested_launch",
+                   (cols, lrow, vals, wnz, wrow, x, y), (P, C, W, rb, n, kp, kt))
+    stripe_nested_rows_cuda.launches += 1
+    return y
+
+
+stripe_rows_cuda.launches = 0
+stripe_nested_rows_cuda.launches = 0
+
+
+# ----------------------------------------------------------------- entry points
+
+def prep_stripe_x(x, device, k_tile):
+    """X as fp32 on ``device``, its columns padded to the K-tile chosen for
+    ``k_tile`` columns; returns (x, kt, K)."""
+    x = prep_x(x, device)
+    k = x.shape[1]
+    kt = choose_kt(min(k_tile or k, 32))
+    return pad_dense_cols(x, cdiv(k, kt) * kt).contiguous(), kt, k
+
+
+def stripe_spmm(fmt: StripeFormat, x, *, ktile: int | None = None,
+                unroll: int = 8) -> torch.Tensor:
+    """Y[M, K] = A . X[N, K] with A in StripeFormat.  ``ktile`` caps the
+    K-tile (at most 32 columns); ``unroll`` changes nothing here.  CUDA
+    formats run the kernel, CPU formats its plain version."""
+    m, n_cols = fmt.shape
+    x, kt, k = prep_stripe_x(x, fmt.device, ktile)
+    assert x.shape[0] == n_cols, f"X rows {x.shape[0]} != A cols {n_cols}"
+    rb = fmt.max_rows_per_stripe
+    if fmt.device.type == "cuda":
+        y_slots = stripe_rows_cuda(fmt.cols, fmt.lrow, fmt.vals, x, rb=rb, kt=kt)
+    else:
+        y_slots = stripe_rows_plain(fmt.cols, fmt.lrow, fmt.vals, x, rb=rb)
+    return unpack_slots(y_slots, fmt.slot_of_origrow)[:, :k]
+
+
+def stripe_nested_spmm(fmt: NestedStripeFormat, x, *, ktile: int | None = None,
+                       unroll: int = 8) -> torch.Tensor:
+    """Y = A . X with A in NestedStripeFormat (two-level TBLOCK > WARP)."""
+    m, n_cols = fmt.shape
+    x, kt, k = prep_stripe_x(x, fmt.device, ktile)
+    assert x.shape[0] == n_cols, f"X rows {x.shape[0]} != A cols {n_cols}"
+    args = (fmt.cols, fmt.lrow, fmt.vals, fmt.wnz, fmt.wrow, x)
+    rb = fmt.max_rows_per_stripe
+    if fmt.device.type == "cuda":
+        y_slots = stripe_nested_rows_cuda(*args, rb=rb, kt=kt)
+    else:
+        y_slots = stripe_nested_rows_plain(*args, rb=rb)
+    return unpack_slots(y_slots, fmt.slot_of_origrow)[:, :k]

@@ -4,10 +4,9 @@
 A dict of numpy arrays keyed ``(level, name, sub_matrix_id)`` as in the
 reference's ``meta_data_set`` (metadata_set.hpp:104-154), bootstrapped from
 a COO matrix, with per-item ``check()`` and a ``logical_check()`` that
-cross-validates the COO arrays and the blocking metadata.  Trimmed to what
-the ported families read and write (block boundaries and column tiles);
-the other blocking checks and the ``.npz`` format cache come with the
-families that write them.
+cross-validates the COO arrays and the blocking metadata: block
+boundaries, column tiles, child offsets, parent-relative indices and the
+segment bitmaps.  The ``.npz`` format cache is not ported.
 """
 
 from __future__ import annotations
@@ -55,6 +54,19 @@ class MetaDataSet:
 
     def has(self, level: Level, name: str, sub_matrix_id: int) -> bool:
         return (level, name, sub_matrix_id) in self._items
+
+    def remove(self, level: Level, name: str, sub_matrix_id: int) -> None:
+        """Delete an item (reference: remove_item_of_metadata, used by the
+        padding re-execution)."""
+        del self._items[(level, name, sub_matrix_id)]
+
+    def remove_level(self, level: Level, sub_matrix_id: int) -> list[str]:
+        """Delete every item of a parallel level of one sub-matrix (the
+        padding rollback); returns their names."""
+        doomed = [k for k in self._items if k[0] == level and k[2] == sub_matrix_id]
+        for k in doomed:
+            del self._items[k]
+        return [f"{k[0].short_name}_{k[1]}_{k[2]}" for k in doomed]
 
     def items(self) -> Iterable[MetaDataItem]:
         return self._items.values()
@@ -109,22 +121,28 @@ class MetaDataSet:
         nnz = vals.size
         assert rows.size == cols.size == nnz, f"sub {sub}: COO length mismatch"
         row_num = self.row_num(sub)
+        # interleaved storage (brick_ell) is position-major inside each block
+        interleaved = self.has(Level.GLOBAL, "interleaved", sub) and bool(
+            self.get_scalar(Level.GLOBAL, "interleaved", sub))
         if nnz:
             assert rows.min() >= 0 and rows.max() < row_num, f"sub {sub}: row index range"
             assert cols.min() >= 0 and cols.max() < self.col_num(sub), (
                 f"sub {sub}: col index range")
             tiled = [lv for lv in PARALLEL_LEVELS if self.has(lv, "col_tile_indices", sub)]
-            if tiled:
+            if tiled and not interleaved:
                 # col-direction blocking stores nz by (col tile, row): rows
                 # must be sorted within each tile
                 fnz = self.get(tiled[0], "first_nz_indices", sub).astype(np.int64)
                 for a, b in zip(fnz[:-1], fnz[1:]):
                     assert np.all(np.diff(rows[a:b].astype(np.int64)) >= 0), (
                         f"sub {sub}: rows not sorted within col tile")
-            else:
+            elif not interleaved:
                 assert np.all(np.diff(rows.astype(np.int64)) >= 0), f"sub {sub}: rows not sorted"
         for level in PARALLEL_LEVELS:
             self._check_level_blocks(sub, level, nnz, row_num)
+        self._check_child_offsets(sub)
+        self._check_relative(sub)
+        self._check_segments(sub, nnz)
 
     def _check_level_blocks(self, sub: int, level: Level, nnz: int, row_num: int) -> None:
         has_nz = self.has(level, "first_nz_indices", sub)
@@ -153,6 +171,52 @@ class MetaDataSet:
             frow = self.get(level, "first_row_indices", sub)
             assert fwe.size == frow.size - 1
             assert np.array_equal(fwe.astype(np.int64), frow[:-1].astype(np.int64))
+
+    def _check_child_offsets(self, sub: int) -> None:
+        for parent, child, name in ((Level.TBLOCK, Level.WARP, "first_BMW_indices"),
+                                    (Level.TBLOCK, Level.THREAD, "first_BMT_indices"),
+                                    (Level.WARP, Level.THREAD, "first_BMT_indices")):
+            if not self.has(parent, name, sub):
+                continue
+            arr = self.get(parent, name, sub).astype(np.int64)
+            assert np.all(np.diff(arr) >= 0), f"{parent.block_name}.{name} not sorted"
+            assert arr[0] == 0
+            if self.has(child, "first_nz_indices", sub):
+                n_child = self.get(child, "first_nz_indices", sub).size - 1
+                assert arr[-1] == n_child, (
+                    f"{parent.block_name}.{name} last ({arr[-1]}) != child count ({n_child})")
+            if self.has(parent, "first_nz_indices", sub):
+                n_parent = self.get(parent, "first_nz_indices", sub).size - 1
+                assert arr.size - 1 == n_parent, f"{parent.block_name}.{name} length"
+
+    def _check_relative(self, sub: int) -> None:
+        for child, parent in ((Level.WARP, Level.TBLOCK), (Level.THREAD, Level.TBLOCK),
+                              (Level.THREAD, Level.WARP)):
+            for base in ("first_row_indices", "first_nz_indices"):
+                name = f"{base}_relative_to_{parent.block_name}"
+                if not self.has(child, name, sub):
+                    continue
+                rel = self.get(child, name, sub).astype(np.int64)
+                child_abs = self.get(child, base, sub).astype(np.int64)
+                parent_abs = self.get(parent, base, sub).astype(np.int64)
+                off_name = f"first_{child.block_name}_indices"
+                assert self.has(parent, off_name, sub), f"need {parent.block_name}.{off_name}"
+                offs = self.get(parent, off_name, sub).astype(np.int64)
+                parent_of_child = np.clip(
+                    np.searchsorted(offs, np.arange(rel.size), side="right") - 1,
+                    0, offs.size - 2)
+                assert np.array_equal(parent_abs[parent_of_child] + rel,
+                                      child_abs[: rel.size]), (
+                    f"{child.block_name}.{name}: abs != parent abs + rel")
+
+    def _check_segments(self, sub: int, nnz: int) -> None:
+        for level in PARALLEL_LEVELS:
+            if self.has(level, "bit_map_of_thread", sub):
+                bm = self.get(level, "bit_map_of_thread", sub)
+                assert bm.size == nnz, f"{level.block_name} bit_map size"
+                assert set(np.unique(bm)).issubset({0, 1})
+            if self.has(level, "segment_ptr", sub):
+                assert np.all(np.diff(self.get(level, "segment_ptr", sub).astype(np.int64)) >= 0)
 
 
 def create_init_metadata_set(mat: CooMatrix) -> MetaDataSet:

@@ -4,11 +4,11 @@ A Schedule names a kernel family plus its converting / distributing /
 implementing parameters; ``build_plan`` runs the operator pipeline through
 the OperatorExecutor, packs the format on the device and returns a plan.
 ``Schedule`` keeps the JAX package's fields and defaults, so one
-``describe()`` dict means the same thing in both packages.  Of the
-families, this port runs ``dg_span``, ``dgt_span``, ``tile_onehot``,
-``span_onehot`` and ``span_colsplit`` (the sum of column-range span
-sub-plans); every other family raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it.
+``describe()`` dict means the same thing in both packages.  Every family
+runs but ``dense``, ``block_ell`` and ``hybrid_cols``, which raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them; the
+converting options (``sort``, ``bucket_bounds``) run through the
+SortOperator and the RowNnzMatrixDivOperator as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,32 +19,46 @@ from typing import Any
 
 import numpy as np
 
-from tpusparse_torch.format import pack_tile
+from tpusparse_torch.format import pack_segment, pack_stripe, pack_stripe_nested, pack_tile
 from tpusparse_torch.generator import SpmmPlan
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels.common import resolve_device
 from tpusparse_torch.kernels.dg_gather import (PRECISIONS, choose_kt_dg, dg_spmm,
                                                dg_spmv, pack_dg)
 from tpusparse_torch.kernels.dgt_gather import dgt_spmm, pack_dgt
+from tpusparse_torch.kernels.nnz_split import (pack_segment_span, segment_span_spmm,
+                                               segment_spmm)
+from tpusparse_torch.kernels.radix_gather import (choose_kt, pack_brick_ell, pack_radix,
+                                                  radix_spmm)
 from tpusparse_torch.kernels.span_gather import pack_span, span_spmm
+from tpusparse_torch.kernels.stripe_gather import stripe_nested_spmm, stripe_spmm
 from tpusparse_torch.kernels.tile_onehot import tile_spmm
 from tpusparse_torch.levels import Level
 from tpusparse_torch.meta.set import create_init_metadata_set
-from tpusparse_torch.ops import (FixedIntervalColBlockingOperator, GridBlockOperator,
-                                 OperatorExecutor, TileOneHotImplementOperator)
+from tpusparse_torch.ops import (BalancedNnzRowBlockingOperator, ChildOffsetsOperator,
+                                 EllBlockPadOperator, FixedIntervalColBlockingOperator,
+                                 FixedIntervalRowBlockingOperator, FixedNnzBlockingOperator,
+                                 GridBlockOperator, GroupChildrenBlockingOperator,
+                                 InterleaveStorageOperator, MergeAdjacentBlocksOperator,
+                                 MergePathBlockingOperator, OperatorExecutor,
+                                 RelativeIndexOperator, RowNnzMatrixDivOperator,
+                                 SegmentReduceOperator, SortOperator,
+                                 ThreadTotalReduceOperator, TileOneHotImplementOperator,
+                                 UniformBlockPadOperator)
 
 KERNEL_FAMILIES = ("stripe_total", "stripe_nested", "nnz_segment",
                    "segment_span", "tile_onehot", "span_onehot",
                    "span_colsplit", "radix_span", "brick_ell", "dg_span",
                    "dgt_span", "bucketed", "dense", "block_ell", "hybrid_cols")
-PORTED_FAMILIES = ("dg_span", "dgt_span", "tile_onehot", "span_onehot", "span_colsplit")
 #: the ROADMAP.md queue-A item that ports each family still missing
-ROADMAP_ITEM = {
-    "stripe_total": "A.7", "stripe_nested": "A.7", "nnz_segment": "A.7",
-    "segment_span": "A.7", "radix_span": "A.7", "brick_ell": "A.7",
-    "bucketed": "A.7",
-    "dense": "A.8", "block_ell": "A.8", "hybrid_cols": "A.8",
-}
+ROADMAP_ITEM = {"dense": "A.8", "block_ell": "A.8", "hybrid_cols": "A.8"}
+PORTED_FAMILIES = tuple(f for f in KERNEL_FAMILIES if f not in ROADMAP_ITEM)
+
+
+class CandidateRejected(Exception):
+    """A schedule refused by a gate of its family (brick_ell's chunk
+    blocks) or, in the tuner, by the padding bound or a plausibility
+    guard."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,15 +110,6 @@ class Schedule:
 TPU_ONLY_FIELDS = ("unroll", "scatter", "pipe", "rowhot_i8")
 
 
-def _choose_kt_radix(k: int) -> int:
-    """radix_span's K-tile (tpusparse/kernels/radix_gather.py:74), needed
-    here only for the decision tree's radix gate."""
-    for kt in (1, 2, 4, 8, 16, 32):
-        if k <= kt:
-            return kt
-    return 32
-
-
 def default_schedule(mat: CooMatrix, k: int | None = None) -> Schedule:
     """The JAX package's default family for the K regime, decision for
     decision.  Its gates are TPU-derived: 6 MB is the share of the v5e's
@@ -125,7 +130,7 @@ def default_schedule(mat: CooMatrix, k: int | None = None) -> Schedule:
         if kt_d > 1 and n * kt_d * 4 <= 6 * 1024 * 1024:  # TPU-derived gate
             return Schedule(family="dg_span", rb=1024, ns=8, g=512,
                             unroll=8, ktile=kt_d)
-        kt_r = _choose_kt_radix(k)
+        kt_r = choose_kt(k)
         if n * kt_r * 4 <= 6 * 1024 * 1024:  # TPU-derived gate
             return Schedule(family="radix_span", rb=1024, sublanes=128, g=1024,
                             unroll=4, ktile=kt_r)
@@ -147,8 +152,15 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to tpusparse_torch yet (ROADMAP.md {item})")
 
 
+#: TPU-derived: the VMEM a brick_ell program's chunk blocks may take on the
+#: v5e (tpusparse/schedule.py:284-293); kept so the port refuses brick_ell
+#: exactly where the JAX package does
+BRICK_ELL_BLOCK_BYTES = 4 * 1024 * 1024
+
+
 def _build_sub_plan(ms, ex, sub: int, sched: Schedule, out_rows: int, device):
-    """Run the implementing operators for one sub-matrix; return (format, fn).
+    """Run distributing and implementing for one sub-matrix; return
+    (format, fn).
 
     Launch geometry flows through the metadata set as in the JAX package:
     GridBlockOperator writes GLOBAL ``ktile``/``k_unroll`` and the plan
@@ -156,7 +168,52 @@ def _build_sub_plan(ms, ex, sub: int, sched: Schedule, out_rows: int, device):
     ex.add_and_run(GridBlockOperator(sub, ktile=sched.ktile, unroll=sched.unroll))
     kt_meta = (int(ms.get(Level.GLOBAL, "ktile", sub))
                if ms.has(Level.GLOBAL, "ktile", sub) else None)
-    if sched.family == "span_onehot":
+    unroll = max(int(ms.get(Level.GLOBAL, "k_unroll", sub)), 1)
+    fam = sched.family
+    if fam == "stripe_nested":
+        # TBLOCK > WARP: balanced WARP blocks, small ones merged, grouped 8
+        # to a TBLOCK program, child offsets and parent-relative indices
+        work = max(sched.work_per_block // 8, 8)
+        ex.add_and_run(BalancedNnzRowBlockingOperator(sub, Level.WARP, work))
+        ex.add_and_run(MergeAdjacentBlocksOperator(sub, Level.WARP, work))
+        ex.add_and_run(GroupChildrenBlockingOperator(sub, Level.TBLOCK, Level.WARP,
+                                                     children_per_parent=8))
+        ex.add_and_run(ChildOffsetsOperator(sub, Level.TBLOCK, Level.WARP))
+        ex.add_and_run(RelativeIndexOperator(sub, Level.WARP, Level.TBLOCK))
+        ex.add_and_run(ThreadTotalReduceOperator(sub, Level.TBLOCK))
+        fmt = pack_stripe_nested(ms, sub, out_rows=out_rows, unroll=unroll, device=device)
+
+        def fn(x, fmt=fmt):
+            return stripe_nested_spmm(fmt, x, ktile=kt_meta, unroll=unroll)
+
+        return fmt, fn
+    if fam == "stripe_total":
+        if sched.blocking == "merge_path":
+            ex.add_and_run(MergePathBlockingOperator(sub, Level.TBLOCK, sched.work_per_block))
+        elif sched.blocking == "balanced":
+            ex.add_and_run(BalancedNnzRowBlockingOperator(sub, Level.TBLOCK,
+                                                          sched.work_per_block))
+        else:
+            ex.add_and_run(FixedIntervalRowBlockingOperator(sub, Level.TBLOCK,
+                                                            sched.row_interval))
+        ex.add_and_run(ThreadTotalReduceOperator(sub, Level.TBLOCK))
+        ex.add_and_run(UniformBlockPadOperator(sub, Level.TBLOCK, multiple_of=unroll))
+        fmt = pack_stripe(ms, sub, out_rows=out_rows, device=device)
+
+        def fn(x, fmt=fmt):
+            return stripe_spmm(fmt, x, ktile=kt_meta, unroll=unroll)
+
+        return fmt, fn
+    if fam == "nnz_segment":
+        ex.add_and_run(FixedNnzBlockingOperator(sub, Level.TBLOCK, sched.work_per_block))
+        ex.add_and_run(SegmentReduceOperator(sub, Level.TBLOCK))
+        fmt = pack_segment(ms, sub, out_rows=out_rows, device=device)
+
+        def fn(x, fmt=fmt):
+            return segment_spmm(fmt, x, ktile=kt_meta, unroll=unroll)
+
+        return fmt, fn
+    if fam == "span_onehot":
         fmt = pack_span(ms, sub, out_rows=out_rows, rb=sched.rb, ct=sched.ct, g=sched.g,
                         device=device)
 
@@ -165,7 +222,7 @@ def _build_sub_plan(ms, ex, sub: int, sched: Schedule, out_rows: int, device):
                              unroll=sched.unroll)
 
         return fmt, fn
-    if sched.family == "tile_onehot":
+    if fam == "tile_onehot":
         ex.add_and_run(TileOneHotImplementOperator(
             sub, rb=sched.rb, ct=sched.ct, g=sched.g, precision=sched.precision,
             unroll=sched.unroll))
@@ -178,7 +235,32 @@ def _build_sub_plan(ms, ex, sub: int, sched: Schedule, out_rows: int, device):
 
         return fmt, fn
     mode = sched.precision if sched.precision in PRECISIONS else "fp32x2"
-    if sched.family == "dgt_span":
+    if fam in ("radix_span", "brick_ell"):
+        kt = choose_kt(kt_meta) if kt_meta else 8
+        if fam == "radix_span":
+            fmt = pack_radix(ms, sub, out_rows=out_rows, rb=sched.rb, S=sched.sublanes,
+                             g=sched.g, kt=kt, mode=mode, device=device)
+        else:
+            # the reference's headline layout: length sort (the Schedule's
+            # sort), 8-row bricks ELL-padded to the brick max, interleaved
+            # storage, chunked in stored order
+            ex.add_and_run(FixedIntervalRowBlockingOperator(sub, Level.TBLOCK, 8))
+            ex.add_and_run(EllBlockPadOperator(sub, Level.TBLOCK))
+            ex.add_and_run(InterleaveStorageOperator(sub, Level.TBLOCK))
+            fmt = pack_brick_ell(ms, sub, out_rows=out_rows, rb=sched.rb, S=sched.sublanes,
+                                 g=sched.g, kt=kt, mode=mode, device=device)
+            blk_bytes = fmt.n_chunks * fmt.chunk_g * 12
+            if blk_bytes > BRICK_ELL_BLOCK_BYTES:
+                raise CandidateRejected(
+                    f"brick_ell chunk blocks need {blk_bytes / 2**20:.0f} MB of the TPU's "
+                    f"VMEM (NC={fmt.n_chunks}): the interleaved layout has no column "
+                    "locality on this matrix; use radix_span")
+
+        def fn(x, fmt=fmt):
+            return radix_spmm(fmt, x, unroll=sched.unroll)
+
+        return fmt, fn
+    if fam == "dgt_span":
         kt = choose_kt_dg(max(kt_meta or 8, 2))  # kt=1 stays dg_span
         fmt = pack_dgt(ms, sub, out_rows=out_rows, rb=sched.rb, g=sched.g, kt=kt,
                        mode=mode, resid=sched.resid, nw=sched.nw, walk=sched.walk,
@@ -189,6 +271,8 @@ def _build_sub_plan(ms, ex, sub: int, sched: Schedule, out_rows: int, device):
                             pipe=sched.pipe, rowhot_i8=sched.rowhot_i8)
 
         return fmt, fn
+    if fam != "dg_span":
+        raise ValueError(f"{fam!r} has no sub-plan")
     kt = choose_kt_dg(kt_meta) if kt_meta else 8
     if kt == 1:
         mode = "fp32x2"
@@ -254,31 +338,84 @@ def _build_span_colsplit_plan(mat: CooMatrix, sched: Schedule, device) -> SpmmPl
     )
 
 
+def _build_segment_span_plan(mat: CooMatrix, sched: Schedule, device) -> SpmmPlan:
+    """Equal-nnz blocks, span-chunked (tpusparse/schedule.py:541-556)."""
+    fmt = pack_segment_span(mat, block_nnz=sched.work_per_block, ct=sched.ct, g=sched.g,
+                            device=device)
+
+    def fn(x):
+        return segment_span_spmm(fmt, x, ktile=sched.ktile, precision=sched.precision,
+                                 unroll=sched.unroll)
+
+    return SpmmPlan(fn=fn, formats=[fmt], shape=mat.shape,
+                    meta={"schedule": sched.describe(), "n_subs": 1,
+                          "padding_rate": fmt.padding_rate,
+                          "operator_history": "segment_span", "device": str(device)})
+
+
 def build_plan(mat: CooMatrix, sched: Schedule, *, device="cuda") -> SpmmPlan:
-    """Plan for ``sched`` with its format on ``device`` (CUDA by default;
-    raises when no card is present unless ``device="cpu"``)."""
+    """Plan for ``sched`` with its formats on ``device`` (CUDA by default;
+    raises when no card is present unless ``device="cpu"``).  As in the JAX
+    package (tpusparse/schedule.py:558): ``span_colsplit`` and
+    ``segment_span`` build their own formats; every other family runs the
+    operator pipeline, with the length sort first where ``sort`` is set and
+    the row-nnz division into one sub-plan per bucket where the family is
+    ``bucketed`` or ``bucket_bounds`` is set, the plan summing the
+    sub-plans' products."""
     dev = resolve_device(device)
     if sched.family not in KERNEL_FAMILIES:
         raise ValueError(f"unknown family {sched.family!r}")
-    if sched.family not in PORTED_FAMILIES:
+    if sched.family in ROADMAP_ITEM:
         raise _not_ported(f"schedule family {sched.family!r}", ROADMAP_ITEM[sched.family])
     if sched.family == "span_colsplit":  # as in the JAX package, before sort and buckets
         return _build_span_colsplit_plan(mat, sched, dev)
-    if sched.sort:
-        raise _not_ported("Schedule(sort=True) (SortOperator)", "A.7")
-    if sched.bucket_bounds:
-        raise _not_ported("Schedule(bucket_bounds=...) (RowNnzMatrixDivOperator)", "A.7")
+    if sched.family == "segment_span":
+        return _build_segment_span_plan(mat, sched, dev)
     ms = create_init_metadata_set(mat)
     ex = OperatorExecutor(ms)
-    fmt, fn = _build_sub_plan(ms, ex, 0, sched, mat.shape[0], dev)
+    if sched.sort:
+        ex.add_and_run(SortOperator(0, by=sched.sort_by))
+
+    subs = [0]
+    sub_scheds = {0: sched}
+    if sched.family == "bucketed" or sched.bucket_bounds:
+        div = RowNnzMatrixDivOperator(0, bounds=tuple(sched.bucket_bounds))
+        ex.add_and_run(div)
+        subs = div.new_sub_ids
+        bucketed = sched.family == "bucketed"
+        for i, s in enumerate(subs):
+            if i < len(sched.bucket_schedules):
+                sub_scheds[s] = sched.bucket_schedules[i]
+            else:  # a bucketed plan's default sub-plan is span_onehot rb=512 ct=1024
+                sub_scheds[s] = dataclasses.replace(
+                    sched, family="span_onehot" if bucketed else sched.family,
+                    rb=512 if bucketed else sched.rb, ct=1024 if bucketed else sched.ct,
+                    bucket_bounds=(), bucket_schedules=())
+
+    formats, fns = [], []
+    for s in subs:
+        fmt, fn = _build_sub_plan(ms, ex, s, sub_scheds[s], mat.shape[0], dev)
+        formats.append(fmt)
+        fns.append(fn)
+
+    if len(fns) == 1:
+        plan_fn = fns[0]
+    else:
+        def plan_fn(x):
+            y = fns[0](x)
+            for f in fns[1:]:
+                y = y + f(x)
+            return y
+
+    pads = [f.padding_rate for f in formats]
     return SpmmPlan(
-        fn=fn,
-        formats=[fmt],
+        fn=plan_fn,
+        formats=formats,
         shape=mat.shape,
         meta={
             "schedule": sched.describe(),
-            "n_subs": 1,
-            "padding_rate": float(fmt.padding_rate),
+            "n_subs": len(subs),
+            "padding_rate": float(np.mean(pads)) if pads else 1.0,
             "operator_history": ex.ctx.convert_to_string(),
             "device": str(dev),
         },

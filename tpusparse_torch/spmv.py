@@ -7,6 +7,11 @@ Methods, decision for decision as in the JAX package:
              to 8 columns, rb from ``auto_rb_dgt``.
   'span'     the span kernel (``span_rows_cuda``) on x widened to 8
              columns, at the first of the tuner's span points.
+  'radix'    the radix kernel at kt = 1 (``radix_rows_cuda``), rb = 2048,
+             S = 128, g = 1024.
+  'stripe'   the stripe kernel (``stripe_rows_cuda``) through
+             ``build_stripe_plan`` (work 1024, unroll 8) on x widened to 8
+             columns, as the JAX package runs it.
   'segment'  plain torch: ``index_add_`` of vals * x[cols] over rows.  The
              JAX version is XLA code, no Pallas kernel, so no kernel here.
   'auto'     'dg' when x passes the JAX package's size gate (N*4 bytes
@@ -27,10 +32,6 @@ import torch
 
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels.common import cdiv, resolve_device
-
-#: the ROADMAP.md queue-A item that ports each SpMV method still missing
-ROADMAP_ITEM = {"radix": "A.7", "stripe": "A.7"}
-
 
 def _as_x(x, dev: torch.device) -> torch.Tensor:
     """x as an fp32 tensor on ``dev``; a tensor on another device is
@@ -101,9 +102,28 @@ def spmv_fn(mat: CooMatrix, method: str = "auto", *, device="cuda"):
             return y.index_add_(0, rows, vals * _as_x(x, dev)[cols])
 
         return fn
-    if method in ROADMAP_ITEM:
-        raise NotImplementedError(f"spmv method {method!r} is not ported to tpusparse_torch "
-                                  f"yet (ROADMAP.md {ROADMAP_ITEM[method]})")
+    if method == "radix":
+        from tpusparse_torch.kernels.radix_gather import pack_radix, radix_spmm
+
+        fmt = pack_radix(mat, rb=2048, S=128, g=1024, kt=1, mode="fp32x2", device=dev)
+
+        def fn(x):
+            assert tuple(x.shape) == (n,), f"x shape {tuple(x.shape)} != ({n},)"
+            return radix_spmm(fmt, _as_x(x, dev)[:, None])[:, 0]
+
+        fn.format = fmt
+        return fn
+    if method == "stripe":
+        from tpusparse_torch.generator import build_stripe_plan
+
+        plan = build_stripe_plan(mat, work_per_stripe=1024, unroll=8, device=dev)
+
+        def fn(x):
+            assert tuple(x.shape) == (n,), f"x shape {tuple(x.shape)} != ({n},)"
+            return plan(_as_x(x, dev)[:, None].expand(n, 8))[:, 0]
+
+        fn.format = plan.formats[0]
+        return fn
     raise ValueError(f"unknown spmv method {method!r}")
 
 

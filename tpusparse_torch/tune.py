@@ -3,10 +3,9 @@
 As in the reference (token_test.cc:1625-1847): enumerate Schedule
 candidates, check each against the oracle, time it, keep the min, cache the
 winner per matrix signature under the config cache_dir, and append every
-measurement to results.jsonl.  Candidates are the blocks of the JAX
-package's list whose families are ported (``dg_span``, ``dgt_span``,
-``span_onehot`` or ``span_colsplit``, ``tile_onehot``), in its order; a
-cached winner of a family not yet ported is dropped.  Candidates that differ only
+measurement to results.jsonl.  Candidates are the JAX package's list in
+its order, without the rows of the families not yet ported (ROADMAP.md
+A.8); a cached winner of such a family is dropped.  Candidates that differ only
 in knobs of the TPU kernels' code (``Schedule.plan_key``) are one plan on
 the card: it is packed and timed once, and each such row carries that
 measurement and ``same_plan_as``.
@@ -34,12 +33,9 @@ from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels.common import resolve_device
 from tpusparse_torch.kernels.dg_gather import choose_kt_dg
 from tpusparse_torch.kernels.dgt_gather import auto_rb_dgt, dgt_geometry
+from tpusparse_torch.kernels.radix_gather import choose_kt
 from tpusparse_torch.oracle import check_result, spmm_reference
-from tpusparse_torch.schedule import PORTED_FAMILIES, Schedule, build_plan
-
-
-class CandidateRejected(Exception):
-    """A candidate that exceeds the padding bound or a plausibility guard."""
+from tpusparse_torch.schedule import PORTED_FAMILIES, CandidateRejected, Schedule, build_plan
 
 
 def matrix_signature(mat: CooMatrix) -> str:
@@ -75,18 +71,44 @@ def _span_configs(density: float) -> list[tuple[int, int, int]]:
     return out[:4]
 
 
+def _radix_configs(density: float, kt: int) -> list[tuple[int, int, int]]:
+    """(rb, S, g) for the radix family (tpusparse/tune.py:64): the window
+    W = S*spr should just hold a G-chunk's column span, about
+    g/(density*rb); S capped to [32, 512].  TPU-derived (spr is the fp32x2
+    lane packing's) and kept so both packages time the same points."""
+    spr = 64 // kt
+    density = max(density, 1e-8)
+    out = []
+    cfgs = (((2048, 1024), (1024, 1024), (1024, 512)) if kt <= 2
+            else ((1024, 1024), (1024, 512), (768, 512)))
+    for rb, g in cfgs:
+        W = min(max(1.0 * g / (density * rb), 256), 64 * 1024)
+        S = int(min(max(2 ** round(math.log2(max(W / spr, 1))), 32), 512))
+        if (rb, S, g) not in out:
+            out.append((rb, S, g))
+    return out[:3]
+
+
 def default_candidates(mat: CooMatrix, k: int, *, full: bool = False) -> list[Schedule]:
-    """The candidates of the JAX package's list (tpusparse/tune.py:111-250)
-    whose families are ported, in its order: dg's density-sized (rb, ns, g)
-    points, the kt=8 alternative at K > 16, and with ``full`` the wider
-    grid, unrolls and bf16; dgt's (resid, rb, nw, g, unroll, rowhot_i8)
-    points, an ``auto_rb_dgt`` point first where it exceeds 512, and with
-    ``full`` seven more; the span points (``span_onehot`` where X passes the
-    gate, else ``span_colsplit``) at K <= 128; the three tile points (with
-    ``full`` at K > 128 also ktile 64 and 128).  The radix, brick-ELL,
-    stripe, segment, bucketed and dense blocks are skipped until ported.
-    The X-size gates (6 MB) are the JAX package's VMEM gates, TPU-derived
-    and queued for re-derivation (ROADMAP.md A.4)."""
+    """The JAX package's candidate list (tpusparse/tune.py:90-313), block
+    for block in its order: dg's density-sized (rb, ns, g) points (with
+    ``full`` the wider grid, unrolls and bf16); dgt's points; radix's
+    (rb, S, g) points at kt and, past kt = 8, at 8 too, with ``full`` the
+    wider grid, unrolls and bf16, and the ``brick_ell`` row (K <= 32, or
+    ``full``);
+    the span points (``span_onehot`` where X passes the gate, else
+    ``span_colsplit``) at K <= 128; the three tile points; the stripe rows
+    (merge path at two work budgets; with ``full`` four, balanced, fixed
+    rows and ``stripe_nested``); and on a skewed matrix (longest row past
+    32x the mean) or with ``full`` the ``segment_span``, ``nnz_segment``
+    and ``bucketed`` rows.  The ``hybrid_cols``, ``dense`` and
+    ``block_ell`` rows are left out until those families are ported
+    (ROADMAP.md A.8).  The X-size gates (6 MB) are the JAX package's VMEM
+    gates, TPU-derived and queued for re-derivation (ROADMAP.md A.4)."""
+    lengths = mat.row_lengths()
+    max_len = int(lengths.max()) if lengths.size else 0
+    avg_len = float(lengths.mean()) if lengths.size else 0.0
+    skewed = max_len > 32 * max(avg_len, 1.0)
     cands: list[Schedule] = []
     kt_dg = choose_kt_dg(k)
     if k <= 128 and mat.shape[1] * kt_dg * 4 <= 6 * 1024 * 1024:
@@ -134,6 +156,26 @@ def default_candidates(mat: CooMatrix, k: int, *, full: bool = False) -> list[Sc
         for resid, rb, nw, g_c, u_c, i8 in dgt_cfgs:
             cands.append(Schedule(family="dgt_span", rb=rb, nw=nw, resid=resid, g=g_c,
                                   unroll=u_c, ktile=max(kt_dg, 8), rowhot_i8=i8))
+    kt_r = choose_kt(k)
+    if k <= 128 and mat.shape[1] * kt_r * 4 <= 6 * 1024 * 1024:  # TPU-derived gate
+        for kt_c in ([kt_r] if kt_r <= 8 else list(dict.fromkeys([kt_r, 8]))):
+            radix_cfgs = _radix_configs(mat.density, kt_c)
+            if not full and kt_c != kt_r:
+                radix_cfgs = radix_cfgs[:1]
+            if full:
+                radix_cfgs = list(dict.fromkeys(
+                    radix_cfgs + [(rb, S, g) for rb in (512, 1024, 2048)
+                                  for S in (64, 128, 256) for g in (256, 512)]))
+            for rb, S, g in radix_cfgs:
+                for u in ((2, 4, 8) if full else (4,)):
+                    cands.append(Schedule(family="radix_span", rb=rb, sublanes=S, g=g,
+                                          unroll=u, ktile=kt_c))
+                if full:
+                    cands.append(Schedule(family="radix_span", rb=rb, sublanes=S, g=g,
+                                          unroll=4, ktile=kt_c, precision="bf16"))
+        if k <= 32 or full:
+            cands.append(Schedule(family="brick_ell", sort=True, rb=1024, sublanes=256,
+                                  g=512, unroll=4, ktile=kt_r))
     x_bytes = mat.shape[1] * 2 * min(k, 128) * 2  # TPU-derived: X as hi+lo bf16
     if k <= 128:
         if x_bytes <= 6 * 1024 * 1024:  # TPU-derived gate
@@ -153,6 +195,21 @@ def default_candidates(mat: CooMatrix, k: int, *, full: bool = False) -> list[Sc
         for kt in ((None, 64, 128) if full and k > 128 else (None,)):
             cands.append(Schedule(family="tile_onehot", rb=rb, ct=ct, g=g, unroll=4,
                                   ktile=kt))
+    for work in ((512, 1024, 2048, 4096) if full else (512, 2048)):
+        cands.append(Schedule(family="stripe_total", blocking="merge_path",
+                              work_per_block=work, unroll=8))
+    if full:
+        cands.append(Schedule(family="stripe_total", blocking="balanced",
+                              work_per_block=1024, unroll=8))
+        cands.append(Schedule(family="stripe_total", blocking="fixed_rows",
+                              row_interval=256, unroll=8))
+        cands.append(Schedule(family="stripe_nested", work_per_block=4096, unroll=8))
+    if skewed or full:
+        if k <= 128:
+            cands.append(Schedule(family="segment_span", work_per_block=4096, ct=512, g=256,
+                                  unroll=4))
+        cands.append(Schedule(family="nnz_segment", work_per_block=2048, unroll=8))
+        cands.append(Schedule(family="bucketed", bucket_bounds=(max(int(8 * avg_len), 32),)))
     return cands
 
 
@@ -280,8 +337,8 @@ def tune(
                 best = (plan, sec, sched)
         except (AssertionError, CandidateRejected) as e:
             # a candidate that fails its oracle check (or a packer
-            # precondition) or a guard is recorded and skipped; a failed
-            # launch or build is a fault and propagates
+            # precondition), a guard or its family's gate is recorded and
+            # skipped; a failed launch or build is a fault and propagates
             row.update(ok=False, error=f"{type(e).__name__}: {e}")
         row["ts"] = time.time()
         table.append(row)
