@@ -30,7 +30,17 @@ entry points a user calls:
   and ``bucketed`` at the headline size and ``build_stripe_plan`` (P10),
   ``brick_ell`` on a banded 32768 x 32768 matrix (P11), and
   ``spmv_fn(mat, "radix")`` and ``spmv_fn(mat, "stripe")`` at the SpMV
-  size (P12).
+  size (P12);
+- the dense-tile families for pruned weights at a 7B-class projection's
+  4096 x 4096: ``SparseLinear.from_nm`` (2:4, seed 5) in bf16, fp32 and
+  int8 and in ``mode="throughput"``, ``nm_spmm`` and ``batched_spmm``,
+  and ``SparseLinear.from_dense`` of a 90 %-pruned weight (P13);
+  ``SparseLinear.from_block`` (15 % of 128-blocks, seed 6) in bf16, fp32
+  and int8 and ``block_ell_spmm(method="pallas")`` (P14); ``build_plan``
+  with ``dense`` at the headline, K = 256, ``block_ell`` and
+  ``hybrid_cols`` (panel widths 2048 and 512 on a column-skewed 32768 x
+  32768 matrix, alpha 1.6, seed 9) (P15); ``tune`` on that matrix at K = 8
+  with the JAX package's 26 candidates, the hybrid rows first (P16).
 
 Every result is checked against the host oracle; the kernels are timed
 against their bound, their plain versions and cuSPARSE.  Any failure
@@ -61,6 +71,7 @@ SPMV_AVG = 40.0
 SPMV_SEED = 9
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores, published
+BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM bf16 dense tensor cores, published
 REPS = 5                    # back-to-back readings per yardstick, interleaved
 # P9: the JAX package's default_candidates(headline, 8), all 25 rows in its
 # order (tpusparse/tune.py:90-313), by family and as a digest of every
@@ -69,6 +80,11 @@ TUNE_K8_FAMILIES = (["dg_span"] * 3 + ["dgt_span"] * 6 + ["radix_span"] * 3 + ["
                     + ["span_onehot"] * 4 + ["tile_onehot"] * 3 + ["stripe_total"] * 2
                     + ["segment_span", "nnz_segment", "bucketed"])
 TUNE_K8_DIGEST = "732d834f35bea5d0"
+# P4 and P16: the JAX package's lists at the headline, K = 256 (8 rows, the
+# dense row last) and at the column-skewed headline, K = 8 (26 rows, the
+# three hybrid_cols rows first), as digests (tests/test_torch_slice.py)
+TUNE_K256_DIGEST = "9fb84dc28e3a4f01"
+TUNE_COLSKEW_K8_DIGEST = "dd00bb2181d7e2a7"
 
 
 def candidates_digest(described) -> str:
@@ -118,15 +134,19 @@ def main() -> int:
         from tpusparse_torch.format import pack_tile
         from tpusparse_torch.generator import build_stripe_plan, prepare_stripe_format
         from tpusparse_torch.io import builder
+        from tpusparse_torch.batched import batched_spmm
         from tpusparse_torch.io.mtx import CooMatrix
+        from tpusparse_torch.kernels import block_ell as be
         from tpusparse_torch.kernels import build
         from tpusparse_torch.kernels import dg_gather as dg
         from tpusparse_torch.kernels import dgt_gather as dgt
+        from tpusparse_torch.kernels import nm_structured as nm
         from tpusparse_torch.kernels import radix_gather as radix
         from tpusparse_torch.kernels import span_gather as span
         from tpusparse_torch.kernels import stripe_gather as stripe
         from tpusparse_torch.kernels import tile_onehot as tile
         from tpusparse_torch.meta.set import create_init_metadata_set
+        from tpusparse_torch.nn import SparseLinear
         from tpusparse_torch.oracle import check_result, spmm_reference
         from tpusparse_torch.schedule import Schedule, build_plan, default_schedule
         from tpusparse_torch.spmv import spmv_fn, spmv_multi_fn
@@ -141,6 +161,8 @@ def main() -> int:
                           "tpusparse_torch/csrc/span_gather.cu")
     radix_src, stripe_src = ("tpusparse_torch/csrc/radix_gather.cu",
                              "tpusparse_torch/csrc/stripe_gather.cu")
+    nm_src, bell_src = ("tpusparse_torch/csrc/nm_structured.cu",
+                        "tpusparse_torch/csrc/block_ell.cu")
     kernels = {  # the ported kernels, by their wrapper
         "dg": {"wrapper": dg.dg_rows_cuda, "name": "dg_rows_cuda", "source": dg_src,
                "replaces": "tpusparse/kernels/dg_gather.py:318", "err": 0.0},
@@ -175,15 +197,25 @@ def main() -> int:
                           "plain": stripe.stripe_nested_rows_plain,
                           "name": "stripe_nested_rows_cuda", "source": stripe_src,
                           "replaces": "tpusparse/kernels/stripe_gather.py:156", "err": 0.0},
+        "nm": {"wrapper": nm.nm_rows_cuda, "plain": nm.nm_rows_plain, "name": "nm_rows_cuda",
+               "source": nm_src, "replaces": "tpusparse/kernels/nm_structured.py:160",
+               "err": 0.0},
+        "bell": {"wrapper": be.bell_rows_cuda, "plain": be.bell_rows_plain,
+                 "name": "bell_rows_cuda", "source": bell_src,
+                 "replaces": "tpusparse/kernels/block_ell.py:136", "err": 0.0},
     }
 
     # ---- 1. device
     dev = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     power = power_line()
-    log(f"[device] {kind} x{torch.cuda.device_count()}  torch {torch.__version__}  "
+    log(f"[device] {device_kind} x{torch.cuda.device_count()}  torch {torch.__version__}  "
         f"CUDA {torch.version.cuda}  python {sys.version.split()[0]}")
     log(f"[device] nvidia-smi: {power}")
+    # fp32 products stay fp32 (the JAX package's Precision.HIGHEST); the
+    # package sets no global flag, so the defaults must hold
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
 
     # ---- 2. build (every source, nvcc processes started together)
     info = build.build()
@@ -563,10 +595,10 @@ def main() -> int:
     cache = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tpusparse_torch",
                          "_build", "tune_cache")
 
-    def run_tune(path, x):
+    def run_tune(path, x, a=None):
         with tpusparse_torch.config_override(cache_dir=cache):
             zero_counts()
-            res_ = tune(mat, x, use_cache=False)
+            res_ = tune(mat if a is None else a, x, use_cache=False)
             read_counts(path)
         best_of = {}
         for row in res_.table:
@@ -580,7 +612,9 @@ def main() -> int:
                    "stripe_nested": f"work={s['work_per_block']}",
                    "nnz_segment": f"work={s['work_per_block']}",
                    "segment_span": f"work={s['work_per_block']} ct={s['ct']}",
-                   "bucketed": f"bounds={s['bucket_bounds']}"}.get(
+                   "bucketed": f"bounds={s['bucket_bounds']}",
+                   "hybrid_cols": f"C={s['hot_cols']}", "dense": "",
+                   "block_ell": f"bs={s['row_interval']}"}.get(
                        fam, f"ct={s['ct']} u={s['unroll']}")
             if not row["ok"]:
                 # the padding bound and brick_ell's gate refuse rows, as the
@@ -632,14 +666,20 @@ def main() -> int:
     for wf in win.formats:
         fmt_vs_plain("headline", wf, 8)
 
+    # P4 / P16: the JAX list at K = 256, the dense row (A as 2.1 GB of bf16,
+    # densified on the card) last
     res256, best256 = run_tune("tune_k256", xs[256])
-    assert "tile_onehot" in best256 and len(res256.table) == len(default_candidates(mat, 256))
+    assert candidates_digest(row["schedule"] for row in res256.table) == TUNE_K256_DIGEST
+    assert "tile_onehot" in best256 and "dense" in best256
     need("tune_k256", "tile_stream")
     for wf in res256.best.formats:
         if res256.best_schedule.family == "tile_onehot":
             win_vs_plain("tile_stream", "headline", wf, 256, "fp32x2")
         else:
             fmt_vs_plain("headline", wf, 256)
+    tune256_winner = (res256.best_schedule.family, res256.best_seconds)
+    del res256  # a dense winner holds A's 2.1 GB
+    torch.cuda.empty_cache()
 
     # ---- 6. SpMV at the SpMV workload's size, and the column split and the
     # stream kernel through dgt_spmm
@@ -815,6 +855,264 @@ def main() -> int:
     f_stv = spmv_fns["spmv_stripe_262k"].format
     log(f"[spmv]   stripe format: {fmt_geometry(f_stv)} {f_stv.memory_bytes / 2**20:.1f} MiB")
     stripe_vs_plain("spmv", f_stv, 8)
+
+    # ---- P13-P16: the dense-tile families, the serving surface for pruned
+    # weights, at a 7B-class projection's 4096 x 4096 (tpusparse/bench/
+    # suite.py:301-350) and at the headline's size
+    t_dense_tile = time.perf_counter()
+    rng13 = np.random.default_rng(11)
+
+    def dense_bound_check(label, y, want, scale, kind):
+        """The JAX tests' bounds: fp32 1e-5 of max(|W|·|x|, 1); bf16 1e-2 of
+        max |want| (tests/test_nm_kernel.py:51-57, test_block_ell.py);
+        W8A16 2e-2 and W8A8 4e-2 of |W|·|x| (test_nm_kernel.py:86-104,
+        test_block_ell.py:107-120)."""
+        got = y.double().cpu().numpy()
+        assert got.shape == want.shape and np.isfinite(got).all(), label
+        err = np.abs(got - want)
+        if kind == "fp32":
+            val, tol = float((err / np.maximum(scale, 1.0)).max()), 1e-5
+        elif kind == "bf16":
+            val, tol = float(err.max() / np.abs(want).max()), 1e-2
+        else:
+            val = float((err / np.maximum(scale, 1e-30)).max())
+            tol = {"w8a16": 2e-2, "w8a8": 4e-2}[kind]
+        if not val < tol:
+            raise AssertionError(f"{label}: error {val:.3e} past the {kind} bound {tol:g}")
+        return val, tol
+
+    def run_dense_path(path, which, fn, x, want, scale, kind, tag):
+        """Calls an entry point's fn once with every count at 0 just before
+        and read just after; holds Y to the dense oracle at ``kind``'s
+        bound; ``which`` is the kernel the path must launch (None: a torch
+        product, no kernel of the port)."""
+        zero_counts()
+        t0 = time.perf_counter()
+        y = fn(x)
+        torch.cuda.synchronize()
+        t_call = time.perf_counter() - t0
+        read_counts(path)
+        val, tol = dense_bound_check(path, y, want, scale, kind)
+        n_l = need(path, which) if which else 0
+        launched = [f"{rec['paths'][path]} {rec['name']}" for rec in kernels.values()
+                    if rec["paths"][path]]
+        log(f"[{tag}] {path}: {kind} bound ok ({val:.2e} < {tol:g}), launches: "
+            f"{', '.join(launched) or 'none (a torch product)'}, first call {t_call:.3f} s")
+        if which is None:
+            assert not launched, f"{path} launched {launched}"
+        return y, n_l
+
+    def nm_vs_plain(label, fmt, x, mode):
+        kw = dict(group=fmt.group, packed_bits=fmt.packed_bits, mode=mode)
+        got = nm.nm_rows_cuda(fmt.vals, fmt.offs, x, **kw)
+        want = nm.nm_rows_plain(fmt.vals, fmt.offs, x, **kw)
+        scale = nm.nm_rows_plain(fmt.vals.abs(), fmt.offs, x.abs(), **kw)
+        check_vs_plain("nm", label,
+                       f"{fmt.n_keep}:{fmt.group} vals {fmt.vals.dtype} {mode} K={x.shape[1]} "
+                       f"M_pad={fmt.m_pad} G_pad={fmt.g_pad} "
+                       + ("bit-packed offsets" if fmt.packed_bits else "unpacked offsets"),
+                       got, want, scale, tol)
+
+    def bell_vs_plain(label, fmt, x, mode):
+        args = (fmt.blkcol, fmt.blkvals, fmt.nb_p)
+        desc = (f"bs={fmt.bs} vals {fmt.blkvals.dtype} {mode} K={x.shape[1]} MB={fmt.mb} "
+                f"BMAX={fmt.bmax} blocks={fmt.n_blocks} pad={fmt.padding_rate:.2f}")
+        got = be.bell_rows_cuda(*args, x, mode=mode)
+        want = be.bell_rows_plain(*args, x, mode=mode)
+        if mode == "int8":  # the integer product is exact: equal, element for element
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"bell_rows_cuda int8 differs from its plain version: {desc}")
+            log(f"[kernel] bell_rows_cuda ({kernels['bell']['replaces']}) {label} {desc}: "
+                "int32 result equal to the plain version")
+            return
+        scale = be.bell_rows_plain(fmt.blkcol, fmt.blkvals.abs(), fmt.nb_p, x.abs(), mode=mode)
+        check_vs_plain("bell", label, desc, got, want, scale, tol)
+
+    def rand_dev(shape, seed):
+        return torch.as_tensor(np.random.default_rng(seed).standard_normal(shape),
+                               dtype=torch.float32, device=dev)
+
+    # each kernel against its plain version: 2:4, 1:4 (bit-packed offsets)
+    # and 4:8 (unpacked) in every value type and mode, and BS 64, 128, 256
+    t0 = time.perf_counter()
+    for n_keep, group in ((2, 4), (1, 4), (4, 8)):
+        w_s = builder.nm_pruned_dense(300, 1024, n_keep, group, seed=4)
+        x_s = rand_dev((1024, 37), 12)
+        for dt in (torch.bfloat16, torch.float32, torch.int8):
+            f_s = nm.pack_nm(w_s, n_keep=n_keep, group=group, dtype=dt, device=dev)
+            for mode in (("bf16",) if dt == torch.int8 else ("bf16", "fp32")):
+                nm_vs_plain("small", f_s, x_s, mode)
+    a_s = builder.block_sparse_coo(1024, 768, 128, 0.25, seed=3)
+    x_s = rand_dev((768, 72), 13)
+    for bs in (64, 128, 256):
+        for dt in (torch.float32, torch.bfloat16):
+            f_s = be.pack_block_ell(a_s, bs=bs, dtype=dt, device=dev)
+            for mode in ("fp32", "bf16"):
+                bell_vs_plain("small", f_s, x_s, mode)
+        f_s = be.pack_block_ell(a_s, bs=bs, dtype=torch.int8, device=dev)
+        bell_vs_plain("small", f_s, torch.randint(-127, 128, (768, 72), dtype=torch.int8,
+                                                  device=dev), "int8")
+    log(f"[kernel] nm and block-ELL checks at small shapes: {time.perf_counter() - t0:.1f} s")
+
+    # P13: the N:M serving layer.  W: 2:4-pruned 4096 x 4096 (seed 5);
+    # x [4, 128, 4096] (batch x sequence x hidden): K = 512 folded
+    w13 = builder.nm_pruned_dense(4096, 4096, 2, 4, seed=5)
+    w13_64 = w13.astype(np.float64)
+    x13_np = rng13.standard_normal((4, 128, 4096)).astype(np.float32)
+    x13 = torch.as_tensor(x13_np, device=dev)
+    xk13 = x13_np.reshape(-1, 4096).T.astype(np.float64)           # [4096, 512]
+    want13 = (w13_64 @ xk13).T.reshape(4, 128, 4096)
+    scale13 = (np.abs(w13_64) @ np.abs(xk13)).T.reshape(4, 128, 4096)
+    log(f"[p13] W 4096x4096 2:4 (seed 5), nnz {int(np.count_nonzero(w13))}; x [4, 128, 4096]")
+    layers13 = {}
+    for prec, bound in (("bf16", "bf16"), ("fp32", "fp32"), ("int8", "w8a16")):
+        t0 = time.perf_counter()
+        layers13[prec] = SparseLinear.from_nm(w13, precision=prec)
+        t_make = time.perf_counter() - t0
+        run_dense_path(f"nm_layer_{prec}", "nm", layers13[prec], x13, want13, scale13, bound,
+                       "p13")
+        log(f"[p13]   from_nm({prec}): pack {t_make:.2f} s")
+    fmt13 = {prec: nm.pack_nm(w13, dtype=dt, device=dev)
+             for prec, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32),
+                              ("int8", torch.int8))}
+    f13 = fmt13["bf16"]
+    log(f"[p13]   NmFormat bf16: vals {tuple(f13.vals.shape)} offs {tuple(f13.offs.shape)} "
+        f"{f13.memory_bytes / 2**20:.1f} MiB (dense bf16 {4096 * 4096 * 2 / 2**20:.1f} MiB), "
+        f"int8 {fmt13['int8'].memory_bytes / 2**20:.1f} MiB")
+    x128_np = rng13.standard_normal((4096, 128)).astype(np.float32)
+    x128 = torch.as_tensor(x128_np, device=dev)
+    want128 = w13_64 @ x128_np.astype(np.float64)
+    scale128 = np.abs(w13_64) @ np.abs(x128_np.astype(np.float64))
+    run_dense_path("nm_spmm_k128", "nm", functools.partial(nm.nm_spmm, f13), x128, want128,
+                   scale128, "bf16", "p13")
+    xb13_np = rng13.standard_normal((4, 4096, 128)).astype(np.float32)
+    wantb = np.einsum("nk,bkj->bnj", w13_64, xb13_np.astype(np.float64))
+    run_dense_path("nm_batched", "nm",
+                   lambda v: batched_spmm(functools.partial(nm.nm_spmm, f13), v),
+                   torch.as_tensor(xb13_np, device=dev), wantb, None, "bf16", "p13")
+    layer13_t = SparseLinear.from_nm(w13, mode="throughput")
+    run_dense_path("nm_throughput", None, layer13_t, x13, want13, scale13, "bf16", "p13")
+    log("[p13]   mode='throughput': the dense bf16 weight times bf16 x with an fp32 result "
+        "(torch.mm out_dtype=float32: cuBLAS, tensor cores)")
+    pw = builder.pruned_weight_coo(4096, 4096, 0.9, seed=3)
+    pw64 = pw.to_dense(np.float64)
+    t0 = time.perf_counter()
+    layer_pw = SparseLinear.from_dense(pw.to_dense(np.float32), k_hint=512)
+    t_make = time.perf_counter() - t0
+    zero_counts()
+    y = layer_pw(x13)
+    torch.cuda.synchronize()
+    read_counts("pruned_layer_k512")
+    check_result(y.cpu().numpy(), (pw64 @ xk13).T.reshape(4, 128, 4096), rtol=2e-3)
+    which_pw = "tile_stream" if kernels["tile_stream"]["paths"]["pruned_layer_k512"] else "tile"
+    log(f"[p13] pruned_layer_k512: SparseLinear.from_dense(90 % pruned, seed 3, nnz {pw.nnz}, "
+        f"k_hint=512) -> {layer_pw.meta['schedule']['family']}: oracle ok at rtol 2e-3, "
+        f"{need('pruned_layer_k512', which_pw)} launch(es) of {kernels[which_pw]['name']}, "
+        f"from_dense {t_make:.2f} s")
+    for prec, mode in (("bf16", "bf16"), ("fp32", "fp32"), ("int8", "bf16")):
+        nm_vs_plain("p13", fmt13[prec], x128, mode)
+    nm_vs_plain("p13", f13, torch.as_tensor(xk13.astype(np.float32)).to(dev).contiguous(),
+                "bf16")
+
+    # P14: the Block-ELL serving layer: 15 % of the 128-blocks of 4096 x
+    # 4096 (seed 6); x [2, 128, 4096]: K = 256
+    a14 = builder.block_sparse_coo(4096, 4096, 128, 0.15, seed=6)
+    d14 = a14.to_dense(np.float64)
+    x14_np = rng13.standard_normal((2, 128, 4096)).astype(np.float32)
+    x14 = torch.as_tensor(x14_np, device=dev)
+    xk14_np = x14_np.reshape(-1, 4096).T.astype(np.float64)        # [4096, 256]
+    xk14 = torch.as_tensor(xk14_np.astype(np.float32), device=dev)
+    want14k = d14 @ xk14_np
+    scale14k = np.abs(d14) @ np.abs(xk14_np)
+    want14, scale14 = want14k.T.reshape(2, 128, 4096), scale14k.T.reshape(2, 128, 4096)
+    fmt14 = {prec: be.pack_block_ell(a14, dtype=dt, device=dev)
+             for prec, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32),
+                              ("int8", torch.int8))}
+    f14 = fmt14["bf16"]
+    log(f"[p14] A 4096x4096, 15 % of 128-blocks (seed 6): nnz {a14.nnz}, {f14.n_blocks} blocks, "
+        f"MB={f14.mb} BMAX={f14.bmax} pad={f14.padding_rate:.2f}, bf16 "
+        f"{f14.memory_bytes / 2**20:.1f} MiB; x [2, 128, 4096]")
+    for prec, bound in (("bf16", "bf16"), ("fp32", "fp32")):
+        run_dense_path(f"block_layer_{prec}", None, SparseLinear.from_block(a14, precision=prec),
+                       x14, want14, scale14, bound, "p14")
+        run_dense_path(f"bell_pallas_{prec}", "bell",
+                       functools.partial(be.block_ell_spmm, fmt14[prec], precision=prec,
+                                         method="pallas"),
+                       xk14, want14k, scale14k, bound, "p14")
+    run_dense_path("block_layer_int8", "bell", SparseLinear.from_block(a14, precision="int8"),
+                   x14, want14, scale14, "w8a8", "p14")
+    xp14 = be.pad_dense_rows(xk14, 4096).contiguous()
+    for prec in ("bf16", "fp32"):
+        bell_vs_plain("p14", fmt14[prec], xp14, prec)
+    x_amax = xp14.abs().amax(dim=0)
+    xq14 = torch.clamp(torch.round(xp14 / torch.where(x_amax > 0, x_amax / 127.0, 1.0)),
+                       -127, 127).to(torch.int8).contiguous()
+    bell_vs_plain("p14", fmt14["int8"], xq14, "int8")
+
+    # P15: the schedule families through build_plan, on the card
+    # dense at the headline, K = 256: A (2.1 GB of bf16) densified on the card
+    mat_abs = CooMatrix(mat.rows, mat.cols, np.abs(mat.vals), mat.shape)
+    scale_h256 = spmm_reference(mat_abs, np.abs(xs[256].astype(np.float64)))
+    t0 = time.perf_counter()
+    plan_dense = build_plan(mat, Schedule(family="dense", precision="bf16"))
+    torch.cuda.synchronize()
+    t_dense = time.perf_counter() - t0
+    zero_counts()
+    y = plan_dense(xs[256])
+    torch.cuda.synchronize()
+    read_counts("dense_k256")
+    check_result(y.cpu().numpy(), ref_h256, rtol=1e-2, scale=scale_h256)
+    log(f"[p15] dense_k256: build_plan(dense, bf16) at the headline, "
+        f"{plan_dense.meta['format_bytes'] / 2**30:.2f} GiB densified on the card in "
+        f"{t_dense:.2f} s: oracle ok at rtol 1e-2 of |A|.|x| (the tuner's bf16 rule), "
+        "no kernel of the port (torch.mm out_dtype=float32)")
+    t_dense_mm = float(np.median([time_fn(plan_dense.fn, torch.as_tensor(xs[256], device=dev))
+                                  for _ in range(REPS)])) * 1e3
+    log(f"[p15]   dense_k256 whole call, median of {REPS}: {t_dense_mm:.4f} ms  ({power})")
+    del plan_dense, y
+    torch.cuda.empty_cache()
+    plan_bell = build_plan(a14, Schedule(family="block_ell", precision="bf16", row_interval=128))
+    run_dense_path("block_ell_plan", None, plan_bell, xk14, want14k, scale14k, "bf16", "p15")
+    cs = builder.power_law_col_coo(M, N, AVG_NNZ_PER_ROW, alpha=1.6, seed=9)
+    ccount = np.bincount(cs.cols, minlength=N)
+    share = float(np.sort(ccount)[-128:].sum()) / cs.nnz
+    log(f"[matrix] column-skewed: {M}x{N}, nnz={cs.nnz} (power_law_col_coo alpha 1.6 seed 9), "
+        f"top 128 columns hold {100 * share:.1f} % of the nonzeros")
+    ref_cs = spmm_reference(cs, xs[8].astype(np.float64))
+    scale_cs = spmm_reference(CooMatrix(cs.rows, cs.cols, np.abs(cs.vals), cs.shape),
+                              np.abs(xs[8].astype(np.float64)))
+    hyb_plans = {}
+    for C in (2048, 512):
+        path = f"hybrid_c{C}"
+        t0 = time.perf_counter()
+        hyb_plans[C] = build_plan(cs, Schedule(family="hybrid_cols", hot_cols=C, unroll=4,
+                                               ktile=8, precision="bf16"))
+        t_make = time.perf_counter() - t0
+        zero_counts()
+        y = hyb_plans[C](xs[8])
+        torch.cuda.synchronize()
+        read_counts(path)
+        check_result(y.cpu().numpy(), ref_cs, rtol=1e-2, scale=scale_cs)
+        meta = hyb_plans[C].meta
+        log(f"[p15] {path}: covered {meta['covered_nnz']}/{cs.nnz}, {meta['operator_history']}, "
+            f"pad {meta['padding_rate']:.3f}, {meta['format_bytes'] / 2**20:.1f} MiB, build "
+            f"{t_make:.2f} s: oracle ok at rtol 1e-2 of |A|.|x|, {need(path, 'dg')} launch(es) "
+            "of dg_rows_cuda (the remainder)")
+        for f in hyb_plans[C].formats:
+            fmt_vs_plain("colskew", f, 8)
+
+    # P16: tune on the column-skewed matrix at K = 8: the JAX package's 26
+    # candidates, its three hybrid rows first (top-128 share past 0.6)
+    res_cs, best_cs = run_tune("tune_colskew_k8", xs[8], a=cs)
+    rows_cs = [row["schedule"] for row in res_cs.table]
+    assert candidates_digest(rows_cs) == TUNE_COLSKEW_K8_DIGEST
+    assert [r["family"] for r in rows_cs[:3]] == ["hybrid_cols"] * 3 and "hybrid_cols" in best_cs
+    need("tune_colskew_k8", "dg")
+    tune_cs_winner = (res_cs.best_schedule.family, res_cs.best_seconds)
+    del res_cs
+    torch.cuda.empty_cache()
+    log(f"[p13-16] dense-tile phases: {time.perf_counter() - t_dense_tile:.1f} s")
 
     launches = {w: sum(rec["paths"].values()) for w, rec in kernels.items()}
     for w, n_l in launches.items():
@@ -1055,6 +1353,130 @@ def main() -> int:
     yardstick("dg1", "spmv auto", spmv_fns["spmv_auto_262k"].format, big, 1, xv,
               spmv_fns["spmv_auto_262k"], pack_s["spmv_auto_262k"])
 
+    def dense_tile_yardstick(which, label, kern, plain, xk, whole, xw, libs, nbytes, flops,
+                             peak, peak_name):
+        """Times a dense-tile kernel (``kern(xk)``), its plain version, the
+        whole entry-point call ``whole(xw)`` and the library calls ``libs``
+        ({name: (fn, arg)}; the first is ``library_ms``), REPS back-to-back
+        readings each, interleaved; the bound is the larger of ``nbytes``
+        over the HBM rate and ``flops`` over ``peak``."""
+        runs = {"kernel": [], "plain": [], "whole": [], **{n: [] for n in libs}}
+        for _ in range(REPS):
+            runs["kernel"].append(time_fn(kern, xk))
+            runs["plain"].append(time_fn(plain, xk))
+            runs["whole"].append(time_fn(whole, xw))
+            for n, (f, a) in libs.items():
+                runs[n].append(time_fn(f, a))
+        t = {n: float(np.median(v)) * 1e3 for n, v in runs.items()}
+        cold = time_cold(kern, xk) * 1e3
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        b_ms, b_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+        log(f"[yardstick] {kernels[which]['name']} {label}  ({power})")
+        log(f"[yardstick]   back to back, median of {REPS}: kernel {t['kernel']:.4f} ms "
+            f"({flops / t['kernel'] / 1e6:.1f} GFLOP/s), plain {t['plain']:.4f} ms, whole call "
+            f"{t['whole']:.4f} ms; " + ", ".join(f"{n} {t[n]:.4f} ms" for n in libs))
+        log(f"[yardstick]   readings (ms): kernel "
+            + " ".join(f"{v * 1e3:.4f}" for v in runs["kernel"]))
+        log(f"[yardstick]   cold L2 (median of 20): kernel {cold:.4f} ms")
+        log(f"[yardstick]   bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
+            f"{t_bytes:.4f} ms, {flops / 1e9:.2f} GFLOP at {peak_name} = {t_ops:.4f} ms); "
+            f"kernel at {100 * b_ms / t['kernel']:.1f}% of it")
+        return {"ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": t[next(iter(libs))]}
+
+    # #12 at P13's shapes: K = 128 (nm_spmm) and K = 512 (the layer), bf16
+    # and fp32 modes; the library call is cuBLAS's dense bf16 product
+    w13_bf16 = torch.as_tensor(w13, device=dev).bfloat16()
+    w13_f32 = torch.as_tensor(w13, device=dev)
+    xk13_t = torch.as_tensor(xk13.astype(np.float32), device=dev).contiguous()
+
+    def nm_stats(fmt, x, mode, label, whole, xw):
+        kw = dict(group=fmt.group, packed_bits=fmt.packed_bits, mode=mode)
+        k = x.shape[1]
+        nbytes = fmt.memory_bytes + (x.numel() + fmt.m_pad * k) * 4
+        flops = 2.0 * fmt.nnz * k
+        if mode == "bf16":
+            libs = {"cuBLAS dense bf16 mm": (functools.partial(torch.mm, w13_bf16,
+                                                                out_dtype=torch.float32),
+                                             x.bfloat16())}
+            peak, peak_name = BF16_TC_FLOPS_PER_S, "989 TFLOP/s (bf16 dense tensor cores)"
+        else:
+            libs = {"cuBLAS dense fp32 mm": (functools.partial(torch.mm, w13_f32), x)}
+            peak, peak_name = FP32_FLOPS_PER_S, "67 TFLOP/s (fp32, CUDA cores)"
+        return dense_tile_yardstick(
+            "nm", label, functools.partial(nm.nm_rows_cuda, fmt.vals, fmt.offs, **kw),
+            functools.partial(nm.nm_rows_plain, fmt.vals, fmt.offs, **kw), x, whole, xw, libs,
+            nbytes, flops, peak, peak_name)
+
+    nm_k128 = nm_stats(f13, x128, "bf16", "P13 nm_spmm, 2:4 bf16, K=128",
+                       functools.partial(nm.nm_spmm, f13), x128)
+    nm_stats(f13, xk13_t, "bf16", "P13 SparseLinear.from_nm(bf16), K=512", layers13["bf16"],
+             x13)
+    nm_stats(fmt13["fp32"], xk13_t, "fp32", "P13 SparseLinear.from_nm(fp32), K=512",
+             layers13["fp32"], x13)
+    nm_stats(fmt13["int8"], xk13_t, "bf16", "P13 SparseLinear.from_nm(int8, W8A16), K=512",
+             layers13["int8"], x13)
+    log(f"[yardstick]   P13 mode='throughput' layer (dense bf16 product), median of {REPS}: "
+        + f"{float(np.median([time_fn(layer13_t, x13) for _ in range(REPS)])) * 1e3:.4f} ms")
+
+    # #13 at P14's shapes, K = 256: the library calls are cuBLAS's dense
+    # product and the batched product of the xla method (which gathers X
+    # tiles first); the bytes count the real blocks (the kernel skips the
+    # padded slots), X and Y
+    d14_bf16 = torch.as_tensor(d14.astype(np.float32), device=dev).bfloat16()
+    d14_f32 = torch.as_tensor(d14.astype(np.float32), device=dev)
+
+    def bell_stats(fmt, mode, label, whole, xw):
+        x = xq14 if mode == "int8" else xp14
+        args = (fmt.blkcol, fmt.blkvals, fmt.nb_p)
+        k = x.shape[1]
+        real = fmt.n_blocks * fmt.bs * fmt.bs * fmt.blkvals.element_size()
+        nbytes = real + fmt.blkcol.numel() * 4 + x.numel() * x.element_size() + \
+            fmt.mb * fmt.bs * k * 4
+        flops = 2.0 * fmt.n_blocks * fmt.bs * fmt.bs * k
+        if mode == "fp32":
+            libs = {"cuBLAS dense fp32 mm": (functools.partial(torch.mm, d14_f32), x),
+                    "xla-method batched product": (lambda v: be.bell_batched(fmt, v, "fp32"),
+                                                   x)}
+            peak, peak_name = FP32_FLOPS_PER_S, "67 TFLOP/s (fp32, CUDA cores)"
+        elif mode == "bf16":
+            libs = {"cuBLAS dense bf16 mm": (functools.partial(torch.mm, d14_bf16,
+                                                                out_dtype=torch.float32),
+                                             x.bfloat16()),
+                    "xla-method batched product": (lambda v: be.bell_batched(fmt, v, "bf16"),
+                                                   x)}
+            peak, peak_name = BF16_TC_FLOPS_PER_S, "989 TFLOP/s (bf16 dense tensor cores)"
+        else:  # the format's own int8 blocks, placed in a dense int8 matrix
+            q, bc, nb = (t.cpu().numpy() for t in (fmt.blkvals, fmt.blkcol, fmt.nb_p))
+            dq = np.zeros((fmt.mb * fmt.bs, x.shape[0]), np.int8)
+            for i in range(fmt.mb):
+                for j in range(nb[i]):
+                    dq[i * fmt.bs:(i + 1) * fmt.bs, bc[i, j] * fmt.bs:(bc[i, j] + 1) * fmt.bs] = \
+                        q[i, j]
+            libs = {"torch._int_mm dense int8": (
+                functools.partial(torch._int_mm, torch.as_tensor(dq, device=dev)), x)}
+            peak, peak_name = 1979e12, "1979 TOP/s (int8 dense tensor cores)"
+        return dense_tile_yardstick(
+            "bell", label, functools.partial(be.bell_rows_cuda, *args, mode=mode),
+            functools.partial(be.bell_rows_plain, *args, mode=mode), x, whole, xw, libs,
+            nbytes, flops, peak, peak_name)
+
+    bell_bf16 = bell_stats(f14, "bf16", "P14 block_ell_spmm(pallas), bf16, K=256",
+                           functools.partial(be.block_ell_spmm, f14, precision="bf16",
+                                             method="pallas"), xk14)
+    bell_stats(fmt14["fp32"], "fp32", "P14 block_ell_spmm(pallas), fp32, K=256",
+               functools.partial(be.block_ell_spmm, fmt14["fp32"], precision="fp32",
+                                 method="pallas"), xk14)
+    layer14_i8 = SparseLinear.from_block(a14, precision="int8")
+    bell_stats(fmt14["int8"], "int8", "P14 SparseLinear.from_block(int8, W8A8), K=256",
+               layer14_i8, x14)
+    for prec in ("bf16", "fp32"):
+        layer14 = SparseLinear.from_block(a14, precision=prec)
+        log(f"[yardstick]   P14 SparseLinear.from_block({prec}) (xla method: torch bmm), "
+            f"median of {REPS}: "
+            + f"{float(np.median([time_fn(layer14, x14) for _ in range(REPS)])) * 1e3:.4f} ms")
+    stats["nm"], stats["bell"] = nm_k128, bell_bf16
+
     # ---- 8. where the time of one call goes: the tuner's winner at K = 8,
     # P1 (K = 256) and P2 (262144^2, K = 8)
     from torch.profiler import ProfilerActivity, profile
@@ -1095,6 +1517,14 @@ def main() -> int:
                  torch.as_tensor(xb8, device=dev), calls=10)
     profile_call("P8 spmm 262144^2 K=4 (radix_span)", plan_b4.fn,
                  torch.as_tensor(xb4, device=dev), calls=10)
+    profile_call("P13 SparseLinear.from_nm(bf16), x [4, 128, 4096]", layers13["bf16"], x13)
+    profile_call("P15 hybrid_cols C=512 (bf16 panel + dg remainder), column-skewed, K=8",
+                 hyb_plans[512], torch.as_tensor(xs[8], device=dev))
+    profile_call("P14 block_ell_spmm(pallas, bf16), K=256",
+                 functools.partial(be.block_ell_spmm, f14, precision="bf16", method="pallas"),
+                 xk14)
+    log(f"[tune] winners: headline K=256 {tune256_winner[0]} {tune256_winner[1] * 1e3:.4f} ms; "
+        f"column-skewed K=8 {tune_cs_winner[0]} {tune_cs_winner[1] * 1e3:.4f} ms  ({power})")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     line = {"kernels": [
@@ -1104,7 +1534,7 @@ def main() -> int:
         for w, rec in kernels.items()]}
     log(power)
     log(json.dumps(line))
-    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                            "count": torch.cuda.device_count()}}))
     return 0
 

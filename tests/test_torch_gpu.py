@@ -2,7 +2,8 @@
 version for every kt and mode, the default SpMM paths (dg, radix, tile, span
 and the column split), tune, the stripe and segment families,
 build_tile_plan, build_stripe_plan and the SpMV entry points at a medium
-size.
+size; the N:M and Block-ELL kernels in every mode and layout, SparseLinear
+with a folded activation, and the dense, block_ell and hybrid_cols families.
 Marked ``gpu``; without a CUDA device every test skips (the ``cuda``
 fixture decides, so every pytest worker collects the same tests).  Run on
 the card with ``python -m pytest tests/test_torch_gpu.py -q -m gpu``.
@@ -16,15 +17,18 @@ import tpusparse_torch
 from tpusparse_torch.io import builder
 from tpusparse_torch.format import pack_tile
 from tpusparse_torch.generator import build_stripe_plan, build_tile_plan, prepare_stripe_format
+from tpusparse_torch.kernels import block_ell as be
 from tpusparse_torch.kernels import dg_gather as dg
 from tpusparse_torch.kernels import dgt_gather as dgt
+from tpusparse_torch.kernels import nm_structured as nm
 from tpusparse_torch.kernels import radix_gather as radix
 from tpusparse_torch.kernels import span_gather as span
 from tpusparse_torch.kernels import stripe_gather as stripe
 from tpusparse_torch.kernels import tile_onehot as tile
 from tpusparse_torch.meta.set import create_init_metadata_set
 from tpusparse_torch.oracle import check_result, spmm_reference
-from tpusparse_torch.schedule import PORTED_FAMILIES, Schedule, build_plan, default_schedule
+from tpusparse_torch.nn import SparseLinear
+from tpusparse_torch.schedule import KERNEL_FAMILIES, Schedule, build_plan, default_schedule
 from tpusparse_torch.spmv import spmv_fn, spmv_multi_fn
 from tpusparse_torch.tune import tune
 
@@ -109,7 +113,7 @@ def test_tune_on_card(cuda, mat, tmp_path):
     assert {r["schedule"]["family"] for r in res.table} == {
         "dg_span", "dgt_span", "radix_span", "brick_ell", "span_onehot", "tile_onehot",
         "stripe_total", "segment_span", "nnz_segment", "bucketed"}   # skewed: segment rows
-    assert res.best_schedule.family in PORTED_FAMILIES and res.best_seconds > 0
+    assert res.best_schedule.family in KERNEL_FAMILIES and res.best_seconds > 0
     check_result(res.best(x).cpu().numpy(), spmm_reference(mat, x.astype(np.float64)),
                  rtol=2e-3)
 
@@ -443,3 +447,160 @@ def test_stripe_plan_and_spmv_radix_stripe_on_card(cuda, mat):
             y = fn(arg)
             assert y.is_cuda and y.shape == (4096,) and wrapper.launches == before + 1
             check_result(y.cpu().numpy(), want, rtol=2e-3)
+
+
+def _rel_to_scale(got, want, scale):
+    denom = torch.maximum(scale.double(), torch.ones((), dtype=torch.float64,
+                                                      device=scale.device))
+    return float(((got.double() - want.double()).abs() / denom).max())
+
+
+@pytest.mark.parametrize("n_keep,group", [(2, 4), (1, 4), (4, 8)])
+@pytest.mark.parametrize("dtype,mode", [(torch.bfloat16, "bf16"), (torch.bfloat16, "fp32"),
+                                        (torch.float32, "bf16"), (torch.float32, "fp32"),
+                                        (torch.int8, "bf16")])
+@pytest.mark.parametrize("m,n,k", [(300, 1024, 37), (1024, 2048, 128)])
+def test_nm_kernel_matches_plain(cuda, n_keep, group, dtype, mode, m, n, k):
+    w = builder.nm_pruned_dense(m, n, n_keep, group, seed=4)
+    fmt = nm.pack_nm(w, n_keep=n_keep, group=group, dtype=dtype, device=cuda)
+    assert fmt.packed_bits == (0 if group == 8 else 2)
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal((n, k)),
+                        dtype=torch.float32, device=cuda)
+    kw = dict(group=group, packed_bits=fmt.packed_bits, mode=mode)
+    before = nm.nm_rows_cuda.launches
+    got = nm.nm_rows_cuda(fmt.vals, fmt.offs, x, **kw)
+    assert nm.nm_rows_cuda.launches == before + 1 and got.shape == (fmt.m_pad, k)
+    want = nm.nm_rows_plain(fmt.vals, fmt.offs, x, **kw)
+    scale = nm.nm_rows_plain(fmt.vals.abs(), fmt.offs, x.abs(), **kw)
+    torch.cuda.synchronize()
+    assert _rel_to_scale(got, want, scale) <= 1e-5
+
+
+@pytest.mark.parametrize("bs", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+def test_bell_kernel_matches_plain(cuda, bs, dtype, mode):
+    a = builder.block_sparse_coo(1024, 768, 128, 0.25, seed=bs)
+    fmt = be.pack_block_ell(a, bs=bs, dtype=dtype, device=cuda)
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal((768, 72)),
+                        dtype=torch.float32, device=cuda)
+    before = be.bell_rows_cuda.launches
+    got = be.bell_rows_cuda(fmt.blkcol, fmt.blkvals, fmt.nb_p, x, mode=mode)
+    assert be.bell_rows_cuda.launches == before + 1
+    want = be.bell_rows_plain(fmt.blkcol, fmt.blkvals, fmt.nb_p, x, mode=mode)
+    scale = be.bell_rows_plain(fmt.blkcol, fmt.blkvals.abs(), fmt.nb_p, x.abs(), mode=mode)
+    torch.cuda.synchronize()
+    assert _rel_to_scale(got, want, scale) <= 1e-5
+
+
+@pytest.mark.parametrize("bs", [64, 128, 256])
+def test_bell_kernel_int8_is_exact(cuda, bs):
+    a = builder.block_sparse_coo(1024, 768, 128, 0.25, seed=bs)
+    fmt = be.pack_block_ell(a, bs=bs, dtype=torch.int8, device=cuda)
+    xq = torch.randint(-127, 128, (768, 40), dtype=torch.int8, device=cuda)
+    got = be.bell_rows_cuda(fmt.blkcol, fmt.blkvals, fmt.nb_p, xq, mode="int8")
+    want = be.bell_rows_plain(fmt.blkcol, fmt.blkvals, fmt.nb_p, xq, mode="int8")
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def nm_weight():
+    # P13's weight: a 2:4-pruned 4096 x 4096 projection
+    return builder.nm_pruned_dense(4096, 4096, 2, 4, seed=5)
+
+
+@pytest.mark.parametrize("precision,mode", [("bf16", "compact"), ("fp32", "compact"),
+                                            ("int8", "compact"), ("bf16", "throughput")])
+def test_sparse_linear_nm_on_card(cuda, nm_weight, precision, mode):
+    # a [4, 128, 4096] activation: the folded X is a transposed view
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal((4, 128, 4096)),
+                        dtype=torch.float32, device=cuda)
+    layer = SparseLinear.from_nm(nm_weight, precision=precision, mode=mode)
+    before = nm.nm_rows_cuda.launches
+    y = layer(x)
+    assert y.is_cuda and y.shape == (4, 128, 4096) and y.dtype == torch.float32
+    assert nm.nm_rows_cuda.launches == before + (mode == "compact")
+    want = x.double().cpu().numpy() @ nm_weight.astype(np.float64).T
+    scale = np.abs(x.double().cpu().numpy()) @ np.abs(nm_weight.astype(np.float64)).T
+    err = np.abs(y.double().cpu().numpy() - want)
+    if precision == "fp32":
+        assert (err / np.maximum(scale, 1.0)).max() <= 1e-5
+    elif precision == "int8":
+        assert (err / np.maximum(scale, 1e-30)).max() < 2e-2
+    else:
+        assert err.max() / np.abs(want).max() < 1e-2
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp32", "int8"])
+def test_sparse_linear_block_on_card(cuda, precision):
+    a = builder.block_sparse_coo(2048, 2048, 128, 0.15, seed=6)
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal((2, 64, 2048)),
+                        dtype=torch.float32, device=cuda)
+    layer = SparseLinear.from_block(a, precision=precision)
+    before = be.bell_rows_cuda.launches
+    y = layer(x)
+    assert y.is_cuda and y.shape == (2, 64, 2048)
+    assert be.bell_rows_cuda.launches == before + (precision == "int8")
+    w = a.to_dense(np.float64)
+    xs = x.double().cpu().numpy()
+    want, scale = xs @ w.T, np.abs(xs) @ np.abs(w).T
+    err = np.abs(y.double().cpu().numpy() - want)
+    if precision == "fp32":
+        assert (err / np.maximum(scale, 1.0)).max() <= 1e-5
+    elif precision == "int8":  # rows of no block: 0 of 0
+        assert (err / np.maximum(scale, 1e-30)).max() < 4e-2
+    else:
+        assert err.max() / np.abs(want).max() < 1e-2
+    fmt = be.pack_block_ell(a, dtype=torch.bfloat16 if precision == "bf16" else torch.float32,
+                            device=cuda) if precision != "int8" else None
+    if fmt is not None:  # the kernel path against the batched product
+        xk = x.reshape(-1, 2048).T.contiguous()
+        ya = be.block_ell_spmm(fmt, xk, precision=precision, method="pallas")
+        yb = be.block_ell_spmm(fmt, xk, precision=precision, method="xla")
+        assert float((ya - yb).abs().max()) <= 1e-5 * float(yb.abs().max() + 1)
+
+
+@pytest.mark.parametrize("kw,a_of,counter", [
+    (dict(family="dense", precision="bf16"), "mat", None),
+    (dict(family="dense"), "mat", None),
+    (dict(family="block_ell", precision="bf16", row_interval=128), "blocky", None),
+    (dict(family="hybrid_cols", hot_cols=512, ktile=8, precision="bf16"), "colskew", "dg"),
+])
+def test_dense_tile_families_on_card(cuda, mat, kw, a_of, counter):
+    a = {"mat": mat, "blocky": builder.block_sparse_coo(4096, 4096, 128, 0.15, seed=6),
+         "colskew": builder.power_law_col_coo(4096, 4096, 16, alpha=1.6, seed=9)}[a_of]
+    x = np.random.default_rng(21).standard_normal((4096, 8)).astype(np.float32)
+    plan = build_plan(a, Schedule(**kw))
+    before = dg.dg_rows_cuda.launches
+    y = plan(x)
+    assert y.is_cuda and y.shape == (4096, 8) and y.dtype == torch.float32
+    if counter:
+        assert dg.dg_rows_cuda.launches == before + 1 and plan.meta["n_subs"] == 2
+    want = spmm_reference(a, x.astype(np.float64))
+    bf16 = kw.get("precision") == "bf16"
+    scale = spmm_reference(a.__class__(a.rows, a.cols, np.abs(a.vals), a.shape),
+                           np.abs(x.astype(np.float64))) if bf16 else None
+    check_result(y.cpu().numpy(), want, rtol=1e-2 if bf16 else 2e-3, scale=scale)
+
+
+def test_dense_tile_kernels_refuse_rather_than_fall_back(cuda):
+    from tpusparse_torch.kernels.common import launch_checked
+
+    a = builder.block_sparse_coo(480, 480, 96, 0.3, seed=1)
+    x = torch.zeros((480, 8), device=cuda)
+    odd = be.pack_block_ell(a, bs=48, device=cuda)   # BS not a multiple of 32
+    with pytest.raises(ValueError, match="bs 48"):
+        be.block_ell_spmm(odd, x, precision="fp32", method="pallas")
+    fmt = be.pack_block_ell(a, bs=64, device=cuda)
+    y = torch.empty((fmt.mb * 64, 8), device=cuda)
+    xp = be.pad_dense_rows(x, 512).contiguous()
+    with pytest.raises(RuntimeError, match="CUDA error"):   # mode 7: refused by the launcher
+        launch_checked(be._lib().bell_spmm_launch, "bell_spmm_launch",
+                       (fmt.blkcol, fmt.blkvals, fmt.nb_p, xp, y), (fmt.mb, fmt.bmax, 64, 8, 0, 7))
+    w = builder.nm_pruned_dense(64, 128, seed=2)
+    f = nm.pack_nm(w, device=cuda)
+    with pytest.raises(ValueError, match="X must be"):
+        nm.nm_rows_cuda(f.vals, f.offs, torch.zeros((128, 8), device=cuda).double(),
+                        group=4, packed_bits=2, mode="bf16")
+    with pytest.raises(ValueError, match="X is on cpu"):
+        nm.nm_spmm(f, torch.zeros((128, 8)))

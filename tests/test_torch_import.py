@@ -20,7 +20,8 @@ def test_import_loads_no_jax_and_no_tpusparse():
             "tpusparse_torch.kernels.dgt_gather, tpusparse_torch.kernels.tile_onehot, "
             "tpusparse_torch.kernels.span_gather, tpusparse_torch.kernels.radix_gather, "
             "tpusparse_torch.kernels.stripe_gather, tpusparse_torch.kernels.nnz_split, "
-            "tpusparse_torch.format, "
+            "tpusparse_torch.kernels.nm_structured, tpusparse_torch.kernels.block_ell, "
+            "tpusparse_torch.batched, tpusparse_torch.nn, tpusparse_torch.format, "
             "tpusparse_torch.generator, tpusparse_torch.transforms, tpusparse_torch.ops, "
             "tpusparse_torch.spmv; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "

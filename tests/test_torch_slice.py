@@ -102,11 +102,10 @@ def test_default_schedule_equals_jax(n, k):
 @pytest.mark.parametrize("k,full", [(1, False), (8, False), (32, False), (40, False),
                                     (64, False), (8, True)])
 def test_default_candidates_equal_jax_dg_block(k, full):
-    # the JAX list restricted to the ported families, dg_span and dgt_span
+    # the whole JAX list, the dg_span and dgt_span blocks among it
     jmat = jbuilder.power_law_coo(500, 600, avg_nnz_per_row=8.0, seed=4)
     tmat = CooMatrix(jmat.rows, jmat.cols, jmat.vals, jmat.shape)
-    want = [s.describe() for s in jtune.default_candidates(jmat, k, full=full)
-            if s.family in tsched.PORTED_FAMILIES]
+    want = [s.describe() for s in jtune.default_candidates(jmat, k, full=full)]
     got = [s.describe() for s in ttune.default_candidates(tmat, k, full=full)]
     assert got == want
     assert any(s["family"] == "dgt_span" for s in got) == (k > 1)
@@ -119,8 +118,7 @@ def test_default_candidates_equal_jax_without_unported_families(k, full, n):
     # takes the dgt block only where dg's gate holds
     jmat = jbuilder.power_law_coo(500, n, avg_nnz_per_row=8.0, seed=4)
     tmat = CooMatrix(jmat.rows, jmat.cols, jmat.vals, jmat.shape)
-    want = [s.describe() for s in jtune.default_candidates(jmat, k, full=full)
-            if s.family in tsched.PORTED_FAMILIES]
+    want = [s.describe() for s in jtune.default_candidates(jmat, k, full=full)]
     got = [s.describe() for s in ttune.default_candidates(tmat, k, full=full)]
     assert got == want
     fams = [s["family"] for s in got]
@@ -134,8 +132,7 @@ def test_default_candidates_insert_auto_rb_dgt_like_jax():
     # a sparse wide matrix: auto_rb_dgt exceeds 512 and leads the dgt block
     jmat = jbuilder.power_law_coo(8192, 60000, avg_nnz_per_row=2.0, seed=9)
     tmat = CooMatrix(jmat.rows, jmat.cols, jmat.vals, jmat.shape)
-    want = [s.describe() for s in jtune.default_candidates(jmat, 8)
-            if s.family in tsched.PORTED_FAMILIES]
+    want = [s.describe() for s in jtune.default_candidates(jmat, 8)]
     got = [s.describe() for s in ttune.default_candidates(tmat, 8)]
     assert got == want and [s["rb"] for s in got if s["family"] == "dgt_span"][0] > 512
 
@@ -270,8 +267,8 @@ def test_tune_cpu_picks_a_dg_candidate(tmp_path):
     with tpusparse_torch.config_override(cache_dir=str(tmp_path)):
         res = ttune.tune(mat, x, iters=2, device="cpu")
         again = ttune.tune(mat, x, iters=2, device="cpu", budget=1)
-    assert res.best_schedule.family in tsched.PORTED_FAMILIES
-    # a skewed matrix (longest row 254 > 32 x the mean): every ported block
+    assert res.best_schedule.family in tsched.KERNEL_FAMILIES
+    # a skewed matrix (longest row 254 > 32 x the mean): every sparse block
     assert {r["schedule"]["family"] for r in res.table} == {
         "dg_span", "dgt_span", "radix_span", "brick_ell", "span_onehot", "tile_onehot",
         "stripe_total", "segment_span", "nnz_segment", "bucketed"}
@@ -308,8 +305,9 @@ def test_tune_drops_cached_schedule_of_unported_family(tmp_path):
     mat = _mat(seed=7)
     x = _x(400, 8, seed=8)
     sig = ttune.matrix_signature(mat)
+    # a family this package does not know (every JAX family is ported)
     (tmp_path / f"tune_{sig}_k8.json").write_text(json.dumps(
-        {"schedule": tsched.Schedule(family="dense").describe()}))
+        {"schedule": tsched.Schedule(family="dense_panel").describe()}))
     with tpusparse_torch.config_override(cache_dir=str(tmp_path)):
         res = ttune.tune(mat, x, iters=1, device="cpu", budget=1)
     assert res.table[0]["schedule"]["family"] == "dg_span"
@@ -326,13 +324,6 @@ def test_tune_accepts_cached_dgt_schedule(tmp_path):
     with tpusparse_torch.config_override(cache_dir=str(tmp_path)):
         res = ttune.tune(mat, x, iters=1, device="cpu", budget=1)
     assert res.table[0]["schedule"] == cached.describe() and res.best_schedule == cached
-
-
-@pytest.mark.parametrize("family", [f for f in tsched.KERNEL_FAMILIES
-                                    if f not in tsched.PORTED_FAMILIES])
-def test_unported_family_raises(family):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.\d"):
-        tsched.build_plan(_mat(), tsched.Schedule(family=family), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(sort=True), dict(bucket_bounds=(8,))])
@@ -436,15 +427,14 @@ def test_spmm_default_takes_radix_span_like_jax(k):
 @pytest.mark.parametrize("k", [1, 4, 8, 32, 256])
 def test_default_candidates_equal_jax(k, full):
     # a skewed matrix (its longest row past 32x the mean) takes the segment
-    # and bucketed rows too; only the families of ROADMAP.md A.8 are left out
+    # and bucketed rows too; with ``full`` every family of the JAX list
     tmat = tbuilder.power_law_coo(600, 800, avg_nnz_per_row=5.0, seed=24)
     jmat = tpusparse.CooMatrix(tmat.rows, tmat.cols, tmat.vals, tmat.shape)
     jall = jtune.default_candidates(jmat, k, full=full)
     got = [s.describe() for s in ttune.default_candidates(tmat, k, full=full)]
-    assert got == [s.describe() for s in jall if s.family in tsched.PORTED_FAMILIES]
-    assert {s.family for s in jall} - {s["family"] for s in got} <= {"dense", "block_ell",
-                                                                       "hybrid_cols"}
+    assert got == [s.describe() for s in jall]
     fams = {s["family"] for s in got}
+    assert ({"dense", "block_ell", "hybrid_cols"} <= fams) == full
     assert ("radix_span" in fams) == (k <= 128) and "stripe_total" in fams
     assert ("stripe_nested" in fams) == full and "nnz_segment" in fams
     for kt in (1, 2, 4, 8, 16, 32):
@@ -475,3 +465,127 @@ def test_no_card_means_no_quiet_cpu_run():
         ttune.tune(mat, x)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsched.build_plan(mat, tsched.default_schedule(mat, 8))
+
+
+def _colskew(m=400, n=360, seed=3, alpha=1.4):
+    return tbuilder.power_law_col_coo(m, n, avg_nnz_per_row=7.0, alpha=alpha, seed=seed)
+
+
+DENSE_TILE_CASES = {
+    "dense": (dict(family="dense", precision="bf16"), lambda: _mat(seed=25)),
+    "block_ell": (dict(family="block_ell", precision="bf16", row_interval=128),
+                  lambda: tbuilder.block_sparse_coo(384, 400, 128, 0.3, seed=2)),
+    "hybrid_cols": (dict(family="hybrid_cols", hot_cols=128, unroll=4, ktile=8,
+                         precision="bf16"), _colskew),
+}
+
+
+def _plans_match_jax(kw, tmat, k=8, bf16=None):
+    """build_plan in both packages: the same meta and, within 1e-5 of
+    |A|·|x|, the same Y (bf16 rounds the same inputs in both; the dg
+    remainder's fp32x2 split on the JAX side within 2e-3), and the oracle."""
+    jmat = tpusparse.CooMatrix(tmat.rows, tmat.cols, tmat.vals, tmat.shape)
+    jkw = dict(kw)
+    if "bucket_schedules" in kw:
+        jkw["bucket_schedules"] = tuple(jsched.Schedule(**s.describe())
+                                        for s in kw["bucket_schedules"])
+    jplan = jsched.build_plan(jmat, jsched.Schedule(**jkw))
+    tplan = tsched.build_plan(tmat, tsched.Schedule(**kw), device="cpu")
+    for key in ("schedule", "n_subs", "operator_history", "hot_cols", "covered_nnz",
+                "format_bytes"):
+        assert tplan.meta.get(key) == jplan.meta.get(key), key
+    assert tplan.meta["padding_rate"] == pytest.approx(jplan.meta["padding_rate"])
+    x = _x(tmat.shape[1], k, seed=26)
+    want = spmm_reference(jmat, x.astype(np.float64))
+    scale = np.abs(tmat.to_dense(np.float64)) @ np.abs(x.astype(np.float64))
+    y = tplan(x)
+    assert y.dtype == torch.float32 and y.shape == (tmat.shape[0], k)
+    y = y.numpy()
+    sparse_rest = kw["family"] == "hybrid_cols" and tplan.meta["n_subs"] == 2
+    assert np.abs(y - np.asarray(jplan(x))).max() <= \
+        (2e-3 if sparse_rest else 1e-5) * scale.max()
+    bf16 = kw.get("precision") == "bf16" if bf16 is None else bf16
+    check_result(y, want, rtol=8e-2 if bf16 else 1e-5, scale=scale if bf16 else None)
+    return tplan, jplan
+
+
+@pytest.mark.parametrize("family", list(DENSE_TILE_CASES))
+def test_dense_tile_family_matches_jax(family):
+    kw, make = DENSE_TILE_CASES[family]
+    tplan, _ = _plans_match_jax(kw, make())
+    if family == "block_ell":  # counted by its format, as the sparse families
+        assert tplan.cost_summary(8)["format_bytes"] == tplan.formats[0].memory_bytes
+    else:                      # the dense A or the panel (and the remainder) in meta
+        assert tplan.cost_summary(8)["format_bytes"] == tplan.meta["format_bytes"] > 0
+
+
+@pytest.mark.parametrize("kw,make,k", [
+    (dict(family="dense"), lambda: _mat(seed=25), 8),                         # fp32
+    (dict(family="dense", precision="bf16"), lambda: _mat(seed=25), 256),
+    (dict(family="block_ell", row_interval=64), lambda: tbuilder.block_sparse_coo(
+        384, 400, 128, 0.3, seed=2), 8),
+    (dict(family="block_ell", row_interval=256), lambda: tbuilder.block_sparse_coo(
+        300, 450, 128, 0.2, seed=0), 24),
+    (dict(family="block_ell", row_interval=100), lambda: _mat(seed=27), 8),  # bs 128
+    (dict(family="hybrid_cols", hot_cols=256, ktile=8), _colskew, 8),
+    (dict(family="hybrid_cols", hot_cols=128, ktile=1), _colskew, 1),
+    (dict(family="hybrid_cols", hot_cols=4096, ktile=8), lambda: _colskew(n=200), 8),
+    (dict(family="hybrid_cols", hot_cols=128, ktile=8, bucket_schedules=(
+        tsched.Schedule(family="stripe_total", work_per_block=64),)), _colskew, 8),
+])
+def test_dense_tile_schedules_match_jax(kw, make, k):
+    tplan, _ = _plans_match_jax(kw, make(), k=k)
+    if kw.get("hot_cols") == 4096:
+        assert tplan.meta["n_subs"] == 1 and tplan.formats == []
+
+
+def test_dense_family_densifies_on_the_device_past_its_host_gate(monkeypatch):
+    # past 256 MB of fp32 A is densified by an accumulating scatter on its
+    # device; a small gate sends a small matrix down that branch
+    tmat = _mat(seed=28)
+    monkeypatch.setattr(tsched, "DENSE_HOST_BYTES", 0)
+    for prec in ("fp32", "bf16"):
+        _plans_match_jax(dict(family="dense", precision=prec), tmat)
+
+
+@pytest.fixture(scope="module")
+def headline():
+    return tbuilder.power_law_coo(32768, 32768, avg_nnz_per_row=32.0, alpha=1.8, seed=42)
+
+
+@pytest.fixture(scope="module")
+def colskew_headline():
+    return tbuilder.power_law_col_coo(32768, 32768, 32, alpha=1.6, seed=9)
+
+
+@pytest.mark.parametrize("k", [1, 8, 256])
+@pytest.mark.parametrize("which", ["headline", "colskew_headline", "blocky"])
+def test_default_candidates_equal_jax_with_dense_tile_rows(which, k, request):
+    if which == "blocky":
+        tmat = tbuilder.block_sparse_coo(1024, 1024, 128, 0.2, seed=6)
+    else:
+        tmat = request.getfixturevalue(which)
+    jmat = tpusparse.CooMatrix(tmat.rows, tmat.cols, tmat.vals, tmat.shape)
+    jlist = [s.describe() for s in jtune.default_candidates(jmat, k)]
+    got = [s.describe() for s in ttune.default_candidates(tmat, k)]
+    assert got == jlist
+    fams = [s["family"] for s in got]
+    assert ("dense" in fams) == (k == 256 or which == "blocky")
+    assert ("block_ell" in fams) == (which == "blocky")
+    assert ("hybrid_cols" in fams) == (which == "colskew_headline")
+    if which == "colskew_headline":  # share of the top 128 columns past 0.6: ranked first
+        assert fams[:2] == ["hybrid_cols"] * 2
+
+
+def test_chip_smoke_dense_tile_lists_are_jax(headline, colskew_headline):
+    # P4 (tune at the headline, K = 256) and P16 (tune on the column-skewed
+    # headline, K = 8) hold their lists to digests of the JAX lists
+    import chip_smoke
+
+    for tmat, k, digest in ((headline, 256, chip_smoke.TUNE_K256_DIGEST),
+                            (colskew_headline, 8, chip_smoke.TUNE_COLSKEW_K8_DIGEST)):
+        jmat = tpusparse.CooMatrix(tmat.rows, tmat.cols, tmat.vals, tmat.shape)
+        jlist = jtune.default_candidates(jmat, k)
+        assert chip_smoke.candidates_digest(s.describe() for s in jlist) == digest
+        assert chip_smoke.candidates_digest(
+            s.describe() for s in ttune.default_candidates(tmat, k)) == digest

@@ -2,17 +2,20 @@
 
 The JAX package ``tpusparse`` is the reference; this package mirrors its
 layout and names (config, levels, io, meta, ops, oracle, generator,
-kernels, schedule, bench, tune) and imports nothing from it.  Its kernels
+kernels, schedule, bench, tune, batched, nn) and imports nothing from it.  Its kernels
 are written by hand in CUDA C++ for sm_90a (``tpusparse_torch/csrc``), each
 beside a plain PyTorch version of the same function.
 
 Entry points run on the card (``device="cuda"``, the default) and raise
 when there is none; only ``device="cpu"`` runs the plain versions.  Ported
 so far: ``spmm``, ``tune.tune`` and ``schedule.build_plan`` with every
-schedule family but ``dense``, ``block_ell`` and ``hybrid_cols`` (the sort
-and bucket options included), ``generator.build_stripe_plan`` and
-``build_tile_plan``, and SpMV (``spmv``, ``spmv.spmv_fn`` with every
-method, ``spmv.spmv_multi_fn``).
+schedule family (the sort and bucket options included),
+``generator.build_stripe_plan`` and ``build_tile_plan``, SpMV (``spmv``,
+``spmv.spmv_fn`` with every method, ``spmv.spmv_multi_fn``), and the
+pruned-weight serving surface: ``nn.SparseLinear`` (``from_coo``,
+``from_dense``, ``from_nm``, ``from_block``), ``batched.batched_spmm``,
+``kernels.nm_structured`` and ``kernels.block_ell``.  Training (the SDDMM
+kernels, autodiff, a differentiable layer) is still to port.
 """
 
 from tpusparse_torch.config import Config, config_override, get_config, set_config
@@ -54,6 +57,8 @@ def __getattr__(name):
         "autotune": "tpusparse_torch.tune.tune",
         "SpmmPlan": "tpusparse_torch.generator.SpmmPlan",
         "spmv": "tpusparse_torch.spmv.spmv",
+        "SparseLinear": "tpusparse_torch.nn.SparseLinear",
+        "batched_spmm": "tpusparse_torch.batched.batched_spmm",
     }
     if name in lazy_map:
         return _lazy(lazy_map[name])
@@ -77,4 +82,6 @@ __all__ = [
     "autotune",
     "SpmmPlan",
     "spmv",
+    "SparseLinear",
+    "batched_spmm",
 ]

@@ -30,12 +30,10 @@ class SpmmPlan:
         """Static cost introspection: format bytes, padding, and the
         per-call useful-FLOP count (the reference prints the same quantities
         around its timing loop, code_generator.cc:589-648)."""
-        fmt_bytes = int(self.meta.get("format_bytes", 0))
-        nnz_real = 0
-        for f in self.formats:
-            mb = getattr(f, "memory_bytes", 0)
-            fmt_bytes += mb() if callable(mb) else mb
-            nnz_real += getattr(f, "nnz_real", getattr(f, "nnz", 0))
+        # the dense-tile families count every byte in meta (a hybrid's
+        # remainder formats too); the others by their formats
+        fmt_bytes = self.meta.get("format_bytes") or sum(f.memory_bytes for f in self.formats)
+        nnz_real = sum(getattr(f, "nnz_real", getattr(f, "nnz", 0)) for f in self.formats)
         out = {
             "schedule": self.meta.get("schedule"),
             "format_bytes": int(fmt_bytes),

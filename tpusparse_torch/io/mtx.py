@@ -82,6 +82,12 @@ class CooMatrix:
         np.add.at(out, (self.rows, self.cols), self.vals.astype(dtype))
         return out
 
+    @classmethod
+    def from_dense(cls, dense: np.ndarray) -> "CooMatrix":
+        """The nonzeros of a dense matrix, row-major."""
+        rows, cols = np.nonzero(dense)
+        return cls(rows.astype(np.int64), cols.astype(np.int64), dense[rows, cols], dense.shape)
+
 
 def read_mtx(path_or_file) -> CooMatrix:
     """Read a Matrix-Market (or bare COO) file into a row-major CooMatrix."""

@@ -11,4 +11,12 @@ function.  Sources live in ``tpusparse_torch/csrc`` and are built by
               replaces _tile_kernel and _tile_kernel_stream.
   span_gather the span-chunked family (span_onehot, span_colsplit, SpMV
               'span'): replaces _span_kernel and _span_kernel_stream.
+  radix_gather the radix_span and brick_ell families (SpMV 'radix'):
+              replaces _radix_kernel.
+  stripe_gather the stripe and segment families (SpMV 'stripe'):
+              replaces _stripe_kernel and _stripe_nested_kernel.
+  nm_structured N:M structured weights (SparseLinear.from_nm): replaces
+              _nm_kernel.
+  block_ell   block-sparse weights (family block_ell,
+              SparseLinear.from_block): replaces _bell_kernel.
 """

@@ -40,6 +40,46 @@ def value_dtype(val_dtype) -> torch.dtype:
     return dt
 
 
+def storage_dtype(dtype) -> torch.dtype:
+    """The value plane's dtype, from a torch dtype or a numpy dtype or name:
+    bfloat16, float32 or int8."""
+    if isinstance(dtype, torch.dtype):
+        dt = dtype
+    else:
+        name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+        dt = getattr(torch, name, None)
+    if dt not in (torch.bfloat16, torch.float32, torch.int8):
+        raise ValueError(f"dtype {dtype!r}: want bfloat16, float32 or int8")
+    return dt
+
+
+def quantize_rows(out_v: np.ndarray, axes) -> tuple[np.ndarray, np.ndarray]:
+    """Symmetric int8 quantization per output row: scale max|row| / 127
+    (1 for an empty row) over ``axes``; returns (int8 values, fp32 scale)
+    with the JAX packers' numpy arithmetic."""
+    row_amax = np.abs(out_v).max(axis=axes)
+    rs = np.where(row_amax > 0, row_amax / 127.0, 1.0)
+    shape = [1] * out_v.ndim
+    keep = [d for d in range(out_v.ndim) if d not in axes]
+    for d, size in zip(keep, rs.shape):
+        shape[d] = size
+    q = np.clip(np.rint(out_v / rs.reshape(shape)), -127, 127).astype(np.int8)
+    return q, rs.astype(np.float32)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D or batched 3-D) with an fp32 result, as JAX's
+    ``preferred_element_type=float32``.  fp32 operands: a plain fp32
+    product (TF32 stays off).  bf16 operands: on the card cuBLAS's bf16
+    product with an fp32 output (``out_dtype``); the CPU build has no kernel
+    for that, so there the fp32 product of the same bf16 values (exact
+    products, fp32 sums).  ``torch.matmul`` of bf16 would round Y to bf16."""
+    mm = torch.mm if a.ndim == 2 else torch.bmm
+    if a.dtype == torch.bfloat16 and a.device.type == "cuda":
+        return mm(a, b, out_dtype=torch.float32)
+    return mm(a.float(), b.float())
+
+
 def to_device(dev: torch.device, a, dtype=torch.int32) -> torch.Tensor:
     """A packer's numpy array as a contiguous tensor of ``dtype`` on ``dev``."""
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
@@ -128,11 +168,15 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def sm_count(dev: torch.device) -> int:
+    """The number of SMs of a CUDA device."""
+    return _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+
+
 def launch_splits(dev: torch.device, blocks_per_split: int, nc: int) -> int:
     """Blocks per program of a gather kernel: enough for about four blocks
     per SM, at most one per chunk."""
-    sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
-    return max(1, min(nc, cdiv(4 * sms, max(blocks_per_split, 1))))
+    return max(1, min(nc, cdiv(4 * sm_count(dev), max(blocks_per_split, 1))))
 
 
 def check_operands(x: torch.Tensor, fields, *, ndim: int) -> None:

@@ -5,10 +5,10 @@ implementing parameters; ``build_plan`` runs the operator pipeline through
 the OperatorExecutor, packs the format on the device and returns a plan.
 ``Schedule`` keeps the JAX package's fields and defaults, so one
 ``describe()`` dict means the same thing in both packages.  Every family
-runs but ``dense``, ``block_ell`` and ``hybrid_cols``, which raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them; the
-converting options (``sort``, ``bucket_bounds``) run through the
-SortOperator and the RowNnzMatrixDivOperator as in the JAX package.
+of the JAX package runs, the dense-tile ones (``dense``, ``block_ell``,
+``hybrid_cols``) included; the converting options (``sort``,
+``bucket_bounds``) run through the SortOperator and the
+RowNnzMatrixDivOperator as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,11 +18,13 @@ import time
 from typing import Any
 
 import numpy as np
+import torch
 
 from tpusparse_torch.format import pack_segment, pack_stripe, pack_stripe_nested, pack_tile
 from tpusparse_torch.generator import SpmmPlan
 from tpusparse_torch.io.mtx import CooMatrix
-from tpusparse_torch.kernels.common import resolve_device
+from tpusparse_torch.kernels.block_ell import block_ell_spmm, pack_block_ell
+from tpusparse_torch.kernels.common import matmul_f32, prep_x, resolve_device
 from tpusparse_torch.kernels.dg_gather import (PRECISIONS, choose_kt_dg, dg_spmm,
                                                dg_spmv, pack_dg)
 from tpusparse_torch.kernels.dgt_gather import dgt_spmm, pack_dgt
@@ -50,9 +52,6 @@ KERNEL_FAMILIES = ("stripe_total", "stripe_nested", "nnz_segment",
                    "segment_span", "tile_onehot", "span_onehot",
                    "span_colsplit", "radix_span", "brick_ell", "dg_span",
                    "dgt_span", "bucketed", "dense", "block_ell", "hybrid_cols")
-#: the ROADMAP.md queue-A item that ports each family still missing
-ROADMAP_ITEM = {"dense": "A.8", "block_ell": "A.8", "hybrid_cols": "A.8"}
-PORTED_FAMILIES = tuple(f for f in KERNEL_FAMILIES if f not in ROADMAP_ITEM)
 
 
 class CandidateRejected(Exception):
@@ -145,11 +144,6 @@ def default_schedule(mat: CooMatrix, k: int | None = None) -> Schedule:
                         col_split=-(-x_bytes // (4 * 1024 * 1024)),
                         rb=512, ct=1024, g=512, unroll=4)
     return Schedule()
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tpusparse_torch yet (ROADMAP.md {item})")
 
 
 #: TPU-derived: the VMEM a brick_ell program's chunk blocks may take on the
@@ -353,11 +347,133 @@ def _build_segment_span_plan(mat: CooMatrix, sched: Schedule, device) -> SpmmPla
                           "operator_history": "segment_span", "device": str(device)})
 
 
+def _dense_dtype(sched: Schedule) -> torch.dtype:
+    return torch.bfloat16 if sched.precision == "bf16" else torch.float32
+
+
+#: the largest A (as fp32 bytes) that the dense family densifies on the
+#: host (tpusparse/schedule.py:328); past it the scatter runs on the device
+DENSE_HOST_BYTES = 256 * 1024 * 1024
+
+
+def _build_dense_plan(mat: CooMatrix, sched: Schedule, device) -> SpmmPlan:
+    """The dense product as a schedule family (tpusparse/schedule.py:315):
+    at high density or large K the dense product beats any gather, and the
+    tuner measures which.  A is densified on the host up to 256 MB of fp32,
+    past that on the device (``index_put_`` accumulating the values cast to
+    the product's dtype, as JAX's ``.at[].add``).  bf16 multiplies with an
+    fp32 result (``matmul_f32``); fp32 in full fp32."""
+    dt = _dense_dtype(sched)
+    m, n = mat.shape
+    if m * n * np.dtype("float32").itemsize <= DENSE_HOST_BYTES:
+        a = torch.from_numpy(mat.to_dense(np.float32)).to(device, dt)
+    else:
+        a = torch.zeros((m, n), dtype=dt, device=device)
+        idx = (torch.from_numpy(np.asarray(mat.rows)).to(device),
+               torch.from_numpy(np.asarray(mat.cols)).to(device))
+        a.index_put_(idx, torch.as_tensor(np.asarray(mat.vals, np.float32),
+                                          device=device).to(dt), accumulate=True)
+
+    def fn(x):
+        return matmul_f32(a, prep_x(x, device).to(dt))
+
+    return SpmmPlan(
+        fn=fn, formats=[], shape=mat.shape,
+        meta={"schedule": sched.describe(), "n_subs": 1, "padding_rate": 1.0,
+              "operator_history": "dense",
+              # the densified A is the format: its residency is the trade-off
+              "format_bytes": a.numel() * a.element_size(), "device": str(device)})
+
+
+def _build_block_ell_plan(mat: CooMatrix, sched: Schedule, device) -> SpmmPlan:
+    """The block-sparse dense-tile family (tpusparse/schedule.py:359): BS
+    is the Schedule's ``row_interval`` where it is 64, 128 or 256, else
+    128; the plan runs ``block_ell_spmm``'s default method."""
+    bs = sched.row_interval if sched.row_interval in (64, 128, 256) else 128
+    fmt = pack_block_ell(mat, bs=bs, dtype=_dense_dtype(sched), device=device)
+    prec = "bf16" if sched.precision == "bf16" else "fp32"
+
+    def fn(x):
+        return block_ell_spmm(fmt, x, precision=prec, ktile=sched.ktile)
+
+    return SpmmPlan(
+        fn=fn, formats=[fmt], shape=mat.shape,
+        meta={"schedule": sched.describe(), "n_subs": 1,
+              "padding_rate": fmt.padding_rate * (fmt.bs ** 2 * fmt.n_blocks)
+              / max(mat.nnz, 1),
+              "operator_history": "block_ell", "device": str(device)})
+
+
+def _build_hybrid_cols_plan(mat: CooMatrix, sched: Schedule, device) -> SpmmPlan:
+    """Hot-column hybrid (tpusparse/schedule.py:383): the ``hot_cols``
+    most-populated columns (128 at least, rounded up to a multiple of 128)
+    become a dense (M, C) panel, multiplied as the dense family does with
+    the hot rows of X taken by ``index_select``; the remainder runs
+    ``build_plan`` of its default schedule (at the Schedule's ``ktile``, 8
+    when unset) or of ``bucket_schedules[0]``.  ``format_bytes`` counts the
+    panel and the remainder's formats by ``memory_bytes``, which leaves out
+    the port's own per-program chunk counts (``nc_p``), as JAX's count
+    has no such field: the two packages count the same bytes."""
+    m, n = mat.shape
+    C = min(max(int(sched.hot_cols) or 512, 128), n)
+    C = (C + 127) & ~127  # the TPU's lane padding of the panel width
+    counts = np.bincount(mat.cols, minlength=n)
+    if C >= n:
+        hot = np.arange(n, dtype=np.int64)
+        C = n
+    else:
+        hot = np.sort(np.argpartition(counts, n - C)[n - C:])
+    is_hot = np.zeros(n, dtype=bool)
+    is_hot[hot] = True
+    colmap = np.cumsum(is_hot) - 1  # panel position of each hot column
+    sel = is_hot[mat.cols]
+    dt = _dense_dtype(sched)
+    panel_np = np.zeros((m, C), np.float32)
+    np.add.at(panel_np, (mat.rows[sel], colmap[mat.cols[sel]]),
+              np.asarray(mat.vals[sel], np.float32))
+    panel = torch.from_numpy(panel_np).to(device, dt)
+    hot_d = torch.from_numpy(hot).to(device)
+    rest = CooMatrix(mat.rows[~sel], mat.cols[~sel], np.asarray(mat.vals)[~sel], mat.shape)
+    covered = int(sel.sum())
+    rest_plan = None
+    if rest.nnz:
+        rest_sched = (sched.bucket_schedules[0] if sched.bucket_schedules
+                      else default_schedule(rest, sched.ktile or 8))
+        if sched.ktile is not None:
+            rest_sched = dataclasses.replace(rest_sched, ktile=sched.ktile)
+        rest_plan = build_plan(rest, rest_sched, device=device)
+
+    def panel_mm(x):
+        return matmul_f32(panel, x.index_select(0, hot_d).to(dt))
+
+    def fn(x):
+        x = prep_x(x, device)
+        return panel_mm(x) if rest_plan is None else panel_mm(x) + rest_plan(x)
+
+    rest_meta = rest_plan.meta if rest_plan else {"padding_rate": 1.0}
+    rest_bytes = (int(rest_meta.get("format_bytes") or sum(f.memory_bytes
+                                                           for f in rest_plan.formats))
+                  if rest_plan else 0)
+    # nnz-weighted padding: the panel's nonzeros pad nothing (its bytes are
+    # in format_bytes); only the sparse remainder pads
+    pad = (covered + rest.nnz * float(rest_meta["padding_rate"])) / max(mat.nnz, 1)
+    return SpmmPlan(
+        fn=fn, formats=(rest_plan.formats if rest_plan else []), shape=mat.shape,
+        meta={"schedule": sched.describe(), "n_subs": 2 if rest_plan else 1,
+              "padding_rate": pad,
+              "operator_history": (f"hybrid_cols[C={C}, covered={covered}/{mat.nnz}]"
+                                   + (" + " + str(rest_meta.get("operator_history", ""))
+                                      if rest_plan else "")),
+              "format_bytes": panel.numel() * panel.element_size() + rest_bytes,
+              "hot_cols": int(C), "covered_nnz": covered, "device": str(device)})
+
+
 def build_plan(mat: CooMatrix, sched: Schedule, *, device="cuda") -> SpmmPlan:
     """Plan for ``sched`` with its formats on ``device`` (CUDA by default;
     raises when no card is present unless ``device="cpu"``).  As in the JAX
-    package (tpusparse/schedule.py:558): ``span_colsplit`` and
-    ``segment_span`` build their own formats; every other family runs the
+    package (tpusparse/schedule.py:558): ``dense``, ``block_ell``,
+    ``hybrid_cols``, ``span_colsplit`` and ``segment_span`` build their own
+    formats; every other family runs the
     operator pipeline, with the length sort first where ``sort`` is set and
     the row-nnz division into one sub-plan per bucket where the family is
     ``bucketed`` or ``bucket_bounds`` is set, the plan summing the
@@ -365,8 +481,12 @@ def build_plan(mat: CooMatrix, sched: Schedule, *, device="cuda") -> SpmmPlan:
     dev = resolve_device(device)
     if sched.family not in KERNEL_FAMILIES:
         raise ValueError(f"unknown family {sched.family!r}")
-    if sched.family in ROADMAP_ITEM:
-        raise _not_ported(f"schedule family {sched.family!r}", ROADMAP_ITEM[sched.family])
+    if sched.family == "dense":
+        return _build_dense_plan(mat, sched, dev)
+    if sched.family == "block_ell":
+        return _build_block_ell_plan(mat, sched, dev)
+    if sched.family == "hybrid_cols":
+        return _build_hybrid_cols_plan(mat, sched, dev)
     if sched.family == "span_colsplit":  # as in the JAX package, before sort and buckets
         return _build_span_colsplit_plan(mat, sched, dev)
     if sched.family == "segment_span":

@@ -4,8 +4,8 @@ As in the reference (token_test.cc:1625-1847): enumerate Schedule
 candidates, check each against the oracle, time it, keep the min, cache the
 winner per matrix signature under the config cache_dir, and append every
 measurement to results.jsonl.  Candidates are the JAX package's list in
-its order, without the rows of the families not yet ported (ROADMAP.md
-A.8); a cached winner of such a family is dropped.  Candidates that differ only
+its order, every family included; a cached winner of a family this
+package does not know is dropped.  Candidates that differ only
 in knobs of the TPU kernels' code (``Schedule.plan_key``) are one plan on
 the card: it is packed and timed once, and each such row carries that
 measurement and ``same_plan_as``.
@@ -35,7 +35,7 @@ from tpusparse_torch.kernels.dg_gather import choose_kt_dg
 from tpusparse_torch.kernels.dgt_gather import auto_rb_dgt, dgt_geometry
 from tpusparse_torch.kernels.radix_gather import choose_kt
 from tpusparse_torch.oracle import check_result, spmm_reference
-from tpusparse_torch.schedule import PORTED_FAMILIES, CandidateRejected, Schedule, build_plan
+from tpusparse_torch.schedule import KERNEL_FAMILIES, CandidateRejected, Schedule, build_plan
 
 
 def matrix_signature(mat: CooMatrix) -> str:
@@ -101,10 +101,14 @@ def default_candidates(mat: CooMatrix, k: int, *, full: bool = False) -> list[Sc
     (merge path at two work budgets; with ``full`` four, balanced, fixed
     rows and ``stripe_nested``); and on a skewed matrix (longest row past
     32x the mean) or with ``full`` the ``segment_span``, ``nnz_segment``
-    and ``bucketed`` rows.  The ``hybrid_cols``, ``dense`` and
-    ``block_ell`` rows are left out until those families are ported
-    (ROADMAP.md A.8).  The X-size gates (6 MB) are the JAX package's VMEM
-    gates, TPU-derived and queued for re-derivation (ROADMAP.md A.4)."""
+    and ``bucketed`` rows; where the top 128 columns hold a large share of
+    the nonzeros (or with ``full``) the ``hybrid_cols`` rows at panel widths
+    2048, 512 and N/8, bf16 first, ranked ahead of everything past a 0.6
+    share; the ``dense`` row (A's bf16 copy within 4 GB, and density past
+    2 % or K >= 256); and the ``block_ell`` row where the 128-blocks are
+    more than a quarter full.  The X-size gates (6 MB) are the JAX
+    package's VMEM gates, TPU-derived and queued for re-derivation
+    (ROADMAP.md A.4)."""
     lengths = mat.row_lengths()
     max_len = int(lengths.max()) if lengths.size else 0
     avg_len = float(lengths.mean()) if lengths.size else 0.0
@@ -210,6 +214,31 @@ def default_candidates(mat: CooMatrix, k: int, *, full: bool = False) -> list[Sc
                                   unroll=4))
         cands.append(Schedule(family="nnz_segment", work_per_block=2048, unroll=8))
         cands.append(Schedule(family="bucketed", bucket_bounds=(max(int(8 * avg_len), 32),)))
+    m, n = mat.shape
+    if mat.nnz and n > 256:
+        ccounts = np.bincount(mat.cols, minlength=n)
+        share128 = float(np.sort(ccounts)[-128:].sum()) / mat.nnz
+        # column concentration against the uniform expectation 128/n
+        if share128 > max(0.25, 2.5 * 128 / n) or full:
+            hyb = []
+            kt_h = choose_kt(k) if k <= 128 else None
+            for C in dict.fromkeys((2048, 512, max(128, (n // 8) & ~127))):
+                if 128 <= C < n and m * C * 4 <= 512 * 1024 * 1024:
+                    hyb.append(Schedule(family="hybrid_cols", hot_cols=C, unroll=4,
+                                        ktile=kt_h, precision="bf16"))
+                    if full:
+                        hyb.append(Schedule(family="hybrid_cols", hot_cols=C, unroll=4,
+                                            ktile=kt_h))
+            if share128 > 0.6 and not full:
+                cands = hyb + cands  # extreme concentration: time the panel first
+            else:
+                cands.extend(hyb)
+    if m * n * 2 <= 4 * 1024 ** 3 and (mat.density > 0.02 or k >= 256 or full):
+        cands.append(Schedule(family="dense", precision="bf16"))
+    blocks = np.unique((mat.rows >> 7) * (-(-n // 128)) + (mat.cols >> 7)).size
+    if blocks and (mat.nnz / (blocks * 128 * 128) > 0.25
+                   or (full and m * n * 2 <= 4 * 1024 ** 3)):
+        cands.append(Schedule(family="block_ell", precision="bf16", row_interval=128))
     return cands
 
 
@@ -264,7 +293,7 @@ def tune(
                                          for k, v in json.load(f)["schedule"].items()})
             except (OSError, ValueError, TypeError, KeyError):
                 cached = None  # an unreadable cache entry is re-tuned
-            if cached is not None and cached.family in PORTED_FAMILIES:
+            if cached is not None and cached.family in KERNEL_FAMILIES:
                 candidates = [cached] + [c for c in candidates if c != cached]
     if budget is not None:
         candidates = list(candidates)[:max(budget, 1)]
@@ -330,7 +359,10 @@ def tune(
             if 0 < sec < cfg.seconds_floor:
                 raise CandidateRejected(
                     f"implausible timing {sec:.2e}s under the launch floor")
-            fmt_bytes = sum(f.memory_bytes for f in plan.formats)
+            # the dense-tile families count their panel or dense A (and a
+            # hybrid its remainder's formats) in meta; the others their formats
+            fmt_bytes = (plan.meta.get("format_bytes")
+                         or sum(f.memory_bytes for f in plan.formats))
             row.update(seconds=sec, gflops=g, padding_rate=plan.meta["padding_rate"],
                        format_bytes=fmt_bytes, ok=True)
             if best is None or sec < best[1]:
