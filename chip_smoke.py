@@ -40,7 +40,18 @@ entry points a user calls:
   with ``dense`` at the headline, K = 256, ``block_ell`` and
   ``hybrid_cols`` (panel widths 2048 and 512 on a column-skewed 32768 x
   32768 matrix, alpha 1.6, seed 9) (P15); ``tune`` on that matrix at K = 8
-  with the JAX package's 26 candidates, the hybrid rows first (P16).
+  with the JAX package's 26 candidates, the hybrid rows first (P16);
+- training: the SDDMM value-gradient and transpose-apply kernels against
+  their plain versions at the JAX tests' 300 x 260 and, with the forward's
+  span kernel on the masked value plane, at the trainable layer's format
+  (T0); ``TrainableSparseLinear`` on the 90 %-pruned 4096 x 4096 weight
+  (seed 3) with bias, five Adam steps on x [4, 128, 4096] (K = 512)
+  against a fixed target, the first step's output and both gradients held
+  against the dense fp32 ones (T1); the differentiable
+  ``SparseLinear.from_coo`` at the headline size (K = 8), each of its two
+  plans' kernels held against its plain version at the plan's format, and
+  ``from_block`` on P14's weight (K = 256), backward included (T2); one
+  whole training step timed against the same step on the dense weight.
 
 Every result is checked against the host oracle; the kernels are timed
 against their bound, their plain versions and cuSPARSE.  Any failure
@@ -124,6 +135,18 @@ def bound_ms(nnz: int, m: int, n: int, k: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def grad_errors(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor):
+    """A gradient against its dense fp32 reference: (tests/test_sddmm.py's
+    relative error, floor 1e-3; the error over the condition scale).  The
+    bounds: < 3e-2 for the first, as there, and < 1e-4 for the second,
+    tighter where fp32 allows it (each side sums up to 512 fp32 terms, at
+    most 512 * 2^-24 = 3.1e-5 of the scale)."""
+    diff = (got.double() - want.double()).abs()
+    rel = float((diff / (want.double().abs() + 1e-3)).max())
+    cond = float((diff / scale.double().clamp(min=1e-30)).max())
+    return rel, cond
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -142,11 +165,13 @@ def main() -> int:
         from tpusparse_torch.kernels import dgt_gather as dgt
         from tpusparse_torch.kernels import nm_structured as nm
         from tpusparse_torch.kernels import radix_gather as radix
+        from tpusparse_torch.kernels import sddmm as sd
         from tpusparse_torch.kernels import span_gather as span
         from tpusparse_torch.kernels import stripe_gather as stripe
         from tpusparse_torch.kernels import tile_onehot as tile
         from tpusparse_torch.meta.set import create_init_metadata_set
-        from tpusparse_torch.nn import SparseLinear
+        from tpusparse_torch.kernels.common import matmul_f32
+        from tpusparse_torch.nn import SparseLinear, TrainableSparseLinear
         from tpusparse_torch.oracle import check_result, spmm_reference
         from tpusparse_torch.schedule import Schedule, build_plan, default_schedule
         from tpusparse_torch.spmv import spmv_fn, spmv_multi_fn
@@ -163,6 +188,7 @@ def main() -> int:
                              "tpusparse_torch/csrc/stripe_gather.cu")
     nm_src, bell_src = ("tpusparse_torch/csrc/nm_structured.cu",
                         "tpusparse_torch/csrc/block_ell.cu")
+    sddmm_src = "tpusparse_torch/csrc/sddmm.cu"
     kernels = {  # the ported kernels, by their wrapper
         "dg": {"wrapper": dg.dg_rows_cuda, "name": "dg_rows_cuda", "source": dg_src,
                "replaces": "tpusparse/kernels/dg_gather.py:318", "err": 0.0},
@@ -203,6 +229,11 @@ def main() -> int:
         "bell": {"wrapper": be.bell_rows_cuda, "plain": be.bell_rows_plain,
                  "name": "bell_rows_cuda", "source": bell_src,
                  "replaces": "tpusparse/kernels/block_ell.py:136", "err": 0.0},
+        "sddmm": {"wrapper": sd.sddmm_rows_cuda, "plain": sd.sddmm_rows_plain,
+                  "name": "sddmm_rows_cuda", "source": sddmm_src,
+                  "replaces": "tpusparse/kernels/sddmm.py:72", "err": 0.0},
+        "dx": {"wrapper": sd.dx_rows_cuda, "plain": sd.dx_rows_plain, "name": "dx_rows_cuda",
+               "source": sddmm_src, "replaces": "tpusparse/kernels/sddmm.py:167", "err": 0.0},
     }
 
     # ---- 1. device
@@ -1114,6 +1145,182 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[p13-16] dense-tile phases: {time.perf_counter() - t_dense_tile:.1f} s")
 
+    # ---- T0-T2: training on the card: the SDDMM pair, the trainable
+    # pruned layer (BASELINE.json config #3's 4096^2 weight, x [4, 128,
+    # 4096]) and the differentiable serving layers
+    t_train_phases = time.perf_counter()
+
+    def pair_vs_plain(label, fmt, k, kt, mode):
+        """#14 and #15 against their plain versions on ``fmt`` at K = k (X
+        and dY_slots padded to the K-tile kt): 1e-5 of |dY|·|X| and of
+        |A|^T·|dY|, the error of sums taken in another order."""
+        kp = -(-k // kt) * kt
+        gen = torch.Generator(device=dev).manual_seed(k)
+        n, rows = fmt.shape[1], fmt.n_programs * fmt.rb
+        x = torch.zeros((n, kp), device=dev)
+        x[:, :k] = torch.randn((n, k), generator=gen, device=dev)
+        dy = torch.zeros((rows, kp), device=dev)
+        dy[:, :k] = torch.randn((rows, k), generator=gen, device=dev)
+        planes = (fmt.c0, fmt.cols, fmt.lrow)
+        vals = fmt.vals.float()
+        desc = (f"kt={kt} {mode} K={k} rb={fmt.rb} ct={fmt.ct} g={fmt.chunk_g} "
+                f"P={fmt.n_programs} NC={fmt.n_chunks} pad={fmt.padding_rate:.4f}")
+        kw = dict(rb=fmt.rb, kt=kt, mode=mode)
+        got = sd.sddmm_rows_cuda(*planes, fmt.nc_p, dy, x, **kw)
+        want = sd.sddmm_rows_plain(*planes, fmt.nc_p, dy, x, **kw)
+        scale = sd.sddmm_rows_plain(*planes, fmt.nc_p, dy.abs(), x.abs(), **dict(kw, mode="fp32"))
+        check_vs_plain("sddmm", label, desc, got, want, scale, tol)
+        del got, want, scale
+        got = sd.dx_rows_cuda(*planes, vals, fmt.nc_p, dy, n=n, **kw)
+        want = sd.dx_rows_plain(*planes, vals, fmt.nc_p, dy, n=n, **kw)
+        scale = sd.dx_rows_plain(*planes, vals.abs(), fmt.nc_p, dy.abs(), n=n,
+                                 **dict(kw, mode="fp32"))
+        check_vs_plain("dx", label, desc, got, want, scale, tol)
+
+    # T0 at the JAX tests' shape: the K-tile loop of 8 and its tail
+    small_t = builder.power_law_coo(300, 260, avg_nnz_per_row=5.0, seed=0)
+    f_small = span.pack_span(small_t, rb=64, ct=128, g=64, keep_perm=True, device=dev)
+    for k in (12, 20, 24):
+        for mode in ("fp32", "bf16"):
+            pair_vs_plain("small", f_small, k, 8, mode)
+
+    # T1: the pruned 4096^2 weight as a trainable layer with bias, x [4,
+    # 128, 4096]; MSE against a fixed target, five Adam steps
+    steps, x1_shape = 5, (4, 128, 4096)
+    rng = np.random.default_rng(17)
+    x1 = torch.as_tensor(rng.standard_normal(x1_shape).astype(np.float32), device=dev)
+    t1 = torch.as_tensor(rng.standard_normal(x1_shape[:-1] + (pw.shape[0],))
+                         .astype(np.float32), device=dev)
+    t0 = time.perf_counter()
+    layer1 = TrainableSparseLinear(pw, device=dev)  # rb 512, ct 512, g 128, fp32x2
+    t_make = time.perf_counter() - t0
+    f1, k1 = layer1.fmt, int(np.prod(x1_shape[:-1]))
+    mask1 = torch.from_numpy(sd.occupancy_mask(f1)).to(dev)
+    log(f"[t1] TrainableSparseLinear(pruned {pw.shape[0]}x{pw.shape[1]}, nnz {pw.nnz}, bias): "
+        f"planes (P, NC, G) = ({f1.n_programs}, {f1.n_chunks}, {f1.chunk_g}), pad "
+        f"{f1.padding_rate:.4f}, {f1.memory_bytes / 1e6:.1f} MB, made in {t_make:.2f} s "
+        f"(packing included); x {list(x1_shape)}: K = {k1}")
+    # T0 at the path's own format and K: #14 and #15, and the forward's
+    # span kernel (#7) on the masked value plane the layer hands it
+    for mode in ("fp32", "bf16"):
+        pair_vs_plain("t1", f1, k1, 32, mode)
+    win_vs_plain("span", "t1", f1, k1, "fp32x2", vals=(layer1.vals.detach() * mask1).contiguous())
+
+    rows_t = torch.as_tensor(pw.rows, device=dev)
+    cols_t = torch.as_tensor(pw.cols, device=dev)
+    w0 = torch.zeros(pw.shape, device=dev)
+    w0[rows_t, cols_t] = torch.as_tensor(pw.vals, dtype=torch.float32, device=dev)
+    opt1 = torch.optim.Adam(layer1.parameters(), lr=2e-2)
+    losses = []
+    zero_counts()
+    t0 = time.perf_counter()
+    for step in range(steps):
+        xg = x1.detach().requires_grad_(True)  # both gradients, every step
+        opt1.zero_grad(set_to_none=True)
+        y = layer1(xg)
+        y.retain_grad()
+        loss = torch.nn.functional.mse_loss(y, t1)
+        loss.backward()
+        if step == 0:  # the output and both gradients against dense fp32
+            with torch.no_grad():
+                dyk0 = y.grad.reshape(k1, -1)                      # [K, out]
+                xk0 = x1.reshape(k1, -1)                           # [K, in]
+                b0 = layer1.bias.detach()
+                # the output as tests/test_sddmm.py checks the forward
+                # (check_result's rtol 1e-3 of max(|Y|, 1)), and within 1e-4
+                # of its condition scale |X|·|W|^T + |b|
+                yk, want_y = y.detach().reshape(k1, -1), xk0 @ w0.T + b0
+                rel, _ = rel_err(yk, want_y)
+                _, cond = grad_errors(yk, want_y, xk0.abs() @ w0.abs().T + b0.abs())
+                log(f"[t1] step 0 y (forward, span) against dense fp32: rel err {rel:.2e} "
+                    f"(< 1e-3 of max(|Y|, 1)), {cond:.2e} of the condition scale (< 1e-4)")
+                if not (rel < 1e-3 and cond < 1e-4):
+                    raise AssertionError("T1 y off its dense reference")
+                checks = {
+                    "vals.grad (SDDMM, packed_to_nz)": (
+                        sd.packed_to_nz(f1, layer1.vals.grad), (dyk0.T @ xk0)[rows_t, cols_t],
+                        (dyk0.abs().T @ xk0.abs())[rows_t, cols_t]),
+                    "x.grad (transpose apply)": (
+                        xg.grad.reshape(k1, -1), dyk0 @ w0, dyk0.abs() @ w0.abs())}
+                for name, (got, want, scale) in checks.items():
+                    rel, cond = grad_errors(got, want, scale)
+                    log(f"[t1] step 0 {name} against dense fp32: rel err {rel:.2e} (< 3e-2, "
+                        f"floor 1e-3), {cond:.2e} of the condition scale (< 1e-4)")
+                    if not (rel < 3e-2 and cond < 1e-4):
+                        raise AssertionError(f"T1 {name} off its dense reference")
+                del checks, yk, want_y
+                dyk0 = dyk0.clone()
+        opt1.step()
+        losses.append(loss.item())
+        log(f"[t1] step {step}: loss {losses[-1]:.6f}")
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    read_counts("train_t1")
+    for which in ("span", "sddmm", "dx"):
+        if need("train_t1", which) != steps:
+            raise AssertionError(f"T1: {steps} steps launched {which} "
+                                 f"{kernels[which]['paths']['train_t1']} times")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"T1: the loss did not fall: {losses}")
+    log(f"[t1] {steps} Adam steps (lr 2e-2, MSE against a fixed target, seed 17) in "
+        f"{t_train:.3f} s, the first-step checks included: loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}; launches per step: 1 span_rows_cuda (forward), 1 sddmm_rows_cuda, "
+        "1 dx_rows_cuda")
+
+    # T2: the differentiable serving layers
+    rng2 = np.random.default_rng(18)
+    lay_c = SparseLinear.from_coo(mat, differentiable=True, k_hint=8, device=dev)
+    fn_c = lay_c._apply_fn
+    fams = (fn_c.plan.meta["schedule"]["family"], fn_c.t_plan.meta["schedule"]["family"])
+    x2c = torch.as_tensor(rng2.standard_normal((8, mat.shape[1])).astype(np.float32),
+                          device=dev).requires_grad_(True)
+    tg = rng2.standard_normal((8, mat.shape[0])).astype(np.float32)
+    zero_counts()
+    y2 = lay_c(x2c)
+    torch.cuda.synchronize()
+    read_counts("t2_coo_fwd")
+    check_result(y2.detach().T.cpu().numpy(),
+                 spmm_reference(mat, x2c.detach().T.double().cpu().numpy()), rtol=2e-3)
+    zero_counts()
+    (y2 * torch.as_tensor(tg, device=dev)).sum().backward()
+    torch.cuda.synchronize()
+    read_counts("t2_coo_bwd")
+    check_result(x2c.grad.T.cpu().numpy(),
+                 spmm_reference(mat.transpose(), tg.T.astype(np.float64)), rtol=2e-3)
+    for path, fam in (("t2_coo_fwd", fams[0]), ("t2_coo_bwd", fams[1])):
+        launched = [f"{rec['paths'][path]} {rec['name']}" for rec in kernels.values()
+                    if rec["paths"][path]]
+        if not launched:
+            raise AssertionError(f"{path} launched no kernel of the port")
+        log(f"[t2] SparseLinear.from_coo(differentiable=True, k_hint=8), config #1: {path} "
+            f"({fam}) oracle ok at rtol 2e-3, launches: {', '.join(launched)}")
+    log(f"[t2]   the transposed plan (A^T, the GNN aggregation backward) took {fams[1]} "
+        f"(the forward {fams[0]})")
+    # each plan's kernel against its plain version at the plan's own format
+    for label, plan_c in (("t2 A", fn_c.plan), ("t2 A^T", fn_c.t_plan)):
+        for f in plan_c.formats:
+            fmt_vs_plain(label, f, 8)
+    del lay_c, fn_c, x2c, y2
+    for prec in ("bf16", "fp32"):
+        lay_b = SparseLinear.from_block(a14, precision=prec, differentiable=True, device=dev)
+        xb2 = x14.detach().clone().requires_grad_(True)
+        tb = rng2.standard_normal(tuple(x14.shape[:-1]) + (a14.shape[0],))
+        path = f"t2_block_{prec}"
+        zero_counts()
+        (lay_b(xb2) * torch.as_tensor(tb, dtype=torch.float32, device=dev)).sum().backward()
+        torch.cuda.synchronize()
+        read_counts(path)
+        tk = tb.reshape(-1, a14.shape[0])
+        want = (tk @ d14).reshape(xb2.shape)
+        scale = (np.abs(tk) @ np.abs(d14)).reshape(xb2.shape)
+        val, bound = dense_bound_check(f"{path} x.grad", xb2.grad, want, scale, prec)
+        launched = [f"{rec['paths'][path]} {rec['name']}" for rec in kernels.values()
+                    if rec["paths"][path]]
+        log(f"[t2] SparseLinear.from_block({prec}, differentiable=True), x {list(xb2.shape)}: "
+            f"x.grad within the {prec} bound ({val:.2e} < {bound:g}) of the dense product; "
+            f"launches: {', '.join(launched) or 'none (the xla method: torch bmm, both ways)'}")
+    log(f"[t0-t2] training phases: {time.perf_counter() - t_train_phases:.1f} s")
+
     launches = {w: sum(rec["paths"].values()) for w, rec in kernels.items()}
     for w, n_l in launches.items():
         if n_l < 1:
@@ -1477,6 +1684,101 @@ def main() -> int:
             + f"{float(np.median([time_fn(layer14, x14) for _ in range(REPS)])) * 1e3:.4f} ms")
     stats["nm"], stats["bell"] = nm_k128, bell_bf16
 
+    # #14 and #15 at T1's shapes: the trainable layer's format, K = 512, the
+    # first step's dY; the library calls are cuSPARSE's SDDMM
+    # (torch.sparse.sampled_addmm on W's CSR pattern) and its SpMM of W^T
+    # (torch.sparse.mm); "whole call" is one whole training step
+    m_out, n_in = pw.shape
+    inv1 = torch.from_numpy(sd.origrow_of_slot(f1)).to(dev, torch.long)
+    dyk_t = dyk0.T.contiguous()                                    # dY [out, K]
+    dy_slots1 = sd.rows_to_slots(dyk_t, inv1)                      # [P*rb, K]
+    xk1 = xk0.T.contiguous()                                       # X [in, K]
+    vals1 = (layer1.vals.detach() * mask1).contiguous()
+    planes1 = (f1.c0, f1.cols, f1.lrow)
+    kw1 = dict(rb=f1.rb, kt=32, mode="fp32x2")
+    slots1 = f1.n_programs * f1.n_chunks * f1.chunk_g
+    plane_bytes = 4 * f1.n_programs * f1.n_chunks + 8 * slots1    # c0, cols, lrow
+    rows_bytes = 4 * f1.n_programs * f1.rb * k1                    # dY_slots
+    flops1 = 2.0 * pw.nnz * k1
+    fp32_peak = (FP32_FLOPS_PER_S, "67 TFLOP/s (fp32, CUDA cores)")
+
+    def sparse_step(xb):
+        """One training step of T1's layer: forward, both gradients, Adam."""
+        xs = xb.detach().requires_grad_(True)
+        opt1.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.mse_loss(layer1(xs), t1)
+        loss.backward()
+        opt1.step()
+        return loss.detach()
+
+    pw_csr, pwt_csr = csr_of(pw), csr_of(pw.transpose())
+    geo1 = f"({f1.n_programs}, {f1.n_chunks}, {f1.chunk_g})"
+    stats["sddmm"] = dense_tile_yardstick(
+        "sddmm", f"T1 span_sddmm, pruned 4096^2 planes {geo1}, K={k1}, fp32x2",
+        lambda d: sd.sddmm_rows_cuda(*planes1, f1.nc_p, d, xk1, **kw1),
+        lambda d: sd.sddmm_rows_plain(*planes1, f1.nc_p, d, xk1, **kw1), dy_slots1,
+        sparse_step, x1,
+        {"cuSPARSE SDDMM (sampled_addmm)": (
+            lambda m1: torch.sparse.sampled_addmm(pw_csr, m1, xk0, beta=0.0), dyk_t)},
+        plane_bytes + 4 * n_in * k1 + rows_bytes + 4 * slots1, flops1, *fp32_peak)
+    stats["dx"] = dense_tile_yardstick(
+        "dx", f"T1 span_dx, pruned 4096^2 planes {geo1}, K={k1}, fp32x2",
+        lambda d: sd.dx_rows_cuda(*planes1, vals1, f1.nc_p, d, n=n_in, **kw1),
+        lambda d: sd.dx_rows_plain(*planes1, vals1, f1.nc_p, d, n=n_in, **kw1), dy_slots1,
+        sparse_step, x1,
+        {"cuSPARSE SpMM of W^T (torch.sparse.mm)": (
+            functools.partial(torch.sparse.mm, pwt_csr), dyk_t)},
+        plane_bytes + 4 * slots1 + rows_bytes + 4 * n_in * k1, flops1, *fp32_peak)
+
+    class Bf16Mm(torch.autograd.Function):
+        """x @ W^T on bf16 operands with an fp32 result, both gradients the
+        same way (matmul_f32: cuBLAS with out_dtype=float32)."""
+
+        @staticmethod
+        def forward(ctx, xk, w):
+            ctx.save_for_backward(xk, w)
+            return matmul_f32(xk.bfloat16(), w.bfloat16().t().contiguous())
+
+        @staticmethod
+        def backward(ctx, dy):
+            xk, w = ctx.saved_tensors
+            dyb = dy.bfloat16()
+            return (matmul_f32(dyb, w.bfloat16()),
+                    matmul_f32(dyb.t().contiguous(), xk.bfloat16()))
+
+    def dense_step(prec):
+        """The same training step on the dense 4096^2 W (zeros included)."""
+        w = torch.nn.Parameter(w0.clone())
+        b = torch.nn.Parameter(torch.zeros(m_out, device=dev))
+        opt = torch.optim.Adam([w, b], lr=2e-2)
+
+        def step(xb):
+            xs = xb.detach().requires_grad_(True)
+            opt.zero_grad(set_to_none=True)
+            xk = xs.reshape(-1, n_in)
+            yk = xk @ w.T if prec == "fp32" else Bf16Mm.apply(xk, w)
+            loss = torch.nn.functional.mse_loss((yk + b).reshape(t1.shape), t1)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return step
+
+    steps_t = {"sparse (TrainableSparseLinear)": sparse_step,
+               "dense fp32": dense_step("fp32"), "dense bf16 (fp32 out)": dense_step("bf16")}
+    step_runs = {name: [] for name in steps_t}
+    for _ in range(REPS):
+        for name, f in steps_t.items():
+            step_runs[name].append(time_fn(f, x1, iters=10))
+    step_ms = {name: float(np.median(v)) * 1e3 for name, v in step_runs.items()}
+    log(f"[yardstick] T1 training step (forward, both gradients, Adam), x [4, 128, 4096], "
+        f"median of {REPS} x 10 steps: " + ", ".join(f"{n} {t:.4f} ms" for n, t in
+                                                     step_ms.items()) + f"  ({power})")
+    for name, v in step_runs.items():
+        log(f"[yardstick]   readings (ms) {name}: " + " ".join(f"{t * 1e3:.4f}" for t in v))
+    if not all(bool(torch.isfinite(f(x1))) for f in steps_t.values()):
+        raise AssertionError("a timed training step gave a loss that is not finite")
+
     # ---- 8. where the time of one call goes: the tuner's winner at K = 8,
     # P1 (K = 256) and P2 (262144^2, K = 8)
     from torch.profiler import ProfilerActivity, profile
@@ -1520,6 +1822,8 @@ def main() -> int:
     profile_call("P13 SparseLinear.from_nm(bf16), x [4, 128, 4096]", layers13["bf16"], x13)
     profile_call("P15 hybrid_cols C=512 (bf16 panel + dg remainder), column-skewed, K=8",
                  hyb_plans[512], torch.as_tensor(xs[8], device=dev))
+    for name, f in steps_t.items():
+        profile_call(f"T1 training step, {name}, 4096^2, x [4, 128, 4096]", f, x1, calls=10)
     profile_call("P14 block_ell_spmm(pallas, bf16), K=256",
                  functools.partial(be.block_ell_spmm, f14, precision="bf16", method="pallas"),
                  xk14)

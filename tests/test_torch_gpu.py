@@ -3,7 +3,9 @@ version for every kt and mode, the default SpMM paths (dg, radix, tile, span
 and the column split), tune, the stripe and segment families,
 build_tile_plan, build_stripe_plan and the SpMV entry points at a medium
 size; the N:M and Block-ELL kernels in every mode and layout, SparseLinear
-with a folded activation, and the dense, block_ell and hybrid_cols families.
+with a folded activation, and the dense, block_ell and hybrid_cols families;
+the SDDMM and transpose-apply kernels against their plain versions, and
+the trainable and differentiable layers' gradients.
 Marked ``gpu``; without a CUDA device every test skips (the ``cuda``
 fixture decides, so every pytest worker collects the same tests).  Run on
 the card with ``python -m pytest tests/test_torch_gpu.py -q -m gpu``.
@@ -22,12 +24,13 @@ from tpusparse_torch.kernels import dg_gather as dg
 from tpusparse_torch.kernels import dgt_gather as dgt
 from tpusparse_torch.kernels import nm_structured as nm
 from tpusparse_torch.kernels import radix_gather as radix
+from tpusparse_torch.kernels import sddmm as sd
 from tpusparse_torch.kernels import span_gather as span
 from tpusparse_torch.kernels import stripe_gather as stripe
 from tpusparse_torch.kernels import tile_onehot as tile
 from tpusparse_torch.meta.set import create_init_metadata_set
 from tpusparse_torch.oracle import check_result, spmm_reference
-from tpusparse_torch.nn import SparseLinear
+from tpusparse_torch.nn import SparseLinear, TrainableSparseLinear
 from tpusparse_torch.schedule import KERNEL_FAMILIES, Schedule, build_plan, default_schedule
 from tpusparse_torch.spmv import spmv_fn, spmv_multi_fn
 from tpusparse_torch.tune import tune
@@ -604,3 +607,84 @@ def test_dense_tile_kernels_refuse_rather_than_fall_back(cuda):
                         group=4, packed_bits=2, mode="bf16")
     with pytest.raises(ValueError, match="X is on cpu"):
         nm.nm_spmm(f, torch.zeros((128, 8)))
+
+
+@pytest.mark.parametrize("k", [12, 20, 24])
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+def test_sddmm_kernels_match_plain(cuda, k, mode):
+    """#14 and #15 against their plain versions at the JAX tests' shape,
+    K-tile 8 (the K loop and its tail): 1e-5 of |dY|·|X| and |A|^T·|dY|
+    (the same products; dX's atomic sums vary in order)."""
+    a = builder.power_law_coo(300, 260, avg_nnz_per_row=5.0, seed=0)
+    fmt = span.pack_span(a, rb=64, ct=128, g=64, keep_perm=True, device=cuda)
+    rng = np.random.default_rng(k)
+    kp = -(-k // 8) * 8
+    x = torch.zeros((260, kp), device=cuda)
+    x[:, :k] = torch.as_tensor(rng.standard_normal((260, k)), dtype=torch.float32)
+    dy = torch.zeros((fmt.n_programs * 64, kp), device=cuda)
+    dy[:, :k] = torch.as_tensor(rng.standard_normal((fmt.n_programs * 64, k)),
+                                dtype=torch.float32)
+    planes = (fmt.c0, fmt.cols, fmt.lrow)
+    before = sd.sddmm_rows_cuda.launches, sd.dx_rows_cuda.launches
+    got = sd.sddmm_rows_cuda(*planes, fmt.nc_p, dy, x, rb=64, kt=8, mode=mode)
+    want = sd.sddmm_rows_plain(*planes, fmt.nc_p, dy, x, rb=64, kt=8, mode=mode)
+    scale = sd.sddmm_rows_plain(*planes, fmt.nc_p, dy.abs(), x.abs(), rb=64, kt=8, mode="fp32")
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-30).all())
+    got = sd.dx_rows_cuda(*planes, fmt.vals, fmt.nc_p, dy, n=260, rb=64, kt=8, mode=mode)
+    want = sd.dx_rows_plain(*planes, fmt.vals, fmt.nc_p, dy, n=260, rb=64, kt=8, mode=mode)
+    scale = sd.dx_rows_plain(*planes, fmt.vals.abs(), fmt.nc_p, dy.abs(), n=260, rb=64, kt=8,
+                             mode="fp32")
+    torch.cuda.synchronize()
+    assert got.shape == (260, kp) and bool(((got - want).abs() <= 1e-5 * scale + 1e-30).all())
+    assert (sd.sddmm_rows_cuda.launches, sd.dx_rows_cuda.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+
+
+def test_trainable_layer_on_card(cuda):
+    """TrainableSparseLinear's gradients on the card against the same
+    layer on the CPU (the plain versions), and a few Adam steps."""
+    w = builder.pruned_weight_coo(512, 384, sparsity=0.9, seed=3)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((4, 16, 384)).astype(np.float32)
+    t = rng.standard_normal((4, 16, 512)).astype(np.float32)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        layer = TrainableSparseLinear(w, rb=128, ct=128, g=64, device=dev)
+        xt = torch.as_tensor(x, device=dev).requires_grad_(True)
+        before = sd.sddmm_rows_cuda.launches, sd.dx_rows_cuda.launches
+        ((layer(xt) - torch.as_tensor(t, device=dev)) ** 2).mean().backward()
+        if dev.type == "cuda":
+            assert (sd.sddmm_rows_cuda.launches, sd.dx_rows_cuda.launches) == (
+                before[0] + 1, before[1] + 1)
+        grads[dev.type] = (layer.vals.grad.cpu(), xt.grad.cpu())
+    for g_card, g_cpu in zip(grads["cuda"], grads["cpu"]):
+        assert float((g_card - g_cpu).abs().max()) <= 1e-5 * float(g_cpu.abs().max())
+    layer = TrainableSparseLinear(w, rb=128, ct=128, g=64, device=cuda)
+    opt = torch.optim.Adam(layer.parameters(), lr=2e-2)
+    xs, ts = torch.as_tensor(x, device=cuda), torch.as_tensor(t, device=cuda)
+    losses = []
+    for _ in range(5):
+        opt.zero_grad()
+        loss = ((layer(xs) - ts) ** 2).mean()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    assert losses[-1] < losses[0], losses
+
+
+@pytest.mark.parametrize("ctor", ["from_coo", "from_block"])
+def test_differentiable_layers_on_card(cuda, ctor):
+    a = (builder.power_law_coo(2048, 1536, avg_nnz_per_row=8.0, seed=5) if ctor == "from_coo"
+         else builder.block_sparse_coo(1024, 768, 128, 0.25, seed=3))
+    kw = dict(k_hint=8) if ctor == "from_coo" else dict(precision="fp32")
+    layer = getattr(SparseLinear, ctor)(a, differentiable=True, **kw)
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.standard_normal((8, a.shape[1])), dtype=torch.float32,
+                        device=cuda).requires_grad_(True)
+    t = rng.standard_normal((8, a.shape[0]))
+    (layer(x) * torch.as_tensor(t, dtype=torch.float32, device=cuda)).sum().backward()
+    w = a.to_dense(np.float64)
+    want = t @ w
+    scale = np.abs(t) @ np.abs(w)
+    assert (np.abs(x.grad.double().cpu().numpy() - want) / np.maximum(scale, 1.0)).max() < 2e-3

@@ -21,6 +21,7 @@ def test_import_loads_no_jax_and_no_tpusparse():
             "tpusparse_torch.kernels.span_gather, tpusparse_torch.kernels.radix_gather, "
             "tpusparse_torch.kernels.stripe_gather, tpusparse_torch.kernels.nnz_split, "
             "tpusparse_torch.kernels.nm_structured, tpusparse_torch.kernels.block_ell, "
+            "tpusparse_torch.kernels.sddmm, tpusparse_torch.autodiff, "
             "tpusparse_torch.batched, tpusparse_torch.nn, tpusparse_torch.format, "
             "tpusparse_torch.generator, tpusparse_torch.transforms, tpusparse_torch.ops, "
             "tpusparse_torch.spmv; "

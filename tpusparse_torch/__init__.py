@@ -2,7 +2,8 @@
 
 The JAX package ``tpusparse`` is the reference; this package mirrors its
 layout and names (config, levels, io, meta, ops, oracle, generator,
-kernels, schedule, bench, tune, batched, nn) and imports nothing from it.  Its kernels
+kernels, schedule, bench, tune, batched, nn, autodiff) and imports nothing
+from it.  Its kernels
 are written by hand in CUDA C++ for sm_90a (``tpusparse_torch/csrc``), each
 beside a plain PyTorch version of the same function.
 
@@ -14,8 +15,13 @@ schedule family (the sort and bucket options included),
 ``spmv.spmv_fn`` with every method, ``spmv.spmv_multi_fn``), and the
 pruned-weight serving surface: ``nn.SparseLinear`` (``from_coo``,
 ``from_dense``, ``from_nm``, ``from_block``), ``batched.batched_spmm``,
-``kernels.nm_structured`` and ``kernels.block_ell``.  Training (the SDDMM
-kernels, autodiff, a differentiable layer) is still to port.
+``kernels.nm_structured`` and ``kernels.block_ell``; and training:
+``autodiff.spmm_fn`` (the backward on A^T's plan), ``autodiff.spmm_trainable``
+and ``kernels.sddmm`` (trainable values: the SDDMM value gradient and the
+transpose apply), ``nn.TrainableSparseLinear`` and the differentiable
+``SparseLinear.from_coo`` / ``from_block``.  Still to port: the graph
+algorithms and SpGEMM, the multi-device paths, the host helpers, the
+headline benchmark and the bench tools (ROADMAP.md A.4, A.10-A.12).
 """
 
 from tpusparse_torch.config import Config, config_override, get_config, set_config
@@ -59,6 +65,10 @@ def __getattr__(name):
         "spmv": "tpusparse_torch.spmv.spmv",
         "SparseLinear": "tpusparse_torch.nn.SparseLinear",
         "batched_spmm": "tpusparse_torch.batched.batched_spmm",
+        "spmm_fn": "tpusparse_torch.autodiff.spmm_fn",
+        "spmm_trainable": "tpusparse_torch.autodiff.spmm_trainable",
+        "sddmm": "tpusparse_torch.kernels.sddmm.sddmm",
+        "TrainableSparseLinear": "tpusparse_torch.nn.TrainableSparseLinear",
     }
     if name in lazy_map:
         return _lazy(lazy_map[name])
@@ -84,4 +94,8 @@ __all__ = [
     "spmv",
     "SparseLinear",
     "batched_spmm",
+    "spmm_fn",
+    "spmm_trainable",
+    "sddmm",
+    "TrainableSparseLinear",
 ]

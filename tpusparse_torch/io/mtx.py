@@ -58,6 +58,10 @@ class CooMatrix:
         key = self.rows * (self.shape[1] + 1) + self.cols
         return bool(np.all(np.diff(key) >= 0))
 
+    def transpose(self) -> "CooMatrix":
+        m, n = self.shape
+        return CooMatrix(self.cols, self.rows, self.vals, (n, m)).sort_row_major()
+
     def dedup(self) -> "CooMatrix":
         """Remove duplicate (row, col) entries keeping the first occurrence."""
         key = self.rows * self.shape[1] + self.cols

@@ -19,4 +19,6 @@ function.  Sources live in ``tpusparse_torch/csrc`` and are built by
               _nm_kernel.
   block_ell   block-sparse weights (family block_ell,
               SparseLinear.from_block): replaces _bell_kernel.
+  sddmm       the gradients of trainable span values (spmm_trainable,
+              TrainableSparseLinear): replaces _sddmm_kernel and _dx_kernel.
 """

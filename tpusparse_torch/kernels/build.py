@@ -24,7 +24,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("dg_gather", "dgt_gather", "tile_onehot", "span_gather", "radix_gather",
-           "stripe_gather", "nm_structured", "block_ell")
+           "stripe_gather", "nm_structured", "block_ell", "sddmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -273,7 +273,7 @@ def _dgt_walk_multi(bucket_arr, cols, lrow_arr, vals, *, n_buckets, col_span,
     total = int(cnts.sum())
     assert total == nnz, (total, nnz)
     nord = np.argsort(run_id * ncls + cls_s, kind="stable")
-    starts = np.concatenate([[0], np.cumsum(cnts)[:-1]]).astype(np.int64)
+    starts = (np.cumsum(cnts) - cnts).astype(np.int64)  # no segments: no starts
     within = np.arange(total, dtype=np.int64) - np.repeat(starts, cnts)
     gtile = np.empty(nnz, dtype=np.int64)
     pos = np.empty(nnz, dtype=np.int64)

@@ -518,7 +518,12 @@ def build_plan(mat: CooMatrix, sched: Schedule, *, device="cuda") -> SpmmPlan:
         formats.append(fmt)
         fns.append(fn)
 
-    if len(fns) == 1:
+    if not fns:  # no bucket holds a row: Y is zero, as the oracle's
+        def plan_fn(x):
+            x = prep_x(x, dev)
+            return torch.zeros((mat.shape[0],) + tuple(x.shape[1:]), dtype=torch.float32,
+                               device=dev)
+    elif len(fns) == 1:
         plan_fn = fns[0]
     else:
         def plan_fn(x):

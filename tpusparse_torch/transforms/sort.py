@@ -95,7 +95,9 @@ def remove_empty_rows_in_end(ms: MetaDataSet, sub: int) -> int:
     keeps full length so recovery still works."""
     rows, _, _ = ms.coo(sub)
     row_num = ms.row_num(sub)
-    last = int(rows.max()) + 1 if rows.size else 0
+    # an empty sub-matrix keeps one (empty) row, so its blockings and
+    # paddings still have a row to hold
+    last = int(rows.max()) + 1 if rows.size else min(row_num, 1)
     if last < row_num:
         begin = int(ms.get_scalar(Level.GLOBAL, "begin_row_index", sub))
         ms.add(Level.GLOBAL, "end_row_index", sub, np.int64(begin + last), replace=True)

@@ -345,7 +345,9 @@ def tune(
                          if rtol is None and sched.precision == "bf16"
                          else None)
                 check_result(y, want, rtol=tol, scale=scale)
-            if plan.meta["padding_rate"] > cfg.padding_rate_up_bound:
+            # the bound weighs padding against real nonzeros; an empty
+            # matrix has none, and every candidate is all padding
+            if mat.nnz and plan.meta["padding_rate"] > cfg.padding_rate_up_bound:
                 raise CandidateRejected(
                     f"padding rate {plan.meta['padding_rate']:.2f} exceeds bound"
                 )
