@@ -257,6 +257,30 @@ def main() -> int:
                                        "error", "warning")):
                 log(f"[build]   {line.strip()}")
 
+    # what the redesigned kernels compiled to: tensor-core wgmma (HGMMA, the
+    # bf16 and int8 modes) and mma (HMMA, 3xTF32) in the N:M library, the
+    # atomics of the tile library (the resident kernel's shared adds, the
+    # stream kernel's vector reductions)
+    for lib_name, opcodes in (("nm_structured", ("HGMMA", "HMMA")),
+                              ("tile_onehot", ("ATOMS", "ATOMG", "ATOM.", "RED"))):
+        sass = subprocess.run([os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                                            "bin", "cuobjdump"), "-sass",
+                               str(build.library_path(lib_name))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        found = {}
+        for line in sass.splitlines():  # "/*0090*/  @P0 HMMA.16816.F32.BF16 R4, ... ;"
+            words = line.split("*/", 1)[-1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words and words[0].startswith(opcodes):
+                found[words[0]] = found.get(words[0], 0) + 1
+        log(f"[build] {lib_name} SASS: " + (", ".join(f"{op} x{n}" for op, n in
+                                                     sorted(found.items())) or "none of "
+                                           + "/".join(opcodes)))
+        if lib_name == "nm_structured" and not all(any(op.startswith(c) for op in found)
+                                                   for c in ("HGMMA", "HMMA")):
+            raise AssertionError("the N:M library lacks its tensor-core wgmma or mma")
+
     # ---- 3. each kernel against its plain version, on the card
     def check_vs_plain(which, label, desc, got, want, scale, tol):
         torch.cuda.synchronize()
@@ -376,12 +400,14 @@ def main() -> int:
                                         **kw)
         want = plain(start, fmt.cols, fmt.lrow, v, fmt.nc_p, x, mode=mode, **kw)
         scale = plain(start, fmt.cols, fmt.lrow, v.abs(), fmt.nc_p, x.abs(), mode="fp32", **kw)
-        if is_tile:
-            shared = tile.tile_uses_shared_tile(fmt.rb, kt, stream=stream)
+        if which == "tile_stream":
+            pw, cpb = tile.stream_geometry(x.shape[1], fmt.chunk_g)
+            branch = f"panel {pw} x{-(-x.shape[1] // pw)}, {cpb} chunk(s) a block"
         else:
-            shared = span.span_uses_shared_tile(fmt.rb, kt, g=fmt.chunk_g, ct=fmt.ct,
-                                                stream=stream)
-        branch = "shared tile" if shared else "global atomics"
+            shared = (tile.tile_uses_shared_tile(fmt.rb, kt) if is_tile else
+                      span.span_uses_shared_tile(fmt.rb, kt, g=fmt.chunk_g, ct=fmt.ct,
+                                                 stream=stream))
+            branch = "shared tile" if shared else "global atomics"
         if which == "span_stream":
             rows = span.span_stream_slice_rows(fmt.rb, kt, fmt.chunk_g, fmt.ct)
             branch += f", window slice {rows}"
@@ -612,6 +638,16 @@ def main() -> int:
         f"{f256.memory_bytes / 2**20:.1f} MiB, pack {t_pack256:.2f} s: oracle ok at rtol 2e-3, "
         f"{n_l} launch(es) of tile_stream_rows_cuda, first call {dt:.2f} s (packing included)")
     win_vs_plain("tile_stream", "headline", f256, 256, "fp32x2")    # the path's own format
+    runs256, live256 = tile.row_runs(f256)
+    pw256, cpb256 = tile.stream_geometry(256, f256.chunk_g)
+    info = tile.tile_stream_info(pw256, "fp32x2")
+    log(f"[kernel] tile_stream_rows_cuda at P1: panel {pw256} (one walk), {cpb256} chunks a "
+        f"block; {info['registers']} registers, {info['spill_bytes']} spill bytes, "
+        f"{info['shared_bytes']} shared bytes, {info['blocks_per_sm']} blocks an SM; flush: "
+        f"each row run summed in registers, added to y_rows in device memory by float4 "
+        f"atomicAdd; {runs256} row runs for {live256} live slots "
+        f"({live256 / max(runs256, 1):.2f} slots a run), "
+        f"{f256.n_programs * f256.n_chunks * f256.chunk_g} slots in the planes")
 
     # P6: the resident tile kernel at K = 32 (X 4 MB in the TPU's layout)
     assert not tile.uses_stream(N, f256.ct, 32, "fp32x2")
@@ -1043,6 +1079,20 @@ def main() -> int:
         f"from_dense {t_make:.2f} s")
     for prec, mode in (("bf16", "bf16"), ("fp32", "fp32"), ("int8", "bf16")):
         nm_vs_plain("p13", fmt13[prec], x128, mode)
+        f_ = fmt13[prec]
+        info = nm.nm_kernel_info(f_.vals, f_.offs, group=f_.group, packed_bits=f_.packed_bits,
+                                 mode=mode, k=512)
+        log(f"[kernel] nm_rows_cuda P13 {prec} ({mode} mode: "
+            f"{'bf16 wgmma.m64nNk16, A and X in shared memory' if mode == 'bf16' else '3xTF32 mma.m16n8k8'}"
+            f"), tile {nm.tile_of(mode, 512)[0]}x{info['tile_n']} at K=512: "
+            f"{info['registers']} registers, {info['spill_bytes']} spill bytes, "
+            f"{info['dynamic_shared_bytes']} dynamic shared bytes, {info['blocks_per_sm']} "
+            f"block(s) an SM, slots "
+            + (f"staged by cp.async ({info['staged_groups']} groups a step)"
+               if info["staged_groups"] else "read from device memory")
+            + f"; depth splits at K=128: {nm.depth_splits(f_.m_pad, 128, 4096, mode, 132)}, "
+            f"K=512: {nm.depth_splits(f_.m_pad, 512, 4096, mode, 132)}; y stored whole "
+            f"(atomic adds into a zeroed y only when split)")
     nm_vs_plain("p13", f13, torch.as_tensor(xk13.astype(np.float32)).to(dev).contiguous(),
                 "bf16")
 
@@ -1617,12 +1667,22 @@ def main() -> int:
 
     nm_k128 = nm_stats(f13, x128, "bf16", "P13 nm_spmm, 2:4 bf16, K=128",
                        functools.partial(nm.nm_spmm, f13), x128)
+    nm_stats(fmt13["fp32"], x128, "fp32", "P13 nm_spmm, 2:4 fp32, K=128",
+             functools.partial(nm.nm_spmm, fmt13["fp32"], precision="fp32"), x128)
+    nm_stats(fmt13["int8"], x128, "bf16", "P13 nm_spmm, 2:4 int8 (W8A16), K=128",
+             functools.partial(nm.nm_spmm, fmt13["int8"]), x128)
     nm_stats(f13, xk13_t, "bf16", "P13 SparseLinear.from_nm(bf16), K=512", layers13["bf16"],
              x13)
     nm_stats(fmt13["fp32"], xk13_t, "fp32", "P13 SparseLinear.from_nm(fp32), K=512",
              layers13["fp32"], x13)
     nm_stats(fmt13["int8"], xk13_t, "bf16", "P13 SparseLinear.from_nm(int8, W8A16), K=512",
              layers13["int8"], x13)
+    # a prefill batch: x [16, 128, 4096], K = 2048 folded
+    x2048 = torch.as_tensor(rng13.standard_normal((4096, 2048)), dtype=torch.float32,
+                            device=dev)
+    nm_vs_plain("p13", f13, x2048, "bf16")
+    nm_stats(f13, x2048, "bf16", "P13 nm_spmm, 2:4 bf16, K=2048 (prefill)",
+             functools.partial(nm.nm_spmm, f13), x2048)
     log(f"[yardstick]   P13 mode='throughput' layer (dense bf16 product), median of {REPS}: "
         + f"{float(np.median([time_fn(layer13_t, x13) for _ in range(REPS)])) * 1e3:.4f} ms")
 

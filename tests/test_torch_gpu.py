@@ -11,6 +11,8 @@ fixture decides, so every pytest worker collects the same tests).  Run on
 the card with ``python -m pytest tests/test_torch_gpu.py -q -m gpu``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -230,13 +232,53 @@ def _window_vs_plain(which, fmt, k, dev, stream, mode, vals=None):
     ("fp32x2", 32, 2048, 1024, 512, False),      # 256 KB tile: the global-atomic branch
     ("fp32x2", 256, 1024, 1024, 512, True), ("bf16", 8, 1024, 1024, 512, True),
     ("fp32", 5, 512, 512, 256, True), ("fp32x2", 32, 2048, 1024, 512, True),
+    ("bf16", 256, 1024, 1024, 512, True), ("fp32", 256, 2048, 1024, 512, True),
+    ("fp32x2", 264, 1024, 1024, 512, True),      # Kp 288: one 512-column panel, masked
+    ("fp32x2", 600, 512, 1024, 256, True),       # Kp 608: two panels of 512
+    ("fp32x2", 64, 1024, 1024, 128, True),       # a 64-column panel, 16 lanes a stream
 ])
 def test_tile_kernels_match_plain(cuda, mat, mode, k, rb, ct, g, stream):
     fmt = pack_tile(create_init_metadata_set(mat), 0, out_rows=4096, rb=rb, ct=ct, g=g,
                     device=cuda)
     assert _window_vs_plain("tile", fmt, k, cuda, stream, mode) <= 1e-5
     kt = tile.choose_kt(min(k, 32))
-    assert tile.tile_uses_shared_tile(rb, kt, stream=stream) == (rb * kt * 4 <= 200 * 1024)
+    if stream:  # no row tile: runs go to y_rows in device memory, whatever rb
+        info = tile.tile_stream_info(tile.stream_geometry(-(-k // kt) * kt, g)[0], mode)
+        assert info["spill_bytes"] == 0 and info["shared_bytes"] == 0
+        assert info["blocks_per_sm"] >= 2
+    else:
+        assert tile.tile_uses_shared_tile(rb, kt) == (rb * kt * 4 <= 200 * 1024)
+
+
+@pytest.mark.parametrize("case", ["longest_row", "empty_program"])
+@pytest.mark.parametrize("mode,k", [("fp32x2", 256), ("bf16", 264), ("fp32", 8)])
+def test_tile_stream_kernel_edges(cuda, case, mode, k):
+    # longest_row: row 700 holds every column, so its chunks are one row
+    # (one run of 512 slots each) beside the power-law rows; empty_program:
+    # rows 1024-2047 (program 1 at rb 1024) hold no nonzero
+    from tpusparse_torch.io.mtx import CooMatrix
+
+    base = builder.power_law_coo(4096, 4096, avg_nnz_per_row=8.0, seed=23)
+    keep = ((base.rows < 1024) | (base.rows >= 2048) if case == "empty_program"
+            else base.rows != 700)
+    rows, cols, vals = base.rows[keep], base.cols[keep], base.vals[keep]
+    if case == "longest_row":
+        rows = np.concatenate([rows, np.full(4096, 700)])
+        cols = np.concatenate([cols, np.arange(4096)])
+        vals = np.concatenate([vals, np.random.default_rng(31).standard_normal(4096)])
+    a = CooMatrix(rows, cols, vals.astype(np.float32), (4096, 4096))
+    fmt = pack_tile(create_init_metadata_set(a), 0, out_rows=4096, rb=1024, ct=1024, g=512,
+                    device=cuda)
+    if case == "empty_program":
+        assert not bool(fmt.vals[1].any())
+    else:
+        p, lr = 0, fmt.lrow.cpu().numpy()
+        one_row = [(lr[p, j] == lr[p, j, 0]).all() and bool(fmt.vals[p, j].all())
+                   for j in range(int(fmt.nc_p[p].item()))]
+        assert any(one_row)
+    runs, live = tile.row_runs(fmt)
+    assert live == a.nnz and runs < live
+    assert _window_vs_plain("tile", fmt, k, cuda, True, mode) <= 1e-5
 
 
 @pytest.mark.parametrize("mode,k,rb,ct,g,stream", [
@@ -458,15 +500,27 @@ def _rel_to_scale(got, want, scale):
     return float(((got.double() - want.double()).abs() / denom).max())
 
 
-@pytest.mark.parametrize("n_keep,group", [(2, 4), (1, 4), (4, 8)])
+@functools.cache
+def _nm_case(m, n, n_keep, group, dtype):
+    """An N:M weight (n cut to whole groups) packed on the card, cached
+    across the modes that share it."""
+    w = builder.nm_pruned_dense(m, n // group * group, n_keep, group, seed=4)
+    return w, nm.pack_nm(w, n_keep=n_keep, group=group, dtype=dtype, device="cuda")
+
+
+@pytest.mark.parametrize("n_keep,group", [(2, 4), (1, 4), (4, 8), (3, 6), (48, 128)])
 @pytest.mark.parametrize("dtype,mode", [(torch.bfloat16, "bf16"), (torch.bfloat16, "fp32"),
                                         (torch.float32, "bf16"), (torch.float32, "fp32"),
                                         (torch.int8, "bf16")])
-@pytest.mark.parametrize("m,n,k", [(300, 1024, 37), (1024, 2048, 128)])
+@pytest.mark.parametrize("m,n,k", [(300, 1024, 37), (1024, 2048, 128), (300, 1024, 1),
+                                   (4096, 4096, 520)])
 def test_nm_kernel_matches_plain(cuda, n_keep, group, dtype, mode, m, n, k):
-    w = builder.nm_pruned_dense(m, n, n_keep, group, seed=4)
-    fmt = nm.pack_nm(w, n_keep=n_keep, group=group, dtype=dtype, device=cuda)
-    assert fmt.packed_bits == (0 if group == 8 else 2)
+    # 3:6 and 48:128 straddle the kernel's 64-column depth steps and read
+    # their slots from device memory; the others are staged by cp.async
+    w, fmt = _nm_case(m, n, n_keep, group, dtype)
+    n = w.shape[1]
+    bits = max(int(np.ceil(np.log2(group))), 1)
+    assert fmt.packed_bits == (bits if n_keep * bits <= 8 else 0)
     x = torch.as_tensor(np.random.default_rng(5).standard_normal((n, k)),
                         dtype=torch.float32, device=cuda)
     kw = dict(group=group, packed_bits=fmt.packed_bits, mode=mode)

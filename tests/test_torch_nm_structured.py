@@ -138,3 +138,35 @@ def test_batched_spmm_nm_matches_jax():
     np.testing.assert_allclose(yb.numpy(), yj, rtol=0, atol=1e-5 * np.abs(want).max())
     xt = torch.from_numpy(xb)
     torch.testing.assert_close(tbatched.unfold_batch(tbatched.fold_batch(xt), 3), xt)
+
+
+@pytest.mark.parametrize("m_pad,k,depth,mode,want", [
+    (4096, 512, 4096, "bf16", 2),    # P13's layer: 32 x 2 tiles of 128 x 256
+    (4096, 128, 4096, "bf16", 4),    # nm_spmm at K = 128: 32 tiles of 128 x 128
+    (4096, 128, 4096, "fp32", 2),    # 64 x 128 tiles: 64 of them
+    (4096, 512, 4096, "fp32", 1),    # 64 x 4 tiles
+    (4096, 2048, 4096, "bf16", 1),   # a prefill batch: 256 tiles
+    (512, 37, 1024, "bf16", 4),      # 4 tiles, 16 depth steps: at least 4 each
+    (512, 37, 128, "fp32", 1),       # 2 depth steps: no split
+])
+def test_depth_splits(m_pad, k, depth, mode, want):
+    assert tnm.depth_splits(m_pad, k, depth, mode, 132) == want
+    assert tnm.tile_of(mode, k) == ((128, 256 if k > 128 else 128) if mode == "bf16" else
+                                    (64, 128))
+
+
+def test_nm_format_from_numpy_refuses_two_values_at_one_offset():
+    # the kernel stores each kept value into its place, so a group's kept
+    # values must sit at distinct offsets (as every packer makes them)
+    dense, _ = _dense_and_x(n_keep=2, group=4, seed=2)
+    jf, _ = _packs(dense, 2, 4, "fp32")
+    static = dict(shape=jf.shape, n_keep=2, group=4, packed_bits=jf.packed_bits)
+    vals, offs = np.asarray(jf.vals), np.asarray(jf.offs).copy()
+    assert jf.packed_bits == 2 and (vals[:, 0, 0] != 0).all()
+    o0 = int(offs[0, 0, 0].view(np.uint8)) & 3
+    offs[0, 0, 0] = np.array(o0 | (o0 << 2), np.uint8).view(np.int8)
+    with pytest.raises(ValueError, match="one offset"):
+        tnm.nm_format_from_numpy({"vals": vals, "offs": offs}, device="cpu", **static)
+    vals = vals.copy()
+    vals[1, 0, 0] = 0.0                   # a padding slot may share offset 0
+    tnm.nm_format_from_numpy({"vals": vals, "offs": offs}, device="cpu", **static)

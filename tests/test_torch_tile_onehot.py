@@ -222,3 +222,35 @@ def test_k_tiles_and_wrapper_refuses_cpu_tensors():
                              torch.zeros((130, 8)), rb=64, ct=64, kt=8, mode="fp32")
     with pytest.raises(ValueError, match="X is on"):
         ttile.tile_spmm(fmt, torch.zeros((130, 8), device="meta"))
+
+
+@pytest.mark.parametrize("kp,g,want", [
+    (8, 512, (8, 2)), (16, 128, (16, 8)), (32, 2048, (32, 1)), (40, 512, (64, 2)),
+    (128, 1024, (128, 1)), (256, 512, (256, 2)),        # config #1 at K = 256
+    (288, 32, (512, 32)), (608, 4096, (512, 1)),         # one masked panel; two panels
+])
+def test_stream_geometry(kp, g, want):
+    # the panel is the narrowest that holds Kp (its lanes carry 4 columns
+    # each, at most 32 lanes a stream); a block takes whole chunks of about
+    # 1024 slots
+    pw, cpb = ttile.stream_geometry(kp, g)
+    assert (pw, cpb) == want and pw in ttile.STREAM_PANELS
+    assert pw >= kp or pw == ttile.STREAM_PANELS[-1]
+    assert cpb * g >= min(g, ttile.STREAM_BLOCK_SLOTS)
+
+
+def test_row_runs_counts_runs_of_live_slots():
+    _, tmat, _ = _case(seed=13)
+    fmt = pack_tile(tms(tmat), 0, out_rows=150, rb=64, ct=64, g=32, device="cpu")
+    runs, live = ttile.row_runs(fmt)
+    # walk every program's chunks before nc_p in order, skipping zeros
+    want, prev = 0, None
+    for p in range(fmt.n_programs):
+        prev = None
+        for j in range(int(fmt.nc_p.reshape(-1)[p])):
+            for s in range(fmt.chunk_g):
+                if fmt.vals[p, j, s] != 0:
+                    row = int(fmt.lrow[p, j, s])
+                    want += row != prev
+                    prev = row
+    assert (runs, live) == (want, tmat.nnz) and runs < live

@@ -7,210 +7,790 @@
 // [1, Mp, Gp] with slot s in bits [s*bits, (s+1)*bits) when bits > 0, else
 // [S, Mp, Gp].  For every row r < Mp and column k < K:
 //     y[r, k] = sum_{g < G} sum_{s < S} vals[s, r, g] * X[g*group + off_s(r, g), k]
-// with X [G*group, K] fp32 (G <= Gp real groups; the padded groups hold zero
-// values and are not walked) and y [Mp, K] fp32, written whole.
+// with X [G*group, ldx] (G <= Gp real groups; the padded groups are not
+// walked) and y [Mp, K] fp32, written whole.  The offset byte is read as
+// unsigned: the JAX int8 view is signed, the mask makes both readings equal.
 //
-// Precision, as the TPU kernel's dots: with ROUND (the bf16 mode) the value
-// and X are rounded to bf16 (round to nearest even) and their exact product
-// is summed in fp32; without it, plain fp32.  int8 values widen exactly
-// (the W8A16 mode runs ROUND; the wrapper scales each row afterwards).  The
-// offset byte is read as unsigned: the JAX int8 view is signed, the mask
-// makes both readings equal.
+// Precision, as the TPU kernel's dots (nm_structured.py:184-197).  bf16
+// mode: X arrives as bf16 (the wrapper rounds it to nearest even, as the
+// TPU's wrapper casts it), each value is rounded to bf16, and their exact
+// products are summed in fp32 by bf16 tensor-core wgmma.  int8 values widen
+// exactly (W8A16; the wrapper scales each row afterwards).  fp32 mode: X
+// and the values stay fp32; each operand is split into a tf32 pair (hi =
+// tf32(a), lo = tf32(a - hi)) and a_lo*b_hi + a_hi*b_lo + a_hi*b_hi run on
+// tf32 mma (3xTF32, relative error near 2^-21 per product).  Each 64-deep
+// step sums into fresh registers that are then added in fp32, so the
+// tensor cores' truncating accumulation spans 24 products of one step,
+// never the whole depth.  A group's kept values sit at distinct offsets
+// (the packers make them so; nm_format_from_numpy refuses a format that
+// does not): each is stored once into its place.
 //
-// Design (simple and right first).  The TPU builds, for each of the group's
-// offsets, a masked one-hot copy of the values and runs a dense MXU dot per
-// offset (nm_structured.py:177-197): that is its mechanism for a gather it
-// lacks.  Here a thread reads the slot's offset and loads that X row.  One
-// block per (RT rows, 64 columns): the block stages 128 rows of X (128 /
-// group groups) for its 64 columns in shared memory with coalesced 16-byte
-// loads (rounded once in the bf16 mode), and the chunk's values and decoded
-// offsets for its rows; each thread owns RPT rows x 4 columns of y in
-// registers (RT = 16 * RPT), and for every (group, slot, row) adds the
-// value times one 16-byte read of the staged X row.  y is stored once.  Any
-// K is taken; the TPU's 128-lane K padding is not needed.
+// Bound.  2:4 bf16 at 4096^2, K = 512: 37.7 MB (the format, X, y) is 0.011
+// ms at 3.35 TB/s; the dense-equivalent tensor-core work, 17.2 GFLOP, is
+// 0.017 ms at 989 TFLOP/s.  The TPU ran every contraction on its MXU; a
+// kernel on the CUDA cores with no reuse of X ran 41x behind cuBLAS's dense
+// product here.
 //
-// Bound.  Memory: the packed values and offsets (2:4 bf16: 2.5 bytes per
-// group of 4 columns), X and y once; 2 flops per slot and column on the
-// CUDA cores.  No tensor cores: Hopper's 2:4 sparse mma (mma.sp) wants its
-// own operand and metadata layout, and n_keep:group also covers 1:4 and
-// 4:8, which it does not.  See PERF.md for its time against the bound.
+// Design: an N:M weight is a dense A whose tiles are rebuilt in shared
+// memory from the packed slots, then a tensor-core GEMM.  A block owns a
+// [BM, BN] tile of y (bf16: 128 x 256 past K = 128, else 128 x 128, two
+// warpgroups of 64 rows; fp32: 64 x 128, 8 warps of 32 x 32) and walks the
+// depth in steps of 64 weight columns (rows of X):
+//   - X [64, BN] is copied by cp.async two steps ahead (a ring of 4 stages
+//     in bf16, 3 in fp32): bf16 in 64-column blocks in the 128-byte
+//     swizzle that an MN-major wgmma descriptor reads; fp32 with rows
+//     padded against bank conflicts; past the depth or ldx, zeros;
+//   - the step's slots (values and offset bytes of BM rows) are staged the
+//     same way one step further ahead, in 16-byte copies, when the group
+//     is 2, 4, 8 or 16 and Gp a multiple of 16 (every packer's layout); one
+//     thread per (row, 16 columns) then loads a slot's values and offsets
+//     of the span with one vector load each, places each kept value at its
+//     offset in registers and writes the span of the A tile [BM, 64] with
+//     16-byte stores: bf16 K-major in the 128-byte swizzle, fp32 padded;
+//   - any other group (3, 5-7, > 16; one may straddle two steps), or slices
+//     too large for shared memory, take the direct path: one thread per
+//     (row, group touching the step) reads the slots from device memory
+//     and writes the group's columns, clipped to the step;
+//   - bf16: each warpgroup issues four wgmma.m64nBNk16 on its 64 rows (A
+//     and X by descriptor) and goes on: the tensor cores multiply step i
+//     while the warps rebuild the A tile of step i + 1 (3 A stages); a
+//     warpgroup keeps at most two steps in flight.  fp32: mma.sync m16n8k8
+//     tf32 x3 from scalar fragment loads (2 A stages), after the rebuild.
+// One __syncthreads per step.  Where the tiles of y are fewer than the
+// SMs the wrapper splits the depth over `splits` blocks that add into a
+// zeroed y with atomics.  Hopper's 2:4 sparse mma (mma.sp) would halve the
+// tensor-core work for 2:4 only (its metadata wants distinct, ordered
+// index pairs; a group with one kept value at offset 0 breaks that) and
+// is left out: see PERF.md for whether this kernel is bound by its bytes
+// or by the tensor cores.
 
 #include "gather_common.cuh"
 
 namespace {
 
-using gather::kThreads;
 using gather::OptIn;
 
-constexpr int kKT = 64;                              // columns of y per block
-constexpr int kCPT = 4;                              // columns per thread (one float4)
-constexpr int kColThreads = kKT / kCPT;              // 16
-constexpr int kRowThreads = kThreads / kColThreads;  // 16
-constexpr int kXRows = 128;                          // rows of X staged per chunk
+constexpr int kBK = 64;                 // weight columns (rows of X) per depth step
+constexpr int kWarps = 8;
+constexpr int kThreadsNm = 32 * kWarps;
+constexpr int kRawStages = 3;           // staged slots: three steps ahead
+
+template <bool TF32, int BNB = 128>
+struct Tile;
+
+// A block's tile of y is [BM, BN]; its 8 warps stand WM x WN, each owning a
+// warp tile of MT m16 by NT n8 mma tiles (BM = WM * MT * 16, BN = WN * NT * 8).
+template <int BNB>
+struct Tile<false, BNB> {  // bf16, wgmma.m64nBNk16: a warpgroup's 4 warps own 64 rows
+  using E = __nv_bfloat16;
+  static constexpr int BM = 128, BN = BNB, WN = 1, MT = 1, NT = BNB / 8;
+  // Both operands sit in the 128-byte swizzle that wgmma descriptors read
+  // (16-byte chunk c of a 128-byte row r at chunk c ^ (r % 8)): the A tile
+  // [BM][kBK] K-major, the X tile [kBK][BN] as BN / 64 MN-major blocks
+  // [kBK][64].
+  static constexpr int LDA = kBK, XSTAGE = BN * kBK;
+  // X two steps ahead of the step multiplied and of the one still in
+  // flight; A one ahead of both
+  static constexpr int XSTAGES = 4, ASTAGES = 3;
+};
+
+template <int BNB>
+struct Tile<true, BNB> {  // fp32 operands split into tf32 pairs, mma.m16n8k8
+  using E = float;
+  static constexpr int BM = 64, BN = 128, WN = 4, MT = 2, NT = 4;
+  // A fragments read (g, t): g*68 + t covers 32 banks; B fragments (t, g):
+  // t*136 + g does too
+  static constexpr int LDA = kBK + 4, LDB = BN + 8, XSTAGE = kBK * LDB;
+  static constexpr int XSTAGES = 3, ASTAGES = 2;  // X two steps ahead, A one
+};
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float widen(int8_t v) { return static_cast<float>(v); }
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+
+template <typename E>
+__device__ __forceinline__ E from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
-// Dynamic shared memory of a block: the X chunk, then values (fp32) and
-// decoded offsets (one byte) of its rows' slots.
-size_t smem_bytes(int S, int rt, int gc) {
-  return sizeof(float) * kXRows * kKT + static_cast<size_t>(S) * rt * gc * (sizeof(float) + 1);
+// N bytes (1, 2, 4, 8, 16 or 32) at p, aligned to min(N, 16), as words.
+template <int N>
+__device__ __forceinline__ void load_words(const uint8_t* p, uint32_t (&w)[8]) {
+  if constexpr (N == 32) {
+    const uint4 a = reinterpret_cast<const uint4*>(p)[0], b = reinterpret_cast<const uint4*>(p)[1];
+    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w; w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+  } else if constexpr (N == 16) {
+    const uint4 a = *reinterpret_cast<const uint4*>(p);
+    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+  } else if constexpr (N == 8) {
+    const uint2 a = *reinterpret_cast<const uint2*>(p);
+    w[0] = a.x; w[1] = a.y;
+  } else if constexpr (N == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else if constexpr (N == 2) {
+    w[0] = *reinterpret_cast<const uint16_t*>(p);
+  } else {
+    w[0] = *p;
+  }
 }
 
-template <typename VT, bool ROUND, int RPT>
-__global__ void __launch_bounds__(kThreads)
-nm_kernel(const VT* __restrict__ vals, const int8_t* __restrict__ offs,
-          const float* __restrict__ x, float* __restrict__ y, int S, int Mp, int Gp, int G,
-          int group, int K, int bits) {
-  constexpr int RT = RPT * kRowThreads;
-  const int gc = kXRows / group;  // groups per chunk
-  float* xs = reinterpret_cast<float*>(gather::gather_smem);  // [kXRows, kKT]
-  float* vs = xs + kXRows * kKT;                               // [S, RT, gc]
-  uint8_t* os = reinterpret_cast<uint8_t*>(vs + S * RT * gc);  // [S, RT, gc]
-  const int row0 = blockIdx.x * RT;
-  const int k0 = blockIdx.y * kKT;
-  const int tx = threadIdx.x % kColThreads;
-  const int ty = threadIdx.x / kColThreads;
-  const int64_t plane = static_cast<int64_t>(Mp) * Gp;
-  const int mask = (1 << bits) - 1;
-  const int x_rows = G * group;
-  float acc[RPT][kCPT] = {};
+// Element i of VT values packed in words.
+__device__ __forceinline__ float word_elem(const uint32_t (&w)[8], int i, float) {
+  return __uint_as_float(w[i]);
+}
+__device__ __forceinline__ float word_elem(const uint32_t (&w)[8], int i, __nv_bfloat16) {
+  return __uint_as_float(((w[i / 2] >> (16 * (i % 2))) & 0xFFFFu) << 16);
+}
+__device__ __forceinline__ float word_elem(const uint32_t (&w)[8], int i, int8_t) {
+  return static_cast<float>(static_cast<int8_t>((w[i / 4] >> (8 * (i % 4))) & 0xFFu));
+}
 
-  for (int g0 = 0; g0 < G; g0 += gc) {
-    __syncthreads();  // the previous chunk is read
-    const int xr0 = g0 * group;
-    const int chunk_rows = min(gc * group, x_rows - xr0);
-    if (K % 4 == 0) {  // 16-byte loads: a float4 lies wholly inside K or past it
-      for (int e = threadIdx.x; e < kXRows * (kKT / 4); e += kThreads) {
-        const int r = e / (kKT / 4), c = (e % (kKT / 4)) * 4;
-        float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r < chunk_rows && k0 + c < K) {
-          q = *reinterpret_cast<const float4*>(x + static_cast<int64_t>(xr0 + r) * K + k0 + c);
-          if constexpr (ROUND) {
-            q.x = round_bf16(q.x); q.y = round_bf16(q.y);
-            q.z = round_bf16(q.z); q.w = round_bf16(q.w);
+// Element (r, c) of an A tile: bf16 in the 128-byte swizzle, fp32 with
+// rows padded to LDA.
+__device__ __forceinline__ __nv_bfloat16* a_elem(__nv_bfloat16* A, int r, int c) {
+  return A + r * kBK + (((c / 8) ^ (r & 7)) * 8) + c % 8;
+}
+__device__ __forceinline__ float* a_elem(float* A, int r, int c) {
+  return A + r * Tile<true>::LDA + c;
+}
+
+// Columns [16q, 16q + 16) of row r of an A tile, as E: two swizzled 16-byte
+// stores of bf16 (rounded to nearest even), or four of fp32.
+__device__ __forceinline__ void store_span(__nv_bfloat16* A, int r, int q, const float (&v)[16]) {
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(a_elem(A, r, 16 * q)) = make_uint4(w[0], w[1], w[2], w[3]);
+  *reinterpret_cast<uint4*>(a_elem(A, r, 16 * q + 8)) = make_uint4(w[4], w[5], w[6], w[7]);
+}
+__device__ __forceinline__ void store_span(float* A, int r, int q, const float (&v)[16]) {
+  float4* p = reinterpret_cast<float4*>(a_elem(A, r, 16 * q));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) p[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+}
+
+// The staged path: one thread per (row, span of 16 columns) of the A tile
+// [BM, kBK], for a group of GROUP (2, 4, 8 or 16) columns: the span's
+// 16 / GROUP groups.  From the step's slice (values [S][BM][GK], then
+// offset bytes [So][BM][GK], So = 1 when bit-packed) it loads each slot's
+// values and the offset bytes of the span with one vector load each,
+// places every kept value at its offset in registers and writes the span
+// with 16-byte stores.  Groups >= G and rows >= Mp stay zero.
+template <int GROUP, bool TF32, typename VT>
+__device__ __forceinline__ void rebuild_staged(typename Tile<TF32>::E* A, const uint8_t* slice,
+                                               int GK, int g0, int row0, int Mp, int G, int S,
+                                               int bits) {
+  using T = Tile<TF32>;
+  constexpr int kSpans = kBK / 16;
+  constexpr int GPS = 16 / GROUP;  // groups a span
+  constexpr int VB = GPS * static_cast<int>(sizeof(VT));  // value bytes of a slot's span
+  const uint8_t* ob = slice + static_cast<size_t>(S) * T::BM * GK * sizeof(VT);
+  for (int e = threadIdx.x; e < T::BM * kSpans; e += kThreadsNm) {
+    const int r = e / kSpans, q = e % kSpans;
+    float val[16] = {};
+    const int live = row0 + r < Mp ? min(GPS, G - g0 - q * GPS) : 0;  // groups before G
+    if (live > 0) {
+      uint32_t vw[8], ow[8];
+      const int at = r * GK + q * GPS;  // the span's first group, slot 0
+      if (bits) load_words<GPS>(ob + at, ow);
+      for (int s = 0; s < S; ++s) {
+        load_words<VB>(slice + (static_cast<size_t>(s) * T::BM * GK + at) * sizeof(VT), vw);
+        if (!bits) load_words<GPS>(ob + static_cast<size_t>(s) * T::BM * GK + at, ow);
+#pragma unroll
+        for (int gg = 0; gg < GPS; ++gg) {
+          const float v = gg < live ? word_elem(vw, gg, VT{}) : 0.f;
+          const unsigned byte = (ow[gg / 4] >> (8 * (gg % 4))) & 0xFFu;
+          // the group is a power of 2: masking keeps a stray byte inside it
+          const unsigned off = (bits ? byte >> (s * bits) : byte) & (GROUP - 1);
+#pragma unroll
+          for (int o = 0; o < GROUP; ++o) {
+            if (v != 0.f && off == static_cast<unsigned>(o)) val[gg * GROUP + o] = v;
           }
         }
-        *reinterpret_cast<float4*>(xs + r * kKT + c) = q;
-      }
-    } else {
-      for (int e = threadIdx.x; e < kXRows * kKT; e += kThreads) {
-        const int r = e / kKT, c = e % kKT;
-        float v = 0.f;
-        if (r < chunk_rows && k0 + c < K) {
-          v = x[static_cast<int64_t>(xr0 + r) * K + k0 + c];
-          if constexpr (ROUND) v = round_bf16(v);
-        }
-        xs[e] = v;
       }
     }
-    for (int e = threadIdx.x; e < S * RT * gc; e += kThreads) {
-      const int s = e / (RT * gc), r = (e / gc) % RT, gl = e % gc;
-      const int row = row0 + r, g = g0 + gl;
-      float v = 0.f;
-      int o = 0;
-      if (row < Mp && g < G) {
-        const int64_t at = static_cast<int64_t>(row) * Gp + g;
-        v = widen(vals[s * plane + at]);
-        if constexpr (ROUND) v = round_bf16(v);
-        o = bits ? (static_cast<uint8_t>(offs[at]) >> (s * bits)) & mask
-                 : static_cast<uint8_t>(offs[s * plane + at]);
-      }
-      vs[e] = v;
-      os[e] = static_cast<uint8_t>(o);
-    }
-    __syncthreads();
-    const int gn = min(gc, G - g0);
-    for (int gl = 0; gl < gn; ++gl) {
-      for (int s = 0; s < S; ++s) {
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const int e = (s * RT + ty + i * kRowThreads) * gc + gl;
-          const float v = vs[e];
-          const float4 q =
-              *reinterpret_cast<const float4*>(xs + (gl * group + os[e]) * kKT + tx * kCPT);
-          acc[i][0] = fmaf(v, q.x, acc[i][0]);
-          acc[i][1] = fmaf(v, q.y, acc[i][1]);
-          acc[i][2] = fmaf(v, q.z, acc[i][2]);
-          acc[i][3] = fmaf(v, q.w, acc[i][3]);
-        }
-      }
-    }
+    store_span(A, r, q, val);
   }
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = row0 + ty + i * kRowThreads;
-    if (row >= Mp) continue;
-#pragma unroll
-    for (int c = 0; c < kCPT; ++c) {
-      const int k = k0 + tx * kCPT + c;
-      if (k < K) y[static_cast<int64_t>(row) * K + k] = acc[i][c];
+}
+
+// The direct path (a group that does not divide the step evenly, or a
+// layout that cannot be staged): one thread per (row, group touching the
+// step at c0), reading the format in device memory; the group's columns
+// are clipped to [c0, c0 + kBK), zeroed, and each kept value inside them
+// stored at its offset.
+template <bool TF32, typename VT>
+__device__ __forceinline__ void rebuild_direct(typename Tile<TF32>::E* A, const VT* vals, const int8_t* offs,
+                               int c0, int row0, int Mp, int Gp, int G, int group, int S,
+                               int bits) {
+  using T = Tile<TF32>;
+  using E = typename T::E;
+  const unsigned mask = (1u << bits) - 1u;
+  const int g_first = c0 / group;
+  const int ng = (c0 - g_first * group + kBK + group - 1) / group;
+  const int64_t plane = static_cast<int64_t>(Mp) * Gp;
+  for (int e = threadIdx.x; e < T::BM * ng; e += kThreadsNm) {
+    const int r = e / ng, g = g_first + e % ng;
+    const int gc = g * group - c0;  // the group's first column, relative to the step
+    const int lo = max(gc, 0), hi = min(gc + group, kBK);
+    for (int c = lo; c < hi; ++c) *a_elem(A, r, c) = from_float<E>(0.f);
+    if (row0 + r >= Mp || g >= G) continue;
+    const int64_t at = static_cast<int64_t>(row0 + r) * Gp + g;
+    const unsigned packed = bits ? static_cast<uint8_t>(offs[at]) : 0u;
+    for (int s = 0; s < S; ++s) {
+      const float v = widen(vals[s * plane + at]);
+      if (v == 0.f) continue;
+      const int c = gc + static_cast<int>(bits ? (packed >> (s * bits)) & mask
+                                               : static_cast<uint8_t>(offs[s * plane + at]));
+      if (c >= lo && c < hi) *a_elem(A, r, c) = from_float<E>(v);
     }
   }
 }
 
-template <typename VT, bool ROUND, int RPT>
+// cp.async of one part of the step's slots (values or offset bytes) into
+// the slice: nslots x BM segments of `seg` bytes, segment (s, r) from
+// src + s * plane + (row0 + r) * row + b0, in UNIT-byte copies (seg and the
+// segment counts are powers of 2); a copy past the row's `row` bytes or in
+// a row >= Mp is zero-filled.
+template <int UNIT, bool TF32>
+__device__ void stage_part(uint8_t* dst, const uint8_t* src, int64_t plane, int64_t row, int seg,
+                           int nslots, int b0, int row0, int Mp) {
+  constexpr int BM = Tile<TF32>::BM;
+  constexpr int kLogBM = BM == 128 ? 7 : 6;
+  const int nu = seg / UNIT, lnu = __ffs(nu) - 1;
+  for (int e = threadIdx.x; e < nslots * BM * nu; e += kThreadsNm) {
+    const int u = e & (nu - 1), r = (e >> lnu) & (BM - 1), s = e >> (lnu + kLogBM);
+    const int b = b0 + u * UNIT;
+    const bool valid = row0 + r < Mp && b < row;
+    const uint8_t* p = src + s * plane + static_cast<int64_t>(row0 + r) * row + b;
+    gather::cp_async<UNIT>(dst + static_cast<size_t>(e) * UNIT, valid ? p : src, valid);
+  }
+}
+
+// The step's slots, groups [g0, g0 + GK), into a slice: values [S][BM][GK],
+// offset bytes [So][BM][GK].  Gp % 16 == 0, so a 16-byte copy lies wholly
+// inside a row or past it.
+template <bool TF32, typename VT>
+__device__ void stage_slots(uint8_t* slice, const VT* vals, const int8_t* offs, int g0, int GK,
+                            int row0, int Mp, int Gp, int S, int So) {
+  constexpr int BM = Tile<TF32>::BM;
+  const int64_t plane = static_cast<int64_t>(Mp) * Gp;
+  const int vseg = GK * static_cast<int>(sizeof(VT));
+  const auto* vb = reinterpret_cast<const uint8_t*>(vals);
+  const auto* ob = reinterpret_cast<const uint8_t*>(offs);
+  uint8_t* od = slice + static_cast<size_t>(S) * BM * vseg;
+  if (vseg >= 16) {
+    stage_part<16, TF32>(slice, vb, plane * sizeof(VT), Gp * static_cast<int64_t>(sizeof(VT)),
+                         vseg, S, g0 * static_cast<int>(sizeof(VT)), row0, Mp);
+  } else {
+    stage_part<4, TF32>(slice, vb, plane * sizeof(VT), Gp * static_cast<int64_t>(sizeof(VT)),
+                        vseg, S, g0 * static_cast<int>(sizeof(VT)), row0, Mp);
+  }
+  if (GK >= 16) {
+    stage_part<16, TF32>(od, ob, plane, Gp, GK, So, g0, row0, Mp);
+  } else {
+    stage_part<4, TF32>(od, ob, plane, Gp, GK, So, g0, row0, Mp);
+  }
+}
+
+// cp.async of X rows [c0, c0 + kBK) (those < c_end), columns [n0, n0 + BN)
+// (those < ldx) into an fp32 X stage [kBK][LDB]; the rest is zero-filled.
+__device__ void stage_x(float* xs, const float* x, int c0, int c_end, int n0, int ldx) {
+  using T = Tile<true>;
+  constexpr int CPR = T::BN / 4;  // 16-byte copies a row
+  for (int e = threadIdx.x; e < kBK * CPR; e += kThreadsNm) {
+    const int r = e / CPR, c = (e % CPR) * 4;
+    const bool valid = c0 + r < c_end && n0 + c < ldx;
+    const float* src = valid ? x + static_cast<int64_t>(c0 + r) * ldx + n0 + c : x;
+    gather::cp_async<16>(xs + r * T::LDB + c, src, valid);
+  }
+}
+
+// cp.async of bf16 X rows [c0, c0 + kBK) (those < c_end), columns [n0, n0
+// + BN) (those < ldx) into an X stage: BN / 64 blocks [kBK][64], row k of a
+// block 128 bytes, its 16-byte chunk c at chunk c ^ (k % 8) (the 128-byte
+// swizzle of an MN-major wgmma operand).
+template <int BN>
+__device__ void stage_xb(__nv_bfloat16* xs, const __nv_bfloat16* x, int c0, int c_end, int n0,
+                         int ldx) {
+  constexpr int CPR = BN / 8;  // 16-byte copies a row
+  for (int e = threadIdx.x; e < kBK * CPR; e += kThreadsNm) {
+    const int k = e / CPR, cc = e % CPR, c = cc % 8;
+    const bool valid = c0 + k < c_end && n0 + cc * 8 < ldx;
+    const __nv_bfloat16* src = valid ? x + static_cast<int64_t>(c0 + k) * ldx + n0 + cc * 8 : x;
+    gather::cp_async<16>(xs + (cc / 8) * (kBK * 64) + k * 64 + (c ^ (k & 7)) * 8, src, valid);
+  }
+}
+
+// wgmma descriptors of tiles in the 128-byte swizzle (1024-byte aligned):
+// start address, leading and stride byte offsets, swizzle mode 1.  A K-major
+// A tile [rows][64]: leading 16 (unused), stride 1024 (eight 128-byte rows).
+// An MN-major X stage of [64][64] blocks: leading 8192 (from one 64-column
+// block to the next), stride 1024 (eight 128-byte rows of k).
+__device__ __forceinline__ uint64_t swizzle128_desc(const void* tile, uint32_t lead) {
+  const uint64_t a = static_cast<uint64_t>(__cvta_generic_to_shared(tile));
+  return ((a & 0x3FFFF) >> 4) | (uint64_t{lead >> 4} << 16) | (uint64_t{1024 >> 4} << 32) |
+         (uint64_t{1} << 62);
+}
+
+// d[64 x N of the warpgroup] += A[64 x 16] (K-major, descriptor a) .
+// X[16 x N] (MN-major, descriptor b; the last immediate transposes it);
+// asynchronous.  N = 128 or 256.
+__device__ __forceinline__ void wgmma_k16(float (&d)[16][4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_k16(float (&d)[32][4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// Keeps the compiler from moving the accumulators that an asynchronous
+// wgmma reads and writes.
+template <int NJ>
+__device__ __forceinline__ void pin(float (&d)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[j][i])::"memory");
+}
+
+// Issues one step's products of warpgroup wg, acc += A[its 64 rows, 64] .
+// X[64, BN]: four wgmma k16 steps from the A and X stages; returns without
+// waiting for them.
+template <int NJ>
+__device__ __forceinline__ void issue_step(float (&acc)[NJ][4], const __nv_bfloat16* A,
+                                           const __nv_bfloat16* xs, int wg) {
+  pin(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  const uint64_t da = swizzle128_desc(A + wg * 64 * kBK, 16);
+  const uint64_t db = swizzle128_desc(xs, kBK * 128);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_k16(acc, da + 2 * kk, db + 128 * kk);  // 16 columns of A: 32 bytes; 16 rows of X: 2 KB
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  pin(acc);
+}
+
+// Waits until at most N of this warpgroup's wgmma groups are in flight.
+template <int N, int NJ>
+__device__ __forceinline__ void wait_steps(float (&acc)[NJ][4]) {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+  pin(acc);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v as a tf32 pair: hi = tf32(v), lo = tf32(v - hi), both rounded to nearest.
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
+}
+
+// One step's products of an fp32 warp tile by 3xTF32 into fresh registers,
+// then added into acc in fp32.
+__device__ __forceinline__ void step_tf32(float (&acc)[Tile<true>::MT][Tile<true>::NT][4],
+                                          const float* A, const float* X, int wm, int wn,
+                                          int lane) {
+  using T = Tile<true>;
+  const int g = lane / 4, t = lane % 4;
+  float part[T::MT][T::NT][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 8) {
+    unsigned ah[T::MT][4], al[T::MT][4], bh[T::NT][2], bl[T::NT][2];
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt) {
+      const float* p = A + (wm * T::MT * 16 + mt * 16 + g) * T::LDA + kk + t;
+      split_tf32(p[0], ah[mt][0], al[mt][0]);
+      split_tf32(p[8 * T::LDA], ah[mt][1], al[mt][1]);
+      split_tf32(p[4], ah[mt][2], al[mt][2]);
+      split_tf32(p[8 * T::LDA + 4], ah[mt][3], al[mt][3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < T::NT; ++nt) {
+      const float* q = X + (kk + t) * T::LDB + wn * T::NT * 8 + nt * 8 + g;
+      split_tf32(q[0], bh[nt][0], bl[nt][0]);
+      split_tf32(q[4 * T::LDB], bh[nt][1], bl[nt][1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < T::NT; ++nt) {
+        mma_tf32(part[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
+        mma_tf32(part[mt][nt], ah[mt], bl[nt][0], bl[nt][1]);
+        mma_tf32(part[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < T::NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];
+}
+
+// The staged path's slice of one step: values then offset bytes, 16-byte multiple.
+size_t slice_bytes(int bm, int S, int So, int GK, int vsize) {
+  const size_t b = static_cast<size_t>(bm) * GK * (static_cast<size_t>(S) * vsize + So);
+  return (b + 15) / 16 * 16;
+}
+
+// Groups a staged step takes, or 0 when the slots are read from device
+// memory: the group is 2, 4, 8 or 16 (it divides a 16-column span, and a
+// step into a multiple of 4 groups) and Gp is a multiple of 16 (and the
+// planes are 16-byte aligned, checked at launch).
+int staged_groups(int group, int Gp) {
+  return (16 % group == 0 && Gp % 16 == 0) ? kBK / group : 0;
+}
+
+// Dynamic shared memory of a block: the X stages, the A stages and the
+// staged slices (and 1 KB to align the swizzled bf16 X stages to 1024).
+template <bool TF32, int BNB>
+size_t smem_bytes(size_t slice) {
+  using T = Tile<TF32, BNB>;
+  return sizeof(typename T::E) *
+             (static_cast<size_t>(T::XSTAGES) * T::XSTAGE + T::ASTAGES * T::BM * T::LDA) +
+         kRawStages * slice + (TF32 ? 0 : 1024);
+}
+
+template <typename VT, bool TF32, int BNB>
+__global__ void __launch_bounds__(kThreadsNm, 1)
+nm_kernel(const VT* __restrict__ vals, const int8_t* __restrict__ offs,
+          const typename Tile<TF32>::E* __restrict__ x, float* __restrict__ y, int S, int Mp,
+          int Gp, int G, int group, int K, int ldx, int bits, int GK, int slice, int per_split,
+          int atomic) {
+  using T = Tile<TF32, BNB>;
+  using E = typename T::E;
+  uint8_t* base = reinterpret_cast<uint8_t*>(gather::gather_smem);
+  if constexpr (!TF32) {
+    const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(base));
+    base += (1024u - at % 1024u) % 1024u;
+  }
+  E* xs = reinterpret_cast<E*>(base);                 // [T::XSTAGES][XSTAGE]
+  E* as = xs + T::XSTAGES * T::XSTAGE;                  // [T::ASTAGES][BM][LDA]
+  uint8_t* raw = reinterpret_cast<uint8_t*>(as + T::ASTAGES * T::BM * T::LDA);  // [3][slice]
+  const int row0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN;
+  const int depth = G * group;
+  const int n_steps = (depth + kBK - 1) / kBK;
+  const int st0 = min(static_cast<int>(blockIdx.z) * per_split, n_steps);
+  const int n = min(st0 + per_split, n_steps) - st0;  // steps of this block (0: y gets zeros)
+  const int So = bits ? 1 : S;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp / T::WN, wn = warp % T::WN;
+
+  // group Q_i: X of local step i, and the slots of step i + 1 when staged
+  auto issue = [&](int i) {
+    if (i < n) {
+      const int c0 = (st0 + i) * kBK;
+      if constexpr (TF32) {
+        stage_x(xs + (i % T::XSTAGES) * T::XSTAGE, x, c0, min(c0 + kBK, depth), n0, ldx);
+      } else {
+        stage_xb<T::BN>(xs + (i % T::XSTAGES) * T::XSTAGE, x, c0, min(c0 + kBK, depth), n0, ldx);
+      }
+    }
+    if (GK && i + 1 < n) {
+      stage_slots<TF32>(raw + static_cast<size_t>((i + 1) % kRawStages) * slice, vals, offs,
+                        (st0 + i + 1) * GK, GK, row0, Mp, Gp, S, So);
+    }
+  };
+  auto rebuild = [&](int i) {  // A of local step i into its A stage
+    E* a = as + (i % T::ASTAGES) * T::BM * T::LDA;
+    const uint8_t* sl = raw + static_cast<size_t>(i % kRawStages) * slice;
+    const int g0 = (st0 + i) * GK;
+    if (GK == 32) {
+      rebuild_staged<2, TF32, VT>(a, sl, GK, g0, row0, Mp, G, S, bits);
+    } else if (GK == 16) {
+      rebuild_staged<4, TF32, VT>(a, sl, GK, g0, row0, Mp, G, S, bits);
+    } else if (GK == 8) {
+      rebuild_staged<8, TF32, VT>(a, sl, GK, g0, row0, Mp, G, S, bits);
+    } else if (GK == 4) {
+      rebuild_staged<16, TF32, VT>(a, sl, GK, g0, row0, Mp, G, S, bits);
+    } else {
+      rebuild_direct<TF32, VT>(a, vals, offs, (st0 + i) * kBK, row0, Mp, Gp, G, group, S, bits);
+    }
+  };
+
+  float acc[T::MT][T::NT][4] = {};
+  if (n > 0) {
+    if (GK) stage_slots<TF32>(raw, vals, offs, st0 * GK, GK, row0, Mp, Gp, S, So);
+    gather::cp_async_commit();  // Q_-1: the slots of step 0
+    issue(0);
+    gather::cp_async_commit();
+    issue(1);
+    gather::cp_async_commit();
+    gather::cp_async_wait<2>();
+    __syncthreads();
+    rebuild(0);
+    for (int i = 0; i < n; ++i) {
+      gather::cp_async_wait<1>();  // Q_i (X of step i, slots of step i + 1) has landed
+      // this thread's copies and stores are seen by wgmma (the async proxy),
+      // then by every thread; A of step i is written; step i - 2's stages are read
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      issue(i + 2);
+      gather::cp_async_commit();
+      const E* a = as + (i % T::ASTAGES) * T::BM * T::LDA;
+      const E* xt = xs + (i % T::XSTAGES) * T::XSTAGE;
+      if constexpr (TF32) {
+        if (i + 1 < n) rebuild(i + 1);
+        step_tf32(acc, a, xt, wm, wn, lane);
+      } else {  // the tensor cores run step i (and finish i - 1) while the warps
+                // rebuild the A tile of step i + 1
+        issue_step(acc[0], a, xt, warp / 4);
+        if (i + 1 < n) rebuild(i + 1);
+        wait_steps<1>(acc[0]);  // step i - 1 done: its stages are free at the next barrier
+      }
+    }
+    if constexpr (!TF32) wait_steps<0>(acc[0]);
+  }
+
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < T::MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < T::NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + wm * (T::MT * 16) + mt * 16 + g + (i / 2) * 8;
+        const int col = n0 + wn * T::NT * 8 + nt * 8 + 2 * t + i % 2;
+        if (row >= Mp || col >= K) continue;
+        float* dst = y + static_cast<int64_t>(row) * K + col;
+        if (atomic) {
+          atomicAdd(dst, acc[mt][nt][i]);
+        } else {
+          *dst = acc[mt][nt][i];
+        }
+      }
+    }
+  }
+}
+
+template <typename VT, bool TF32, int BNB>
+const void* kernel_of() {
+  return reinterpret_cast<const void*>(nm_kernel<VT, TF32, BNB>);
+}
+
+template <typename VT, bool TF32, int BNB>
+OptIn& optin_of() {  // one per instantiation
+  static OptIn optin;
+  return optin;
+}
+
+template <typename VT, bool TF32, int BNB>
 int launch(const void* vals, const void* offs, const void* x, void* y, int S, int Mp, int Gp,
-           int G, int group, int K, int bits, cudaStream_t stream) {
-  static OptIn optin;  // of this instantiation
-  constexpr int RT = RPT * kRowThreads;
-  const auto kernel = nm_kernel<VT, ROUND, RPT>;
-  const size_t smem = smem_bytes(S, RT, kXRows / group);
-  if (smem > static_cast<size_t>(gather::optin_shared_bytes())) {
-    return static_cast<int>(cudaErrorInvalidValue);
+           int G, int group, int K, int ldx, int bits, int splits, cudaStream_t stream) {
+  using T = Tile<TF32, BNB>;
+  const bool aligned = reinterpret_cast<uintptr_t>(vals) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(offs) % 16 == 0;
+  const int GK = aligned ? staged_groups(group, Gp) : 0;
+  const int So = bits ? 1 : S;
+  int GKs = GK;
+  size_t slice = GK ? slice_bytes(T::BM, S, So, GK, sizeof(VT)) : 0;
+  size_t smem = smem_bytes<TF32, BNB>(slice);
+  const size_t limit = static_cast<size_t>(gather::optin_shared_bytes());
+  if (smem > limit && GKs) {  // the slices of many kept values do not fit: read them directly
+    GKs = 0;
+    slice = 0;
+    smem = smem_bytes<TF32, BNB>(0);
   }
-  if (smem > gather::kDefaultSmem) {
-    const cudaError_t err = optin.ensure(reinterpret_cast<const void*>(kernel));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((Mp + RT - 1) / RT, (K + kKT - 1) / kKT);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  if (smem > limit) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = optin_of<VT, TF32, BNB>().ensure(kernel_of<VT, TF32, BNB>());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_steps = (G * group + kBK - 1) / kBK;
+  const int per = (n_steps + splits - 1) / splits;
+  const dim3 grid((Mp + T::BM - 1) / T::BM, (K + T::BN - 1) / T::BN, splits);
+  nm_kernel<VT, TF32, BNB><<<grid, kThreadsNm, smem, stream>>>(
       static_cast<const VT*>(vals), static_cast<const int8_t*>(offs),
-      static_cast<const float*>(x), static_cast<float*>(y), S, Mp, Gp, G, group, K, bits);
+      static_cast<const typename T::E*>(x), static_cast<float*>(y), S, Mp, Gp, G, group, K, ldx,
+      bits, GKs, static_cast<int>(slice), per, splits > 1);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename VT>
 int launch_vt(const void* vals, const void* offs, const void* x, void* y, int S, int Mp, int Gp,
-              int G, int group, int K, int bits, int round, int rt, cudaStream_t s) {
-  if (rt == 64) {
-    return round ? launch<VT, true, 4>(vals, offs, x, y, S, Mp, Gp, G, group, K, bits, s)
-                 : launch<VT, false, 4>(vals, offs, x, y, S, Mp, Gp, G, group, K, bits, s);
+              int G, int group, int K, int ldx, int bits, int bf16, int splits, int tile_n,
+              cudaStream_t s) {
+  if (!bf16) {
+    return launch<VT, true, 128>(vals, offs, x, y, S, Mp, Gp, G, group, K, ldx, bits, splits, s);
   }
-  if (rt == 32) {
-    return round ? launch<VT, true, 2>(vals, offs, x, y, S, Mp, Gp, G, group, K, bits, s)
-                 : launch<VT, false, 2>(vals, offs, x, y, S, Mp, Gp, G, group, K, bits, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return tile_n == 256
+             ? launch<VT, false, 256>(vals, offs, x, y, S, Mp, Gp, G, group, K, ldx, bits,
+                                      splits, s)
+             : launch<VT, false, 128>(vals, offs, x, y, S, Mp, Gp, G, group, K, ldx, bits,
+                                      splits, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// y [Mp, K] fp32 (written whole); vals [S, Mp, Gp] of val_code 0 fp32, 1
-// bf16, 2 int8; offs int8 [1, Mp, Gp] bit-packed at `bits` bits a slot, or
-// [S, Mp, Gp] when bits is 0; x [G*group, K] fp32, 16-byte aligned.  round:
-// the bf16 mode.  rt: rows per block, 32 or 64.  Returns the cudaError_t of
-// the launch (0 on success).
+// y [Mp, K] fp32: written whole when splits is 1, added into (zeroed by the
+// caller) when the depth is split over `splits` blocks.  vals [S, Mp, Gp] of
+// val_code 0 fp32, 1 bf16, 2 int8; offs int8 [1, Mp, Gp] bit-packed at
+// `bits` bits a slot, or [S, Mp, Gp] when bits is 0.  x is X [G*group,
+// ldx], 16-byte aligned, ldx >= K: bf16 with ldx a multiple of 8 when bf16
+// is 1, else (the fp32 mode) fp32 with ldx a multiple of 4.  tile_n: the
+// columns of a block's tile of y, 128 or 256 (bf16 only; fp32 takes 128).
+// Returns the cudaError_t of the launch (0 on success).
 int nm_spmm_launch(const void* vals, const void* offs, const void* x, void* y, int S, int Mp,
-                   int Gp, int G, int group, int K, int bits, int val_code, int round, int rt,
-                   void* stream) {
+                   int Gp, int G, int group, int K, int ldx, int bits, int val_code, int bf16,
+                   int splits, int tile_n, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (group < 2 || group > kXRows || S < 1 || S > group) {
+  const int vec = bf16 ? 8 : 4;
+  if (group < 2 || group > 128 || S < 1 || S > group || bits < 0 || S * bits > 8 || K < 1 ||
+      ldx < K || ldx % vec || splits < 1 || splits > 65535 || G < 0 || G > Gp ||
+      (tile_n != 128 && (tile_n != 256 || !bf16)) || reinterpret_cast<uintptr_t>(x) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (val_code == 0) return launch_vt<float>(vals, offs, x, y, S, Mp, Gp, G, group, K, bits,
-                                             round, rt, s);
+  if (val_code == 0) return launch_vt<float>(vals, offs, x, y, S, Mp, Gp, G, group, K, ldx, bits,
+                                             bf16, splits, tile_n, s);
   if (val_code == 1) return launch_vt<__nv_bfloat16>(vals, offs, x, y, S, Mp, Gp, G, group, K,
-                                                     bits, round, rt, s);
-  if (val_code == 2) return launch_vt<int8_t>(vals, offs, x, y, S, Mp, Gp, G, group, K, bits,
-                                              round, rt, s);
+                                                     ldx, bits, bf16, splits, tile_n, s);
+  if (val_code == 2) return launch_vt<int8_t>(vals, offs, x, y, S, Mp, Gp, G, group, K, ldx,
+                                              bits, bf16, splits, tile_n, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// What a launch of (val_code, bf16, tile_n) at (S, group, bits, Gp) would
+// use, into out[0..5]: registers a thread, local (spill) bytes a thread,
+// static shared bytes, dynamic shared bytes, groups a staged step takes (0:
+// slots read from device memory) and blocks an SM holds.  Returns a
+// cudaError_t.
+int nm_spmm_info(int val_code, int bf16, int S, int group, int bits, int Gp, int tile_n,
+                 int* out) {
+  const int bn = bf16 ? tile_n : 128;
+  const void* k = nullptr;
+  OptIn* optin = nullptr;
+  int vsize = 0;
+#define NM_KERNEL(VT, CODE)                                                          \
+  if (val_code == CODE) {                                                            \
+    k = !bf16 ? kernel_of<VT, true, 128>()                                           \
+              : bn == 256 ? kernel_of<VT, false, 256>() : kernel_of<VT, false, 128>(); \
+    optin = !bf16 ? &optin_of<VT, true, 128>()                                       \
+                  : bn == 256 ? &optin_of<VT, false, 256>() : &optin_of<VT, false, 128>(); \
+    vsize = sizeof(VT);                                                              \
+  }
+  NM_KERNEL(float, 0)
+  NM_KERNEL(__nv_bfloat16, 1)
+  NM_KERNEL(int8_t, 2)
+#undef NM_KERNEL
+  if (k == nullptr || group < 2 || group > 128 || (bn != 128 && bn != 256)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int bm = bf16 ? Tile<false>::BM : Tile<true>::BM;
+  auto smem_of = [&](size_t slice) {
+    return !bf16 ? smem_bytes<true, 128>(slice)
+                 : bn == 256 ? smem_bytes<false, 256>(slice) : smem_bytes<false, 128>(slice);
+  };
+  int GK = staged_groups(group, Gp);
+  size_t smem = smem_of(GK ? slice_bytes(bm, S, bits ? 1 : S, GK, vsize) : 0);
+  if (smem > static_cast<size_t>(gather::optin_shared_bytes())) {  // as the launch does
+    GK = 0;
+    smem = smem_of(0);
+  }
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = optin->ensure(k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreadsNm, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
+  out[3] = static_cast<int>(smem);
+  out[4] = GK;
+  out[5] = blocks;
+  return 0;
 }
 
 }  // extern "C"

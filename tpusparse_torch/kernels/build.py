@@ -86,6 +86,12 @@ def build(names=SOURCES) -> dict[str, dict]:
         return build_info
 
 
+def library_path(name: str) -> Path:
+    """The built shared library of ``csrc/<name>.cu`` (built on first use)."""
+    library(name)
+    return _lib_path(name)
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu``, built on first use."""
     lib = _libs.get(name)

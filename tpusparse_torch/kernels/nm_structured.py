@@ -21,12 +21,14 @@ plain PyTorch version of the same function:
       with y[r, k] = sum_g sum_s vals[s, r, g] * X[g*group + off_s(r, g), k]
 
 Precision, as the TPU kernel: ``bf16`` rounds the value and X to bf16 and
-sums the exact products in fp32; ``fp32`` is plain fp32; int8 values
+sums the exact products in fp32; ``fp32`` is fp32-accurate; int8 values
 (W8A16) are exact in bf16, so they run the bf16 mode and ``row_scale``
 scales each row afterwards.  The TPU's one-hot decomposition over the
 group's offsets, its 128-lane K padding and its (rb, gt, ktile) tiling are
-Mosaic mechanism: the card kernel reads each slot's offset and loads that X
-row directly, at any K.  The tiling knobs are accepted and change nothing.
+Mosaic mechanism: the card kernel rebuilds dense tiles of the weight in
+shared memory from the slots and multiplies them on the tensor cores (bf16
+mma; fp32 as 3xTF32), at any K.  The tiling knobs are accepted and change
+nothing.
 """
 
 from __future__ import annotations
@@ -40,8 +42,9 @@ import numpy as np
 import torch
 
 from tpusparse_torch.kernels import build
-from tpusparse_torch.kernels.common import (cdiv, launch_checked, prep_x, quantize_rows,
-                                            resolve_device, round_up, sm_count, storage_dtype)
+from tpusparse_torch.kernels.common import (cdiv, launch_checked, pad_dense_cols, prep_x,
+                                            quantize_rows, resolve_device, round_up, sm_count,
+                                            storage_dtype)
 
 PRECISIONS = ("bf16", "fp32")
 
@@ -160,6 +163,12 @@ def nm_format_from_numpy(fields: dict, *, device="cuda", **static) -> NmFormat:
            else list(offs.astype(np.int32)))
     if any(d.min(initial=0) < 0 or d.max(initial=0) >= group for d in dec):
         raise ValueError("NmFormat offsets out of range")
+    # the kernel stores each kept value into its place: two at one offset
+    # of a group would not add up
+    key = np.where(vals != 0, np.stack(dec), -1 - np.arange(n_keep).reshape(-1, 1, 1))
+    key.sort(axis=0)
+    if (key[1:] == key[:-1]).any():
+        raise ValueError("NmFormat: two kept values of a group at one offset")
     vt = torch.tensor(vals.astype(np.float32) if dt == torch.bfloat16 else vals)
     return NmFormat(vals=vt.to(dev, dt), offs=torch.tensor(offs, device=dev),
                     shape=(m, n_cols), n_keep=n_keep, group=group, packed_bits=bits,
@@ -206,12 +215,47 @@ def _lib():
     """csrc/nm_structured.cu, built at first use, with its C signature."""
     lib = build.library("nm_structured")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.nm_spmm_launch.argtypes = [ptr] * 4 + [i32] * 10 + [ptr]
+    lib.nm_spmm_launch.argtypes = [ptr] * 4 + [i32] * 12 + [ptr]
     lib.nm_spmm_launch.restype = i32
+    lib.nm_spmm_info.argtypes = [i32] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    lib.nm_spmm_info.restype = i32
     return lib
 
 
 VAL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+#: the kernel's depth step (csrc/nm_structured.cu: kBK)
+DEPTH_STEP = 64
+
+
+def tile_of(mode: str, k: int) -> tuple[int, int]:
+    """The kernel's tile of y (rows, columns) for ``mode`` at K = ``k``: in
+    bf16 256 columns past K = 128 (half the A rebuilds and slot reads per
+    product), else 128 (csrc/nm_structured.cu: Tile)."""
+    return (128, 256 if k > 128 else 128) if mode == "bf16" else (64, 128)
+
+
+def depth_splits(m_pad: int, k: int, depth: int, mode: str, sms: int) -> int:
+    """Blocks the kernel splits the depth over: 1 where the tiles of y fill
+    the card's ``sms`` SMs (the kernel holds one block an SM), else as many
+    as keep the blocks within one wave, each at least 4 depth steps."""
+    bm, bn = tile_of(mode, k)
+    tiles = cdiv(m_pad, bm) * cdiv(k, bn)
+    return max(1, min(sms // max(tiles, 1), cdiv(depth, DEPTH_STEP) // 4))
+
+
+def nm_kernel_info(vals, offs, *, group, packed_bits, mode, k) -> dict:
+    """What a launch of the kernel on this format, mode and K uses on the
+    current card: registers and spilled (local) bytes a thread, static and
+    dynamic shared bytes, groups a staged depth step takes (0: the slots are
+    read from device memory), blocks an SM holds and the tile's columns."""
+    out = (ctypes.c_int * 6)()
+    tile_n = tile_of(mode, k)[1]
+    rc = _lib().nm_spmm_info(VAL_CODES[vals.dtype], int(mode == "bf16"), vals.shape[0], group,
+                             packed_bits, vals.shape[2], tile_n, out)
+    if rc:
+        raise RuntimeError(f"nm_spmm_info failed with CUDA error {rc}")
+    return dict(zip(("registers", "spill_bytes", "static_shared_bytes", "dynamic_shared_bytes",
+                     "staged_groups", "blocks_per_sm"), out), tile_n=tile_n)
 
 
 def nm_rows_cuda(vals, offs, x, *, group, packed_bits, mode):
@@ -234,12 +278,17 @@ def nm_rows_cuda(vals, offs, x, *, group, packed_bits, mode):
         raise ValueError(f"nm kernel: mode {mode!r}, group {group}, X {tuple(x.shape)}, "
                          f"G_pad {gp}")
     n, k = x.shape
-    y = torch.empty((mp, k), dtype=torch.float32, device=dev)
-    # rows per block: 64, or 32 where 64 would leave the card's SMs short
-    rt = 64 if cdiv(mp, 64) * cdiv(k, 64) >= 2 * sm_count(dev) else 32
-    launch_checked(_lib().nm_spmm_launch, "nm_spmm_launch", (vals, offs, x, y),
-                   (S, mp, gp, n // group, group, k, packed_bits, VAL_CODES[vals.dtype],
-                    int(mode == "bf16"), rt))
+    # X as the tensor cores take it, rows padded to 16 bytes for cp.async:
+    # bf16 (rounded to nearest even, as the TPU's wrapper casts it) or fp32
+    if mode == "bf16":
+        xk = pad_dense_cols(x, round_up(k, 8)).to(torch.bfloat16).contiguous()
+    else:
+        xk = pad_dense_cols(x, round_up(k, 4)).contiguous()
+    splits = depth_splits(mp, k, n, mode, sm_count(dev))
+    y = (torch.zeros if splits > 1 else torch.empty)((mp, k), dtype=torch.float32, device=dev)
+    launch_checked(_lib().nm_spmm_launch, "nm_spmm_launch", (vals, offs, xk, y),
+                   (S, mp, gp, n // group, group, k, xk.shape[1], packed_bits,
+                    VAL_CODES[vals.dtype], int(mode == "bf16"), splits, tile_of(mode, k)[1]))
     nm_rows_cuda.launches += 1
     return y
 

@@ -17,6 +17,11 @@ plain PyTorch version of the same function:
   tile_rows_cuda        / tile_rows_plain         replace ``_tile_kernel``
   tile_stream_rows_cuda / tile_stream_rows_plain  replace ``_tile_kernel_stream``
 
+The resident kernel runs K-tiles of 8, 16 or 32 columns into a shared row
+tile; the stream kernel walks the format once per panel of up to 512
+columns (``stream_geometry``), sums each row run in registers and adds it
+into y_rows with float4 atomics.
+
 ``tile_spmm`` picks between them by the JAX package's rule (X of more than
 6 MB in the TPU's packed layout streams).  A wrapper launches its kernel for
 CUDA tensors and raises on any failure; only CPU tensors take the plain
@@ -27,6 +32,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+
+import numpy as np
 
 import torch
 
@@ -47,6 +54,38 @@ def choose_kt(k: int) -> int:
     """The kernels' K-tile for K columns: 8, 16 or 32 (wider K runs
     several K-tiles)."""
     return 8 if k <= 8 else 16 if k <= 16 else 32
+
+
+#: the stream kernel's panel widths (columns a slot stream carries)
+STREAM_PANELS = (8, 16, 32, 64, 128, 256, 512)
+#: slots a block of the stream kernel takes, in whole chunks
+STREAM_BLOCK_SLOTS = 1024
+
+
+def stream_geometry(kp: int, g: int) -> tuple[int, int]:
+    """The stream kernel's (panel width, chunks per block) for X of ``kp``
+    columns and chunks of ``g`` slots: the narrowest panel that holds kp
+    (512 and several panels past it), and whole chunks of about
+    ``STREAM_BLOCK_SLOTS`` slots a block."""
+    pw = next((w for w in STREAM_PANELS if w >= kp), STREAM_PANELS[-1])
+    return pw, max(1, STREAM_BLOCK_SLOTS // g)
+
+
+def row_runs(fmt: TileFormat) -> tuple[int, int]:
+    """(row runs, live slots) of a tile format: a run is a maximal sequence
+    of live slots (value not zero, chunk before ``nc_p``) of one row in a
+    program's chunk order, which the stream kernel sums in registers and
+    adds into y_rows once (a block's or stream's boundary may cut a run)."""
+    vals = fmt.vals.detach().cpu().numpy()
+    lrow = fmt.lrow.cpu().numpy()
+    nc_p = fmt.nc_p.cpu().numpy().reshape(-1)
+    P, NC, _ = vals.shape
+    live = (vals != 0) & (np.arange(NC)[None, :, None] < nc_p[:, None, None])
+    runs = 0
+    for p in range(P):
+        rows = lrow[p][live[p]]
+        runs += int(rows.size > 0) + int(np.count_nonzero(rows[1:] != rows[:-1]))
+    return runs, int(live.sum())
 
 
 def default_ktile(k: int) -> int:
@@ -93,19 +132,32 @@ def _lib():
     for fn in (lib.tile_spmm_launch, lib.tile_stream_launch):
         fn.argtypes = [ptr] * 7 + [i32] * 10 + [ptr]
         fn.restype = i32
-    lib.tile_uses_shared_tile.argtypes = [i32, i32, i32]
+    lib.tile_uses_shared_tile.argtypes = [i32, i32]
     lib.tile_uses_shared_tile.restype = i32
+    lib.tile_stream_info.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
+    lib.tile_stream_info.restype = i32
     return lib
 
 
-def tile_uses_shared_tile(rb: int, kt: int, *, stream: bool = False) -> bool:
-    """Whether a launch of (rb, kt) keeps its row tile in shared memory
-    (False: the kernel's global-atomic branch).  ``stream`` counts the
-    stream kernel's staging ring too."""
-    return bool(_lib().tile_uses_shared_tile(rb, kt, int(stream)))
+def tile_uses_shared_tile(rb: int, kt: int) -> bool:
+    """Whether a launch of the resident kernel at (rb, kt) keeps its row
+    tile in shared memory (False: its global-atomic branch)."""
+    return bool(_lib().tile_uses_shared_tile(rb, kt))
 
 
-def _launch(name, chunk_tile, cols, lrow, vals, nc_p, x, rb, ct, kt, mode):
+def tile_stream_info(pw: int, mode: str) -> dict:
+    """The stream kernel of panel ``pw`` in ``mode`` on the current card:
+    registers a thread, spilled (local) bytes a thread, static shared bytes
+    and blocks an SM holds."""
+    out = (ctypes.c_int * 4)()
+    rc = _lib().tile_stream_info(pw, int(mode == "bf16"), out)
+    if rc:
+        raise RuntimeError(f"tile_stream_info failed with CUDA error {rc}")
+    return dict(zip(("registers", "spill_bytes", "shared_bytes", "blocks_per_sm"), out))
+
+
+def _checked(chunk_tile, cols, lrow, vals, nc_p, x, kt, mode):
+    """Checks the operands of either kernel; returns the format's (P, NC, G)."""
     P, NC, G = cols.shape
     check_operands(x, (("chunk_tile", chunk_tile, torch.int32, (P, 1, NC)),
                        ("cols", cols, torch.int32, (P, NC, G)),
@@ -114,27 +166,35 @@ def _launch(name, chunk_tile, cols, lrow, vals, nc_p, x, rb, ct, kt, mode):
                        ("nc_p", nc_p, torch.int32, (P, 1, 1))), ndim=2)
     if kt not in (8, 16, 32) or mode not in PRECISIONS or x.shape[1] % kt:
         raise ValueError(f"tile kernel: kt={kt}, mode={mode}, X {tuple(x.shape)}")
-    n, kp = x.shape
-    y = torch.zeros((P * rb, kp), dtype=torch.float32, device=x.device)
-    launch_checked(getattr(_lib(), name), name, (chunk_tile, cols, lrow, vals, nc_p, x, y),
-                   (P, NC, G, rb, ct, n, kp, kt, int(mode == "bf16"),
-                    launch_splits(x.device, P * (kp // kt), NC)))
-    return y
+    return P, NC, G
 
 
 def tile_rows_cuda(chunk_tile, cols, lrow, vals, nc_p, x, *, rb, ct, kt, mode):
     """CUDA ``_tile_kernel`` (tpusparse/kernels/tile_onehot.py:44): y_rows
     [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in {8, 16, 32}."""
-    y = _launch("tile_spmm_launch", chunk_tile, cols, lrow, vals, nc_p, x, rb, ct, kt, mode)
+    P, NC, G = _checked(chunk_tile, cols, lrow, vals, nc_p, x, kt, mode)
+    n, kp = x.shape
+    y = torch.zeros((P * rb, kp), dtype=torch.float32, device=x.device)
+    launch_checked(_lib().tile_spmm_launch, "tile_spmm_launch",
+                   (chunk_tile, cols, lrow, vals, nc_p, x, y),
+                   (P, NC, G, rb, ct, n, kp, kt, int(mode == "bf16"),
+                    launch_splits(x.device, P * (kp // kt), NC)))
     tile_rows_cuda.launches += 1
     return y
 
 
 def tile_stream_rows_cuda(chunk_tile, cols, lrow, vals, nc_p, x, *, rb, ct, kt, mode):
     """CUDA ``_tile_kernel_stream`` (tpusparse/kernels/tile_onehot.py:119):
-    the same y_rows, each slot's X row slice staged in shared memory by
-    cp.async a few iterations ahead of its use."""
-    y = _launch("tile_stream_launch", chunk_tile, cols, lrow, vals, nc_p, x, rb, ct, kt, mode)
+    the same y_rows, the format walked once per panel of columns
+    (``stream_geometry``; ``kt`` only checks X's padding), each row run
+    summed in registers and added into y_rows with float4 atomics."""
+    P, NC, G = _checked(chunk_tile, cols, lrow, vals, nc_p, x, kt, mode)
+    n, kp = x.shape
+    pw, cpb = stream_geometry(kp, G)
+    y = torch.zeros((P * rb, kp), dtype=torch.float32, device=x.device)
+    launch_checked(_lib().tile_stream_launch, "tile_stream_launch",
+                   (chunk_tile, cols, lrow, vals, nc_p, x, y),
+                   (P, NC, G, rb, ct, n, kp, pw, int(mode == "bf16"), cpb))
     tile_stream_rows_cuda.launches += 1
     return y
 
