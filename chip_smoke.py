@@ -54,8 +54,13 @@ entry points a user calls:
   whole training step timed against the same step on the dense weight.
 
 Every result is checked against the host oracle; the kernels are timed
-against their bound, their plain versions and cuSPARSE.  Any failure
-raises and the exit code is not 0.  It exits non-zero before printing any
+against their bound, their plain versions and cuSPARSE (the kernels line's
+``ms``, ``plain_ms`` and ``library_ms`` are device times a call from the
+profiler, ``time_fn_ms`` the wrapper's back-to-back time, host included),
+and the tile and stripe libraries' SASS is read kernel by kernel: the tile
+kernel (#5, #6) and the nested stripe kernel (#11) must add by float4
+reductions and hold no shared atomic.  Any failure raises and the exit
+code is not 0.  It exits non-zero before printing any
 result when no CUDA device is present or the package cannot be imported.
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists every ported kernel as JSON.
@@ -153,7 +158,7 @@ def main() -> int:
         return 2
     try:
         import tpusparse_torch
-        from tpusparse_torch.bench.harness import gflops, time_fn
+        from tpusparse_torch.bench.harness import device_time_fn, gflops, time_fn
         from tpusparse_torch.format import pack_tile
         from tpusparse_torch.generator import build_stripe_plan, prepare_stripe_format
         from tpusparse_torch.io import builder
@@ -257,29 +262,59 @@ def main() -> int:
                                        "error", "warning")):
                 log(f"[build]   {line.strip()}")
 
-    # what the redesigned kernels compiled to: tensor-core wgmma (HGMMA, the
-    # bf16 and int8 modes) and mma (HMMA, 3xTF32) in the N:M library, the
-    # atomics of the tile library (the resident kernel's shared adds, the
-    # stream kernel's vector reductions)
-    for lib_name, opcodes in (("nm_structured", ("HGMMA", "HMMA")),
-                              ("tile_onehot", ("ATOMS", "ATOMG", "ATOM.", "RED"))):
+    # what the redesigned kernels compiled to, function by function: tensor-core
+    # wgmma (HGMMA, the bf16 and int8 modes) and mma (HMMA, 3xTF32) in the
+    # N:M library; the atomics of the tile and stripe libraries, where the
+    # stream kernels of #5/#6 and #11 must add by vector reductions (REDG
+    # ...F32x4) and hold no shared atomic (ATOMS: a CAS loop for fp32 adds),
+    # which the stripe kernel #10 keeps
+    def sass_by_kernel(lib_name, opcodes):
         sass = subprocess.run([os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                                             "bin", "cuobjdump"), "-sass",
                                str(build.library_path(lib_name))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
-        found = {}
+        found, fn = {}, "?"
         for line in sass.splitlines():  # "/*0090*/  @P0 HMMA.16816.F32.BF16 R4, ... ;"
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                continue
             words = line.split("*/", 1)[-1].split()
             if words and words[0].startswith("@"):
                 words = words[1:]
             if words and words[0].startswith(opcodes):
-                found[words[0]] = found.get(words[0], 0) + 1
-        log(f"[build] {lib_name} SASS: " + (", ".join(f"{op} x{n}" for op, n in
-                                                     sorted(found.items())) or "none of "
-                                           + "/".join(opcodes)))
-        if lib_name == "nm_structured" and not all(any(op.startswith(c) for op in found)
-                                                   for c in ("HGMMA", "HMMA")):
-            raise AssertionError("the N:M library lacks its tensor-core wgmma or mma")
+                ops = found.setdefault(fn, {})
+                ops[words[0]] = ops.get(words[0], 0) + 1
+        return found
+
+    def kernel_family(mangled, names):
+        return next((n for n in names if n in mangled), "other")
+
+    sass_ops = {}
+    for lib_name, opcodes, names in (
+            ("nm_structured", ("HGMMA", "HMMA"), ("nm_kernel",)),
+            ("tile_onehot", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("tile_stream_kernel",)),
+            ("stripe_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"),
+             ("stripe_nested_kernel", "stripe_kernel"))):
+        by_family = {}
+        for fn, ops in sass_by_kernel(lib_name, opcodes).items():
+            fam = by_family.setdefault(kernel_family(fn, names), {})
+            for op, n in ops.items():
+                fam[op] = fam.get(op, 0) + n
+        sass_ops[lib_name] = by_family
+        for fam, ops in sorted(by_family.items()):
+            log(f"[build] {lib_name} SASS, {fam}: " + ", ".join(
+                f"{op} x{n}" for op, n in sorted(ops.items())))
+    nm_ops = sass_ops["nm_structured"].get("nm_kernel", {})
+    if not all(any(op.startswith(c) for op in nm_ops) for c in ("HGMMA", "HMMA")):
+        raise AssertionError("the N:M library lacks its tensor-core wgmma or mma")
+    for lib_name, fam in (("tile_onehot", "tile_stream_kernel"),
+                          ("stripe_gather", "stripe_nested_kernel")):
+        ops = sass_ops[lib_name].get(fam, {})
+        cas = sum(n for op, n in ops.items() if op.startswith("ATOMS"))
+        log(f"[build] {fam} ({lib_name}): {cas} ATOMS.CAS / shared atomic sites, "
+            f"{sum(n for op, n in ops.items() if 'F32x4' in op)} float4 reduction sites")
+        if cas or not any("F32x4" in op for op in ops):
+            raise AssertionError(f"{fam}: shared atomics, or no float4 reduction: {ops}")
 
     # ---- 3. each kernel against its plain version, on the card
     def check_vs_plain(which, label, desc, got, want, scale, tol):
@@ -400,13 +435,12 @@ def main() -> int:
                                         **kw)
         want = plain(start, fmt.cols, fmt.lrow, v, fmt.nc_p, x, mode=mode, **kw)
         scale = plain(start, fmt.cols, fmt.lrow, v.abs(), fmt.nc_p, x.abs(), mode="fp32", **kw)
-        if which == "tile_stream":
+        if is_tile:  # #5 and #6: one kernel, the format walked once per panel
             pw, cpb = tile.stream_geometry(x.shape[1], fmt.chunk_g)
             branch = f"panel {pw} x{-(-x.shape[1] // pw)}, {cpb} chunk(s) a block"
         else:
-            shared = (tile.tile_uses_shared_tile(fmt.rb, kt) if is_tile else
-                      span.span_uses_shared_tile(fmt.rb, kt, g=fmt.chunk_g, ct=fmt.ct,
-                                                 stream=stream))
+            shared = span.span_uses_shared_tile(fmt.rb, kt, g=fmt.chunk_g, ct=fmt.ct,
+                                                stream=stream)
             branch = "shared tile" if shared else "global atomics"
         if which == "span_stream":
             rows = span.span_stream_slice_rows(fmt.rb, kt, fmt.chunk_g, fmt.ct)
@@ -424,12 +458,13 @@ def main() -> int:
         rb_t, ct_t, g_t = (1024, 1024, 512) if head else (128, 128, 64)
         ftile = pack_tile(ms_, 0, out_rows=m_.shape[0], rb=rb_t, ct=ct_t, g=g_t, device=dev)
         for mode, k in (("fp32x2", 8), ("fp32", 32), ("bf16", 16), ("fp32x2", 5),
-                        ("fp32x2", 100), ("fp32x2", 256)):
+                        ("fp32x2", 100), ("fp32x2", 256), ("fp32x2", 1), ("fp32x2", 2),
+                        ("fp32x2", 37), ("fp32x2", 520)):
             win_vs_plain("tile", label, ftile, k, mode)
         for mode, k in (("fp32x2", 256), ("bf16", 8), ("fp32", 5), ("fp32x2", 100)):
             win_vs_plain("tile_stream", label, ftile, k, mode)
         ftile_g = pack_tile(ms_, 0, out_rows=m_.shape[0], rb=2048, ct=ct_t, g=g_t, device=dev)
-        win_vs_plain("tile", label, ftile_g, 32, "fp32x2")          # 256 KB: global atomics
+        win_vs_plain("tile", label, ftile_g, 32, "fp32x2")          # rb 2048
         win_vs_plain("tile_stream", label, ftile_g, 32, "fp32x2")
         rb_s, ct_s, g_s = (512, 1024, 512) if head else (64, 128, 32)
         fspan = span.pack_span(m_, rb=rb_s, ct=ct_s, g=g_s, keep_perm=True, device=dev)
@@ -477,7 +512,14 @@ def main() -> int:
         got = kernels[which]["wrapper"](fmt.cols, fmt.lrow, fmt.vals, *extra, x, rb=rb, kt=kt)
         want = kernels[which]["plain"](fmt.cols, fmt.lrow, fmt.vals, *extra, x, rb=rb)
         scale = kernels[which]["plain"](fmt.cols, fmt.lrow, fmt.vals.abs(), *extra, x.abs(), rb=rb)
-        branch = "shared tile" if stripe.stripe_uses_shared_tile(rb, kt) else "global atomics"
+        if which == "stripe_nested":  # blocks of slots, one walk per panel
+            kp4, pw = stripe.nested_geometry(x.shape[1])
+            ranges = stripe.nested_slot_ranges(fmt.wnz.cpu(), fmt.stripe_nnz)
+            branch = (f"panel {pw} x{-(-kp4 // pw)}, {int((ranges[..., 1] > ranges[..., 0]).sum())}"
+                      f" of {ranges.shape[0] * ranges.shape[1]} blocks hold slots")
+        else:
+            branch = ("shared tile" if stripe.stripe_uses_shared_tile(rb, kt)
+                      else "global atomics")
         check_vs_plain(which, label,
                        f"{type(fmt).__name__} kt={kt} K={k} vals {fmt.vals.dtype} rb={rb} "
                        f"P={fmt.cols.shape[0]} C={fmt.cols.shape[2]} "
@@ -501,9 +543,11 @@ def main() -> int:
             fs, _ = prepare_stripe_format(m_, work_per_stripe=work, val_dtype=vd, device=dev)
             for k in (1, 4, 8, 40):
                 stripe_vs_plain(label, fs, k)
-        for sched in (Schedule(family="stripe_nested", work_per_block=4096, unroll=8),
-                      Schedule(family="nnz_segment", work_per_block=2048, unroll=8)):
-            for k in (1, 8, 32):
+        for sched, ks in ((Schedule(family="stripe_nested", work_per_block=4096, unroll=8),
+                           (1, 2, 5, 8, 32, 37, 256, 520)),
+                          (Schedule(family="nnz_segment", work_per_block=2048, unroll=8),
+                           (1, 8, 32))):
+            for k in ks:
                 stripe_vs_plain(label, build_plan(m_, sched).formats[0], k)
     log(f"[kernel] radix and stripe checks (packing included): {time.perf_counter() - t0:.1f} s")
 
@@ -656,6 +700,13 @@ def main() -> int:
                           lambda: functools.partial(tile.tile_spmm, f256), xs[32], ref_h32,
                           (M, 32))
     win_vs_plain("tile", "headline", f256, 32, "fp32x2")
+    for k_ in (8, 32, 512):  # the resident wrapper's panels: tune rows, P6, P13's layer
+        pw_, cpb_ = tile.stream_geometry(k_, f256.chunk_g)
+        info = tile.tile_stream_info(pw_, "fp32x2")
+        log(f"[kernel] tile_rows_cuda at K={k_}: panel {pw_} (one walk of the format, where "
+            f"the K-tiles of 32 before took {-(-k_ // 32)}), {cpb_} chunks a block; "
+            f"{info['registers']} registers, {info['spill_bytes']} spill bytes, "
+            f"{info['shared_bytes']} shared bytes, {info['blocks_per_sm']} blocks an SM")
 
     # ---- 5. tune at the headline size: K = 8 (P3: dg, dgt, span and tile
     # rows) and K = 256 (P4: the tile rows)
@@ -898,6 +949,20 @@ def main() -> int:
             log(f"[p10]   {name}: {fmt_geometry(f)}, {f.memory_bytes / 2**20:.1f} MiB")
             fmt_vs_plain("headline", f, 8)
     assert kernels["span"]["paths"]["bucketed"] == p10_plans["bucketed"].meta["n_subs"] == 2
+    f_nest = p10_plans["stripe_nested"].formats[0]
+    runs_n, live_n = stripe.nested_row_runs(f_nest)
+    ranges_n = stripe.nested_slot_ranges(f_nest.wnz.cpu(), f_nest.stripe_nnz)
+    held = ranges_n[..., 1] - ranges_n[..., 0]
+    for k_ in (8, 32):
+        pw_ = stripe.nested_geometry(k_)[1]
+        info = stripe.stripe_nested_info(pw_)
+        log(f"[kernel] stripe_nested_rows_cuda at P10, K={k_}: panel {pw_}, blocks of "
+            f"{stripe.NESTED_BLOCK_SLOTS} slots: {int((held > 0).sum())} of {held.size} hold "
+            f"slots (the largest stripe {int((held[held.sum(1).argmax()] > 0).sum())}); "
+            f"{info['registers']} registers, {info['spill_bytes']} spill bytes, "
+            f"{info['shared_bytes']} shared bytes, {info['blocks_per_sm']} blocks an SM; "
+            f"{runs_n} row runs for {live_n} live slots ({live_n / max(runs_n, 1):.2f} a run), "
+            f"each summed in registers and added by float4 atomicAdd")
 
     # P11: brick_ell (the tuner's row) on a banded matrix, whose bricks keep
     # their columns together, so the chunk blocks pass its gate
@@ -1396,6 +1461,15 @@ def main() -> int:
         csr_cache[id(a)] = (a, csr)  # holds a, so its id is not reused
         return csr
 
+    def dev_ms(name, fn, x, host_ms):
+        """The device time a call of ``fn(x)`` in ms, or, where the profiler
+        sees no device time, ``host_ms`` (time_fn's reading), said in the log."""
+        try:
+            return device_time_fn(fn, x) * 1e3
+        except RuntimeError as e:
+            log(f"[yardstick]   {name}: {e}; its time_fn reading stands in")
+            return host_ms
+
     def time_cold(fn, x, iters=20):
         """Median seconds of one call with L2 cold: a 1 GiB buffer, twenty
         times the 50 MB L2, is rewritten before each call, outside its
@@ -1434,6 +1508,9 @@ def main() -> int:
                                  ("library", lib, x2), ("whole", whole, xd)):
                 runs[name].append(time_fn(f, arg))
         t = {name: float(np.median(v)) for name, v in runs.items()}
+        # the card's own time a call, host excluded: the kernels line's ms
+        dev_t = {name: dev_ms(name, f, arg, t[name] * 1e3) for name, f, arg in
+                 (("kernel", kern, xk), ("plain", plain, xk), ("library", lib, x2))}
         t["kernel_cold"] = time_cold(kern, xk)
         t["library_cold"] = time_cold(lib, x2)
         torch.cuda.reset_peak_memory_stats()
@@ -1458,14 +1535,17 @@ def main() -> int:
             f"{t['library'] * 1e3:.4f} ms")
         log(f"[yardstick]   readings (ms): kernel {readings('kernel')}; plain "
             f"{readings('plain')}; whole {readings('whole')}; cuSPARSE {readings('library')}")
+        log(f"[yardstick]   device time a call (profiler, 20 calls; the wrapper's launch and "
+            f"fills): kernel {dev_t['kernel']:.4f} ms, plain {dev_t['plain']:.4f} ms, cuSPARSE "
+            f"{dev_t['library']:.4f} ms")
         log(f"[yardstick]   cold L2 (median of 20): kernel {t['kernel_cold'] * 1e3:.4f} ms, "
             f"cuSPARSE {t['library_cold'] * 1e3:.4f} ms")
-        log(f"[yardstick]   bound {b_ms:.4f} ms ({b_by}, K={kb}); kernel at "
-            f"{100 * b_ms / k_ms:.1f}% of it; format {mib:.1f} MiB"
+        log(f"[yardstick]   bound {b_ms:.4f} ms ({b_by}, K={kb}); kernel's device time at "
+            f"{100 * b_ms / dev_t['kernel']:.1f}% of it; format {mib:.1f} MiB"
             + (f", pack {pack:.2f} s" if pack is not None else "")
             + f"; peak device memory of one call {peak / 2**20:.1f} MiB")
-        return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": t["library"] * 1e3}
+        return {"ms": dev_t["kernel"], "plain_ms": dev_t["plain"], "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": dev_t["library"], "time_fn_ms": k_ms}
 
     def yardstick(which, label, fmt, a, k, x, whole, pack=None, bound_k=None):
         """``measure`` for a dg or dgt kernel on one format (X padded to
@@ -1589,9 +1669,19 @@ def main() -> int:
                    mat, 8, xs[8], p10_plans["nnz_segment"], p10_pack["nnz_segment"])
     rows_yardstick("stripe", "262144^2, spmv_fn('stripe') (P12), x as 8 columns", f_stv, big, 1,
                    xv, spmv_fns["spmv_stripe_262k"], pack_s["spmv_stripe_262k"], kt=8, bound_k=1)
-    # the resident kernel on P1's product: what staging X buys at K = 256
+    # #5 on P1's product: the kernel #6 runs there, through the resident
+    # wrapper (each K-tile of 32 walked the format before)
     win_yardstick("tile", "headline, P1's product on the resident kernel", [(f256, 0)], mat,
                   256, xs[256], tile256)
+    # #5 at P13's pruned layer, from_dense(k_hint=512): the resident wrapper
+    # at K = 512; the library call is cuSPARSE's SpMM of W
+    plan_pw = build_plan(pw, default_schedule(pw, 512))
+    win_yardstick("tile", "P13 from_dense(90 % pruned 4096^2, k_hint=512) layer",
+                  [(plan_pw.formats[0], 0)], pw, 512, np.ascontiguousarray(xk13, np.float32),
+                  plan_pw.fn)
+    # #11 at K = 32 on P10's format
+    rows_yardstick("stripe_nested", "headline, stripe_nested (P10)", f_nest, mat, 32, xs[32],
+                   p10_plans["stripe_nested"], p10_pack["stripe_nested"])
     win_yardstick("span", "headline, best span tune row", [(f_span, 0)], mat, 8, xs[8],
                   best_span.fn, best_by_family["span_onehot"]["pack_seconds"])
     win_yardstick("tile", "headline, best tile tune row", [(best_tile.formats[0], 0)], mat, 8,
@@ -1625,6 +1715,9 @@ def main() -> int:
             for n, (f, a) in libs.items():
                 runs[n].append(time_fn(f, a))
         t = {n: float(np.median(v)) * 1e3 for n, v in runs.items()}
+        lib0, (lib_f, lib_a) = next(iter(libs.items()))
+        dev_t = {name: dev_ms(name, f, arg, t[name]) for name, f, arg in
+                 (("kernel", kern, xk), ("plain", plain, xk), (lib0, lib_f, lib_a))}
         cold = time_cold(kern, xk) * 1e3
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
         b_ms, b_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1634,12 +1727,15 @@ def main() -> int:
             f"{t['whole']:.4f} ms; " + ", ".join(f"{n} {t[n]:.4f} ms" for n in libs))
         log(f"[yardstick]   readings (ms): kernel "
             + " ".join(f"{v * 1e3:.4f}" for v in runs["kernel"]))
+        log(f"[yardstick]   device time a call (profiler, 20 calls): kernel "
+            f"{dev_t['kernel']:.4f} ms, plain {dev_t['plain']:.4f} ms, {lib0} "
+            f"{dev_t[lib0]:.4f} ms")
         log(f"[yardstick]   cold L2 (median of 20): kernel {cold:.4f} ms")
         log(f"[yardstick]   bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
             f"{t_bytes:.4f} ms, {flops / 1e9:.2f} GFLOP at {peak_name} = {t_ops:.4f} ms); "
-            f"kernel at {100 * b_ms / t['kernel']:.1f}% of it")
-        return {"ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": t[next(iter(libs))]}
+            f"kernel's device time at {100 * b_ms / dev_t['kernel']:.1f}% of it")
+        return {"ms": dev_t["kernel"], "plain_ms": dev_t["plain"], "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": dev_t[lib0], "time_fn_ms": t["kernel"]}
 
     # #12 at P13's shapes: K = 128 (nm_spmm) and K = 512 (the layer), bf16
     # and fp32 modes; the library call is cuBLAS's dense bf16 product
@@ -1790,6 +1886,15 @@ def main() -> int:
             functools.partial(torch.sparse.mm, pwt_csr), dyk_t)},
         plane_bytes + 4 * slots1 + rows_bytes + 4 * n_in * k1, flops1, *fp32_peak)
 
+    def t1_forward(_):
+        with torch.no_grad():
+            return layer1(x1)
+
+    # #7 at T1: the forward's span kernel at K = 512 on the layer's planes,
+    # against cuSPARSE's SpMM of W; "whole call" is the layer's forward
+    win_yardstick("span", f"T1 forward, pruned 4096^2 planes {geo1}", [(f1, 0)], pw, k1, xk1,
+                  t1_forward)
+
     class Bf16Mm(torch.autograd.Function):
         """x @ W^T on bf16 operands with an fp32 result, both gradients the
         same way (matmul_f32: cuBLAS with out_dtype=float32)."""
@@ -1880,6 +1985,10 @@ def main() -> int:
     profile_call("P8 spmm 262144^2 K=4 (radix_span)", plan_b4.fn,
                  torch.as_tensor(xb4, device=dev), calls=10)
     profile_call("P13 SparseLinear.from_nm(bf16), x [4, 128, 4096]", layers13["bf16"], x13)
+    profile_call("P13 SparseLinear.from_dense(k_hint=512) (tile_onehot, #5), x [4, 128, 4096]",
+                 layer_pw, x13)
+    profile_call("P10 stripe_nested K=8 (#11)", p10_plans["stripe_nested"],
+                 torch.as_tensor(xs[8], device=dev))
     profile_call("P15 hybrid_cols C=512 (bf16 panel + dg remainder), column-skewed, K=8",
                  hyb_plans[512], torch.as_tensor(xs[8], device=dev))
     for name, f in steps_t.items():

@@ -228,8 +228,8 @@ def _window_vs_plain(which, fmt, k, dev, stream, mode, vals=None):
 @pytest.mark.parametrize("mode,k,rb,ct,g,stream", [
     ("fp32x2", 8, 1024, 1024, 512, False), ("fp32", 32, 1024, 512, 256, False),
     ("bf16", 16, 512, 1024, 256, False), ("fp32x2", 5, 512, 1024, 256, False),
-    ("fp32x2", 100, 1024, 1024, 512, False),     # K-tiled: four tiles of 32
-    ("fp32x2", 32, 2048, 1024, 512, False),      # 256 KB tile: the global-atomic branch
+    ("fp32x2", 100, 1024, 1024, 512, False),     # Kp 128: one panel of 128
+    ("fp32x2", 32, 2048, 1024, 512, False),      # rb 2048: y_rows in device memory
     ("fp32x2", 256, 1024, 1024, 512, True), ("bf16", 8, 1024, 1024, 512, True),
     ("fp32", 5, 512, 512, 256, True), ("fp32x2", 32, 2048, 1024, 512, True),
     ("bf16", 256, 1024, 1024, 512, True), ("fp32", 256, 2048, 1024, 512, True),
@@ -238,21 +238,30 @@ def _window_vs_plain(which, fmt, k, dev, stream, mode, vals=None):
     ("fp32x2", 64, 1024, 1024, 128, True),       # a 64-column panel, 16 lanes a stream
 ])
 def test_tile_kernels_match_plain(cuda, mat, mode, k, rb, ct, g, stream):
+    # both wrappers launch one kernel: no row tile, runs go to y_rows in
+    # device memory whatever rb, the format walked once per panel
     fmt = pack_tile(create_init_metadata_set(mat), 0, out_rows=4096, rb=rb, ct=ct, g=g,
                     device=cuda)
     assert _window_vs_plain("tile", fmt, k, cuda, stream, mode) <= 1e-5
     kt = tile.choose_kt(min(k, 32))
-    if stream:  # no row tile: runs go to y_rows in device memory, whatever rb
-        info = tile.tile_stream_info(tile.stream_geometry(-(-k // kt) * kt, g)[0], mode)
-        assert info["spill_bytes"] == 0 and info["shared_bytes"] == 0
-        assert info["blocks_per_sm"] >= 2
-    else:
-        assert tile.tile_uses_shared_tile(rb, kt) == (rb * kt * 4 <= 200 * 1024)
+    info = tile.tile_stream_info(tile.stream_geometry(-(-k // kt) * kt, g)[0], mode)
+    assert info["spill_bytes"] == 0 and info["shared_bytes"] == 0
+    assert info["blocks_per_sm"] >= 2
 
 
+@pytest.mark.parametrize("k", [1, 2, 5, 8, 37, 256, 520])
+def test_tile_resident_kernel_widths(cuda, mat, k):
+    # #5 at every panel: K 1-8 on the 8-column panel (X padded to kt 8),
+    # 37 on 64 (Kp 64), 256 on one panel, 520 on two of 512 (Kp 544)
+    fmt = pack_tile(create_init_metadata_set(mat), 0, out_rows=4096, rb=1024, ct=1024, g=512,
+                    device=cuda)
+    assert _window_vs_plain("tile", fmt, k, cuda, False, "fp32x2") <= 1e-5
+
+
+@pytest.mark.parametrize("stream", [False, True])
 @pytest.mark.parametrize("case", ["longest_row", "empty_program"])
 @pytest.mark.parametrize("mode,k", [("fp32x2", 256), ("bf16", 264), ("fp32", 8)])
-def test_tile_stream_kernel_edges(cuda, case, mode, k):
+def test_tile_stream_kernel_edges(cuda, case, mode, k, stream):
     # longest_row: row 700 holds every column, so its chunks are one row
     # (one run of 512 slots each) beside the power-law rows; empty_program:
     # rows 1024-2047 (program 1 at rb 1024) hold no nonzero
@@ -278,7 +287,7 @@ def test_tile_stream_kernel_edges(cuda, case, mode, k):
         assert any(one_row)
     runs, live = tile.row_runs(fmt)
     assert live == a.nnz and runs < live
-    assert _window_vs_plain("tile", fmt, k, cuda, True, mode) <= 1e-5
+    assert _window_vs_plain("tile", fmt, k, cuda, stream, mode) <= 1e-5
 
 
 @pytest.mark.parametrize("mode,k,rb,ct,g,stream", [
@@ -359,7 +368,7 @@ def test_tile_plan_and_spmv_span_on_card(cuda, mat):
 
 @pytest.mark.parametrize("rb,kt", [(512, 32), (1792, 8)])
 def test_opt_in_is_per_library(cuda, mat, rb, kt):
-    # dg, tile and span each launch gather_kernel from their own library; an
+    # dg, radix and span each launch gather_kernel from their own library; an
     # opt-in past 48 KB made by one (dg first) must not be taken for another's
     x = torch.as_tensor(np.random.default_rng(13).standard_normal((4096, kt)),
                         dtype=torch.float32, device=cuda)
@@ -368,9 +377,11 @@ def test_opt_in_is_per_library(cuda, mat, rb, kt):
     torch.testing.assert_close(dg.dg_rows_cuda(*args, rb=rb, kt=kt, mode="fp32x2"),
                                dg.dg_rows_plain(*args, rb=rb, kt=kt, mode="fp32x2"),
                                rtol=1e-5, atol=1e-4)
-    t = pack_tile(create_init_metadata_set(mat), 0, out_rows=4096, rb=rb, ct=512, g=256,
-                  device=cuda)
-    assert _window_vs_plain("tile", t, kt, cuda, False, "fp32") <= 1e-5
+    r = radix.pack_radix(mat, rb=rb, S=128, g=512, kt=kt, device=cuda)
+    args = (r.c0, r.cols, r.lrow, r.vals, r.nc_p, x)
+    torch.testing.assert_close(radix.radix_rows_cuda(*args, rb=rb, kt=kt, mode=r.mode),
+                               radix.radix_rows_plain(*args, rb=rb, kt=kt, mode=r.mode),
+                               rtol=1e-5, atol=1e-4)
     s = span.pack_span(mat, rb=rb, ct=1024, g=512, device=cuda)
     assert _window_vs_plain("span", s, kt, cuda, False, "fp32") <= 1e-5
 
@@ -421,13 +432,14 @@ def test_stripe_kernel_matches_plain(cuda, mat, work, val_dtype, k):
     assert stripe.stripe_uses_shared_tile(rb, kt) == (rb * kt * 4 <= 200 * 1024)
 
 
-@pytest.mark.parametrize("work,k", [(4096, 8), (4096, 1), (60000, 32)])
-def test_stripe_nested_kernel_matches_plain(cuda, mat, work, k):
-    fmt = build_plan(mat, Schedule(family="stripe_nested", work_per_block=work, unroll=8),
-                     device=cuda).formats[0]
+def _nested_vs_plain(fmt, k, dev):
+    """Max error of the nested kernel against its plain version at K = k
+    (X padded to the stripe K-tile), relative to |A|·|x|; checks that the
+    wrapper counted one launch."""
     kt = stripe.choose_kt(k)
-    x = torch.as_tensor(np.random.default_rng(16).standard_normal((4096, kt)),
-                        dtype=torch.float32, device=cuda)
+    x = torch.as_tensor(np.random.default_rng(16).standard_normal((fmt.shape[1], k)),
+                        dtype=torch.float32, device=dev)
+    x = dg.pad_dense_cols(x, -(-k // kt) * kt).contiguous()
     args = (fmt.cols, fmt.lrow, fmt.vals, fmt.wnz, fmt.wrow, x)
     rb = fmt.max_rows_per_stripe
     before = stripe.stripe_nested_rows_cuda.launches
@@ -436,7 +448,86 @@ def test_stripe_nested_kernel_matches_plain(cuda, mat, work, k):
     want = stripe.stripe_nested_rows_plain(*args, rb=rb)
     scale = stripe.stripe_nested_rows_plain(fmt.cols, fmt.lrow, fmt.vals.abs(), fmt.wnz,
                                             fmt.wrow, x.abs(), rb=rb)
-    assert _err(got, want, scale, cuda) <= 1e-5
+    assert got.shape == want.shape
+    return _err(got, want, scale, dev)
+
+
+@pytest.mark.parametrize("work,k", [(4096, 1), (4096, 2), (4096, 5), (4096, 8), (4096, 37),
+                                    (4096, 256), (4096, 520), (60000, 32)])
+def test_stripe_nested_kernel_matches_plain(cuda, mat, work, k):
+    # panels of 4 (K 1-2, X read padded to 4 columns; K 5 at kt 8), 8, 64
+    # (K 37), 256, two of 512 (K 520, Kp 544) and 32 on a 60000-slot stripe
+    fmt = build_plan(mat, Schedule(family="stripe_nested", work_per_block=work, unroll=8),
+                     device=cuda).formats[0]
+    assert _nested_vs_plain(fmt, k, cuda) <= 1e-5
+    info = stripe.stripe_nested_info(stripe.nested_geometry(-(-k // stripe.choose_kt(k))
+                                                            * stripe.choose_kt(k))[1])
+    assert info["spill_bytes"] == 0 and info["shared_bytes"] == 0
+    assert info["blocks_per_sm"] >= 2
+
+
+def nested_by_hand(device, long_row=4471, n=4096, seed=41):
+    """A NestedStripeFormat (W = 4, unroll 8, rb = 64) built slot by slot:
+    stripe 0 holds a row of ``long_row`` slots cut over sub-blocks 0, 2 and
+    3 (sub-block 1 between them is empty) and so over several blocks of the
+    nested kernel, beside short rows; stripe 1 is all padding (values 0
+    inside its sub-blocks); stripe 2 holds no sub-block slot (wnz all 0);
+    stripe 3 holds short rows and a value past its last sub-block, which is
+    not walked."""
+    from tpusparse_torch.format import nested_format_from_numpy
+
+    rng = np.random.default_rng(seed)
+    third = long_row // 3
+
+    def rows(*runs):  # (lrow, count) runs -> lrow array
+        return np.concatenate([np.zeros(0)] + [np.full(c, r) for r, c in runs]).astype(np.int32)
+
+    # per stripe: sub-blocks as (wrow, lrow array, all values zero)
+    stripes = [
+        [(0, rows((0, 3), (1, 1), (2, 5), (3, third)), False), (3, rows(), False),
+         (3, rows((0, long_row - 2 * third), (1, 2)), False),
+         (3, rows((0, third), (7, 4)), False)],
+        [(0, rows((0, 5), (1, 3)), True), (2, rows((0, 9)), True), (5, rows(), True),
+         (5, rows(), True)],
+        [(0, rows(), False)] * 4,
+        [(0, rows((0, 2), (1, 7)), False), (2, rows((0, 1), (3, 30)), False),
+         (6, rows((0, 6)), False), (9, rows((1, 11)), False)],
+    ]
+    P, W, rb = len(stripes), 4, 64
+    sizes = [sum(-(-len(lr) // 8) * 8 for _, lr, _ in s) for s in stripes]
+    C = max(sizes) + 8                                  # room past the last sub-block
+    cols = np.zeros((P, 1, C), np.int32)
+    lrow = np.zeros((P, 1, C), np.int32)
+    vals = np.zeros((P, 1, C), np.float32)
+    wnz = np.zeros((P, 1, W + 1), np.int32)
+    wrow = np.zeros((P, 1, W + 1), np.int32)
+    for p, subs in enumerate(stripes):
+        pos = 0
+        for w, (r0, lr, zero) in enumerate(subs):
+            wnz[p, 0, w], wrow[p, 0, w] = pos, r0
+            cols[p, 0, pos:pos + len(lr)] = rng.integers(0, n, len(lr))
+            lrow[p, 0, pos:pos + len(lr)] = lr
+            if not zero:
+                vals[p, 0, pos:pos + len(lr)] = rng.standard_normal(len(lr))
+            pos += -(-len(lr) // 8) * 8
+        wnz[p, 0, W], wrow[p, 0, W] = pos, rb
+    vals[3, 0, sizes[3]] = 7.0                          # past the last sub-block
+    fields = dict(cols=cols, lrow=lrow, vals=vals, wnz=wnz, wrow=wrow,
+                  slot_of_origrow=np.arange(P * rb, dtype=np.int32))
+    return nested_format_from_numpy(fields, device=device, n_stripes=P, stripe_nnz=C,
+                                    n_warps=W, max_rows_per_stripe=rb, shape=(P * rb, n),
+                                    nnz_real=int(np.count_nonzero(vals)))
+
+
+@pytest.mark.parametrize("k", [1, 2, 8, 37, 256, 520])
+def test_stripe_nested_kernel_edges(cuda, k):
+    fmt = nested_by_hand(cuda)
+    ranges = stripe.nested_slot_ranges(fmt.wnz.cpu(), fmt.stripe_nnz)
+    assert (ranges[0, :, 1] > ranges[0, :, 0]).sum() >= 5     # the long row over 5 blocks
+    assert not (ranges[2, :, 1] > ranges[2, :, 0]).any()       # the empty stripe
+    runs, live = stripe.nested_row_runs(fmt)
+    assert live == int(fmt.vals.count_nonzero()) - 1 and runs < live
+    assert _nested_vs_plain(fmt, k, cuda) <= 1e-5
 
 
 @pytest.fixture(scope="module")

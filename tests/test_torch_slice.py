@@ -81,10 +81,11 @@ def test_read_mtx_rejects_malformed(text):
 
 
 def test_time_fn_refuses_a_cpu_output():
-    from tpusparse_torch.bench.harness import time_fn, time_fn_host
+    from tpusparse_torch.bench.harness import device_time_fn, time_fn, time_fn_host
 
-    with pytest.raises(RuntimeError, match="times the card"):
-        time_fn(lambda v: v * 2, torch.ones(4))
+    for timer in (time_fn, device_time_fn):
+        with pytest.raises(RuntimeError, match="times the card"):
+            timer(lambda v: v * 2, torch.ones(4))
     assert time_fn_host(lambda v: v * 2, torch.ones(4), iters=2, warmup=1) > 0
 
 

@@ -201,20 +201,109 @@ def test_pack_stripe_nested_equals_jax(unroll):
     check_result(y, ref, rtol=1e-5)
 
 
-def test_stripe_nested_plain_matches_nested_call():
-    jmat, tmat, x = _case(seed=9)
-    jfmt, _ = _nested(jmat, tmat)
+def _hand_nested():
+    """tests/test_torch_gpu.py's hand-built nested format at a CPU size: a
+    row of 100 slots over sub-blocks 0, 2 and 3 of stripe 0 (sub-block 1
+    empty), an all-padding stripe, an empty stripe, a value past the last
+    sub-block of stripe 3."""
+    from test_torch_gpu import nested_by_hand
+
+    return nested_by_hand("cpu", long_row=100, n=400)
+
+
+@pytest.mark.parametrize("case,k", [("packed", 8), ("by_hand", 1), ("by_hand", 5),
+                                    ("by_hand", 37)])
+def test_stripe_nested_plain_matches_nested_call(case, k):
+    # the JAX kernel (interpret mode) and the port's plain version on the
+    # packer's format and on one whose longest row crosses sub-blocks
+    if case == "packed":
+        jmat, tmat, _ = _case(seed=9)
+        jfmt, _ = _nested(jmat, tmat)
+        arrays = {f: np.asarray(getattr(jfmt, f)) for f in tformat.NESTED_FIELDS}
+        t = tformat.nested_format_from_numpy(arrays, device="cpu",
+                                             **{f: getattr(jfmt, f) for f in NESTED_STATIC})
+        unroll = 4
+    else:
+        t = _hand_nested()
+        arrays = {f: getattr(t, f).numpy() for f in tformat.NESTED_FIELDS}
+        unroll = 8
+    x = np.random.default_rng(k).standard_normal((t.shape[1], k)).astype(np.float32)
     rows_j = np.asarray(jsg._stripe_nested_call(
-        jfmt.cols, jfmt.lrow, jfmt.vals, jfmt.wnz, jfmt.wrow, x, n_stripes=jfmt.n_stripes,
-        stripe_nnz=jfmt.stripe_nnz, n_warps=jfmt.n_warps, rb=jfmt.max_rows_per_stripe,
-        ktile=8, unroll=4, interpret=True))
-    t = tformat.nested_format_from_numpy(
-        {f: np.asarray(getattr(jfmt, f)) for f in tformat.NESTED_FIELDS}, device="cpu",
-        **{f: getattr(jfmt, f) for f in NESTED_STATIC})
+        arrays["cols"], arrays["lrow"], arrays["vals"], arrays["wnz"], arrays["wrow"], x,
+        n_stripes=t.n_stripes, stripe_nnz=t.stripe_nnz, n_warps=t.n_warps,
+        rb=t.max_rows_per_stripe, ktile=k, unroll=unroll, interpret=True))
     rows_t = tsg.stripe_nested_rows_plain(t.cols, t.lrow, t.vals, t.wnz, t.wrow,
                                           torch.from_numpy(x), rb=t.max_rows_per_stripe)
-    ref = spmm_reference(jmat, x.astype(np.float64))
-    np.testing.assert_allclose(rows_t.numpy(), rows_j, rtol=0, atol=1e-5 * np.abs(ref).max())
+    scale = tsg.stripe_nested_rows_plain(t.cols, t.lrow, t.vals.abs(), t.wnz, t.wrow,
+                                         torch.from_numpy(np.abs(x)), rb=t.max_rows_per_stripe)
+    np.testing.assert_allclose(rows_t.numpy(), rows_j, rtol=0,
+                               atol=1e-5 * max(float(scale.max()), 1.0))
+
+
+def _nested_formats():
+    jmat, tmat, _ = _case(seed=14)
+    return {"packed": _nested(jmat, tmat, unroll=8)[1], "by_hand": _hand_nested()}
+
+
+@pytest.mark.parametrize("bs", [8, 24, 1024])
+def test_nested_slot_ranges_cover_walked_slots(bs):
+    # the nested kernel's blocks: together they take every slot inside a
+    # sub-block exactly once, and nothing before wnz[0] or past wnz[W]
+    for name, fmt in _nested_formats().items():
+        wnz = fmt.wnz.numpy().reshape(fmt.n_stripes, -1)
+        ranges = tsg.nested_slot_ranges(fmt.wnz, fmt.stripe_nnz, bs)
+        assert ranges.shape == (fmt.n_stripes, -(-fmt.stripe_nnz // bs), 2), name
+        for p in range(fmt.n_stripes):
+            taken = np.zeros(fmt.stripe_nnz, np.int64)
+            for lo, hi in ranges[p]:
+                taken[lo:max(lo, hi)] += 1
+            want = (np.arange(fmt.stripe_nnz) >= wnz[p, 0]) & (np.arange(fmt.stripe_nnz) < wnz[p, -1])
+            np.testing.assert_array_equal(taken, want.astype(np.int64), err_msg=f"{name} {p}")
+
+
+def test_sub_block_lookup_is_searchsorted():
+    # a lane's binary search and cursor give searchsorted's sub-block for
+    # every slot of every block range and every start, empty sub-blocks too
+    for name, fmt in _nested_formats().items():
+        wnz = fmt.wnz.numpy().reshape(fmt.n_stripes, -1)
+        for p in range(fmt.n_stripes):
+            lo_all, hi_all = int(wnz[p, 0]), int(wnz[p, -1])
+            starts = sorted({lo_all, *range(lo_all, hi_all, 7),
+                             *(int(v) for v in wnz[p, :-1] if v < hi_all)})
+            for lo in starts:
+                want = np.searchsorted(wnz[p], np.arange(lo, hi_all), side="right") - 1
+                np.testing.assert_array_equal(tsg.sub_block_of(wnz[p], lo, hi_all), want,
+                                              err_msg=f"{name} stripe {p} from {lo}")
+        assert (np.diff(wnz, axis=1) == 0).any() or name == "packed"
+
+
+def test_nested_row_runs_counts_runs_of_live_slots():
+    for name, fmt in _nested_formats().items():
+        runs, live = tsg.nested_row_runs(fmt)
+        # every stripe's slots in order, skipping zeros and slots outside
+        # its sub-blocks; a run goes on across a sub-block boundary
+        wnz = fmt.wnz.numpy().reshape(fmt.n_stripes, -1)
+        wrow = fmt.wrow.numpy().reshape(fmt.n_stripes, -1)
+        want_runs = want_live = 0
+        for p in range(fmt.n_stripes):
+            prev = None
+            for w in range(fmt.n_warps):
+                for i in range(wnz[p, w], wnz[p, w + 1]):
+                    if fmt.vals[p, 0, i] != 0:
+                        row = int(wrow[p, w] + fmt.lrow[p, 0, i])
+                        want_runs += row != prev
+                        want_live += 1
+                        prev = row
+        assert (runs, live) == (want_runs, want_live), name
+        assert runs < live
+    assert tsg.nested_row_runs(_hand_nested()) == (13, 172)
+
+
+@pytest.mark.parametrize("kp,want", [(1, (4, 4)), (2, (4, 4)), (4, (4, 4)), (8, (8, 8)),
+                                     (40, (40, 64)), (256, (256, 256)), (544, (544, 512))])
+def test_nested_geometry(kp, want):
+    # X of 1 or 2 columns read padded to 4; the narrowest panel past that
+    assert tsg.nested_geometry(kp) == want
 
 
 def test_pack_segment_and_segment_spmm_match_jax():

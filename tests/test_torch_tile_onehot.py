@@ -129,6 +129,29 @@ def test_tile_stream_matches_jax_stream_call(precision):
     check_result(unpack_slots(rows_t, tfmt.slot_of_origrow).numpy(), ref, rtol=1e-5)
 
 
+@pytest.mark.parametrize("k", [256, 520])
+def test_tile_rows_plain_matches_tile_call(k):
+    # the JAX resident kernel by a direct call at wide K (K-tiles of 128,
+    # X padded to whole tiles and whole column tiles), and the port's plain
+    # version, which the card's kernel is held to at every panel
+    jmat, tmat, x = _case(k=k, seed=15)
+    jfmt, _ = jprepare(jmat, rb=64, ct=64, g=32)
+    tfmt = pack_tile(tms(tmat), 0, out_rows=150, rb=64, ct=64, g=32, device="cpu")
+    kp = -(-k // 128) * 128
+    xp = np.pad(x, ((0, 3 * 64 - 130), (0, kp - k)))
+    rows_j = np.asarray(jtile._tile_call(
+        jfmt.chunk_tile, jfmt.cols, jfmt.lrow, jfmt.vals, xp, n_programs=jfmt.n_programs,
+        nc=jfmt.n_chunks, g=32, rb=64, ct=64, ktile=128, mode="fp32", unroll=1,
+        interpret=True))
+    rows_t = ttile.tile_rows_plain(tfmt.chunk_tile, tfmt.cols, tfmt.lrow, tfmt.vals,
+                                   tfmt.nc_p, torch.from_numpy(x), rb=64, ct=64, kt=32,
+                                   mode="fp32")
+    ref = spmm_reference(jmat, x.astype(np.float64))
+    np.testing.assert_allclose(rows_t.numpy(), rows_j[:, :k], rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    check_result(unpack_slots(rows_t, tfmt.slot_of_origrow).numpy(), ref, rtol=1e-5)
+
+
 def test_build_tile_plan_matches_jax():
     jmat, tmat, x = _case(k=12, seed=9)
     jplan = jbuild_tile_plan(jmat, rb=64, ct=32, g=32, precision="fp32")

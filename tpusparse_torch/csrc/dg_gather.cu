@@ -47,7 +47,7 @@ int dg_spmm_launch(const void* c0, const void* cols, const void* lrow, const voi
                    int N, int Kp, int kt, int bf16, int splits, void* stream) {
   if (kt == 1) return static_cast<int>(cudaErrorInvalidValue);
   const gather::WindowSlots slots{static_cast<const int*>(c0), static_cast<const int*>(cols),
-                                  static_cast<const int*>(lrow), 1, N};
+                                  static_cast<const int*>(lrow), N};
   return gather::launch_window(slots, vals, nc_p, x, y, P, NC, G, rb, Kp, kt, bf16, splits,
                                stream);
 }
@@ -57,7 +57,7 @@ int dg_spmv_launch(const void* c0, const void* cols, const void* lrow, const voi
                    const void* nc_p, const void* x, void* y, int P, int NC, int G, int rb,
                    int N, int splits, void* stream) {
   const gather::WindowSlots slots{static_cast<const int*>(c0), static_cast<const int*>(cols),
-                                  static_cast<const int*>(lrow), 1, N};
+                                  static_cast<const int*>(lrow), N};
   return gather::launch_window(slots, vals, nc_p, x, y, P, NC, G, rb, 1, 1, 0, splits, stream);
 }
 

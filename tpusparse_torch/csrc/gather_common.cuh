@@ -1,6 +1,6 @@
 // gather_common.cuh - the gather machinery that dg_gather.cu,
-// dgt_gather.cu, tile_onehot.cu, span_gather.cu and radix_gather.cu share,
-// and the shared-memory helpers stripe_gather.cu uses.  The formats
+// dgt_gather.cu, span_gather.cu and radix_gather.cu share, and the
+// shared-memory helpers stripe_gather.cu's stripe kernel uses.  The formats
 // differ only in how a slot names its column of X and its row of y_rows;
 // everything else is here:
 //
@@ -16,11 +16,10 @@
 //       into, the same kernel adds every product straight into y_rows with
 //       global atomics (SHARED_TILE false).
 //   Slots  the format's decode: Slots::chunk(c) reads what a chunk shares
-//       (dg, span: its window start; tile: its column tile; dgt: its
-//       tiles' window bases), and the chunk's decode maps slot s at flat
-//       index i to (col, row); it returns false for a slot that must be
-//       skipped.  WindowSlots below is the decode of the three formats
-//       whose slot names start[chunk] * scale + cols.
+//       (dg, span, radix: its window start; dgt: its tiles' window bases),
+//       and the chunk's decode maps slot s at flat index i to (col, row); it
+//       returns false for a slot that must be skipped.  WindowSlots below is
+//       the decode of the formats whose slot names start[chunk] + cols.
 //   launch_tiled  picks the shared-tile or the global-atomic instantiation
 //       and launches it, opting into more than 48 KB of dynamic shared
 //       memory once per kernel and device; launch_window does so for
@@ -109,15 +108,13 @@ __device__ __forceinline__ bool chunk_range(const int* nc_p, int p, int splits, 
   return j0 < j1;
 }
 
-// A slot of a window format: column start[chunk] * scale + cols, row lrow.
-// dg and span store each chunk's window start column (scale 1); tile stores
-// each chunk's column tile (scale ct).  A column at or past N is skipped; a
-// checked format has none, so X is never read past N.
+// A slot of a window format: column start[chunk] + cols, row lrow (dg, span
+// and radix store each chunk's window start column).  A column at or past N
+// is skipped; a checked format has none, so X is never read past N.
 struct WindowSlots {
   const int* start;  // [P * NC]
   const int* cols;   // [P * NC * G]
   const int* lrow;   // [P * NC * G]
-  int scale;
   int N;
 
   struct Chunk {
@@ -132,7 +129,7 @@ struct WindowSlots {
     }
   };
   __device__ __forceinline__ Chunk chunk(int64_t c) const {
-    return {static_cast<int64_t>(start[c]) * scale, cols, lrow, N};
+    return {static_cast<int64_t>(start[c]), cols, lrow, N};
   }
 };
 

@@ -22,7 +22,7 @@
 //
 // Design (simple and right first).  The slot decode is dg's and span's
 // (column c0 + cols, row lrow), so this is gather_common.cuh's
-// gather_kernel with the WindowSlots decode at scale 1.  What radix adds is
+// gather_kernel with the WindowSlots decode.  What radix adds is
 // its own K-tiles: spmm's default takes radix only at K = 2 to 4, where the
 // window kernels' KT of 8 would pad X two to four times and multiply the
 // per-slot atomics alike.  So KT runs 1, 2, 4, 8, 16, 32; below 4 one thread
@@ -50,7 +50,7 @@ int radix_spmm_launch(const void* c0, const void* cols, const void* lrow, const 
                       const void* nc_p, const void* x, void* y, int P, int NC, int G, int rb,
                       int N, int Kp, int kt, int bf16, int splits, void* stream) {
   const gather::WindowSlots slots{static_cast<const int*>(c0), static_cast<const int*>(cols),
-                                  static_cast<const int*>(lrow), 1, N};
+                                  static_cast<const int*>(lrow), N};
   const auto* v = static_cast<const float*>(vals);
   const auto* n = static_cast<const int*>(nc_p);
   const auto* x_ = static_cast<const float*>(x);

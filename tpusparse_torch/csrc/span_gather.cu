@@ -24,7 +24,7 @@
 // Design (simple and right first).
 //   span_spmm_launch: the span decode is dg's (column c0 + cols, row lrow),
 //   so this is gather_common.cuh's gather_kernel with the WindowSlots
-//   decode at scale 1, as dg_gather.cu launches it.  The value plane is its
+//   decode, as dg_gather.cu launches it.  The value plane is its
 //   own pointer, so a caller's plane costs no copy.
 //   span_stream_kernel: the TPU variant walked chunks on the grid and
 //   fetched each chunk's index and value planes by DMA.  Here a block walks
@@ -195,7 +195,7 @@ int span_spmm_launch(const void* c0, const void* cols, const void* lrow, const v
                      int N, int Kp, int kt, int bf16, int splits, void* stream) {
   if (kt == 1) return static_cast<int>(cudaErrorInvalidValue);
   const gather::WindowSlots slots{static_cast<const int*>(c0), static_cast<const int*>(cols),
-                                  static_cast<const int*>(lrow), 1, N};
+                                  static_cast<const int*>(lrow), N};
   return gather::launch_window(slots, vals, nc_p, x, y, P, NC, G, rb, Kp, kt, bf16, splits,
                                stream);
 }

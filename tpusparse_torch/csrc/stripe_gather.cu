@@ -8,44 +8,62 @@
 // each slot's global column, stripe-local row and value (padding: value 0,
 // column a real one).  For each stripe p and slot i whose value v is not 0:
 //     y_slots[p*rb + lrow[p,i], t*KT + k] += v * X[cols[p,i], t*KT + k]
-// for every K-tile t and k < KT, rb the most rows a stripe holds.  Every
-// entry of y_slots is written (zero where no slot adds), so y_slots needs no
-// zero fill.  The segment path passes its SegmentFormat (lrow = segment id
-// within the block, rb = max_segments) to the same launch.
+// for every K-tile t and k < KT, rb the most rows a stripe holds.  The
+// stripe kernel writes every entry of y_slots (zero where no slot adds), so
+// its y_slots needs no zero fill.  The segment path passes its SegmentFormat
+// (lrow = segment id within the block, rb = max_segments) to the same launch.
 // NestedStripeFormat adds wnz/wrow [P,1,W+1]: the stripe's warp sub-block w
-// holds slots [wnz[w], wnz[w+1]) whose rows are wrow[w] + lrow.
+// holds slots [wnz[w], wnz[w+1]) whose rows are wrow[w] + lrow; slots past
+// wnz[W] are not walked.
 //
 // Precision.  The value (fp32, or bf16 widened exactly) times X in fp32,
 // summed in fp32, as the TPU kernel's `v.astype(f32) * x` (acc_dtype f32).
 //
-// Design (simple and right first).  Stripes are row-aligned: no row of y
-// belongs to two stripes, so one block per (stripe, K-tile) owns its rows
-// outright.  That is the reference's own total-reduce template
-// (stripe_gather.py:3-7; SURVEY.md section 2.4): the block keeps the
-// stripe's [rb, KT] row tile in shared memory, its threads stride the
-// stripe's slots (KT/4 threads per slot, each one 16-byte load of X; below
-// KT = 4 one thread loads the slot's whole row) and add with shared-memory
-// atomics, and the tile is stored to y once, with plain stores.  lrow is
-// loaded, not computed: the TPU's model-driven index compression
-// (tpusparse/config.py:59) changes no Y and is not ported.  Where the tile
-// passes the opt-in limit the same kernel zeroes its rows of y and adds with
-// global atomics; still no other block touches them.  The nested kernel maps
-// each WARP sub-block onto a CUDA warp, the reference's TBLOCK > WARP loop
-// (stripe_gather.py:158-162): warp w of the block takes sub-blocks w, w + 8,
-// ... and its lanes stride the sub-block's slots.
+// Design of the stripe kernel (simple and right first).  Stripes are
+// row-aligned: no row of y belongs to two stripes, so one block per
+// (stripe, K-tile) owns its rows outright.  That is the reference's own
+// total-reduce template (stripe_gather.py:3-7; SURVEY.md section 2.4): the
+// block keeps the stripe's [rb, KT] row tile in shared memory, its threads
+// stride the stripe's slots (KT/4 threads per slot, each one 16-byte load
+// of X; below KT = 4 one thread loads the slot's whole row) and add with
+// shared-memory atomics, and the tile is stored to y once, with plain
+// stores.  lrow is loaded, not computed: the TPU's model-driven index
+// compression (tpusparse/config.py:59) changes no Y and is not ported.
+// Where the tile passes the opt-in limit the same kernel zeroes its rows of
+// y and adds with global atomics; still no other block touches them.
+//
+// Design of the nested kernel.  One block a stripe, a WARP sub-block to a
+// CUDA warp, as the reference's TBLOCK > WARP loop reads, leaves the card
+// empty: config #1 has 133 stripes for 132 SMs, one of 20000 slots, and a
+// warp would walk a sub-block of thousands of slots alone; a shared row
+// tile would add per-slot shared atomics, CAS loops for fp32 on this card.
+// So this kernel cuts every stripe into blocks of `bs` slots (about 1024)
+// and walks them with row_runs.cuh's streams, as the tile kernel does:
+//   - grid (slot range, stripe, panel of PW columns); a range past the
+//     stripe's last sub-block exits at once, so the largest stripe fills
+//     about 20 blocks and the small ones one or two;
+//   - a lane finds its first slot's sub-block by binary search on wnz and
+//     then keeps a cursor (its range rises), through empty sub-blocks too;
+//     wnz/wrow stay in device memory, read through L1 (W + 1 entries a
+//     stripe), so W is not bounded by shared memory;
+//   - the packer keeps COO order within a sub-block, so a row's slots are
+//     consecutive; a run, which may cross a sub-block boundary, is summed in
+//     registers and added once by float4 atomicAdd into the zeroed y_slots;
+//   - Kp is a multiple of 4 (the wrapper pads X of 1 or 2 columns to 4: a
+//     gathered row costs one 32-byte sector either way); PW is the
+//     narrowest of 4..512 that holds Kp.
 //
 // Bound.  Memory: 12 bytes per slot (cols, lrow, vals; 10 with bf16 values),
 // the X rows gathered and y_slots written once; 2 flops per live slot and
 // column.  See PERF.md for its time against the bound on the card.
 
 #include "gather_common.cuh"
+#include "row_runs.cuh"
 
 namespace {
 
 using gather::kThreads;
 using gather::OptIn;
-
-constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -106,41 +124,65 @@ stripe_kernel(const int* __restrict__ cols, const int* __restrict__ lrow,
   store_rows<KT, SHARED_TILE>(tile, yprog, rb, Kp, t);
 }
 
-template <int KT, bool SHARED_TILE>
-__global__ void __launch_bounds__(kThreads)
+// The nested kernel: block (b, p, panel) takes the slots [b*bs, (b+1)*bs)
+// of stripe p that lie in its sub-blocks, [wnz[0], wnz[W]); a block past
+// them exits at once.  Each lane keeps a cursor w over the stripe's
+// sub-blocks (wnz[w] <= i < wnz[w+1] for its slot i, found once by binary
+// search and moved forward as i rises), so slot i's row is wrow[w] + lrow.
+template <int PW>
+__global__ void __launch_bounds__(runs::kThreads, runs::kMinBlocks<PW>)
 stripe_nested_kernel(const int* __restrict__ cols, const int* __restrict__ lrow,
                      const float* __restrict__ vals, const int* __restrict__ wnz,
                      const int* __restrict__ wrow, const float* __restrict__ x,
-                     float* __restrict__ y, int C, int W, int rb, int N, int Kp) {
-  constexpr int VEC = gather::kVec<KT>;
-  constexpr int TPS = KT / VEC;  // lanes per slot
-  constexpr int SPW = 32 / TPS;  // slots per warp iteration
-  float* tile = reinterpret_cast<float*>(gather::gather_smem);  // [rb, KT]
-  const int p = blockIdx.x;
-  const int t = blockIdx.y;
-  float* yprog = y + static_cast<int64_t>(p) * rb * Kp;
-  zero_rows<KT, SHARED_TILE>(tile, yprog, rb, Kp, t);
-
-  const int lane = threadIdx.x % 32;
-  const int tcol = (lane % TPS) * VEC;
-  const int kcol = t * KT + tcol;
-  const int64_t base = static_cast<int64_t>(p) * C;
+                     float* __restrict__ y, int C, int W, int rb, int N, int Kp, int bs) {
+  const int p = blockIdx.y;
   const int* wz = wnz + static_cast<int64_t>(p) * (W + 1);
   const int* wr = wrow + static_cast<int64_t>(p) * (W + 1);
-  for (int w = threadIdx.x / 32; w < W; w += kWarps) {
-    const int hi = wz[w + 1];
-    const int row0 = wr[w];
-    for (int i = wz[w] + lane / TPS; i < hi; i += SPW) {
-      const float v = vals[base + i];
-      const int64_t col = cols[base + i];
-      if (v == 0.f || col >= N) continue;
-      float xv[VEC];
-      gather::load_x<VEC>(x + col * Kp + kcol, xv);
-      gather::scatter<KT, VEC, false, SHARED_TILE>(tile, yprog, row0 + lrow[base + i], tcol,
-                                                   kcol, Kp, v, xv);
+  const int lo = max(static_cast<int>(blockIdx.x) * bs, wz[0]);
+  const int hi = min(static_cast<int>(blockIdx.x) * bs + bs, wz[W]);
+  if (lo >= hi) return;
+  int s0, s1;
+  runs::stream_range<PW>(lo, hi, s0, s1);
+  const int64_t base = static_cast<int64_t>(p) * C;
+  int w = -1, nxt = 0, row0 = 0;  // this lane's sub-block, its end and base row
+  auto slot = [&](int i, float& v, int& col, int& row) {
+    if (w < 0) {  // the first slot: wz[w] <= i < wz[w + 1]
+      int a = 0, b = W;
+      while (b - a > 1) {
+        const int m = (a + b) / 2;
+        if (wz[m] <= i) a = m; else b = m;
+      }
+      w = a;
+      nxt = wz[w + 1];
+      row0 = wr[w];
     }
+    while (i >= nxt) {  // empty sub-blocks are passed over
+      ++w;
+      nxt = wz[w + 1];
+      row0 = wr[w];
+    }
+    v = vals[base + i];
+    col = cols[base + i];
+    row = row0 + lrow[base + i];
+    if (col >= N) v = 0.f;
+  };
+  runs::walk<PW, false>(slot, s0, s1, x, y + static_cast<int64_t>(p) * rb * Kp, Kp,
+                        static_cast<int>(blockIdx.z) * PW);
+}
+
+// The nested kernel for a panel of pw columns, or nullptr.
+const void* nested_kernel(int pw) {
+  switch (pw) {
+    case 4: return reinterpret_cast<const void*>(stripe_nested_kernel<4>);
+    case 8: return reinterpret_cast<const void*>(stripe_nested_kernel<8>);
+    case 16: return reinterpret_cast<const void*>(stripe_nested_kernel<16>);
+    case 32: return reinterpret_cast<const void*>(stripe_nested_kernel<32>);
+    case 64: return reinterpret_cast<const void*>(stripe_nested_kernel<64>);
+    case 128: return reinterpret_cast<const void*>(stripe_nested_kernel<128>);
+    case 256: return reinterpret_cast<const void*>(stripe_nested_kernel<256>);
+    case 512: return reinterpret_cast<const void*>(stripe_nested_kernel<512>);
+    default: return nullptr;
   }
-  store_rows<KT, SHARED_TILE>(tile, yprog, rb, Kp, t);
 }
 
 template <int KT, typename VT>
@@ -150,16 +192,6 @@ int launch_stripe(const int* cols, const int* lrow, const VT* vals, const float*
   return gather::launch_tiled(stripe_kernel<KT, VT, true>, stripe_kernel<KT, VT, false>, optin,
                               dim3(P, Kp / KT), gather::tile_bytes(rb, KT), 0, stream, cols,
                               lrow, vals, x, y, C, rb, N, Kp);
-}
-
-template <int KT>
-int launch_nested(const int* cols, const int* lrow, const float* vals, const int* wnz,
-                  const int* wrow, const float* x, float* y, int P, int C, int W, int rb, int N,
-                  int Kp, cudaStream_t stream) {
-  static OptIn optin;
-  return gather::launch_tiled(stripe_nested_kernel<KT, true>, stripe_nested_kernel<KT, false>,
-                              optin, dim3(P, Kp / KT), gather::tile_bytes(rb, KT), 0, stream,
-                              cols, lrow, vals, wnz, wrow, x, y, C, W, rb, N, Kp);
 }
 
 }  // namespace
@@ -200,11 +232,18 @@ int stripe_spmm_launch(const void* cols, const void* lrow, const void* vals, con
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The nested kernel: wnz/wrow [P, W+1]; the rest as stripe_spmm_launch
-// (fp32 values).
+// The nested kernel: wnz/wrow [P, W+1], vals fp32, x [N, Kp] fp32 with Kp a
+// multiple of 4; walked once per panel of pw columns (4, 8, ..., 512), `bs`
+// slots of a stripe a block.  y [P*rb, Kp] must be zeroed.  Returns the
+// cudaError_t of the launch (0 on success).
 int stripe_nested_launch(const void* cols, const void* lrow, const void* vals, const void* wnz,
                          const void* wrow, const void* x, void* y, int P, int C, int W, int rb,
-                         int N, int Kp, int kt, void* stream) {
+                         int N, int Kp, int pw, int bs, void* stream) {
+  const void* kernel = nested_kernel(pw);
+  if (kernel == nullptr || Kp % 4 || bs < 1 || P > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((C + bs - 1) / bs, P, (Kp + pw - 1) / pw);
   const auto* c = static_cast<const int*>(cols);
   const auto* l = static_cast<const int*>(lrow);
   const auto* v = static_cast<const float*>(vals);
@@ -212,17 +251,15 @@ int stripe_nested_launch(const void* cols, const void* lrow, const void* vals, c
   const auto* wr = static_cast<const int*>(wrow);
   const auto* x_ = static_cast<const float*>(x);
   auto* y_ = static_cast<float*>(y);
-  auto s = static_cast<cudaStream_t>(stream);
-#define NESTED_CASE(KT) \
-  if (kt == KT) return launch_nested<KT>(c, l, v, wz, wr, x_, y_, P, C, W, rb, N, Kp, s);
-  NESTED_CASE(1)
-  NESTED_CASE(2)
-  NESTED_CASE(4)
-  NESTED_CASE(8)
-  NESTED_CASE(16)
-  NESTED_CASE(32)
-#undef NESTED_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&c, &l, &v, &wz, &wr, &x_, &y_, &C, &W, &rb, &N, &Kp, &bs};
+  const cudaError_t err = cudaLaunchKernel(kernel, grid, dim3(runs::kThreads), args, 0,
+                                           static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
+
+// The nested kernel of panel pw into out[0..3]: registers a thread, local
+// (spill) bytes a thread, static shared bytes, blocks an SM holds.
+// Returns a cudaError_t.
+int stripe_nested_info(int pw, int* out) { return runs::kernel_info(nested_kernel(pw), out); }
 
 }  // extern "C"

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -196,6 +197,17 @@ def check_operands(x: torch.Tensor, fields, *, ndim: int) -> None:
         raise ValueError(f"X must be a contiguous, 16-byte aligned {ndim}-D float32 tensor")
     if fields[0][3][0] > 65535:
         raise ValueError(f"P={fields[0][3][0]} programs exceed the grid's y dimension (65535)")
+
+
+def kernel_info(fn, name: str, *ints) -> dict:
+    """A csrc kernel's resources on the current card, from its query
+    ``fn(*ints, out)``: registers a thread, spilled (local) bytes a thread,
+    static shared bytes and blocks an SM holds."""
+    out = (ctypes.c_int * 4)()
+    rc = fn(*ints, out)
+    if rc:
+        raise RuntimeError(f"{name} failed with CUDA error {rc}")
+    return dict(zip(("registers", "spill_bytes", "shared_bytes", "blocks_per_sm"), out))
 
 
 def launch_checked(fn, name: str, tensors, ints) -> None:

@@ -19,9 +19,12 @@ card's own choice (1, 2, 4, 8, 16 or 32 columns, X padded to it): the JAX
 ktile rule is Mosaic's 128-lane fallback, and its model-driven index
 compression (``tpusparse/transforms/compress.py``) lets the TPU compute a
 stripe's rows instead of loading them, which changes no Y; neither is
-ported.  ``unroll`` steered the TPU loop only.  A wrapper launches its
-kernel for CUDA tensors and raises on any failure; only CPU tensors take
-the plain version.
+ported.  The stripe kernel gives a block a stripe and a K-tile; the nested
+kernel cuts each stripe into blocks of ``NESTED_BLOCK_SLOTS`` slots and
+walks them once per panel of columns (``nested_geometry``), each row run
+summed in registers and added with float4 atomics.  ``unroll`` steered the
+TPU loop only.  A wrapper launches its kernel for CUDA tensors and raises
+on any failure; only CPU tensors take the plain version.
 """
 
 from __future__ import annotations
@@ -29,15 +32,84 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from tpusparse_torch.format import NestedStripeFormat, StripeFormat
 from tpusparse_torch.kernels import build
-from tpusparse_torch.kernels.common import (cdiv, check_operands, launch_checked, pad_dense_cols,
-                                            prep_x, unpack_slots)
+from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info, launch_checked,
+                                            pad_dense_cols, prep_x, unpack_slots)
 # the stripe kernels take radix's K-tiles: 1, 2, 4, 8, 16 or 32 columns
 from tpusparse_torch.kernels.radix_gather import RADIX_KTS as STRIPE_KTS
 from tpusparse_torch.kernels.radix_gather import choose_kt
+from tpusparse_torch.kernels.tile_onehot import STREAM_BLOCK_SLOTS, STREAM_PANELS
+
+#: the nested kernel's panel widths (columns a slot stream carries)
+NESTED_PANELS = (4,) + STREAM_PANELS
+#: slots of one stripe a block of the nested kernel takes
+NESTED_BLOCK_SLOTS = STREAM_BLOCK_SLOTS
+
+
+def nested_geometry(kp: int) -> tuple[int, int]:
+    """The nested kernel's (columns of X it reads, panel width) for X of
+    ``kp`` columns: kp rounded up to 4 (the wrapper pads X of 1 or 2
+    columns; a gathered row costs one 32-byte sector either way), and the
+    narrowest panel that holds it (512 and several panels past it)."""
+    kp4 = cdiv(kp, 4) * 4
+    return kp4, next((w for w in NESTED_PANELS if w >= kp4), NESTED_PANELS[-1])
+
+
+def nested_slot_ranges(wnz, c: int, bs: int = NESTED_BLOCK_SLOTS) -> np.ndarray:
+    """[P, cdiv(c, bs), 2]: the slots [lo, hi) that block b of stripe p takes,
+    ``[b*bs, (b+1)*bs)`` within the stripe's sub-blocks ``[wnz[p, 0],
+    wnz[p, W])``; lo >= hi for a block that exits at once."""
+    wz = np.asarray(wnz).reshape(len(wnz), -1).astype(np.int64)
+    start = np.arange(cdiv(c, bs), dtype=np.int64) * bs
+    lo = np.maximum(start[None, :], wz[:, :1])
+    hi = np.minimum(start[None, :] + bs, wz[:, -1:])
+    return np.stack([lo, hi], axis=-1)
+
+
+def sub_block_of(wz, lo: int, hi: int) -> np.ndarray:
+    """The sub-block w (wz[w] <= i < wz[w+1]) of each slot i in [lo, hi),
+    found as a lane of the nested kernel finds it: binary search for slot
+    lo, then a cursor moved past every wz[w+1] <= i as i rises, through
+    empty sub-blocks too.  ``wz``: one stripe's W + 1 offsets, lo >= wz[0],
+    hi <= wz[W]."""
+    a, b = 0, len(wz) - 1
+    while b - a > 1:
+        m = (a + b) // 2
+        a, b = (m, b) if wz[m] <= lo else (a, m)
+    out = np.empty(hi - lo, dtype=np.int64)
+    i, w = lo, a
+    while i < hi:
+        while i >= wz[w + 1]:
+            w += 1
+        end = min(int(wz[w + 1]), hi)
+        out[i - lo:end - lo] = w
+        i = end
+    return out
+
+
+def nested_row_runs(fmt: NestedStripeFormat) -> tuple[int, int]:
+    """(row runs, live slots) of a nested stripe format: a run is a maximal
+    sequence of live slots (value not zero, inside a sub-block) of one row
+    in a stripe's slot order, which the nested kernel sums in registers and
+    adds into y_slots once (a block's or stream's boundary may cut a run; a
+    sub-block's does not)."""
+    P, _, C = fmt.cols.shape
+    vals = fmt.vals.detach().cpu().numpy().reshape(P, C)
+    lrow = fmt.lrow.cpu().numpy().reshape(P, C)
+    wnz = fmt.wnz.cpu().numpy().reshape(P, -1)
+    wrow = fmt.wrow.cpu().numpy().reshape(P, -1)
+    runs = live = 0
+    for p in range(P):
+        lo, hi = int(wnz[p, 0]), int(wnz[p, -1])
+        rows = wrow[p, sub_block_of(wnz[p], lo, hi)] + lrow[p, lo:hi]
+        rows = rows[vals[p, lo:hi] != 0]
+        runs += int(rows.size > 0) + int(np.count_nonzero(rows[1:] != rows[:-1]))
+        live += rows.size
+    return runs, live
 
 
 # --------------------------------------------------------------- plain versions
@@ -87,17 +159,26 @@ def _lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.stripe_spmm_launch.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
     lib.stripe_spmm_launch.restype = i32
-    lib.stripe_nested_launch.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+    lib.stripe_nested_launch.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
     lib.stripe_nested_launch.restype = i32
+    lib.stripe_nested_info.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+    lib.stripe_nested_info.restype = i32
     lib.stripe_uses_shared_tile.argtypes = [i32, i32]
     lib.stripe_uses_shared_tile.restype = i32
     return lib
 
 
 def stripe_uses_shared_tile(rb: int, kt: int) -> bool:
-    """Whether a block of (rb, kt) keeps its row tile in shared memory
-    (False: the kernels' global-atomic branch)."""
+    """Whether a block of the stripe kernel at (rb, kt) keeps its row tile
+    in shared memory (False: its global-atomic branch)."""
     return bool(_lib().stripe_uses_shared_tile(rb, kt))
+
+
+def stripe_nested_info(pw: int) -> dict:
+    """The nested kernel of panel ``pw`` on the current card: registers a
+    thread, spilled (local) bytes a thread, static shared bytes and blocks
+    an SM holds."""
+    return kernel_info(_lib().stripe_nested_info, "stripe_nested_info", pw)
 
 
 def _check_kt(kt, x, what):
@@ -125,7 +206,10 @@ def stripe_rows_cuda(cols, lrow, vals, x, *, rb, kt):
 
 def stripe_nested_rows_cuda(cols, lrow, vals, wnz, wrow, x, *, rb, kt):
     """CUDA ``_stripe_nested_kernel`` (tpusparse/kernels/stripe_gather.py:156):
-    y_slots [P*rb, Kp] for X [N, Kp] fp32, each WARP sub-block on a warp."""
+    y_slots [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt, each stripe
+    cut into blocks of ``NESTED_BLOCK_SLOTS`` slots (``nested_geometry``:
+    X of 1 or 2 columns is read padded to 4, and the first Kp columns of
+    the kernel's y_slots returned)."""
     P, _, C = cols.shape
     W = wnz.shape[-1] - 1
     check_operands(x, (("cols", cols, torch.int32, (P, 1, C)),
@@ -135,11 +219,13 @@ def stripe_nested_rows_cuda(cols, lrow, vals, wnz, wrow, x, *, rb, kt):
                        ("wrow", wrow, torch.int32, (P, 1, W + 1))), ndim=2)
     _check_kt(kt, x, "nested stripe kernel")
     n, kp = x.shape
-    y = torch.empty((P * rb, kp), dtype=torch.float32, device=x.device)
+    kp4, pw = nested_geometry(kp)
+    y = torch.zeros((P * rb, kp4), dtype=torch.float32, device=x.device)
     launch_checked(_lib().stripe_nested_launch, "stripe_nested_launch",
-                   (cols, lrow, vals, wnz, wrow, x, y), (P, C, W, rb, n, kp, kt))
+                   (cols, lrow, vals, wnz, wrow, pad_dense_cols(x, kp4).contiguous(), y),
+                   (P, C, W, rb, n, kp4, pw, NESTED_BLOCK_SLOTS))
     stripe_nested_rows_cuda.launches += 1
-    return y
+    return y[:, :kp]
 
 
 stripe_rows_cuda.launches = 0

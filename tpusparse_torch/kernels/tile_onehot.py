@@ -11,19 +11,21 @@ v * X[chunk_tile*ct + cols]``, without the one-hot mechanism: the TPU's
 ``kernels/common.py::onehot_chunk_contrib`` (the one-hot MXU dots) are not
 ported.  fp32 and fp32x2 both compute in fp32; bf16 rounds each product.
 
-Kernels (CUDA C++, ``tpusparse_torch/csrc/tile_onehot.cu``), each beside its
-plain PyTorch version of the same function:
+One CUDA C++ kernel (``tpusparse_torch/csrc/tile_onehot.cu``) replaces both
+TPU kernels, each wrapper beside its plain PyTorch version of the same
+function:
 
   tile_rows_cuda        / tile_rows_plain         replace ``_tile_kernel``
   tile_stream_rows_cuda / tile_stream_rows_plain  replace ``_tile_kernel_stream``
 
-The resident kernel runs K-tiles of 8, 16 or 32 columns into a shared row
-tile; the stream kernel walks the format once per panel of up to 512
-columns (``stream_geometry``), sums each row run in registers and adds it
-into y_rows with float4 atomics.
+The TPU's two kernels differed only in how X reached VMEM; on the card X is
+read from L2 either way.  The kernel walks the format once per panel of up
+to 512 columns (``stream_geometry``), sums each row run in registers and
+adds it into y_rows with float4 atomics.
 
-``tile_spmm`` picks between them by the JAX package's rule (X of more than
-6 MB in the TPU's packed layout streams).  A wrapper launches its kernel for
+``tile_spmm`` picks between the wrappers by the JAX package's rule (X of
+more than 6 MB in the TPU's packed layout streams), and each counts its own
+launches.  A wrapper launches its kernel for
 CUDA tensors and raises on any failure; only CPU tensors take the plain
 version.
 """
@@ -39,8 +41,8 @@ import torch
 
 from tpusparse_torch.format import TileFormat
 from tpusparse_torch.kernels import build
-from tpusparse_torch.kernels.common import (cdiv, check_operands, launch_checked,
-                                            launch_splits, pad_dense_cols, prep_x,
+from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info,
+                                            launch_checked, pad_dense_cols, prep_x,
                                             unpack_slots, window_rows_plain)
 
 PRECISIONS = ("bf16", "fp32x2", "fp32")
@@ -51,19 +53,19 @@ _RESIDENT_X_BYTES = 6 * 1024 * 1024
 
 
 def choose_kt(k: int) -> int:
-    """The kernels' K-tile for K columns: 8, 16 or 32 (wider K runs
-    several K-tiles)."""
+    """The K-tile X's columns are padded to for K columns: 8, 16 or 32
+    (wider K: a multiple of 32)."""
     return 8 if k <= 8 else 16 if k <= 16 else 32
 
 
-#: the stream kernel's panel widths (columns a slot stream carries)
+#: the kernel's panel widths (columns a slot stream carries)
 STREAM_PANELS = (8, 16, 32, 64, 128, 256, 512)
-#: slots a block of the stream kernel takes, in whole chunks
+#: slots a block of the kernel takes, in whole chunks
 STREAM_BLOCK_SLOTS = 1024
 
 
 def stream_geometry(kp: int, g: int) -> tuple[int, int]:
-    """The stream kernel's (panel width, chunks per block) for X of ``kp``
+    """The kernel's (panel width, chunks per block) for X of ``kp``
     columns and chunks of ``g`` slots: the narrowest panel that holds kp
     (512 and several panels past it), and whole chunks of about
     ``STREAM_BLOCK_SLOTS`` slots a block."""
@@ -74,7 +76,7 @@ def stream_geometry(kp: int, g: int) -> tuple[int, int]:
 def row_runs(fmt: TileFormat) -> tuple[int, int]:
     """(row runs, live slots) of a tile format: a run is a maximal sequence
     of live slots (value not zero, chunk before ``nc_p``) of one row in a
-    program's chunk order, which the stream kernel sums in registers and
+    program's chunk order, which the kernel sums in registers and
     adds into y_rows once (a block's or stream's boundary may cut a run)."""
     vals = fmt.vals.detach().cpu().numpy()
     lrow = fmt.lrow.cpu().numpy()
@@ -129,35 +131,23 @@ def _lib():
     """csrc/tile_onehot.cu, built at first use, with its C signatures."""
     lib = build.library("tile_onehot")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.tile_spmm_launch, lib.tile_stream_launch):
-        fn.argtypes = [ptr] * 7 + [i32] * 10 + [ptr]
-        fn.restype = i32
-    lib.tile_uses_shared_tile.argtypes = [i32, i32]
-    lib.tile_uses_shared_tile.restype = i32
+    lib.tile_stream_launch.argtypes = [ptr] * 7 + [i32] * 10 + [ptr]
+    lib.tile_stream_launch.restype = i32
     lib.tile_stream_info.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
     lib.tile_stream_info.restype = i32
     return lib
 
 
-def tile_uses_shared_tile(rb: int, kt: int) -> bool:
-    """Whether a launch of the resident kernel at (rb, kt) keeps its row
-    tile in shared memory (False: its global-atomic branch)."""
-    return bool(_lib().tile_uses_shared_tile(rb, kt))
-
-
 def tile_stream_info(pw: int, mode: str) -> dict:
-    """The stream kernel of panel ``pw`` in ``mode`` on the current card:
+    """The kernel of panel ``pw`` in ``mode`` on the current card:
     registers a thread, spilled (local) bytes a thread, static shared bytes
     and blocks an SM holds."""
-    out = (ctypes.c_int * 4)()
-    rc = _lib().tile_stream_info(pw, int(mode == "bf16"), out)
-    if rc:
-        raise RuntimeError(f"tile_stream_info failed with CUDA error {rc}")
-    return dict(zip(("registers", "spill_bytes", "shared_bytes", "blocks_per_sm"), out))
+    return kernel_info(_lib().tile_stream_info, "tile_stream_info", pw, int(mode == "bf16"))
 
 
-def _checked(chunk_tile, cols, lrow, vals, nc_p, x, kt, mode):
-    """Checks the operands of either kernel; returns the format's (P, NC, G)."""
+def _rows_cuda(chunk_tile, cols, lrow, vals, nc_p, x, rb, ct, kt, mode):
+    """y_rows [P*rb, Kp] from one launch of the kernel, after checking the
+    operands; ``kt`` only checks X's padding."""
     P, NC, G = cols.shape
     check_operands(x, (("chunk_tile", chunk_tile, torch.int32, (P, 1, NC)),
                        ("cols", cols, torch.int32, (P, NC, G)),
@@ -166,35 +156,28 @@ def _checked(chunk_tile, cols, lrow, vals, nc_p, x, kt, mode):
                        ("nc_p", nc_p, torch.int32, (P, 1, 1))), ndim=2)
     if kt not in (8, 16, 32) or mode not in PRECISIONS or x.shape[1] % kt:
         raise ValueError(f"tile kernel: kt={kt}, mode={mode}, X {tuple(x.shape)}")
-    return P, NC, G
-
-
-def tile_rows_cuda(chunk_tile, cols, lrow, vals, nc_p, x, *, rb, ct, kt, mode):
-    """CUDA ``_tile_kernel`` (tpusparse/kernels/tile_onehot.py:44): y_rows
-    [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in {8, 16, 32}."""
-    P, NC, G = _checked(chunk_tile, cols, lrow, vals, nc_p, x, kt, mode)
-    n, kp = x.shape
-    y = torch.zeros((P * rb, kp), dtype=torch.float32, device=x.device)
-    launch_checked(_lib().tile_spmm_launch, "tile_spmm_launch",
-                   (chunk_tile, cols, lrow, vals, nc_p, x, y),
-                   (P, NC, G, rb, ct, n, kp, kt, int(mode == "bf16"),
-                    launch_splits(x.device, P * (kp // kt), NC)))
-    tile_rows_cuda.launches += 1
-    return y
-
-
-def tile_stream_rows_cuda(chunk_tile, cols, lrow, vals, nc_p, x, *, rb, ct, kt, mode):
-    """CUDA ``_tile_kernel_stream`` (tpusparse/kernels/tile_onehot.py:119):
-    the same y_rows, the format walked once per panel of columns
-    (``stream_geometry``; ``kt`` only checks X's padding), each row run
-    summed in registers and added into y_rows with float4 atomics."""
-    P, NC, G = _checked(chunk_tile, cols, lrow, vals, nc_p, x, kt, mode)
     n, kp = x.shape
     pw, cpb = stream_geometry(kp, G)
     y = torch.zeros((P * rb, kp), dtype=torch.float32, device=x.device)
     launch_checked(_lib().tile_stream_launch, "tile_stream_launch",
                    (chunk_tile, cols, lrow, vals, nc_p, x, y),
                    (P, NC, G, rb, ct, n, kp, pw, int(mode == "bf16"), cpb))
+    return y
+
+
+def tile_rows_cuda(chunk_tile, cols, lrow, vals, nc_p, x, *, rb, ct, kt, mode):
+    """CUDA ``_tile_kernel`` (tpusparse/kernels/tile_onehot.py:44): y_rows
+    [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in {8, 16, 32}, the
+    format walked once per panel of columns (``stream_geometry``)."""
+    y = _rows_cuda(chunk_tile, cols, lrow, vals, nc_p, x, rb, ct, kt, mode)
+    tile_rows_cuda.launches += 1
+    return y
+
+
+def tile_stream_rows_cuda(chunk_tile, cols, lrow, vals, nc_p, x, *, rb, ct, kt, mode):
+    """CUDA ``_tile_kernel_stream`` (tpusparse/kernels/tile_onehot.py:119):
+    the same y_rows from the same kernel, counted on its own."""
+    y = _rows_cuda(chunk_tile, cols, lrow, vals, nc_p, x, rb, ct, kt, mode)
     tile_stream_rows_cuda.launches += 1
     return y
 
@@ -213,9 +196,9 @@ def tile_spmm(
     precision: str = "fp32x2",
     unroll: int = 2,
 ) -> torch.Tensor:
-    """Y[M, K] = A . X[N, K] with A in TileFormat, on the stream kernel where
-    the JAX package's rule (``uses_stream``) streams X, else on the
-    resident one.  ``unroll`` steered the TPU kernel's loop only and
+    """Y[M, K] = A . X[N, K] with A in TileFormat, through
+    ``tile_stream_rows_cuda`` where the JAX package's rule (``uses_stream``)
+    streams X, else through ``tile_rows_cuda``.  ``unroll`` steered the TPU kernel's loop only and
     changes nothing here.  CUDA formats run a kernel, CPU formats its plain
     version."""
     assert precision in PRECISIONS, precision
