@@ -57,9 +57,10 @@ Every result is checked against the host oracle; the kernels are timed
 against their bound, their plain versions and cuSPARSE (the kernels line's
 ``ms``, ``plain_ms`` and ``library_ms`` are device times a call from the
 profiler, ``time_fn_ms`` the wrapper's back-to-back time, host included),
-and the tile and stripe libraries' SASS is read kernel by kernel: the tile
-kernel (#5, #6) and the nested stripe kernel (#11) must add by float4
-reductions and hold no shared atomic.  Any failure raises and the exit
+and the tile, stripe, dgt and span libraries' SASS is read kernel by
+kernel: the tile kernel (#5, #6), the nested stripe kernel (#11) and the
+row walk kernel of #3 and #7 must add by float4 reductions and hold no
+shared atomic.  Any failure raises and the exit
 code is not 0.  It exits non-zero before printing any
 result when no CUDA device is present or the package cannot be imported.
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -170,6 +171,7 @@ def main() -> int:
         from tpusparse_torch.kernels import dgt_gather as dgt
         from tpusparse_torch.kernels import nm_structured as nm
         from tpusparse_torch.kernels import radix_gather as radix
+        from tpusparse_torch.kernels import row_walk
         from tpusparse_torch.kernels import sddmm as sd
         from tpusparse_torch.kernels import span_gather as span
         from tpusparse_torch.kernels import stripe_gather as stripe
@@ -264,10 +266,11 @@ def main() -> int:
 
     # what the redesigned kernels compiled to, function by function: tensor-core
     # wgmma (HGMMA, the bf16 and int8 modes) and mma (HMMA, 3xTF32) in the
-    # N:M library; the atomics of the tile and stripe libraries, where the
-    # stream kernels of #5/#6 and #11 must add by vector reductions (REDG
-    # ...F32x4) and hold no shared atomic (ATOMS: a CAS loop for fp32 adds),
-    # which the stripe kernel #10 keeps
+    # N:M library; the atomics of the tile, stripe, dgt and span libraries,
+    # where the stream kernels of #5/#6 and #11 and the row walk kernel of
+    # #3 and #7 must add by vector reductions (REDG...F32x4) and hold no
+    # shared atomic (ATOMS: a CAS loop for fp32 adds), which the stripe
+    # kernel #10 and the dgt and span stream kernels #4 and #8 keep
     def sass_by_kernel(lib_name, opcodes):
         sass = subprocess.run([os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                                             "bin", "cuobjdump"), "-sass",
@@ -294,7 +297,11 @@ def main() -> int:
             ("nm_structured", ("HGMMA", "HMMA"), ("nm_kernel",)),
             ("tile_onehot", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("tile_stream_kernel",)),
             ("stripe_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"),
-             ("stripe_nested_kernel", "stripe_kernel"))):
+             ("stripe_nested_kernel", "stripe_kernel")),
+            ("dgt_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"),
+             ("walk_kernel", "dgt_stream_kernel")),
+            ("span_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"),
+             ("walk_kernel", "span_stream_kernel"))):
         by_family = {}
         for fn, ops in sass_by_kernel(lib_name, opcodes).items():
             fam = by_family.setdefault(kernel_family(fn, names), {})
@@ -308,7 +315,8 @@ def main() -> int:
     if not all(any(op.startswith(c) for op in nm_ops) for c in ("HGMMA", "HMMA")):
         raise AssertionError("the N:M library lacks its tensor-core wgmma or mma")
     for lib_name, fam in (("tile_onehot", "tile_stream_kernel"),
-                          ("stripe_gather", "stripe_nested_kernel")):
+                          ("stripe_gather", "stripe_nested_kernel"),
+                          ("dgt_gather", "walk_kernel"), ("span_gather", "walk_kernel")):
         ops = sass_ops[lib_name].get(fam, {})
         cas = sum(n for op, n in ops.items() if op.startswith("ATOMS"))
         log(f"[build] {fam} ({lib_name}): {cas} ATOMS.CAS / shared atomic sites, "
@@ -353,6 +361,31 @@ def main() -> int:
         check_vs_plain(which, label, f"kt={kt} {mode} K={k} rb={fmt.rb}, {branch}",
                        got, want, scale, tol)
 
+    def walk_branch(walk, k):
+        """How the row walk kernel (#3, #7) runs a walk at K = k."""
+        kc, pw, bs = row_walk.walk_geometry(k)
+        return (f"row walk: {kc} columns in panels of {pw}, {bs} slots a block, "
+                f"{walk.runs} row runs for {walk.n_slots} live slots")
+
+    def walk_line(which, label, walk, k, mode="fp32x2"):
+        """The [kernel] line of the row walk kernel (#3 or #7) on a walk at
+        K = k: geometry, resources, row runs, the walk's bytes and build."""
+        kc, pw, bs = row_walk.walk_geometry(k)
+        info = (dgt.dgt_walk_info if which == "dgt" else span.span_walk_info)(pw, mode)
+        order = torch.argsort(walk.slot)  # the same slots in the format's own order
+        by_slot = walk.row[order]
+        slot_runs = int((by_slot[1:] != by_slot[:-1]).sum()) + int(walk.n_slots > 0)
+        log(f"[kernel] {kernels[which]['name']} at {label}, K={k} {mode}: one walk, {kc} "
+            f"columns in {-(-kc // pw)} panel(s) of {pw}, {bs} slots a block, "
+            f"{max(-(-walk.n_slots // bs), 1)} blocks; {info['registers']} registers, "
+            f"{info['spill_bytes']} spill bytes, {info['shared_bytes']} shared bytes, "
+            f"{info['blocks_per_sm']} blocks an SM; {walk.runs} row runs for {walk.n_slots} "
+            f"live slots ({walk.n_slots / max(walk.runs, 1):.1f} a run; {slot_runs} runs in "
+            f"the format's slot order), each summed in registers and added by float4 "
+            f"atomicAdd; row walk {walk.nbytes / 2**20:.1f} MiB, built in "
+            f"{walk.build_seconds * 1e3:.1f} ms (the format's planes "
+            f"{walk.plane_slots * 12 / 2**20:.1f} MiB)")
+
     def dgt_vs_plain(label, fmt, k, tol, stream=False):
         x = rand_x(fmt.shape[1], k)
         x = dg.pad_dense_cols(x, -(-k // fmt.kt) * fmt.kt).contiguous()
@@ -363,11 +396,15 @@ def main() -> int:
             got = dgt.dgt_stream_rows_cuda(*args, x, nw=fmt.nw, **kw)
             want = dgt.dgt_stream_rows_plain(*args, x, nw=fmt.nw, **kw)
         else:
-            got = dgt.dgt_rows_cuda(*args, x, resid=fmt.resid, **kw)
+            walk = dgt.dgt_row_walk(fmt)
+            got = dgt.dgt_rows_cuda(*args, x, resid=fmt.resid, walk=walk, k=k, **kw)
             want = dgt.dgt_rows_plain(*args, x, resid=fmt.resid, **kw)
         scale = dgt.dgt_rows_plain(*abs_args, x.abs(), resid=fmt.resid, **kw)
-        branch = ("shared tile" if dgt.dgt_uses_shared_tile(fmt.rb, fmt.kt, stream=stream)
-                  else "global atomics")
+        if stream:
+            branch = ("shared tile" if dgt.dgt_uses_shared_tile(fmt.rb, fmt.kt)
+                      else "global atomics")
+        else:
+            branch = walk_branch(walk, k)
         check_vs_plain("dgt_stream" if stream else "dgt", label,
                        f"kt={fmt.kt} {fmt.mode} K={k} rb={fmt.rb} nw={fmt.nw} "
                        f"resid={fmt.resid} P={fmt.n_programs} NC={fmt.n_chunks}, {branch}",
@@ -431,17 +468,19 @@ def main() -> int:
         v = fmt.vals.float() if vals is None else vals
         kw = dict(rb=fmt.rb, kt=kt, **(dict(ct=fmt.ct) if is_tile or stream else {}))
         plain = kernels[which]["plain"]
+        walk_kw = {} if is_tile or stream else dict(walk=span.span_row_walk(fmt), k=k)
         got = kernels[which]["wrapper"](start, fmt.cols, fmt.lrow, v, fmt.nc_p, x, mode=mode,
-                                        **kw)
+                                        **kw, **walk_kw)
         want = plain(start, fmt.cols, fmt.lrow, v, fmt.nc_p, x, mode=mode, **kw)
         scale = plain(start, fmt.cols, fmt.lrow, v.abs(), fmt.nc_p, x.abs(), mode="fp32", **kw)
         if is_tile:  # #5 and #6: one kernel, the format walked once per panel
             pw, cpb = tile.stream_geometry(x.shape[1], fmt.chunk_g)
             branch = f"panel {pw} x{-(-x.shape[1] // pw)}, {cpb} chunk(s) a block"
-        else:
-            shared = span.span_uses_shared_tile(fmt.rb, kt, g=fmt.chunk_g, ct=fmt.ct,
-                                                stream=stream)
+        elif stream:
+            shared = span.span_uses_shared_tile(fmt.rb, kt, g=fmt.chunk_g, ct=fmt.ct)
             branch = "shared tile" if shared else "global atomics"
+        else:  # #7: the row walk
+            branch = walk_branch(walk_kw["walk"], k)
         if which == "span_stream":
             rows = span.span_stream_slice_rows(fmt.rb, kt, fmt.chunk_g, fmt.ct)
             branch += f", window slice {rows}"
@@ -825,10 +864,12 @@ def main() -> int:
     log(f"[spmv]   dgt8 format: rb={fmt8.rb} P={fmt8.n_programs} NC={fmt8.n_chunks} "
         f"pad={fmt8.padding_rate:.3f} {fmt8.memory_bytes / 2**20:.1f} MiB")
     dgt_vs_plain("spmv", fmt8, 1, tol)
+    walk_line("dgt", "spmv dgt8", dgt.dgt_row_walk(fmt8), 1)
     multi = run_path("spmv_multi_262k", "dgt", lambda: spmv_multi_fn(big, 8), xb8, ref_b8,
                      (SPMV_N, 8))
     assert multi.n_splits == 1
     dgt_vs_plain("spmv", multi.formats[0], 8, tol)
+    walk_line("dgt", "spmv_multi_fn(8)", dgt.dgt_row_walk(multi.formats[0]), 8)
     split = run_path("spmv_multi_split2", "dgt", lambda: spmv_multi_fn(mat, 8, col_split=2),
                      xs[8], ref_h8, (M, 8))
     assert split.n_splits == 2 and kernels["dgt"]["paths"]["spmv_multi_split2"] == 2
@@ -867,6 +908,8 @@ def main() -> int:
             f"G={f.chunk_g} nnz={f.nnz_real} pad={f.padding_rate:.3f} "
             f"{f.memory_bytes / 2**20:.1f} MiB, pack {t_p:.2f} s")
         win_vs_plain("span", "spmv", f, 8, "fp32x2")                # the path's own formats
+        win_vs_plain("span", "spmv", f, 8, "bf16")
+        walk_line("span", f"P2 columns [{lo}, {hi})", span.span_row_walk(f), 8)
 
     # P5: the span stream kernel, on the headline's best span tune row at
     # K = 8 and on P2's first sub-format
@@ -1319,7 +1362,11 @@ def main() -> int:
     # span kernel (#7) on the masked value plane the layer hands it
     for mode in ("fp32", "bf16"):
         pair_vs_plain("t1", f1, k1, 32, mode)
-    win_vs_plain("span", "t1", f1, k1, "fp32x2", vals=(layer1.vals.detach() * mask1).contiguous())
+    plane1 = (layer1.vals.detach() * mask1).contiguous()
+    for mode in ("fp32x2", "bf16"):
+        win_vs_plain("span", "t1", f1, k1, mode, vals=plane1)
+    walk_line("span", "T1 forward (8, 1639, 128)", span.span_row_walk(f1), k1)
+    walk_line("span", "T1 forward (8, 1639, 128)", span.span_row_walk(f1), k1, "bf16")
 
     rows_t = torch.as_tensor(pw.rows, device=dev)
     cols_t = torch.as_tensor(pw.cols, device=dev)
@@ -1567,7 +1614,10 @@ def main() -> int:
                 kw["resid"] = fmt.resid
             elif which == "dgt_stream":
                 kw["nw"] = fmt.nw
-        kern = functools.partial(kernels[which]["wrapper"], *args, rb=fmt.rb, **kw)
+        # #3 walks the format's row walk (built at its first use), reading K
+        # columns of X padded to kt
+        walk_kw = (dict(walk=dgt.dgt_row_walk(fmt), k=x2.shape[1]) if which == "dgt" else {})
+        kern = functools.partial(kernels[which]["wrapper"], *args, rb=fmt.rb, **kw, **walk_kw)
         plain = functools.partial(plain_fn, *args, rb=fmt.rb, **kw)
         return measure(which, label, [fmt], a, k, kern, plain, xk, xd, whole, pack, bound_k)
 
@@ -1584,15 +1634,18 @@ def main() -> int:
             start = f.chunk_tile if is_tile else f.c0
             kw = dict(rb=f.rb, kt=kt, mode="fp32x2",
                       **(dict(ct=f.ct) if is_tile or stream else {}))
-            calls.append(((start, f.cols, f.lrow, f.vals, f.nc_p), kw))
+            walk_kw = ({} if is_tile or stream
+                       else dict(walk=span.span_row_walk(f), k=x2.shape[1]))
+            calls.append(((start, f.cols, f.lrow, f.vals, f.nc_p), kw, walk_kw))
         xk = [xp[lo:lo + f.shape[1]].contiguous() for f, lo in parts]
 
-        def run(fn):
-            return lambda xs_: [fn(*args, xi, **kw) for (args, kw), xi in zip(calls, xs_)]
+        def run(fn, walk=True):
+            return lambda xs_: [fn(*args, xi, **kw, **(wkw if walk else {}))
+                                for (args, kw, wkw), xi in zip(calls, xs_)]
 
         return measure(which, label, [f for f, _ in parts], a, k,
-                       run(kernels[which]["wrapper"]), run(kernels[which]["plain"]), xk, xd,
-                       whole, pack, bound_k)
+                       run(kernels[which]["wrapper"]), run(kernels[which]["plain"], False), xk,
+                       xd, whole, pack, bound_k)
 
     def rows_yardstick(which, label, fmt, a, k, x, whole, pack=None, kt=None, bound_k=None):
         """``measure`` for the radix or a stripe kernel on one format, X
@@ -1621,6 +1674,7 @@ def main() -> int:
     f_dg = best_dg.formats[0]
     vs_plain("headline", f_dg, 8, f_dg.kt, f_dg.mode, tol)
     dgt_vs_plain("headline", best_dgt.formats[0], 8, tol)
+    walk_line("dgt", "config #1, best dgt tune row", dgt.dgt_row_walk(best_dgt.formats[0]), 8)
     win_vs_plain("tile", "headline", best_tile.formats[0], 8, "fp32x2")
     plan1, plan64 = (build_plan(mat, default_schedule(mat, k)) for k in (1, 64))
     tile256 = functools.partial(tile.tile_spmm, f256)
@@ -1982,6 +2036,8 @@ def main() -> int:
                  torch.as_tensor(xs[256], device=dev), calls=10)
     profile_call("P2 spmm 262144^2 K=8 (span_colsplit(2))", plan_b8.fn,
                  torch.as_tensor(xb8, device=dev), calls=10)
+    profile_call("SpMV 262144^2 spmv_fn('dgt8') (#3)", spmv_fns["spmv_dgt8_262k"],
+                 torch.as_tensor(xv, device=dev), calls=10)
     profile_call("P8 spmm 262144^2 K=4 (radix_span)", plan_b4.fn,
                  torch.as_tensor(xb4, device=dev), calls=10)
     profile_call("P13 SparseLinear.from_nm(bf16), x [4, 128, 4096]", layers13["bf16"], x13)

@@ -22,6 +22,7 @@ from tpusparse.oracle import check_result, spmm_reference
 from tpusparse_torch.io import builder as tbuilder
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import dgt_gather as tdgt
+from tpusparse_torch.kernels import row_walk as rw
 
 STATIC = ("n_programs", "n_chunks", "chunk_g", "rb", "kt", "mode", "resid", "nw",
           "shape", "nnz_real", "split_levels", "deal")
@@ -245,3 +246,121 @@ def test_x_on_another_device_is_refused():
     fmt_meta = dataclasses.replace(fmt, wins=fmt.wins.to("meta"))
     with pytest.raises(ValueError, match="X is on"):
         tdgt.dgt_spmm(fmt_meta, torch.zeros(400, 8))
+
+
+# ------------------------------------------------------------------- row walk
+# The CUDA kernel #3 walks the format's row walk (kernels/row_walk.py): each
+# live slot once, sorted by (y_rows row, slot).  Its function in plain
+# PyTorch (``walk_rows_plain``, the same sum in the walk's order) must equal
+# ``dgt_rows_plain`` and, unpacked, the JAX kernel in interpret mode.
+
+def _assert_walk_covers(walk, live):
+    """Each live slot exactly once, rows non-decreasing, slots rising in a
+    row; the values those of the plane the walk was built from."""
+    slot, row = walk.slot.long(), walk.row.long()
+    torch.testing.assert_close(walk.val, walk.val_src.reshape(-1)[slot].float(), rtol=0, atol=0)
+    np.testing.assert_array_equal(np.sort(slot.numpy()),
+                                  np.flatnonzero(live.reshape(-1).numpy()))
+    assert bool((row[1:] >= row[:-1]).all())
+    same = row[1:] == row[:-1]
+    assert bool((slot[1:][same] > slot[:-1][same]).all())
+    assert walk.runs == int(torch.unique(row).numel())
+
+
+@pytest.mark.parametrize("case", ["fp32x2", "bf16", "no_resid", "split_rows", "kt32"])
+def test_row_walk_equals_plain_and_jax(case):
+    mat = _mega_row() if case == "split_rows" else \
+        jbuilder.power_law_coo(300, 400, avg_nnz_per_row=6.0, seed=2)
+    kt = 32 if case == "kt32" else 8
+    kw = dict(rb=128, g=256, kt=kt, mode="bf16" if case == "bf16" else "fp32x2",
+              resid=case != "no_resid", split=64 if case == "split_rows" else "auto")
+    jfmt = jdgt.pack_dgt(mat, **kw)
+    fmt = _from_jax(jfmt)
+    assert fmt.walk is None                       # a CPU format builds it only when asked
+    walk = tdgt.dgt_row_walk(fmt)
+    assert tdgt.dgt_row_walk(fmt) is walk and fmt.walk is walk
+    _assert_walk_covers(walk, fmt.vals != 0)
+    assert walk.n_slots == mat.nnz and walk.nbytes == 16 * mat.nnz
+    assert walk.n_rows == fmt.n_programs * fmt.rb and walk.runs <= walk.n_slots
+    if case == "split_rows":
+        assert fmt.split_levels > 1
+    x = torch.from_numpy(_x(mat.shape[1], kt, seed=3))
+    args = (fmt.wins, fmt.cols, fmt.lrw, fmt.vals, fmt.nc_p, x)
+    pkw = dict(rb=fmt.rb, kt=kt, mode=fmt.mode, resid=fmt.resid)
+    bf16 = fmt.mode == "bf16"
+    got = rw.walk_rows_plain(walk, fmt.vals, x, bf16=bf16)
+    want = tdgt.dgt_rows_plain(*args, **pkw)
+    scale = tdgt.dgt_rows_plain(fmt.wins, fmt.cols, fmt.lrw, fmt.vals.abs(), fmt.nc_p, x.abs(),
+                                **dict(pkw, mode="fp32x2"))
+    assert float(((got - want).abs() / scale.clamp(min=1.0)).max()) <= 1e-5
+    # unpacked, against the JAX kernel (interpret mode) and the oracle, at
+    # 1e-5 of |A|.|X|; the JAX side's fp32x2 splits X into hi/lo bf16
+    # planes, which keeps 16 bits of each product: 2^-16 of |A|.|X| there
+    y = tdgt._unpack_rows(fmt, got).numpy()
+    ref = spmm_reference(mat, x.numpy().astype(np.float64))
+    scale_ref = spmm_reference(JCoo(mat.rows, mat.cols, np.abs(mat.vals), mat.shape),
+                               np.abs(x.numpy()).astype(np.float64))
+    yj = np.asarray(jdgt.dgt_spmm(jfmt, x.numpy()))
+    tol_j = 1e-5 if bf16 else 2.0 ** -16
+    assert float((np.abs(y - yj) / np.maximum(scale_ref, 1.0)).max()) <= tol_j
+    if not bf16:
+        assert float((np.abs(y - ref) / np.maximum(scale_ref, 1.0)).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["values_in_place", "pattern_in_place", "off_pattern"])
+def test_row_walk_follows_its_planes(case):
+    # as for span: a plane written in place gives the format a new walk,
+    # and a plane with a nonzero off a walk without perm_of_nz is refused
+    mat = _port_mat(jbuilder.uniform_coo(400, 700, 7, seed=17))
+    fmt = tdgt.pack_dgt(mat, rb=128, g=128, kt=8, device="cpu")
+    pattern = (fmt.wins, fmt.cols, fmt.lrw, fmt.nc_p)
+    walk = tdgt.dgt_row_walk(fmt)
+    assert walk.fresh(pattern, fmt.vals) and walk.live_from_values
+    if case == "values_in_place":
+        fmt.vals.neg_()
+        assert rw.gathers(walk, fmt.vals, "dgt")
+        new = tdgt.dgt_row_walk(fmt)
+        assert new is not walk and new.holds(fmt.vals)
+        torch.testing.assert_close(new.val, -walk.val)
+    elif case == "pattern_in_place":
+        fmt.wins.add_(0)
+        assert not walk.built_from(pattern) and tdgt.dgt_row_walk(fmt) is not walk
+    else:
+        plane = fmt.vals.clone()
+        plane.view(-1)[int(torch.nonzero(plane.reshape(-1) == 0)[0])] = 1.0
+        with pytest.raises(ValueError, match="off the format's pattern"):
+            rw.gathers(walk, plane, "dgt")
+
+
+@pytest.mark.parametrize("case", ["with_values", "stored_zero", "empty"])
+def test_row_walk_is_the_pattern(case):
+    if case == "empty":
+        mat = CooMatrix(np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.float32),
+                        (300, 400))
+    else:
+        mat = _port_mat(jbuilder.uniform_coo(400, 700, 7, seed=17))
+    if case == "stored_zero":  # a stored zero of the COO is a live slot of the pattern
+        vals = mat.vals.copy()
+        vals[::5] = 0.0
+        mat = CooMatrix(mat.rows, mat.cols, vals, mat.shape)
+    fmt = tdgt.pack_dgt(mat, rb=128, g=128, kt=8, keep_perm=True, device="cpu")
+    walk = tdgt.dgt_row_walk(fmt)
+    live = torch.zeros(fmt.vals.numel(), dtype=torch.bool)
+    live[torch.as_tensor(fmt.perm_of_nz, dtype=torch.long)] = True
+    _assert_walk_covers(walk, live)
+    assert walk.n_slots == mat.nnz
+    new_vals = np.random.default_rng(5).standard_normal(mat.nnz).astype(np.float32)
+    new = tdgt.with_values(fmt, new_vals)
+    # the pattern's walk goes with it, holding the new plane's values
+    assert new.walk.slot is walk.slot and new.walk.val_src is new.vals
+    assert tdgt.dgt_row_walk(new) is new.walk
+    torch.testing.assert_close(new.walk.val, new.vals.reshape(-1)[walk.slot.long()].float())
+    x = torch.from_numpy(_x(mat.shape[1], 8, seed=6))
+    y = tdgt._unpack_rows(new, rw.walk_rows_plain(walk, new.vals, x)).numpy()
+    ref = spmm_reference(CooMatrix(mat.rows, mat.cols, new_vals, mat.shape),
+                         x.numpy().astype(np.float64))
+    check_result(y, ref, rtol=1e-5)
+    if case == "empty":
+        assert walk.n_slots == 0 and walk.runs == 0 and not y.any()
+    if case == "stored_zero":
+        assert walk.n_slots > int(np.count_nonzero(mat.vals))

@@ -11,6 +11,7 @@ fixture decides, so every pytest worker collects the same tests).  Run on
 the card with ``python -m pytest tests/test_torch_gpu.py -q -m gpu``.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -26,6 +27,7 @@ from tpusparse_torch.kernels import dg_gather as dg
 from tpusparse_torch.kernels import dgt_gather as dgt
 from tpusparse_torch.kernels import nm_structured as nm
 from tpusparse_torch.kernels import radix_gather as radix
+from tpusparse_torch.kernels import row_walk as rw
 from tpusparse_torch.kernels import sddmm as sd
 from tpusparse_torch.kernels import span_gather as span
 from tpusparse_torch.kernels import stripe_gather as stripe
@@ -138,14 +140,16 @@ def test_wrapper_refuses_bad_inputs(cuda, mat):
         dg.dg_spmm(fmt, torch.zeros((4096, 8)))   # X on the CPU, format on the card
 
 
-def _dgt_vs_plain(fmt, k, dev, stream):
+def _dgt_vs_plain(fmt, k, dev, stream, vals=None):
     """Max error of a dgt kernel against its plain version, relative to
-    |A|·|x|, and the launch count it added."""
+    |A|·|x|, and the launch count it added.  ``vals``: a value plane other
+    than the format's (the row walk kernel gathers from it)."""
     x = torch.as_tensor(np.random.default_rng(3).standard_normal((fmt.shape[1], k)),
                         dtype=torch.float32, device=dev)
     x = dg.pad_dense_cols(x, -(-k // fmt.kt) * fmt.kt).contiguous()
-    args = (fmt.wins, fmt.cols, fmt.lrw, fmt.vals, fmt.nc_p)
-    abs_args = (fmt.wins, fmt.cols, fmt.lrw, fmt.vals.abs(), fmt.nc_p)
+    vals = fmt.vals if vals is None else vals
+    args = (fmt.wins, fmt.cols, fmt.lrw, vals, fmt.nc_p)
+    abs_args = (fmt.wins, fmt.cols, fmt.lrw, vals.abs(), fmt.nc_p)
     kw = dict(rb=fmt.rb, kt=fmt.kt, mode=fmt.mode)
     wrapper = dgt.dgt_stream_rows_cuda if stream else dgt.dgt_rows_cuda
     before = wrapper.launches
@@ -153,7 +157,8 @@ def _dgt_vs_plain(fmt, k, dev, stream):
         got = dgt.dgt_stream_rows_cuda(*args, x, nw=fmt.nw, **kw)
         want = dgt.dgt_stream_rows_plain(*args, x, nw=fmt.nw, **kw)
     else:
-        got = dgt.dgt_rows_cuda(*args, x, resid=fmt.resid, **kw)
+        got = dgt.dgt_rows_cuda(*args, x, resid=fmt.resid, walk=dgt.dgt_row_walk(fmt), k=k,
+                                **kw)
         want = dgt.dgt_rows_plain(*args, x, resid=fmt.resid, **kw)
     scale = dgt.dgt_rows_plain(*abs_args, x.abs(), resid=fmt.resid, **kw)
     torch.cuda.synchronize()
@@ -167,8 +172,8 @@ def _dgt_vs_plain(fmt, k, dev, stream):
     (16, "fp32x2", 16, 512, 4, True, False), (16, "bf16", 16, 512, 4, True, False),
     (32, "fp32x2", 32, 256, 4, True, False), (32, "bf16", 32, 256, 1, True, False),
     (8, "fp32x2", 8, 256, 8, False, False), (16, "fp32x2", 40, 512, 4, True, False),
-    (32, "fp32x2", 32, 2048, 4, True, False),  # 256 KB tile: the global-atomic branch
-    (8, "fp32x2", 8, 2560, 4, True, False),    # 80 KB tile: the shared-memory opt-in
+    (32, "fp32x2", 32, 2048, 4, True, False),  # rb 2048: y_rows in device memory
+    (8, "fp32x2", 8, 2560, 4, True, False),    # the SpMV workload's rb
     (8, "fp32x2", 8, 512, 4, True, True), (8, "fp32x2", 8, 512, 8, True, True),
     (32, "bf16", 32, 256, 8, True, True),
     (8, "fp32x2", 8, 2560, 4, True, True),     # 80 KB tile + 4 KB window, opted in
@@ -176,7 +181,142 @@ def _dgt_vs_plain(fmt, k, dev, stream):
 def test_dgt_kernels_match_plain(cuda, mat, kt, mode, k, rb, nw, resid, stream):
     fmt = dgt.pack_dgt(mat, rb=rb, g=512, kt=kt, mode=mode, nw=nw, resid=resid, device=cuda)
     assert _dgt_vs_plain(fmt, k, cuda, stream) <= 1e-5
-    assert dgt.dgt_uses_shared_tile(rb, kt, stream=stream) == (rb * kt * 4 <= 200 * 1024)
+    if stream:  # #4 keeps its shared row tile where it fits
+        assert dgt.dgt_uses_shared_tile(rb, kt) == (rb * kt * 4 <= 200 * 1024)
+    else:       # #3 walks rows: no row tile, no spill, at least 2 blocks an SM
+        info = dgt.dgt_walk_info(rw.walk_geometry(k)[1], mode)
+        assert info["spill_bytes"] == 0 and info["shared_bytes"] == 0
+        assert info["blocks_per_sm"] >= 2
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 37, 256, 520])
+def test_dgt_row_walk_widths(cuda, mat, k):
+    # #3 at every panel: K 1-2 read one float4 a slot of X padded to kt,
+    # 5 the 8-column panel, 37 the 64-column one, 256 one panel, 520 two
+    # the walk's own values streamed, and a copy of the plane gathered
+    kt = 8 if k <= 8 else 32
+    fmt = dgt.pack_dgt(mat, rb=512, g=512, kt=kt, nw=4, device=cuda)
+    assert _dgt_vs_plain(fmt, k, cuda, False) <= 1e-5
+    assert _dgt_vs_plain(fmt, k, cuda, False, vals=fmt.vals.clone()) <= 1e-5
+
+
+def _edge_coo(case, seed=23):
+    """A 4096^2 power law with one edge: longest_row (row 700 holds every
+    column, so its run crosses several blocks of the walk), empty_program
+    (rows 1024-2047 hold no nonzero), stored_zero (every fifth value a
+    stored zero of the COO)."""
+    from tpusparse_torch.io.mtx import CooMatrix
+
+    base = builder.power_law_coo(4096, 4096, avg_nnz_per_row=8.0, seed=seed)
+    keep = ((base.rows < 1024) | (base.rows >= 2048) if case == "empty_program"
+            else base.rows != 700)
+    rows, cols, vals = base.rows[keep], base.cols[keep], base.vals[keep]
+    if case == "longest_row":
+        rows = np.concatenate([rows, np.full(4096, 700)])
+        cols = np.concatenate([cols, np.arange(4096)])
+        vals = np.concatenate([vals, np.random.default_rng(31).standard_normal(4096)])
+    if case == "stored_zero":
+        vals = vals.copy()
+        vals[::5] = 0.0
+    return CooMatrix(rows, cols, vals.astype(np.float32), (4096, 4096))
+
+
+@pytest.mark.parametrize("case", ["longest_row", "empty_program", "padding_chunk",
+                                  "stored_zero"])
+@pytest.mark.parametrize("mode,k", [("fp32x2", 8), ("bf16", 256), ("fp32", 1)])
+def test_row_walk_kernel_edges(cuda, case, mode, k):
+    # #7 and #3 on hand-built formats.  padding_chunk: a chunk (a tile for
+    # dgt) before nc_p whose values are all zero; stored_zero: the pattern
+    # holds slots whose packed value is 0, which the caller's plane makes
+    # nonzero (pack_span(keep_perm=True), the trainable path)
+    a = _edge_coo("longest_row" if case == "padding_chunk" else case)
+    keep_perm, empty = case == "stored_zero", case == "empty_program"
+    # rows dealt to programs in blocks where a program is to be empty
+    fmt = span.pack_span(a, rb=1024, ct=1024, g=512, balance=not empty, keep_perm=keep_perm,
+                         device=cuda)
+    if case == "padding_chunk":
+        vals = fmt.vals.clone()
+        vals[0, 0] = 0.0
+        fmt = dataclasses.replace(fmt, vals=vals, walk=None)
+    walk = span.span_row_walk(fmt)
+    if case == "longest_row":  # one run of 4096 slots: several streams' and blocks' share
+        assert int(torch.unique_consecutive(walk.row, return_counts=True)[1].max()) == 4096
+    if empty:
+        assert not bool(fmt.vals[1].any())
+    plane = None
+    if keep_perm:
+        new = np.random.default_rng(32).standard_normal(a.nnz).astype(np.float32)
+        plane = span.with_values(fmt, new).vals
+        assert walk.n_slots == a.nnz > int(np.count_nonzero(a.vals))
+    assert _window_vs_plain("span", fmt, k, cuda, False, mode, vals=plane) <= 1e-5
+    dmode = "bf16" if mode == "bf16" else "fp32x2"
+    fd = dgt.pack_dgt(a, rb=512, g=512, kt=8, mode=dmode, nw=4, keep_perm=keep_perm,
+                      deal="blocks" if empty else None, device=cuda)
+    if empty:
+        assert not bool(fd.vals[2:4].any())
+    if case == "padding_chunk":
+        vals = fd.vals.clone()
+        vals[0, 0, :128] = 0.0
+        fd = dataclasses.replace(fd, vals=vals, walk=None)
+    if keep_perm:              # with_values carries the pattern's walk
+        walk = dgt.dgt_row_walk(fd)
+        fd = dgt.with_values(fd, new)
+        assert fd.walk.slot is walk.slot and dgt.dgt_row_walk(fd) is fd.walk
+        assert fd.walk.n_slots == a.nnz
+    assert _dgt_vs_plain(fd, k, cuda, False) <= 1e-5
+    if keep_perm and mode != "bf16":  # through the entry points, against the oracle
+        from tpusparse_torch.io.mtx import CooMatrix
+
+        x = np.random.default_rng(33).standard_normal((4096, 8)).astype(np.float32)
+        want = spmm_reference(CooMatrix(a.rows, a.cols, new, a.shape), x.astype(np.float64))
+        check_result(dgt.dgt_spmm(fd, x).cpu().numpy(), want, rtol=2e-3)
+        check_result(span.span_spmm(fmt, x, vals=plane).cpu().numpy(), want, rtol=2e-3)
+
+
+@pytest.mark.parametrize("family", ["dgt_span", "span_onehot"])
+def test_row_walk_follows_load_state_dict(cuda, mat, family):
+    # load_state_dict writes the layer's buffers, the format's planes, in
+    # place: the next call must build a new row walk and serve the new
+    # weights, through #3 or #7
+    from tpusparse_torch.io.mtx import CooMatrix
+
+    counter = dgt.dgt_rows_cuda if family == "dgt_span" else span.span_rows_cuda
+    sched = Schedule(family=family, rb=512, ct=1024, g=512, ktile=8)
+    x = torch.as_tensor(np.random.default_rng(41).standard_normal((5, 4096)),
+                        dtype=torch.float32, device=cuda)
+    layer = SparseLinear.from_coo(mat, schedule=sched, device=cuda)
+    check_result(layer(x).T.cpu().numpy(),
+                 spmm_reference(mat, x.T.cpu().numpy().astype(np.float64)), rtol=2e-3)
+    new = CooMatrix(mat.rows, mat.cols, np.random.default_rng(42).standard_normal(mat.nnz)
+                    .astype(np.float32), mat.shape)
+    layer.load_state_dict(SparseLinear.from_coo(new, schedule=sched, device=cuda).state_dict())
+    before = counter.launches
+    y = layer(x)
+    assert counter.launches > before
+    check_result(y.T.cpu().numpy(), spmm_reference(new, x.T.cpu().numpy().astype(np.float64)),
+                 rtol=2e-3)
+
+
+def test_row_walk_refuses_what_it_would_drop(cuda, mat):
+    # a caller's plane with a nonzero off a format packed without
+    # perm_of_nz, and a walk of another format, are refused, not run
+    fmt = span.pack_span(mat, rb=1024, ct=1024, g=512, device=cuda)
+    x = torch.ones((4096, 8), dtype=torch.float32, device=cuda)
+    plane = fmt.vals.clone()
+    plane.view(-1)[int(torch.nonzero(plane.reshape(-1) == 0)[0])] = 1.0
+    with pytest.raises(ValueError, match="off the format's pattern"):
+        span.span_spmm(fmt, x, vals=plane)
+    other = span.pack_span(mat, rb=1024, ct=1024, g=512, device=cuda)
+    with pytest.raises(ValueError, match="not built from these index planes"):
+        span.span_rows_cuda(fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p, x, rb=fmt.rb,
+                            kt=8, mode="fp32x2", walk=span.span_row_walk(other))
+    fd = dgt.pack_dgt(mat, rb=512, g=512, kt=8, device=cuda)
+    walk = dgt.dgt_row_walk(fd)
+    fd.cols.add_(0)                      # written in place since the walk was built
+    with pytest.raises(ValueError, match="not built from these index planes"):
+        dgt.dgt_rows_cuda(fd.wins, fd.cols, fd.lrw, fd.vals, fd.nc_p, x, rb=fd.rb, kt=8,
+                          mode=fd.mode, resid=fd.resid, walk=walk)
+    assert dgt.dgt_row_walk(fd) is not walk
 
 
 def test_spmv_entry_points_on_card(cuda, mat):
@@ -215,8 +355,9 @@ def _window_vs_plain(which, fmt, k, dev, stream, mode, vals=None):
         wrapper, plain = ((span.span_stream_rows_cuda, span.span_stream_rows_plain) if stream
                           else (span.span_rows_cuda, span.span_rows_plain))
     args = (start, fmt.cols, fmt.lrow, vals, fmt.nc_p)
+    walk_kw = {} if which == "tile" or stream else dict(walk=span.span_row_walk(fmt), k=k)
     before = wrapper.launches
-    got = wrapper(*args, x, mode=mode, **kw)
+    got = wrapper(*args, x, mode=mode, **kw, **walk_kw)
     want = plain(*args, x, mode=mode, **kw)
     scale = plain(start, fmt.cols, fmt.lrow, vals.abs(), fmt.nc_p, x.abs(), mode="fp32", **kw)
     torch.cuda.synchronize()
@@ -294,7 +435,7 @@ def test_tile_stream_kernel_edges(cuda, case, mode, k, stream):
     ("fp32x2", 8, 512, 1024, 512, False), ("fp32", 32, 1024, 1024, 256, False),
     ("bf16", 16, 512, 512, 512, False), ("fp32x2", 5, 256, 1024, 256, False),
     ("fp32x2", 100, 512, 1024, 512, False),
-    ("fp32x2", 32, 2048, 1024, 512, False),      # 256 KB tile: the global-atomic branch
+    ("fp32x2", 32, 2048, 1024, 512, False),      # rb 2048: y_rows in device memory
     ("fp32x2", 8, 512, 1024, 512, True), ("bf16", 32, 512, 1024, 512, True),
     ("fp32", 100, 1024, 4096, 512, True),        # window staged in slices
     ("fp32x2", 8, 2048, 4096, 512, True),        # 64 KB tile + 128 KB window, opted in
@@ -304,10 +445,37 @@ def test_span_kernels_match_plain(cuda, mat, mode, k, rb, ct, g, stream):
     fmt = span.pack_span(mat, rb=rb, ct=ct, g=g, device=cuda)
     assert _window_vs_plain("span", fmt, k, cuda, stream, mode) <= 1e-5
     kt = tile.choose_kt(min(k, 32))
-    assert span.span_uses_shared_tile(rb, kt, g=g, ct=ct, stream=stream) == \
-        (rb * kt * 4 <= 200 * 1024)
+    if stream:  # #8 keeps its shared row tile where it fits
+        assert span.span_uses_shared_tile(rb, kt, g=g, ct=ct) == (rb * kt * 4 <= 200 * 1024)
+    else:       # #7 walks rows: no row tile, no spill, at least 2 blocks an SM
+        info = span.span_walk_info(rw.walk_geometry(k)[1], mode)
+        assert info["spill_bytes"] == 0 and info["shared_bytes"] == 0
+        assert info["blocks_per_sm"] >= 2
     if stream and (k, ct) == (100, 4096):
         assert span.span_stream_slice_rows(rb, kt, g, ct) < ct
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 37, 256, 520])
+def test_span_row_walk_widths(cuda, mat, k):
+    # #7 at every panel, X padded to the span K-tile (kt 8 up to K = 8); the
+    # walk's own values streamed, and a copy of the plane gathered
+    fmt = span.pack_span(mat, rb=512, ct=1024, g=512, device=cuda)
+    assert _window_vs_plain("span", fmt, k, cuda, False, "fp32x2") <= 1e-5
+    assert _window_vs_plain("span", fmt, k, cuda, False, "fp32x2",
+                            vals=fmt.vals.clone()) <= 1e-5
+
+
+def test_span_kernel_at_the_trainable_layer(cuda):
+    # T1's format: the 90 %-pruned 4096^2 weight as TrainableSparseLinear
+    # packs it, (P, NC, G) = (8, 1639, 128), the masked value plane, K = 512
+    w = builder.pruned_weight_coo(4096, 4096, 0.9, seed=3)
+    fmt = span.pack_span(w, rb=512, ct=512, g=128, keep_perm=True, device=cuda)
+    assert (fmt.n_programs, fmt.n_chunks, fmt.chunk_g) == (8, 1639, 128)
+    walk = span.span_row_walk(fmt)
+    assert walk.n_slots == w.nnz and walk.runs == 4096
+    mask = torch.from_numpy(sd.occupancy_mask(fmt)).to(cuda)
+    plane = (fmt.vals.float() * mask).contiguous()
+    assert _window_vs_plain("span", fmt, 512, cuda, False, "fp32x2", vals=plane) <= 1e-5
 
 
 def test_span_value_plane_on_card(cuda, mat):
@@ -368,8 +536,9 @@ def test_tile_plan_and_spmv_span_on_card(cuda, mat):
 
 @pytest.mark.parametrize("rb,kt", [(512, 32), (1792, 8)])
 def test_opt_in_is_per_library(cuda, mat, rb, kt):
-    # dg, radix and span each launch gather_kernel from their own library; an
-    # opt-in past 48 KB made by one (dg first) must not be taken for another's
+    # dg and radix each launch gather_kernel from their own library; an
+    # opt-in past 48 KB made by one (dg first) must not be taken for the
+    # other's; span's row walk kernel (no shared memory) runs after them
     x = torch.as_tensor(np.random.default_rng(13).standard_normal((4096, kt)),
                         dtype=torch.float32, device=cuda)
     f = dg.pack_dg(mat, rb=rb, ns=8, g=512, kt=kt, device=cuda)

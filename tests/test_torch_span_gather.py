@@ -17,7 +17,10 @@ from tpusparse.io import builder as jbuilder
 from tpusparse.kernels import span_gather as jspan
 from tpusparse.oracle import check_result, spmm_reference
 from tpusparse_torch.io.mtx import CooMatrix
+from tpusparse_torch.kernels import row_walk as rw
 from tpusparse_torch.kernels import span_gather as tspan
+from tpusparse_torch.kernels.common import unpack_slots
+from tpusparse_torch.kernels.nnz_split import pack_segment_span
 
 STATIC = ("n_programs", "n_chunks", "chunk_g", "rb", "ct", "shape", "nnz_real")
 TOL = {"fp32": 1e-5, "fp32x2": 1e-4, "bf16": 5e-2}
@@ -174,3 +177,188 @@ def test_plain_versions_and_wrappers():
         tspan.span_rows_cuda(*args, rb=64, kt=8, mode="fp32")
     with pytest.raises(ValueError, match="X is on"):
         tspan.span_spmm(fmt, torch.zeros((400, 8), device="meta"))
+
+
+# ------------------------------------------------------------------- row walk
+# The CUDA kernel #7 walks the format's row walk (kernels/row_walk.py): each
+# live slot once, sorted by (y_rows row, slot).  Its function in plain
+# PyTorch (``walk_rows_plain``, the same sum in the walk's order) must equal
+# ``span_rows_plain`` at 1e-5 of |A|.|X| and, unpacked, the JAX kernel in
+# interpret mode: at 1e-5 of |A|.|X| in fp32, at TOL of max|ref| where the
+# JAX side splits (fp32x2) or rounds (bf16) its operands.
+
+def _assert_walk_covers(walk, live):
+    """Each live slot exactly once, rows non-decreasing, slots rising in a
+    row; the values those of the plane the walk was built from."""
+    slot, row = walk.slot.long(), walk.row.long()
+    torch.testing.assert_close(walk.val, walk.val_src.reshape(-1)[slot].float(), rtol=0, atol=0)
+    np.testing.assert_array_equal(np.sort(slot.numpy()),
+                                  np.flatnonzero(live.reshape(-1).numpy()))
+    assert bool((row[1:] >= row[:-1]).all())
+    same = row[1:] == row[:-1]
+    assert bool((slot[1:][same] > slot[:-1][same]).all())
+    assert walk.runs == int(torch.unique(row).numel())
+
+
+def _abs_ref(jmat, x):
+    return spmm_reference(CooMatrix(jmat.rows, jmat.cols, np.abs(jmat.vals), jmat.shape),
+                          np.abs(x).astype(np.float64))
+
+
+@pytest.mark.parametrize("precision,balance", [("fp32", True), ("fp32x2", True),
+                                               ("bf16", True), ("fp32", False)])
+def test_row_walk_equals_plain_and_jax(precision, balance):
+    jmat, _, x = _case(seed=2)
+    jfmt = jspan.pack_span(jmat, rb=64, ct=128, g=32, balance=balance)
+    fields = {f: np.asarray(getattr(jfmt, f)) for f in tspan.SPAN_FIELDS}
+    fmt = tspan.span_format_from_numpy(fields, device="cpu",
+                                       **{f: getattr(jfmt, f) for f in STATIC})
+    walk = tspan.span_row_walk(fmt)
+    assert fmt.walk is walk and tspan.span_row_walk(fmt) is walk
+    _assert_walk_covers(walk, fmt.vals != 0)
+    assert walk.n_slots == jmat.nnz and walk.n_rows == fmt.n_programs * fmt.rb
+    # in slot order a chunk is sorted by column: nearly every slot its own run
+    assert walk.runs <= jmat.shape[0] < walk.n_slots
+    xt = torch.from_numpy(x)
+    bf16 = precision == "bf16"
+    got = rw.walk_rows_plain(walk, fmt.vals, xt, bf16=bf16)
+    args = (fmt.c0, fmt.cols, fmt.lrow)
+    want = tspan.span_rows_plain(*args, fmt.vals, fmt.nc_p, xt, rb=fmt.rb, kt=8, mode=precision)
+    scale = tspan.span_rows_plain(*args, fmt.vals.abs(), fmt.nc_p, xt.abs(), rb=fmt.rb, kt=8,
+                                  mode="fp32")
+    assert float(((got - want).abs() / scale.clamp(min=1.0)).max()) <= 1e-5
+    y = unpack_slots(got, fmt.slot_of_origrow).numpy()
+    yj = np.asarray(jspan.span_spmm(jfmt, x, precision=precision))
+    if precision == "fp32":
+        assert float((np.abs(y - yj) / np.maximum(_abs_ref(jmat, x), 1.0)).max()) <= 1e-5
+    else:
+        ref = spmm_reference(jmat, x.astype(np.float64))
+        np.testing.assert_allclose(y, yj, rtol=0, atol=TOL[precision] * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("case", ["with_values", "stored_zero", "no_perm", "empty", "segment"])
+def test_row_walk_is_the_pattern(case):
+    jmat, tmat, x = _case(seed=9)
+    if case == "empty":
+        tmat = CooMatrix(np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.float32),
+                         tmat.shape)
+    if case == "stored_zero":  # a stored zero of the COO is a live slot of the pattern
+        vals = tmat.vals.copy()
+        vals[::4] = 0.0
+        tmat = CooMatrix(tmat.rows, tmat.cols, vals, tmat.shape)
+    xt = torch.from_numpy(x)
+    if case == "segment":      # segment_span's format walks the same way
+        fmt = pack_segment_span(tmat, block_nnz=256, ct=128, g=32, device="cpu")
+        walk = tspan.span_row_walk(fmt)
+        _assert_walk_covers(walk, fmt.vals != 0)
+        want = tspan.span_rows_plain(fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p, xt,
+                                     rb=fmt.rb, kt=8, mode="fp32")
+        torch.testing.assert_close(rw.walk_rows_plain(walk, fmt.vals, xt), want,
+                                   rtol=1e-5, atol=1e-5)
+        return
+    fmt = tspan.pack_span(tmat, rb=64, ct=128, g=32, keep_perm=case != "no_perm",
+                          device="cpu")
+    walk = tspan.span_row_walk(fmt)
+    if case == "no_perm":      # the packed plane's nonzeros
+        _assert_walk_covers(walk, fmt.vals != 0)
+        return
+    live = torch.zeros(fmt.vals.numel(), dtype=torch.bool)
+    live[torch.as_tensor(fmt.perm_of_nz, dtype=torch.long)] = True
+    _assert_walk_covers(walk, live)
+    assert walk.n_slots == tmat.nnz
+    new_vals = np.random.default_rng(4).standard_normal(tmat.nnz).astype(np.float32)
+    new = tspan.with_values(fmt, new_vals)
+    # the pattern's walk goes with it, holding the new plane's values
+    assert new.walk.slot is walk.slot and new.walk.val_src is new.vals
+    assert tspan.span_row_walk(new) is new.walk
+    torch.testing.assert_close(new.walk.val, new.vals.reshape(-1)[walk.slot.long()].float())
+    # the caller's plane (the trainable path's vals=) read through the walk
+    y = unpack_slots(rw.walk_rows_plain(walk, new.vals, xt), fmt.slot_of_origrow).numpy()
+    check_result(y, spmm_reference(CooMatrix(tmat.rows, tmat.cols, new_vals, tmat.shape),
+                                   x.astype(np.float64)), rtol=1e-5)
+    if case == "empty":
+        assert walk.n_slots == 0 and walk.runs == 0 and not y.any()
+    if case == "stored_zero":
+        assert walk.n_slots > int(np.count_nonzero(tmat.vals))
+
+
+@pytest.mark.parametrize("case", ["values_in_place", "pattern_in_place", "other_format",
+                                  "state_dict", "off_pattern", "stored_zero_plane"])
+def test_row_walk_follows_its_planes(case):
+    # A walk is tied to the planes it was decoded from, as they stood: a
+    # plane written in place (load_state_dict into a layer's buffers) gives
+    # the format a new walk, the old one no longer passes the wrapper's
+    # check, and its values are no longer streamed.  Without perm_of_nz a
+    # caller's plane with a nonzero off the walk is refused, not dropped.
+    from tpusparse_torch.nn import SparseLinear
+    from tpusparse_torch.schedule import Schedule, build_plan
+
+    _, tmat, x = _case(seed=9)
+    if case == "stored_zero_plane":
+        vals = tmat.vals.copy()
+        vals[::4] = 0.0
+        tmat = CooMatrix(tmat.rows, tmat.cols, vals, tmat.shape)
+    xt = torch.from_numpy(x)
+    fmt = tspan.pack_span(tmat, rb=64, ct=128, g=32, keep_perm=case == "stored_zero_plane",
+                          device="cpu")
+    pattern = (fmt.c0, fmt.cols, fmt.lrow, fmt.nc_p)
+    walk = tspan.span_row_walk(fmt)
+    assert walk.fresh(pattern, fmt.vals) and not rw.gathers(walk, fmt.vals, "span")
+    assert walk.live_from_values == (case != "stored_zero_plane")
+    if case == "values_in_place":
+        fmt.vals.mul_(2.0)              # the same nonzeros: gathered, not refused
+        assert not walk.holds(fmt.vals) and rw.gathers(walk, fmt.vals, "span")
+        new = tspan.span_row_walk(fmt)
+        assert new is not walk and new.holds(fmt.vals)
+        torch.testing.assert_close(new.val, 2.0 * walk.val)
+    elif case == "pattern_in_place":
+        fmt.lrow.copy_(fmt.lrow)
+        assert not walk.built_from(pattern)
+        assert tspan.span_row_walk(fmt) is not walk
+    elif case == "other_format":
+        other = tspan.pack_span(tmat, rb=64, ct=128, g=32, device="cpu")
+        assert not walk.built_from((other.c0, other.cols, other.lrow, other.nc_p))
+    elif case == "state_dict":
+        sched = Schedule(family="span_onehot", rb=64, ct=128, g=32)
+        plan = build_plan(tmat, sched, device="cpu")
+        layer = SparseLinear(plan.fn, *tmat.shape, formats=plan.formats, device="cpu")
+        f = plan.formats[0]
+        old = tspan.span_row_walk(f)
+        new_vals = np.random.default_rng(12).standard_normal(tmat.nnz).astype(np.float32)
+        new_mat = CooMatrix(tmat.rows, tmat.cols, new_vals, tmat.shape)
+        src = build_plan(new_mat, sched, device="cpu")
+        layer.load_state_dict(SparseLinear(src.fn, *tmat.shape, formats=src.formats,
+                                           device="cpu").state_dict())
+        new = tspan.span_row_walk(f)
+        assert new is not old and new.holds(f.vals) and not old.fresh(
+            (f.c0, f.cols, f.lrow, f.nc_p), f.vals)
+        want = spmm_reference(new_mat, x.astype(np.float64))
+        check_result(unpack_slots(rw.walk_rows_plain(new, f.vals, xt),
+                                  f.slot_of_origrow).numpy(), want, rtol=1e-5)
+        check_result(layer(xt.T).T.numpy(), want, rtol=1e-5)
+    elif case == "off_pattern":
+        plane = fmt.vals.clone()
+        assert rw.gathers(walk, plane, "span")      # the same nonzeros
+        col, _, walked = tspan.slot_rows_cols(*pattern[:3], fmt.nc_p, fmt.rb)
+        spare = torch.nonzero(walked & (col < tmat.shape[1])
+                              & (plane.reshape(-1) == 0)).reshape(-1)
+        plane.view(-1)[spare[0]] = 1.0
+        with pytest.raises(ValueError, match="off the format's pattern"):
+            rw.gathers(walk, plane, "span")
+    else:                               # a stored zero made nonzero is summed
+        plane = tspan.with_values(fmt, np.ones(tmat.nnz, np.float32)).vals
+        assert rw.gathers(walk, plane, "span")
+        check_result(unpack_slots(rw.walk_rows_plain(walk, plane, xt),
+                                  fmt.slot_of_origrow).numpy(),
+                     spmm_reference(CooMatrix(tmat.rows, tmat.cols,
+                                              np.ones(tmat.nnz, np.float32), tmat.shape),
+                                    x.astype(np.float64)), rtol=1e-5)
+
+
+@pytest.mark.parametrize("k,want", [(1, (4, 4, 2048)), (2, (4, 4, 2048)), (5, (8, 8, 2048)),
+                                    (37, (40, 64, 1024)), (512, (512, 512, 512)),
+                                    (520, (520, 512, 512))])
+def test_walk_geometry(k, want):
+    # K = 1-2 read one float4 a slot; streams of one or two lanes take
+    # bigger blocks, the widest panels smaller; past 512 the panels repeat
+    assert rw.walk_geometry(k) == want

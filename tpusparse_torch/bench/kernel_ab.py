@@ -1,25 +1,40 @@
-"""Times the resident tile kernel (#5, ``tile_rows_cuda``) and the nested
-stripe kernel (#11, ``stripe_nested_rows_cuda``) at the shapes where
+"""Times the redesigned slot-walk kernels at the shapes where
 ``chip_smoke.py`` reads them, for the port in any checkout, so that two
-commits are compared on one card in one run:
+commits are compared on one card in one run: the resident tile kernel (#5,
+``tile_rows_cuda``), the nested stripe kernel (#11,
+``stripe_nested_rows_cuda``), the dgt kernel (#3, ``dgt_rows_cuda``) and
+the span kernel (#7, ``span_rows_cuda``):
 
-    python3 tpusparse_torch/bench/kernel_ab.py [--root DIR]
+    python3 tpusparse_torch/bench/kernel_ab.py [--root DIR] [--only PREFIX]
 
 ``--root`` is the checkout whose ``tpusparse_torch`` is timed (default: the
 one holding this file), for example an older commit unpacked with ``git
 archive`` into an ignored directory; run it in turns (older, newer, newer,
 older).  The timer is this checkout's ``harness.device_time_fn``, loaded by
-path, so an older checkout that lacks it is timed the same way.
+path, so an older checkout that lacks it is timed the same way.  A
+checkout whose dgt and span wrappers take a row walk gets the format's
+(built before the timing); an older one is called as it was.  ``--only`` keeps
+the shapes whose name starts with PREFIX ("#3", "#7", "T1", ...).
 
 Shapes: config #1 (power-law 32768^2, alpha 1.8, seed 42) in the tile
 format of rb 1024, ct 1024, g 512 at K = 8, 32 and 256 and of rb 1024, ct
 512, g 256 at K = 8; ``SparseLinear.from_dense(k_hint=512)``'s format of
 the 90 %-pruned 4096^2 weight (seed 3) at K = 512; config #1's
-``stripe_nested`` format (work 4096, unroll 8) at K = 8 and 32.  For each:
-the device time a call (profiler, 20 calls: the wrapper's kernel and its
-zero fill), the back-to-back time a call (``time_fn``, median of five, host
-included) and the largest error against the plain version relative to
-|A|·|X|.  Prints one JSON object as its last line.  Needs a CUDA card.
+``stripe_nested`` format (work 4096, unroll 8) at K = 8 and 32.  #3:
+``spmv_fn(mat, "dgt8")``'s format of the SpMV workload (power-law
+262144^2, avg 40, seed 9) at K = 1 and ``spmv_multi_fn(mat, 8)``'s at K =
+8; config #1's ``dgt_span`` rb 512 nw 8 g 512 at K = 8.  #7: the trainable
+layer's span format of the pruned weight, (P, NC, G) = (8, 1639, 128), at
+K = 512; the SpMV workload's default at K = 8 (``span_colsplit``, two
+launches).  T1: one training step of ``TrainableSparseLinear`` on that
+weight, x [4, 128, 4096], Adam.  For each: the device time a call
+(profiler, 20 calls: the wrapper's kernel and its zero fill), the
+back-to-back time a call (``time_fn``, median of five, host included), the
+largest error against the plain version relative to |A|·|X| and, for #3
+and #7, cuSPARSE's device and ``time_fn`` times for the same product
+(``torch.sparse.mm`` on CSR).  A device time the profiler cannot give
+(records dropped in every window) is null, and said.  Prints one JSON
+object as its last line.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -36,7 +51,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                     help="the checkout whose tpusparse_torch is timed")
-    root = Path(ap.parse_args().root).resolve()
+    ap.add_argument("--only", default="", help="time only the shapes whose name starts so")
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
     spec = importlib.util.spec_from_file_location("kernel_ab_harness",
                                                   Path(__file__).with_name("harness.py"))
     harness = importlib.util.module_from_spec(spec)
@@ -51,11 +68,16 @@ def main() -> int:
     sys.path.insert(0, str(root))
     from tpusparse_torch.format import pack_tile
     from tpusparse_torch.io import builder
+    from tpusparse_torch.kernels import dgt_gather as dgt
+    from tpusparse_torch.kernels import sddmm as sd
+    from tpusparse_torch.kernels import span_gather as span
     from tpusparse_torch.kernels import stripe_gather as stripe
     from tpusparse_torch.kernels import tile_onehot as tile
     from tpusparse_torch.kernels.common import pad_dense_cols
     from tpusparse_torch.meta.set import create_init_metadata_set
+    from tpusparse_torch.nn import TrainableSparseLinear
     from tpusparse_torch.schedule import Schedule, build_plan, default_schedule
+    from tpusparse_torch.spmv import spmv_fn, spmv_multi_fn
 
     dev = torch.device("cuda", 0)
     out = {"root": str(root), "device": torch.cuda.get_device_name(0),
@@ -63,16 +85,45 @@ def main() -> int:
                                     "--format=csv,noheader"], capture_output=True,
                                    text=True).stdout.strip(), "shapes": {}}
 
-    def record(name, kern, plain, scale, x):
-        got, want, den = kern(x), plain(x), scale(x.abs())
+    def record(name, kern, plain, scale, x, lib=None):
+        got, want, den = kern(x), plain(x), scale([v.abs() for v in x] if isinstance(x, list)
+                                                  else x.abs())
         torch.cuda.synchronize()
-        den = torch.maximum(den.double(), torch.ones((), dtype=torch.float64, device=dev))
-        err = float(((got.double() - want.double()).abs() / den).max())
+        if isinstance(got, torch.Tensor):
+            got, want, den = [got], [want], [den]
+        err = 0.0
+        for g_, w_, d_ in zip(got, want, den):
+            d_ = torch.maximum(d_.double(), torch.ones((), dtype=torch.float64, device=dev))
+            err = max(err, float(((g_.double() - w_.double()).abs() / d_).max()))
+        del got, want, den
         host = float(np.median([harness.time_fn(kern, x) for _ in range(5)])) * 1e3
-        device = harness.device_time_fn(kern, x) * 1e3
-        out["shapes"][name] = {"device_ms": device, "time_fn_ms": host, "rel_err": err}
-        print(f"{name}: device {device:.4f} ms a call, time_fn {host:.4f} ms, "
-              f"rel err {err:.2e}", flush=True)
+        rec = {"device_ms": device_ms(name, kern, x), "time_fn_ms": host, "rel_err": err}
+        if lib is not None:
+            rec["library_device_ms"] = device_ms(name + " cuSPARSE", *lib)
+            rec["library_time_fn_ms"] = harness.time_fn(*lib) * 1e3
+        out["shapes"][name] = rec
+        print(f"{name}: device {fmt_ms(rec['device_ms'])} ms a call, time_fn {host:.4f} ms, "
+              f"rel err {err:.2e}"
+              + (f", cuSPARSE device {fmt_ms(rec['library_device_ms'])} ms, time_fn "
+                 f"{rec['library_time_fn_ms']:.4f} ms" if lib else ""), flush=True)
+
+    def device_ms(name, fn, x, tries=3):
+        """The device time a call in ms, or None where the profiler dropped
+        records in every window of ``tries`` readings (said in the output;
+        time_fn stands)."""
+        for _ in range(tries):
+            try:
+                return harness.device_time_fn(fn, x) * 1e3
+            except RuntimeError as e:
+                err = e
+        print(f"{name}: {err}", flush=True)
+        return None
+
+    def fmt_ms(v):
+        return "n/a" if v is None else f"{v:.4f}"
+
+    def wanted(name):
+        return name.startswith(args.only)
 
     def rand_x(n, k, kt):
         x = torch.as_tensor(np.random.default_rng(1).standard_normal((n, k)),
@@ -99,20 +150,104 @@ def main() -> int:
                                                          fmt.wnz, fmt.wrow, v, rb=rb),
                rand_x(fmt.shape[1], k, kt))
 
+    def csr_lib(a, x):
+        """cuSPARSE's product of A (CSR on the card) with x [N, K]."""
+        order = np.lexsort((a.cols, a.rows))
+        crow = torch.zeros(a.shape[0] + 1, dtype=torch.int64)
+        crow[1:] = torch.cumsum(torch.bincount(torch.from_numpy(np.asarray(a.rows, np.int64)),
+                                               minlength=a.shape[0]), 0)
+        csr = torch.sparse_csr_tensor(crow, torch.from_numpy(np.asarray(a.cols, np.int64)[order]),
+                                      torch.from_numpy(a.vals[order].astype(np.float32)),
+                                      size=a.shape).to(dev)
+        return (lambda v: torch.sparse.mm(csr, v)), x
+
+    def dgt_shape(name, fmt, a, k):
+        x = rand_x(fmt.shape[1], k, fmt.kt)
+        args = (fmt.wins, fmt.cols, fmt.lrw, fmt.vals, fmt.nc_p)
+        kw = dict(rb=fmt.rb, kt=fmt.kt, mode=fmt.mode, resid=fmt.resid)
+        walk = (dict(walk=dgt.dgt_row_walk(fmt), k=k) if hasattr(dgt, "dgt_row_walk")
+                else {})
+        record(name, lambda v: dgt.dgt_rows_cuda(*args, v, **kw, **walk),
+               lambda v: dgt.dgt_rows_plain(*args, v, **kw),
+               lambda v: dgt.dgt_rows_plain(fmt.wins, fmt.cols, fmt.lrw, fmt.vals.abs(),
+                                            fmt.nc_p, v, **kw),
+               x, csr_lib(a, x[:, :k].contiguous()))
+
+    def span_shape(name, parts, a, k, vals=None):
+        """The span kernel over ``parts`` [(format, first column of X)]: the
+        launches of one product, X padded to span_spmm's K-tile."""
+        kt = tile.choose_kt(min(tile.default_ktile(k), 32))
+        x = rand_x(a.shape[1], k, kt)
+        calls = []
+        for f, lo in parts:
+            v = f.vals if vals is None else vals
+            walk = (dict(walk=span.span_row_walk(f), k=k) if hasattr(span, "span_row_walk")
+                    else {})
+            calls.append(((f.c0, f.cols, f.lrow, v, f.nc_p), (f.c0, f.cols, f.lrow, v.abs(),
+                                                               f.nc_p),
+                          dict(rb=f.rb, kt=kt, mode="fp32x2"), walk))
+        xs = [x[lo:lo + f.shape[1]].contiguous() for f, lo in parts]
+
+        def run(fn, walk, absolute=False):
+            return lambda v: [fn(*(ab if absolute else ar), xi, **kw, **(wk if walk else {}))
+                              for (ar, ab, kw, wk), xi in zip(calls, v)]
+
+        record(name, run(span.span_rows_cuda, True), run(span.span_rows_plain, False),
+               run(span.span_rows_plain, False, True), xs, csr_lib(a, x[:, :k].contiguous()))
+
     mat = builder.power_law_coo(32768, 32768, avg_nnz_per_row=32.0, alpha=1.8, seed=42)
-    ms = create_init_metadata_set(mat)
-    f1024 = pack_tile(ms, 0, out_rows=32768, rb=1024, ct=1024, g=512, device=dev)
-    for k in (8, 32, 256):
-        tile_shape(f"#5 config #1 rb1024 ct1024 g512 K={k}", f1024, k)
-    tile_shape("#5 config #1 rb1024 ct512 g256 K=8",
-               pack_tile(ms, 0, out_rows=32768, rb=1024, ct=512, g=256, device=dev), 8)
     pw = builder.pruned_weight_coo(4096, 4096, 0.9, seed=3)
-    tile_shape("#5 P13 from_dense(k_hint=512) K=512",
-               build_plan(pw, default_schedule(pw, 512), device=dev).formats[0], 512)
-    nested = build_plan(mat, Schedule(family="stripe_nested", work_per_block=4096, unroll=8),
-                        device=dev).formats[0]
-    for k in (8, 32):
-        nested_shape(f"#11 config #1 stripe_nested K={k}", nested, k)
+    if wanted("#5") or wanted("#11"):
+        ms = create_init_metadata_set(mat)
+        f1024 = pack_tile(ms, 0, out_rows=32768, rb=1024, ct=1024, g=512, device=dev)
+        for k in (8, 32, 256):
+            tile_shape(f"#5 config #1 rb1024 ct1024 g512 K={k}", f1024, k)
+        tile_shape("#5 config #1 rb1024 ct512 g256 K=8",
+                   pack_tile(ms, 0, out_rows=32768, rb=1024, ct=512, g=256, device=dev), 8)
+        tile_shape("#5 P13 from_dense(k_hint=512) K=512",
+                   build_plan(pw, default_schedule(pw, 512), device=dev).formats[0], 512)
+        nested = build_plan(mat, Schedule(family="stripe_nested", work_per_block=4096,
+                                          unroll=8), device=dev).formats[0]
+        for k in (8, 32):
+            nested_shape(f"#11 config #1 stripe_nested K={k}", nested, k)
+    if wanted("#7") or wanted("T1"):
+        f1 = span.pack_span(pw, rb=512, ct=512, g=128, keep_perm=True, device=dev)
+        plane = (f1.vals.float() * torch.from_numpy(sd.occupancy_mask(f1)).to(dev)).contiguous()
+        span_shape("#7 T1 forward (8, 1639, 128) K=512", [(f1, 0)], pw, 512, vals=plane)
+        layer = TrainableSparseLinear(pw, device=dev)
+        opt = torch.optim.Adam(layer.parameters(), lr=2e-2)
+        rng = np.random.default_rng(17)
+        x1 = torch.as_tensor(rng.standard_normal((4, 128, 4096)), dtype=torch.float32,
+                             device=dev)
+        t1 = torch.as_tensor(rng.standard_normal((4, 128, 4096)), dtype=torch.float32,
+                             device=dev)
+
+        def step(xb):
+            xs = xb.detach().requires_grad_(True)
+            opt.zero_grad(set_to_none=True)
+            loss = torch.nn.functional.mse_loss(layer(xs), t1)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        host = float(np.median([harness.time_fn(step, x1, iters=10) for _ in range(5)])) * 1e3
+        device = device_ms("T1 training step", step, x1)
+        out["shapes"]["T1 training step"] = {"device_ms": device, "time_fn_ms": host}
+        print(f"T1 training step: device {fmt_ms(device)} ms a step, time_fn {host:.4f} ms",
+              flush=True)
+    big = builder.power_law_coo(262144, 262144, avg_nnz_per_row=40.0, seed=9)
+    if wanted("#7"):
+        plan = build_plan(big, default_schedule(big, 8), device=dev)
+        span_shape("#7 262144^2 span_colsplit(2) K=8",
+                   [(f, lo) for f, (lo, _) in zip(plan.formats, plan.meta["col_ranges"])],
+                   big, 8)
+        del plan
+    if wanted("#3"):
+        dgt_shape("#3 262144^2 spmv_fn('dgt8') K=1", spmv_fn(big, "dgt8").format, big, 1)
+        dgt_shape("#3 262144^2 spmv_multi_fn(8) K=8", spmv_multi_fn(big, 8).formats[0], big, 8)
+        sched = Schedule(family="dgt_span", rb=512, nw=8, g=512, unroll=8, ktile=8)
+        dgt_shape("#3 config #1 dgt_span rb512 nw8 g512 K=8",
+                  build_plan(mat, sched, device=dev).formats[0], mat, 8)
     print(json.dumps(out))
     return 0
 

@@ -22,7 +22,7 @@
 // bf16: each product rounded to bf16, summed in fp32.
 //
 // Design (simple and right first): gather_common.cuh's gather_kernel with
-// its WindowSlots decode (column c0 + cols, shared with span_gather.cu).
+// its WindowSlots decode (column c0 + cols, shared with radix_gather.cu).
 // The [rb, KT] row tile lives in shared memory where it fits the opt-in
 // limit; rb = 2048 at KT = 32 (256 KB) takes the global-atomic branch.
 //

@@ -16,22 +16,24 @@
 // whose value v is not zero:
 //     col = (wins[p,j,s/128] + (cols >> 7)) * 128 + (cols & 127)
 //     row = resid ? lrw * ngrp + s % ngrp : lrw
-//     y_rows[p*rb + row, t*KT + k] += v * X[col, t*KT + k]
-// for every K-tile t and k < KT.  That is what the TPU kernel's window
-// slices, lane gathers, select tree, static residue masks and one-hot MXU
-// scatter reconstruct; none of that mechanism is needed on the card, where
-// a thread loads the row of X it needs.  Chunks at or past nc_p[p] hold
-// only zeros and are skipped; so are zero-valued slots.
+//     y_rows[p*rb + row, k] += v * X[col, k]
+// for every column k.  That is what the TPU kernel's window slices, lane
+// gathers, select tree, static residue masks and one-hot MXU scatter
+// reconstruct; none of that mechanism is needed on the card, where a lane
+// loads the row of X it needs.
 //
 // Precision.  fp32x2: product and sum in fp32 (the TPU's hi/lo bf16 split
 // kept about 16 bits of each product).  bf16: each product rounded to bf16,
 // summed in fp32.
 //
-// Design (simple and right first).
-//   dgt_spmm_launch: gather_common.cuh's gather_kernel with the DgtSlots
-//   decode below.  At the 32768-row headline pack_dgt(rb=512) gives P = 69
-//   programs; the SpMV workload's rb = 2560 row tile is 80 KB at KT = 8 and
-//   opts in; rb = 8192 at KT = 32 (1 MB) takes the global-atomic branch.
+// Design.
+//   dgt_spmm_launch: row_walk.cuh's row walk kernel.  The wrapper decodes
+//   (col, row) above once per pattern into the format's row walk (the live
+//   slots in (row, slot) order); the kernel walks it once per panel of up
+//   to 512 columns, sums each row run in registers and adds it into y_rows
+//   by float4 atomics.  The split-row pieces are rows of y_rows like any
+//   other, so the pyramid unpack is unchanged.  At K = 1 (SpMV) the wrapper
+//   asks for 4 columns of the kt-padded X: one float4 a slot.
 //   dgt_stream_kernel: the TPU variant fetched each tile's nw windows as
 //   their own X blocks because X could not stay in VMEM.  Here the block
 //   walks a chunk tile by tile; each thread keeps its slots of the tile in
@@ -39,46 +41,21 @@
 //   copies X rows [(base+w)*128, +128) x its K-tile (4 KB at KT = 8, 16 KB
 //   at KT = 32; zero past N) into shared memory, then the slots with
 //   sel == w gather from there.  Its accumulation and launch are
-//   gather_common.cuh's.
+//   gather_common.cuh's (a shared row tile with per-slot shared atomics).
 //
-// Bound.  Memory: 12 bytes per slot of the format (cols, lrw, vals), 4 per
-// tile (wins), plus the X rows gathered and Y; 2 flops per slot and
-// column.  The stream kernel moves nw*128*KT*4 bytes of X per tile at most.
-// See PERF.md for the times against the bound on the card.
+// Bound.  Memory: the walk's 12 bytes a live slot and the value plane
+// (dgt_spmm_launch) or 12 bytes per slot of the format and 4 per tile
+// (stream), plus the X rows gathered and Y; 2 flops per slot and column.
+// The stream kernel moves nw*128*KT*4 bytes of X per tile at most.  See
+// PERF.md for the times against the bound on the card.
 
 #include "gather_common.cuh"
+#include "row_walk.cuh"
 
 namespace {
 
 using gather::kThreads;
 using gather::OptIn;
-
-// A dgt slot: column (wins[tile] + sel) * 128 + lane, row lrw * ngrp +
-// s % ngrp (resid) or lrw.  A column at or past N is skipped; a checked
-// format has none, so X is never read past N.
-struct DgtSlots {
-  const int* wins;
-  const int* cols;
-  const int* lrw;
-  int T, N, ngrp, resid;
-
-  struct Chunk {
-    const int* win;  // the chunk's T window bases
-    const int* cols;
-    const int* lrw;
-    int N, ngrp, resid;
-    __device__ __forceinline__ bool operator()(int64_t i, int s, int64_t& col, int& row) const {
-      const int c = cols[i];
-      col = static_cast<int64_t>(win[s >> 7] + (c >> 7)) * 128 + (c & 127);
-      const int r = lrw[i];
-      row = resid ? r * ngrp + s % ngrp : r;
-      return col < N;
-    }
-  };
-  __device__ __forceinline__ Chunk chunk(int64_t c) const {
-    return {wins + c * T, cols, lrw, N, ngrp, resid};
-  }
-};
 
 template <int KT, bool BF16, bool SHARED_TILE>
 __global__ void __launch_bounds__(kThreads)
@@ -152,30 +129,54 @@ dgt_stream_kernel(const int* __restrict__ wins, const int* __restrict__ cols,
 size_t window_bytes(int kt) { return static_cast<size_t>(128) * kt * sizeof(float); }
 
 template <int KT, bool BF16>
-int launch(bool stream_x, const int* wins, const int* cols, const int* lrw,
-           const float* vals, const int* nc_p, const float* x, float* y, int P, int NC,
-           int G, int rb, int N, int Kp, int ngrp, int flag, int splits,
-           cudaStream_t stream) {
-  const dim3 grid(splits, P, Kp / KT);
-  const size_t tile = gather::tile_bytes(rb, KT);
-  if (stream_x) {
-    static OptIn optin;  // of this instantiation's shared-tile stream kernel
-    return gather::launch_tiled(dgt_stream_kernel<KT, BF16, true>,
-                                dgt_stream_kernel<KT, BF16, false>, optin, grid, tile,
-                                window_bytes(KT), stream, wins, cols, lrw, vals, nc_p, x, y,
-                                NC, G, rb, N, Kp, ngrp, flag, splits);
-  }
-  static OptIn optin;  // of this instantiation's shared-tile gather kernel
-  const DgtSlots slots{wins, cols, lrw, G / 128, N, ngrp, flag};
-  return gather::launch_tiled(gather::gather_kernel<DgtSlots, KT, BF16, true>,
-                              gather::gather_kernel<DgtSlots, KT, BF16, false>, optin, grid,
-                              tile, 0, stream, slots, vals, nc_p, x, y, NC, G, rb, Kp, splits);
+int launch_stream(const int* wins, const int* cols, const int* lrw, const float* vals,
+                  const int* nc_p, const float* x, float* y, int P, int NC, int G, int rb,
+                  int N, int Kp, int ngrp, int nw, int splits, cudaStream_t stream) {
+  static OptIn optin;  // of this instantiation's shared-tile stream kernel
+  return gather::launch_tiled(dgt_stream_kernel<KT, BF16, true>,
+                              dgt_stream_kernel<KT, BF16, false>, optin,
+                              dim3(splits, P, Kp / KT), gather::tile_bytes(rb, KT),
+                              window_bytes(KT), stream, wins, cols, lrw, vals, nc_p, x, y, NC,
+                              G, rb, N, Kp, ngrp, nw, splits);
 }
 
-int dispatch(bool stream_x, const void* wins, const void* cols, const void* lrw,
-             const void* vals, const void* nc_p, const void* x, void* y, int P, int NC, int G,
-             int rb, int N, int Kp, int kt, int bf16, int ngrp, int flag, int splits,
-             void* stream) {
+}  // namespace
+
+extern "C" {
+
+// 1 when a block of the stream kernel at (rb, kt) keeps its [rb, kt] row
+// tile in shared memory beside its [128, kt] window, 0 when it takes the
+// global-atomic branch.
+int dgt_uses_shared_tile(int rb, int kt) {
+  return gather::tile_bytes(rb, kt) + window_bytes(kt) <=
+         static_cast<size_t>(gather::optin_shared_bytes());
+}
+
+// The row walk kernel over the S slots of a walk (row, col, slot int32
+// [S]): values vals[slot[i]] from a value plane with gather, else the
+// walk's own vals[i]; y [rows, ld] must be zeroed; x is [N, ld] fp32; the
+// first kc columns in panels of pw, bs slots a block.  Returns the
+// cudaError_t of the launch (0 on success).
+int dgt_spmm_launch(const void* row, const void* col, const void* slot, const void* vals,
+                    const void* x, void* y, int S, int ld, int kc, int pw, int bf16, int bs,
+                    int gather, void* stream) {
+  return runs::walk_launch(row, col, slot, vals, x, y, S, ld, kc, pw, bf16, bs, gather, stream);
+}
+
+// The row walk kernel of (pw, bf16) into out[0..3]: registers a thread,
+// local (spill) bytes a thread, static shared bytes, blocks an SM holds.
+// Returns a cudaError_t.
+int dgt_walk_info(int pw, int bf16, int* out) {
+  return runs::kernel_info(runs::walk_kernel_of(pw, bf16), out);
+}
+
+// The stream kernel for a resid format, nw windows per tile staged in
+// shared memory: y [P*rb, Kp] must be zeroed; x is [N, Kp] fp32, Kp a
+// multiple of kt.  Returns the cudaError_t of the launch (0 on success).
+int dgt_stream_launch(const void* wins, const void* cols, const void* lrw, const void* vals,
+                      const void* nc_p, const void* x, void* y, int P, int NC, int G, int rb,
+                      int N, int Kp, int kt, int bf16, int ngrp, int nw, int splits,
+                      void* stream) {
   if (G % 128 || ngrp <= 0 || 128 % ngrp) return static_cast<int>(cudaErrorInvalidValue);
   const auto* wins_ = static_cast<const int*>(wins);
   const auto* cols_ = static_cast<const int*>(cols);
@@ -187,47 +188,16 @@ int dispatch(bool stream_x, const void* wins, const void* cols, const void* lrw,
   auto s = static_cast<cudaStream_t>(stream);
 #define DGT_CASE(KT)                                                                       \
   if (kt == KT) {                                                                          \
-    return bf16 ? launch<KT, true>(stream_x, wins_, cols_, lrw_, vals_, ncp_, x_, y_, P,   \
-                                   NC, G, rb, N, Kp, ngrp, flag, splits, s)                \
-                : launch<KT, false>(stream_x, wins_, cols_, lrw_, vals_, ncp_, x_, y_, P,  \
-                                    NC, G, rb, N, Kp, ngrp, flag, splits, s);              \
+    return bf16 ? launch_stream<KT, true>(wins_, cols_, lrw_, vals_, ncp_, x_, y_, P, NC,  \
+                                          G, rb, N, Kp, ngrp, nw, splits, s)              \
+                : launch_stream<KT, false>(wins_, cols_, lrw_, vals_, ncp_, x_, y_, P, NC, \
+                                           G, rb, N, Kp, ngrp, nw, splits, s);            \
   }
   DGT_CASE(8)
   DGT_CASE(16)
   DGT_CASE(32)
 #undef DGT_CASE
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-}  // namespace
-
-extern "C" {
-
-// 1 when a block of (rb, kt) keeps its [rb, kt] row tile in shared memory
-// (with the stream kernel's [128, kt] window beside it when stream_x), 0
-// when it takes the global-atomic branch.
-int dgt_uses_shared_tile(int rb, int kt, int stream_x) {
-  return gather::tile_bytes(rb, kt) + (stream_x ? window_bytes(kt) : 0) <=
-         static_cast<size_t>(gather::optin_shared_bytes());
-}
-
-// y [P*rb, Kp] must be zeroed; x is [N, Kp] fp32, Kp a multiple of kt.
-// Returns the cudaError_t of the launch (0 on success).
-int dgt_spmm_launch(const void* wins, const void* cols, const void* lrw, const void* vals,
-                    const void* nc_p, const void* x, void* y, int P, int NC, int G, int rb,
-                    int N, int Kp, int kt, int bf16, int ngrp, int resid, int splits,
-                    void* stream) {
-  return dispatch(false, wins, cols, lrw, vals, nc_p, x, y, P, NC, G, rb, N, Kp, kt, bf16,
-                  ngrp, resid, splits, stream);
-}
-
-// The same for a resid format, nw windows per tile staged in shared memory.
-int dgt_stream_launch(const void* wins, const void* cols, const void* lrw, const void* vals,
-                      const void* nc_p, const void* x, void* y, int P, int NC, int G, int rb,
-                      int N, int Kp, int kt, int bf16, int ngrp, int nw, int splits,
-                      void* stream) {
-  return dispatch(true, wins, cols, lrw, vals, nc_p, x, y, P, NC, G, rb, N, Kp, kt, bf16,
-                  ngrp, nw, splits, stream);
 }
 
 }  // extern "C"

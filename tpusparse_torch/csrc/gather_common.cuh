@@ -1,8 +1,9 @@
-// gather_common.cuh - the gather machinery that dg_gather.cu,
-// dgt_gather.cu, span_gather.cu and radix_gather.cu share, and the
-// shared-memory helpers stripe_gather.cu's stripe kernel uses.  The formats
-// differ only in how a slot names its column of X and its row of y_rows;
-// everything else is here:
+// gather_common.cuh - the gather machinery that dg_gather.cu and
+// radix_gather.cu launch, and the shared-memory helpers that the dgt and
+// span stream kernels (#4, #8) and stripe_gather.cu's stripe kernel use.
+// (The dgt and span kernels #3 and #7 walk row runs instead: row_walk.cuh.)
+// The formats differ only in how a slot names its column of X and its row
+// of y_rows; everything else is here:
 //
 //   gather_kernel<Slots, KT, BF16, SHARED_TILE>  one block per (share of
 //       program p's chunk range, p, K-tile t).  Its threads take a chunk's
@@ -16,10 +17,10 @@
 //       into, the same kernel adds every product straight into y_rows with
 //       global atomics (SHARED_TILE false).
 //   Slots  the format's decode: Slots::chunk(c) reads what a chunk shares
-//       (dg, span, radix: its window start; dgt: its tiles' window bases),
-//       and the chunk's decode maps slot s at flat index i to (col, row); it
-//       returns false for a slot that must be skipped.  WindowSlots below is
-//       the decode of the formats whose slot names start[chunk] + cols.
+//       (dg and radix: its window start), and the chunk's decode maps slot
+//       s at flat index i to (col, row); it returns false for a slot that
+//       must be skipped.  WindowSlots below is the decode of the formats
+//       whose slot names start[chunk] + cols.
 //   launch_tiled  picks the shared-tile or the global-atomic instantiation
 //       and launches it, opting into more than 48 KB of dynamic shared
 //       memory once per kernel and device; launch_window does so for
@@ -268,7 +269,7 @@ int launch_tiled(Kernel shared_kernel, Kernel global_kernel, OptIn& optin, dim3 
   return static_cast<int>(cudaGetLastError());
 }
 
-// gather_kernel<Slots> for KT = kt (dg, span, tile: 1 without bf16, or 8,
+// gather_kernel<Slots> for KT = kt (dg: 1 without bf16, or 8,
 // 16, 32; radix: any of 1, 2, 4, 8, 16, 32 with or without bf16): y
 // [P*rb, Kp] must be zeroed; x is [N, Kp] fp32, Kp a multiple of kt.  Only
 // the libraries that call launch_window (a template for that reason)

@@ -1,7 +1,7 @@
-// row_runs.cuh - the slot stream that tile_onehot.cu (kernels #5 and #6)
-// and stripe_gather.cu (the nested kernel #11) share: a run of slots walked
-// once per panel of X's columns, each row run summed in registers and added
-// into y once.
+// row_runs.cuh - the slot stream that tile_onehot.cu (kernels #5 and #6),
+// stripe_gather.cu (the nested kernel #11), dgt_gather.cu (#3) and
+// span_gather.cu (#7) share: a run of slots walked once per panel of X's
+// columns, each row run summed in registers and added into y once.
 //
 // A stream is LPS lanes of one warp (LPS = PW/4, at most 32; PW the panel
 // width, 4..512 columns).  It takes a contiguous range of slots, in rounds:
@@ -19,7 +19,10 @@
 // lane calls it with rising i), v = 0 for a slot to skip (padding, a column
 // at or past N).  The runs are as long as the format keeps a row's slots
 // together: pack_tile sorts a chunk by (row, column), the nested stripe
-// keeps COO order within its sub-blocks.
+// keeps COO order within its sub-blocks.  The dgt and span formats keep
+// neither (a span chunk is sorted by column: every slot its own run), so
+// their kernel (row_walk.cuh) walks a row walk instead: the format's live
+// slots listed once in (row, slot) order, built once per pattern.
 
 #pragma once
 
@@ -61,10 +64,11 @@ __device__ __forceinline__ void stream_range(int lo, int hi, int& s0, int& s1) {
 }
 
 // Walks slots [s0, s1) for the panel of columns [col0, col0 + PW) of X
-// [N, Kp] (Kp a multiple of 4) and adds each row run into y [rows, Kp].
+// [N, ld] and adds each row run into y [rows, ld]; only the first kc
+// columns (kc <= ld, both multiples of 4) are read and written.
 template <int PW, bool BF16, typename Slot>
 __device__ __forceinline__ void walk(Slot& slot, int s0, int s1, const float* __restrict__ x,
-                                     float* __restrict__ y, int Kp, int col0) {
+                                     float* __restrict__ y, int ld, int kc, int col0) {
   constexpr int LPS = kLanes<PW>;
   constexpr int NV = kNv<PW>;
   constexpr int U = kInFlight<PW>;
@@ -77,11 +81,11 @@ __device__ __forceinline__ void walk(Slot& slot, int s0, int s1, const float* __
   float acc[NV][4] = {};
   int cur = -1;  // the row of the run in acc
   auto flush = [&]() {
-    float* yr = y + static_cast<int64_t>(cur) * Kp;
+    float* yr = y + static_cast<int64_t>(cur) * ld;
 #pragma unroll
     for (int q = 0; q < NV; ++q) {
       const int c = col0 + (q * LPS + lane) * 4;
-      if (c < Kp) {
+      if (c < kc) {
         atomicAdd(reinterpret_cast<float4*>(yr + c),
                   make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]));
       }
@@ -117,8 +121,8 @@ __device__ __forceinline__ void walk(Slot& slot, int s0, int s1, const float* __
 #pragma unroll
         for (int q = 0; q < NV; ++q) {
           const int c = col0 + (q * LPS + lane) * 4;
-          xv[u][q] = vj[u] != 0.f && c < Kp
-                         ? *reinterpret_cast<const float4*>(x + static_cast<int64_t>(cj) * Kp + c)
+          xv[u][q] = vj[u] != 0.f && c < kc
+                         ? *reinterpret_cast<const float4*>(x + static_cast<int64_t>(cj) * ld + c)
                          : make_float4(0.f, 0.f, 0.f, 0.f);
         }
       }

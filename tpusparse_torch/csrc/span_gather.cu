@@ -12,20 +12,26 @@
 // same shape; nc_p [P] the real chunk count of each program (the packer's
 // chunk walk count).  For each program p, chunk j < nc_p[p] and slot s
 // whose value v is not zero:
-//     y_rows[p*rb + lrow, t*KT + k] += v * X[c0[p,j] + cols, t*KT + k]
-// for every K-tile t and k < KT.  That is what the TPU kernel's one-hot
-// MXU contractions over each chunk's [c0, c0+ct) window of X compute.  The
+//     y_rows[p*rb + lrow, k] += v * X[c0[p,j] + cols, k]
+// for every column k.  That is what the TPU kernel's one-hot MXU
+// contractions over each chunk's [c0, c0+ct) window of X compute.  The
 // window may run past N (the TPU padded X by ct rows); here no column at or
 // past N is read.
 //
 // Precision.  fp32 and fp32x2: product and sum in fp32.  bf16: each product
 // rounded to bf16, summed in fp32, as in gather_common.cuh.
 //
-// Design (simple and right first).
-//   span_spmm_launch: the span decode is dg's (column c0 + cols, row lrow),
-//   so this is gather_common.cuh's gather_kernel with the WindowSlots
-//   decode, as dg_gather.cu launches it.  The value plane is its
-//   own pointer, so a caller's plane costs no copy.
+// Design.
+//   span_spmm_launch: row_walk.cuh's row walk kernel, as dgt_gather.cu
+//   launches it.  A chunk is sorted by column, so in slot order each slot
+//   is a row run of its own; the wrapper lists the live slots once per
+//   pattern in (row, slot) order (the format's row walk), and the kernel
+//   walks them once per panel of up to 512 columns: the trainable layer's
+//   K = 512 is one walk, where the shared row tile of gather_common.cuh
+//   took 16 (one per K-tile of 32), each with 32 shared CAS adds a slot.
+//   With pack_span(keep_perm=True) the live slots are the pattern's, so a
+//   stored zero that training makes nonzero is summed; the value plane is
+//   its own pointer, so a caller's plane costs no copy.
 //   span_stream_kernel: the TPU variant walked chunks on the grid and
 //   fetched each chunk's index and value planes by DMA.  Here a block walks
 //   its chunks in order; per chunk it copies the three planes (G x 12 B)
@@ -34,12 +40,14 @@
 //   at ct = 1024, KT = 8), each slice staged only when a live slot falls in
 //   it; the slots then gather from shared memory.  Rows past N are zeroed.
 //
-// Bound.  Memory: 12 bytes per slot of the format (cols, lrow, vals), 4 per
-// chunk (c0), plus the X rows gathered and Y; 2 flops per slot and column.
+// Bound.  Memory: the walk's 12 bytes a live slot and the value plane
+// (span_spmm_launch) or 12 bytes per slot of the format and 4 per chunk
+// (stream), plus the X rows gathered and Y; 2 flops per slot and column.
 // The stream kernel moves up to ct x KT x 4 bytes of X per chunk.  See
 // PERF.md for the times against the bound on the card.
 
 #include "gather_common.cuh"
+#include "row_walk.cuh"
 
 namespace {
 
@@ -170,13 +178,10 @@ int launch_stream(const int* c0, const int* cols, const int* lrow, const float* 
 
 extern "C" {
 
-// 1 when a block of (rb, kt) keeps its [rb, kt] row tile in shared memory
-// (with the stream kernel's planes and window slice beside it when
-// stream), 0 when it takes the global-atomic branch.
-int span_uses_shared_tile(int rb, int kt, int G, int ct, int stream) {
-  if (!stream) {
-    return gather::tile_bytes(rb, kt) <= static_cast<size_t>(gather::optin_shared_bytes());
-  }
+// 1 when a block of the stream kernel at (rb, kt) keeps its [rb, kt] row
+// tile in shared memory beside its planes and window slice, 0 when it
+// takes the global-atomic branch.
+int span_uses_shared_tile(int rb, int kt, int G, int ct) {
   int ws = 0;
   return stream_geometry(rb, kt, G, ct, ws) ? 1 : 0;
 }
@@ -188,16 +193,22 @@ int span_stream_slice_rows(int rb, int kt, int G, int ct) {
   return ws;
 }
 
-// y [P*rb, Kp] must be zeroed; x is [N, Kp] fp32, Kp a multiple of kt in
-// {8, 16, 32}.  Returns the cudaError_t of the launch (0 on success).
-int span_spmm_launch(const void* c0, const void* cols, const void* lrow, const void* vals,
-                     const void* nc_p, const void* x, void* y, int P, int NC, int G, int rb,
-                     int N, int Kp, int kt, int bf16, int splits, void* stream) {
-  if (kt == 1) return static_cast<int>(cudaErrorInvalidValue);
-  const gather::WindowSlots slots{static_cast<const int*>(c0), static_cast<const int*>(cols),
-                                  static_cast<const int*>(lrow), N};
-  return gather::launch_window(slots, vals, nc_p, x, y, P, NC, G, rb, Kp, kt, bf16, splits,
-                               stream);
+// The row walk kernel over the S slots of a walk (row, col, slot int32
+// [S]): values vals[slot[i]] from a value plane with gather, else the
+// walk's own vals[i]; y [rows, ld] must be zeroed; x is [N, ld] fp32; the
+// first kc columns in panels of pw, bs slots a block.  Returns the
+// cudaError_t of the launch (0 on success).
+int span_spmm_launch(const void* row, const void* col, const void* slot, const void* vals,
+                     const void* x, void* y, int S, int ld, int kc, int pw, int bf16, int bs,
+                     int gather, void* stream) {
+  return runs::walk_launch(row, col, slot, vals, x, y, S, ld, kc, pw, bf16, bs, gather, stream);
+}
+
+// The row walk kernel of (pw, bf16) into out[0..3]: registers a thread,
+// local (spill) bytes a thread, static shared bytes, blocks an SM holds.
+// Returns a cudaError_t.
+int span_walk_info(int pw, int bf16, int* out) {
+  return runs::kernel_info(runs::walk_kernel_of(pw, bf16), out);
 }
 
 // The same function, each chunk's planes and X window staged in shared

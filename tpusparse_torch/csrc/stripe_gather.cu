@@ -167,7 +167,7 @@ stripe_nested_kernel(const int* __restrict__ cols, const int* __restrict__ lrow,
     if (col >= N) v = 0.f;
   };
   runs::walk<PW, false>(slot, s0, s1, x, y + static_cast<int64_t>(p) * rb * Kp, Kp,
-                        static_cast<int>(blockIdx.z) * PW);
+                        Kp, static_cast<int>(blockIdx.z) * PW);
 }
 
 // The nested kernel for a panel of pw columns, or nullptr.

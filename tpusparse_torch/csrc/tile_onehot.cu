@@ -87,7 +87,7 @@ tile_stream_kernel(const int* __restrict__ chunk_tile, const int* __restrict__ c
     if (c >= N) v = 0.f;
   };
   runs::walk<PW, BF16>(slot, s0, s1, x, y + static_cast<int64_t>(p) * rb * Kp, Kp,
-                       static_cast<int>(blockIdx.z) * PW);
+                       Kp, static_cast<int>(blockIdx.z) * PW);
 }
 
 template <int PW>

@@ -20,7 +20,9 @@ its plain PyTorch version of the same function:
 
   dgt_rows_cuda        / dgt_rows_plain         replace ``_dgt_kernel``
                                                 (kt 8/16/32, fp32x2/bf16,
-                                                resid on/off, any nw)
+                                                resid on/off, any nw): the
+                                                row walk kernel over the
+                                                format's ``dgt_row_walk``
   dgt_stream_rows_cuda / dgt_stream_rows_plain  replace ``_dgt_kernel_stream``
                                                 (resid formats; X windows
                                                 staged in shared memory)
@@ -44,10 +46,11 @@ import torch
 
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import build
-from tpusparse_torch.kernels.common import (cdiv, check_operands, launch_checked,
-                                            launch_splits, pad_dense_cols, prep_x,
-                                            resolve_device)
+from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info,
+                                            launch_checked, launch_splits, pad_dense_cols,
+                                            prep_x, resolve_device)
 from tpusparse_torch.kernels.dg_gather import PRECISIONS
+from tpusparse_torch.kernels.row_walk import RowWalk, build_row_walk, launch_walk, live_slots
 from tpusparse_torch.levels import Level
 
 DGT_KTS = (8, 16, 32)
@@ -79,6 +82,9 @@ class DgtFormat:
                              [y; fold2(y); fold4(y); fold8(y)] of pairwise
                              sums over the P*rb row slots (-1: empty)
     ``perm_of_nz`` (numpy, host) maps each COO nonzero to its flat slot.
+    ``walk`` is the port's own field: the row walk the kernel walks
+    (``dgt_row_walk``), built on the card at the first launch, not part of
+    ``memory_bytes``.
     """
 
     wins: Any
@@ -100,6 +106,7 @@ class DgtFormat:
     split_levels: int = 1              # max pieces per row (1/2/4/8)
     perm_of_nz: Any = None
     deal: str = "arbitrary"            # 'blocks' | 'index' | 'arbitrary'
+    walk: RowWalk | None = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -550,14 +557,16 @@ def pack_dgt(
 
 
 def with_values(fmt: DgtFormat, new_vals) -> DgtFormat:
-    """Values-only update (same pattern; requires pack_dgt(keep_perm=True))."""
+    """Values-only update (same pattern; requires pack_dgt(keep_perm=True)).
+    The row walk, of the pattern, is carried over with the new values."""
     assert fmt.perm_of_nz is not None, "pack_dgt(..., keep_perm=True) required"
     new_vals = np.asarray(new_vals, dtype=np.float32)
     flat = np.zeros(fmt.n_programs * fmt.n_chunks * fmt.chunk_g, dtype=np.float32)
     flat[np.asarray(fmt.perm_of_nz)] = new_vals
-    vals = flat.reshape(fmt.n_programs, fmt.n_chunks, fmt.chunk_g)
-    return dataclasses.replace(fmt, vals=torch.from_numpy(vals).to(fmt.device),
-                               nnz_real=int(np.count_nonzero(vals)))
+    vals = torch.from_numpy(flat.reshape(fmt.n_programs, fmt.n_chunks, fmt.chunk_g))
+    vals = vals.to(fmt.device)
+    return dataclasses.replace(fmt, vals=vals, nnz_real=int(np.count_nonzero(flat)),
+                               walk=None if fmt.walk is None else fmt.walk.for_plane(vals))
 
 
 def _pyramid_len(nslots: int, split_levels: int) -> int:
@@ -629,6 +638,32 @@ def _slot_cols_rows(wins, cols, lrw, rb, ngrp, resid):
     return col, row + torch.arange(P, device=cols.device).view(P, 1, 1) * rb
 
 
+def build_dgt_walk(wins, cols, lrw, vals, nc_p, *, rb, kt, mode, resid, n,
+                   perm_of_nz=None) -> RowWalk:
+    """The row walk of a dgt format's planes: its live slots (those of
+    ``perm_of_nz`` where given, else the nonzeros of ``vals`` in a chunk
+    before ``nc_p``) with their y_rows row, as ``dgt_rows_plain`` decodes
+    it (the split-row piece's row; the residue class with ``resid``), and
+    their column of X [n, ...], sorted by (row, slot)."""
+    _, ngrp = dgt_geometry(kt, mode)
+    P, NC, _ = cols.shape
+    col, row = _slot_cols_rows(wins, cols, lrw, rb, ngrp, resid)
+    walked = torch.arange(NC, device=cols.device).view(1, NC, 1) < nc_p.reshape(P, 1, 1)
+    return build_row_walk(row, col, live_slots(vals, walked, perm_of_nz), vals,
+                          pattern=(wins, cols, lrw, nc_p), live_from_values=perm_of_nz is None,
+                          n_rows=P * rb, n_cols=n)
+
+
+def dgt_row_walk(fmt: DgtFormat) -> RowWalk:
+    """The format's row walk, built at first use and kept on the format;
+    built anew where a plane was replaced or written in place since."""
+    wins, cols, lrw, vals, nc_p = _fmt_args(fmt)
+    if fmt.walk is None or not fmt.walk.fresh((wins, cols, lrw, nc_p), vals):
+        fmt.walk = build_dgt_walk(wins, cols, lrw, vals, nc_p, rb=fmt.rb, kt=fmt.kt, mode=fmt.mode,
+                                  resid=fmt.resid, n=fmt.shape[1], perm_of_nz=fmt.perm_of_nz)
+    return fmt.walk
+
+
 def dgt_rows_plain(wins, cols, lrw, vals, nc_p, x, *, rb, kt, mode, resid):
     """Plain PyTorch ``_dgt_kernel``: y_rows [P*rb, Kp] with ``y_rows[p*rb +
     row] += v * X[col]`` over the slots whose value is not zero, col =
@@ -659,23 +694,32 @@ def _lib():
     """csrc/dgt_gather.cu, built at first use, with its C signatures."""
     lib = build.library("dgt_gather")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.dgt_spmm_launch.argtypes = [ptr] * 7 + [i32] * 11 + [ptr]
+    lib.dgt_spmm_launch.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.dgt_spmm_launch.restype = i32
+    lib.dgt_walk_info.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
+    lib.dgt_walk_info.restype = i32
     lib.dgt_stream_launch.argtypes = [ptr] * 7 + [i32] * 11 + [ptr]
     lib.dgt_stream_launch.restype = i32
-    lib.dgt_uses_shared_tile.argtypes = [i32, i32, i32]
+    lib.dgt_uses_shared_tile.argtypes = [i32, i32]
     lib.dgt_uses_shared_tile.restype = i32
     return lib
 
 
-def dgt_uses_shared_tile(rb: int, kt: int, *, stream: bool = False) -> bool:
-    """Whether a launch of (rb, kt) keeps its row tile in shared memory
-    (False: the kernel's global-atomic branch).  ``stream`` counts the
-    stream kernel's X window buffer too."""
-    return bool(_lib().dgt_uses_shared_tile(rb, kt, int(stream)))
+def dgt_uses_shared_tile(rb: int, kt: int) -> bool:
+    """Whether a launch of the stream kernel at (rb, kt) keeps its row tile
+    in shared memory beside its X window buffer (False: the kernel's
+    global-atomic branch).  The row walk kernel holds no tile."""
+    return bool(_lib().dgt_uses_shared_tile(rb, kt))
 
 
-def _launch(name, wins, cols, lrw, vals, nc_p, x, rb, kt, mode, flag):
+def dgt_walk_info(pw: int, mode: str) -> dict:
+    """The row walk kernel of panel ``pw`` in ``mode`` in this library:
+    registers a thread, spilled (local) bytes a thread, static shared bytes
+    and blocks an SM holds."""
+    return kernel_info(_lib().dgt_walk_info, "dgt_walk_info", pw, int(mode == "bf16"))
+
+
+def _check(wins, cols, lrw, vals, nc_p, x, kt, mode):
     P, NC, G = cols.shape
     if G % 128:
         raise ValueError(f"chunk size {G} is not a multiple of 128")
@@ -686,19 +730,23 @@ def _launch(name, wins, cols, lrw, vals, nc_p, x, rb, kt, mode, flag):
                        ("nc_p", nc_p, torch.int32, (P, 1, 1))), ndim=2)
     if kt not in DGT_KTS or mode not in PRECISIONS or x.shape[1] % kt:
         raise ValueError(f"dgt kernel: kt={kt}, mode={mode}, X {tuple(x.shape)}")
-    n, kp = x.shape
-    _, ngrp = dgt_geometry(kt, mode)
-    y = torch.zeros((P * rb, kp), dtype=torch.float32, device=x.device)
-    launch_checked(getattr(_lib(), name), name, (wins, cols, lrw, vals, nc_p, x, y),
-                   (P, NC, G, rb, n, kp, kt, int(mode == "bf16"), ngrp, flag,
-                    launch_splits(x.device, P * (kp // kt), NC)))
-    return y
 
 
-def dgt_rows_cuda(wins, cols, lrw, vals, nc_p, x, *, rb, kt, mode, resid):
+def dgt_rows_cuda(wins, cols, lrw, vals, nc_p, x, *, rb, kt, mode, resid, walk=None, k=None):
     """CUDA ``_dgt_kernel`` (tpusparse/kernels/dgt_gather.py:667): y_rows
-    [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in {8, 16, 32}."""
-    y = _launch("dgt_spmm_launch", wins, cols, lrw, vals, nc_p, x, rb, kt, mode, int(resid))
+    [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in {8, 16, 32}, from
+    one launch of the row walk kernel over ``walk``, the format's live
+    slots in row order (``dgt_row_walk(fmt)``, which holds ``resid``'s
+    decode; one built from other planes, or before they were written, is
+    refused).  The values are ``vals``'s: streamed from the walk where it
+    holds them (``vals`` is the plane it was built from, unwritten since),
+    else gathered through its slot index.  ``k``: the columns of X
+    that carry the product (the rest is the kt padding; None: all Kp); the
+    kernel reads and writes them rounded up to 4, the rest of y_rows stays
+    zero."""
+    _check(wins, cols, lrw, vals, nc_p, x, kt, mode)
+    y = launch_walk(_lib().dgt_spmm_launch, "dgt_spmm_launch", walk, (wins, cols, lrw, nc_p),
+                    vals, x, rows=cols.shape[0] * rb, k=k, bf16=mode == "bf16")
     dgt_rows_cuda.launches += 1
     return y
 
@@ -709,7 +757,15 @@ def dgt_stream_rows_cuda(wins, cols, lrw, vals, nc_p, x, *, rb, kt, mode, nw):
     memory before its slots gather from them."""
     if nw not in (1, 2, 4, 8):
         raise ValueError(f"nw={nw}")
-    y = _launch("dgt_stream_launch", wins, cols, lrw, vals, nc_p, x, rb, kt, mode, nw)
+    _check(wins, cols, lrw, vals, nc_p, x, kt, mode)
+    P, NC, G = cols.shape
+    n, kp = x.shape
+    _, ngrp = dgt_geometry(kt, mode)
+    y = torch.zeros((P * rb, kp), dtype=torch.float32, device=x.device)
+    launch_checked(_lib().dgt_stream_launch, "dgt_stream_launch",
+                   (wins, cols, lrw, vals, nc_p, x, y),
+                   (P, NC, G, rb, n, kp, kt, int(mode == "bf16"), ngrp, nw,
+                    launch_splits(x.device, P * (kp // kt), NC)))
     dgt_stream_rows_cuda.launches += 1
     return y
 
@@ -780,16 +836,18 @@ def dgt_spmm(
             "stream_x pairs with the resid select kernel"
         rows_fn = dgt_stream_rows_cuda if on_card else dgt_stream_rows_plain
         y_rows = rows_fn(*_fmt_args(fmt), x, rb=fmt.rb, kt=fmt.kt, mode=fmt.mode, nw=fmt.nw)
+    elif on_card:
+        y_rows = dgt_rows_cuda(*_fmt_args(fmt), x, rb=fmt.rb, kt=fmt.kt, mode=fmt.mode,
+                               resid=fmt.resid, walk=dgt_row_walk(fmt), k=k)
     else:
-        rows_fn = dgt_rows_cuda if on_card else dgt_rows_plain
-        y_rows = rows_fn(*_fmt_args(fmt), x, rb=fmt.rb, kt=fmt.kt, mode=fmt.mode,
-                         resid=fmt.resid)
+        y_rows = dgt_rows_plain(*_fmt_args(fmt), x, rb=fmt.rb, kt=fmt.kt, mode=fmt.mode,
+                                resid=fmt.resid)
     return _unpack_rows(fmt, y_rows)[:, :k]
 
 
 def dgt_spmv(fmt: DgtFormat, x, *, unroll: int = 8) -> torch.Tensor:
     """y[M] = A . x[N]: SpMV through the kt-wide SpMM kernel (x zero-padded
-    to kt columns)."""
+    to kt columns, of which the kernel reads 4)."""
     x = prep_x(x, fmt.device)
     assert x.ndim == 1 and x.shape[0] == fmt.shape[1], f"x shape {tuple(x.shape)}"
     return dgt_spmm(fmt, x[:, None], unroll=unroll)[:, 0]

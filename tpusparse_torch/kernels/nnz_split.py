@@ -28,8 +28,9 @@ from tpusparse_torch.format import SegmentFormat
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels.common import (cdiv, pad_dense_cols, prep_x, resolve_device,
                                             round_up, to_device)
-from tpusparse_torch.kernels.span_gather import (span_chunk_numpy, span_rows_cuda,
-                                                 span_rows_plain)
+from tpusparse_torch.kernels.row_walk import RowWalk
+from tpusparse_torch.kernels.span_gather import (span_chunk_numpy, span_row_walk,
+                                                 span_rows_cuda, span_rows_plain)
 from tpusparse_torch.kernels.stripe_gather import (prep_stripe_x, stripe_rows_cuda,
                                                    stripe_rows_plain)
 from tpusparse_torch.kernels.tile_onehot import PRECISIONS, choose_kt, default_ktile
@@ -69,8 +70,9 @@ class SegmentSpanFormat:
       nc_p  [P, 1, 1]  int32  real chunk count per block
       row_of_slot [P * RB] int32  matrix row of each (block, segment) slot
 
-    ``nc_p`` is the port's own field, as on SpanFormat; every other field
-    equals the JAX ``SegmentSpanFormat``'s.
+    ``nc_p`` and ``walk`` (the row walk, ``span_row_walk``) are the port's
+    own fields, as on SpanFormat; every other field equals the JAX
+    ``SegmentSpanFormat``'s.
     """
 
     c0: Any
@@ -86,6 +88,7 @@ class SegmentSpanFormat:
     ct: int
     shape: tuple[int, int]
     nnz_real: int
+    walk: RowWalk | None = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -171,7 +174,10 @@ def segment_span_spmm(fmt: SegmentSpanFormat, x, *, ktile: int | None = None,
     assert x.shape[0] == n_cols, f"X rows {x.shape[0]} != A cols {n_cols}"
     kt = choose_kt(min(ktile or default_ktile(k), 32))
     x = pad_dense_cols(x, cdiv(k, kt) * kt).contiguous()
-    rows_fn = span_rows_cuda if fmt.device.type == "cuda" else span_rows_plain
-    slots = rows_fn(fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p, x, rb=fmt.rb, kt=kt,
-                    mode=precision)
+    args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p, x)
+    if fmt.device.type == "cuda":
+        slots = span_rows_cuda(*args, rb=fmt.rb, kt=kt, mode=precision,
+                               walk=span_row_walk(fmt), k=k)
+    else:
+        slots = span_rows_plain(*args, rb=fmt.rb, kt=kt, mode=precision)
     return combine_segments(slots, fmt.row_of_slot, m)[:, :k]

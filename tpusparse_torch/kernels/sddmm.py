@@ -37,7 +37,8 @@ import torch
 from tpusparse_torch.kernels import build
 from tpusparse_torch.kernels.common import (cdiv, check_operands, launch_checked,
                                             pad_dense_cols, prep_x)
-from tpusparse_torch.kernels.span_gather import SpanFormat, pack_span, with_values
+from tpusparse_torch.kernels.span_gather import (SpanFormat, pack_span, slot_rows_cols,
+                                                 with_values)
 from tpusparse_torch.kernels.tile_onehot import PRECISIONS, choose_kt, default_ktile
 
 
@@ -84,17 +85,6 @@ def packed_to_nz(fmt: SpanFormat, packed) -> torch.Tensor:
 
 # --------------------------------------------------------------- plain versions
 
-def _slot_rows_cols(c0, cols, lrow, nc_p, rb):
-    """Each slot's column of X and row of dY_slots (flat, long), and
-    whether its chunk is walked (before nc_p)."""
-    P, NC, G = cols.shape
-    col = (c0.reshape(P, NC, 1).long() + cols.long()).reshape(-1)
-    row = (torch.arange(P, device=cols.device).view(P, 1, 1) * rb + lrow.long()).reshape(-1)
-    walked = (torch.arange(NC, device=cols.device).view(1, NC, 1)
-              < nc_p.reshape(P, 1, 1)).expand(P, NC, G).reshape(-1)
-    return col, row, walked
-
-
 def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
@@ -106,7 +96,7 @@ def sddmm_rows_plain(c0, cols, lrow, nc_p, dy_slots, x, *, rb, kt, mode):
     dY before the products.  ``kt`` changes nothing."""
     P, NC, G = cols.shape
     n = x.shape[0]
-    col, row, walked = _slot_rows_cols(c0, cols, lrow, nc_p, rb)
+    col, row, walked = slot_rows_cols(c0, cols, lrow, nc_p, rb)
     live = walked & (col < n)
     gx = x.index_select(0, col[live])
     gd = dy_slots.index_select(0, row[live])
@@ -122,7 +112,7 @@ def dx_rows_plain(c0, cols, lrow, vals, nc_p, dy_slots, *, n, rb, kt, mode):
     vals * dY_slots[p*rb + lrow]`` over the slots whose value is not zero in
     a chunk before ``nc_p``, as an ``index_add_``; bf16 rounds dY and then
     each product.  ``kt`` changes nothing."""
-    col, row, walked = _slot_rows_cols(c0, cols, lrow, nc_p, rb)
+    col, row, walked = slot_rows_cols(c0, cols, lrow, nc_p, rb)
     v = vals.reshape(-1).float()
     live = walked & (v != 0) & (col < n)
     gd = dy_slots.index_select(0, row[live])

@@ -18,6 +18,9 @@ Kernels (CUDA C++, ``tpusparse_torch/csrc/span_gather.cu``), each beside its
 plain PyTorch version of the same function:
 
   span_rows_cuda        / span_rows_plain         replace ``_span_kernel``
+                                                  (the row walk kernel over
+                                                  the format's
+                                                  ``span_row_walk``)
   span_stream_rows_cuda / span_stream_rows_plain  replace ``_span_kernel_stream``
 
 Each computes ``y_rows[p*rb + lrow] += v * X[c0 + cols]``; the slot gather
@@ -39,10 +42,12 @@ import torch
 from tpusparse_torch.format import live_chunk_counts
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import build
-from tpusparse_torch.kernels.common import (cdiv, check_operands, launch_checked,
-                                            launch_splits, pad_dense_cols, prep_x,
+from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info,
+                                            launch_checked, launch_splits, pad_dense_cols,
+                                            prep_x,
                                             resolve_device, unpack_slots, value_dtype,
                                             window_rows_plain)
+from tpusparse_torch.kernels.row_walk import RowWalk, build_row_walk, launch_walk, live_slots
 from tpusparse_torch.kernels.tile_onehot import PRECISIONS, choose_kt, default_ktile
 from tpusparse_torch.levels import Level
 
@@ -60,9 +65,11 @@ class SpanFormat:
       slot_of_origrow [M] int32
 
     ``nc_p`` is the port's own field (the chunk walk's count per program):
-    the kernels walk only a program's real chunks.  Every other field
-    equals the JAX ``SpanFormat``'s.  ``perm_of_nz`` (numpy, host) maps each
-    input nonzero to its flat slot (``pack_span(keep_perm=True)``).
+    the kernels walk only a program's real chunks.  So is ``walk``, the
+    row walk the kernel walks (``span_row_walk``), built on the card at
+    the first launch and not part of ``memory_bytes``.  Every other field
+    equals the JAX ``SpanFormat``'s.  ``perm_of_nz`` (numpy, host) maps each input
+    nonzero to its flat slot (``pack_span(keep_perm=True)``).
     """
 
     c0: Any
@@ -79,6 +86,7 @@ class SpanFormat:
     shape: tuple[int, int]
     nnz_real: int
     perm_of_nz: Any = None
+    walk: RowWalk | None = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -231,17 +239,15 @@ def pack_span(
 def with_values(fmt: SpanFormat, new_vals) -> SpanFormat:
     """Values-only update: the same pattern with new values, in the nonzero
     order given to pack_span (requires keep_perm=True).  The index planes
-    are reused untouched."""
+    are reused untouched, the row walk with the new values."""
     assert fmt.perm_of_nz is not None, "pack_span(..., keep_perm=True) required"
     new_vals = np.asarray(new_vals, dtype=np.float32)
     flat = np.zeros(fmt.n_programs * fmt.n_chunks * fmt.chunk_g, dtype=np.float32)
     flat[np.asarray(fmt.perm_of_nz)] = new_vals
-    vals = flat.reshape(fmt.n_programs, fmt.n_chunks, fmt.chunk_g)
-    return dataclasses.replace(
-        fmt,
-        vals=torch.from_numpy(vals).to(fmt.device, fmt.vals.dtype),
-        nnz_real=int(np.count_nonzero(vals)),
-    )
+    vals = torch.from_numpy(flat.reshape(fmt.n_programs, fmt.n_chunks, fmt.chunk_g))
+    vals = vals.to(fmt.device, fmt.vals.dtype)
+    return dataclasses.replace(fmt, vals=vals, nnz_real=int(np.count_nonzero(flat)),
+                               walk=None if fmt.walk is None else fmt.walk.for_plane(vals))
 
 
 def span_format_from_numpy(fields: dict, *, device="cuda", **static) -> SpanFormat:
@@ -276,8 +282,43 @@ def span_format_from_numpy(fields: dict, *, device="cuda", **static) -> SpanForm
     tensors = {k: torch.tensor(a, dtype=torch.float32 if k == "vals" else torch.int32,
                                device=dev) for k, a in arrs.items()}
     perm = fields.get("perm_of_nz")
-    return SpanFormat(**tensors, **static,
-                      perm_of_nz=None if perm is None else np.asarray(perm))
+    return SpanFormat(**tensors, **static, perm_of_nz=None if perm is None else np.asarray(perm))
+
+
+# ------------------------------------------------------------------- row walk
+
+def slot_rows_cols(c0, cols, lrow, nc_p, rb):
+    """Each slot's column of X and row of y_rows (or dY_slots), flat and
+    long, and whether its chunk is walked (before nc_p)."""
+    P, NC, G = cols.shape
+    col = (c0.reshape(P, NC, 1).long() + cols.long()).reshape(-1)
+    row = (torch.arange(P, device=cols.device).view(P, 1, 1) * rb + lrow.long()).reshape(-1)
+    walked = (torch.arange(NC, device=cols.device).view(1, NC, 1)
+              < nc_p.reshape(P, 1, 1)).expand(P, NC, G).reshape(-1)
+    return col, row, walked
+
+
+def build_span_walk(c0, cols, lrow, vals, nc_p, *, rb, n, perm_of_nz=None) -> RowWalk:
+    """The row walk of span planes (also a SegmentSpanFormat's): the live
+    slots (those of ``perm_of_nz`` where given, else the nonzeros of
+    ``vals`` in a chunk before ``nc_p``) with their y_rows row p*rb + lrow
+    and their column c0 + cols of X [n, ...], sorted by (row, slot)."""
+    P = cols.shape[0]
+    col, row, walked = slot_rows_cols(c0, cols, lrow, nc_p, rb)
+    live = live_slots(vals, walked.view(cols.shape), perm_of_nz)
+    return build_row_walk(row, col, live, vals, pattern=(c0, cols, lrow, nc_p),
+                          live_from_values=perm_of_nz is None, n_rows=P * rb, n_cols=n)
+
+
+def span_row_walk(fmt) -> RowWalk:
+    """The row walk of a SpanFormat or SegmentSpanFormat, built at first
+    use and kept on the format; built anew where a plane was replaced or
+    written in place since."""
+    if fmt.walk is None or not fmt.walk.fresh((fmt.c0, fmt.cols, fmt.lrow, fmt.nc_p), fmt.vals):
+        fmt.walk = build_span_walk(fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p, rb=fmt.rb,
+                                   n=fmt.shape[1],
+                                   perm_of_nz=getattr(fmt, "perm_of_nz", None))
+    return fmt.walk
 
 
 # --------------------------------------------------------------- plain versions
@@ -303,23 +344,25 @@ def _lib():
     """csrc/span_gather.cu, built at first use, with its C signatures."""
     lib = build.library("span_gather")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.span_spmm_launch.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
+    lib.span_spmm_launch.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.span_spmm_launch.restype = i32
+    lib.span_walk_info.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
+    lib.span_walk_info.restype = i32
     lib.span_stream_launch.argtypes = [ptr] * 7 + [i32] * 10 + [ptr]
     lib.span_stream_launch.restype = i32
-    lib.span_uses_shared_tile.argtypes = [i32] * 5
+    lib.span_uses_shared_tile.argtypes = [i32] * 4
     lib.span_uses_shared_tile.restype = i32
     lib.span_stream_slice_rows.argtypes = [i32] * 4
     lib.span_stream_slice_rows.restype = i32
     return lib
 
 
-def span_uses_shared_tile(rb: int, kt: int, *, g: int = 0, ct: int = 0,
-                          stream: bool = False) -> bool:
-    """Whether a launch of (rb, kt) keeps its row tile in shared memory
-    (False: the kernel's global-atomic branch).  ``stream`` counts the
-    stream kernel's staged planes (``g``) and X window (``ct``) too."""
-    return bool(_lib().span_uses_shared_tile(rb, kt, g, ct, int(stream)))
+def span_uses_shared_tile(rb: int, kt: int, *, g: int, ct: int) -> bool:
+    """Whether a launch of the stream kernel at (rb, kt) keeps its row tile
+    in shared memory beside its staged planes (``g``) and X window slice
+    (``ct``) (False: the kernel's global-atomic branch).  The row walk
+    kernel holds no tile."""
+    return bool(_lib().span_uses_shared_tile(rb, kt, g, ct))
 
 
 def span_stream_slice_rows(rb: int, kt: int, g: int, ct: int) -> int:
@@ -328,7 +371,14 @@ def span_stream_slice_rows(rb: int, kt: int, g: int, ct: int) -> int:
     return int(_lib().span_stream_slice_rows(rb, kt, g, ct))
 
 
-def _launch(name, c0, cols, lrow, vals, nc_p, x, rb, kt, mode, extra=()):
+def span_walk_info(pw: int, mode: str) -> dict:
+    """The row walk kernel of panel ``pw`` in ``mode`` in this library:
+    registers a thread, spilled (local) bytes a thread, static shared bytes
+    and blocks an SM holds."""
+    return kernel_info(_lib().span_walk_info, "span_walk_info", pw, int(mode == "bf16"))
+
+
+def _check(c0, cols, lrow, vals, nc_p, x, kt, mode):
     P, NC, G = cols.shape
     check_operands(x, (("c0", c0, torch.int32, (P, 1, NC)),
                        ("cols", cols, torch.int32, (P, NC, G)),
@@ -337,18 +387,23 @@ def _launch(name, c0, cols, lrow, vals, nc_p, x, rb, kt, mode, extra=()):
                        ("nc_p", nc_p, torch.int32, (P, 1, 1))), ndim=2)
     if kt not in (8, 16, 32) or mode not in PRECISIONS or x.shape[1] % kt:
         raise ValueError(f"span kernel: kt={kt}, mode={mode}, X {tuple(x.shape)}")
-    n, kp = x.shape
-    y = torch.zeros((P * rb, kp), dtype=torch.float32, device=x.device)
-    launch_checked(getattr(_lib(), name), name, (c0, cols, lrow, vals, nc_p, x, y),
-                   (P, NC, G, rb, *extra, n, kp, kt, int(mode == "bf16"),
-                    launch_splits(x.device, P * (kp // kt), NC)))
-    return y
 
 
-def span_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode):
+def span_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode, walk=None, k=None):
     """CUDA ``_span_kernel`` (tpusparse/kernels/span_gather.py:270): y_rows
-    [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in {8, 16, 32}."""
-    y = _launch("span_spmm_launch", c0, cols, lrow, vals, nc_p, x, rb, kt, mode)
+    [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in {8, 16, 32}, from
+    one launch of the row walk kernel over ``walk``, the format's live
+    slots in row order (``span_row_walk(fmt)``; one built from other
+    planes, or before they were written, is refused).  The values are
+    ``vals``'s: streamed from the walk where it holds them (``vals`` is the
+    packed plane it was built from, unwritten since), else gathered through
+    its slot index (a caller's plane of the same shape).  ``k``: the columns of X that
+    carry the product (the rest is the kt padding; None: all Kp); the
+    kernel reads and writes them rounded up to 4, the rest of y_rows stays
+    zero."""
+    _check(c0, cols, lrow, vals, nc_p, x, kt, mode)
+    y = launch_walk(_lib().span_spmm_launch, "span_spmm_launch", walk, (c0, cols, lrow, nc_p),
+                    vals, x, rows=cols.shape[0] * rb, k=k, bf16=mode == "bf16")
     span_rows_cuda.launches += 1
     return y
 
@@ -357,7 +412,14 @@ def span_stream_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, ct, kt, mode):
     """CUDA ``_span_kernel_stream`` (tpusparse/kernels/span_gather.py:329):
     the same y_rows, each chunk's planes and its [c0, c0+ct) X window staged
     in shared memory before its slots gather."""
-    y = _launch("span_stream_launch", c0, cols, lrow, vals, nc_p, x, rb, kt, mode, (ct,))
+    _check(c0, cols, lrow, vals, nc_p, x, kt, mode)
+    P, NC, G = cols.shape
+    n, kp = x.shape
+    y = torch.zeros((P * rb, kp), dtype=torch.float32, device=x.device)
+    launch_checked(_lib().span_stream_launch, "span_stream_launch",
+                   (c0, cols, lrow, vals, nc_p, x, y),
+                   (P, NC, G, rb, ct, n, kp, kt, int(mode == "bf16"),
+                    launch_splits(x.device, P * (kp // kt), NC)))
     span_stream_rows_cuda.launches += 1
     return y
 
@@ -381,10 +443,11 @@ def span_spmm(
     """Y[M, K] = A . X[N, K] with A in SpanFormat.  ``stream=True`` runs the
     stream kernel, as the JAX package's grid-over-chunks variant.  ``vals``
     overrides the packed [P, NC, G] value plane (the trainable-values path);
-    it is read only at the format's slots, so it must be zero where the
-    packed plane's padding is.  ``unroll`` steered the TPU kernel's loop
-    only and changes nothing here.  CUDA formats run a kernel, CPU formats
-    its plain version."""
+    it is read only at the format's live slots (``perm_of_nz``'s, or the
+    packed plane's nonzeros without it), so it must be zero elsewhere: on
+    the card, a format without ``perm_of_nz`` refuses a plane that is not.
+    ``unroll`` steered the TPU kernel's loop only and changes nothing here.
+    CUDA formats run a kernel, CPU formats its plain version."""
     assert precision in PRECISIONS, precision
     if vals is None:
         vals = fmt.vals
@@ -405,7 +468,9 @@ def span_spmm(
     if stream:
         rows_fn = span_stream_rows_cuda if on_card else span_stream_rows_plain
         y_rows = rows_fn(*args, rb=fmt.rb, ct=fmt.ct, kt=kt, mode=precision)
+    elif on_card:
+        y_rows = span_rows_cuda(*args, rb=fmt.rb, kt=kt, mode=precision,
+                                walk=span_row_walk(fmt), k=k)
     else:
-        rows_fn = span_rows_cuda if on_card else span_rows_plain
-        y_rows = rows_fn(*args, rb=fmt.rb, kt=kt, mode=precision)
+        y_rows = span_rows_plain(*args, rb=fmt.rb, kt=kt, mode=precision)
     return unpack_slots(y_rows, fmt.slot_of_origrow)[:, :k]
