@@ -57,10 +57,12 @@ Every result is checked against the host oracle; the kernels are timed
 against their bound, their plain versions and cuSPARSE (the kernels line's
 ``ms``, ``plain_ms`` and ``library_ms`` are device times a call from the
 profiler, ``time_fn_ms`` the wrapper's back-to-back time, host included),
-and the tile, stripe, dgt and span libraries' SASS is read kernel by
-kernel: the tile kernel (#5, #6), the nested stripe kernel (#11) and the
-row walk kernel of #3 and #7 must add by float4 reductions and hold no
-shared atomic.  Any failure raises and the exit
+and the tile, stripe, dgt, span and Block-ELL libraries' SASS is read
+kernel by kernel: the tile kernel (#5, #6), the stripe kernels (#10, #11)
+and the row walk kernel of #3 and #7 must add by float4 reductions and
+hold no shared atomic; the N:M (#12) and Block-ELL (#13) kernels must
+run on the tensor cores (HGMMA, and HMMA for 3xTF32).  Any failure raises
+and the exit
 code is not 0.  It exits non-zero before printing any
 result when no CUDA device is present or the package cannot be imported.
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -159,7 +161,7 @@ def main() -> int:
         return 2
     try:
         import tpusparse_torch
-        from tpusparse_torch.bench.harness import device_time_fn, gflops, time_fn
+        from tpusparse_torch.bench.harness import device_time_fn, gflops, graph_time_fn, time_fn
         from tpusparse_torch.format import pack_tile
         from tpusparse_torch.generator import build_stripe_plan, prepare_stripe_format
         from tpusparse_torch.io import builder
@@ -265,12 +267,12 @@ def main() -> int:
                 log(f"[build]   {line.strip()}")
 
     # what the redesigned kernels compiled to, function by function: tensor-core
-    # wgmma (HGMMA, the bf16 and int8 modes) and mma (HMMA, 3xTF32) in the
-    # N:M library; the atomics of the tile, stripe, dgt and span libraries,
-    # where the stream kernels of #5/#6 and #11 and the row walk kernel of
-    # #3 and #7 must add by vector reductions (REDG...F32x4) and hold no
-    # shared atomic (ATOMS: a CAS loop for fp32 adds), which the stripe
-    # kernel #10 and the dgt and span stream kernels #4 and #8 keep
+    # wgmma (HGMMA bf16, IGMMA int8) and mma (HMMA, 3xTF32) in the N:M and
+    # Block-ELL libraries; the atomics of the tile, stripe, dgt and span
+    # libraries, where the stream kernels of #5/#6, #10 and #11 and the row
+    # walk kernel of #3 and #7 must add by vector reductions (REDG...F32x4)
+    # and hold no shared atomic (ATOMS: a CAS loop for fp32 adds), which
+    # the dgt and span stream kernels #4 and #8 keep
     def sass_by_kernel(lib_name, opcodes):
         sass = subprocess.run([os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                                             "bin", "cuobjdump"), "-sass",
@@ -295,6 +297,8 @@ def main() -> int:
     sass_ops = {}
     for lib_name, opcodes, names in (
             ("nm_structured", ("HGMMA", "HMMA"), ("nm_kernel",)),
+            ("block_ell", ("HGMMA", "IGMMA", "HMMA", "RED", "ATOM"),
+             ("bell_wgmma_kernel", "bell_tf32_kernel")),
             ("tile_onehot", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("tile_stream_kernel",)),
             ("stripe_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"),
              ("stripe_nested_kernel", "stripe_kernel")),
@@ -314,7 +318,12 @@ def main() -> int:
     nm_ops = sass_ops["nm_structured"].get("nm_kernel", {})
     if not all(any(op.startswith(c) for op in nm_ops) for c in ("HGMMA", "HMMA")):
         raise AssertionError("the N:M library lacks its tensor-core wgmma or mma")
+    bell_ops = sass_ops["block_ell"]
+    for fam, ops in (("bell_wgmma_kernel", ("HGMMA", "IGMMA")), ("bell_tf32_kernel", ("HMMA",))):
+        if not all(any(op.startswith(c) for op in bell_ops.get(fam, {})) for c in ops):
+            raise AssertionError(f"the Block-ELL library's {fam} lacks {ops}: {bell_ops}")
     for lib_name, fam in (("tile_onehot", "tile_stream_kernel"),
+                          ("stripe_gather", "stripe_kernel"),
                           ("stripe_gather", "stripe_nested_kernel"),
                           ("dgt_gather", "walk_kernel"), ("span_gather", "walk_kernel")):
         ops = sass_ops[lib_name].get(fam, {})
@@ -548,17 +557,20 @@ def main() -> int:
         x = dg.pad_dense_cols(rand_x(fmt.shape[1], k), -(-k // kt) * kt).contiguous()
         rb = getattr(fmt, "max_rows_per_stripe", None) or fmt.max_segments
         extra = (fmt.wnz, fmt.wrow) if which == "stripe_nested" else ()
-        got = kernels[which]["wrapper"](fmt.cols, fmt.lrow, fmt.vals, *extra, x, rb=rb, kt=kt)
+        kw = {} if which == "stripe_nested" else dict(live=fmt.live_p)
+        got = kernels[which]["wrapper"](fmt.cols, fmt.lrow, fmt.vals, *extra, x, rb=rb, kt=kt,
+                                        **kw)
         want = kernels[which]["plain"](fmt.cols, fmt.lrow, fmt.vals, *extra, x, rb=rb)
         scale = kernels[which]["plain"](fmt.cols, fmt.lrow, fmt.vals.abs(), *extra, x.abs(), rb=rb)
-        if which == "stripe_nested":  # blocks of slots, one walk per panel
+        # blocks of slots, one walk per panel
+        if which == "stripe_nested":
             kp4, pw = stripe.nested_geometry(x.shape[1])
             ranges = stripe.nested_slot_ranges(fmt.wnz.cpu(), fmt.stripe_nnz)
-            branch = (f"panel {pw} x{-(-kp4 // pw)}, {int((ranges[..., 1] > ranges[..., 0]).sum())}"
-                      f" of {ranges.shape[0] * ranges.shape[1]} blocks hold slots")
         else:
-            branch = ("shared tile" if stripe.stripe_uses_shared_tile(rb, kt)
-                      else "global atomics")
+            kp4, pw, bs = stripe.stripe_geometry(x.shape[1])
+            ranges = stripe.stripe_slot_ranges(fmt.live_p.cpu(), fmt.cols.shape[2], bs)
+        branch = (f"panel {pw} x{-(-kp4 // pw)}, {int((ranges[..., 1] > ranges[..., 0]).sum())}"
+                  f" of {ranges.shape[0] * ranges.shape[1]} blocks hold slots")
         check_vs_plain(which, label,
                        f"{type(fmt).__name__} kt={kt} K={k} vals {fmt.vals.dtype} rb={rb} "
                        f"P={fmt.cols.shape[0]} C={fmt.cols.shape[2]} "
@@ -965,6 +977,30 @@ def main() -> int:
     radix_vs_plain("spmv", f_b4, 4)                        # the path's own format
     radix_vs_plain("spmv", f_b4, 4, kt=8)
 
+    def stripe_line(label, f, ks):
+        """The stripe kernel's [kernel] line on format f: resources, blocks,
+        live slots walked against slots stored, row runs, y_slots' zero fill."""
+        runs_s, live_s = stripe.stripe_row_runs(f)
+        rb_s = getattr(f, "max_rows_per_stripe", None) or f.max_segments
+        stored = f.cols.numel()
+        walked = int(f.live_p.sum())
+        for k_ in ks:
+            kp4_, pw_, bs_ = stripe.stripe_geometry(-(-k_ // stripe.choose_kt(k_))
+                                                    * stripe.choose_kt(k_))
+            ranges_s = stripe.stripe_slot_ranges(f.live_p.cpu(), f.cols.shape[2], bs_)
+            held_s = ranges_s[..., 1] > ranges_s[..., 0]
+            info = stripe.stripe_info(pw_, f.vals.dtype == torch.bfloat16)
+            log(f"[kernel] stripe_rows_cuda at {label}, K={k_}: panel {pw_} x"
+                f"{-(-kp4_ // pw_)}, grid {ranges_s.shape[1]} x {ranges_s.shape[0]} blocks of "
+                f"{bs_} slots, {int(held_s.sum())} hold slots; "
+                f"{info['registers']} registers, {info['spill_bytes']} spill bytes, "
+                f"{info['shared_bytes']} shared bytes, {info['blocks_per_sm']} blocks an SM; "
+                f"{walked} live slots walked of {stored} stored ({stored / max(walked, 1):.2f}x), "
+                f"{live_s} nonzero, {runs_s} row runs ({live_s / max(runs_s, 1):.2f} a run); "
+                f"y_slots zero fill {f.cols.shape[0] * rb_s * kp4_ * 4 / 2**20:.1f} MiB")
+            if info["spill_bytes"]:
+                raise AssertionError(f"stripe_kernel<{pw_}> spills: {info}")
+
     # P10: the stripe and segment families at the headline size, K = 8, each
     # with the tuner's parameters, and build_stripe_plan
     bucket = (max(int(8 * float(mat.row_lengths().mean())), 32),)
@@ -992,6 +1028,9 @@ def main() -> int:
             log(f"[p10]   {name}: {fmt_geometry(f)}, {f.memory_bytes / 2**20:.1f} MiB")
             fmt_vs_plain("headline", f, 8)
     assert kernels["span"]["paths"]["bucketed"] == p10_plans["bucketed"].meta["n_subs"] == 2
+    for name in ("stripe_merge_path_512", "stripe_merge_path_2048", "nnz_segment",
+                 "build_stripe_plan"):
+        stripe_line(f"P10 {name}", p10_plans[name].formats[0], (8, 256))
     f_nest = p10_plans["stripe_nested"].formats[0]
     runs_n, live_n = stripe.nested_row_runs(f_nest)
     ranges_n = stripe.nested_slot_ranges(f_nest.wnz.cpu(), f_nest.stripe_nnz)
@@ -1029,6 +1068,8 @@ def main() -> int:
     run_path("spmv_stripe_262k", "stripe", lambda: spmv_fn(big, "stripe"), xv, ref_v, (SPMV_N,))
     f_stv = spmv_fns["spmv_stripe_262k"].format
     log(f"[spmv]   stripe format: {fmt_geometry(f_stv)} {f_stv.memory_bytes / 2**20:.1f} MiB")
+    stripe_line("P12 spmv_fn('stripe'), x as one column", f_stv, (1,))
+    stripe_vs_plain("spmv", f_stv, 1)
     stripe_vs_plain("spmv", f_stv, 8)
 
     # ---- P13-P16: the dense-tile families, the serving surface for pruned
@@ -1091,8 +1132,9 @@ def main() -> int:
     def bell_vs_plain(label, fmt, x, mode):
         args = (fmt.blkcol, fmt.blkvals, fmt.nb_p)
         desc = (f"bs={fmt.bs} vals {fmt.blkvals.dtype} {mode} K={x.shape[1]} MB={fmt.mb} "
-                f"BMAX={fmt.bmax} blocks={fmt.n_blocks} pad={fmt.padding_rate:.2f}")
-        got = be.bell_rows_cuda(*args, x, mode=mode)
+                f"BMAX={fmt.bmax} blocks={fmt.n_blocks} pad={fmt.padding_rate:.2f}, "
+                f"{fmt.work.shape[0]} work items")
+        got = be.bell_rows_cuda(*args, x, mode=mode, work=fmt.work)
         want = be.bell_rows_plain(*args, x, mode=mode)
         if mode == "int8":  # the integer product is exact: equal, element for element
             torch.cuda.synchronize()
@@ -1238,6 +1280,20 @@ def main() -> int:
     xq14 = torch.clamp(torch.round(xp14 / torch.where(x_amax > 0, x_amax / 127.0, 1.0)),
                        -127, 127).to(torch.int8).contiguous()
     bell_vs_plain("p14", fmt14["int8"], xq14, "int8")
+    bell_vs_plain("p14", fmt14["int8"], xq14.t().contiguous().t(), "int8")  # as bell_int8 hands it
+    for mode in ("bf16", "fp32", "int8"):
+        info = be.bell_kernel_info(mode)
+        work14 = fmt14[mode].work.cpu().numpy()
+        log(f"[kernel] bell_rows_cuda at P14, {mode}: grid {work14.shape[0]} work items x "
+            f"{-(-f14.bs // 64)} row tiles x {-(-256 // 128)} column tiles (K=256), "
+            f"{int(work14[:, 3].sum())} items alone, the rest adding into y; blocks per item "
+            f"at most {int((work14[:, 2] - work14[:, 1]).max())}, nb_p {f14.nb_p.min().item()}-"
+            f"{f14.nb_p.max().item()} (mean {f14.n_blocks / f14.mb:.2f}); {info['registers']} "
+            f"registers, {info['spill_bytes']} spill bytes, {info['static_shared_bytes']} static "
+            f"+ {info['dynamic_shared_bytes']} dynamic shared bytes, {info['blocks_per_sm']} "
+            f"blocks an SM")
+        if info["spill_bytes"]:
+            raise AssertionError(f"the Block-ELL {mode} kernel spills: {info}")
 
     # P15: the schedule families through build_plan, on the card
     # dense at the headline, K = 256: A (2.1 GB of bf16) densified on the card
@@ -1509,13 +1565,26 @@ def main() -> int:
         return csr
 
     def dev_ms(name, fn, x, host_ms):
-        """The device time a call of ``fn(x)`` in ms, or, where the profiler
-        sees no device time, ``host_ms`` (time_fn's reading), said in the log."""
+        """The device time a call of ``fn(x)`` in ms: the profiler's, or
+        where it sees no whole window a CUDA graph's replay of 20 calls
+        (not for the plain versions, whose boolean indexing waits for the
+        card), or ``host_ms`` (time_fn's reading); the last two said in the
+        log."""
         try:
             return device_time_fn(fn, x) * 1e3
         except RuntimeError as e:
-            log(f"[yardstick]   {name}: {e}; its time_fn reading stands in")
+            err = e
+        if name == "plain":
+            log(f"[yardstick]   {name}: {err}; its time_fn reading stands in")
             return host_ms
+        try:
+            t = graph_time_fn(fn, x) * 1e3
+        except Exception as e:  # noqa: BLE001 - said in the log
+            log(f"[yardstick]   {name}: {err}; no CUDA graph either ({type(e).__name__}); its "
+                "time_fn reading stands in")
+            return host_ms
+        log(f"[yardstick]   {name}: {err}; a CUDA graph's replay reads {t:.4f} ms a call")
+        return t
 
     def time_cold(fn, x, iters=20):
         """Median seconds of one call with L2 cold: a 1 GiB buffer, twenty
@@ -1663,6 +1732,8 @@ def main() -> int:
             extra = (fmt.wnz, fmt.wrow) if which == "stripe_nested" else ()
             args = (fmt.cols, fmt.lrow, fmt.vals, *extra)
             kw, pkw = dict(rb=rb, kt=kt), dict(rb=rb)
+            if which == "stripe":
+                kw["live"] = fmt.live_p
         xk = dg.pad_dense_cols(x2, -(-x2.shape[1] // kt) * kt).contiguous()
         kern = functools.partial(kernels[which]["wrapper"], *args, **kw)
         plain = functools.partial(kernels[which]["plain"], *args, **pkw)
@@ -1721,8 +1792,8 @@ def main() -> int:
                    t_pack_be)
     rows_yardstick("stripe", "headline, nnz_segment (P10)", p10_plans["nnz_segment"].formats[0],
                    mat, 8, xs[8], p10_plans["nnz_segment"], p10_pack["nnz_segment"])
-    rows_yardstick("stripe", "262144^2, spmv_fn('stripe') (P12), x as 8 columns", f_stv, big, 1,
-                   xv, spmv_fns["spmv_stripe_262k"], pack_s["spmv_stripe_262k"], kt=8, bound_k=1)
+    rows_yardstick("stripe", "262144^2, spmv_fn('stripe') (P12), x as one column", f_stv, big, 1,
+                   xv, spmv_fns["spmv_stripe_262k"], pack_s["spmv_stripe_262k"])
     # #5 on P1's product: the kernel #6 runs there, through the resident
     # wrapper (each K-tile of 32 walked the format before)
     win_yardstick("tile", "headline, P1's product on the resident kernel", [(f256, 0)], mat,
@@ -1844,7 +1915,8 @@ def main() -> int:
     d14_f32 = torch.as_tensor(d14.astype(np.float32), device=dev)
 
     def bell_stats(fmt, mode, label, whole, xw):
-        x = xq14 if mode == "int8" else xp14
+        # int8: X^T's transposed view, as bell_int8 hands it to the kernel
+        x = xq14.t().contiguous().t() if mode == "int8" else xp14
         args = (fmt.blkcol, fmt.blkvals, fmt.nb_p)
         k = x.shape[1]
         real = fmt.n_blocks * fmt.bs * fmt.bs * fmt.blkvals.element_size()
@@ -1871,11 +1943,11 @@ def main() -> int:
                     dq[i * fmt.bs:(i + 1) * fmt.bs, bc[i, j] * fmt.bs:(bc[i, j] + 1) * fmt.bs] = \
                         q[i, j]
             libs = {"torch._int_mm dense int8": (
-                functools.partial(torch._int_mm, torch.as_tensor(dq, device=dev)), x)}
+                functools.partial(torch._int_mm, torch.as_tensor(dq, device=dev)), xq14)}
             peak, peak_name = 1979e12, "1979 TOP/s (int8 dense tensor cores)"
         return dense_tile_yardstick(
-            "bell", label, functools.partial(be.bell_rows_cuda, *args, mode=mode),
-            functools.partial(be.bell_rows_plain, *args, mode=mode), x, whole, xw, libs,
+            "bell", label, functools.partial(be.bell_rows_cuda, *args, mode=mode, work=fmt.work),
+            lambda v: be.bell_rows_plain(*args, v.contiguous(), mode=mode), x, whole, xw, libs,
             nbytes, flops, peak, peak_name)
 
     bell_bf16 = bell_stats(f14, "bf16", "P14 block_ell_spmm(pallas), bf16, K=256",
@@ -2045,6 +2117,10 @@ def main() -> int:
                  layer_pw, x13)
     profile_call("P10 stripe_nested K=8 (#11)", p10_plans["stripe_nested"],
                  torch.as_tensor(xs[8], device=dev))
+    profile_call("P10 stripe_total merge path 2048 K=8 (#10)", p10_plans["stripe_merge_path_2048"],
+                 torch.as_tensor(xs[8], device=dev))
+    profile_call("P12 SpMV 262144^2 spmv_fn('stripe') (#10)", spmv_fns["spmv_stripe_262k"],
+                 torch.as_tensor(xv, device=dev), calls=10)
     profile_call("P15 hybrid_cols C=512 (bf16 panel + dg remainder), column-skewed, K=8",
                  hyb_plans[512], torch.as_tensor(xs[8], device=dev))
     for name, f in steps_t.items():

@@ -163,3 +163,85 @@ def test_block_ell_precision_guards():
         tbe.block_ell_spmm(fmt, x, precision="fp16")
     with pytest.raises(ValueError, match="method"):
         tbe.block_ell_spmm(fmt, x, method="dense")
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "int8"])
+@pytest.mark.parametrize("bs,density,seed", [(128, 0.3, 2), (64, 0.2, 0), (256, 0.5, 7),
+                                             (128, 0.0, 1)])
+def test_bell_work_covers_each_real_block_once(bs, density, seed, dtype):
+    # the kernel's work items: each (row-block, real block) in exactly one
+    # item, runs of at most ITEM_STEPS depth steps (128 values a step in
+    # int8, 64 else), no item for an empty row-block, and `alone` where the
+    # item is its row-block's only one
+    mat, _ = _case(m=1024, n=768, bs=128, density=density, seed=seed)
+    fmt = tbe.pack_block_ell(mat, bs=bs, dtype=DTYPES[dtype][1], device="cpu")
+    work, nb = fmt.work.numpy(), fmt.nb_p.numpy()
+    assert work.shape[1] == 4 and work.dtype == np.int32
+    int8 = dtype == "int8"
+    np.testing.assert_array_equal(work, tbe.bell_work(nb, bs, int8=int8))
+    step = tbe.INT8_DEPTH_STEP if int8 else tbe.DEPTH_STEP
+    per = max(1, tbe.ITEM_STEPS // -(-bs // step))
+    seen = np.zeros((fmt.mb, fmt.bmax), np.int64)
+    for i, j0, j1, alone in work:
+        assert 0 <= j0 < j1 <= nb[i] and j1 - j0 <= per
+        seen[i, j0:j1] += 1
+        assert alone == (np.count_nonzero(work[:, 0] == i) == 1)
+    np.testing.assert_array_equal(seen, np.arange(fmt.bmax)[None, :] < nb[:, None])
+    assert not np.isin(np.nonzero(nb == 0)[0], work[:, 0]).any()
+
+
+def _items_sum(fmt, x, mode):
+    """y as the kernel builds it: for each work item, its run of blocks
+    summed on its own, the runs of a row-block then added into the zeroed
+    y (float64 for the float modes, int64 for int8)."""
+    wide = torch.int64 if mode == "int8" else torch.float64
+    a, xv = fmt.blkvals.to(wide), x.to(wide)
+    if mode == "bf16":
+        a, xv = fmt.blkvals.bfloat16().double(), x.bfloat16().double()
+    bs, k = fmt.bs, x.shape[1]
+    y = torch.zeros((fmt.mb * bs, k), dtype=wide)
+    for i, j0, j1, _ in fmt.work.tolist():
+        part = torch.zeros((bs, k), dtype=wide)
+        for j in range(j0, j1):
+            c = int(fmt.blkcol[i, j])
+            part += a[i, j] @ xv[c * bs:(c + 1) * bs]
+        y[i * bs:(i + 1) * bs] += part
+    return y
+
+
+@pytest.mark.parametrize("mode,dtype", [("fp32", "fp32"), ("bf16", "bf16"), ("bf16", "fp32"),
+                                        ("fp32", "bf16"), ("int8", "int8")])
+@pytest.mark.parametrize("bs", [64, 128])
+def test_bell_items_sum_equals_plain(mode, dtype, bs):
+    mat, x = _case(m=512, n=768, bs=128, density=0.6, k=12, seed=3)
+    fmt = tbe.pack_block_ell(mat, bs=bs, dtype=DTYPES[dtype][1], device="cpu")
+    assert (fmt.work[:, 3] == 0).any()                    # row-blocks shared by items
+    if mode == "int8":
+        xt = torch.randint(-127, 128, (768, 12), dtype=torch.int8,
+                           generator=torch.Generator().manual_seed(1))
+        got = _items_sum(fmt, xt, mode)
+        want = tbe.bell_rows_plain(fmt.blkcol, fmt.blkvals, fmt.nb_p, xt, mode=mode)
+        assert torch.equal(got, want.long())
+        return
+    xt = torch.from_numpy(x)
+    got = _items_sum(fmt, xt, mode)
+    want = tbe.bell_rows_plain(fmt.blkcol, fmt.blkvals, fmt.nb_p, xt, mode=mode)
+    scale = tbe.bell_rows_plain(fmt.blkcol, fmt.blkvals.abs(), fmt.nb_p, xt.abs(), mode=mode)
+    assert float(((got - want.double()).abs() / scale.double().clamp(min=1)).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("k,bs,m,n", [(1, 128, 384, 512), (37, 64, 300, 450),
+                                      (256, 128, 512, 384)])
+def test_bell_int8_transposed_quantization_matches_jax(k, bs, m, n):
+    # the port quantizes X into X^T (the kernel's K-major int8 operand) and
+    # hands the product its transposed view: the same int32 dot and rescale
+    # as _bell_xla_int8 on the JAX side
+    mat, x = _case(m=m, n=n, bs=128, density=0.3, k=k, seed=8)
+    jf, tf = _packs(mat, bs, "int8")
+    xp = np.zeros((-(-n // bs) * bs, k), np.float32)
+    xp[:n] = x
+    want = np.asarray(jbe._bell_xla_int8(jf.blkcol, jf.blkvals, jf.row_scale, xp, bs=bs))
+    got = tbe.bell_int8(tf, torch.from_numpy(xp)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * max(np.abs(want).max(), 1))
+    y = tbe.block_ell_spmm(tf, x, precision="int8").numpy()
+    np.testing.assert_allclose(y, want[:m], rtol=1e-6, atol=1e-6 * max(np.abs(want).max(), 1))

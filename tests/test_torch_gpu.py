@@ -582,23 +582,105 @@ def test_radix_kernel_matches_plain(cuda, mat, kt, mode, k, rb):
     assert radix.radix_uses_shared_tile(rb, kt) == (rb * kt * 4 <= 200 * 1024)
 
 
+def _stripe_vs_plain(fmt, k, dev, vals=None):
+    """Max error of the stripe kernel against its plain version at K = k
+    (X padded to the stripe K-tile), relative to |A|·|x|, on the format
+    or on ``vals`` in its place; checks that the wrapper counted one
+    launch."""
+    vals = fmt.vals if vals is None else vals
+    kt = stripe.choose_kt(k)
+    x = torch.as_tensor(np.random.default_rng(15).standard_normal((fmt.shape[1], k)),
+                        dtype=torch.float32, device=dev)
+    x = dg.pad_dense_cols(x, -(-k // kt) * kt).contiguous()
+    rb = getattr(fmt, "max_rows_per_stripe", None) or fmt.max_segments
+    before = stripe.stripe_rows_cuda.launches
+    got = stripe.stripe_rows_cuda(fmt.cols, fmt.lrow, vals, x, rb=rb, kt=kt, live=fmt.live_p)
+    assert stripe.stripe_rows_cuda.launches == before + 1
+    want = stripe.stripe_rows_plain(fmt.cols, fmt.lrow, vals, x, rb=rb)
+    scale = stripe.stripe_rows_plain(fmt.cols, fmt.lrow, vals.abs(), x.abs(), rb=rb)
+    assert got.shape == want.shape
+    return _err(got, want, scale, dev)
+
+
 @pytest.mark.parametrize("work,val_dtype,k", [
     (512, None, 8), (2048, None, 1), (2048, "bfloat16", 4), (512, "bfloat16", 40),
-    (20000, None, 32),                     # rb = 2500 at KT = 32: the global-atomic branch
+    (20000, None, 32),                     # rb = 2500: a stripe of long rows, several blocks
+    (2048, None, 2), (2048, "bfloat16", 33), (512, None, 256), (512, "bfloat16", 256),
+    ("segment", None, 1), ("segment", None, 2), ("segment", None, 8), ("segment", None, 33),
+    ("segment", None, 256),
 ])
 def test_stripe_kernel_matches_plain(cuda, mat, work, val_dtype, k):
-    fmt, _ = prepare_stripe_format(mat, work_per_stripe=work, val_dtype=val_dtype, device=cuda)
-    kt = stripe.choose_kt(k)
-    x = torch.as_tensor(np.random.default_rng(15).standard_normal((4096, -(-k // kt) * kt)),
-                        dtype=torch.float32, device=cuda)
-    rb = fmt.max_rows_per_stripe
-    before = stripe.stripe_rows_cuda.launches
-    got = stripe.stripe_rows_cuda(fmt.cols, fmt.lrow, fmt.vals, x, rb=rb, kt=kt)
-    assert stripe.stripe_rows_cuda.launches == before + 1
-    want = stripe.stripe_rows_plain(fmt.cols, fmt.lrow, fmt.vals, x, rb=rb)
-    scale = stripe.stripe_rows_plain(fmt.cols, fmt.lrow, fmt.vals.abs(), x.abs(), rb=rb)
-    assert _err(got, want, scale, cuda) <= 1e-5
-    assert stripe.stripe_uses_shared_tile(rb, kt) == (rb * kt * 4 <= 200 * 1024)
+    if work == "segment":
+        fmt = build_plan(mat, Schedule(family="nnz_segment", work_per_block=2048, unroll=8),
+                         device=cuda).formats[0]
+    else:
+        fmt, _ = prepare_stripe_format(mat, work_per_stripe=work, val_dtype=val_dtype,
+                                       device=cuda)
+    assert _stripe_vs_plain(fmt, k, cuda) <= 1e-5
+    pw = stripe.stripe_geometry(-(-k // stripe.choose_kt(k)) * stripe.choose_kt(k))[1]
+    info = stripe.stripe_info(pw, fmt.vals.dtype == torch.bfloat16)
+    assert info["spill_bytes"] == 0 and info["shared_bytes"] == 0
+    assert info["blocks_per_sm"] >= 2
+
+
+def stripe_by_hand(device, long_row=4471, n=4096, seed=43, bf16=False):
+    """A StripeFormat (P = 4, rb = 64) built slot by slot, its live slots a
+    prefix of each stripe: stripe 0 holds a row of ``long_row`` slots
+    beside short rows, so the row is cut over several blocks of the stripe
+    kernel; stripe 1 has no live slot; stripe 2 ends its live part with a
+    stored zero (value 0 inside the live slots, see ``STORED_ZERO``);
+    stripe 3 holds stored zeros among its short rows.  Padding: value 0,
+    the column of the stripe's last live slot.  ``bf16``: the value plane
+    in bf16."""
+    from tpusparse_torch.format import stripe_format_from_numpy
+
+    rng = np.random.default_rng(seed)
+
+    def rows(*runs):  # (lrow, count) runs -> lrow array
+        return np.concatenate([np.zeros(0)] + [np.full(c, r) for r, c in runs]).astype(np.int32)
+
+    stripes = [rows((0, 3), (1, 1), (2, long_row), (5, 4)), rows(),
+               rows((0, 2), (1, 7), (3, 30)), rows((0, 5), (2, 9), (7, 40))]
+    P, rb = len(stripes), 64
+    C = max(len(s) for s in stripes) + 24
+    cols = np.zeros((P, 1, C), np.int32)
+    lrow = np.zeros((P, 1, C), np.int32)
+    vals = np.zeros((P, 1, C), np.float32)
+    live = np.array([len(s) for s in stripes], np.int32)
+    for p, lr in enumerate(stripes):
+        cols[p, 0, :len(lr)] = rng.integers(0, n, len(lr))
+        lrow[p, 0, :len(lr)] = lr
+        vals[p, 0, :len(lr)] = rng.standard_normal(len(lr))
+        if len(lr):  # padding repeats the last live slot's row and column
+            cols[p, 0, len(lr):], lrow[p, 0, len(lr):] = cols[p, 0, len(lr) - 1], lr[-1]
+    vals[STORED_ZERO] = 0.0
+    vals[3, 0, [1, 6, 20, 53]] = 0.0
+    fields = dict(cols=cols, lrow=lrow, vals=vals, live_p=live,
+                  slot_of_origrow=np.arange(P * rb, dtype=np.int32))
+    fmt = stripe_format_from_numpy(fields, device=device, n_stripes=P, stripe_nnz=C,
+                                   max_rows_per_stripe=rb, shape=(P * rb, n),
+                                   nnz_real=int(np.count_nonzero(vals)))
+    return dataclasses.replace(fmt, vals=fmt.vals.bfloat16()) if bf16 else fmt
+
+
+#: stripe_by_hand's stored zero: the last live slot of stripe 2
+STORED_ZERO = (2, 0, 38)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 8, 33, 256])
+def test_stripe_kernel_edges(cuda, k, bf16):
+    fmt = stripe_by_hand(cuda, bf16=bf16)
+    ranges = stripe.stripe_slot_ranges(fmt.live_p.cpu(), fmt.stripe_nnz,
+                                       stripe.stripe_geometry(k)[2])
+    assert (ranges[0, :, 1] > ranges[0, :, 0]).sum() >= 3     # the long row over 3-9 blocks
+    assert not (ranges[1, :, 1] > ranges[1, :, 0]).any()       # the stripe with no live slot
+    assert _stripe_vs_plain(fmt, k, cuda) <= 1e-5
+    # the stored zero made nonzero after packing, as training or
+    # load_state_dict would: inside the live part, so walked
+    vals = fmt.vals.clone()
+    vals[STORED_ZERO] = 3.0
+    assert _stripe_vs_plain(fmt, k, cuda, vals=vals) <= 1e-5
 
 
 def _nested_vs_plain(fmt, k, dev):
@@ -793,31 +875,57 @@ def test_nm_kernel_matches_plain(cuda, n_keep, group, dtype, mode, m, n, k):
     assert _rel_to_scale(got, want, scale) <= 1e-5
 
 
+def bell_case(bs, seed):
+    """A block-sparse 1024 x 768 weight (128-blocks, density 0.4) with the
+    rows [128, 256) and [768, 1024) emptied: at BS = 64, 128 and 256 some
+    row-blocks have no real block (nb_p = 0), some one work item alone and
+    some several (their partials added into y)."""
+    a = builder.block_sparse_coo(1024, 768, 128, 0.4, seed=seed)
+    keep = ~(((a.rows >= 128) & (a.rows < 256)) | (a.rows >= 768))
+    return a.__class__(a.rows[keep], a.cols[keep], a.vals[keep], a.shape)
+
+
 @pytest.mark.parametrize("bs", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["fp32", "bf16"])
-def test_bell_kernel_matches_plain(cuda, bs, dtype, mode):
-    a = builder.block_sparse_coo(1024, 768, 128, 0.25, seed=bs)
-    fmt = be.pack_block_ell(a, bs=bs, dtype=dtype, device=cuda)
-    x = torch.as_tensor(np.random.default_rng(6).standard_normal((768, 72)),
+@pytest.mark.parametrize("k", [1, 40, 72, 256, 300])
+def test_bell_kernel_matches_plain(cuda, bs, dtype, mode, k):
+    # each run of a shared row-block adds its partial into y with atomics, in
+    # an order that changes from run to run: the sums of one row differ in
+    # their last bits only, far inside 1e-5 of |A|·|x|
+    fmt = be.pack_block_ell(bell_case(bs, bs), bs=bs, dtype=dtype, device=cuda)
+    alone = fmt.work[:, 3]
+    assert (fmt.nb_p == 0).any() and (alone == 0).any() and (alone == 1).any()
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal((768, k)),
                         dtype=torch.float32, device=cuda)
     before = be.bell_rows_cuda.launches
-    got = be.bell_rows_cuda(fmt.blkcol, fmt.blkvals, fmt.nb_p, x, mode=mode)
+    got = be.bell_rows_cuda(fmt.blkcol, fmt.blkvals, fmt.nb_p, x, mode=mode, work=fmt.work)
     assert be.bell_rows_cuda.launches == before + 1
     want = be.bell_rows_plain(fmt.blkcol, fmt.blkvals, fmt.nb_p, x, mode=mode)
     scale = be.bell_rows_plain(fmt.blkcol, fmt.blkvals.abs(), fmt.nb_p, x.abs(), mode=mode)
     torch.cuda.synchronize()
+    assert got.shape == want.shape
     assert _rel_to_scale(got, want, scale) <= 1e-5
 
 
 @pytest.mark.parametrize("bs", [64, 128, 256])
-def test_bell_kernel_int8_is_exact(cuda, bs):
-    a = builder.block_sparse_coo(1024, 768, 128, 0.25, seed=bs)
-    fmt = be.pack_block_ell(a, bs=bs, dtype=torch.int8, device=cuda)
-    xq = torch.randint(-127, 128, (768, 40), dtype=torch.int8, device=cuda)
-    got = be.bell_rows_cuda(fmt.blkcol, fmt.blkvals, fmt.nb_p, xq, mode="int8")
+@pytest.mark.parametrize("k", [1, 40, 72, 256, 300])
+def test_bell_kernel_int8_is_exact(cuda, bs, k):
+    fmt = be.pack_block_ell(bell_case(bs, bs), bs=bs, dtype=torch.int8, device=cuda)
+    xq = torch.randint(-127, 128, (768, k), dtype=torch.int8, device=cuda)
+    got = be.bell_rows_cuda(fmt.blkcol, fmt.blkvals, fmt.nb_p, xq, mode="int8", work=fmt.work)
     want = be.bell_rows_plain(fmt.blkcol, fmt.blkvals, fmt.nb_p, xq, mode="int8")
     assert got.dtype == torch.int32 and torch.equal(got, want)
+    # X^T handed as the transposed view bell_int8 passes: the same product
+    got_t = be.bell_rows_cuda(fmt.blkcol, fmt.blkvals, fmt.nb_p, xq.t().contiguous().t(),
+                              mode="int8", work=fmt.work)
+    assert torch.equal(got_t, want)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8"])
+def test_bell_kernel_resources(cuda, mode):
+    info = be.bell_kernel_info(mode)
+    assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 1
 
 
 @pytest.fixture(scope="module")
@@ -913,7 +1021,8 @@ def test_dense_tile_kernels_refuse_rather_than_fall_back(cuda):
     xp = be.pad_dense_rows(x, 512).contiguous()
     with pytest.raises(RuntimeError, match="CUDA error"):   # mode 7: refused by the launcher
         launch_checked(be._lib().bell_spmm_launch, "bell_spmm_launch",
-                       (fmt.blkcol, fmt.blkvals, fmt.nb_p, xp, y), (fmt.mb, fmt.bmax, 64, 8, 0, 7))
+                       (fmt.blkcol, fmt.blkvals, fmt.work, xp, y),
+                       (fmt.work.shape[0], fmt.bmax, 64, 8, 8, 8, 7))
     w = builder.nm_pruned_dense(64, 128, seed=2)
     f = nm.pack_nm(w, device=cuda)
     with pytest.raises(ValueError, match="X must be"):

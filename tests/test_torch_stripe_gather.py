@@ -375,7 +375,8 @@ def test_wrappers_refuse_cpu_tensors_and_plain_skips_padding():
     fmt, _ = tgen.prepare_stripe_format(tmat, work_per_stripe=128, device="cpu")
     xt = torch.from_numpy(x)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        tsg.stripe_rows_cuda(fmt.cols, fmt.lrow, fmt.vals, xt, rb=fmt.max_rows_per_stripe, kt=8)
+        tsg.stripe_rows_cuda(fmt.cols, fmt.lrow, fmt.vals, xt, rb=fmt.max_rows_per_stripe, kt=8,
+                             live=fmt.live_p)
     nest = _nested(*_case(seed=13)[:2])[1]
     with pytest.raises(ValueError, match="CUDA tensors"):
         tsg.stripe_nested_rows_cuda(nest.cols, nest.lrow, nest.vals, nest.wnz, nest.wrow, xt,
@@ -392,3 +393,161 @@ def test_wrappers_refuse_cpu_tensors_and_plain_skips_padding():
                                      rb=nest.max_rows_per_stripe))
     with pytest.raises(ValueError, match="X is on"):
         tsg.stripe_spmm(fmt, torch.zeros((400, 8), device="meta"))
+
+
+def _stored_zero_case(seed=21):
+    """A power-law 300 x 400 matrix whose every row ends in a stored zero
+    (an entry of the COO with value 0), so that every stripe's live part
+    ends in one; and x."""
+    _, tmat, x = _case(seed=seed)
+    vals = tmat.vals.copy()
+    vals[np.r_[np.nonzero(np.diff(tmat.rows))[0], tmat.rows.size - 1]] = 0.0
+    return CooMatrix(tmat.rows, tmat.cols, vals, tmat.shape), x
+
+
+def _stripe_formats(mat):
+    """The port's stripe and segment formats of ``mat`` on every packer
+    path: stripe_total (merge path, balanced, fixed rows) and nnz_segment
+    through build_plan, build_stripe_plan with and without sort, bf16
+    values."""
+    from tpusparse_torch.schedule import Schedule, build_plan
+
+    out = {f"prepare sort={sort} vals={vd}": tgen.prepare_stripe_format(
+        mat, work_per_stripe=96, sort=sort, val_dtype=vd, device="cpu")[0]
+        for sort, vd in ((True, None), (False, None), (True, "bfloat16"))}
+    out["build_stripe_plan"] = tgen.build_stripe_plan(mat, work_per_stripe=128,
+                                                      device="cpu").formats[0]
+    for name, kw in (("merge_path", dict(work_per_block=128)),
+                     ("balanced", dict(blocking="balanced", work_per_block=96)),
+                     ("fixed_rows", dict(blocking="fixed_rows", row_interval=32))):
+        out[name] = build_plan(mat, Schedule(family="stripe_total", unroll=8, **kw),
+                               device="cpu").formats[0]
+    out["nnz_segment"] = build_plan(mat, Schedule(family="nnz_segment", work_per_block=128,
+                                                  unroll=8), device="cpu").formats[0]
+    return out
+
+
+@pytest.mark.parametrize("stored_zeros", [False, True])
+def test_live_slots_are_each_stripes_pattern_prefix(stored_zeros):
+    # live_p counts each stripe's entries of the COO, stored zeros among
+    # them, and every nonzero of a stripe lies before it (the packers append
+    # the padding at a stripe's end); without stored zeros it equals the
+    # count derived from the values, as for a format of the JAX package's
+    mat = _stored_zero_case()[0] if stored_zeros else _case(seed=21)[1]
+    for name, fmt in _stripe_formats(mat).items():
+        P, _, C = fmt.cols.shape
+        live = fmt.live_p.numpy()
+        assert live.shape == (P,) and live.dtype == np.int32, name
+        vals = fmt.vals.float().numpy().reshape(P, C)
+        assert not (vals * (np.arange(C)[None, :] >= live[:, None])).any(), name
+        assert int(live.sum()) == mat.nnz, name
+        derived = tformat.live_counts(fmt.vals.float().numpy())
+        if stored_zeros:  # the derived count drops each stripe's trailing stored zero
+            assert (derived <= live).all() and (derived < live).any(), name
+        else:
+            np.testing.assert_array_equal(derived, live, err_msg=name)
+        assert fmt.memory_bytes == sum(getattr(fmt, f).numel() * getattr(fmt, f).element_size()
+                                       for f in ("cols", "lrow", "vals")
+                                       + (("row_of_slot",) if name == "nnz_segment" else ()))
+
+
+def test_live_slots_of_jax_formats_are_derived():
+    # a format made from the JAX package's arrays: live_p is the last slot
+    # holding a nonzero plus one, the port's packer gives the same on a
+    # matrix without stored zeros, and a given live_p is taken as it is
+    jmat, tmat, _ = _case(seed=22)
+    jfmt, _ = jgen.prepare_stripe_format(jmat, work_per_stripe=128)
+    fields = {f: np.asarray(getattr(jfmt, f)) for f in tformat.STRIPE_FIELDS}
+    static = {f: getattr(jfmt, f) for f in STRIPE_STATIC}
+    t = tformat.stripe_format_from_numpy(fields, device="cpu", **static)
+    ported, _ = tgen.prepare_stripe_format(tmat, work_per_stripe=128, device="cpu")
+    torch.testing.assert_close(t.live_p, ported.live_p)
+    given = tformat.stripe_format_from_numpy(dict(fields, live_p=np.full(jfmt.n_stripes,
+                                                                         jfmt.stripe_nnz)),
+                                             device="cpu", **static)
+    assert (given.live_p == jfmt.stripe_nnz).all()
+    with pytest.raises(ValueError, match="live slots"):
+        tformat.stripe_format_from_numpy(dict(fields, live_p=np.full(jfmt.n_stripes, -1)),
+                                         device="cpu", **static)
+    jm, _ = _run_both("nnz_segment", jmat, tmat)
+    jseg = jformat.pack_segment(jm, 0, out_rows=300)
+    seg = tformat.segment_format_from_numpy(
+        {f: np.asarray(getattr(jseg, f)) for f in tformat.SEGMENT_FIELDS}, device="cpu",
+        **{f: getattr(jseg, f) for f in SEGMENT_STATIC})
+    assert int(seg.live_p.sum()) == jmat.nnz and (seg.live_p[:-1] == jseg.block_nnz).all()
+
+
+def _live_only_rows(fmt, vals, x):
+    """y_slots from each stripe's live slots only, as the kernel walks them
+    (float64)."""
+    P, _, C = fmt.cols.shape
+    rb = getattr(fmt, "max_rows_per_stripe", None) or fmt.max_segments
+    y = np.zeros((P * rb, x.shape[1]))
+    v = vals.float().numpy().reshape(P, C).astype(np.float64)
+    cols, lrow = fmt.cols.numpy().reshape(P, C), fmt.lrow.numpy().reshape(P, C)
+    for p, n in enumerate(fmt.live_p.tolist()):
+        np.add.at(y, p * rb + lrow[p, :n], v[p, :n, None] * x[cols[p, :n]].astype(np.float64))
+    return y
+
+
+def test_stripe_rows_plain_over_live_slots_equals_all_slots():
+    # the plain version walks every slot whose value is not zero; the
+    # kernel only the live ones: the same y_slots, also after a stored zero
+    # is made nonzero in the format's plane (training, load_state_dict)
+    mat, x = _stored_zero_case(seed=23)
+    for name, fmt in _stripe_formats(mat).items():
+        rb = getattr(fmt, "max_rows_per_stripe", None) or fmt.max_segments
+        vals = fmt.vals.clone()
+        p = int(torch.argmax(fmt.live_p))
+        vals[p, 0, int(fmt.live_p[p]) - 1] = 2.5                 # the stored zero
+        assert tformat.live_counts(vals.float().numpy())[p] == fmt.live_p[p]
+        for v in (fmt.vals, vals):
+            want = tsg.stripe_rows_plain(fmt.cols, fmt.lrow, v, torch.from_numpy(x), rb=rb)
+            scale = tsg.stripe_rows_plain(fmt.cols, fmt.lrow, v.abs(), torch.from_numpy(
+                np.abs(x)), rb=rb)
+            np.testing.assert_allclose(_live_only_rows(fmt, v, x), want.numpy(), rtol=0,
+                                       atol=1e-5 * max(float(scale.max()), 1.0), err_msg=name)
+
+
+@pytest.mark.parametrize("bs", [8, 24, 1024])
+def test_stripe_slot_ranges_cover_live_slots(bs):
+    # the stripe kernel's blocks: together they take every live slot of a
+    # stripe exactly once, and nothing past it (the hand-built format of
+    # the card tests: a row cut over blocks, a stripe with no live slot)
+    from test_torch_gpu import stripe_by_hand
+
+    fmts = dict(_stripe_formats(_stored_zero_case()[0]),
+                by_hand=stripe_by_hand("cpu", long_row=100, n=400))
+    for name, fmt in fmts.items():
+        P, _, C = fmt.cols.shape
+        ranges = tsg.stripe_slot_ranges(fmt.live_p, C, bs)
+        assert ranges.shape == (P, -(-C // bs), 2), name
+        for p in range(P):
+            taken = np.zeros(C, np.int64)
+            for lo, hi in ranges[p]:
+                taken[lo:max(lo, hi)] += 1
+            np.testing.assert_array_equal(taken, (np.arange(C) < int(fmt.live_p[p])).astype(
+                np.int64), err_msg=f"{name} {p}")
+
+
+def test_stripe_row_runs_counts_runs_of_live_slots():
+    from test_torch_gpu import stripe_by_hand
+
+    fmts = dict(_stripe_formats(_case(seed=24)[1]),
+                by_hand=stripe_by_hand("cpu", long_row=100, n=400))
+    for name, fmt in fmts.items():
+        P, _, C = fmt.cols.shape
+        want_runs = want_live = 0
+        for p in range(P):
+            prev = None
+            for i in range(int(fmt.live_p[p])):
+                if fmt.vals[p, 0, i] != 0:
+                    row = int(fmt.lrow[p, 0, i])
+                    want_runs += row != prev
+                    want_live += 1
+                    prev = row
+        assert tsg.stripe_row_runs(fmt) == (want_runs, want_live), name
+        assert want_runs < want_live
+    # by hand: stripe 0's four rows, stripe 2's three, stripe 3's three with
+    # stored zeros inside them
+    assert tsg.stripe_row_runs(fmts["by_hand"]) == (10, 3 + 1 + 100 + 4 + 38 + 50)

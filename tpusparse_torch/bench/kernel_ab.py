@@ -1,9 +1,10 @@
-"""Times the redesigned slot-walk kernels at the shapes where
-``chip_smoke.py`` reads them, for the port in any checkout, so that two
-commits are compared on one card in one run: the resident tile kernel (#5,
-``tile_rows_cuda``), the nested stripe kernel (#11,
-``stripe_nested_rows_cuda``), the dgt kernel (#3, ``dgt_rows_cuda``) and
-the span kernel (#7, ``span_rows_cuda``):
+"""Times the redesigned kernels at the shapes where ``chip_smoke.py``
+reads them, for the port in any checkout, so that two commits are compared
+on one card in one run: the resident tile kernel (#5, ``tile_rows_cuda``),
+the stripe kernels (#10 ``stripe_rows_cuda``, #11
+``stripe_nested_rows_cuda``), the dgt kernel (#3, ``dgt_rows_cuda``), the
+span kernel (#7, ``span_rows_cuda``), the N:M kernel (#12,
+``nm_rows_cuda``) and the Block-ELL kernel (#13, ``bell_rows_cuda``):
 
     python3 tpusparse_torch/bench/kernel_ab.py [--root DIR] [--only PREFIX]
 
@@ -13,14 +14,25 @@ archive`` into an ignored directory; run it in turns (older, newer, newer,
 older).  The timer is this checkout's ``harness.device_time_fn``, loaded by
 path, so an older checkout that lacks it is timed the same way.  A
 checkout whose dgt and span wrappers take a row walk gets the format's
-(built before the timing); an older one is called as it was.  ``--only`` keeps
-the shapes whose name starts with PREFIX ("#3", "#7", "T1", ...).
+(built before the timing), one whose stripe wrapper takes the live slots
+or whose Block-ELL wrapper takes work items gets the format's; an older
+one is called as it was.  ``--only`` keeps the shapes whose name starts
+with one of its comma-separated prefixes ("#3", "#7,#10", "T1", ...).
 
 Shapes: config #1 (power-law 32768^2, alpha 1.8, seed 42) in the tile
 format of rb 1024, ct 1024, g 512 at K = 8, 32 and 256 and of rb 1024, ct
 512, g 256 at K = 8; ``SparseLinear.from_dense(k_hint=512)``'s format of
 the 90 %-pruned 4096^2 weight (seed 3) at K = 512; config #1's
-``stripe_nested`` format (work 4096, unroll 8) at K = 8 and 32.  #3:
+``stripe_nested`` format (work 4096, unroll 8) at K = 8 and 32.  #10:
+config #1's ``stripe_total`` formats (merge path 2048 and 512) at K = 8
+and 256 and its ``nnz_segment`` (2048) at K = 8; ``spmv_fn(mat,
+"stripe")``'s format of the SpMV workload at the K its SpMV runs (one
+column where the checkout's SpMV passes x as one, else 8) and that
+whole SpMV call.  #12: P13's 2:4 4096^2 weight (seed 5) in bf16 at K =
+128 and 512 and in fp32 at K = 128.  #13: P14's block-sparse 4096^2
+weight (15 % of 128-blocks, seed 6) in bf16, fp32 and int8 at K = 256
+(int8: X quantized per column as ``bell_int8`` does, and handed as that
+checkout's ``bell_int8`` hands it), beside cuBLAS's dense product.  #3:
 ``spmv_fn(mat, "dgt8")``'s format of the SpMV workload (power-law
 262144^2, avg 40, seed 9) at K = 1 and ``spmv_multi_fn(mat, 8)``'s at K =
 8; config #1's ``dgt_span`` rb 512 nw 8 g 512 at K = 8.  #7: the trainable
@@ -31,15 +43,19 @@ weight, x [4, 128, 4096], Adam.  For each: the device time a call
 (profiler, 20 calls: the wrapper's kernel and its zero fill), the
 back-to-back time a call (``time_fn``, median of five, host included), the
 largest error against the plain version relative to |A|·|X| and, for #3
-and #7, cuSPARSE's device and ``time_fn`` times for the same product
-(``torch.sparse.mm`` on CSR).  A device time the profiler cannot give
-(records dropped in every window) is null, and said.  Prints one JSON
-object as its last line.  Needs a CUDA card.
+and #7 and #10, cuSPARSE's device and ``time_fn`` times for the same
+product (``torch.sparse.mm`` on CSR), for #12 and #13 cuBLAS's dense
+``torch.mm`` of the same weight (``torch._int_mm`` for int8).  A device
+time the profiler cannot give (records dropped in every window) is a CUDA
+graph's replay of 20 calls (``harness.graph_time_fn``, the shape listed
+under ``graph_replay``), or null where the call cannot be captured, and
+said.  Prints one JSON object as its last line.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import json
 import subprocess
@@ -51,7 +67,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                     help="the checkout whose tpusparse_torch is timed")
-    ap.add_argument("--only", default="", help="time only the shapes whose name starts so")
+    ap.add_argument("--only", default="",
+                    help="time only the shapes whose name starts so (comma-separated prefixes)")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     spec = importlib.util.spec_from_file_location("kernel_ab_harness",
@@ -68,7 +85,9 @@ def main() -> int:
     sys.path.insert(0, str(root))
     from tpusparse_torch.format import pack_tile
     from tpusparse_torch.io import builder
+    from tpusparse_torch.kernels import block_ell as be
     from tpusparse_torch.kernels import dgt_gather as dgt
+    from tpusparse_torch.kernels import nm_structured as nm
     from tpusparse_torch.kernels import sddmm as sd
     from tpusparse_torch.kernels import span_gather as span
     from tpusparse_torch.kernels import stripe_gather as stripe
@@ -85,7 +104,7 @@ def main() -> int:
                                     "--format=csv,noheader"], capture_output=True,
                                    text=True).stdout.strip(), "shapes": {}}
 
-    def record(name, kern, plain, scale, x, lib=None):
+    def record(name, kern, plain, scale, x, lib=None, lib_name="cuSPARSE"):
         got, want, den = kern(x), plain(x), scale([v.abs() for v in x] if isinstance(x, list)
                                                   else x.abs())
         torch.cuda.synchronize()
@@ -99,31 +118,41 @@ def main() -> int:
         host = float(np.median([harness.time_fn(kern, x) for _ in range(5)])) * 1e3
         rec = {"device_ms": device_ms(name, kern, x), "time_fn_ms": host, "rel_err": err}
         if lib is not None:
-            rec["library_device_ms"] = device_ms(name + " cuSPARSE", *lib)
+            rec["library"] = lib_name
+            rec["library_device_ms"] = device_ms(f"{name} {lib_name}", *lib)
             rec["library_time_fn_ms"] = harness.time_fn(*lib) * 1e3
         out["shapes"][name] = rec
         print(f"{name}: device {fmt_ms(rec['device_ms'])} ms a call, time_fn {host:.4f} ms, "
               f"rel err {err:.2e}"
-              + (f", cuSPARSE device {fmt_ms(rec['library_device_ms'])} ms, time_fn "
+              + (f", {lib_name} device {fmt_ms(rec['library_device_ms'])} ms, time_fn "
                  f"{rec['library_time_fn_ms']:.4f} ms" if lib else ""), flush=True)
 
     def device_ms(name, fn, x, tries=3):
-        """The device time a call in ms, or None where the profiler dropped
-        records in every window of ``tries`` readings (said in the output;
-        time_fn stands)."""
+        """The device time a call in ms: the profiler's, or where it dropped
+        records in every window of ``tries`` readings, a CUDA graph's replay
+        (``harness.graph_time_fn``; said in the output), or None where the
+        call cannot be captured either."""
         for _ in range(tries):
             try:
                 return harness.device_time_fn(fn, x) * 1e3
             except RuntimeError as e:
                 err = e
-        print(f"{name}: {err}", flush=True)
-        return None
+        try:
+            t = harness.graph_time_fn(fn, x) * 1e3
+        except Exception as e:  # noqa: BLE001 - reported, time_fn stands
+            print(f"{name}: {err}; no CUDA graph either ({type(e).__name__}: {e})", flush=True)
+            return None
+        print(f"{name}: {err}; CUDA graph replay {t:.4f} ms a call", flush=True)
+        graph_read.add(name)
+        return t
+
+    graph_read = set()  # the shapes whose device time is a CUDA graph's replay
 
     def fmt_ms(v):
         return "n/a" if v is None else f"{v:.4f}"
 
     def wanted(name):
-        return name.startswith(args.only)
+        return any(name.startswith(p) for p in args.only.split(","))
 
     def rand_x(n, k, kt):
         x = torch.as_tensor(np.random.default_rng(1).standard_normal((n, k)),
@@ -149,6 +178,19 @@ def main() -> int:
                lambda v: stripe.stripe_nested_rows_plain(fmt.cols, fmt.lrow, fmt.vals.abs(),
                                                          fmt.wnz, fmt.wrow, v, rb=rb),
                rand_x(fmt.shape[1], k, kt))
+
+    def stripe_shape(name, fmt, a, k):
+        """The stripe kernel on a stripe or segment format at K = k (X padded
+        to the stripe K-tile, as ``stripe_spmm`` pads it)."""
+        kt = stripe.choose_kt(min(k, 32))
+        rb = getattr(fmt, "max_rows_per_stripe", None) or fmt.max_segments
+        live = dict(live=fmt.live_p) if hasattr(fmt, "live_p") else {}
+        args = (fmt.cols, fmt.lrow, fmt.vals)
+        x = rand_x(fmt.shape[1], k, kt)
+        record(name, lambda v: stripe.stripe_rows_cuda(*args, v, rb=rb, kt=kt, **live),
+               lambda v: stripe.stripe_rows_plain(*args, v, rb=rb),
+               lambda v: stripe.stripe_rows_plain(fmt.cols, fmt.lrow, fmt.vals.abs(), v, rb=rb),
+               x, csr_lib(a, x[:, :k].contiguous()))
 
     def csr_lib(a, x):
         """cuSPARSE's product of A (CSR on the card) with x [N, K]."""
@@ -242,12 +284,89 @@ def main() -> int:
                    [(f, lo) for f, (lo, _) in zip(plan.formats, plan.meta["col_ranges"])],
                    big, 8)
         del plan
+    if wanted("#10"):
+        for work in (2048, 512):
+            f = build_plan(mat, Schedule(family="stripe_total", work_per_block=work, unroll=8),
+                           device=dev).formats[0]
+            for k in (8, 256):
+                stripe_shape(f"#10 config #1 stripe_total merge path {work} K={k}", f, mat, k)
+        f = build_plan(mat, Schedule(family="nnz_segment", work_per_block=2048, unroll=8),
+                       device=dev).formats[0]
+        stripe_shape("#10 config #1 nnz_segment 2048 K=8", f, mat, 8)
+        del f
+        fn = spmv_fn(big, "stripe")
+        # the K the checkout's SpMV runs: x as one column since the stripe
+        # wrapper walks live slots, widened to 8 before
+        k_spmv = 1 if hasattr(fn.format, "live_p") else 8
+        stripe_shape(f"#10 262144^2 spmv_fn('stripe') kernel K={k_spmv}", fn.format, big, k_spmv)
+        xv = torch.as_tensor(np.random.default_rng(2).standard_normal(big.shape[1]),
+                             dtype=torch.float32, device=dev)
+        host = float(np.median([harness.time_fn(fn, xv) for _ in range(5)])) * 1e3
+        device = device_ms("#10 SpMV call", fn, xv)
+        out["shapes"]["#10 262144^2 spmv_fn('stripe') whole call"] = {"device_ms": device,
+                                                                      "time_fn_ms": host}
+        print(f"#10 262144^2 spmv_fn('stripe') whole call: device {fmt_ms(device)} ms, "
+              f"time_fn {host:.4f} ms", flush=True)
+        del fn
+    if wanted("#12"):
+        w13 = builder.nm_pruned_dense(4096, 4096, 2, 4, seed=5)
+        for prec, dt, ks in (("bf16", torch.bfloat16, (128, 512)), ("fp32", torch.float32, (128,))):
+            f = nm.pack_nm(w13, n_keep=2, group=4, dtype=dt, device=dev)
+            kw = dict(group=4, packed_bits=f.packed_bits, mode=prec)
+            wd = torch.as_tensor(w13, dtype=torch.float32, device=dev)
+            for k in ks:
+                x = rand_x(4096, k, 1)
+                if prec == "bf16":
+                    def mm(v, w=wd.bfloat16()):
+                        return torch.mm(w, v.bfloat16(), out_dtype=torch.float32)
+                else:
+                    mm = functools.partial(torch.mm, wd)
+                record(f"#12 P13 2:4 {prec} K={k}",
+                       lambda v, f=f, kw=kw: nm.nm_rows_cuda(f.vals, f.offs, v, **kw),
+                       lambda v, f=f, kw=kw: nm.nm_rows_plain(f.vals, f.offs, v, **kw),
+                       lambda v, f=f, kw=kw: nm.nm_rows_plain(f.vals.abs(), f.offs, v, **kw),
+                       x, (mm, x), lib_name=f"cuBLAS dense {prec}")
+    if wanted("#13"):
+        a14 = builder.block_sparse_coo(4096, 4096, 128, 0.15, seed=6)
+        d14 = torch.as_tensor(a14.to_dense(np.float32), device=dev)
+        x14 = rand_x(4096, 256, 1)
+        for prec, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32), ("int8", torch.int8)):
+            f = be.pack_block_ell(a14, dtype=dt, device=dev)
+            bargs = (f.blkcol, f.blkvals, f.nb_p)
+            work = dict(work=f.work) if hasattr(f, "work") else {}
+            if prec == "int8":  # bell_int8's quantization, X^T's view where it hands that
+                amax = x14.abs().amax(dim=0)
+                xq = torch.clamp(torch.round(x14 / torch.where(amax > 0, amax / 127.0, 1.0)),
+                                 -127, 127).to(torch.int8).contiguous()
+                x = xq.t().contiguous().t() if work else xq
+                dq = torch.zeros((4096, 4096), dtype=torch.int8, device=dev)
+                q, bc, nb = (t.cpu().numpy() for t in (f.blkvals, f.blkcol, f.nb_p))
+                for i in range(f.mb):
+                    for j in range(nb[i]):
+                        dq[i * 128:(i + 1) * 128, bc[i, j] * 128:(bc[i, j] + 1) * 128] = \
+                            torch.from_numpy(q[i, j])
+                lib, lib_name = (functools.partial(torch._int_mm, dq), xq), "torch._int_mm dense"
+            else:
+                x = x14
+                wd = d14.bfloat16() if prec == "bf16" else d14
+                lib = ((lambda v, w=wd: torch.mm(w, v.bfloat16(), out_dtype=torch.float32))
+                       if prec == "bf16" else functools.partial(torch.mm, wd), x14)
+                lib_name = f"cuBLAS dense {prec}"
+            record(f"#13 P14 {prec} K=256",
+                   lambda v, bargs=bargs, work=work, prec=prec:
+                   be.bell_rows_cuda(*bargs, v, mode=prec, **work),
+                   lambda v, bargs=bargs, prec=prec: be.bell_rows_plain(*bargs, v.contiguous(),
+                                                                         mode=prec),
+                   lambda v, f=f, prec=prec: be.bell_rows_plain(
+                       f.blkcol, f.blkvals.abs(), f.nb_p, v.contiguous().abs(), mode=prec),
+                   x, lib, lib_name=lib_name)
     if wanted("#3"):
         dgt_shape("#3 262144^2 spmv_fn('dgt8') K=1", spmv_fn(big, "dgt8").format, big, 1)
         dgt_shape("#3 262144^2 spmv_multi_fn(8) K=8", spmv_multi_fn(big, 8).formats[0], big, 8)
         sched = Schedule(family="dgt_span", rb=512, nw=8, g=512, unroll=8, ktile=8)
         dgt_shape("#3 config #1 dgt_span rb512 nw8 g512 K=8",
                   build_plan(mat, sched, device=dev).formats[0], mat, 8)
+    out["graph_replay"] = sorted(graph_read)
     print(json.dumps(out))
     return 0
 

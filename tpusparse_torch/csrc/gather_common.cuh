@@ -1,7 +1,8 @@
 // gather_common.cuh - the gather machinery that dg_gather.cu and
 // radix_gather.cu launch, and the shared-memory helpers that the dgt and
-// span stream kernels (#4, #8) and stripe_gather.cu's stripe kernel use.
-// (The dgt and span kernels #3 and #7 walk row runs instead: row_walk.cuh.)
+// span stream kernels (#4, #8) use.  (The dgt and span kernels #3 and #7
+// walk row runs instead, row_walk.cuh, and the stripe kernels #10 and #11
+// slot streams, row_runs.cuh.)
 // The formats differ only in how a slot names its column of X and its row
 // of y_rows; everything else is here:
 //

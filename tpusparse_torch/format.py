@@ -55,16 +55,21 @@ class StripeFormat:
                              real one); float32 or the packer's val_dtype
       slot_of_origrow [M] int32  p * RB + local row per original row (-1
                                  for rows absent from this sub-matrix)
+      live_p [P] int32       the stripe's slots that hold an entry of the
+                             COO (``live_counts``): the kernel walks only
+                             those
 
-    RB is the most rows any stripe holds.  The arrays equal the JAX
-    ``StripeFormat``'s; ``memory_bytes`` is a property here (a method
-    there).
+    RB is the most rows any stripe holds.  Every array but ``live_p`` (the
+    port's own field, like ``BlockEllFormat.nb_p``, not counted in
+    ``memory_bytes``) equals the JAX ``StripeFormat``'s; ``memory_bytes``
+    is a property here (a method there).
     """
 
     cols: Any
     lrow: Any
     vals: Any
     slot_of_origrow: Any
+    live_p: Any
     n_stripes: int
     stripe_nnz: int
     max_rows_per_stripe: int
@@ -87,14 +92,51 @@ class StripeFormat:
 STRIPE_FIELDS = ("cols", "lrow", "vals", "slot_of_origrow")
 
 
+def block_nnz_before_pad(ms: MetaDataSet, sub: int, level: Level = Level.TBLOCK) -> np.ndarray:
+    """Each ``level`` block's nnz as blocked, read before the uniform pad
+    (UniformBlockPadOperator) appends value-0 padding at each block's end:
+    the ``live`` of ``pack_stripe``.  [0] for a matrix with no block (the
+    pad then makes one block of padding)."""
+    sizes = np.diff(ms.get(level, "first_nz_indices", sub).astype(np.int64))
+    return sizes if sizes.size else np.zeros(1, np.int64)
+
+
+def live_counts(vals, *, live=None) -> np.ndarray:
+    """[P] int32: the live slots of each stripe (or segment block) of a
+    [P, 1, C] value plane.
+
+    The packers keep a stripe's entries first, in row-major order, and
+    append the padding after them: ``pad_blocks_to_uniform_nnz`` pads each
+    block at its end, ``pad_nnz_to_multiple`` (nnz_segment) appends to the
+    last row, so only the last block holds padding, at its end.  So the
+    live slots of every stripe are a prefix, and a kernel walks slots
+    [0, live_p[p]) and never reads the rest.  The count is the pattern's,
+    not ``vals != 0``: a stored zero of the COO, which training or
+    ``load_state_dict`` may make nonzero, is live.  ``live`` gives it (the
+    packers pass each block's nnz before the pad); without it, for a format
+    that comes from outside the packer, it is the last slot holding a
+    nonzero plus one, as ``block_ell_format_from_numpy`` derives ``nb_p``."""
+    v = np.asarray(vals).reshape(len(vals), -1)
+    P, C = v.shape
+    if live is None:
+        nz = v != 0
+        live = np.where(nz.any(axis=1), C - np.argmax(nz[:, ::-1], axis=1), 0)
+    live = np.asarray(live, np.int64).reshape(-1)
+    if live.shape != (P,) or live.min(initial=0) < 0 or live.max(initial=0) > C:
+        raise ValueError(f"live slots {live.shape} out of range for a [{P}, 1, {C}] plane")
+    return live.astype(np.int32)
+
+
 def pack_stripe(ms: MetaDataSet, sub: int, *, out_rows: int, level: Level = Level.TBLOCK,
-                val_dtype=None, device="cuda") -> StripeFormat:
+                val_dtype=None, live=None, device="cuda") -> StripeFormat:
     """Pack a row-aligned, uniform-nnz blocked sub-matrix into StripeFormat
     on ``device`` (tpusparse/format.py:65).  Preconditions: ``level`` has
     first_row_indices / first_nz_indices with the same nnz in every block
     (UniformBlockPadOperator) and row-major nz order.  ``out_rows`` is the
     original matrix's row count; ``val_dtype`` the value plane's dtype
-    (float32 by default)."""
+    (float32 by default); ``live`` each block's nnz before the uniform pad
+    (``block_nnz_before_pad``; ``live_counts`` derives it from the values
+    without)."""
     dev = resolve_device(device)
     first_rows = ms.get(level, "first_row_indices", sub).astype(np.int64)
     first_nzs = ms.get(level, "first_nz_indices", sub).astype(np.int64)
@@ -117,6 +159,7 @@ def pack_stripe(ms: MetaDataSet, sub: int, *, out_rows: int, level: Level = Leve
         lrow=to_device(dev, lrow.reshape(p, 1, c)),
         vals=to_device(dev, vals32, value_dtype(val_dtype)),
         slot_of_origrow=to_device(dev, slot),
+        live_p=to_device(dev, live_counts(np.asarray(vals).reshape(p, 1, c), live=live)),
         n_stripes=p,
         stripe_nnz=c,
         max_rows_per_stripe=rb,
@@ -133,12 +176,15 @@ class SegmentFormat:
     combined into Y afterwards.  The arrays mirror StripeFormat's, but
     ``lrow`` holds the segment id local to the block (< ``max_segments``)
     and ``row_of_slot`` [P * max_segments] int32 maps each (block,
-    segment) slot to its original row (-1 for unused slots)."""
+    segment) slot to its original row (-1 for unused slots).  ``live_p``
+    [P] int32 is the port's own field, as on StripeFormat (``live_counts``:
+    the last block's padding is not walked)."""
 
     cols: Any
     lrow: Any
     vals: Any
     row_of_slot: Any
+    live_p: Any
     n_blocks: int
     block_nnz: int
     max_segments: int
@@ -162,10 +208,12 @@ SEGMENT_FIELDS = ("cols", "lrow", "vals", "row_of_slot")
 
 
 def pack_segment(ms: MetaDataSet, sub: int, *, out_rows: int, level: Level = Level.TBLOCK,
-                 val_dtype=None, device="cuda") -> SegmentFormat:
+                 val_dtype=None, nnz_live: int | None = None, device="cuda") -> SegmentFormat:
     """Pack an nnz-direction blocked sub-matrix (uniform block nnz, the
     bitmap of SegmentReduceOperator) into SegmentFormat on ``device``
-    (tpusparse/format.py:294)."""
+    (tpusparse/format.py:294).  ``nnz_live``: the sub-matrix's nnz before
+    FixedNnzBlockingOperator padded it to whole blocks (``live_counts``
+    derives the live slots from the values without)."""
     dev = resolve_device(device)
     first_nzs = ms.get(level, "first_nz_indices", sub).astype(np.int64)
     rows, cols, vals = ms.coo(sub)
@@ -197,6 +245,9 @@ def pack_segment(ms: MetaDataSet, sub: int, *, out_rows: int, level: Level = Lev
         lrow=to_device(dev, lseg.reshape(p, 1, c)),
         vals=to_device(dev, vals32, value_dtype(val_dtype)),
         row_of_slot=to_device(dev, row_of_slot),
+        live_p=to_device(dev, live_counts(
+            vals32, live=None if nnz_live is None
+            else np.clip(nnz_live - np.arange(p, dtype=np.int64) * c, 0, c))),
         n_blocks=p,
         block_nnz=c,
         max_segments=rb,
@@ -311,11 +362,15 @@ def pack_stripe_nested(ms: MetaDataSet, sub: int, *, out_rows: int, unroll: int 
     )
 
 
-def _checked_tensors(kind: str, fields: dict, names, want: dict, dev, bad: bool):
+def _checked_tensors(kind: str, fields: dict, names, want: dict, dev, bad: bool,
+                     live: bool = False):
     """The arrays of ``names`` as tensors on ``dev`` (vals float32, or
     bfloat16 where the JAX plane was, the rest int32) after the shape checks
-    of ``want`` and the index check ``bad``."""
+    of ``want`` and the index check ``bad``; with ``live``, also ``live_p``
+    (``fields["live_p"]`` where given, else derived by ``live_counts``)."""
     arrs = {k: np.asarray(fields[k]) for k in names}
+    if live:
+        arrs["live_p"] = live_counts(arrs["vals"], live=fields.get("live_p"))
     for k, shp in want.items():
         if arrs[k].shape != shp:
             raise ValueError(f"{kind}.{k}: shape {arrs[k].shape}, want {shp}")
@@ -328,9 +383,10 @@ def _checked_tensors(kind: str, fields: dict, names, want: dict, dev, bad: bool)
 
 def stripe_format_from_numpy(fields: dict, *, device="cuda", **static) -> StripeFormat:
     """A StripeFormat from the JAX ``StripeFormat``'s arrays (``cols``,
-    ``lrow``, ``vals``, ``slot_of_origrow``) and static fields; shapes and
-    index ranges are checked, since the kernels read X and write Y at these
-    indices without bounds checks."""
+    ``lrow``, ``vals``, ``slot_of_origrow``; ``live_p`` is derived from
+    ``vals`` unless given) and static fields; shapes and index ranges are
+    checked, since the kernels read X and write Y at these indices without
+    bounds checks."""
     P, C, rb = static["n_stripes"], static["stripe_nnz"], static["max_rows_per_stripe"]
     m, n = static["shape"]
     want = {"cols": (P, 1, C), "lrow": (P, 1, C), "vals": (P, 1, C), "slot_of_origrow": (m,)}
@@ -341,11 +397,12 @@ def stripe_format_from_numpy(fields: dict, *, device="cuda", **static) -> Stripe
                 or a["slot_of_origrow"].max(initial=-1) >= P * rb)
 
     return StripeFormat(**_checked_tensors("StripeFormat", fields, STRIPE_FIELDS, want,
-                                           resolve_device(device), bad), **static)
+                                           resolve_device(device), bad, live=True), **static)
 
 
 def segment_format_from_numpy(fields: dict, *, device="cuda", **static) -> SegmentFormat:
-    """A SegmentFormat from the JAX ``SegmentFormat``'s arrays, checked."""
+    """A SegmentFormat from the JAX ``SegmentFormat``'s arrays (``live_p``
+    derived from ``vals`` unless given), checked."""
     P, C, rb = static["n_blocks"], static["block_nnz"], static["max_segments"]
     m, n = static["shape"]
     want = {"cols": (P, 1, C), "lrow": (P, 1, C), "vals": (P, 1, C), "row_of_slot": (P * rb,)}
@@ -356,7 +413,7 @@ def segment_format_from_numpy(fields: dict, *, device="cuda", **static) -> Segme
                 or a["row_of_slot"].max(initial=-1) >= m)
 
     return SegmentFormat(**_checked_tensors("SegmentFormat", fields, SEGMENT_FIELDS, want,
-                                            resolve_device(device), bad), **static)
+                                            resolve_device(device), bad, live=True), **static)
 
 
 def nested_format_from_numpy(fields: dict, *, device="cuda", **static) -> NestedStripeFormat:

@@ -56,7 +56,7 @@ def prepare_stripe_format(mat, *, work_per_stripe: int = 1024, row_weight: int =
     merge-path partition into row-aligned stripes, equalize stripe nnz,
     pack; returns (format on ``device``, metadata set)."""
     from tpusparse_torch import transforms as T
-    from tpusparse_torch.format import pack_stripe
+    from tpusparse_torch.format import block_nnz_before_pad, pack_stripe
     from tpusparse_torch.levels import Level
     from tpusparse_torch.meta.set import create_init_metadata_set
 
@@ -66,8 +66,10 @@ def prepare_stripe_format(mat, *, work_per_stripe: int = 1024, row_weight: int =
         T.reorder_by_row_order(ms, 0)
         T.remove_empty_rows_in_end(ms, 0)
     T.block_merge_path(ms, 0, Level.TBLOCK, work_per_stripe, row_weight)
+    live = block_nnz_before_pad(ms, 0)
     T.pad_blocks_to_uniform_nnz(ms, 0, Level.TBLOCK, multiple_of=nnz_multiple)
-    fmt = pack_stripe(ms, 0, out_rows=mat.shape[0], val_dtype=val_dtype, device=device)
+    fmt = pack_stripe(ms, 0, out_rows=mat.shape[0], val_dtype=val_dtype, live=live,
+                      device=device)
     return fmt, ms
 
 

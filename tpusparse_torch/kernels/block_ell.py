@@ -10,6 +10,9 @@ for array the JAX package's:
   nb_p    [MB]                int32  real blocks per row-block (the port's
                                      own field: the kernel walks only those;
                                      not counted in ``memory_bytes``)
+  work    [n, 4]              int32  the kernel's work items, built from
+                                     nb_p (``bell_work``; the port's own,
+                                     not in ``memory_bytes``)
 
 ``block_ell_spmm`` has the JAX package's two methods: ``xla`` (the
 default: gather the X tiles and run one batched product, which is XLA code
@@ -24,6 +27,11 @@ PyTorch version of the same function:
   bell_rows_cuda / bell_rows_plain  replace ``_bell_kernel`` (and the
       product of ``_bell_xla_int8``): y [MB*BS, K] with
       y[i*BS + a] = sum_j blkvals[i, j, a, :] @ X[blkcol[i, j]*BS + :BS]
+
+The kernel is a tensor-core GEMM over each row-block's gathered depth
+(bf16 and int8 on ``wgmma``, fp32 as 3xTF32 ``mma.sync``), cut into work
+items of at most ``ITEM_STEPS`` depth steps of a row-block, so that no
+block of the grid carries the longest row-block alone.
 """
 
 from __future__ import annotations
@@ -38,11 +46,35 @@ import torch
 
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import build
-from tpusparse_torch.kernels.common import (cdiv, launch_checked, matmul_f32, pad_dense_rows,
-                                            prep_x, quantize_rows, resolve_device,
-                                            storage_dtype)
+from tpusparse_torch.kernels.common import (cdiv, launch_checked, matmul_f32, pad_dense_cols,
+                                            pad_dense_rows, prep_x, quantize_rows,
+                                            resolve_device, round_up, storage_dtype)
 
 PRECISIONS = ("bf16", "fp32", "int8")
+#: depth steps that one work item of the kernel carries, and a step's
+#: values (csrc/block_ell.cu: 128 bytes of a bf16 or int8 row, 64 fp32)
+ITEM_STEPS = 4
+DEPTH_STEP = 64
+INT8_DEPTH_STEP = 128
+
+
+def bell_work(nb_p, bs: int, *, int8: bool = False) -> np.ndarray:
+    """The kernel's work items, [n, 4] int32 (row-block i, first block j0,
+    end block j1, alone): each row-block's ``nb_p[i]`` real blocks in runs
+    of ``max(1, ITEM_STEPS // steps)`` blocks, in order, ``steps`` the
+    depth steps of one block (``cdiv(bs, DEPTH_STEP)``; an int8 format's
+    ``cdiv(bs, INT8_DEPTH_STEP)``, so its items share fewer row-blocks and
+    add fewer int32 atomics); ``alone`` is 1 where the run is its
+    row-block's only one (the kernel stores its tile of y; the runs of a
+    shared row-block add into the zeroed y).  A row-block with no real
+    block has no item."""
+    nb = np.asarray(nb_p, np.int64).reshape(-1)
+    per = max(1, ITEM_STEPS // cdiv(bs, INT8_DEPTH_STEP if int8 else DEPTH_STEP))
+    runs = -(-nb // per)
+    i = np.repeat(np.arange(nb.size), runs)
+    j0 = (np.arange(i.size) - np.repeat(np.cumsum(runs) - runs, runs)) * per
+    return np.stack([i, j0, np.minimum(j0 + per, nb[i]), runs[i] == 1],
+                    axis=1).astype(np.int32).reshape(-1, 4)
 
 
 @dataclasses.dataclass
@@ -50,6 +82,7 @@ class BlockEllFormat:
     blkcol: Any   # [MB, BMAX] int32
     blkvals: Any  # [MB, BMAX, BS, BS]  (int8 when row_scale is set)
     nb_p: Any     # [MB] int32: real blocks per row-block, stored first
+    work: Any     # [n, 4] int32: the kernel's work items (bell_work)
     shape: tuple[int, int]
     bs: int
     n_blocks: int  # real (non-padding) blocks
@@ -112,6 +145,8 @@ def pack_block_ell(mat: CooMatrix, *, bs: int = 128, dtype=torch.float32,
     return BlockEllFormat(blkcol=torch.from_numpy(blkcol).to(dev),
                           blkvals=torch.from_numpy(blkvals).to(dev, dt),
                           nb_p=torch.from_numpy(counts.astype(np.int32)).to(dev),
+                          work=torch.from_numpy(bell_work(counts, bs,
+                                                          int8=dt == torch.int8)).to(dev),
                           shape=(m, n), bs=bs, n_blocks=int(n_blocks), row_scale=row_scale)
 
 
@@ -153,7 +188,9 @@ def block_ell_format_from_numpy(fields: dict, *, device="cuda", **static) -> Blo
         vt = torch.tensor(blkvals.astype(np.float32))
     return BlockEllFormat(blkcol=torch.tensor(blkcol, dtype=torch.int32, device=dev),
                           blkvals=vt.to(dev, dt),
-                          nb_p=torch.tensor(nb_p, dtype=torch.int32, device=dev), shape=(m, n),
+                          nb_p=torch.tensor(nb_p, dtype=torch.int32, device=dev),
+                          work=torch.from_numpy(bell_work(nb_p, bs, int8=dt == torch.int8)).to(dev),
+                          shape=(m, n),
                           bs=bs, n_blocks=int(static["n_blocks"]),
                           row_scale=None if rs is None else torch.tensor(rs, device=dev))
 
@@ -182,46 +219,79 @@ def bell_rows_plain(blkcol, blkvals, nb_p, x, *, mode):
 
 @functools.cache
 def _lib():
-    """csrc/block_ell.cu, built at first use, with its C signature."""
+    """csrc/block_ell.cu, built at first use, with its C signatures."""
     lib = build.library("block_ell")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.bell_spmm_launch.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+    lib.bell_spmm_launch.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
     lib.bell_spmm_launch.restype = i32
+    lib.bell_spmm_info.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+    lib.bell_spmm_info.restype = i32
     return lib
 
 
-VAL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 MODE_CODES = {"fp32": 0, "bf16": 1, "int8": 2}
+#: the value type each mode's kernel reads (the wrapper casts a plane of
+#: the other float type once: bf16 rounds to nearest even, fp32 widens)
+MODE_VALS = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 
 
-def bell_rows_cuda(blkcol, blkvals, nb_p, x, *, mode):
+def bell_kernel_info(mode: str) -> dict:
+    """The kernel of ``mode`` on the current card: registers and spilled
+    (local) bytes a thread, static and dynamic shared bytes, blocks an SM
+    holds."""
+    out = (ctypes.c_int * 5)()
+    rc = _lib().bell_spmm_info(MODE_CODES[mode], out)
+    if rc:
+        raise RuntimeError(f"bell_spmm_info failed with CUDA error {rc}")
+    return dict(zip(("registers", "spill_bytes", "static_shared_bytes", "dynamic_shared_bytes",
+                     "blocks_per_sm"), out))
+
+
+def bell_rows_cuda(blkcol, blkvals, nb_p, x, *, mode, work):
     """CUDA ``_bell_kernel`` (tpusparse/kernels/block_ell.py:136): y
     [MB*BS, K], fp32 (X fp32, ``fp32``/``bf16`` mode) or int32 (X and the
-    values int8, ``int8`` mode); X has NB*BS rows, BS a multiple of 32."""
+    values int8, ``int8`` mode); X has NB*BS rows, BS a multiple of 32;
+    ``work`` the format's work items (``bell_work(nb_p, BS)``).  The
+    tensor cores take bf16 X (cast here once, rows padded to 16 bytes),
+    fp32 X padded to 4 columns, or int8 X^T [K, NB*BS] (``x.t()`` made
+    contiguous here: free where X is a transposed view of a contiguous
+    X^T, as ``bell_int8`` passes it).  The returned y is the first K
+    columns of [MB*BS, round_up(K, 4)]."""
     mb, bmax, bs, _ = blkvals.shape
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, X is on {dev}")
     xdt = torch.int8 if mode == "int8" else torch.float32
     for name, t, ok, shp in (("blkcol", blkcol, blkcol.dtype == torch.int32, (mb, bmax)),
-                             ("blkvals", blkvals, blkvals.dtype in VAL_CODES,
+                             ("blkvals", blkvals, blkvals.dtype in MODE_VALS.values(),
                               (mb, bmax, bs, bs)),
-                             ("nb_p", nb_p, nb_p.dtype == torch.int32, (mb,))):
+                             ("nb_p", nb_p, nb_p.dtype == torch.int32, (mb,)),
+                             ("work", work, work.dtype == torch.int32, (work.shape[0], 4))):
         if t.device != dev or not ok or tuple(t.shape) != shp or not t.is_contiguous():
             raise ValueError(f"{name}: want a contiguous tensor {shp} on {dev}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if x.dtype != xdt or x.ndim != 2 or not x.is_contiguous() or x.shape[0] % bs:
-        raise ValueError(f"X must be a contiguous 2-D {xdt} tensor of whole blocks, "
+    if x.dtype != xdt or x.ndim != 2 or x.shape[0] % bs:
+        raise ValueError(f"X must be a 2-D {xdt} tensor of whole blocks, "
                          f"got {x.dtype} {tuple(x.shape)}")
     if mode not in MODE_CODES or bs % 32 or (mode == "int8") != (blkvals.dtype == torch.int8):
         raise ValueError(f"block-ELL kernel: mode {mode!r}, bs {bs}, values {blkvals.dtype}")
     k = x.shape[1]
-    y = torch.empty((mb * bs, k), dtype=torch.int32 if mode == "int8" else torch.float32,
+    ldy = round_up(k, 4)
+    if mode == "int8":
+        xk = x.t().contiguous()
+    elif mode == "bf16":
+        xk = pad_dense_cols(x, round_up(k, 8)).to(torch.bfloat16).contiguous()
+    else:
+        xk = pad_dense_cols(x, ldy).contiguous()
+    if xk.data_ptr() % 16:
+        xk = xk.clone()
+    a = blkvals.to(MODE_VALS[mode]).contiguous()
+    y = torch.zeros((mb * bs, ldy), dtype=torch.int32 if mode == "int8" else torch.float32,
                     device=dev)
-    launch_checked(_lib().bell_spmm_launch, "bell_spmm_launch", (blkcol, blkvals, nb_p, x, y),
-                   (mb, bmax, bs, k, VAL_CODES[blkvals.dtype], MODE_CODES[mode]))
+    launch_checked(_lib().bell_spmm_launch, "bell_spmm_launch", (blkcol, a, work, xk, y),
+                   (work.shape[0], bmax, bs, k, xk.shape[1], ldy, MODE_CODES[mode]))
     bell_rows_cuda.launches += 1
-    return y
+    return y[:, :k]
 
 
 bell_rows_cuda.launches = 0
@@ -230,10 +300,9 @@ bell_rows_cuda.launches = 0
 # ---------------------------------------------------------------- entry points
 
 def _bell_rows(fmt: BlockEllFormat, x, mode):
-    args = (fmt.blkcol, fmt.blkvals, fmt.nb_p, x)
     if fmt.device.type == "cuda":
-        return bell_rows_cuda(*args, mode=mode)
-    return bell_rows_plain(*args, mode=mode)
+        return bell_rows_cuda(fmt.blkcol, fmt.blkvals, fmt.nb_p, x, mode=mode, work=fmt.work)
+    return bell_rows_plain(fmt.blkcol, fmt.blkvals, fmt.nb_p, x.contiguous(), mode=mode)
 
 
 def bell_batched(fmt: BlockEllFormat, x: torch.Tensor, mode: str) -> torch.Tensor:
@@ -251,11 +320,15 @@ def bell_batched(fmt: BlockEllFormat, x: torch.Tensor, mode: str) -> torch.Tenso
 def bell_int8(fmt: BlockEllFormat, x: torch.Tensor) -> torch.Tensor:
     """``_bell_xla_int8`` (tpusparse/kernels/block_ell.py:200): X quantized
     per column (scale max|x[:, k]| / 127, rounded half to even), the
-    int8 . int8 -> int32 product, then the rank-1 rescale."""
+    int8 . int8 -> int32 product, then the rank-1 rescale.  The
+    quantization writes X^T [K, NB*BS] (the kernel's int8 operand is
+    K-major) and hands the product its transposed view, so X is
+    transposed in the pass that quantizes it."""
     x_amax = x.abs().amax(dim=0)
     x_scale = torch.where(x_amax > 0, x_amax / 127.0, torch.ones_like(x_amax))
-    xq = torch.clamp(torch.round(x / x_scale), -127, 127).to(torch.int8).contiguous()
-    idot = _bell_rows(fmt, xq, "int8")
+    xq_t = torch.clamp(torch.round(x.t() / x_scale.view(-1, 1)), -127, 127).to(
+        torch.int8).contiguous()
+    idot = _bell_rows(fmt, xq_t.t(), "int8")
     return idot.float() * fmt.row_scale.reshape(-1, 1) * x_scale.view(1, -1)
 
 

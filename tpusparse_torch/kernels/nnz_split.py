@@ -52,7 +52,8 @@ def segment_spmm(fmt: SegmentFormat, x, *, ktile: int | None = None,
     x, kt, k = prep_stripe_x(x, fmt.device, ktile)
     assert x.shape[0] == n_cols, f"X rows {x.shape[0]} != A cols {n_cols}"
     if fmt.device.type == "cuda":
-        slots = stripe_rows_cuda(fmt.cols, fmt.lrow, fmt.vals, x, rb=fmt.max_segments, kt=kt)
+        slots = stripe_rows_cuda(fmt.cols, fmt.lrow, fmt.vals, x, rb=fmt.max_segments, kt=kt,
+                                 live=fmt.live_p)
     else:
         slots = stripe_rows_plain(fmt.cols, fmt.lrow, fmt.vals, x, rb=fmt.max_segments)
     return combine_segments(slots, fmt.row_of_slot, m)[:, :k]

@@ -19,12 +19,16 @@ card's own choice (1, 2, 4, 8, 16 or 32 columns, X padded to it): the JAX
 ktile rule is Mosaic's 128-lane fallback, and its model-driven index
 compression (``tpusparse/transforms/compress.py``) lets the TPU compute a
 stripe's rows instead of loading them, which changes no Y; neither is
-ported.  The stripe kernel gives a block a stripe and a K-tile; the nested
-kernel cuts each stripe into blocks of ``NESTED_BLOCK_SLOTS`` slots and
-walks them once per panel of columns (``nested_geometry``), each row run
-summed in registers and added with float4 atomics.  ``unroll`` steered the
-TPU loop only.  A wrapper launches its kernel for CUDA tensors and raises
-on any failure; only CPU tensors take the plain version.
+ported.  Both kernels cut each stripe into blocks of slots and walk them
+once per panel of columns (X of 1 or 2 columns read padded to 4), each row
+run summed in registers and added with float4 atomics into the zeroed
+y_slots: the stripe kernel the stripe's live slots (``live_p``,
+``stripe_slot_ranges``) in blocks of the row walk's size by panel
+(``stripe_geometry``), the nested kernel its sub-blocks
+(``nested_slot_ranges``) in blocks of ``NESTED_BLOCK_SLOTS``
+(``nested_geometry``).  ``unroll`` steered the TPU loop only.  A wrapper
+launches its kernel for CUDA tensors and raises on any failure; only CPU
+tensors take the plain version.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info, l
 # the stripe kernels take radix's K-tiles: 1, 2, 4, 8, 16 or 32 columns
 from tpusparse_torch.kernels.radix_gather import RADIX_KTS as STRIPE_KTS
 from tpusparse_torch.kernels.radix_gather import choose_kt
+from tpusparse_torch.kernels.row_walk import walk_geometry
 from tpusparse_torch.kernels.tile_onehot import STREAM_BLOCK_SLOTS, STREAM_PANELS
 
 #: the nested kernel's panel widths (columns a slot stream carries)
@@ -68,6 +73,39 @@ def nested_slot_ranges(wnz, c: int, bs: int = NESTED_BLOCK_SLOTS) -> np.ndarray:
     lo = np.maximum(start[None, :], wz[:, :1])
     hi = np.minimum(start[None, :] + bs, wz[:, -1:])
     return np.stack([lo, hi], axis=-1)
+
+
+def stripe_geometry(kp: int) -> tuple[int, int, int]:
+    """The stripe kernel's (columns of X it reads, panel width, slots a
+    block) for X of ``kp`` columns: the row walk's (``walk_geometry``),
+    whose block sizes were chosen on the card for the same slot streams
+    (2048 slots up to 8 columns, 1024, 512 at 256 and 512 columns)."""
+    return walk_geometry(kp)
+
+
+def stripe_slot_ranges(live_p, c: int, bs: int) -> np.ndarray:
+    """[P, cdiv(c, bs), 2]: the slots [lo, hi) that block b of stripe p of
+    the stripe kernel takes, ``[b*bs, (b+1)*bs)`` below the stripe's live
+    count ``live_p[p]``; lo >= hi for a block that exits at once."""
+    live = np.asarray(live_p).reshape(-1, 1).astype(np.int64)
+    return nested_slot_ranges(np.concatenate([np.zeros_like(live), live], axis=1), c, bs)
+
+
+def stripe_row_runs(fmt) -> tuple[int, int]:
+    """(row runs, live slots) of a stripe or segment format: a run is a
+    maximal sequence of live slots (below ``live_p``, value not zero) of
+    one row in a stripe's slot order, which the stripe kernel sums in
+    registers and adds into y_slots once (a block's or stream's boundary
+    may cut a run)."""
+    P, _, C = fmt.cols.shape
+    vals = fmt.vals.detach().float().cpu().numpy().reshape(P, C)
+    lrow = fmt.lrow.cpu().numpy().reshape(P, C)
+    walked = (np.arange(C)[None, :] < fmt.live_p.cpu().numpy().reshape(P, 1)) & (vals != 0)
+    runs = 0
+    for p in range(P):
+        r = lrow[p][walked[p]]
+        runs += int(r.size > 0) + int(np.count_nonzero(r[1:] != r[:-1]))
+    return runs, int(walked.sum())
 
 
 def sub_block_of(wz, lo: int, hi: int) -> np.ndarray:
@@ -123,7 +161,9 @@ def _slots_plain(live, row, col, v, x, n_rows):
 def stripe_rows_plain(cols, lrow, vals, x, *, rb):
     """Plain PyTorch ``_stripe_kernel``: y_slots [P*rb, Kp] with
     ``y_slots[p*rb + lrow] += vals * X[cols]`` over the slots whose value is
-    not zero, as an ``index_add_`` (bf16 values widen exactly)."""
+    not zero, as an ``index_add_`` (bf16 values widen exactly).  The slots
+    past a stripe's live count hold zeros, so they add nothing here and the
+    kernel does not walk them."""
     P, _, C = cols.shape
     v = vals.reshape(-1).float()
     row = (torch.arange(P, device=cols.device).view(P, 1) * rb
@@ -157,21 +197,22 @@ def _lib():
     """csrc/stripe_gather.cu, built at first use, with its C signatures."""
     lib = build.library("stripe_gather")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.stripe_spmm_launch.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.stripe_spmm_launch.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
     lib.stripe_spmm_launch.restype = i32
+    lib.stripe_info.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
+    lib.stripe_info.restype = i32
     lib.stripe_nested_launch.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
     lib.stripe_nested_launch.restype = i32
     lib.stripe_nested_info.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
     lib.stripe_nested_info.restype = i32
-    lib.stripe_uses_shared_tile.argtypes = [i32, i32]
-    lib.stripe_uses_shared_tile.restype = i32
     return lib
 
 
-def stripe_uses_shared_tile(rb: int, kt: int) -> bool:
-    """Whether a block of the stripe kernel at (rb, kt) keeps its row tile
-    in shared memory (False: its global-atomic branch)."""
-    return bool(_lib().stripe_uses_shared_tile(rb, kt))
+def stripe_info(pw: int, bf16_vals: bool = False) -> dict:
+    """The stripe kernel of panel ``pw`` (bf16 values or fp32) on the
+    current card: registers a thread, spilled (local) bytes a thread,
+    static shared bytes and blocks an SM holds."""
+    return kernel_info(_lib().stripe_info, "stripe_info", pw, int(bf16_vals))
 
 
 def stripe_nested_info(pw: int) -> dict:
@@ -186,22 +227,28 @@ def _check_kt(kt, x, what):
         raise ValueError(f"{what}: kt={kt}, X {tuple(x.shape)}")
 
 
-def stripe_rows_cuda(cols, lrow, vals, x, *, rb, kt):
+def stripe_rows_cuda(cols, lrow, vals, x, *, rb, kt, live):
     """CUDA ``_stripe_kernel`` (tpusparse/kernels/stripe_gather.py:35):
     y_slots [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt; vals fp32 or
-    bf16."""
+    bf16; ``live`` [P] int32 the stripes' live slots (``live_p``), the only
+    ones walked, each stripe cut into blocks of slots (``stripe_geometry``:
+    X of 1 or 2 columns is read padded to 4, and the first Kp columns of
+    the kernel's y_slots returned)."""
     P, _, C = cols.shape
     vdt = vals.dtype if vals.dtype in (torch.float32, torch.bfloat16) else torch.float32
     check_operands(x, (("cols", cols, torch.int32, (P, 1, C)),
                        ("lrow", lrow, torch.int32, (P, 1, C)),
-                       ("vals", vals, vdt, (P, 1, C))), ndim=2)
+                       ("vals", vals, vdt, (P, 1, C)),
+                       ("live", live, torch.int32, (P,))), ndim=2)
     _check_kt(kt, x, "stripe kernel")
     n, kp = x.shape
-    y = torch.empty((P * rb, kp), dtype=torch.float32, device=x.device)
-    launch_checked(_lib().stripe_spmm_launch, "stripe_spmm_launch", (cols, lrow, vals, x, y),
-                   (P, C, rb, n, kp, kt, int(vals.dtype == torch.bfloat16)))
+    kp4, pw, bs = stripe_geometry(kp)
+    y = torch.zeros((P * rb, kp4), dtype=torch.float32, device=x.device)
+    launch_checked(_lib().stripe_spmm_launch, "stripe_spmm_launch",
+                   (cols, lrow, vals, live, pad_dense_cols(x, kp4).contiguous(), y),
+                   (P, C, rb, n, kp4, pw, bs, int(vals.dtype == torch.bfloat16)))
     stripe_rows_cuda.launches += 1
-    return y
+    return y[:, :kp]
 
 
 def stripe_nested_rows_cuda(cols, lrow, vals, wnz, wrow, x, *, rb, kt):
@@ -253,7 +300,8 @@ def stripe_spmm(fmt: StripeFormat, x, *, ktile: int | None = None,
     assert x.shape[0] == n_cols, f"X rows {x.shape[0]} != A cols {n_cols}"
     rb = fmt.max_rows_per_stripe
     if fmt.device.type == "cuda":
-        y_slots = stripe_rows_cuda(fmt.cols, fmt.lrow, fmt.vals, x, rb=rb, kt=kt)
+        y_slots = stripe_rows_cuda(fmt.cols, fmt.lrow, fmt.vals, x, rb=rb, kt=kt,
+                                   live=fmt.live_p)
     else:
         y_slots = stripe_rows_plain(fmt.cols, fmt.lrow, fmt.vals, x, rb=rb)
     return unpack_slots(y_slots, fmt.slot_of_origrow)[:, :k]

@@ -20,7 +20,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from tpusparse_torch.format import pack_segment, pack_stripe, pack_stripe_nested, pack_tile
+from tpusparse_torch.format import (block_nnz_before_pad, pack_segment, pack_stripe,
+                                    pack_stripe_nested, pack_tile)
 from tpusparse_torch.generator import SpmmPlan
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels.block_ell import block_ell_spmm, pack_block_ell
@@ -191,17 +192,19 @@ def _build_sub_plan(ms, ex, sub: int, sched: Schedule, out_rows: int, device):
             ex.add_and_run(FixedIntervalRowBlockingOperator(sub, Level.TBLOCK,
                                                             sched.row_interval))
         ex.add_and_run(ThreadTotalReduceOperator(sub, Level.TBLOCK))
+        live = block_nnz_before_pad(ms, sub)
         ex.add_and_run(UniformBlockPadOperator(sub, Level.TBLOCK, multiple_of=unroll))
-        fmt = pack_stripe(ms, sub, out_rows=out_rows, device=device)
+        fmt = pack_stripe(ms, sub, out_rows=out_rows, live=live, device=device)
 
         def fn(x, fmt=fmt):
             return stripe_spmm(fmt, x, ktile=kt_meta, unroll=unroll)
 
         return fmt, fn
     if fam == "nnz_segment":
+        nnz_live = ms.nnz(sub)  # before the blocking pads the nnz to whole blocks
         ex.add_and_run(FixedNnzBlockingOperator(sub, Level.TBLOCK, sched.work_per_block))
         ex.add_and_run(SegmentReduceOperator(sub, Level.TBLOCK))
-        fmt = pack_segment(ms, sub, out_rows=out_rows, device=device)
+        fmt = pack_segment(ms, sub, out_rows=out_rows, nnz_live=nnz_live, device=device)
 
         def fn(x, fmt=fmt):
             return segment_spmm(fmt, x, ktile=kt_meta, unroll=unroll)

@@ -10,8 +10,10 @@ Methods, decision for decision as in the JAX package:
   'radix'    the radix kernel at kt = 1 (``radix_rows_cuda``), rb = 2048,
              S = 128, g = 1024.
   'stripe'   the stripe kernel (``stripe_rows_cuda``) through
-             ``build_stripe_plan`` (work 1024, unroll 8) on x widened to 8
-             columns, as the JAX package runs it.
+             ``build_stripe_plan`` (work 1024, unroll 8) on x as one
+             column (the JAX package widens it to 8 for the TPU's
+             8-sublane minimum, a rule the card does not have: the same Y,
+             one float4 of X a slot).
   'segment'  plain torch: ``index_add_`` of vals * x[cols] over rows.  The
              JAX version is XLA code, no Pallas kernel, so no kernel here.
   'auto'     'dg' when x passes the JAX package's size gate (N*4 bytes
@@ -120,7 +122,7 @@ def spmv_fn(mat: CooMatrix, method: str = "auto", *, device="cuda"):
 
         def fn(x):
             assert tuple(x.shape) == (n,), f"x shape {tuple(x.shape)} != ({n},)"
-            return plan(_as_x(x, dev)[:, None].expand(n, 8))[:, 0]
+            return plan(_as_x(x, dev)[:, None])[:, 0]
 
         fn.format = plan.formats[0]
         return fn
