@@ -15,7 +15,8 @@ entry points a user calls:
   nonzeros per row on average (seed 9, about 10.2M nonzeros):
   ``spmv_fn(mat, "auto")`` (dg1), ``spmv_fn(mat, "dgt8")`` and
   ``spmv_multi_fn(mat, 8)``; ``spmv_multi_fn(..., col_split=2)`` at the
-  headline size; ``dgt_spmm(..., stream_x=True)`` at both sizes;
+  headline size; ``dgt_spmm(..., stream_x=True)`` at both sizes (K = 8,
+  and K = 64 at the SpMV size, where X outgrows the 50 MB L2);
 - the wide-K and large-N paths: ``spmm`` at the headline size with K = 256
   (``tile_onehot``, the stream kernel) and at the SpMV size with K = 8
   (``span_colsplit``: two span launches), ``tune`` at the headline size at
@@ -57,16 +58,18 @@ Every result is checked against the host oracle; the kernels are timed
 against their bound, their plain versions and cuSPARSE (the kernels line's
 ``ms``, ``plain_ms`` and ``library_ms`` are device times a call from the
 profiler, ``time_fn_ms`` the wrapper's back-to-back time, host included),
-and the tile, stripe, dgt, span and Block-ELL libraries' SASS is read
+and the tile, stripe, dg, dgt, span and Block-ELL libraries' SASS is read
 kernel by kernel: the tile kernel (#5, #6), the stripe kernels (#10, #11)
-and the row walk kernel of #3 and #7 must add by float4 reductions and
-hold no shared atomic; the N:M (#12) and Block-ELL (#13) kernels must
-run on the tensor cores (HGMMA, and HMMA for 3xTF32).  Any failure raises
+and the row walk kernel of #1, #3, #4 and #7 must add by float4
+reductions and hold no shared atomic, and the dgt library must hold no
+kernel but the walk; the N:M (#12) and Block-ELL (#13) kernels must run
+on the tensor cores (HGMMA, and HMMA for 3xTF32).  Any failure raises
 and the exit
 code is not 0.  It exits non-zero before printing any
 result when no CUDA device is present or the package cannot be imported.
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it lists every ported kernel as JSON.
+line before it lists every ported kernel as JSON, with the CUDA kernel
+its wrapper launches.
 """
 
 from __future__ import annotations
@@ -104,6 +107,17 @@ TUNE_K8_DIGEST = "732d834f35bea5d0"
 # three hybrid_cols rows first), as digests (tests/test_torch_slice.py)
 TUNE_K256_DIGEST = "9fb84dc28e3a4f01"
 TUNE_COLSKEW_K8_DIGEST = "dd00bb2181d7e2a7"
+
+
+# the CUDA kernel each wrapper launches (the kernels line's "kernel"): the
+# row walk of csrc/row_walk.cuh serves #1, #3, #4 and #7
+KERNEL_OF = {"dg": "walk_kernel", "dg1": "gather_kernel", "dgt": "walk_kernel",
+             "dgt_stream": "walk_kernel", "tile": "tile_stream_kernel",
+             "tile_stream": "tile_stream_kernel", "span": "walk_kernel",
+             "span_stream": "span_stream_kernel", "radix": "gather_kernel",
+             "stripe": "stripe_kernel", "stripe_nested": "stripe_nested_kernel",
+             "nm": "nm_kernel", "bell": "bell_wgmma_kernel, bell_tf32_kernel",
+             "sddmm": "sddmm_kernel", "dx": "dx_kernel"}
 
 
 def candidates_digest(described) -> str:
@@ -207,7 +221,7 @@ def main() -> int:
                 "replaces": "tpusparse/kernels/dgt_gather.py:667", "err": 0.0},
         "dgt_stream": {"wrapper": dgt.dgt_stream_rows_cuda, "name": "dgt_stream_rows_cuda",
                        "source": dgt_src, "replaces": "tpusparse/kernels/dgt_gather.py:882",
-                       "err": 0.0},
+                       "err": 0.0},  # the row walk kernel of #3, over the same walk
         "tile": {"wrapper": tile.tile_rows_cuda, "plain": tile.tile_rows_plain,
                  "name": "tile_rows_cuda", "source": tile_src,
                  "replaces": "tpusparse/kernels/tile_onehot.py:44", "err": 0.0},
@@ -268,11 +282,13 @@ def main() -> int:
 
     # what the redesigned kernels compiled to, function by function: tensor-core
     # wgmma (HGMMA bf16, IGMMA int8) and mma (HMMA, 3xTF32) in the N:M and
-    # Block-ELL libraries; the atomics of the tile, stripe, dgt and span
+    # Block-ELL libraries; the atomics of the tile, stripe, dg, dgt and span
     # libraries, where the stream kernels of #5/#6, #10 and #11 and the row
-    # walk kernel of #3 and #7 must add by vector reductions (REDG...F32x4)
-    # and hold no shared atomic (ATOMS: a CAS loop for fp32 adds), which
-    # the dgt and span stream kernels #4 and #8 keep
+    # walk kernel of #1, #3, #4 and #7 must add by vector reductions
+    # (REDG...F32x4) and hold no shared atomic (ATOMS: a CAS loop for fp32
+    # adds), which gather_kernel (#2, #9) and the span stream kernel #8 keep
+    functions = {}  # every kernel function of a library, by library
+
     def sass_by_kernel(lib_name, opcodes):
         sass = subprocess.run([os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                                             "bin", "cuobjdump"), "-sass",
@@ -282,6 +298,7 @@ def main() -> int:
         for line in sass.splitlines():  # "/*0090*/  @P0 HMMA.16816.F32.BF16 R4, ... ;"
             if "Function :" in line:
                 fn = line.split("Function :", 1)[1].strip()
+                functions.setdefault(lib_name, set()).add(fn)
                 continue
             words = line.split("*/", 1)[-1].split()
             if words and words[0].startswith("@"):
@@ -302,8 +319,8 @@ def main() -> int:
             ("tile_onehot", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("tile_stream_kernel",)),
             ("stripe_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"),
              ("stripe_nested_kernel", "stripe_kernel")),
-            ("dgt_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"),
-             ("walk_kernel", "dgt_stream_kernel")),
+            ("dg_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("walk_kernel", "gather_kernel")),
+            ("dgt_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("walk_kernel",)),
             ("span_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"),
              ("walk_kernel", "span_stream_kernel"))):
         by_family = {}
@@ -325,13 +342,20 @@ def main() -> int:
     for lib_name, fam in (("tile_onehot", "tile_stream_kernel"),
                           ("stripe_gather", "stripe_kernel"),
                           ("stripe_gather", "stripe_nested_kernel"),
-                          ("dgt_gather", "walk_kernel"), ("span_gather", "walk_kernel")):
+                          ("dg_gather", "walk_kernel"), ("dgt_gather", "walk_kernel"),
+                          ("span_gather", "walk_kernel")):
         ops = sass_ops[lib_name].get(fam, {})
         cas = sum(n for op, n in ops.items() if op.startswith("ATOMS"))
         log(f"[build] {fam} ({lib_name}): {cas} ATOMS.CAS / shared atomic sites, "
             f"{sum(n for op, n in ops.items() if 'F32x4' in op)} float4 reduction sites")
         if cas or not any("F32x4" in op for op in ops):
             raise AssertionError(f"{fam}: shared atomics, or no float4 reduction: {ops}")
+    # #4 launches the walk kernel of #3: the dgt library holds nothing else
+    dgt_fns = functions.get("dgt_gather", set())
+    log(f"[build] dgt_gather kernels: {len(dgt_fns)}, all walk_kernel: "
+        f"{all('walk_kernel' in f for f in dgt_fns)}")
+    if not dgt_fns or not all("walk_kernel" in f for f in dgt_fns):
+        raise AssertionError(f"the dgt library holds a kernel other than the walk: {dgt_fns}")
 
     # ---- 3. each kernel against its plain version, on the card
     def check_vs_plain(which, label, desc, got, want, scale, tol):
@@ -361,26 +385,28 @@ def main() -> int:
             which = "dg1"
         else:
             x = dg.pad_dense_cols(x, -(-k // kt) * kt).contiguous()
-            got = dg.dg_rows_cuda(*args, x, rb=fmt.rb, kt=kt, mode=mode)
+            walk = dg.dg_row_walk(fmt)
+            got = dg.dg_rows_cuda(*args, x, rb=fmt.rb, kt=kt, mode=mode, walk=walk, k=k)
             want = dg.dg_rows_plain(*args, x, rb=fmt.rb, kt=kt, mode=mode)
             scale = dg.dg_rows_plain(*abs_args, x.abs(), rb=fmt.rb, kt=kt, mode="fp32x2")
             which = "dg"
-        branch = ("shared tile" if kt == 1 or dg.dg_uses_shared_tile(fmt.rb, kt)
-                  else "global atomics")
+        branch = "shared tile" if kt == 1 else walk_branch(walk, k)
         check_vs_plain(which, label, f"kt={kt} {mode} K={k} rb={fmt.rb}, {branch}",
                        got, want, scale, tol)
 
     def walk_branch(walk, k):
-        """How the row walk kernel (#3, #7) runs a walk at K = k."""
+        """How the row walk kernel (#1, #3, #4, #7) runs a walk at K = k."""
         kc, pw, bs = row_walk.walk_geometry(k)
         return (f"row walk: {kc} columns in panels of {pw}, {bs} slots a block, "
                 f"{walk.runs} row runs for {walk.n_slots} live slots")
 
     def walk_line(which, label, walk, k, mode="fp32x2"):
-        """The [kernel] line of the row walk kernel (#3 or #7) on a walk at
-        K = k: geometry, resources, row runs, the walk's bytes and build."""
+        """The [kernel] line of the row walk kernel (#1, #3, #4 or #7) on a
+        walk at K = k: geometry, resources, row runs, the walk's bytes and
+        build."""
         kc, pw, bs = row_walk.walk_geometry(k)
-        info = (dgt.dgt_walk_info if which == "dgt" else span.span_walk_info)(pw, mode)
+        info = {"dg": dg.dg_walk_info, "dgt": dgt.dgt_walk_info,
+                "dgt_stream": dgt.dgt_walk_info, "span": span.span_walk_info}[which](pw, mode)
         order = torch.argsort(walk.slot)  # the same slots in the format's own order
         by_slot = walk.row[order]
         slot_runs = int((by_slot[1:] != by_slot[:-1]).sum()) + int(walk.n_slots > 0)
@@ -401,19 +427,15 @@ def main() -> int:
         args = (fmt.wins, fmt.cols, fmt.lrw, fmt.vals, fmt.nc_p)
         abs_args = (fmt.wins, fmt.cols, fmt.lrw, fmt.vals.abs(), fmt.nc_p)
         kw = dict(rb=fmt.rb, kt=fmt.kt, mode=fmt.mode)
+        walk = dgt.dgt_row_walk(fmt)  # one walk per format, both wrappers
         if stream:
-            got = dgt.dgt_stream_rows_cuda(*args, x, nw=fmt.nw, **kw)
+            got = dgt.dgt_stream_rows_cuda(*args, x, nw=fmt.nw, walk=walk, k=k, **kw)
             want = dgt.dgt_stream_rows_plain(*args, x, nw=fmt.nw, **kw)
         else:
-            walk = dgt.dgt_row_walk(fmt)
             got = dgt.dgt_rows_cuda(*args, x, resid=fmt.resid, walk=walk, k=k, **kw)
             want = dgt.dgt_rows_plain(*args, x, resid=fmt.resid, **kw)
         scale = dgt.dgt_rows_plain(*abs_args, x.abs(), resid=fmt.resid, **kw)
-        if stream:
-            branch = ("shared tile" if dgt.dgt_uses_shared_tile(fmt.rb, fmt.kt)
-                      else "global atomics")
-        else:
-            branch = walk_branch(walk, k)
+        branch = walk_branch(walk, k)
         check_vs_plain("dgt_stream" if stream else "dgt", label,
                        f"kt={fmt.kt} {fmt.mode} K={k} rb={fmt.rb} nw={fmt.nw} "
                        f"resid={fmt.resid} P={fmt.n_programs} NC={fmt.n_chunks}, {branch}",
@@ -439,7 +461,7 @@ def main() -> int:
         fmt64 = dg.pack_dg(m_, rb=rb_big // 2, ns=8, g=512, kt=32, device=dev)
         vs_plain(label, fmt64, 64, 32, "fp32x2", tol)      # the K=64 default
         fmt_g = dg.pack_dg(m_, rb=2048, ns=8, g=512, kt=32, device=dev)
-        vs_plain(label, fmt_g, 32, 32, "fp32x2", tol)      # 256 KB tile: global branch
+        vs_plain(label, fmt_g, 32, 32, "fp32x2", tol)      # rb 2048 (256 KB a K-tile before)
         fmt1 = dg.pack_dg(m_, rb=4096 if label == "headline" else 256, ns=4, g=2048,
                           kt=1, device=dev)
         vs_plain(label, fmt1, 1, 1, "fp32x2", tol)
@@ -464,7 +486,7 @@ def main() -> int:
         dgt_vs_plain(label, f4, 8, tol, stream=True)                      # kernel #4, nw 4
         dgt_vs_plain(label, pack(nw=1), 8, tol)
         dgt_vs_plain(label, pack(nw=8, resid=False), 8, tol)
-        dgt_vs_plain(label, pack(rb=2048, kt=32), 32, tol)                # 256 KB: global
+        dgt_vs_plain(label, pack(rb=2048, kt=32), 32, tol)                # rb 2048
     log(f"[kernel] dgt checks (packing included): {time.perf_counter() - t0:.1f} s")
 
     def win_vs_plain(which, label, fmt, k, mode, vals=None):
@@ -896,6 +918,11 @@ def main() -> int:
                         xb8, ref_b8, (SPMV_N, 8))
     dgt_vs_plain("headline", fmt_s, 8, tol, stream=True)
     dgt_vs_plain("spmv", multi.formats[0], 8, tol, stream=True)
+    # K = 64 at the SpMV size: X is 64 MB, past the 50 MB L2, the regime the
+    # TPU's stream variant existed for; the card's walk stages no X
+    dgt_vs_plain("spmv", multi.formats[0], 64, tol, stream=True)
+    assert multi.formats[0].walk is dgt.dgt_row_walk(multi.formats[0])  # one walk, both
+    walk_line("dgt_stream", "spmv size, stream_x", multi.formats[0].walk, 64)
 
     # P2: the default at 262144 x 262144, K = 8 is span_colsplit(2): X is
     # 8 MB, past every dg and radix gate of the TPU-derived decision tree
@@ -1683,9 +1710,11 @@ def main() -> int:
                 kw["resid"] = fmt.resid
             elif which == "dgt_stream":
                 kw["nw"] = fmt.nw
-        # #3 walks the format's row walk (built at its first use), reading K
-        # columns of X padded to kt
-        walk_kw = (dict(walk=dgt.dgt_row_walk(fmt), k=x2.shape[1]) if which == "dgt" else {})
+        # #1, #3 and #4 walk the format's row walk (built at its first use),
+        # reading K columns of X padded to kt
+        walk_of = {"dg": dg.dg_row_walk, "dgt": dgt.dgt_row_walk,
+                   "dgt_stream": dgt.dgt_row_walk}.get(which)
+        walk_kw = {} if walk_of is None else dict(walk=walk_of(fmt), k=x2.shape[1])
         kern = functools.partial(kernels[which]["wrapper"], *args, rb=fmt.rb, **kw, **walk_kw)
         plain = functools.partial(plain_fn, *args, rb=fmt.rb, **kw)
         return measure(which, label, [fmt], a, k, kern, plain, xk, xd, whole, pack, bound_k)
@@ -1744,10 +1773,13 @@ def main() -> int:
     best_tile = plan_of(best_by_family["tile_onehot"])
     f_dg = best_dg.formats[0]
     vs_plain("headline", f_dg, 8, f_dg.kt, f_dg.mode, tol)
+    walk_line("dg", "config #1, best dg tune row", dg.dg_row_walk(f_dg), 8)
     dgt_vs_plain("headline", best_dgt.formats[0], 8, tol)
     walk_line("dgt", "config #1, best dgt tune row", dgt.dgt_row_walk(best_dgt.formats[0]), 8)
     win_vs_plain("tile", "headline", best_tile.formats[0], 8, "fp32x2")
     plan1, plan64 = (build_plan(mat, default_schedule(mat, k)) for k in (1, 64))
+    vs_plain("headline", plan64.formats[0], 64, plan64.formats[0].kt, "fp32x2", tol)
+    walk_line("dg", "config #1, default schedule", dg.dg_row_walk(plan64.formats[0]), 64)
     tile256 = functools.partial(tile.tile_spmm, f256)
     stats = {
         "dg": yardstick("dg", "headline, best dg tune row", best_dg.formats[0], mat, 8,
@@ -1822,6 +1854,10 @@ def main() -> int:
     yardstick("dgt", "spmv_multi_fn(8)", multi.formats[0], big, 8, xb8, multi,
               pack_s["spmv_multi_262k"])
     yardstick("dgt_stream", "spmv size, stream_x", multi.formats[0], big, 8, xb8, stream_b)
+    xb64 = np.random.default_rng(4).standard_normal((SPMV_N, 64)).astype(np.float32)
+    yardstick("dgt_stream", "spmv size, stream_x, K=64 (X 64 MB, past the L2)",
+              multi.formats[0], big, 64, xb64,
+              functools.partial(dgt.dgt_spmm, multi.formats[0], stream_x=True))
     yardstick("dg1", "spmv auto", spmv_fns["spmv_auto_262k"].format, big, 1, xv,
               spmv_fns["spmv_auto_262k"], pack_s["spmv_auto_262k"])
 
@@ -2133,7 +2169,7 @@ def main() -> int:
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     line = {"kernels": [
-        {"name": rec["name"], "route": "cuda", "source": rec["source"],
+        {"name": rec["name"], "kernel": KERNEL_OF[w], "route": "cuda", "source": rec["source"],
          "replaces": rec["replaces"], "launches": launches[w],
          "launches_by_path": rec["paths"], "max_abs_err": rec["err"], **stats[w]}
         for w, rec in kernels.items()]}

@@ -20,6 +20,7 @@ from tpusparse.kernels import dg_gather as jdg
 from tpusparse.oracle import check_result, spmm_reference
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import dg_gather as tdg
+from tpusparse_torch.kernels import row_walk as rw
 
 STATIC = ("n_programs", "n_chunks", "chunk_g", "rb", "ns", "kt", "mode",
           "shape", "nnz_real", "deal")
@@ -192,3 +193,110 @@ def test_x_on_another_device_is_refused():
     fmt_meta = dataclasses.replace(fmt, c0=fmt.c0.to("meta"))
     with pytest.raises(ValueError, match="X is on"):
         tdg.dg_spmm(fmt_meta, torch.zeros(400, 8))
+
+
+# ------------------------------------------------------------------- row walk
+# On the card #1 walks the format's row walk (kernels/row_walk.py): each
+# live slot once, sorted by (y_rows row, slot), for all of X's columns in
+# one launch.  Its function in plain PyTorch (``walk_rows_plain``, the same
+# sum in the walk's order) must equal ``dg_rows_plain`` and, unpacked, the
+# JAX kernel in interpret mode, which runs K = 64 as two K-tiles of 32.
+
+def _assert_walk_covers(walk, live):
+    """Each live slot exactly once, rows non-decreasing, slots rising in a
+    row; the values those of the plane the walk was built from."""
+    slot, row = walk.slot.long(), walk.row.long()
+    torch.testing.assert_close(walk.val, walk.val_src.reshape(-1)[slot].float(), rtol=0, atol=0)
+    np.testing.assert_array_equal(np.sort(slot.numpy()),
+                                  np.flatnonzero(live.reshape(-1).numpy()))
+    assert bool((row[1:] >= row[:-1]).all())
+    same = row[1:] == row[:-1]
+    assert bool((slot[1:][same] > slot[:-1][same]).all())
+    assert walk.runs == int(torch.unique(row).numel())
+
+
+@pytest.mark.parametrize("mode,deal,k", [("fp32x2", "length", 8), ("fp32x2", "index", 8),
+                                         ("fp32x2", "blocks", 64), ("bf16", "length", 64),
+                                         ("bf16", "index", 8), ("bf16", "blocks", 8)])
+def test_row_walk_equals_plain_and_jax(mode, deal, k):
+    mat, x = _case(m=500, n=3000, k=k, avg=9.0, seed=7)
+    kt = 32 if k == 64 else 8
+    jfmt = jdg.pack_dg(mat, rb=128, ns=4, g=128, kt=kt, mode=mode, deal=deal)
+    fmt = _from_jax(jfmt)
+    assert fmt.walk is None                       # a CPU format builds it only when asked
+    walk = tdg.dg_row_walk(fmt)
+    assert tdg.dg_row_walk(fmt) is walk and fmt.walk is walk
+    walked = torch.arange(fmt.n_chunks).view(1, -1, 1) < fmt.nc_p.reshape(-1, 1, 1)
+    _assert_walk_covers(walk, (fmt.vals != 0) & walked)
+    assert walk.n_slots == mat.nnz and walk.n_rows == fmt.n_programs * fmt.rb
+    assert walk.runs == len(np.unique(mat.rows)) and walk.live_from_values
+    xt = torch.from_numpy(x)
+    bf16 = mode == "bf16"
+    got = rw.walk_rows_plain(walk, fmt.vals, xt, bf16=bf16)
+    args = (fmt.c0, fmt.cols, fmt.lrow)
+    want = tdg.dg_rows_plain(*args, fmt.vals, fmt.nc_p, xt, rb=fmt.rb, kt=kt, mode=mode)
+    scale = tdg.dg_rows_plain(*args, fmt.vals.abs(), fmt.nc_p, xt.abs(), rb=fmt.rb, kt=kt,
+                              mode="fp32x2")
+    # the same products summed in another order: 1e-5 of |A|.|X|
+    assert float(((got - want).abs() / scale.clamp(min=1.0)).max()) <= 1e-5
+    # unpacked, against the JAX kernel and the oracle at 1e-5 of |A|.|X|;
+    # the JAX side's fp32x2 splits each product into hi/lo bf16 planes,
+    # which keeps 16 bits of it: 2^-16 of |A|.|X| there
+    y = tdg.unpack_by_deal(fmt, got).numpy()
+    ref = spmm_reference(mat, x.astype(np.float64))
+    scale_ref = spmm_reference(type(mat)(mat.rows, mat.cols, np.abs(mat.vals), mat.shape),
+                               np.abs(x).astype(np.float64))
+    yj = np.asarray(jdg.dg_spmm(jfmt, x))
+    tol_j = 1e-5 if bf16 else 2.0 ** -16
+    assert float((np.abs(y - yj) / np.maximum(scale_ref, 1.0)).max()) <= tol_j
+    if not bf16:
+        assert float((np.abs(y - ref) / np.maximum(scale_ref, 1.0)).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["with_values", "values_in_place", "pattern_in_place",
+                                  "off_pattern", "stored_zero"])
+def test_row_walk_follows_its_planes(case):
+    # a plane replaced or written in place gives the format a new walk,
+    # with_values carries the pattern's walk with the new values, and a
+    # stored zero of perm_of_nz is a live slot of the pattern
+    mat, x = _case(seed=9)
+    mat = _port_mat(mat)
+    if case == "stored_zero":
+        vals = mat.vals.copy()
+        vals[::5] = 0.0
+        mat = CooMatrix(mat.rows, mat.cols, vals, mat.shape)
+    keep = case in ("with_values", "stored_zero")
+    fmt = tdg.pack_dg(mat, rb=128, ns=4, g=128, kt=8, keep_perm=keep, device="cpu")
+    pattern = (fmt.c0, fmt.cols, fmt.lrow, fmt.nc_p)
+    walk = tdg.dg_row_walk(fmt)
+    assert walk.fresh(pattern, fmt.vals) and walk.live_from_values != keep
+    xt = torch.from_numpy(x)
+    if keep:
+        live = torch.zeros(fmt.vals.numel(), dtype=torch.bool)
+        live[torch.as_tensor(fmt.perm_of_nz, dtype=torch.long)] = True
+        _assert_walk_covers(walk, live)
+        assert walk.n_slots == mat.nnz
+        new_vals = np.random.default_rng(5).standard_normal(mat.nnz).astype(np.float32)
+        new = tdg.with_values(fmt, new_vals)
+        # the pattern's walk goes with it, holding the new plane's values
+        assert new.walk.slot is walk.slot and new.walk.val_src is new.vals
+        assert tdg.dg_row_walk(new) is new.walk
+        y = tdg.unpack_by_deal(new, rw.walk_rows_plain(new.walk, new.vals, xt)).numpy()
+        check_result(y, spmm_reference(CooMatrix(mat.rows, mat.cols, new_vals, mat.shape),
+                                       x.astype(np.float64)), rtol=1e-5)
+        if case == "stored_zero":
+            assert walk.n_slots > int(np.count_nonzero(mat.vals))
+    elif case == "values_in_place":
+        fmt.vals.neg_()
+        assert rw.gathers(walk, fmt.vals, "dg")
+        new = tdg.dg_row_walk(fmt)
+        assert new is not walk and new.holds(fmt.vals)
+        torch.testing.assert_close(new.val, -walk.val)
+    elif case == "pattern_in_place":
+        fmt.lrow.add_(0)
+        assert not walk.built_from(pattern) and tdg.dg_row_walk(fmt) is not walk
+    else:
+        plane = fmt.vals.clone()
+        plane.view(-1)[int(torch.nonzero(plane.reshape(-1) == 0)[0])] = 1.0
+        with pytest.raises(ValueError, match="off the format's pattern"):
+            rw.gathers(walk, plane, "dg")

@@ -364,3 +364,26 @@ def test_row_walk_is_the_pattern(case):
         assert walk.n_slots == 0 and walk.runs == 0 and not y.any()
     if case == "stored_zero":
         assert walk.n_slots > int(np.count_nonzero(mat.vals))
+
+
+@pytest.mark.parametrize("nw,mode", [(4, "fp32x2"), (8, "fp32x2"), (2, "bf16")])
+def test_stream_x_over_the_walk_matches_jax_stream(nw, mode):
+    # #4 on the card launches the row walk kernel over the format's walk,
+    # whatever nw: the walk's function, unpacked, and the port's stream_x
+    # path must equal the JAX stream kernel (interpret mode) and the oracle
+    # at this file's tolerances (atol 1e-4 * max|ref| fp32x2, 4e-3 bf16)
+    mat = jbuilder.power_law_coo(300, 400, avg_nnz_per_row=6.0, seed=12)
+    kw = dict(rb=128, g=256, kt=8, mode=mode, resid=True, nw=nw)
+    jfmt = jdgt.pack_dgt(mat, **kw)
+    fmt = _from_jax(jfmt)
+    x = _x(400, 8, seed=13)
+    yj = np.asarray(jdgt.dgt_spmm(jfmt, x, stream_x=True))
+    bf16 = mode == "bf16"
+    y_walk = tdgt._unpack_rows(fmt, rw.walk_rows_plain(tdgt.dgt_row_walk(fmt), fmt.vals,
+                                                       torch.from_numpy(x), bf16=bf16))
+    y_stream = tdgt.dgt_spmm(fmt, x, stream_x=True)
+    ref = spmm_reference(mat, x.astype(np.float64))
+    atol = (4e-3 if bf16 else 1e-4) * np.abs(ref).max()
+    for y in (y_walk.numpy(), y_stream.numpy()):
+        np.testing.assert_allclose(y, yj, rtol=0, atol=atol)
+        np.testing.assert_allclose(y, ref, rtol=0, atol=atol)

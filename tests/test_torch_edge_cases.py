@@ -20,7 +20,7 @@ from tpusparse_torch import config_override
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.oracle import check_result, spmm_reference
 from tpusparse_torch.schedule import KERNEL_FAMILIES, Schedule, build_plan
-from tpusparse_torch.spmv import spmv_fn
+from tpusparse_torch.spmv import spmv_fn, spmv_multi_fn
 from tpusparse_torch.tune import tune
 
 SHAPES = [(10, 8), (300, 200)]
@@ -69,3 +69,17 @@ def test_tune_on_empty_matrix(shape, tmp_path):
     assert all(row["ok"] or "CandidateRejected" in row["error"] for row in res.table)
     y = res.best(x)
     assert tuple(y.shape) == (shape[0], K) and not y.numpy().any()
+
+
+@pytest.mark.parametrize("col_split", [2, 3])
+def test_spmv_multi_column_split_of_empty_matrix(col_split):
+    # no column range holds a nonzero, so the split packs no format; Y is
+    # the oracle's zeros, not None (tpusparse/spmv.py:213-217 returns None)
+    mat = _empty(40, 30)
+    fn = spmv_multi_fn(mat, 5, col_split=col_split, device="cpu")
+    assert fn.n_splits == 0 and fn.formats == []
+    x = np.random.default_rng(2).standard_normal((30, 5)).astype(np.float32)
+    y = fn(x)
+    want = spmm_reference(mat, x.astype(np.float64))
+    assert isinstance(y, torch.Tensor) and y.dtype == torch.float32
+    assert tuple(y.shape) == want.shape == (40, 5) and not y.numpy().any()

@@ -54,13 +54,16 @@ def mat():
     return builder.power_law_coo(4096, 4096, avg_nnz_per_row=16.0, seed=21)
 
 
-def _rows_vs_plain(fmt, k, kt, mode, dev):
+def _rows_vs_plain(fmt, k, kt, mode, dev, vals=None):
     """Max error of the kernel against its plain version, relative to
-    |A|·|x| (they differ only in the order of their atomic fp32 sums)."""
+    |A|·|x| (they differ only in the order of their atomic fp32 sums).
+    ``vals``: a value plane other than the format's (the row walk kernel
+    gathers from it)."""
     x = torch.as_tensor(np.random.default_rng(2).standard_normal((fmt.shape[1], k)),
                         dtype=torch.float32, device=dev)
-    args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p)
-    abs_args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals.abs(), fmt.nc_p)
+    vals = fmt.vals if vals is None else vals
+    args = (fmt.c0, fmt.cols, fmt.lrow, vals, fmt.nc_p)
+    abs_args = (fmt.c0, fmt.cols, fmt.lrow, vals.abs(), fmt.nc_p)
     if kt == 1:
         x = x[:, 0].contiguous()
         before = dg.dg1_rows_cuda.launches
@@ -71,7 +74,8 @@ def _rows_vs_plain(fmt, k, kt, mode, dev):
     else:
         x = dg.pad_dense_cols(x, -(-k // kt) * kt).contiguous()
         before = dg.dg_rows_cuda.launches
-        got = dg.dg_rows_cuda(*args, x, rb=fmt.rb, kt=kt, mode=mode)
+        got = dg.dg_rows_cuda(*args, x, rb=fmt.rb, kt=kt, mode=mode, walk=dg.dg_row_walk(fmt),
+                              k=k)
         assert dg.dg_rows_cuda.launches == before + 1
         want = dg.dg_rows_plain(*args, x, rb=fmt.rb, kt=kt, mode=mode)
         scale = dg.dg_rows_plain(*abs_args, x.abs(), rb=fmt.rb, kt=kt, mode="fp32x2")
@@ -85,17 +89,28 @@ def _rows_vs_plain(fmt, k, kt, mode, dev):
     (8, "fp32x2", 8, 1024), (8, "bf16", 8, 1024), (16, "fp32x2", 16, 1024),
     (16, "bf16", 16, 1024), (32, "fp32x2", 32, 512), (32, "bf16", 32, 512),
     (8, "fp32x2", 3, 256), (16, "fp32x2", 40, 512), (32, "fp32x2", 64, 512),
-    (32, "fp32x2", 32, 2048),  # 256 KB tile: the global-atomic branch
+    (32, "fp32x2", 32, 2048),  # rb 2048: y_rows in device memory
     (1, "fp32x2", 1, 4096),
 ])
 def test_kernel_matches_plain(cuda, mat, kt, mode, k, rb):
     fmt = dg.pack_dg(mat, rb=rb, ns=4 if kt == 1 else 8, g=2048 if kt == 1 else 512,
                      kt=kt, mode=mode, device=cuda)
     assert _rows_vs_plain(fmt, k, kt, mode, cuda) <= 1e-5
-    if (kt, rb) == (32, 2048):
-        assert not dg.dg_uses_shared_tile(rb, kt)
-    elif kt > 1:
-        assert dg.dg_uses_shared_tile(rb, kt)
+    if kt > 1:  # #1 walks rows: no row tile, no spill, at least 2 blocks an SM
+        info = dg.dg_walk_info(rw.walk_geometry(k)[1], mode)
+        assert info["spill_bytes"] == 0 and info["shared_bytes"] == 0
+        assert info["blocks_per_sm"] >= 2
+
+
+@pytest.mark.parametrize("k,kt", [(2, 8), (5, 8), (64, 32), (200, 32)])
+def test_dg_row_walk_widths(cuda, mat, k, kt):
+    # #1 at several panels (K = 200: 208 columns of X padded to 224, one
+    # 256-column panel), the walk's own values streamed and a copy of the
+    # plane gathered, and the walk shared by the wrapper's calls
+    fmt = dg.pack_dg(mat, rb=512, ns=8, g=512, kt=kt, device=cuda)
+    assert _rows_vs_plain(fmt, k, kt, "fp32x2", cuda) <= 1e-5
+    assert _rows_vs_plain(fmt, k, kt, "fp32x2", cuda, vals=fmt.vals.clone()) <= 1e-5
+    assert fmt.walk is dg.dg_row_walk(fmt) and fmt.walk.n_slots == mat.nnz
 
 
 @pytest.mark.parametrize("k", [1, 8, 64])
@@ -138,6 +153,16 @@ def test_wrapper_refuses_bad_inputs(cuda, mat):
         dg.dg_rows_cuda(fmt.c0, fmt.cols.long(), *args[2:], x, rb=1024, kt=8, mode="fp32x2")
     with pytest.raises(ValueError):
         dg.dg_spmm(fmt, torch.zeros((4096, 8)))   # X on the CPU, format on the card
+    with pytest.raises(ValueError, match="walk="):   # the row walk is required
+        dg.dg_rows_cuda(*args, x, rb=1024, kt=8, mode="fp32x2")
+    walk = dg.dg_row_walk(fmt)
+    other = dg.pack_dg(mat, rb=1024, ns=8, g=512, kt=8, device=cuda)
+    with pytest.raises(ValueError, match="not built from"):   # another format's walk
+        dg.dg_rows_cuda(other.c0, other.cols, other.lrow, other.vals, other.nc_p, x, rb=1024,
+                        kt=8, mode="fp32x2", walk=walk)
+    fmt.lrow.add_(0)                                  # a plane written since: stale
+    with pytest.raises(ValueError, match="not built from"):
+        dg.dg_rows_cuda(*args, x, rb=1024, kt=8, mode="fp32x2", walk=walk)
 
 
 def _dgt_vs_plain(fmt, k, dev, stream, vals=None):
@@ -154,7 +179,8 @@ def _dgt_vs_plain(fmt, k, dev, stream, vals=None):
     wrapper = dgt.dgt_stream_rows_cuda if stream else dgt.dgt_rows_cuda
     before = wrapper.launches
     if stream:
-        got = dgt.dgt_stream_rows_cuda(*args, x, nw=fmt.nw, **kw)
+        got = dgt.dgt_stream_rows_cuda(*args, x, nw=fmt.nw, walk=dgt.dgt_row_walk(fmt), k=k,
+                                       **kw)
         want = dgt.dgt_stream_rows_plain(*args, x, nw=fmt.nw, **kw)
     else:
         got = dgt.dgt_rows_cuda(*args, x, resid=fmt.resid, walk=dgt.dgt_row_walk(fmt), k=k,
@@ -176,17 +202,18 @@ def _dgt_vs_plain(fmt, k, dev, stream, vals=None):
     (8, "fp32x2", 8, 2560, 4, True, False),    # the SpMV workload's rb
     (8, "fp32x2", 8, 512, 4, True, True), (8, "fp32x2", 8, 512, 8, True, True),
     (32, "bf16", 32, 256, 8, True, True),
-    (8, "fp32x2", 8, 2560, 4, True, True),     # 80 KB tile + 4 KB window, opted in
+    (8, "fp32x2", 8, 2560, 4, True, True),     # the SpMV workload's rb
 ])
 def test_dgt_kernels_match_plain(cuda, mat, kt, mode, k, rb, nw, resid, stream):
     fmt = dgt.pack_dgt(mat, rb=rb, g=512, kt=kt, mode=mode, nw=nw, resid=resid, device=cuda)
     assert _dgt_vs_plain(fmt, k, cuda, stream) <= 1e-5
-    if stream:  # #4 keeps its shared row tile where it fits
-        assert dgt.dgt_uses_shared_tile(rb, kt) == (rb * kt * 4 <= 200 * 1024)
-    else:       # #3 walks rows: no row tile, no spill, at least 2 blocks an SM
-        info = dgt.dgt_walk_info(rw.walk_geometry(k)[1], mode)
-        assert info["spill_bytes"] == 0 and info["shared_bytes"] == 0
-        assert info["blocks_per_sm"] >= 2
+    # #3 and #4 walk rows: no row tile, no spill, at least 2 blocks an SM
+    info = dgt.dgt_walk_info(rw.walk_geometry(k)[1], mode)
+    assert info["spill_bytes"] == 0 and info["shared_bytes"] == 0
+    assert info["blocks_per_sm"] >= 2
+    if stream:  # one walk per format: the resident wrapper takes the stream's
+        walk = fmt.walk
+        assert _dgt_vs_plain(fmt, k, cuda, False) <= 1e-5 and fmt.walk is walk
 
 
 @pytest.mark.parametrize("k", [1, 2, 5, 37, 256, 520])
@@ -536,14 +563,20 @@ def test_tile_plan_and_spmv_span_on_card(cuda, mat):
 
 @pytest.mark.parametrize("rb,kt", [(512, 32), (1792, 8)])
 def test_opt_in_is_per_library(cuda, mat, rb, kt):
-    # dg and radix each launch gather_kernel from their own library; an
-    # opt-in past 48 KB made by one (dg first) must not be taken for the
-    # other's; span's row walk kernel (no shared memory) runs after them
+    # dg (its SpMV kernel #2) and radix each launch gather_kernel from their
+    # own library; an opt-in past 48 KB made by one (dg first: a 64 KB row
+    # tile at rb 16384) must not be taken for the other's; the row walk
+    # kernels of dg (#1) and span (no shared memory) run between and after
     x = torch.as_tensor(np.random.default_rng(13).standard_normal((4096, kt)),
                         dtype=torch.float32, device=cuda)
+    f1 = dg.pack_dg(mat, rb=16384, ns=4, g=2048, kt=1, device=cuda)
+    args = (f1.c0, f1.cols, f1.lrow, f1.vals, f1.nc_p, x[:, 0].contiguous())
+    torch.testing.assert_close(dg.dg1_rows_cuda(*args, rb=16384),
+                               dg.dg1_rows_plain(*args, rb=16384), rtol=1e-5, atol=1e-4)
     f = dg.pack_dg(mat, rb=rb, ns=8, g=512, kt=kt, device=cuda)
     args = (f.c0, f.cols, f.lrow, f.vals, f.nc_p, x)
-    torch.testing.assert_close(dg.dg_rows_cuda(*args, rb=rb, kt=kt, mode="fp32x2"),
+    torch.testing.assert_close(dg.dg_rows_cuda(*args, rb=rb, kt=kt, mode="fp32x2",
+                                               walk=dg.dg_row_walk(f)),
                                dg.dg_rows_plain(*args, rb=rb, kt=kt, mode="fp32x2"),
                                rtol=1e-5, atol=1e-4)
     r = radix.pack_radix(mat, rb=rb, S=128, g=512, kt=kt, device=cuda)

@@ -1,10 +1,12 @@
 """Times the redesigned kernels at the shapes where ``chip_smoke.py``
 reads them, for the port in any checkout, so that two commits are compared
-on one card in one run: the resident tile kernel (#5, ``tile_rows_cuda``),
-the stripe kernels (#10 ``stripe_rows_cuda``, #11
-``stripe_nested_rows_cuda``), the dgt kernel (#3, ``dgt_rows_cuda``), the
-span kernel (#7, ``span_rows_cuda``), the N:M kernel (#12,
-``nm_rows_cuda``) and the Block-ELL kernel (#13, ``bell_rows_cuda``):
+on one card in one run: the dg kernels (#1 ``dg_rows_cuda``, #2
+``dg1_rows_cuda``), the dgt kernels (#3 ``dgt_rows_cuda``, #4
+``dgt_stream_rows_cuda``), the resident tile kernel (#5,
+``tile_rows_cuda``), the span kernel (#7, ``span_rows_cuda``), the radix
+kernel (#9, ``radix_rows_cuda``), the stripe kernels (#10
+``stripe_rows_cuda``, #11 ``stripe_nested_rows_cuda``), the N:M kernel
+(#12, ``nm_rows_cuda``) and the Block-ELL kernel (#13, ``bell_rows_cuda``):
 
     python3 tpusparse_torch/bench/kernel_ab.py [--root DIR] [--only PREFIX]
 
@@ -13,11 +15,13 @@ one holding this file), for example an older commit unpacked with ``git
 archive`` into an ignored directory; run it in turns (older, newer, newer,
 older).  The timer is this checkout's ``harness.device_time_fn``, loaded by
 path, so an older checkout that lacks it is timed the same way.  A
-checkout whose dgt and span wrappers take a row walk gets the format's
-(built before the timing), one whose stripe wrapper takes the live slots
-or whose Block-ELL wrapper takes work items gets the format's; an older
-one is called as it was.  ``--only`` keeps the shapes whose name starts
-with one of its comma-separated prefixes ("#3", "#7,#10", "T1", ...).
+checkout whose dg, dgt, dgt stream and span wrappers take a row walk gets
+the format's (built before the timing), one whose stripe wrapper takes the
+live slots or whose Block-ELL wrapper takes work items gets the format's;
+an older one is called as it was.  ``--only`` keeps the shapes whose name
+starts with one of its comma-separated prefixes ("#3", "#1,#4", "T1",
+...); a prefix that ends in a digit does not take a longer number ("#1"
+keeps "#1 ..." but not "#10 ...").
 
 Shapes: config #1 (power-law 32768^2, alpha 1.8, seed 42) in the tile
 format of rb 1024, ct 1024, g 512 at K = 8, 32 and 256 and of rb 1024, ct
@@ -35,15 +39,24 @@ weight (15 % of 128-blocks, seed 6) in bf16, fp32 and int8 at K = 256
 checkout's ``bell_int8`` hands it), beside cuBLAS's dense product.  #3:
 ``spmv_fn(mat, "dgt8")``'s format of the SpMV workload (power-law
 262144^2, avg 40, seed 9) at K = 1 and ``spmv_multi_fn(mat, 8)``'s at K =
-8; config #1's ``dgt_span`` rb 512 nw 8 g 512 at K = 8.  #7: the trainable
+8; config #1's ``dgt_span`` rb 512 nw 8 g 512 at K = 8.  #1: config #1's
+``dg_span`` default at K = 8 (rb 1024 ns 8 g 512) and K = 64 (rb 512, kt
+32) and the tune's rb 512 ns 8 g 512 row at K = 8.  #2: config #1's
+default at K = 1 (rb 4096 ns 4 g 2048) and ``spmv_fn(mat, "auto")``'s
+format of the SpMV workload.  #4 (``dgt_spmm(stream_x=True)``'s kernel):
+config #1's ``dgt_span`` rb 512 nw 8 g 512 format at K = 8 and
+``spmv_multi_fn(mat, 8)``'s at K = 8 and 64 (X of 64 MB, past the 50 MB
+L2).  #9: the SpMV workload's ``radix_span`` default at K = 4 (P8),
+``spmv_fn(mat, "radix")``'s format at K = 1 and ``brick_ell`` on the
+banded 32768^2 (bandwidth 16, seed 3) at K = 8.  #7: the trainable
 layer's span format of the pruned weight, (P, NC, G) = (8, 1639, 128), at
 K = 512; the SpMV workload's default at K = 8 (``span_colsplit``, two
 launches).  T1: one training step of ``TrainableSparseLinear`` on that
 weight, x [4, 128, 4096], Adam.  For each: the device time a call
 (profiler, 20 calls: the wrapper's kernel and its zero fill), the
 back-to-back time a call (``time_fn``, median of five, host included), the
-largest error against the plain version relative to |A|·|X| and, for #3
-and #7 and #10, cuSPARSE's device and ``time_fn`` times for the same
+largest error against the plain version relative to |A|·|X| and, for #1
+to #4, #7, #9 and #10, cuSPARSE's device and ``time_fn`` times for the same
 product (``torch.sparse.mm`` on CSR), for #12 and #13 cuBLAS's dense
 ``torch.mm`` of the same weight (``torch._int_mm`` for int8).  A device
 time the profiler cannot give (records dropped in every window) is a CUDA
@@ -57,6 +70,7 @@ from __future__ import annotations
 import argparse
 import functools
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -86,8 +100,10 @@ def main() -> int:
     from tpusparse_torch.format import pack_tile
     from tpusparse_torch.io import builder
     from tpusparse_torch.kernels import block_ell as be
+    from tpusparse_torch.kernels import dg_gather as dg
     from tpusparse_torch.kernels import dgt_gather as dgt
     from tpusparse_torch.kernels import nm_structured as nm
+    from tpusparse_torch.kernels import radix_gather as radix
     from tpusparse_torch.kernels import sddmm as sd
     from tpusparse_torch.kernels import span_gather as span
     from tpusparse_torch.kernels import stripe_gather as stripe
@@ -152,7 +168,9 @@ def main() -> int:
         return "n/a" if v is None else f"{v:.4f}"
 
     def wanted(name):
-        return any(name.startswith(p) for p in args.only.split(","))
+        # "#1" keeps "#1 ..." and not "#10 ...": a number is not cut short
+        return any(name.startswith(p) and not (p[-1:].isdigit() and name[len(p):][:1].isdigit())
+                   for p in args.only.split(","))
 
     def rand_x(n, k, kt):
         x = torch.as_tensor(np.random.default_rng(1).standard_normal((n, k)),
@@ -203,16 +221,54 @@ def main() -> int:
                                       size=a.shape).to(dev)
         return (lambda v: torch.sparse.mm(csr, v)), x
 
-    def dgt_shape(name, fmt, a, k):
+    def takes_walk(wrapper):
+        return "walk" in inspect.signature(wrapper).parameters
+
+    def dgt_shape(name, fmt, a, k, stream=False):
+        """#3 or, with ``stream``, #4 on a dgt format at K = k."""
         x = rand_x(fmt.shape[1], k, fmt.kt)
         args = (fmt.wins, fmt.cols, fmt.lrw, fmt.vals, fmt.nc_p)
         kw = dict(rb=fmt.rb, kt=fmt.kt, mode=fmt.mode, resid=fmt.resid)
-        walk = (dict(walk=dgt.dgt_row_walk(fmt), k=k) if hasattr(dgt, "dgt_row_walk")
-                else {})
-        record(name, lambda v: dgt.dgt_rows_cuda(*args, v, **kw, **walk),
+        wrapper = dgt.dgt_stream_rows_cuda if stream else dgt.dgt_rows_cuda
+        walk = dict(walk=dgt.dgt_row_walk(fmt), k=k) if takes_walk(wrapper) else {}
+        kern_kw = dict(kw, **walk)
+        if stream:
+            del kern_kw["resid"]
+            kern_kw["nw"] = fmt.nw
+        record(name, lambda v: wrapper(*args, v, **kern_kw),
                lambda v: dgt.dgt_rows_plain(*args, v, **kw),
                lambda v: dgt.dgt_rows_plain(fmt.wins, fmt.cols, fmt.lrw, fmt.vals.abs(),
                                             fmt.nc_p, v, **kw),
+               x, csr_lib(a, x[:, :k].contiguous()))
+
+    def dg_shape(name, fmt, a, k):
+        """#1 (K > 1) or #2 (K = 1, x [N]) on a dg format."""
+        args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p)
+        abs_args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals.abs(), fmt.nc_p)
+        if k == 1:
+            x = rand_x(fmt.shape[1], 1, 1)[:, 0].contiguous()
+            record(name, lambda v: dg.dg1_rows_cuda(*args, v, rb=fmt.rb),
+                   lambda v: dg.dg1_rows_plain(*args, v, rb=fmt.rb),
+                   lambda v: dg.dg1_rows_plain(*abs_args, v, rb=fmt.rb), x,
+                   csr_lib(a, x.view(-1, 1)))
+            return
+        x = rand_x(fmt.shape[1], k, fmt.kt)
+        kw = dict(rb=fmt.rb, kt=fmt.kt, mode=fmt.mode)
+        walk = dict(walk=dg.dg_row_walk(fmt), k=k) if takes_walk(dg.dg_rows_cuda) else {}
+        record(name, lambda v: dg.dg_rows_cuda(*args, v, **kw, **walk),
+               lambda v: dg.dg_rows_plain(*args, v, **kw),
+               lambda v: dg.dg_rows_plain(*abs_args, v, **kw), x,
+               csr_lib(a, x[:, :k].contiguous()))
+
+    def radix_shape(name, fmt, a, k):
+        """#9 on a radix format at K = k, X padded to the format's kt."""
+        args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p)
+        kw = dict(rb=fmt.rb, kt=fmt.kt, mode=fmt.mode)
+        x = rand_x(fmt.shape[1], k, fmt.kt)
+        record(name, lambda v: radix.radix_rows_cuda(*args, v, **kw),
+               lambda v: radix.radix_rows_plain(*args, v, **kw),
+               lambda v: radix.radix_rows_plain(fmt.c0, fmt.cols, fmt.lrow, fmt.vals.abs(),
+                                                fmt.nc_p, v, **kw),
                x, csr_lib(a, x[:, :k].contiguous()))
 
     def span_shape(name, parts, a, k, vals=None):
@@ -360,12 +416,40 @@ def main() -> int:
                    lambda v, f=f, prec=prec: be.bell_rows_plain(
                        f.blkcol, f.blkvals.abs(), f.nb_p, v.contiguous().abs(), mode=prec),
                    x, lib, lib_name=lib_name)
+    if wanted("#1"):
+        for k in (8, 64):
+            dg_shape(f"#1 config #1 dg_span default K={k}",
+                     build_plan(mat, default_schedule(mat, k), device=dev).formats[0], mat, k)
+        sched = Schedule(family="dg_span", rb=512, ns=8, g=512, unroll=8, ktile=8)
+        dg_shape("#1 config #1 dg_span rb512 ns8 g512 K=8",
+                 build_plan(mat, sched, device=dev).formats[0], mat, 8)
+    if wanted("#2"):
+        dg_shape("#2 config #1 dg_span default K=1",
+                 build_plan(mat, default_schedule(mat, 1), device=dev).formats[0], mat, 1)
+        dg_shape("#2 262144^2 spmv_fn('auto') K=1", spmv_fn(big, "auto").format, big, 1)
+    if wanted("#3") or wanted("#4"):
+        sched = Schedule(family="dgt_span", rb=512, nw=8, g=512, unroll=8, ktile=8)
+        f_h = build_plan(mat, sched, device=dev).formats[0]
+        f_multi = spmv_multi_fn(big, 8).formats[0]
     if wanted("#3"):
         dgt_shape("#3 262144^2 spmv_fn('dgt8') K=1", spmv_fn(big, "dgt8").format, big, 1)
-        dgt_shape("#3 262144^2 spmv_multi_fn(8) K=8", spmv_multi_fn(big, 8).formats[0], big, 8)
-        sched = Schedule(family="dgt_span", rb=512, nw=8, g=512, unroll=8, ktile=8)
-        dgt_shape("#3 config #1 dgt_span rb512 nw8 g512 K=8",
-                  build_plan(mat, sched, device=dev).formats[0], mat, 8)
+        dgt_shape("#3 262144^2 spmv_multi_fn(8) K=8", f_multi, big, 8)
+        dgt_shape("#3 config #1 dgt_span rb512 nw8 g512 K=8", f_h, mat, 8)
+    if wanted("#4"):
+        dgt_shape("#4 config #1 dgt_span rb512 nw8 g512 stream_x K=8", f_h, mat, 8, stream=True)
+        for k in (8, 64):
+            dgt_shape(f"#4 262144^2 spmv_multi_fn(8) stream_x K={k}", f_multi, big, k,
+                      stream=True)
+    if wanted("#9"):
+        radix_shape("#9 262144^2 radix_span default K=4 (P8)",
+                    build_plan(big, default_schedule(big, 4), device=dev).formats[0], big, 4)
+        radix_shape("#9 262144^2 spmv_fn('radix') K=1 (P12)", spmv_fn(big, "radix").format,
+                    big, 1)
+        band = builder.banded_coo(32768, 32768, bandwidth=16, seed=3)
+        sched = Schedule(family="brick_ell", sort=True, rb=1024, sublanes=256, g=512, unroll=4,
+                         ktile=8)
+        radix_shape("#9 banded 32768^2 brick_ell K=8 (P11)",
+                    build_plan(band, sched, device=dev).formats[0], band, 8)
     out["graph_replay"] = sorted(graph_read)
     print(json.dumps(out))
     return 0

@@ -1,8 +1,12 @@
-// gather_common.cuh - the gather machinery that dg_gather.cu and
-// radix_gather.cu launch, and the shared-memory helpers that the dgt and
-// span stream kernels (#4, #8) use.  (The dgt and span kernels #3 and #7
-// walk row runs instead, row_walk.cuh, and the stripe kernels #10 and #11
-// slot streams, row_runs.cuh.)
+// gather_common.cuh - the gather machinery that radix_gather.cu (#9) and
+// dg_gather.cu's SpMV kernel (#2) launch, the shared-memory helpers of the
+// span stream kernel (#8) and the cp.async copies that the N:M and
+// Block-ELL kernels (#12, #13) stage tiles with.  Per-slot shared atomics
+// remain only in gather_kernel (#2, #9) and the span stream kernel (#8):
+// the dg, dgt and span kernels #1, #3, #4 and #7 walk row runs instead
+// (row_walk.cuh), the tile and stripe kernels #5, #6, #10 and #11 slot
+// streams (row_runs.cuh).
+//
 // The formats differ only in how a slot names its column of X and its row
 // of y_rows; everything else is here:
 //
@@ -24,10 +28,10 @@
 //       whose slot names start[chunk] + cols.
 //   launch_tiled  picks the shared-tile or the global-atomic instantiation
 //       and launches it, opting into more than 48 KB of dynamic shared
-//       memory once per kernel and device; launch_window does so for
-//       gather_kernel<WindowSlots> at a kt chosen at run time.
+//       memory once per kernel and device; launch_window_kt does so for
+//       gather_kernel<Slots, KT>.
 //   cp_async*  the cp.async copies (global to shared, bypassing registers)
-//       with which the stream kernels stage X and the slot planes.
+//       with which the span stream kernel stages X and the slot planes.
 //
 // The programs' chunk ranges are split over `splits` blocks because the
 // TPU geometry gives few programs (P = 32 to 139 at the 32768-row headline)
@@ -270,11 +274,10 @@ int launch_tiled(Kernel shared_kernel, Kernel global_kernel, OptIn& optin, dim3 
   return static_cast<int>(cudaGetLastError());
 }
 
-// gather_kernel<Slots> for KT = kt (dg: 1 without bf16, or 8,
-// 16, 32; radix: any of 1, 2, 4, 8, 16, 32 with or without bf16): y
-// [P*rb, Kp] must be zeroed; x is [N, Kp] fp32, Kp a multiple of kt.  Only
-// the libraries that call launch_window (a template for that reason)
-// compile its kernels.
+// gather_kernel<Slots> at KT (dg's SpMV: 1 without bf16; radix: any of 1,
+// 2, 4, 8, 16, 32 with or without bf16): y [P*rb, Kp] must be zeroed; x is
+// [N, Kp] fp32, Kp a multiple of KT.  Only the libraries that call it (a
+// template for that reason) compile its kernels.
 template <int KT, bool BF16, class Slots>
 int launch_window_kt(const Slots& slots, const float* vals, const int* nc_p, const float* x,
                      float* y, int P, int NC, int G, int rb, int Kp, int splits,
@@ -284,30 +287,6 @@ int launch_window_kt(const Slots& slots, const float* vals, const int* nc_p, con
                       gather_kernel<Slots, KT, BF16, false>, optin,
                       dim3(splits, P, Kp / KT), tile_bytes(rb, KT), 0, stream, slots, vals, nc_p,
                       x, y, NC, G, rb, Kp, splits);
-}
-
-template <class Slots>
-int launch_window(const Slots& slots, const void* vals, const void* nc_p, const void* x,
-                  void* y, int P, int NC, int G, int rb, int Kp, int kt, int bf16, int splits,
-                  void* stream) {
-  const auto* v = static_cast<const float*>(vals);
-  const auto* n = static_cast<const int*>(nc_p);
-  const auto* x_ = static_cast<const float*>(x);
-  auto* y_ = static_cast<float*>(y);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (kt == 1 && !bf16) {
-    return launch_window_kt<1, false>(slots, v, n, x_, y_, P, NC, G, rb, Kp, splits, s);
-  }
-#define WINDOW_CASE(KT)                                                                      \
-  if (kt == KT) {                                                                            \
-    return bf16 ? launch_window_kt<KT, true>(slots, v, n, x_, y_, P, NC, G, rb, Kp, splits, s) \
-                : launch_window_kt<KT, false>(slots, v, n, x_, y_, P, NC, G, rb, Kp, splits, s); \
-  }
-  WINDOW_CASE(8)
-  WINDOW_CASE(16)
-  WINDOW_CASE(32)
-#undef WINDOW_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

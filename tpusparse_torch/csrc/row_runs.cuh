@@ -1,5 +1,6 @@
 // row_runs.cuh - the slot stream that tile_onehot.cu (kernels #5 and #6),
-// stripe_gather.cu (the stripe kernel #10, the nested kernel #11), dgt_gather.cu (#3) and
+// stripe_gather.cu (the stripe kernel #10, the nested kernel #11) and,
+// through row_walk.cuh, dg_gather.cu (#1), dgt_gather.cu (#3, #4) and
 // span_gather.cu (#7) share: a run of slots walked once per panel of X's
 // columns, each row run summed in registers and added into y once.
 //
@@ -19,11 +20,11 @@
 // lane calls it with rising i), v = 0 for a slot to skip (padding, a column
 // at or past N).  The runs are as long as the format keeps a row's slots
 // together: pack_tile sorts a chunk by (row, column), the stripe formats
-// keep COO order (the nested one within its sub-blocks).  The dgt and span
-// formats keep neither (a span chunk is sorted by column: every slot its
-// own run), so their kernel (row_walk.cuh) walks a row walk instead: the
-// format's live slots listed once in (row, slot) order, built once per
-// pattern.
+// keep COO order (the nested one within its sub-blocks).  The dg, dgt and
+// span formats keep neither (a dg or span chunk is sorted by column: every
+// slot its own run), so their kernel (row_walk.cuh) walks a row walk
+// instead: the format's live slots listed once in (row, slot) order, built
+// once per pattern.
 
 #pragma once
 

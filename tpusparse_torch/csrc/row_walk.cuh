@@ -1,16 +1,17 @@
-// row_walk.cuh - the row walk kernel that dgt_gather.cu (#3, behind
-// dgt_spmm_launch) and span_gather.cu (#7, behind span_spmm_launch) each
-// instantiate: one walk over a format's live slots in y_rows-row order,
-// each row run summed in registers (row_runs.cuh's walk) and added into the
-// zeroed y_rows once by atomicAdd(float4*), which sm_90 compiles to
-// REDG.E.ADD.F32x4.  No shared memory, no shared atomics.
+// row_walk.cuh - the row walk kernel that dg_gather.cu (#1, behind
+// dg_walk_launch), dgt_gather.cu (#3 and #4, behind dgt_spmm_launch) and
+// span_gather.cu (#7, behind span_spmm_launch) each instantiate: one walk
+// over a format's live slots in y_rows-row order, each row run summed in
+// registers (row_runs.cuh's walk) and added into the zeroed y_rows once by
+// atomicAdd(float4*), which sm_90 compiles to REDG.E.ADD.F32x4.  No shared
+// memory, no shared atomics.
 //
-// Why a walk.  The dgt and span formats store slots in the TPU's order: a
-// span chunk is sorted by column, a dgt tile by (window, residue class), so
-// in slot order almost every slot is a run of its own (1,677,723 runs for
-// as many slots at the trainable layer's span format; 10,228,376 for
-// 10,228,408 at the 262144^2 dgt8 format).  Summing runs in registers
-// needs a row order, which neither format stores.  The wrapper derives it
+// Why a walk.  The dg, dgt and span formats store slots in the TPU's order:
+// a dg or span chunk is sorted by column, a dgt tile by (window, residue
+// class), so in slot order almost every slot is a run of its own
+// (1,677,723 runs for as many slots at the trainable layer's span format;
+// 10,228,376 for 10,228,408 at the 262144^2 dgt8 format).  Summing runs in
+// registers needs a row order, which none of them stores.  The wrapper derives it
 // once per pattern (kernels/row_walk.py, kept on the format): for each live
 // slot its y_rows row, its X column, its flat slot index and its value,
 // sorted by (row, slot).  The row and column stream in order (8 bytes a

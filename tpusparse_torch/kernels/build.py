@@ -1,7 +1,7 @@
 """Build and load the package's CUDA sources.
 
 Each ``tpusparse_torch/csrc/<name>.cu`` has a plain C interface (the
-machinery the sources share is in ``csrc/gather_common.cuh``) and is
+machinery the sources share is in the ``csrc/*.cuh`` headers) and is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``tpusparse_torch/_build/`` at first use, then loaded with ``ctypes``.  The
 library's file name carries a hash of the source and the flags, so a stale

@@ -14,7 +14,8 @@ Kernels (CUDA C++, ``tpusparse_torch/csrc/dg_gather.cu``), each beside its
 plain PyTorch version of the same function:
 
   dg_rows_cuda   / dg_rows_plain    replace ``_dg_kernel``  (kt 8/16/32,
-                                    fp32x2 and bf16)
+                                    fp32x2 and bf16): the row walk kernel
+                                    over the format's ``dg_row_walk``
   dg1_rows_cuda  / dg1_rows_plain   replace ``_dg1_kernel`` (kt 1, SpMV)
 
 Each computes the pre-unpack row block ``y_rows[p*rb + lrow] += v * X[c0 +
@@ -35,10 +36,11 @@ import torch
 
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import build
-from tpusparse_torch.kernels.common import (cdiv, check_operands, launch_checked,
-                                            launch_splits, pad_dense_cols, prep_x,
-                                            resolve_device, unpack_by_deal,
+from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info,
+                                            launch_checked, launch_splits, pad_dense_cols,
+                                            prep_x, resolve_device, unpack_by_deal,
                                             window_rows_plain)
+from tpusparse_torch.kernels.row_walk import RowWalk, build_row_walk, launch_walk, live_slots
 from tpusparse_torch.levels import Level
 
 PRECISIONS = ("fp32x2", "bf16")
@@ -82,6 +84,9 @@ class DgFormat:
       nc_p  [P, 1, 1]  int32  real chunk count
       slot_of_origrow [M] int32
     ``perm_of_nz`` (numpy, host) maps each COO nonzero to its flat slot.
+    ``walk`` is the port's own field: the row walk the kt >= 8 kernel walks
+    (``dg_row_walk``), built on the card at the first launch, not part of
+    ``memory_bytes``.
     """
 
     c0: Any
@@ -101,6 +106,7 @@ class DgFormat:
     nnz_real: int
     perm_of_nz: Any = None
     deal: str = "arbitrary"  # 'blocks' | 'index' | 'arbitrary'
+    walk: RowWalk | None = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -316,17 +322,42 @@ def pack_dg(
 
 
 def with_values(fmt: DgFormat, new_vals) -> DgFormat:
-    """Values-only update (same pattern; requires pack_dg(keep_perm=True))."""
+    """Values-only update (same pattern; requires pack_dg(keep_perm=True)).
+    The row walk, of the pattern, is carried over with the new values."""
     assert fmt.perm_of_nz is not None, "pack_dg(..., keep_perm=True) required"
     new_vals = np.asarray(new_vals, dtype=np.float32)
     flat = np.zeros(fmt.n_programs * fmt.n_chunks * fmt.chunk_g, dtype=np.float32)
     flat[np.asarray(fmt.perm_of_nz)] = new_vals
-    vals = flat.reshape(fmt.n_programs, fmt.n_chunks, fmt.chunk_g)
-    return dataclasses.replace(
-        fmt,
-        vals=torch.from_numpy(vals).to(fmt.device),
-        nnz_real=int(np.count_nonzero(vals)),
-    )
+    vals = torch.from_numpy(flat.reshape(fmt.n_programs, fmt.n_chunks, fmt.chunk_g))
+    vals = vals.to(fmt.device)
+    return dataclasses.replace(fmt, vals=vals, nnz_real=int(np.count_nonzero(flat)),
+                               walk=None if fmt.walk is None else fmt.walk.for_plane(vals))
+
+
+# ------------------------------------------------------------------- row walk
+
+def build_dg_walk(c0, cols, lrow, vals, nc_p, *, rb, n, perm_of_nz=None) -> RowWalk:
+    """The row walk of dg planes: the live slots (those of ``perm_of_nz``
+    where given, else the nonzeros of ``vals`` in a chunk before ``nc_p``)
+    with their y_rows row ``p*rb + lrow`` and X column ``c0 + cols``, as
+    ``dg_rows_plain`` decodes them (a column at or past ``n`` left out),
+    sorted by (row, slot)."""
+    P, NC, _ = cols.shape
+    col = c0.reshape(P, NC, 1).long() + cols.long()
+    row = torch.arange(P, device=cols.device).view(P, 1, 1) * rb + lrow.long()
+    walked = torch.arange(NC, device=cols.device).view(1, NC, 1) < nc_p.reshape(P, 1, 1)
+    return build_row_walk(row, col, live_slots(vals, walked, perm_of_nz), vals,
+                          pattern=(c0, cols, lrow, nc_p), live_from_values=perm_of_nz is None,
+                          n_rows=P * rb, n_cols=n)
+
+
+def dg_row_walk(fmt: DgFormat) -> RowWalk:
+    """The format's row walk, built at first use and kept on the format;
+    built anew where a plane was replaced or written in place since."""
+    if fmt.walk is None or not fmt.walk.fresh((fmt.c0, fmt.cols, fmt.lrow, fmt.nc_p), fmt.vals):
+        fmt.walk = build_dg_walk(fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p, rb=fmt.rb,
+                                 n=fmt.shape[1], perm_of_nz=fmt.perm_of_nz)
+    return fmt.walk
 
 
 # --------------------------------------------------------------- plain versions
@@ -351,12 +382,12 @@ def _lib():
     """csrc/dg_gather.cu, built at first use, with its C signatures."""
     lib = build.library("dg_gather")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.dg_spmm_launch.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
-    lib.dg_spmm_launch.restype = i32
+    lib.dg_walk_launch.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+    lib.dg_walk_launch.restype = i32
+    lib.dg_walk_info.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
+    lib.dg_walk_info.restype = i32
     lib.dg_spmv_launch.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
     lib.dg_spmv_launch.restype = i32
-    lib.dg_uses_shared_tile.argtypes = [i32, i32]
-    lib.dg_uses_shared_tile.restype = i32
     return lib
 
 
@@ -369,24 +400,28 @@ def _check_format(c0, cols, lrow, vals, nc_p, x, ndim):
                        ("nc_p", nc_p, torch.int32, (P, 1, 1))), ndim=ndim)
 
 
-def dg_uses_shared_tile(rb: int, kt: int) -> bool:
-    """Whether a launch of (rb, kt) keeps its row tile in shared memory
-    (False: the kernel's global-atomic branch)."""
-    return bool(_lib().dg_uses_shared_tile(rb, kt))
+def dg_walk_info(pw: int, mode: str) -> dict:
+    """The row walk kernel of panel ``pw`` in ``mode`` in this library:
+    registers a thread, spilled (local) bytes a thread, static shared bytes
+    and blocks an SM holds."""
+    return kernel_info(_lib().dg_walk_info, "dg_walk_info", pw, int(mode == "bf16"))
 
 
-def dg_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode):
+def dg_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode, walk=None, k=None):
     """CUDA ``_dg_kernel`` (tpusparse/kernels/dg_gather.py:318): y_rows
-    [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in {8, 16, 32}."""
+    [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in {8, 16, 32}, from
+    one launch of the row walk kernel over ``walk``, the format's live
+    slots in row order (``dg_row_walk(fmt)``; one built from other planes,
+    or before they were written, is refused), for all of Kp at once.  The
+    values are ``vals``'s: streamed from the walk where it holds them, else
+    gathered through its slot index.  ``k``: the columns of X that carry
+    the product (the rest is the kt padding; None: all Kp); the kernel
+    reads and writes them rounded up to 4, the rest of y_rows stays zero."""
     _check_format(c0, cols, lrow, vals, nc_p, x, 2)
     if kt not in (8, 16, 32) or mode not in PRECISIONS or x.shape[1] % kt:
         raise ValueError(f"dg kernel: kt={kt}, mode={mode}, X {tuple(x.shape)}")
-    P, NC, G = cols.shape
-    n, kp = x.shape
-    y = torch.zeros((P * rb, kp), dtype=torch.float32, device=x.device)
-    launch_checked(_lib().dg_spmm_launch, "dg_spmm_launch", (c0, cols, lrow, vals, nc_p, x, y),
-                   (P, NC, G, rb, n, kp, kt, int(mode == "bf16"),
-                    launch_splits(x.device, P * (kp // kt), NC)))
+    y = launch_walk(_lib().dg_walk_launch, "dg_walk_launch", walk, (c0, cols, lrow, nc_p),
+                    vals, x, rows=cols.shape[0] * rb, k=k, bf16=mode == "bf16")
     dg_rows_cuda.launches += 1
     return y
 
@@ -414,17 +449,21 @@ def _fmt_args(fmt):
 
 
 def dg_spmm(fmt: DgFormat, x) -> torch.Tensor:
-    """Y[M, K] = A . X[N, K] with A in DgFormat (kt >= 8; K > kt runs
-    kt-wide tiles as a grid dimension).  CUDA formats run the kernel, CPU
-    formats the plain version."""
+    """Y[M, K] = A . X[N, K] with A in DgFormat (kt >= 8; X padded to a
+    multiple of kt, whose K columns the kernel walks at once).  CUDA
+    formats run the kernel over the format's row walk, CPU formats the
+    plain version."""
     assert fmt.kt >= 8, "kt=1 formats run dg_spmv"
     x = prep_x(x, fmt.device)
     m, n_cols = fmt.shape
     k = x.shape[1]
     assert x.shape[0] == n_cols, f"X rows {x.shape[0]} != A cols {n_cols}"
     x = pad_dense_cols(x, cdiv(k, fmt.kt) * fmt.kt).contiguous()
-    rows_fn = dg_rows_cuda if fmt.device.type == "cuda" else dg_rows_plain
-    y_rows = rows_fn(*_fmt_args(fmt), x, rb=fmt.rb, kt=fmt.kt, mode=fmt.mode)
+    if fmt.device.type == "cuda":
+        y_rows = dg_rows_cuda(*_fmt_args(fmt), x, rb=fmt.rb, kt=fmt.kt, mode=fmt.mode,
+                              walk=dg_row_walk(fmt), k=k)
+    else:
+        y_rows = dg_rows_plain(*_fmt_args(fmt), x, rb=fmt.rb, kt=fmt.kt, mode=fmt.mode)
     return unpack_by_deal(fmt, y_rows)[:, :k]
 
 

@@ -24,8 +24,9 @@ its plain PyTorch version of the same function:
                                                 row walk kernel over the
                                                 format's ``dgt_row_walk``
   dgt_stream_rows_cuda / dgt_stream_rows_plain  replace ``_dgt_kernel_stream``
-                                                (resid formats; X windows
-                                                staged in shared memory)
+                                                (resid formats, any nw): the
+                                                same row walk kernel over
+                                                the same walk
 
 Both compute the pre-unpack row block ``y_rows[p*rb + row] += v *
 X[col]``; ``_unpack_rows`` then recovers matrix rows (the pairwise-sum
@@ -47,8 +48,7 @@ import torch
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import build
 from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info,
-                                            launch_checked, launch_splits, pad_dense_cols,
-                                            prep_x, resolve_device)
+                                            pad_dense_cols, prep_x, resolve_device)
 from tpusparse_torch.kernels.dg_gather import PRECISIONS
 from tpusparse_torch.kernels.row_walk import RowWalk, build_row_walk, launch_walk, live_slots
 from tpusparse_torch.levels import Level
@@ -82,7 +82,7 @@ class DgtFormat:
                              [y; fold2(y); fold4(y); fold8(y)] of pairwise
                              sums over the P*rb row slots (-1: empty)
     ``perm_of_nz`` (numpy, host) maps each COO nonzero to its flat slot.
-    ``walk`` is the port's own field: the row walk the kernel walks
+    ``walk`` is the port's own field: the row walk both kernels walk
     (``dgt_row_walk``), built on the card at the first launch, not part of
     ``memory_bytes``.
     """
@@ -682,8 +682,8 @@ def dgt_rows_plain(wins, cols, lrw, vals, nc_p, x, *, rb, kt, mode, resid):
 
 def dgt_stream_rows_plain(wins, cols, lrw, vals, nc_p, x, *, rb, kt, mode, nw):
     """Plain PyTorch ``_dgt_kernel_stream``: the same y_rows as
-    ``dgt_rows_plain`` for a resid format; ``nw`` (windows staged per
-    tile) changes nothing in the result."""
+    ``dgt_rows_plain`` for a resid format; ``nw`` (the windows a tile
+    reaches) changes nothing in the result."""
     return dgt_rows_plain(wins, cols, lrw, vals, nc_p, x, rb=rb, kt=kt, mode=mode, resid=True)
 
 
@@ -698,18 +698,7 @@ def _lib():
     lib.dgt_spmm_launch.restype = i32
     lib.dgt_walk_info.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
     lib.dgt_walk_info.restype = i32
-    lib.dgt_stream_launch.argtypes = [ptr] * 7 + [i32] * 11 + [ptr]
-    lib.dgt_stream_launch.restype = i32
-    lib.dgt_uses_shared_tile.argtypes = [i32, i32]
-    lib.dgt_uses_shared_tile.restype = i32
     return lib
-
-
-def dgt_uses_shared_tile(rb: int, kt: int) -> bool:
-    """Whether a launch of the stream kernel at (rb, kt) keeps its row tile
-    in shared memory beside its X window buffer (False: the kernel's
-    global-atomic branch).  The row walk kernel holds no tile."""
-    return bool(_lib().dgt_uses_shared_tile(rb, kt))
 
 
 def dgt_walk_info(pw: int, mode: str) -> dict:
@@ -751,21 +740,21 @@ def dgt_rows_cuda(wins, cols, lrw, vals, nc_p, x, *, rb, kt, mode, resid, walk=N
     return y
 
 
-def dgt_stream_rows_cuda(wins, cols, lrw, vals, nc_p, x, *, rb, kt, mode, nw):
+def dgt_stream_rows_cuda(wins, cols, lrw, vals, nc_p, x, *, rb, kt, mode, nw, walk=None,
+                         k=None):
     """CUDA ``_dgt_kernel_stream`` (tpusparse/kernels/dgt_gather.py:882)
-    for a resid format: each tile's ``nw`` X windows are staged in shared
-    memory before its slots gather from them."""
+    for a resid format: one launch of the row walk kernel over ``walk``, as
+    ``dgt_rows_cuda`` (the format's ``dgt_row_walk``, shared by both; a
+    missing or stale walk is refused).  The TPU kernel staged each tile's
+    ``nw`` X windows because X could not stay in VMEM; the card reads X
+    where a slot needs it, so ``nw`` (1, 2, 4 or 8) is checked and changes
+    nothing in the result."""
     if nw not in (1, 2, 4, 8):
         raise ValueError(f"nw={nw}")
     _check(wins, cols, lrw, vals, nc_p, x, kt, mode)
-    P, NC, G = cols.shape
-    n, kp = x.shape
-    _, ngrp = dgt_geometry(kt, mode)
-    y = torch.zeros((P * rb, kp), dtype=torch.float32, device=x.device)
-    launch_checked(_lib().dgt_stream_launch, "dgt_stream_launch",
-                   (wins, cols, lrw, vals, nc_p, x, y),
-                   (P, NC, G, rb, n, kp, kt, int(mode == "bf16"), ngrp, nw,
-                    launch_splits(x.device, P * (kp // kt), NC)))
+    y = launch_walk(_lib().dgt_spmm_launch, "dgt_stream_rows_cuda", walk,
+                    (wins, cols, lrw, nc_p), vals, x, rows=cols.shape[0] * rb, k=k,
+                    bf16=mode == "bf16")
     dgt_stream_rows_cuda.launches += 1
     return y
 
@@ -812,9 +801,10 @@ def dgt_spmm(
     rowhot_i8: bool = False,
     stream_x: bool = False,
 ) -> torch.Tensor:
-    """Y[M, K] = A . X[N, K] with A in DgtFormat (K > kt runs kt-wide tiles
-    as a grid dimension).  ``stream_x`` runs the stream kernel (resid +
-    select, no rowhot, as in the JAX package).  ``unroll``, ``scatter``,
+    """Y[M, K] = A . X[N, K] with A in DgtFormat (X padded to a multiple of
+    kt, whose K columns the kernel walks at once).  ``stream_x`` takes the
+    stream wrapper (resid + select, no rowhot, as in the JAX package), over
+    the same row walk.  ``unroll``, ``scatter``,
     ``fold``, ``pipe``, ``rowhot_i8`` and ``rowhot`` steered the TPU
     kernel's schedule: they are checked as the JAX package checks them and
     give the same Y.  CUDA formats run the kernel, CPU formats the plain
@@ -834,8 +824,10 @@ def dgt_spmm(
     if stream_x:
         assert fmt.resid and scatter == "select" and rowhot is None, \
             "stream_x pairs with the resid select kernel"
+        kw = dict(walk=dgt_row_walk(fmt), k=k) if on_card else {}
         rows_fn = dgt_stream_rows_cuda if on_card else dgt_stream_rows_plain
-        y_rows = rows_fn(*_fmt_args(fmt), x, rb=fmt.rb, kt=fmt.kt, mode=fmt.mode, nw=fmt.nw)
+        y_rows = rows_fn(*_fmt_args(fmt), x, rb=fmt.rb, kt=fmt.kt, mode=fmt.mode, nw=fmt.nw,
+                         **kw)
     elif on_card:
         y_rows = dgt_rows_cuda(*_fmt_args(fmt), x, rb=fmt.rb, kt=fmt.kt, mode=fmt.mode,
                                resid=fmt.resid, walk=dgt_row_walk(fmt), k=k)

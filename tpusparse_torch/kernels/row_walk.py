@@ -1,25 +1,28 @@
-"""row_walk — the row order that the dgt (#3) and span (#7) kernels walk.
+"""row_walk — the row order that the dg (#1), dgt (#3, #4) and span (#7)
+kernels walk.
 
-Neither format stores its slots by row: a span chunk is sorted by column,
-a dgt tile by window and residue class, so in slot order almost every slot
-is a row run of its own.  The kernel (``csrc/row_walk.cuh``) sums each row
-run in registers and adds it into y_rows once, so it walks a derived list
-instead: every live slot of the pattern once, as (y_rows row, X column,
-flat slot index), sorted by (row, slot).  The list is built on the device
-with torch ops from the decode the plain versions use, at a format's first
-launch on the card, and kept on the format (``DgtFormat.walk``,
-``SpanFormat.walk``), so that ``dataclasses.replace`` carries it;
-``with_values`` gives it the new plane's values (``RowWalk.for_plane``).
-It also holds the values of the plane it was built from in its order,
-which the kernel streams when a caller multiplies by that very plane as
-it stood then; any other plane (the trainable path's ``v * mask``) is
-gathered through the slot index.  Streaming the values took a third off
-the SpMV kernel's time on the card (PERF.md).
+None of these formats stores its slots by row: a dg or span chunk is
+sorted by column, a dgt tile by window and residue class, so in slot order
+almost every slot is a row run of its own.  The kernel
+(``csrc/row_walk.cuh``) sums each row run in registers and adds it into
+y_rows once, so it walks a derived list instead: every live slot of the
+pattern once, as (y_rows row, X column, flat slot index), sorted by (row,
+slot).  The list is built on the device with torch ops from the decode the
+plain versions use, at a format's first launch on the card, and kept on
+the format (``DgFormat.walk``, ``DgtFormat.walk``, ``SpanFormat.walk``),
+so that ``dataclasses.replace`` carries it; ``with_values`` gives it the
+new plane's values (``RowWalk.for_plane``).  It also holds the values of
+the plane it was built from in its order, which the kernel streams when a
+caller multiplies by that very plane as it stood then; any other plane
+(the trainable path's ``v * mask``) is gathered through the slot index.
+Streaming the values took a third off the SpMV kernel's time on the card
+(PERF.md).
 
 A walk remembers the planes it was decoded from and their version
 counters, so a plane written in place (``load_state_dict`` into a layer's
-buffers) is seen: ``dgt_row_walk``/``span_row_walk`` build the walk anew,
-and the wrappers refuse a walk that is not the planes' they are given.
+buffers) is seen: ``dg_row_walk``, ``dgt_row_walk`` and ``span_row_walk``
+build the walk anew, and the wrappers refuse a walk that is not the
+planes' they are given.
 
 Live slots are the pattern's: where the format kept ``perm_of_nz`` those
 slots, a stored zero included (training may make it nonzero); otherwise the
@@ -199,7 +202,7 @@ def launch_walk(fn, name: str, walk: RowWalk, pattern, vals, x, *, rows: int,
         raise ValueError(f"{name} walks the format's row walk: pass walk=")
     if not walk.built_from(pattern):
         raise ValueError(f"{name}: the row walk was not built from these index planes as "
-                         "they stand (take it from dgt_row_walk or span_row_walk)")
+                         "they stand (take it from dg_row_walk, dgt_row_walk or span_row_walk)")
     if (walk.row.device != x.device or walk.plane_slots != vals.numel() or walk.n_cols != n
             or walk.n_rows != rows):
         raise ValueError(f"{name}: the row walk ({walk.plane_slots} slots, {walk.n_rows} "

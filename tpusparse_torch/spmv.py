@@ -187,7 +187,8 @@ def spmv_multi_fn(mat: CooMatrix, n_vectors: int = 8, col_split: int | None = No
         for fmt, (lo, hi) in zip(fmts, ranges):
             part = dgt_spmm(fmt, xs[lo:hi])
             y = part if y is None else y + part
-        return y
+        # a range without a nonzero has no format; with none at all, Y = 0
+        return torch.zeros((m, n_vectors), dtype=torch.float32, device=dev) if y is None else y
 
     fn.n_splits = len(fmts)
     fn.formats = fmts
