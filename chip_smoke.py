@@ -60,12 +60,12 @@ against their bound, their plain versions and cuSPARSE (the kernels line's
 profiler, ``time_fn_ms`` the wrapper's back-to-back time, host included),
 and the tile, stripe, dg, dgt, span and Block-ELL libraries' SASS is read
 kernel by kernel: the tile kernel (#5, #6), the stripe kernels (#10, #11)
-and the row walk kernel of #1, #3, #4 and #7 must add by float4
-reductions and hold no shared atomic, and the dgt library must hold no
-kernel but the walk; the N:M (#12) and Block-ELL (#13) kernels must run
-on the tensor cores (HGMMA, and HMMA for 3xTF32).  Any failure raises
-and the exit
-code is not 0.  It exits non-zero before printing any
+and the row walk kernel of #1, #3, #4, #7 and #8 must add by float4
+reductions, the one-column walk of #2 by scalar ones, and hold no shared
+atomic, and the dgt and span libraries must hold no kernel but the walk;
+the N:M (#12) and Block-ELL (#13) kernels must run on the tensor cores
+(HGMMA, and HMMA for 3xTF32).  Any failure raises and the exit code is
+not 0.  It exits non-zero before printing any
 result when no CUDA device is present or the package cannot be imported.
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists every ported kernel as JSON, with the CUDA kernel
@@ -110,11 +110,11 @@ TUNE_COLSKEW_K8_DIGEST = "dd00bb2181d7e2a7"
 
 
 # the CUDA kernel each wrapper launches (the kernels line's "kernel"): the
-# row walk of csrc/row_walk.cuh serves #1, #3, #4 and #7
-KERNEL_OF = {"dg": "walk_kernel", "dg1": "gather_kernel", "dgt": "walk_kernel",
+# row walks of csrc/row_walk.cuh serve #1-#4, #7 and #8
+KERNEL_OF = {"dg": "walk_kernel", "dg1": "walk1_kernel", "dgt": "walk_kernel",
              "dgt_stream": "walk_kernel", "tile": "tile_stream_kernel",
              "tile_stream": "tile_stream_kernel", "span": "walk_kernel",
-             "span_stream": "span_stream_kernel", "radix": "gather_kernel",
+             "span_stream": "walk_kernel", "radix": "gather_kernel",
              "stripe": "stripe_kernel", "stripe_nested": "stripe_nested_kernel",
              "nm": "nm_kernel", "bell": "bell_wgmma_kernel, bell_tf32_kernel",
              "sddmm": "sddmm_kernel", "dx": "dx_kernel"}
@@ -284,9 +284,10 @@ def main() -> int:
     # wgmma (HGMMA bf16, IGMMA int8) and mma (HMMA, 3xTF32) in the N:M and
     # Block-ELL libraries; the atomics of the tile, stripe, dg, dgt and span
     # libraries, where the stream kernels of #5/#6, #10 and #11 and the row
-    # walk kernel of #1, #3, #4 and #7 must add by vector reductions
-    # (REDG...F32x4) and hold no shared atomic (ATOMS: a CAS loop for fp32
-    # adds), which gather_kernel (#2, #9) and the span stream kernel #8 keep
+    # walk kernel of #1, #3, #4, #7 and #8 must add by vector reductions
+    # (REDG...F32x4), the one-column walk of #2 by scalar ones (RED...F32),
+    # and hold no shared atomic (ATOMS: a CAS loop for fp32 adds), which
+    # gather_kernel (#9) keeps
     functions = {}  # every kernel function of a library, by library
 
     def sass_by_kernel(lib_name, opcodes):
@@ -319,10 +320,9 @@ def main() -> int:
             ("tile_onehot", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("tile_stream_kernel",)),
             ("stripe_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"),
              ("stripe_nested_kernel", "stripe_kernel")),
-            ("dg_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("walk_kernel", "gather_kernel")),
+            ("dg_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("walk1_kernel", "walk_kernel")),
             ("dgt_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("walk_kernel",)),
-            ("span_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"),
-             ("walk_kernel", "span_stream_kernel"))):
+            ("span_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("walk_kernel",))):
         by_family = {}
         for fn, ops in sass_by_kernel(lib_name, opcodes).items():
             fam = by_family.setdefault(kernel_family(fn, names), {})
@@ -350,12 +350,23 @@ def main() -> int:
             f"{sum(n for op, n in ops.items() if 'F32x4' in op)} float4 reduction sites")
         if cas or not any("F32x4" in op for op in ops):
             raise AssertionError(f"{fam}: shared atomics, or no float4 reduction: {ops}")
-    # #4 launches the walk kernel of #3: the dgt library holds nothing else
-    dgt_fns = functions.get("dgt_gather", set())
-    log(f"[build] dgt_gather kernels: {len(dgt_fns)}, all walk_kernel: "
-        f"{all('walk_kernel' in f for f in dgt_fns)}")
-    if not dgt_fns or not all("walk_kernel" in f for f in dgt_fns):
-        raise AssertionError(f"the dgt library holds a kernel other than the walk: {dgt_fns}")
+    # #2's one-column walk adds each row run by one scalar reduction
+    ops = sass_ops["dg_gather"].get("walk1_kernel", {})
+    cas = sum(n for op, n in ops.items() if op.startswith("ATOMS"))
+    red = sum(n for op, n in ops.items() if op.startswith("RED") and "ADD.F32" in op)
+    log(f"[build] walk1_kernel (dg_gather): {cas} ATOMS.CAS / shared atomic sites, {red} "
+        f"scalar fp32 reduction sites")
+    if cas or not red:
+        raise AssertionError(f"walk1_kernel: shared atomics, or no fp32 reduction: {ops}")
+    # #4 and #8 launch the walk kernel of #3 and #7: the dgt and span
+    # libraries hold nothing else
+    for lib_name in ("dgt_gather", "span_gather"):
+        fns = functions.get(lib_name, set())
+        log(f"[build] {lib_name} kernels: {len(fns)}, all walk_kernel: "
+            f"{all('walk_kernel' in f for f in fns)}")
+        if not fns or not all("walk_kernel" in f for f in fns):
+            raise AssertionError(f"the {lib_name} library holds a kernel other than the walk: "
+                                 f"{fns}")
 
     # ---- 3. each kernel against its plain version, on the card
     def check_vs_plain(which, label, desc, got, want, scale, tol):
@@ -379,7 +390,8 @@ def main() -> int:
         abs_args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals.abs(), fmt.nc_p)
         if kt == 1:
             x = x[:, 0].contiguous()
-            got = dg.dg1_rows_cuda(*args, x, rb=fmt.rb)
+            walk = dg.dg_row_walk(fmt)
+            got = dg.dg1_rows_cuda(*args, x, rb=fmt.rb, walk=walk)
             want = dg.dg1_rows_plain(*args, x, rb=fmt.rb)
             scale = dg.dg1_rows_plain(*abs_args, x.abs(), rb=fmt.rb)
             which = "dg1"
@@ -390,23 +402,36 @@ def main() -> int:
             want = dg.dg_rows_plain(*args, x, rb=fmt.rb, kt=kt, mode=mode)
             scale = dg.dg_rows_plain(*abs_args, x.abs(), rb=fmt.rb, kt=kt, mode="fp32x2")
             which = "dg"
-        branch = "shared tile" if kt == 1 else walk_branch(walk, k)
+        branch = walk1_branch(walk) if kt == 1 else walk_branch(walk, k)
         check_vs_plain(which, label, f"kt={kt} {mode} K={k} rb={fmt.rb}, {branch}",
                        got, want, scale, tol)
 
     def walk_branch(walk, k):
-        """How the row walk kernel (#1, #3, #4, #7) runs a walk at K = k."""
+        """How the row walk kernel (#1, #3, #4, #7, #8) runs a walk at K = k."""
         kc, pw, bs = row_walk.walk_geometry(k)
         return (f"row walk: {kc} columns in panels of {pw}, {bs} slots a block, "
                 f"{walk.runs} row runs for {walk.n_slots} live slots")
 
+    def walk1_branch(walk):
+        """How the one-column walk kernel (#2) runs a walk: geometry,
+        resources, row runs, the walk's bytes and build."""
+        spw, wpb, steps = row_walk.WALK1_GEOMETRY
+        info = dg.dg_walk1_info()
+        return (f"one-column walk: {spw} slots a warp, {wpb} warps a block, {steps} steps "
+                f"of 32 slots at once, {max(-(-walk.n_slots // (spw * wpb)), 1)} blocks; "
+                f"{info['registers']} registers, {info['spill_bytes']} spill bytes, "
+                f"{info['shared_bytes']} shared bytes, {info['blocks_per_sm']} blocks an SM; "
+                f"{walk.runs} row runs for {walk.n_slots} live slots; row walk "
+                f"{walk.nbytes / 2**20:.1f} MiB, built in {walk.build_seconds * 1e3:.1f} ms")
+
     def walk_line(which, label, walk, k, mode="fp32x2"):
-        """The [kernel] line of the row walk kernel (#1, #3, #4 or #7) on a
+        """The [kernel] line of the row walk kernel (#1, #3, #4, #7 or #8) on a
         walk at K = k: geometry, resources, row runs, the walk's bytes and
         build."""
         kc, pw, bs = row_walk.walk_geometry(k)
         info = {"dg": dg.dg_walk_info, "dgt": dgt.dgt_walk_info,
-                "dgt_stream": dgt.dgt_walk_info, "span": span.span_walk_info}[which](pw, mode)
+                "dgt_stream": dgt.dgt_walk_info, "span": span.span_walk_info,
+                "span_stream": span.span_walk_info}[which](pw, mode)
         order = torch.argsort(walk.slot)  # the same slots in the format's own order
         by_slot = walk.row[order]
         slot_runs = int((by_slot[1:] != by_slot[:-1]).sum()) + int(walk.n_slots > 0)
@@ -499,7 +524,7 @@ def main() -> int:
         v = fmt.vals.float() if vals is None else vals
         kw = dict(rb=fmt.rb, kt=kt, **(dict(ct=fmt.ct) if is_tile or stream else {}))
         plain = kernels[which]["plain"]
-        walk_kw = {} if is_tile or stream else dict(walk=span.span_row_walk(fmt), k=k)
+        walk_kw = {} if is_tile else dict(walk=span.span_row_walk(fmt), k=k)
         got = kernels[which]["wrapper"](start, fmt.cols, fmt.lrow, v, fmt.nc_p, x, mode=mode,
                                         **kw, **walk_kw)
         want = plain(start, fmt.cols, fmt.lrow, v, fmt.nc_p, x, mode=mode, **kw)
@@ -507,14 +532,9 @@ def main() -> int:
         if is_tile:  # #5 and #6: one kernel, the format walked once per panel
             pw, cpb = tile.stream_geometry(x.shape[1], fmt.chunk_g)
             branch = f"panel {pw} x{-(-x.shape[1] // pw)}, {cpb} chunk(s) a block"
-        elif stream:
-            shared = span.span_uses_shared_tile(fmt.rb, kt, g=fmt.chunk_g, ct=fmt.ct)
-            branch = "shared tile" if shared else "global atomics"
-        else:  # #7: the row walk
+        else:  # #7 and #8: the row walk, one per format for both wrappers
             branch = walk_branch(walk_kw["walk"], k)
-        if which == "span_stream":
-            rows = span.span_stream_slice_rows(fmt.rb, kt, fmt.chunk_g, fmt.ct)
-            branch += f", window slice {rows}"
+            assert fmt.walk is walk_kw["walk"]
         check_vs_plain(which, label,
                        f"kt={kt} {mode} K={k} rb={fmt.rb} ct={fmt.ct} g={fmt.chunk_g} "
                        f"P={fmt.cols.shape[0]} NC={fmt.n_chunks} pad={fmt.padding_rate:.3f}"
@@ -548,10 +568,10 @@ def main() -> int:
         win_vs_plain("span", label, fspan, 8, "fp32x2", vals=plane)
         win_vs_plain("span_stream", label, fspan, 8, "fp32x2", vals=plane)
         fspan_g = span.pack_span(m_, rb=2048, ct=ct_s, g=g_s, device=dev)
-        win_vs_plain("span", label, fspan_g, 32, "fp32x2")            # 256 KB: global atomics
+        win_vs_plain("span", label, fspan_g, 32, "fp32x2")            # rb 2048
         win_vs_plain("span_stream", label, fspan_g, 32, "fp32x2")
         fspan_w = span.pack_span(m_, rb=1024 if head else 128, ct=4096, g=g_s, device=dev)
-        win_vs_plain("span_stream", label, fspan_w, 100, "fp32")      # window in slices
+        win_vs_plain("span_stream", label, fspan_w, 100, "fp32")      # ct 4096, K 100
     log(f"[kernel] tile and span checks (packing included): {time.perf_counter() - t0:.1f} s")
 
     def radix_vs_plain(label, fmt, k, kt=None):
@@ -889,7 +909,7 @@ def main() -> int:
         return fn
 
     # each path's kernel is then held against its plain version at the
-    # path's own format (the 80 KB opt-in row tile of rb = 2560 among them)
+    # path's own format
     run_path("spmv_auto_262k", "dg1", lambda: spmv_fn(big, "auto"), xv, ref_v, (SPMV_N,))
     fmt1 = spmv_fns["spmv_auto_262k"].format
     vs_plain("spmv", fmt1, 1, 1, "fp32x2", tol)
@@ -968,6 +988,9 @@ def main() -> int:
                              xb8_0, ref_b8_0, (SPMV_N, 8))
     win_vs_plain("span_stream", "headline", f_span, 8, "fp32x2")
     win_vs_plain("span_stream", "spmv", f_b0, 8, "fp32x2")
+    # #8 walks the same row walk as #7 on P2's sub-format, built once
+    assert f_b0.walk is span.span_row_walk(f_b0)
+    walk_line("span_stream", "P2's first sub-format, stream=True", f_b0.walk, 8)
 
     # P7: SpMV through the span kernel, x widened to 8 columns
     run_path("spmv_span_262k", "span", lambda: spmv_fn(big, "span"), xv, ref_v, (SPMV_N,))
@@ -1710,11 +1733,11 @@ def main() -> int:
                 kw["resid"] = fmt.resid
             elif which == "dgt_stream":
                 kw["nw"] = fmt.nw
-        # #1, #3 and #4 walk the format's row walk (built at its first use),
-        # reading K columns of X padded to kt
-        walk_of = {"dg": dg.dg_row_walk, "dgt": dgt.dgt_row_walk,
-                   "dgt_stream": dgt.dgt_row_walk}.get(which)
-        walk_kw = {} if walk_of is None else dict(walk=walk_of(fmt), k=x2.shape[1])
+        # #1-#4 walk the format's row walk (built at its first use), #1, #3
+        # and #4 reading K columns of X padded to kt, #2 x as one column
+        walk_of = {"dg": dg.dg_row_walk, "dg1": dg.dg_row_walk, "dgt": dgt.dgt_row_walk,
+                   "dgt_stream": dgt.dgt_row_walk}[which]
+        walk_kw = dict(walk=walk_of(fmt), **({} if which == "dg1" else dict(k=x2.shape[1])))
         kern = functools.partial(kernels[which]["wrapper"], *args, rb=fmt.rb, **kw, **walk_kw)
         plain = functools.partial(plain_fn, *args, rb=fmt.rb, **kw)
         return measure(which, label, [fmt], a, k, kern, plain, xk, xd, whole, pack, bound_k)
@@ -1732,8 +1755,7 @@ def main() -> int:
             start = f.chunk_tile if is_tile else f.c0
             kw = dict(rb=f.rb, kt=kt, mode="fp32x2",
                       **(dict(ct=f.ct) if is_tile or stream else {}))
-            walk_kw = ({} if is_tile or stream
-                       else dict(walk=span.span_row_walk(f), k=x2.shape[1]))
+            walk_kw = {} if is_tile else dict(walk=span.span_row_walk(f), k=x2.shape[1])
             calls.append(((start, f.cols, f.lrow, f.vals, f.nc_p), kw, walk_kw))
         xk = [xp[lo:lo + f.shape[1]].contiguous() for f, lo in parts]
 
@@ -2145,6 +2167,8 @@ def main() -> int:
     profile_call("P2 spmm 262144^2 K=8 (span_colsplit(2))", plan_b8.fn,
                  torch.as_tensor(xb8, device=dev), calls=10)
     profile_call("SpMV 262144^2 spmv_fn('dgt8') (#3)", spmv_fns["spmv_dgt8_262k"],
+                 torch.as_tensor(xv, device=dev), calls=10)
+    profile_call("SpMV 262144^2 spmv_fn('auto') (#2)", spmv_fns["spmv_auto_262k"],
                  torch.as_tensor(xv, device=dev), calls=10)
     profile_call("P8 spmm 262144^2 K=4 (radix_span)", plan_b4.fn,
                  torch.as_tensor(xb4, device=dev), calls=10)

@@ -300,3 +300,65 @@ def test_row_walk_follows_its_planes(case):
         plane.view(-1)[int(torch.nonzero(plane.reshape(-1) == 0)[0])] = 1.0
         with pytest.raises(ValueError, match="off the format's pattern"):
             rw.gathers(walk, plane, "dg")
+
+
+# ------------------------------------------------------ the one-column walk
+# On the card #2 walks the same row walk as #1, with x as one column: its
+# one-column kernel sums each row run of the walk by a warp scan.  Its
+# function in plain PyTorch (``walk_rows_plain`` on x as one column) must
+# equal ``dg1_rows_plain`` at 1e-5 of |A|.|x| and, unpacked, the JAX
+# ``dg_spmv`` in interpret mode, as ``test_dg_spmv_matches_jax`` runs it.
+
+def _spmv_case(case):
+    """(JAX COO, x [N]) of a one-column walk case."""
+    from tpusparse.io.mtx import CooMatrix as JCoo
+
+    rng = np.random.default_rng(61)
+    if case == "empty":
+        return JCoo(np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.float32),
+                    (70, 90)), rng.standard_normal(90).astype(np.float32)
+    if case == "one_nz":
+        return JCoo(np.array([5]), np.array([17]), np.array([-1.5], np.float32),
+                    (70, 90)), rng.standard_normal(90).astype(np.float32)
+    m, n = {"long_row": (96, 5200), "n_odd": (300, 403)}.get(case, (500, 3000))
+    mat = jbuilder.power_law_coo(m, n, avg_nnz_per_row=9.0, seed=62)
+    if case == "long_row":  # row 3 holds every column: one run of 5200 slots
+        keep = mat.rows != 3
+        mat = JCoo(np.concatenate([mat.rows[keep], np.full(n, 3)]),
+                   np.concatenate([mat.cols[keep], np.arange(n)]),
+                   np.concatenate([mat.vals[keep],
+                                   rng.standard_normal(n).astype(np.float32)]), (m, n))
+    return mat, rng.standard_normal(n).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["power_law", "empty", "one_nz", "long_row", "n_odd",
+                                  "with_values"])
+def test_one_column_walk_equals_plain_and_jax(case):
+    from tpusparse.io.mtx import CooMatrix as JCoo
+
+    mat, x = _spmv_case(case)
+    jfmt = jdg.pack_dg(mat, rb=64, ns=2, g=128, kt=1, keep_perm=case == "with_values")
+    fmt = _from_jax(jfmt)
+    walk = tdg.dg_row_walk(fmt)
+    if case == "with_values":  # the pattern's walk goes with the new values
+        new_vals = np.random.default_rng(63).standard_normal(mat.nnz).astype(np.float32)
+        jfmt = jdg.with_values(jfmt, new_vals)
+        fmt = tdg.with_values(fmt, new_vals)
+        assert fmt.walk.slot is walk.slot and tdg.dg_row_walk(fmt) is fmt.walk
+        walk, mat = fmt.walk, JCoo(mat.rows, mat.cols, new_vals, mat.shape)
+    assert walk.n_slots == mat.nnz and walk.n_rows == fmt.n_programs * fmt.rb
+    if case == "long_row":
+        assert int(torch.unique_consecutive(walk.row, return_counts=True)[1].max()) >= 5000
+    xt = torch.from_numpy(x)
+    got = rw.walk_rows_plain(walk, fmt.vals, xt.view(-1, 1))[:, 0]
+    args = (fmt.c0, fmt.cols, fmt.lrow)
+    want = tdg.dg1_rows_plain(*args, fmt.vals, fmt.nc_p, xt, rb=fmt.rb)
+    scale = tdg.dg1_rows_plain(*args, fmt.vals.abs(), fmt.nc_p, xt.abs(), rb=fmt.rb)
+    assert got.shape == want.shape == (fmt.n_programs * fmt.rb,)
+    assert float(((got - want).abs() / scale.clamp(min=1.0)).max()) <= 1e-5
+    y = tdg.unpack_by_deal(fmt, got).numpy().reshape(-1, 1)
+    yj = np.asarray(jdg.dg_spmv(jfmt, x)).reshape(-1, 1)
+    check_result(y, yj, rtol=5e-4)
+    check_result(y, spmm_reference(mat, x.astype(np.float64).reshape(-1, 1)), rtol=1e-5)
+    if case in ("empty", "one_nz"):
+        assert walk.runs == mat.nnz and int(np.count_nonzero(y)) == mat.nnz

@@ -54,11 +54,11 @@ def mat():
     return builder.power_law_coo(4096, 4096, avg_nnz_per_row=16.0, seed=21)
 
 
-def _rows_vs_plain(fmt, k, kt, mode, dev, vals=None):
+def _rows_vs_plain(fmt, k, kt, mode, dev, vals=None, geometry=rw.WALK1_GEOMETRY):
     """Max error of the kernel against its plain version, relative to
     |A|·|x| (they differ only in the order of their atomic fp32 sums).
-    ``vals``: a value plane other than the format's (the row walk kernel
-    gathers from it)."""
+    ``vals``: a value plane other than the format's (the row walk kernels
+    gather from it); ``geometry``: the one-column walk's (kt = 1)."""
     x = torch.as_tensor(np.random.default_rng(2).standard_normal((fmt.shape[1], k)),
                         dtype=torch.float32, device=dev)
     vals = fmt.vals if vals is None else vals
@@ -67,7 +67,8 @@ def _rows_vs_plain(fmt, k, kt, mode, dev, vals=None):
     if kt == 1:
         x = x[:, 0].contiguous()
         before = dg.dg1_rows_cuda.launches
-        got = dg.dg1_rows_cuda(*args, x, rb=fmt.rb)
+        got = dg.dg1_rows_cuda(*args, x, rb=fmt.rb, walk=dg.dg_row_walk(fmt),
+                               geometry=geometry)
         assert dg.dg1_rows_cuda.launches == before + 1
         want = dg.dg1_rows_plain(*args, x, rb=fmt.rb)
         scale = dg.dg1_rows_plain(*abs_args, x.abs(), rb=fmt.rb)
@@ -96,10 +97,10 @@ def test_kernel_matches_plain(cuda, mat, kt, mode, k, rb):
     fmt = dg.pack_dg(mat, rb=rb, ns=4 if kt == 1 else 8, g=2048 if kt == 1 else 512,
                      kt=kt, mode=mode, device=cuda)
     assert _rows_vs_plain(fmt, k, kt, mode, cuda) <= 1e-5
-    if kt > 1:  # #1 walks rows: no row tile, no spill, at least 2 blocks an SM
-        info = dg.dg_walk_info(rw.walk_geometry(k)[1], mode)
-        assert info["spill_bytes"] == 0 and info["shared_bytes"] == 0
-        assert info["blocks_per_sm"] >= 2
+    # #1 and #2 walk rows: no row tile, no spill, at least 2 blocks an SM
+    info = dg.dg_walk_info(rw.walk_geometry(k)[1], mode) if kt > 1 else dg.dg_walk1_info()
+    assert info["spill_bytes"] == 0 and info["shared_bytes"] == 0
+    assert info["blocks_per_sm"] >= 2
 
 
 @pytest.mark.parametrize("k,kt", [(2, 8), (5, 8), (64, 32), (200, 32)])
@@ -111,6 +112,80 @@ def test_dg_row_walk_widths(cuda, mat, k, kt):
     assert _rows_vs_plain(fmt, k, kt, "fp32x2", cuda) <= 1e-5
     assert _rows_vs_plain(fmt, k, kt, "fp32x2", cuda, vals=fmt.vals.clone()) <= 1e-5
     assert fmt.walk is dg.dg_row_walk(fmt) and fmt.walk.n_slots == mat.nnz
+
+
+def _spmv_walk_case(case):
+    """A COO of a one-column walk case: power law, empty, one nonzero, one
+    row of 5200 slots, 403 columns (not a multiple of 4)."""
+    from tpusparse_torch.io.mtx import CooMatrix
+
+    rng = np.random.default_rng(61)
+    if case == "empty":
+        return CooMatrix(np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.float32),
+                         (70, 90))
+    if case == "one_nz":
+        return CooMatrix(np.array([5]), np.array([17]), np.array([-1.5], np.float32), (70, 90))
+    m, n = {"long_row": (4096, 5200), "n_odd": (4096, 403)}.get(case, (4096, 4096))
+    a = builder.power_law_coo(m, n, avg_nnz_per_row=16.0, seed=62)
+    if case == "long_row":  # row 3 holds every column
+        keep = a.rows != 3
+        a = CooMatrix(np.concatenate([a.rows[keep], np.full(n, 3)]),
+                      np.concatenate([a.cols[keep], np.arange(n)]),
+                      np.concatenate([a.vals[keep], rng.standard_normal(n).astype(np.float32)]),
+                      (m, n))
+    return a
+
+
+@pytest.mark.parametrize("case,geometry", [
+    ("power_law", rw.WALK1_GEOMETRY), ("empty", rw.WALK1_GEOMETRY),
+    ("one_nz", rw.WALK1_GEOMETRY), ("long_row", rw.WALK1_GEOMETRY),
+    ("n_odd", rw.WALK1_GEOMETRY), ("with_values", rw.WALK1_GEOMETRY),
+    ("long_row", (32, 1, 1)),        # the 5200-slot row over 163 warps, each a block
+    ("long_row", (64, 2, 4)),        # ranges shorter than a warp's four steps
+    ("power_law", (4096, 4, 2)),
+])
+def test_dg_spmv_walk_matches_plain(cuda, case, geometry):
+    # #2, the one-column walk, on hand-built formats and geometries: a run
+    # carried from step to step, cut at warp and block ends, an empty walk
+    a = _spmv_walk_case("power_law" if case == "with_values" else case)
+    fmt = dg.pack_dg(a, rb=4096 if a.shape[0] >= 4096 else 128, ns=4, g=2048, kt=1,
+                     keep_perm=case == "with_values", device=cuda)
+    walk = dg.dg_row_walk(fmt)
+    assert walk.n_slots == a.nnz
+    if case == "with_values":  # the walk's values, then a caller's plane gathered
+        new = np.random.default_rng(64).standard_normal(a.nnz).astype(np.float32)
+        fmt = dg.with_values(fmt, new)
+        assert fmt.walk.slot is walk.slot and dg.dg_row_walk(fmt) is fmt.walk
+        assert _rows_vs_plain(fmt, 1, 1, "fp32x2", cuda, vals=fmt.vals.clone()) <= 1e-5
+    if case == "long_row":  # the row spans warps (and, at 32 or 64 slots a warp, blocks)
+        longest = int(torch.unique_consecutive(walk.row, return_counts=True)[1].max())
+        assert longest >= 5000 and longest > geometry[0]
+    assert _rows_vs_plain(fmt, 1, 1, "fp32x2", cuda, geometry=geometry) <= 1e-5
+    info = dg.dg_walk1_info(geometry)
+    assert info["spill_bytes"] == 0 and info["shared_bytes"] == 0
+    assert info["blocks_per_sm"] >= 2
+
+
+def test_dg_spmv_walk_refuses_bad_walks(cuda, mat):
+    # a missing walk, another format's and one of planes written since are
+    # refused, not run; nothing falls back to the plain version
+    fmt = dg.pack_dg(mat, rb=4096, ns=4, g=2048, kt=1, device=cuda)
+    args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p)
+    x = torch.ones(4096, dtype=torch.float32, device=cuda)
+    before = dg.dg1_rows_cuda.launches
+    with pytest.raises(ValueError, match="walk="):
+        dg.dg1_rows_cuda(*args, x, rb=4096)
+    other = dg.pack_dg(mat, rb=4096, ns=4, g=2048, kt=1, device=cuda)
+    with pytest.raises(ValueError, match="not built from"):
+        dg.dg1_rows_cuda(*args, x, rb=4096, walk=dg.dg_row_walk(other))
+    walk = dg.dg_row_walk(fmt)
+    fmt.cols.add_(0)                                  # written since: stale
+    with pytest.raises(ValueError, match="not built from"):
+        dg.dg1_rows_cuda(*args, x, rb=4096, walk=walk)
+    with pytest.raises(RuntimeError, match="dg_spmv_launch"):   # a geometry it refuses
+        dg.dg1_rows_cuda(*args, x, rb=4096, walk=dg.dg_row_walk(fmt), geometry=(48, 8, 4))
+    assert dg.dg1_rows_cuda.launches == before
+    assert dg.dg_spmv(fmt, x).is_cuda and dg.dg1_rows_cuda.launches == before + 1
 
 
 @pytest.mark.parametrize("k", [1, 8, 64])
@@ -382,7 +457,7 @@ def _window_vs_plain(which, fmt, k, dev, stream, mode, vals=None):
         wrapper, plain = ((span.span_stream_rows_cuda, span.span_stream_rows_plain) if stream
                           else (span.span_rows_cuda, span.span_rows_plain))
     args = (start, fmt.cols, fmt.lrow, vals, fmt.nc_p)
-    walk_kw = {} if which == "tile" or stream else dict(walk=span.span_row_walk(fmt), k=k)
+    walk_kw = {} if which == "tile" else dict(walk=span.span_row_walk(fmt), k=k)
     before = wrapper.launches
     got = wrapper(*args, x, mode=mode, **kw, **walk_kw)
     want = plain(*args, x, mode=mode, **kw)
@@ -464,22 +539,22 @@ def test_tile_stream_kernel_edges(cuda, case, mode, k, stream):
     ("fp32x2", 100, 512, 1024, 512, False),
     ("fp32x2", 32, 2048, 1024, 512, False),      # rb 2048: y_rows in device memory
     ("fp32x2", 8, 512, 1024, 512, True), ("bf16", 32, 512, 1024, 512, True),
-    ("fp32", 100, 1024, 4096, 512, True),        # window staged in slices
-    ("fp32x2", 8, 2048, 4096, 512, True),        # 64 KB tile + 128 KB window, opted in
-    ("fp32x2", 32, 2048, 1024, 512, True),       # global-atomic branch, window staged
+    ("fp32", 100, 1024, 4096, 512, True),        # ct 4096, Kp 128: one panel of 128
+    ("fp32x2", 8, 2048, 4096, 512, True),        # rb 2048, ct 4096
+    ("fp32x2", 32, 2048, 1024, 512, True),       # rb 2048: y_rows in device memory
 ])
 def test_span_kernels_match_plain(cuda, mat, mode, k, rb, ct, g, stream):
     fmt = span.pack_span(mat, rb=rb, ct=ct, g=g, device=cuda)
     assert _window_vs_plain("span", fmt, k, cuda, stream, mode) <= 1e-5
-    kt = tile.choose_kt(min(k, 32))
-    if stream:  # #8 keeps its shared row tile where it fits
-        assert span.span_uses_shared_tile(rb, kt, g=g, ct=ct) == (rb * kt * 4 <= 200 * 1024)
-    else:       # #7 walks rows: no row tile, no spill, at least 2 blocks an SM
-        info = span.span_walk_info(rw.walk_geometry(k)[1], mode)
-        assert info["spill_bytes"] == 0 and info["shared_bytes"] == 0
-        assert info["blocks_per_sm"] >= 2
-    if stream and (k, ct) == (100, 4096):
-        assert span.span_stream_slice_rows(rb, kt, g, ct) < ct
+    # #7 and #8 walk rows: no row tile, no spill, at least 2 blocks an SM
+    info = span.span_walk_info(rw.walk_geometry(k)[1], mode)
+    assert info["spill_bytes"] == 0 and info["shared_bytes"] == 0
+    assert info["blocks_per_sm"] >= 2
+    if stream:  # the stream and resident wrappers share the format's one walk
+        walk = fmt.walk
+        assert walk is not None and span.span_row_walk(fmt) is walk
+        assert _window_vs_plain("span", fmt, k, cuda, False, mode) <= 1e-5
+        assert fmt.walk is walk
 
 
 @pytest.mark.parametrize("k", [1, 2, 5, 37, 256, 520])
@@ -563,15 +638,25 @@ def test_tile_plan_and_spmv_span_on_card(cuda, mat):
 
 @pytest.mark.parametrize("rb,kt", [(512, 32), (1792, 8)])
 def test_opt_in_is_per_library(cuda, mat, rb, kt):
-    # dg (its SpMV kernel #2) and radix each launch gather_kernel from their
-    # own library; an opt-in past 48 KB made by one (dg first: a 64 KB row
-    # tile at rb 16384) must not be taken for the other's; the row walk
-    # kernels of dg (#1) and span (no shared memory) run between and after
+    # the Block-ELL kernel (#13) and radix's gather_kernel (#9) each opt
+    # into more than 48 KB of dynamic shared memory from their own library:
+    # Block-ELL first (its bf16 wgmma kernel's four stages), then radix's
+    # row tile at (rb, kt) (64 KB, 56 KB).  An opt-in made by one must not
+    # be taken for the other's.  The row walk kernels of dg (#1, #2) and span
+    # (no shared memory) run between and after.
+    a13 = builder.block_sparse_coo(512, 512, 128, 0.5, seed=14)
+    f13 = be.pack_block_ell(a13, dtype=torch.bfloat16, device=cuda)
+    xb = torch.as_tensor(np.random.default_rng(15).standard_normal((512, 64)),
+                         dtype=torch.float32, device=cuda)
+    b13 = (f13.blkcol, f13.blkvals, f13.nb_p, xb)
+    got = be.bell_rows_cuda(*b13, mode="bf16", work=f13.work)
+    scale = be.bell_rows_plain(f13.blkcol, f13.blkvals.abs(), f13.nb_p, xb.abs(), mode="bf16")
+    assert _rel_to_scale(got, be.bell_rows_plain(*b13, mode="bf16"), scale) <= 1e-5
     x = torch.as_tensor(np.random.default_rng(13).standard_normal((4096, kt)),
                         dtype=torch.float32, device=cuda)
     f1 = dg.pack_dg(mat, rb=16384, ns=4, g=2048, kt=1, device=cuda)
     args = (f1.c0, f1.cols, f1.lrow, f1.vals, f1.nc_p, x[:, 0].contiguous())
-    torch.testing.assert_close(dg.dg1_rows_cuda(*args, rb=16384),
+    torch.testing.assert_close(dg.dg1_rows_cuda(*args, rb=16384, walk=dg.dg_row_walk(f1)),
                                dg.dg1_rows_plain(*args, rb=16384), rtol=1e-5, atol=1e-4)
     f = dg.pack_dg(mat, rb=rb, ns=8, g=512, kt=kt, device=cuda)
     args = (f.c0, f.cols, f.lrow, f.vals, f.nc_p, x)
@@ -580,12 +665,15 @@ def test_opt_in_is_per_library(cuda, mat, rb, kt):
                                dg.dg_rows_plain(*args, rb=rb, kt=kt, mode="fp32x2"),
                                rtol=1e-5, atol=1e-4)
     r = radix.pack_radix(mat, rb=rb, S=128, g=512, kt=kt, device=cuda)
+    assert radix.radix_uses_shared_tile(rb, kt) and rb * kt * 4 > 48 * 1024
     args = (r.c0, r.cols, r.lrow, r.vals, r.nc_p, x)
     torch.testing.assert_close(radix.radix_rows_cuda(*args, rb=rb, kt=kt, mode=r.mode),
                                radix.radix_rows_plain(*args, rb=rb, kt=kt, mode=r.mode),
                                rtol=1e-5, atol=1e-4)
     s = span.pack_span(mat, rb=rb, ct=1024, g=512, device=cuda)
     assert _window_vs_plain("span", s, kt, cuda, False, "fp32") <= 1e-5
+    got = be.bell_rows_cuda(*b13, mode="bf16", work=f13.work)
+    assert _rel_to_scale(got, be.bell_rows_plain(*b13, mode="bf16"), scale) <= 1e-5
 
 
 def _err(got, want, scale, dev):

@@ -362,3 +362,41 @@ def test_walk_geometry(k, want):
     # K = 1-2 read one float4 a slot; streams of one or two lanes take
     # bigger blocks, the widest panels smaller; past 512 the panels repeat
     assert rw.walk_geometry(k) == want
+
+
+@pytest.mark.parametrize("case", ["ct4096_k100", "vals_plane", "bf16"])
+def test_stream_row_walk_equals_plain_and_jax(case):
+    # On the card the stream wrapper (#8) walks the format's row walk, as
+    # the resident one does: its function in plain PyTorch must equal
+    # span_stream_rows_plain and, unpacked, the JAX package's stream
+    # kernel in interpret mode, at the stream shapes the card checks: a
+    # window of 4096 columns at K = 100 in fp32, a caller's value plane,
+    # bf16
+    k, precision = {"ct4096_k100": (100, "fp32"), "bf16": (16, "bf16")}.get(case, (8, "fp32"))
+    jmat, tmat, x = _case(k=k, seed=13)
+    kw = dict(rb=64, ct=4096 if case == "ct4096_k100" else 128, g=32,
+              keep_perm=case == "vals_plane")
+    jfmt = jspan.pack_span(jmat, **kw)
+    fmt = tspan.pack_span(tmat, device="cpu", **kw)
+    _assert_same_format(jfmt, fmt)
+    walk = tspan.span_row_walk(fmt)
+    jvals, vals, ref_mat = None, fmt.vals, jmat
+    if case == "vals_plane":  # the trainable path's vals=, gathered through the walk
+        new = np.random.default_rng(14).standard_normal(jmat.nnz).astype(np.float32)
+        jvals, vals = jspan.with_values(jfmt, new).vals, tspan.with_values(fmt, new).vals
+        ref_mat = CooMatrix(tmat.rows, tmat.cols, new, tmat.shape)
+        assert rw.gathers(walk, vals, "span")
+    xt = torch.from_numpy(x)
+    bf16 = precision == "bf16"
+    got = rw.walk_rows_plain(walk, vals, xt, bf16=bf16)
+    args = (fmt.c0, fmt.cols, fmt.lrow)
+    want = tspan.span_stream_rows_plain(*args, vals, fmt.nc_p, xt, rb=fmt.rb, ct=fmt.ct, kt=8,
+                                        mode=precision)
+    scale = tspan.span_stream_rows_plain(*args, vals.abs(), fmt.nc_p, xt.abs(), rb=fmt.rb,
+                                         ct=fmt.ct, kt=8, mode="fp32")
+    assert float(((got - want).abs() / scale.clamp(min=1.0)).max()) <= 1e-5
+    y = unpack_slots(got, fmt.slot_of_origrow).numpy()
+    yj = np.asarray(jspan.span_spmm(jfmt, x, precision=precision, stream=True, vals=jvals))
+    ref = spmm_reference(ref_mat, x.astype(np.float64))
+    np.testing.assert_allclose(y, yj, rtol=0, atol=TOL[precision] * np.abs(ref).max())
+    check_result(y, ref, rtol=8e-2 if bf16 else 1e-5)

@@ -3,7 +3,8 @@ reads them, for the port in any checkout, so that two commits are compared
 on one card in one run: the dg kernels (#1 ``dg_rows_cuda``, #2
 ``dg1_rows_cuda``), the dgt kernels (#3 ``dgt_rows_cuda``, #4
 ``dgt_stream_rows_cuda``), the resident tile kernel (#5,
-``tile_rows_cuda``), the span kernel (#7, ``span_rows_cuda``), the radix
+``tile_rows_cuda``), the span kernels (#7 ``span_rows_cuda``, #8
+``span_stream_rows_cuda``), the radix
 kernel (#9, ``radix_rows_cuda``), the stripe kernels (#10
 ``stripe_rows_cuda``, #11 ``stripe_nested_rows_cuda``), the N:M kernel
 (#12, ``nm_rows_cuda``) and the Block-ELL kernel (#13, ``bell_rows_cuda``):
@@ -15,8 +16,9 @@ one holding this file), for example an older commit unpacked with ``git
 archive`` into an ignored directory; run it in turns (older, newer, newer,
 older).  The timer is this checkout's ``harness.device_time_fn``, loaded by
 path, so an older checkout that lacks it is timed the same way.  A
-checkout whose dg, dgt, dgt stream and span wrappers take a row walk gets
-the format's (built before the timing), one whose stripe wrapper takes the
+checkout whose dg, dg SpMV, dgt, dgt stream, span and span stream
+wrappers take a row walk gets the format's (built before the timing), one
+whose stripe wrapper takes the
 live slots or whose Block-ELL wrapper takes work items gets the format's;
 an older one is called as it was.  ``--only`` keeps the shapes whose name
 starts with one of its comma-separated prefixes ("#3", "#1,#4", "T1",
@@ -43,8 +45,12 @@ checkout's ``bell_int8`` hands it), beside cuBLAS's dense product.  #3:
 ``dg_span`` default at K = 8 (rb 1024 ns 8 g 512) and K = 64 (rb 512, kt
 32) and the tune's rb 512 ns 8 g 512 row at K = 8.  #2: config #1's
 default at K = 1 (rb 4096 ns 4 g 2048) and ``spmv_fn(mat, "auto")``'s
-format of the SpMV workload.  #4 (``dgt_spmm(stream_x=True)``'s kernel):
-config #1's ``dgt_span`` rb 512 nw 8 g 512 format at K = 8 and
+format of the SpMV workload.  #8 (``span_spmm(stream=True)``'s kernel):
+config #1 in the tune's four span formats (``_span_configs``; the smoke's
+P5 row is the one the tune found fastest) at K = 8, and the first
+sub-format of the SpMV workload's K = 8 default (``span_colsplit``,
+columns [0, 131072)).  #4 (``dgt_spmm(stream_x=True)``'s kernel): config
+#1's ``dgt_span`` rb 512 nw 8 g 512 format at K = 8 and
 ``spmv_multi_fn(mat, 8)``'s at K = 8 and 64 (X of 64 MB, past the 50 MB
 L2).  #9: the SpMV workload's ``radix_span`` default at K = 4 (P8),
 ``spmv_fn(mat, "radix")``'s format at K = 1 and ``brick_ell`` on the
@@ -56,7 +62,7 @@ weight, x [4, 128, 4096], Adam.  For each: the device time a call
 (profiler, 20 calls: the wrapper's kernel and its zero fill), the
 back-to-back time a call (``time_fn``, median of five, host included), the
 largest error against the plain version relative to |A|·|X| and, for #1
-to #4, #7, #9 and #10, cuSPARSE's device and ``time_fn`` times for the same
+to #4, #7 to #10, cuSPARSE's device and ``time_fn`` times for the same
 product (``torch.sparse.mm`` on CSR), for #12 and #13 cuBLAS's dense
 ``torch.mm`` of the same weight (``torch._int_mm`` for int8).  A device
 time the profiler cannot give (records dropped in every window) is a CUDA
@@ -247,7 +253,8 @@ def main() -> int:
         abs_args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals.abs(), fmt.nc_p)
         if k == 1:
             x = rand_x(fmt.shape[1], 1, 1)[:, 0].contiguous()
-            record(name, lambda v: dg.dg1_rows_cuda(*args, v, rb=fmt.rb),
+            walk = dict(walk=dg.dg_row_walk(fmt)) if takes_walk(dg.dg1_rows_cuda) else {}
+            record(name, lambda v: dg.dg1_rows_cuda(*args, v, rb=fmt.rb, **walk),
                    lambda v: dg.dg1_rows_plain(*args, v, rb=fmt.rb),
                    lambda v: dg.dg1_rows_plain(*abs_args, v, rb=fmt.rb), x,
                    csr_lib(a, x.view(-1, 1)))
@@ -271,26 +278,28 @@ def main() -> int:
                                                 fmt.nc_p, v, **kw),
                x, csr_lib(a, x[:, :k].contiguous()))
 
-    def span_shape(name, parts, a, k, vals=None):
-        """The span kernel over ``parts`` [(format, first column of X)]: the
-        launches of one product, X padded to span_spmm's K-tile."""
+    def span_shape(name, parts, a, k, vals=None, stream=False):
+        """The span kernel (#8 with ``stream``, else #7) over ``parts``
+        [(format, first column of X)]: the launches of one product, X padded
+        to span_spmm's K-tile."""
         kt = tile.choose_kt(min(tile.default_ktile(k), 32))
         x = rand_x(a.shape[1], k, kt)
+        wrapper = span.span_stream_rows_cuda if stream else span.span_rows_cuda
         calls = []
         for f, lo in parts:
             v = f.vals if vals is None else vals
-            walk = (dict(walk=span.span_row_walk(f), k=k) if hasattr(span, "span_row_walk")
-                    else {})
+            kern_kw = dict(dict(ct=f.ct) if stream else {}, **(
+                dict(walk=span.span_row_walk(f), k=k) if takes_walk(wrapper) else {}))
             calls.append(((f.c0, f.cols, f.lrow, v, f.nc_p), (f.c0, f.cols, f.lrow, v.abs(),
                                                                f.nc_p),
-                          dict(rb=f.rb, kt=kt, mode="fp32x2"), walk))
+                          dict(rb=f.rb, kt=kt, mode="fp32x2"), kern_kw))
         xs = [x[lo:lo + f.shape[1]].contiguous() for f, lo in parts]
 
-        def run(fn, walk, absolute=False):
-            return lambda v: [fn(*(ab if absolute else ar), xi, **kw, **(wk if walk else {}))
-                              for (ar, ab, kw, wk), xi in zip(calls, v)]
+        def run(fn, kernel, absolute=False):
+            return lambda v: [fn(*(ab if absolute else ar), xi, **kw, **(kk if kernel else {}))
+                              for (ar, ab, kw, kk), xi in zip(calls, v)]
 
-        record(name, run(span.span_rows_cuda, True), run(span.span_rows_plain, False),
+        record(name, run(wrapper, True), run(span.span_rows_plain, False),
                run(span.span_rows_plain, False, True), xs, csr_lib(a, x[:, :k].contiguous()))
 
     mat = builder.power_law_coo(32768, 32768, avg_nnz_per_row=32.0, alpha=1.8, seed=42)
@@ -334,11 +343,27 @@ def main() -> int:
         print(f"T1 training step: device {fmt_ms(device)} ms a step, time_fn {host:.4f} ms",
               flush=True)
     big = builder.power_law_coo(262144, 262144, avg_nnz_per_row=40.0, seed=9)
-    if wanted("#7"):
+    if wanted("#7") or wanted("#8"):
         plan = build_plan(big, default_schedule(big, 8), device=dev)
+    if wanted("#7"):
         span_shape("#7 262144^2 span_colsplit(2) K=8",
                    [(f, lo) for f, (lo, _) in zip(plan.formats, plan.meta["col_ranges"])],
                    big, 8)
+    if wanted("#8"):
+        from tpusparse_torch.io.mtx import CooMatrix
+        from tpusparse_torch.tune import _span_configs
+
+        for rb, ct, g in _span_configs(mat.density):
+            span_shape(f"#8 config #1 span rb{rb} ct{ct} g{g} K=8",
+                       [(span.pack_span(mat, rb=rb, ct=ct, g=g, device=dev), 0)], mat, 8,
+                       stream=True)
+        lo, hi = plan.meta["col_ranges"][0]
+        keep = (big.cols >= lo) & (big.cols < hi)
+        sub = CooMatrix(big.rows[keep], big.cols[keep] - lo, big.vals[keep],
+                        (big.shape[0], hi - lo))
+        span_shape(f"#8 262144^2 span_colsplit(2) sub-format [{lo}, {hi}) K=8",
+                   [(plan.formats[0], 0)], sub, 8, stream=True)
+    if wanted("#7") or wanted("#8"):
         del plan
     if wanted("#10"):
         for work in (2048, 512):

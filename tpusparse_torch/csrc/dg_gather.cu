@@ -3,6 +3,7 @@
 //   dg_walk_launch  replaces _dg_kernel  (dg_gather.py:318), kt 8/16/32,
 //                   modes fp32x2 and bf16;
 //   dg_spmv_launch  replaces _dg1_kernel (dg_gather.py:382), kt 1 (SpMV).
+// Both launch a kernel of row_walk.cuh over the format's row walk.
 //
 // Function.  The format is the JAX package's DgFormat: P programs of NC
 // chunks of G slots; c0 [P,1,NC] holds each chunk's window start column,
@@ -20,28 +21,46 @@
 // kept about 16 bits of each product, so this is at least its class).
 // bf16: each product rounded to bf16, summed in fp32.
 //
-// Design.
-//   dg_walk_launch: row_walk.cuh's row walk kernel, as dgt_gather.cu and
-//   span_gather.cu launch it.  A dg chunk is sorted by column, so in slot
-//   order almost every slot is a row run of its own; the wrapper lists the
-//   live slots once per pattern in (row, slot) order (the format's row
-//   walk, kernels/row_walk.py) and the kernel walks them once per panel of
-//   up to 512 columns, each row run summed in registers and added into
-//   y_rows by float4 atomics: one walk for K = 64, where the shared row
-//   tile of gather_common.cuh took two (one per K-tile of 32), each with a
-//   shared CAS add per slot and column, and rb = 2048 at KT = 32 fell to
-//   global atomics.
-//   dg_spmv_launch: gather_common.cuh's gather_kernel at KT = 1 with its
-//   WindowSlots decode (column c0 + cols, shared with radix_gather.cu): an
-//   [rb] row tile in shared memory, per-slot shared atomics.
+// Design.  Both kernels walk the format's row walk (row_walk.cuh): a dg
+// chunk is sorted by column, so in slot order almost every slot is a row run
+// of its own; the wrapper lists the live slots once per pattern in (row,
+// slot) order (kernels/row_walk.py, kept on the format), and each row run
+// is summed in registers and added into y_rows once.
+//   dg_walk_launch: walk_kernel, as dgt_gather.cu and span_gather.cu launch
+//   it, once per panel of up to 512 columns, each run added by float4
+//   atomics: one walk for K = 64, where the shared row tile of
+//   gather_common.cuh took two (one per K-tile of 32), each with a shared
+//   CAS add per slot and column, and rb = 2048 at KT = 32 fell to global
+//   atomics.
+//   dg_spmv_launch: walk1_kernel, the one-column walk: a warp's 32 lanes on
+//   32 neighbouring slots, runs summed by a segmented warp scan and added
+//   by one scalar atomic each, none in shared memory (a shared fp32 add is
+//   a CAS loop on this card).  x stays one column: walk_kernel would pad
+//   it to 4 and read a float4 a slot.
 //
 // Bound.  Memory: the walk's 12 bytes a live slot (row, column, value; with
-// a caller's plane the slot index and a gathered value), or 12 bytes per
-// slot of the format (SpMV), plus the X rows gathered and Y; 2 flops per
-// slot and column.  See PERF.md for the times against the bound on the card.
+// a caller's plane the slot index and a gathered value), the X rows
+// gathered and Y; 2 flops per slot and column.  See PERF.md for the times
+// against the bound on the card.
 
-#include "gather_common.cuh"
+#include <type_traits>
+
 #include "row_walk.cuh"
+
+namespace {
+
+// walk1_kernel takes 1, 2 or 4 steps of 32 slots a warp at once.
+template <typename Fn>
+int by_steps(int steps, Fn fn) {
+  switch (steps) {
+    case 1: return fn(std::integral_constant<int, 1>{});
+    case 2: return fn(std::integral_constant<int, 2>{});
+    case 4: return fn(std::integral_constant<int, 4>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -63,16 +82,29 @@ int dg_walk_info(int pw, int bf16, int* out) {
   return runs::kernel_info(runs::walk_kernel_of(pw, bf16), out);
 }
 
-// y [P*rb] must be zeroed; x is [N] fp32.
-int dg_spmv_launch(const void* c0, const void* cols, const void* lrow, const void* vals,
-                   const void* nc_p, const void* x, void* y, int P, int NC, int G, int rb,
-                   int N, int splits, void* stream) {
-  const gather::WindowSlots slots{static_cast<const int*>(c0), static_cast<const int*>(cols),
-                                  static_cast<const int*>(lrow), N};
-  return gather::launch_window_kt<1, false>(
-      slots, static_cast<const float*>(vals), static_cast<const int*>(nc_p),
-      static_cast<const float*>(x), static_cast<float*>(y), P, NC, G, rb, 1, splits,
-      static_cast<cudaStream_t>(stream));
+// The one-column walk kernel over the S slots of a walk (row, col, slot
+// int32 [S]): values vals[slot[i]] from a value plane with gather, else the
+// walk's own vals[i]; y [rows] must be zeroed; x is [N] fp32; spw slots a
+// warp, wpb warps a block, `steps` steps of 32 slots loaded at once.
+// Returns the cudaError_t of the launch (0 on success).
+int dg_spmv_launch(const void* row, const void* col, const void* slot, const void* vals,
+                   const void* x, void* y, int S, int spw, int wpb, int steps, int gather,
+                   void* stream) {
+  return by_steps(steps, [&](auto u) {
+    return runs::walk1_launch<decltype(u)::value>(row, col, slot, vals, x, y, S, spw, wpb,
+                                                  gather, stream);
+  });
+}
+
+// The one-column walk kernel of `steps` at wpb warps a block into
+// out[0..3]: registers a thread, local (spill) bytes a thread, static shared
+// bytes, blocks an SM holds.  Returns a cudaError_t.
+int dg_walk1_info(int steps, int wpb, int* out) {
+  if (wpb < 1 || wpb > runs::kThreads / 32) return static_cast<int>(cudaErrorInvalidValue);
+  return by_steps(steps, [&](auto u) {
+    return runs::kernel_info(reinterpret_cast<const void*>(runs::walk1_kernel<decltype(u)::value>),
+                             out, 32 * wpb);
+  });
 }
 
 }  // extern "C"

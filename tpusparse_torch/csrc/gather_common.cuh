@@ -1,14 +1,12 @@
-// gather_common.cuh - the gather machinery that radix_gather.cu (#9) and
-// dg_gather.cu's SpMV kernel (#2) launch, the shared-memory helpers of the
-// span stream kernel (#8) and the cp.async copies that the N:M and
-// Block-ELL kernels (#12, #13) stage tiles with.  Per-slot shared atomics
-// remain only in gather_kernel (#2, #9) and the span stream kernel (#8):
-// the dg, dgt and span kernels #1, #3, #4 and #7 walk row runs instead
-// (row_walk.cuh), the tile and stripe kernels #5, #6, #10 and #11 slot
-// streams (row_runs.cuh).
+// gather_common.cuh - the gather machinery that radix_gather.cu (#9)
+// launches, and the opt-in and cp.async copies that the N:M and Block-ELL
+// kernels (#12, #13) stage tiles with.  Per-slot shared atomics remain only
+// in gather_kernel (#9): the dg, dgt and span kernels #1-#4, #7 and #8
+// walk row runs instead (row_walk.cuh), the tile and stripe kernels #5,
+// #6, #10 and #11 slot streams (row_runs.cuh).
 //
-// The formats differ only in how a slot names its column of X and its row
-// of y_rows; everything else is here:
+// A format supplies how a slot names its column of X and its row of
+// y_rows; everything else is here:
 //
 //   gather_kernel<Slots, KT, BF16, SHARED_TILE>  one block per (share of
 //       program p's chunk range, p, K-tile t).  Its threads take a chunk's
@@ -22,21 +20,20 @@
 //       into, the same kernel adds every product straight into y_rows with
 //       global atomics (SHARED_TILE false).
 //   Slots  the format's decode: Slots::chunk(c) reads what a chunk shares
-//       (dg and radix: its window start), and the chunk's decode maps slot
-//       s at flat index i to (col, row); it returns false for a slot that
-//       must be skipped.  WindowSlots below is the decode of the formats
-//       whose slot names start[chunk] + cols.
+//       (radix: its window start), and the chunk's decode maps slot s at
+//       flat index i to (col, row); it returns false for a slot that must
+//       be skipped.  WindowSlots below is the decode of the formats whose
+//       slot names start[chunk] + cols.
 //   launch_tiled  picks the shared-tile or the global-atomic instantiation
 //       and launches it, opting into more than 48 KB of dynamic shared
 //       memory once per kernel and device; launch_window_kt does so for
 //       gather_kernel<Slots, KT>.
 //   cp_async*  the cp.async copies (global to shared, bypassing registers)
-//       with which the span stream kernel stages X and the slot planes.
+//       with which the N:M and Block-ELL kernels stage their tiles.
 //
 // The programs' chunk ranges are split over `splits` blocks because the
-// TPU geometry gives few programs (P = 32 to 139 at the 32768-row headline)
-// against 132 SMs.  Chunks at or past nc_p[p] hold only zeros and are not
-// walked.
+// TPU geometry gives few programs against 132 SMs.  Chunks at or past
+// nc_p[p] hold only zeros and are not walked.
 //
 // Linkage.  Every definition below is internal to the library that includes
 // this header (an unnamed namespace): the sources are separate shared
@@ -256,17 +253,16 @@ class OptIn {
   std::atomic<bool> set_[kMaxDevices] = {};
 };
 
-// Launches `shared_kernel` with the [rb, KT] row tile (`tile` bytes) and
-// `extra` bytes of dynamic shared memory where both fit, else
-// `global_kernel` with `extra` bytes; `optin` belongs to `shared_kernel`.
-// Returns the cudaError_t of the launch.
+// Launches `shared_kernel` with the [rb, KT] row tile (`tile` bytes of
+// dynamic shared memory) where it fits the opt-in limit, else
+// `global_kernel` with none; `optin` belongs to `shared_kernel`.  Returns
+// the cudaError_t of the launch.
 template <typename Kernel, typename... Args>
 int launch_tiled(Kernel shared_kernel, Kernel global_kernel, OptIn& optin, dim3 grid,
-                 size_t tile, size_t extra, cudaStream_t stream, Args... args) {
-  const bool shared = tile + extra <= static_cast<size_t>(optin_shared_bytes());
-  if (!shared && extra > kDefaultSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (shared ? tile : 0) + extra;
-  if (shared && smem > kDefaultSmem) {
+                 size_t tile, cudaStream_t stream, Args... args) {
+  const bool shared = tile <= static_cast<size_t>(optin_shared_bytes());
+  const size_t smem = shared ? tile : 0;
+  if (smem > kDefaultSmem) {
     const cudaError_t err = optin.ensure(reinterpret_cast<const void*>(shared_kernel));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -274,10 +270,10 @@ int launch_tiled(Kernel shared_kernel, Kernel global_kernel, OptIn& optin, dim3 
   return static_cast<int>(cudaGetLastError());
 }
 
-// gather_kernel<Slots> at KT (dg's SpMV: 1 without bf16; radix: any of 1,
-// 2, 4, 8, 16, 32 with or without bf16): y [P*rb, Kp] must be zeroed; x is
-// [N, Kp] fp32, Kp a multiple of KT.  Only the libraries that call it (a
-// template for that reason) compile its kernels.
+// gather_kernel<Slots> at KT (radix: any of 1, 2, 4, 8, 16, 32 with or
+// without bf16): y [P*rb, Kp] must be zeroed; x is [N, Kp] fp32, Kp a
+// multiple of KT.  Only the libraries that call it (a template for that
+// reason) compile its kernels.
 template <int KT, bool BF16, class Slots>
 int launch_window_kt(const Slots& slots, const float* vals, const int* nc_p, const float* x,
                      float* y, int P, int NC, int G, int rb, int Kp, int splits,
@@ -285,7 +281,7 @@ int launch_window_kt(const Slots& slots, const float* vals, const int* nc_p, con
   static OptIn optin;  // of this instantiation's shared-tile kernel, in this library
   return launch_tiled(gather_kernel<Slots, KT, BF16, true>,
                       gather_kernel<Slots, KT, BF16, false>, optin,
-                      dim3(splits, P, Kp / KT), tile_bytes(rb, KT), 0, stream, slots, vals, nc_p,
+                      dim3(splits, P, Kp / KT), tile_bytes(rb, KT), stream, slots, vals, nc_p,
                       x, y, NC, G, rb, Kp, splits);
 }
 

@@ -1,8 +1,9 @@
 // row_runs.cuh - the slot stream that tile_onehot.cu (kernels #5 and #6),
 // stripe_gather.cu (the stripe kernel #10, the nested kernel #11) and,
-// through row_walk.cuh, dg_gather.cu (#1), dgt_gather.cu (#3, #4) and
-// span_gather.cu (#7) share: a run of slots walked once per panel of X's
-// columns, each row run summed in registers and added into y once.
+// through row_walk.cuh's walk_kernel, dg_gather.cu (#1), dgt_gather.cu (#3,
+// #4) and span_gather.cu (#7, #8) share: a run of slots walked once per
+// panel of X's columns, each row run summed in registers and added into y
+// once.
 //
 // A stream is LPS lanes of one warp (LPS = PW/4, at most 32; PW the panel
 // width, 4..512 columns).  It takes a contiguous range of slots, in rounds:
@@ -152,15 +153,15 @@ __device__ __forceinline__ void walk(Slot& slot, int s0, int s1, const float* __
 }
 
 // The kernel's registers a thread, local (spill) bytes a thread, static
-// shared bytes and blocks of kThreads an SM holds, into out[0..3].
+// shared bytes and blocks of `threads` an SM holds, into out[0..3].
 // Returns a cudaError_t.
-int kernel_info(const void* kernel, int* out) {
+int kernel_info(const void* kernel, int* out, int threads = kThreads) {
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.localSizeBytes);

@@ -1,10 +1,17 @@
-// row_walk.cuh - the row walk kernel that dg_gather.cu (#1, behind
-// dg_walk_launch), dgt_gather.cu (#3 and #4, behind dgt_spmm_launch) and
-// span_gather.cu (#7, behind span_spmm_launch) each instantiate: one walk
-// over a format's live slots in y_rows-row order, each row run summed in
-// registers (row_runs.cuh's walk) and added into the zeroed y_rows once by
-// atomicAdd(float4*), which sm_90 compiles to REDG.E.ADD.F32x4.  No shared
-// memory, no shared atomics.
+// row_walk.cuh - the two row walk kernels over a format's live slots in
+// y_rows-row order, each row run summed in registers and added into the
+// zeroed y_rows once; no shared memory, no shared atomics.
+//
+//   walk_kernel<PW, BF16>  X of 4 to 512 columns a panel: row_runs.cuh's
+//       slot streams, each run added by atomicAdd(float4*), which sm_90
+//       compiles to REDG.E.ADD.F32x4.  dg_gather.cu (#1, behind
+//       dg_walk_launch), dgt_gather.cu (#3 and #4, behind dgt_spmm_launch)
+//       and span_gather.cu (#7 and #8, behind span_spmm_launch) each
+//       instantiate it.
+//   walk1_kernel<U>  x one column (SpMV): a warp's lanes on 32 slots a step,
+//       each run summed by a warp-segmented scan and added by one scalar
+//       atomicAdd (RED.E.ADD.F32).  dg_gather.cu (#2, behind
+//       dg_spmv_launch) instantiates it.
 //
 // Why a walk.  The dg, dgt and span formats store slots in the TPU's order:
 // a dg or span chunk is sorted by column, a dgt tile by (window, residue
@@ -21,11 +28,18 @@
 // so it needs no copy.  Gathering the value cost a third of the SpMV time
 // on the card (PERF.md).  A value that reads 0 is skipped.
 //
-// Grid.  Flat over the walk's S slots, bs a block (the wrapper's choice by
-// panel: 2048 up to 8 columns, 1024, 512 at 256 and 512 columns),
-// times panels of up to 512 columns: neither the format's programs nor its
-// K-tile shape it.  A row longer than a block's share is cut into a few
-// runs, each added on its own, which is why y must be zeroed first.
+// Grid of walk_kernel.  Flat over the walk's S slots, bs a block (the
+// wrapper's choice by panel: 2048 up to 8 columns, 1024, 512 at 256 and 512
+// columns), times panels of up to 512 columns: neither the format's
+// programs nor its K-tile shape it.  A row longer than a block's share is
+// cut into a few runs, each added on its own, which is why y must be
+// zeroed first.
+//
+// Grid of walk1_kernel.  Flat over the walk: warp w takes slots [w*spw,
+// (w+1)*spw), wpb warps a block (the wrapper's choice, swept on the card).
+// walk_kernel's narrowest stream (PW = 4, one lane a slot stream of 8
+// slots and a float4 of X padded to 4 columns a slot) is what one column
+// would cost there; here 32 lanes read 32 neighbouring slots.
 //
 // Bound.  Memory: 12 bytes a live slot of the walk (row, column, value;
 // with a caller's plane the slot index and a gathered value, one 32-byte
@@ -105,6 +119,102 @@ int walk_launch(const void* wrow, const void* wcol, const void* wslot, const voi
   void* args[] = {&r, &c, &sl, &v, &x_, &y_, &S, &ld, &kc, &bs};
   const cudaError_t err = cudaLaunchKernel(kernel, grid, dim3(kThreads), args, 0,
                                            static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+
+// The one-column walk.  Warp w takes slots [w*spw, w*spw + spw) of the
+// walk, U steps of 32 at a time: lane l reads slot base + 32u + l's row,
+// column and value (coalesced 4-byte loads, or the value through wslot)
+// and x[col] (4 bytes, from L2 where x fits it), all U steps' loads issued
+// before the first product is summed.  A step is summed by row with an
+// inclusive scan over the warp (__shfl_up_sync, 5 steps), in which a lane
+// adds a neighbour's partial sum only when that neighbour lies in its own
+// run: the walk's rows are sorted, so a run is the lanes from its head (the
+// highest lane at or below this one whose row differs from its left
+// neighbour's, from one ballot) on.  A run ends where the next lane opens
+// one, and its last lane adds the run's sum into y once.  Lane 31's run
+// may go on in the next step: its sum and row are carried in registers,
+// and lane 0 of the next step either takes it into its own run or adds it.
+template <int U>
+__global__ void __launch_bounds__(kThreads)
+walk1_kernel(const int* __restrict__ wrow, const int* __restrict__ wcol,
+             const int* __restrict__ wslot, const float* __restrict__ vals,
+             const float* __restrict__ x, float* __restrict__ y, int S, int spw) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x % 32;
+  const int64_t lo =
+      (static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32) * spw;
+  if (lo >= S) return;  // uniform over the warp
+  const int s0 = static_cast<int>(lo);  // walk1_launch keeps S + spw * wpb + 32U < 2^31
+  const int s1 = min(s0 + spw, S);
+  const unsigned upto = lane == 31 ? kAll : (2u << lane) - 1u;  // lanes 0..lane
+  float carry = 0.f;  // the sum of the run open at the last step's lane 31
+  int carry_row = -1;
+  for (int base = s0; base < s1; base += 32 * U) {
+    int row[U], col[U];
+    float v[U], p[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = base + 32 * u + lane;
+      const bool in = i < s1;  // a lane past the range: row -1, value 0
+      row[u] = in ? wrow[i] : -1;
+      col[u] = in ? wcol[i] : 0;
+      v[u] = in ? (wslot != nullptr ? vals[wslot[i]] : vals[i]) : 0.f;  // uniform branch
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) p[u] = v[u] != 0.f ? v[u] * x[col[u]] : 0.f;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = row[u];
+      float q = p[u];
+      if (lane == 0) {
+        if (r == carry_row) {
+          q += carry;
+        } else if (carry_row >= 0) {
+          atomicAdd(y + carry_row, carry);
+        }
+      }
+      const int left = __shfl_up_sync(kAll, r, 1);
+      const unsigned heads = __ballot_sync(kAll, lane == 0 || r != left);
+      const int head = 31 - __clz(heads & upto);
+#pragma unroll
+      for (int d = 1; d < 32; d *= 2) {
+        const float o = __shfl_up_sync(kAll, q, d);
+        if (lane - d >= head) q += o;
+      }
+      if (lane < 31 && (heads >> (lane + 1) & 1u) && r >= 0) atomicAdd(y + r, q);
+      carry = __shfl_sync(kAll, q, 31);
+      carry_row = __shfl_sync(kAll, r, 31);
+    }
+  }
+  if (lane == 0 && carry_row >= 0) atomicAdd(y + carry_row, carry);
+}
+
+// Launches walk1_kernel<U> over the S slots of a walk (wrow, wcol, wslot
+// int32 [S]) for y [rows] (zeroed) and x [N] fp32: spw slots a warp (a
+// multiple of 32), wpb warps a block (1 to 8); the values vals[wslot[i]]
+// with gather, else vals[i].  At least one block, so an empty walk is a
+// launch too.  Returns a cudaError_t.
+template <int U>
+int walk1_launch(const void* wrow, const void* wcol, const void* wslot, const void* vals,
+                 const void* x, void* y, int S, int spw, int wpb, int gather, void* stream) {
+  const int64_t per_block = static_cast<int64_t>(spw) * wpb;
+  if (S < 0 || spw < 32 || spw % 32 || wpb < 1 || wpb > kThreads / 32 ||
+      static_cast<int64_t>(S) + per_block + 32 * U >= (int64_t{1} << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = S > 0 ? static_cast<int>((S + per_block - 1) / per_block) : 1;
+  const auto* r = static_cast<const int*>(wrow);
+  const auto* c = static_cast<const int*>(wcol);
+  const auto* sl = gather ? static_cast<const int*>(wslot) : nullptr;
+  const auto* v = static_cast<const float*>(vals);
+  const auto* x_ = static_cast<const float*>(x);
+  auto* y_ = static_cast<float*>(y);
+  void* args[] = {&r, &c, &sl, &v, &x_, &y_, &S, &spw};
+  const cudaError_t err =
+      cudaLaunchKernel(reinterpret_cast<const void*>(walk1_kernel<U>), dim3(blocks),
+                       dim3(32 * wpb), args, 0, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 

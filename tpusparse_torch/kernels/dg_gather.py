@@ -16,7 +16,9 @@ plain PyTorch version of the same function:
   dg_rows_cuda   / dg_rows_plain    replace ``_dg_kernel``  (kt 8/16/32,
                                     fp32x2 and bf16): the row walk kernel
                                     over the format's ``dg_row_walk``
-  dg1_rows_cuda  / dg1_rows_plain   replace ``_dg1_kernel`` (kt 1, SpMV)
+  dg1_rows_cuda  / dg1_rows_plain   replace ``_dg1_kernel`` (kt 1, SpMV):
+                                    the one-column walk kernel over the
+                                    same ``dg_row_walk``
 
 Each computes the pre-unpack row block ``y_rows[p*rb + lrow] += v * X[c0 +
 cols]``; ``unpack_by_deal`` then maps program slots back to matrix rows as
@@ -37,10 +39,10 @@ import torch
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import build
 from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info,
-                                            launch_checked, launch_splits, pad_dense_cols,
-                                            prep_x, resolve_device, unpack_by_deal,
-                                            window_rows_plain)
-from tpusparse_torch.kernels.row_walk import RowWalk, build_row_walk, launch_walk, live_slots
+                                            pad_dense_cols, prep_x, resolve_device,
+                                            unpack_by_deal, window_rows_plain)
+from tpusparse_torch.kernels.row_walk import (WALK1_GEOMETRY, RowWalk, build_row_walk,
+                                              launch_walk, launch_walk1, live_slots)
 from tpusparse_torch.levels import Level
 
 PRECISIONS = ("fp32x2", "bf16")
@@ -84,7 +86,7 @@ class DgFormat:
       nc_p  [P, 1, 1]  int32  real chunk count
       slot_of_origrow [M] int32
     ``perm_of_nz`` (numpy, host) maps each COO nonzero to its flat slot.
-    ``walk`` is the port's own field: the row walk the kt >= 8 kernel walks
+    ``walk`` is the port's own field: the row walk the kernels walk
     (``dg_row_walk``), built on the card at the first launch, not part of
     ``memory_bytes``.
     """
@@ -386,8 +388,10 @@ def _lib():
     lib.dg_walk_launch.restype = i32
     lib.dg_walk_info.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
     lib.dg_walk_info.restype = i32
-    lib.dg_spmv_launch.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+    lib.dg_spmv_launch.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.dg_spmv_launch.restype = i32
+    lib.dg_walk1_info.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
+    lib.dg_walk1_info.restype = i32
     return lib
 
 
@@ -426,14 +430,28 @@ def dg_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode, walk=None, k=No
     return y
 
 
-def dg1_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb):
+def dg_walk1_info(geometry: tuple[int, int, int] = WALK1_GEOMETRY) -> dict:
+    """The one-column walk kernel of ``geometry`` (slots a warp, warps a
+    block, steps at once) in this library: registers a thread, spilled
+    (local) bytes a thread, static shared bytes and blocks of the
+    geometry's warps an SM holds."""
+    _, wpb, steps = geometry
+    return kernel_info(_lib().dg_walk1_info, "dg_walk1_info", steps, wpb)
+
+
+def dg1_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, walk=None,
+                  geometry: tuple[int, int, int] = WALK1_GEOMETRY):
     """CUDA ``_dg1_kernel`` (tpusparse/kernels/dg_gather.py:382): y_rows
-    [P*rb] for x [N] fp32."""
+    [P*rb] for x [N] fp32, from one launch of the one-column walk kernel
+    over ``walk``, the format's live slots in row order
+    (``dg_row_walk(fmt)``; one built from other planes, or before they
+    were written, is refused).  The values are ``vals``'s: streamed from
+    the walk where it holds them, else gathered through its slot index.
+    ``geometry``: slots a warp, warps a block and steps of 32 slots a warp
+    loads at once (``WALK1_GEOMETRY``, chosen on the card)."""
     _check_format(c0, cols, lrow, vals, nc_p, x, 1)
-    P, NC, G = cols.shape
-    y = torch.zeros(P * rb, dtype=torch.float32, device=x.device)
-    launch_checked(_lib().dg_spmv_launch, "dg_spmv_launch", (c0, cols, lrow, vals, nc_p, x, y),
-                   (P, NC, G, rb, x.shape[0], launch_splits(x.device, P, NC)))
+    y = launch_walk1(_lib().dg_spmv_launch, "dg_spmv_launch", walk, (c0, cols, lrow, nc_p),
+                     vals, x, rows=cols.shape[0] * rb, geometry=geometry)
     dg1_rows_cuda.launches += 1
     return y
 
@@ -472,5 +490,8 @@ def dg_spmv(fmt: DgFormat, x) -> torch.Tensor:
     assert fmt.kt == 1, "pack with kt=1 for SpMV"
     x = prep_x(x, fmt.device).reshape(-1)
     assert x.shape[0] == fmt.shape[1], f"x length {x.shape[0]} != A cols {fmt.shape[1]}"
-    rows_fn = dg1_rows_cuda if fmt.device.type == "cuda" else dg1_rows_plain
-    return unpack_by_deal(fmt, rows_fn(*_fmt_args(fmt), x, rb=fmt.rb))
+    if fmt.device.type == "cuda":
+        y_rows = dg1_rows_cuda(*_fmt_args(fmt), x, rb=fmt.rb, walk=dg_row_walk(fmt))
+    else:
+        y_rows = dg1_rows_plain(*_fmt_args(fmt), x, rb=fmt.rb)
+    return unpack_by_deal(fmt, y_rows)

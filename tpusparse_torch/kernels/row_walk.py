@@ -1,15 +1,16 @@
-"""row_walk — the row order that the dg (#1), dgt (#3, #4) and span (#7)
-kernels walk.
+"""row_walk — the row order that the dg (#1, #2), dgt (#3, #4) and span
+(#7, #8) kernels walk.
 
 None of these formats stores its slots by row: a dg or span chunk is
 sorted by column, a dgt tile by window and residue class, so in slot order
-almost every slot is a row run of its own.  The kernel
-(``csrc/row_walk.cuh``) sums each row run in registers and adds it into
-y_rows once, so it walks a derived list instead: every live slot of the
-pattern once, as (y_rows row, X column, flat slot index), sorted by (row,
-slot).  The list is built on the device with torch ops from the decode the
-plain versions use, at a format's first launch on the card, and kept on
-the format (``DgFormat.walk``, ``DgtFormat.walk``, ``SpanFormat.walk``),
+almost every slot is a row run of its own.  The kernels
+(``csrc/row_walk.cuh``: ``walk_kernel`` for X of 4 columns and more,
+``walk1_kernel`` for x of one, the dg SpMV) sum each row run in registers
+and add it into y_rows once, so they walk a derived list instead: every
+live slot of the pattern once, as (y_rows row, X column, flat slot index),
+sorted by (row, slot).  The list is built on the device with torch ops
+from the decode the plain versions use, at a format's first launch on the
+card, and kept on the format (``DgFormat.walk``, ``DgtFormat.walk``, ``SpanFormat.walk``),
 so that ``dataclasses.replace`` carries it; ``with_values`` gives it the
 new plane's values (``RowWalk.for_plane``).  It also holds the values of
 the plane it was built from in its order, which the kernel streams when a
@@ -47,6 +48,9 @@ from tpusparse_torch.kernels.common import cdiv, launch_checked
 WALK_BLOCK_SLOTS = {4: 2048, 8: 2048, 16: 1024, 32: 1024, 64: 1024, 128: 1024, 256: 512,
                     512: 512}
 WALK_PANELS = tuple(WALK_BLOCK_SLOTS)
+#: the one-column walk kernel's geometry: slots a warp, warps a block and
+#: steps of 32 slots a warp loads at once (chosen on the card, PERF.md)
+WALK1_GEOMETRY = (256, 4, 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,27 +191,34 @@ def gathers(walk: RowWalk, vals, name: str) -> bool:
     return True
 
 
-def launch_walk(fn, name: str, walk: RowWalk, pattern, vals, x, *, rows: int,
-                k: int | None, bf16: bool):
-    """y_rows [rows, Kp] from one launch of a library's row walk kernel
-    ``fn`` over ``walk``, which must be decoded from the index planes
-    ``pattern`` as they stand, with the value plane ``vals`` (fp32, the
-    format's shape) and X [N, Kp] (checked by the caller); ``k`` is the
-    number of X's columns that carry the product (None: all Kp), the rest
-    zero padding that the kernel neither reads nor writes.  The kernel
-    streams the walk's own values where it holds those of ``vals``, else
-    gathers from ``vals`` (``gathers``)."""
-    n, kp = x.shape
+def check_walk(name: str, walk: RowWalk, pattern, vals, x, *, rows: int) -> None:
+    """Raises unless ``walk`` is a RowWalk decoded from the index planes
+    ``pattern`` as they stand, of a format whose value plane has ``vals``'s
+    slots, ``rows`` rows of y_rows and X's rows, on X's device."""
     if walk is None or not isinstance(walk, RowWalk):
         raise ValueError(f"{name} walks the format's row walk: pass walk=")
     if not walk.built_from(pattern):
         raise ValueError(f"{name}: the row walk was not built from these index planes as "
                          "they stand (take it from dg_row_walk, dgt_row_walk or span_row_walk)")
-    if (walk.row.device != x.device or walk.plane_slots != vals.numel() or walk.n_cols != n
-            or walk.n_rows != rows):
+    if (walk.row.device != x.device or walk.plane_slots != vals.numel()
+            or walk.n_cols != x.shape[0] or walk.n_rows != rows):
         raise ValueError(f"{name}: the row walk ({walk.plane_slots} slots, {walk.n_rows} "
                          f"rows, {walk.n_cols} columns, on {walk.row.device}) is not this "
                          "format's")
+
+
+def launch_walk(fn, name: str, walk: RowWalk, pattern, vals, x, *, rows: int,
+                k: int | None, bf16: bool):
+    """y_rows [rows, Kp] from one launch of a library's row walk kernel
+    ``fn`` over ``walk``, which must be decoded from the index planes
+    ``pattern`` as they stand (``check_walk``), with the value plane
+    ``vals`` (fp32, the format's shape) and X [N, Kp] (checked by the
+    caller); ``k`` is the number of X's columns that carry the product
+    (None: all Kp), the rest zero padding that the kernel neither reads nor
+    writes.  The kernel streams the walk's own values where it holds those
+    of ``vals``, else gathers from ``vals`` (``gathers``)."""
+    check_walk(name, walk, pattern, vals, x, rows=rows)
+    kp = x.shape[1]
     kc, pw, bs = walk_geometry(kp if k is None else min(k, kp))
     if kp % 4 or kc > kp:
         raise ValueError(f"{name}: X {tuple(x.shape)} is not padded to a multiple of 4")
@@ -215,6 +226,20 @@ def launch_walk(fn, name: str, walk: RowWalk, pattern, vals, x, *, rows: int,
     y = torch.zeros((walk.n_rows, kp), dtype=torch.float32, device=x.device)
     launch_checked(fn, name, (walk.row, walk.col, walk.slot, vals if gather else walk.val, x, y),
                    (walk.n_slots, kp, kc, pw, int(bf16), bs, int(gather)))
+    return y
+
+
+def launch_walk1(fn, name: str, walk: RowWalk, pattern, vals, x, *, rows: int,
+                 geometry: tuple[int, int, int] = WALK1_GEOMETRY):
+    """y_rows [rows] from one launch of the one-column walk kernel ``fn``
+    over ``walk`` (checked as ``launch_walk`` checks it), with the value
+    plane ``vals`` and x [N] (checked by the caller); ``geometry``: slots a
+    warp, warps a block and steps of 32 slots loaded at once."""
+    check_walk(name, walk, pattern, vals, x, rows=rows)
+    gather = gathers(walk, vals, name)
+    y = torch.zeros(walk.n_rows, dtype=torch.float32, device=x.device)
+    launch_checked(fn, name, (walk.row, walk.col, walk.slot, vals if gather else walk.val, x, y),
+                   (walk.n_slots, *geometry, int(gather)))
     return y
 
 

@@ -18,10 +18,11 @@ Kernels (CUDA C++, ``tpusparse_torch/csrc/span_gather.cu``), each beside its
 plain PyTorch version of the same function:
 
   span_rows_cuda        / span_rows_plain         replace ``_span_kernel``
-                                                  (the row walk kernel over
-                                                  the format's
-                                                  ``span_row_walk``)
   span_stream_rows_cuda / span_stream_rows_plain  replace ``_span_kernel_stream``
+
+Both launch the row walk kernel over the format's ``span_row_walk``: the
+TPU's stream variant staged each chunk's window of X because X could not
+stay in VMEM, and on the card a slot reads the row of X it needs.
 
 Each computes ``y_rows[p*rb + lrow] += v * X[c0 + cols]``; the slot gather
 through ``slot_of_origrow`` then gives Y.  A wrapper launches its kernel for
@@ -43,10 +44,8 @@ from tpusparse_torch.format import live_chunk_counts
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import build
 from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info,
-                                            launch_checked, launch_splits, pad_dense_cols,
-                                            prep_x,
-                                            resolve_device, unpack_slots, value_dtype,
-                                            window_rows_plain)
+                                            pad_dense_cols, prep_x, resolve_device,
+                                            unpack_slots, value_dtype, window_rows_plain)
 from tpusparse_torch.kernels.row_walk import RowWalk, build_row_walk, launch_walk, live_slots
 from tpusparse_torch.kernels.tile_onehot import PRECISIONS, choose_kt, default_ktile
 from tpusparse_torch.levels import Level
@@ -66,9 +65,9 @@ class SpanFormat:
 
     ``nc_p`` is the port's own field (the chunk walk's count per program):
     the kernels walk only a program's real chunks.  So is ``walk``, the
-    row walk the kernel walks (``span_row_walk``), built on the card at
-    the first launch and not part of ``memory_bytes``.  Every other field
-    equals the JAX ``SpanFormat``'s.  ``perm_of_nz`` (numpy, host) maps each input
+    row walk both wrappers' kernel walks (``span_row_walk``), built on the
+    card at the first launch and not part of ``memory_bytes``.  Every
+    other field equals the JAX ``SpanFormat``'s.  ``perm_of_nz`` (numpy, host) maps each input
     nonzero to its flat slot (``pack_span(keep_perm=True)``).
     """
 
@@ -333,7 +332,7 @@ def span_rows_plain(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode):
 
 def span_stream_rows_plain(c0, cols, lrow, vals, nc_p, x, *, rb, ct, kt, mode):
     """Plain PyTorch ``_span_kernel_stream``: the same function as
-    ``span_rows_plain`` (``ct`` sizes only the stream kernel's window)."""
+    ``span_rows_plain`` (``ct`` sized only the TPU kernel's window)."""
     return span_rows_plain(c0, cols, lrow, vals, nc_p, x, rb=rb, kt=kt, mode=mode)
 
 
@@ -348,27 +347,7 @@ def _lib():
     lib.span_spmm_launch.restype = i32
     lib.span_walk_info.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
     lib.span_walk_info.restype = i32
-    lib.span_stream_launch.argtypes = [ptr] * 7 + [i32] * 10 + [ptr]
-    lib.span_stream_launch.restype = i32
-    lib.span_uses_shared_tile.argtypes = [i32] * 4
-    lib.span_uses_shared_tile.restype = i32
-    lib.span_stream_slice_rows.argtypes = [i32] * 4
-    lib.span_stream_slice_rows.restype = i32
     return lib
-
-
-def span_uses_shared_tile(rb: int, kt: int, *, g: int, ct: int) -> bool:
-    """Whether a launch of the stream kernel at (rb, kt) keeps its row tile
-    in shared memory beside its staged planes (``g``) and X window slice
-    (``ct``) (False: the kernel's global-atomic branch).  The row walk
-    kernel holds no tile."""
-    return bool(_lib().span_uses_shared_tile(rb, kt, g, ct))
-
-
-def span_stream_slice_rows(rb: int, kt: int, g: int, ct: int) -> int:
-    """The rows of a chunk's X window the stream kernel stages at once
-    (``ct`` where the whole window fits)."""
-    return int(_lib().span_stream_slice_rows(rb, kt, g, ct))
 
 
 def span_walk_info(pw: int, mode: str) -> dict:
@@ -408,18 +387,19 @@ def span_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode, walk=None, k=
     return y
 
 
-def span_stream_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, ct, kt, mode):
+def span_stream_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, ct, kt, mode, walk=None,
+                          k=None):
     """CUDA ``_span_kernel_stream`` (tpusparse/kernels/span_gather.py:329):
-    the same y_rows, each chunk's planes and its [c0, c0+ct) X window staged
-    in shared memory before its slots gather."""
+    the same y_rows as ``span_rows_cuda``, from one launch of the same row
+    walk kernel over the same ``walk`` (``span_row_walk(fmt)``), whose
+    arguments it takes.  The TPU kernel staged each chunk's [c0, c0+ct)
+    window of X; here a slot reads its row of X where it needs it, so
+    ``ct`` changes nothing (it must be positive)."""
     _check(c0, cols, lrow, vals, nc_p, x, kt, mode)
-    P, NC, G = cols.shape
-    n, kp = x.shape
-    y = torch.zeros((P * rb, kp), dtype=torch.float32, device=x.device)
-    launch_checked(_lib().span_stream_launch, "span_stream_launch",
-                   (c0, cols, lrow, vals, nc_p, x, y),
-                   (P, NC, G, rb, ct, n, kp, kt, int(mode == "bf16"),
-                    launch_splits(x.device, P * (kp // kt), NC)))
+    if ct < 1:
+        raise ValueError(f"span stream kernel: ct={ct}")
+    y = launch_walk(_lib().span_spmm_launch, "span_spmm_launch", walk, (c0, cols, lrow, nc_p),
+                    vals, x, rows=cols.shape[0] * rb, k=k, bf16=mode == "bf16")
     span_stream_rows_cuda.launches += 1
     return y
 
@@ -441,11 +421,12 @@ def span_spmm(
     vals=None,
 ) -> torch.Tensor:
     """Y[M, K] = A . X[N, K] with A in SpanFormat.  ``stream=True`` runs the
-    stream kernel, as the JAX package's grid-over-chunks variant.  ``vals``
-    overrides the packed [P, NC, G] value plane (the trainable-values path);
-    it is read only at the format's live slots (``perm_of_nz``'s, or the
-    packed plane's nonzeros without it), so it must be zero elsewhere: on
-    the card, a format without ``perm_of_nz`` refuses a plane that is not.
+    stream wrapper, the JAX package's grid-over-chunks variant, on the same
+    row walk.  ``vals`` overrides the packed [P, NC, G] value plane (the
+    trainable-values path); it is read only at the format's live slots
+    (``perm_of_nz``'s, or the packed plane's nonzeros without it), so it
+    must be zero elsewhere: on the card, a format without ``perm_of_nz``
+    refuses a plane that is not.
     ``unroll`` steered the TPU kernel's loop only and changes nothing here.
     CUDA formats run a kernel, CPU formats its plain version."""
     assert precision in PRECISIONS, precision
@@ -465,9 +446,11 @@ def span_spmm(
     x = pad_dense_cols(x, cdiv(k, kt) * kt).contiguous()
     on_card = fmt.device.type == "cuda"
     args = (fmt.c0, fmt.cols, fmt.lrow, vals, fmt.nc_p, x)
-    if stream:
-        rows_fn = span_stream_rows_cuda if on_card else span_stream_rows_plain
-        y_rows = rows_fn(*args, rb=fmt.rb, ct=fmt.ct, kt=kt, mode=precision)
+    if stream and on_card:  # one walk per pattern, shared with the resident wrapper
+        y_rows = span_stream_rows_cuda(*args, rb=fmt.rb, ct=fmt.ct, kt=kt, mode=precision,
+                                       walk=span_row_walk(fmt), k=k)
+    elif stream:
+        y_rows = span_stream_rows_plain(*args, rb=fmt.rb, ct=fmt.ct, kt=kt, mode=precision)
     elif on_card:
         y_rows = span_rows_cuda(*args, rb=fmt.rb, kt=kt, mode=precision,
                                 walk=span_row_walk(fmt), k=k)

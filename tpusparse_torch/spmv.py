@@ -2,7 +2,8 @@
 
 Methods, decision for decision as in the JAX package:
 
-  'dg'       the dg kernel at kt = 1 (``dg1_rows_cuda``), rb = 4096, ns = 4.
+  'dg'       the one-column row walk kernel (``dg1_rows_cuda``) over the
+             row walk of a kt = 1 dg format, rb = 4096, ns = 4.
   'dgt8'     the dgt kernel at kt = 8 (``dgt_rows_cuda``) on x zero-padded
              to 8 columns, rb from ``auto_rb_dgt``.
   'span'     the span kernel (``span_rows_cuda``) on x widened to 8
