@@ -44,8 +44,9 @@ entry points a user calls:
   with the JAX package's 26 candidates, the hybrid rows first (P16);
 - training: the SDDMM value-gradient and transpose-apply kernels against
   their plain versions at the JAX tests' 300 x 260 and, with the forward's
-  span kernel on the masked value plane, at the trainable layer's format
-  (T0); ``TrainableSparseLinear`` on the 90 %-pruned 4096 x 4096 weight
+  span kernel on the masked value plane, at the trainable layer's format,
+  and the value gradient on a 4096 x 4096 pattern whose tiles take both of
+  its paths and on the headline matrix's (T0); ``TrainableSparseLinear`` on the 90 %-pruned 4096 x 4096 weight
   (seed 3) with bias, five Adam steps on x [4, 128, 4096] (K = 512)
   against a fixed target, the first step's output and both gradients held
   against the dense fp32 ones (T1); the differentiable
@@ -58,13 +59,14 @@ Every result is checked against the host oracle; the kernels are timed
 against their bound, their plain versions and cuSPARSE (the kernels line's
 ``ms``, ``plain_ms`` and ``library_ms`` are device times a call from the
 profiler, ``time_fn_ms`` the wrapper's back-to-back time, host included),
-and the tile, stripe, dg, dgt, span and Block-ELL libraries' SASS is read
-kernel by kernel: the tile kernel (#5, #6), the stripe kernels (#10, #11)
-and the row walk kernel of #1, #3, #4, #7 and #8 must add by float4
-reductions, the one-column walk of #2 by scalar ones, and hold no shared
-atomic, and the dgt and span libraries must hold no kernel but the walk;
-the N:M (#12) and Block-ELL (#13) kernels must run on the tensor cores
-(HGMMA, and HMMA for 3xTF32).  Any failure raises and the exit code is
+and the tile, stripe, dg, dgt, span, radix, Block-ELL and SDDMM libraries'
+SASS is read kernel by kernel: the tile kernel (#5, #6), the stripe
+kernels (#10, #11) and the row walk kernel of #1, #3, #4, #7, #8 and #9
+must add by float4 reductions, the one-column walk of #2 and #9 by scalar
+ones, and hold no shared atomic, and the dgt, span and radix libraries
+must hold no kernel but the walks; the N:M (#12), Block-ELL (#13) and
+SDDMM tile (#14) kernels must run on the tensor cores (HGMMA for wgmma,
+HMMA for mma.sync), and no kernel of #14 may hold an atomic.  Any failure raises and the exit code is
 not 0.  It exits non-zero before printing any
 result when no CUDA device is present or the package cannot be imported.
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -110,14 +112,15 @@ TUNE_COLSKEW_K8_DIGEST = "dd00bb2181d7e2a7"
 
 
 # the CUDA kernel each wrapper launches (the kernels line's "kernel"): the
-# row walks of csrc/row_walk.cuh serve #1-#4, #7 and #8
+# row walks of csrc/row_walk.cuh serve #1-#4 and #7-#9
 KERNEL_OF = {"dg": "walk_kernel", "dg1": "walk1_kernel", "dgt": "walk_kernel",
              "dgt_stream": "walk_kernel", "tile": "tile_stream_kernel",
              "tile_stream": "tile_stream_kernel", "span": "walk_kernel",
-             "span_stream": "walk_kernel", "radix": "gather_kernel",
+             "span_stream": "walk_kernel", "radix": "walk_kernel, walk1_kernel",
              "stripe": "stripe_kernel", "stripe_nested": "stripe_nested_kernel",
              "nm": "nm_kernel", "bell": "bell_wgmma_kernel, bell_tf32_kernel",
-             "sddmm": "sddmm_kernel", "dx": "dx_kernel"}
+             "sddmm": "sddmm_tf32_tile_kernel, sddmm_bf16_tile_kernel, sddmm_slot_kernel",
+             "dx": "dx_kernel"}
 
 
 def candidates_digest(described) -> str:
@@ -281,13 +284,13 @@ def main() -> int:
                 log(f"[build]   {line.strip()}")
 
     # what the redesigned kernels compiled to, function by function: tensor-core
-    # wgmma (HGMMA bf16, IGMMA int8) and mma (HMMA, 3xTF32) in the N:M and
-    # Block-ELL libraries; the atomics of the tile, stripe, dg, dgt and span
-    # libraries, where the stream kernels of #5/#6, #10 and #11 and the row
-    # walk kernel of #1, #3, #4, #7 and #8 must add by vector reductions
-    # (REDG...F32x4), the one-column walk of #2 by scalar ones (RED...F32),
-    # and hold no shared atomic (ATOMS: a CAS loop for fp32 adds), which
-    # gather_kernel (#9) keeps
+    # wgmma (HGMMA bf16, IGMMA int8) and mma (HMMA, 3xTF32 and bf16) in the
+    # N:M, Block-ELL and SDDMM libraries; the atomics of the tile, stripe, dg,
+    # dgt, span and radix libraries, where the stream kernels of #5/#6, #10
+    # and #11 and the row walk kernel of #1, #3, #4, #7, #8 and #9 must add
+    # by vector reductions (REDG...F32x4), the one-column walk of #2 and #9
+    # by scalar ones (RED...F32), and no kernel may hold a shared atomic
+    # (ATOMS: a CAS loop for fp32 adds)
     functions = {}  # every kernel function of a library, by library
 
     def sass_by_kernel(lib_name, opcodes):
@@ -322,7 +325,12 @@ def main() -> int:
              ("stripe_nested_kernel", "stripe_kernel")),
             ("dg_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("walk1_kernel", "walk_kernel")),
             ("dgt_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("walk_kernel",)),
-            ("span_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("walk_kernel",))):
+            ("span_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("walk_kernel",)),
+            ("radix_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"),
+             ("walk1_kernel", "walk_kernel")),
+            ("sddmm", ("HGMMA", "HMMA", "ATOMS", "ATOMG", "ATOM.", "RED"),
+             ("sddmm_tf32_tile_kernel", "sddmm_bf16_tile_kernel", "sddmm_slot_kernel",
+              "dx_kernel"))):
         by_family = {}
         for fn, ops in sass_by_kernel(lib_name, opcodes).items():
             fam = by_family.setdefault(kernel_family(fn, names), {})
@@ -343,30 +351,45 @@ def main() -> int:
                           ("stripe_gather", "stripe_kernel"),
                           ("stripe_gather", "stripe_nested_kernel"),
                           ("dg_gather", "walk_kernel"), ("dgt_gather", "walk_kernel"),
-                          ("span_gather", "walk_kernel")):
+                          ("span_gather", "walk_kernel"), ("radix_gather", "walk_kernel")):
         ops = sass_ops[lib_name].get(fam, {})
         cas = sum(n for op, n in ops.items() if op.startswith("ATOMS"))
         log(f"[build] {fam} ({lib_name}): {cas} ATOMS.CAS / shared atomic sites, "
             f"{sum(n for op, n in ops.items() if 'F32x4' in op)} float4 reduction sites")
         if cas or not any("F32x4" in op for op in ops):
             raise AssertionError(f"{fam}: shared atomics, or no float4 reduction: {ops}")
-    # #2's one-column walk adds each row run by one scalar reduction
-    ops = sass_ops["dg_gather"].get("walk1_kernel", {})
-    cas = sum(n for op, n in ops.items() if op.startswith("ATOMS"))
-    red = sum(n for op, n in ops.items() if op.startswith("RED") and "ADD.F32" in op)
-    log(f"[build] walk1_kernel (dg_gather): {cas} ATOMS.CAS / shared atomic sites, {red} "
-        f"scalar fp32 reduction sites")
-    if cas or not red:
-        raise AssertionError(f"walk1_kernel: shared atomics, or no fp32 reduction: {ops}")
-    # #4 and #8 launch the walk kernel of #3 and #7: the dgt and span
-    # libraries hold nothing else
-    for lib_name in ("dgt_gather", "span_gather"):
+    # #2's and #9's one-column walk adds each row run by one scalar reduction
+    for lib_name in ("dg_gather", "radix_gather"):
+        ops = sass_ops[lib_name].get("walk1_kernel", {})
+        cas = sum(n for op, n in ops.items() if op.startswith("ATOMS"))
+        red = sum(n for op, n in ops.items() if op.startswith("RED") and "ADD.F32" in op)
+        log(f"[build] walk1_kernel ({lib_name}): {cas} ATOMS.CAS / shared atomic sites, {red} "
+            f"scalar fp32 reduction sites")
+        if cas or not red:
+            raise AssertionError(f"walk1_kernel ({lib_name}): shared atomics, or no fp32 "
+                                 f"reduction: {ops}")
+    # #4 and #8 launch the walk kernel of #3 and #7, #9 the two walks: the
+    # dgt, span and radix libraries hold nothing else
+    for lib_name in ("dgt_gather", "span_gather", "radix_gather"):
         fns = functions.get(lib_name, set())
-        log(f"[build] {lib_name} kernels: {len(fns)}, all walk_kernel: "
-            f"{all('walk_kernel' in f for f in fns)}")
-        if not fns or not all("walk_kernel" in f for f in fns):
-            raise AssertionError(f"the {lib_name} library holds a kernel other than the walk: "
+        walks = all("walk_kernel" in f or "walk1_kernel" in f for f in fns)
+        log(f"[build] {lib_name} kernels: {len(fns)}, all row walks: {walks}")
+        if not fns or not walks:
+            raise AssertionError(f"the {lib_name} library holds a kernel other than the walks: "
                                  f"{fns}")
+    # #14: the tile kernels on the tensor cores (HGMMA: 3xTF32 wgmma; HMMA:
+    # bf16 mma.sync); no #14 kernel adds by an atomic (every slot is written
+    # once)
+    sd_ops = sass_ops["sddmm"]
+    for fam, op in (("sddmm_tf32_tile_kernel", "HGMMA"), ("sddmm_bf16_tile_kernel", "HMMA")):
+        n_op = sum(n for o, n in sd_ops.get(fam, {}).items() if o.startswith(op))
+        log(f"[build] {fam}: {n_op} {op} sites")
+        if not n_op:
+            raise AssertionError(f"{fam} lacks {op}: {sd_ops}")
+    atomics = {fam: ops for fam, ops in sd_ops.items() if fam != "dx_kernel" and any(
+        o.startswith(("ATOM", "RED")) for o in ops)}
+    if atomics:
+        raise AssertionError(f"an SDDMM value-gradient kernel adds by atomics: {atomics}")
 
     # ---- 3. each kernel against its plain version, on the card
     def check_vs_plain(which, label, desc, got, want, scale, tol):
@@ -574,22 +597,45 @@ def main() -> int:
         win_vs_plain("span_stream", label, fspan_w, 100, "fp32")      # ct 4096, K 100
     log(f"[kernel] tile and span checks (packing included): {time.perf_counter() - t0:.1f} s")
 
+    def radix_branch(walk, kp, mode):
+        """How the radix wrapper (#9) runs its walk for X of kp columns:
+        the one-column walk or the walk kernel's geometry, resources, row
+        runs, the longest run against a block's share, the walk's bytes
+        and build."""
+        info = radix.radix_walk_info(kp, mode)
+        longest = (int(torch.unique_consecutive(walk.row, return_counts=True)[1].max())
+                   if walk.n_slots else 0)
+        if kp == 1:
+            spw, wpb, steps = row_walk.WALK1_GEOMETRY
+            geo, share = f"one-column walk ({spw} slots a warp, {wpb} warps a block)", spw * wpb
+        else:
+            kc, pw, share = row_walk.walk_geometry(kp)
+            geo = f"walk kernel ({kc} columns in panels of {pw}, {share} slots a block)"
+        return (f"{geo}; {info['registers']} registers, {info['spill_bytes']} spill bytes, "
+                f"{info['blocks_per_sm']} blocks an SM; {walk.runs} row runs for "
+                f"{walk.n_slots} live slots, the longest {longest} (a block's share {share}); "
+                f"row walk {walk.nbytes / 2**20:.1f} MiB, built in "
+                f"{walk.build_seconds * 1e3:.1f} ms"), longest, share
+
     def radix_vs_plain(label, fmt, k, kt=None):
         """The radix kernel against its plain version on ``fmt`` at K = k,
-        X padded to the launch's K-tile (the format's kt unless given)."""
+        X padded to kt (the format's unless given), over the format's row
+        walk; returns the longest row run and a block's share."""
         kt = fmt.kt if kt is None else kt
         x = dg.pad_dense_cols(rand_x(fmt.shape[1], k), -(-k // kt) * kt).contiguous()
         args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p)
         kw = dict(rb=fmt.rb, kt=kt, mode=fmt.mode)
-        got = radix.radix_rows_cuda(*args, x, **kw)
+        walk = radix.radix_row_walk(fmt)
+        got = radix.radix_rows_cuda(*args, x, **kw, walk=walk, k=k)
         want = radix.radix_rows_plain(*args, x, **kw)
         scale = radix.radix_rows_plain(fmt.c0, fmt.cols, fmt.lrow, fmt.vals.abs(), fmt.nc_p,
                                        x.abs(), **dict(kw, mode="fp32x2"))
-        branch = "shared tile" if radix.radix_uses_shared_tile(fmt.rb, kt) else "global atomics"
+        branch, longest, share = radix_branch(walk, x.shape[1], fmt.mode)
         check_vs_plain("radix", label,
                        f"kt={kt} {fmt.mode} K={k} rb={fmt.rb} S={fmt.S} g={fmt.chunk_g} "
                        f"P={fmt.n_programs} NC={fmt.n_chunks} pad={fmt.padding_rate:.3f}, "
                        f"{branch}", got, want, scale, tol)
+        return longest, share
 
     def stripe_vs_plain(label, fmt, k):
         """A stripe kernel against its plain version on a stripe, nested
@@ -625,13 +671,16 @@ def main() -> int:
             for mode in ("fp32x2", "bf16"):
                 fr = radix.pack_radix(m_, rb=1024 if head else 128, S=128,
                                       g=1024 if head else 256, kt=kt, mode=mode, device=dev)
-                radix_vs_plain(label, fr, kt)
+                longest, share = radix_vs_plain(label, fr, kt)
+                # config #1's longest row (4471 slots) runs past a block's share
+                if head and not longest > share:
+                    raise AssertionError(f"radix at K={kt}: no row past a block's share")
                 if (kt, mode) == (4, "fp32x2"):
                     radix_vs_plain(label, fr, 3)              # K = 3 padded to the tile
-                    radix_vs_plain(label, fr, 8)              # K-tiling: two tiles of 4
+                    radix_vs_plain(label, fr, 8)              # two K-tiles of 4, one walk
                     radix_vs_plain(label, fr, 4, kt=8)        # the same X at KT = 8
         fr = radix.pack_radix(m_, rb=2048, S=128, g=512, kt=32, device=dev)
-        radix_vs_plain(label, fr, 32)                         # 256 KB: global atomics
+        radix_vs_plain(label, fr, 32)                         # rb 2048 at KT = 32
         for work, vd in ((512, None), (2048, None), (2048, "bfloat16")):
             fs, _ = prepare_stripe_format(m_, work_per_stripe=work, val_dtype=vd, device=dev)
             for k in (1, 4, 8, 40):
@@ -1414,10 +1463,33 @@ def main() -> int:
     # 4096]) and the differentiable serving layers
     t_train_phases = time.perf_counter()
 
-    def pair_vs_plain(label, fmt, k, kt, mode):
+    def tiles_line(label, fmt):
+        """The [kernel] line of #14's tile index on ``fmt``: its tiles, the
+        slots each path takes by mode, its bytes and build, the kernels'
+        resources; returns (dense tiles, their slots, all slots) in fp32x2."""
+        t = sd.sddmm_tiles(fmt)
+        parts = []
+        for mode in ("fp32x2", "bf16"):
+            nd, d = t.dense(sd.TILE_MIN_SLOTS[mode])
+            ti = sd.sddmm_info("tile", mode)
+            parts.append(f"{mode}: {nd} tiles dense (at least {sd.TILE_MIN_SLOTS[mode]} "
+                         f"slots), {d} of {t.n_slots} walked slots in them, tile kernel "
+                         f"{ti['registers']} registers, {ti['spill_bytes']} spill bytes, "
+                         f"{ti['blocks_per_sm']} blocks an SM")
+        si = sd.sddmm_info("slot", "fp32x2")
+        log(f"[kernel] sddmm_rows_cuda tile index at {label}: tiles of {sd.TILE_ROWS} x "
+            f"{sd.TILE_COLS}, {t.n_hit_tiles} hit, the fullest {int(t.counts[:1].sum())} "
+            f"slots, the median {int(np.median(t.counts)) if t.n_hit_tiles else 0}; "
+            f"{t.nbytes / 2**20:.1f} MiB, built in {t.build_seconds * 1e3:.1f} ms; "
+            + "; ".join(parts) + f"; per-slot kernel {si['registers']} registers, "
+            f"{si['blocks_per_sm']} blocks an SM")
+        return (*t.dense(sd.TILE_MIN_SLOTS["fp32x2"]), t.n_slots)
+
+    def pair_vs_plain(label, fmt, k, kt, mode, dx=True):
         """#14 and #15 against their plain versions on ``fmt`` at K = k (X
-        and dY_slots padded to the K-tile kt): 1e-5 of |dY|·|X| and of
-        |A|^T·|dY|, the error of sums taken in another order."""
+        and dY_slots padded to the K-tile kt): 1e-5 of |dY|·|X| (at every
+        slot of the plane) and of |A|^T·|dY|, the error of sums taken in
+        another order.  #14 samples through the format's tile index."""
         kp = -(-k // kt) * kt
         gen = torch.Generator(device=dev).manual_seed(k)
         n, rows = fmt.shape[1], fmt.n_programs * fmt.rb
@@ -1430,11 +1502,16 @@ def main() -> int:
         desc = (f"kt={kt} {mode} K={k} rb={fmt.rb} ct={fmt.ct} g={fmt.chunk_g} "
                 f"P={fmt.n_programs} NC={fmt.n_chunks} pad={fmt.padding_rate:.4f}")
         kw = dict(rb=fmt.rb, kt=kt, mode=mode)
-        got = sd.sddmm_rows_cuda(*planes, fmt.nc_p, dy, x, **kw)
+        t = sd.sddmm_tiles(fmt)
+        got = sd.sddmm_rows_cuda(*planes, fmt.nc_p, dy, x, **kw, tiles=t)
         want = sd.sddmm_rows_plain(*planes, fmt.nc_p, dy, x, **kw)
         scale = sd.sddmm_rows_plain(*planes, fmt.nc_p, dy.abs(), x.abs(), **dict(kw, mode="fp32"))
-        check_vs_plain("sddmm", label, desc, got, want, scale, tol)
+        nd, d = t.dense(sd.TILE_MIN_SLOTS[mode])
+        check_vs_plain("sddmm", label, desc + f", {nd} dense tiles ({d} slots), "
+                       f"{t.n_slots - d} per-slot", got, want, scale, tol)
         del got, want, scale
+        if not dx:
+            return
         got = sd.dx_rows_cuda(*planes, vals, fmt.nc_p, dy, n=n, **kw)
         want = sd.dx_rows_plain(*planes, vals, fmt.nc_p, dy, n=n, **kw)
         scale = sd.dx_rows_plain(*planes, vals.abs(), fmt.nc_p, dy.abs(), n=n,
@@ -1447,6 +1524,29 @@ def main() -> int:
     for k in (12, 20, 24):
         for mode in ("fp32", "bf16"):
             pair_vs_plain("small", f_small, k, 8, mode)
+    # #14 on a pattern whose tiles take both paths: a 4096^2 weight, its first
+    # half of rows 90 % pruned (about 800 slots a tile), the rest 99.5 %
+    # (about 40), dealt to programs in blocks; and on config #1's pattern
+    # (every tile sparse: the per-slot path)
+    rng_h = np.random.default_rng(24)
+    keep_h = rng_h.random((4096, 4096)) < np.where(np.arange(4096)[:, None] < 2048, 0.1, 0.005)
+    rows_h, cols_h = np.nonzero(keep_h)
+    half = CooMatrix(rows_h, cols_h, rng_h.standard_normal(rows_h.size).astype(np.float32),
+                     (4096, 4096))
+    del keep_h
+    f_half = span.pack_span(half, rb=512, ct=512, g=128, balance=False, keep_perm=True,
+                            device=dev)
+    t_half = tiles_line("both paths (4096^2, half 90 %, half 99.5 % pruned)", f_half)
+    if not 0 < t_half[1] < t_half[2]:
+        raise AssertionError("the two-density pattern does not take both of #14's paths")
+    for mode in ("fp32x2", "bf16"):
+        for k in (512, 100):
+            pair_vs_plain("both paths", f_half, k, 32, mode, dx=False)
+    f_c1 = span.pack_span(mat, rb=512, ct=512, g=128, keep_perm=True, device=dev)
+    if tiles_line("config #1's pattern", f_c1)[0]:
+        raise AssertionError("config #1's pattern has a dense tile")
+    for mode in ("fp32x2", "bf16"):
+        pair_vs_plain("config #1", f_c1, 8, 8, mode, dx=False)
 
     # T1: the pruned 4096^2 weight as a trainable layer with bias, x [4,
     # 128, 4096]; MSE against a fixed target, five Adam steps
@@ -1466,7 +1566,10 @@ def main() -> int:
         f"(packing included); x {list(x1_shape)}: K = {k1}")
     # T0 at the path's own format and K: #14 and #15, and the forward's
     # span kernel (#7) on the masked value plane the layer hands it
-    for mode in ("fp32", "bf16"):
+    t_t1 = tiles_line("T1 (8, 1639, 128)", f1)
+    if t_t1[1] != t_t1[2]:
+        raise AssertionError("T1's pattern has a tile for the per-slot path")
+    for mode in ("fp32", "fp32x2", "bf16"):
         pair_vs_plain("t1", f1, k1, 32, mode)
     plane1 = (layer1.vals.detach() * mask1).contiguous()
     for mode in ("fp32x2", "bf16"):
@@ -1773,10 +1876,11 @@ def main() -> int:
         format's kt, or the stripe K-tile for X's columns)."""
         xd = torch.as_tensor(x, device=dev)
         x2 = xd.view(-1, 1) if xd.ndim == 1 else xd
-        if which == "radix":
+        if which == "radix":  # over the format's row walk, built at its first use
             kt = fmt.kt if kt is None else kt
             args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p)
-            kw = pkw = dict(rb=fmt.rb, kt=kt, mode=fmt.mode)
+            pkw = dict(rb=fmt.rb, kt=kt, mode=fmt.mode)
+            kw = dict(pkw, walk=radix.radix_row_walk(fmt), k=x2.shape[1])
         else:
             kt = stripe.choose_kt(x2.shape[1]) if kt is None else kt
             rb = getattr(fmt, "max_rows_per_stripe", None) or fmt.max_segments
@@ -1898,9 +2002,10 @@ def main() -> int:
             for n, (f, a) in libs.items():
                 runs[n].append(time_fn(f, a))
         t = {n: float(np.median(v)) * 1e3 for n, v in runs.items()}
-        lib0, (lib_f, lib_a) = next(iter(libs.items()))
+        lib0 = next(iter(libs))
         dev_t = {name: dev_ms(name, f, arg, t[name]) for name, f, arg in
-                 (("kernel", kern, xk), ("plain", plain, xk), (lib0, lib_f, lib_a))}
+                 (("kernel", kern, xk), ("plain", plain, xk),
+                  *((n, f, a) for n, (f, a) in libs.items()))}
         cold = time_cold(kern, xk) * 1e3
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
         b_ms, b_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1911,8 +2016,8 @@ def main() -> int:
         log(f"[yardstick]   readings (ms): kernel "
             + " ".join(f"{v * 1e3:.4f}" for v in runs["kernel"]))
         log(f"[yardstick]   device time a call (profiler, 20 calls): kernel "
-            f"{dev_t['kernel']:.4f} ms, plain {dev_t['plain']:.4f} ms, {lib0} "
-            f"{dev_t[lib0]:.4f} ms")
+            f"{dev_t['kernel']:.4f} ms, plain {dev_t['plain']:.4f} ms, "
+            + ", ".join(f"{n} {dev_t[n]:.4f} ms" for n in libs))
         log(f"[yardstick]   cold L2 (median of 20): kernel {cold:.4f} ms")
         log(f"[yardstick]   bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s = "
             f"{t_bytes:.4f} ms, {flops / 1e9:.2f} GFLOP at {peak_name} = {t_ops:.4f} ms); "
@@ -2053,14 +2158,43 @@ def main() -> int:
 
     pw_csr, pwt_csr = csr_of(pw), csr_of(pw.transpose())
     geo1 = f"({f1.n_programs}, {f1.n_chunks}, {f1.chunk_g})"
-    stats["sddmm"] = dense_tile_yardstick(
-        "sddmm", f"T1 span_sddmm, pruned 4096^2 planes {geo1}, K={k1}, fp32x2",
-        lambda d: sd.sddmm_rows_cuda(*planes1, f1.nc_p, d, xk1, **kw1),
-        lambda d: sd.sddmm_rows_plain(*planes1, f1.nc_p, d, xk1, **kw1), dy_slots1,
-        sparse_step, x1,
+    tiles1 = sd.sddmm_tiles(f1)
+    # #14's bytes: the tile index (row, column, slot), dY_slots and X once,
+    # dv; its operations: the sampled products, 2 * nnz * K at the fp32 peak
+    idx_bytes = tiles1.nbytes + rows_bytes + 4 * n_in * k1 + 4 * slots1
+    for mode in ("fp32x2", "bf16"):
+        kw_m = dict(kw1, mode=mode)
+        libs = {"cuSPARSE SDDMM (sampled_addmm)": (
+            lambda m1: torch.sparse.sampled_addmm(pw_csr, m1, xk0, beta=0.0), dyk_t),
+                "cuBLAS dense fp32 mm (dY . X^T, TF32 off)": (
+            functools.partial(torch.mm, dyk_t), xk0)}
+        st = dense_tile_yardstick(
+            "sddmm", f"T1 span_sddmm, pruned 4096^2 planes {geo1}, K={k1}, {mode}",
+            lambda d, kw_m=kw_m: sd.sddmm_rows_cuda(*planes1, f1.nc_p, d, xk1, **kw_m,
+                                                    tiles=tiles1),
+            lambda d, kw_m=kw_m: sd.sddmm_rows_plain(*planes1, f1.nc_p, d, xk1, **kw_m),
+            dy_slots1, sparse_step, x1, libs, idx_bytes, flops1, *fp32_peak)
+        stats.setdefault("sddmm", st)
+    # #14 on config #1's pattern at K = 8: every tile sparse, the per-slot path
+    tiles_c1 = sd.sddmm_tiles(f_c1)
+    xc1 = torch.as_tensor(xs[8], device=dev)
+    dyc1 = torch.as_tensor(np.random.default_rng(25).standard_normal(
+        (f_c1.n_programs * f_c1.rb, 8)), dtype=torch.float32, device=dev)
+    kw_c1 = dict(rb=f_c1.rb, kt=8, mode="fp32x2")
+    planes_c1 = (f_c1.c0, f_c1.cols, f_c1.lrow, f_c1.nc_p)
+    dyc1_m = torch.as_tensor(np.random.default_rng(26).standard_normal((M, 8)),
+                             dtype=torch.float32, device=dev)    # a dY in Y's row order
+    mat_csr, xc1_t = csr_of(mat), xc1.T.contiguous()
+    dense_tile_yardstick(
+        "sddmm", "config #1's pattern (span rb 512 ct 512 g 128), K=8, fp32x2: per-slot path",
+        lambda d: sd.sddmm_rows_cuda(*planes_c1, d, xc1, **kw_c1, tiles=tiles_c1),
+        lambda d: sd.sddmm_rows_plain(*planes_c1, d, xc1, **kw_c1), dyc1,
+        lambda d: sd.span_sddmm(f_c1, d, xc1), dyc1,
         {"cuSPARSE SDDMM (sampled_addmm)": (
-            lambda m1: torch.sparse.sampled_addmm(pw_csr, m1, xk0, beta=0.0), dyk_t)},
-        plane_bytes + 4 * n_in * k1 + rows_bytes + 4 * slots1, flops1, *fp32_peak)
+            lambda m1: torch.sparse.sampled_addmm(mat_csr, m1, xc1_t, beta=0.0),
+            dyc1_m)},
+        tiles_c1.nbytes + 4 * (dyc1.numel() + xc1.numel() + f_c1.cols.numel()),
+        2.0 * mat.nnz * 8, *fp32_peak)
     stats["dx"] = dense_tile_yardstick(
         "dx", f"T1 span_dx, pruned 4096^2 planes {geo1}, K={k1}, fp32x2",
         lambda d: sd.dx_rows_cuda(*planes1, vals1, f1.nc_p, d, n=n_in, **kw1),

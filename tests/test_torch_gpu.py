@@ -638,12 +638,12 @@ def test_tile_plan_and_spmv_span_on_card(cuda, mat):
 
 @pytest.mark.parametrize("rb,kt", [(512, 32), (1792, 8)])
 def test_opt_in_is_per_library(cuda, mat, rb, kt):
-    # the Block-ELL kernel (#13) and radix's gather_kernel (#9) each opt
+    # the Block-ELL kernel (#13) and the SDDMM tile kernel (#14) each opt
     # into more than 48 KB of dynamic shared memory from their own library:
-    # Block-ELL first (its bf16 wgmma kernel's four stages), then radix's
-    # row tile at (rb, kt) (64 KB, 56 KB).  An opt-in made by one must not
-    # be taken for the other's.  The row walk kernels of dg (#1, #2) and span
-    # (no shared memory) run between and after.
+    # Block-ELL first (its bf16 wgmma kernel's four stages), then the SDDMM
+    # tile kernel's three stages.  An opt-in made by one must not be taken
+    # for the other's.  The row walk kernels of dg (#1, #2), radix (#9) and
+    # span (no shared memory) run between and after.
     a13 = builder.block_sparse_coo(512, 512, 128, 0.5, seed=14)
     f13 = be.pack_block_ell(a13, dtype=torch.bfloat16, device=cuda)
     xb = torch.as_tensor(np.random.default_rng(15).standard_normal((512, 64)),
@@ -665,13 +665,14 @@ def test_opt_in_is_per_library(cuda, mat, rb, kt):
                                dg.dg_rows_plain(*args, rb=rb, kt=kt, mode="fp32x2"),
                                rtol=1e-5, atol=1e-4)
     r = radix.pack_radix(mat, rb=rb, S=128, g=512, kt=kt, device=cuda)
-    assert radix.radix_uses_shared_tile(rb, kt) and rb * kt * 4 > 48 * 1024
     args = (r.c0, r.cols, r.lrow, r.vals, r.nc_p, x)
-    torch.testing.assert_close(radix.radix_rows_cuda(*args, rb=rb, kt=kt, mode=r.mode),
+    torch.testing.assert_close(radix.radix_rows_cuda(*args, rb=rb, kt=kt, mode=r.mode,
+                                                     walk=radix.radix_row_walk(r)),
                                radix.radix_rows_plain(*args, rb=rb, kt=kt, mode=r.mode),
                                rtol=1e-5, atol=1e-4)
-    s = span.pack_span(mat, rb=rb, ct=1024, g=512, device=cuda)
+    s = span.pack_span(mat, rb=rb, ct=1024, g=512, keep_perm=True, device=cuda)
     assert _window_vs_plain("span", s, kt, cuda, False, "fp32") <= 1e-5
+    assert _sddmm_vs_plain(s, kt, "fp32", cuda, min_slots=1) <= 1e-5   # every tile dense
     got = be.bell_rows_cuda(*b13, mode="bf16", work=f13.work)
     assert _rel_to_scale(got, be.bell_rows_plain(*b13, mode="bf16"), scale) <= 1e-5
 
@@ -682,25 +683,80 @@ def _err(got, want, scale, dev):
     return float(((got.double() - want.double()).abs() / denom).max())
 
 
+def _radix_vs_plain(fmt, k, kt, dev):
+    """Max error of the radix wrapper (#9: the row walk kernels over the
+    format's walk) against its plain version at K = k, X padded to kt,
+    relative to |A|·|x|; checks that it counted one launch."""
+    x = np.random.default_rng(14).standard_normal((fmt.shape[1], k))
+    x = dg.pad_dense_cols(torch.as_tensor(x, dtype=torch.float32, device=dev),
+                          -(-k // kt) * kt).contiguous()
+    args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p, x)
+    kw = dict(rb=fmt.rb, kt=kt, mode=fmt.mode)
+    before = radix.radix_rows_cuda.launches
+    got = radix.radix_rows_cuda(*args, **kw, walk=radix.radix_row_walk(fmt), k=k)
+    assert radix.radix_rows_cuda.launches == before + 1
+    assert got.shape == (fmt.n_programs * fmt.rb, x.shape[1])
+    want = radix.radix_rows_plain(*args, **kw)
+    scale = radix.radix_rows_plain(fmt.c0, fmt.cols, fmt.lrow, fmt.vals.abs(), fmt.nc_p,
+                                   x.abs(), **dict(kw, mode="fp32x2"))
+    return _err(got, want, scale, dev)
+
+
 @pytest.mark.parametrize("kt,mode,k,rb", [
     (1, "fp32x2", 1, 2048), (2, "fp32x2", 2, 1024), (4, "fp32x2", 4, 1024),
     (4, "fp32x2", 3, 1024), (8, "fp32x2", 8, 1024), (16, "fp32x2", 40, 1024),
     (32, "fp32x2", 32, 768), (1, "bf16", 1, 2048), (2, "bf16", 2, 1024), (4, "bf16", 4, 1024),
-    (8, "bf16", 16, 1024), (32, "bf16", 32, 2048),  # 256 KB tile: the global-atomic branch
+    (8, "bf16", 16, 1024), (32, "bf16", 32, 2048), (1, "fp32x2", 3, 1024),
 ])
 def test_radix_kernel_matches_plain(cuda, mat, kt, mode, k, rb):
+    # kt = 1 at K = 1 takes the one-column walk (bf16 rounding each
+    # product), every other case the walk kernel over all of X's columns
     fmt = radix.pack_radix(mat, rb=rb, S=128, g=1024, kt=kt, mode=mode, device=cuda)
-    x = torch.as_tensor(np.random.default_rng(14).standard_normal((4096, -(-k // kt) * kt)),
-                        dtype=torch.float32, device=cuda)
-    args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p, x)
+    assert _radix_vs_plain(fmt, k, kt, cuda) <= 1e-5
+    assert fmt.walk is not None and fmt.walk.n_slots == mat.nnz
+
+
+@pytest.mark.parametrize("case", ["longest_row", "empty_program", "stored_zero"])
+@pytest.mark.parametrize("kt,mode", [(1, "fp32x2"), (1, "bf16"), (4, "fp32x2"), (8, "bf16")])
+def test_radix_row_walk_edges(cuda, case, kt, mode):
+    # longest_row: one run of 4096 slots, past a block's share of the walk
+    # kernel (2048 slots) and of the one-column walk (1024); the brick-ELL
+    # cut of the same matrix keeps no perm_of_nz (live slots from values)
+    a = _edge_coo(case)
+    empty, keep_perm = case == "empty_program", case == "stored_zero"
+    fmt = radix.pack_radix(a, rb=1024, S=128, g=512, kt=kt, mode=mode,
+                           deal="blocks" if empty else None, keep_perm=keep_perm, device=cuda)
+    walk = radix.radix_row_walk(fmt)
+    if case == "longest_row":
+        assert int(torch.unique_consecutive(walk.row, return_counts=True)[1].max()) == 4096
+    if keep_perm:
+        assert walk.n_slots == a.nnz > int(np.count_nonzero(a.vals))
+    assert _radix_vs_plain(fmt, kt, kt, cuda) <= 1e-5
+    from tpusparse_torch import ops
+    from tpusparse_torch.levels import Level
+
+    ms = create_init_metadata_set(a)
+    ex = ops.OperatorExecutor(ms)
+    for op in (ops.SortOperator(0), ops.FixedIntervalRowBlockingOperator(0, Level.TBLOCK, 8),
+               ops.EllBlockPadOperator(0, Level.TBLOCK),
+               ops.InterleaveStorageOperator(0, Level.TBLOCK)):
+        ex.add_and_run(op)
+    fb = radix.pack_brick_ell(ms, 0, out_rows=4096, rb=1024, S=128, g=512, kt=kt, mode=mode,
+                              device=cuda)
+    assert radix.radix_row_walk(fb).live_from_values
+    assert _radix_vs_plain(fb, kt, kt, cuda) <= 1e-5
+
+
+def test_spmv_radix_walk_on_card(cuda, spmv_size):
+    # P12: spmv_fn(mat, "radix") at the SpMV size, x as one column through
+    # the one-column walk, against the oracle
+    v = np.random.default_rng(21).standard_normal(262144).astype(np.float32)
+    fn = spmv_fn(spmv_size, "radix")
     before = radix.radix_rows_cuda.launches
-    got = radix.radix_rows_cuda(*args, rb=rb, kt=kt, mode=mode)
-    assert radix.radix_rows_cuda.launches == before + 1
-    want = radix.radix_rows_plain(*args, rb=rb, kt=kt, mode=mode)
-    scale = radix.radix_rows_plain(fmt.c0, fmt.cols, fmt.lrow, fmt.vals.abs(), fmt.nc_p,
-                                   x.abs(), rb=rb, kt=kt, mode="fp32x2")
-    assert _err(got, want, scale, cuda) <= 1e-5
-    assert radix.radix_uses_shared_tile(rb, kt) == (rb * kt * 4 <= 200 * 1024)
+    y = fn(v)
+    assert y.is_cuda and y.shape == (262144,) and radix.radix_rows_cuda.launches == before + 1
+    assert fn.format.walk is not None and fn.format.walk.n_slots == spmv_size.nnz
+    check_result(y.cpu().numpy(), spmm_reference(spmv_size, v.astype(np.float64)), rtol=2e-3)
 
 
 def _stripe_vs_plain(fmt, k, dev, vals=None):
@@ -1153,36 +1209,116 @@ def test_dense_tile_kernels_refuse_rather_than_fall_back(cuda):
         nm.nm_spmm(f, torch.zeros((128, 8)))
 
 
+def _sddmm_vs_plain(fmt, k, mode, dev, min_slots=None, kt=None):
+    """Max error of #14 (the tile kernel over the dense tiles, the per-slot
+    kernel over the rest) against its plain version at every slot of the
+    plane, padding and chunks past nc_p included, relative to |dY|·|X|;
+    ``min_slots``: the threshold of a dense tile (None: the mode's,
+    ``TILE_MIN_SLOTS``).  Checks one counted launch."""
+    kt = kt or min(32, max(8, 1 << (k - 1).bit_length()))
+    kp = -(-k // kt) * kt
+    gen = torch.Generator(device=dev).manual_seed(k)
+    n, rows = fmt.shape[1], fmt.n_programs * fmt.rb
+    x = torch.zeros((n, kp), device=dev)
+    x[:, :k] = torch.randn((n, k), generator=gen, device=dev)
+    dy = torch.zeros((rows, kp), device=dev)
+    dy[:, :k] = torch.randn((rows, k), generator=gen, device=dev)
+    planes = (fmt.c0, fmt.cols, fmt.lrow, fmt.nc_p)
+    before = sd.sddmm_rows_cuda.launches
+    got = sd.sddmm_rows_cuda(*planes, dy, x, rb=fmt.rb, kt=kt, mode=mode,
+                             tiles=sd.sddmm_tiles(fmt), min_slots=min_slots)
+    assert sd.sddmm_rows_cuda.launches == before + 1
+    want = sd.sddmm_rows_plain(*planes, dy, x, rb=fmt.rb, kt=kt, mode=mode)
+    scale = sd.sddmm_rows_plain(*planes, dy.abs(), x.abs(), rb=fmt.rb, kt=kt, mode="fp32")
+    torch.cuda.synchronize()
+    return float(((got - want).abs() / scale.clamp(min=1e-30)).max())
+
+
 @pytest.mark.parametrize("k", [12, 20, 24])
 @pytest.mark.parametrize("mode", ["fp32", "bf16"])
 def test_sddmm_kernels_match_plain(cuda, k, mode):
     """#14 and #15 against their plain versions at the JAX tests' shape,
     K-tile 8 (the K loop and its tail): 1e-5 of |dY|·|X| and |A|^T·|dY|
-    (the same products; dX's atomic sums vary in order)."""
+    (the same products; dX's atomic sums vary in order).  #14 through the
+    format's own tile index (per-slot: the tiles are sparse) and an index
+    whose every tile is dense (the tile kernel)."""
     a = builder.power_law_coo(300, 260, avg_nnz_per_row=5.0, seed=0)
     fmt = span.pack_span(a, rb=64, ct=128, g=64, keep_perm=True, device=cuda)
+    for min_slots in (None, 1):
+        assert _sddmm_vs_plain(fmt, k, mode, cuda, min_slots=min_slots, kt=8) <= 1e-5
     rng = np.random.default_rng(k)
     kp = -(-k // 8) * 8
-    x = torch.zeros((260, kp), device=cuda)
-    x[:, :k] = torch.as_tensor(rng.standard_normal((260, k)), dtype=torch.float32)
     dy = torch.zeros((fmt.n_programs * 64, kp), device=cuda)
     dy[:, :k] = torch.as_tensor(rng.standard_normal((fmt.n_programs * 64, k)),
                                 dtype=torch.float32)
     planes = (fmt.c0, fmt.cols, fmt.lrow)
-    before = sd.sddmm_rows_cuda.launches, sd.dx_rows_cuda.launches
-    got = sd.sddmm_rows_cuda(*planes, fmt.nc_p, dy, x, rb=64, kt=8, mode=mode)
-    want = sd.sddmm_rows_plain(*planes, fmt.nc_p, dy, x, rb=64, kt=8, mode=mode)
-    scale = sd.sddmm_rows_plain(*planes, fmt.nc_p, dy.abs(), x.abs(), rb=64, kt=8, mode="fp32")
-    torch.cuda.synchronize()
-    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-30).all())
+    before = sd.dx_rows_cuda.launches
     got = sd.dx_rows_cuda(*planes, fmt.vals, fmt.nc_p, dy, n=260, rb=64, kt=8, mode=mode)
     want = sd.dx_rows_plain(*planes, fmt.vals, fmt.nc_p, dy, n=260, rb=64, kt=8, mode=mode)
     scale = sd.dx_rows_plain(*planes, fmt.vals.abs(), fmt.nc_p, dy.abs(), n=260, rb=64, kt=8,
                              mode="fp32")
     torch.cuda.synchronize()
     assert got.shape == (260, kp) and bool(((got - want).abs() <= 1e-5 * scale + 1e-30).all())
-    assert (sd.sddmm_rows_cuda.launches, sd.dx_rows_cuda.launches) == (before[0] + 1,
-                                                                       before[1] + 1)
+    assert sd.dx_rows_cuda.launches == before + 1
+
+
+def _half_dense_coo(m=1024, n=1024, seed=24):
+    """A weight whose first half of rows is 90 % pruned (about 800 slots a
+    tile of 128 x 64) and second half 99.5 % (about 40): dealt to programs
+    in blocks of rows, its tiles take both of #14's paths."""
+    from tpusparse_torch.io.mtx import CooMatrix
+
+    rng = np.random.default_rng(seed)
+    keep = rng.random((m, n)) < np.where(np.arange(m)[:, None] < m // 2, 0.1, 0.005)
+    rows, cols = np.nonzero(keep)
+    return CooMatrix(rows, cols, rng.standard_normal(rows.size).astype(np.float32), (m, n))
+
+
+@pytest.mark.parametrize("case", ["both_paths", "t1_weight", "sparse"])
+@pytest.mark.parametrize("mode", ["fp32x2", "bf16"])
+@pytest.mark.parametrize("k", [8, 100, 512])
+def test_sddmm_tile_kernel_matches_plain(cuda, case, mode, k):
+    # #14 at every slot against its plain version: a pattern whose tiles
+    # take both paths, the trainable layer's 90 % pruned weight (every tile
+    # dense) and a power law (every tile sparse); K = 100: a K-slice past
+    # Kp's end is staged as zeros
+    if case == "both_paths":
+        fmt = span.pack_span(_half_dense_coo(), rb=512, ct=512, g=128, balance=False,
+                             keep_perm=True, device=cuda)
+    elif case == "t1_weight":
+        fmt = span.pack_span(builder.pruned_weight_coo(1024, 768, sparsity=0.9, seed=3), rb=512,
+                             ct=512, g=128, keep_perm=True, device=cuda)
+    else:
+        fmt = span.pack_span(builder.power_law_coo(4096, 4096, avg_nnz_per_row=16.0, seed=21),
+                             rb=512, ct=512, g=128, keep_perm=True, device=cuda)
+    tiles = sd.sddmm_tiles(fmt)
+    assert tiles.n_slots == int(fmt.nc_p.sum()) * fmt.chunk_g      # every walked slot
+    n_dense, d = tiles.dense(sd.TILE_MIN_SLOTS[mode])
+    if case == "both_paths":
+        assert 0 < d < tiles.n_slots
+    elif case == "t1_weight":
+        assert d == tiles.n_slots and n_dense == tiles.n_hit_tiles
+    else:
+        assert n_dense == 0
+    assert _sddmm_vs_plain(fmt, k, mode, cuda) <= 1e-5
+
+
+def test_sddmm_tile_index_follows_its_planes(cuda):
+    # a plane written in place gives the format a new tile index; a stale
+    # one, or one of another format, is refused
+    fmt = span.pack_span(builder.pruned_weight_coo(512, 512, sparsity=0.9, seed=4), rb=256,
+                         ct=512, g=128, keep_perm=True, device=cuda)
+    tiles = sd.sddmm_tiles(fmt)
+    assert sd.sddmm_tiles(fmt) is tiles and fmt.tiles is tiles
+    x = torch.ones((512, 8), device=cuda)
+    dy = torch.ones((fmt.n_programs * fmt.rb, 8), device=cuda)
+    planes = (fmt.c0, fmt.cols, fmt.lrow, fmt.nc_p)
+    fmt.lrow.add_(0)
+    with pytest.raises(ValueError, match="not built from these index planes"):
+        sd.sddmm_rows_cuda(*planes, dy, x, rb=fmt.rb, kt=8, mode="fp32", tiles=tiles)
+    assert sd.sddmm_tiles(fmt) is not tiles
+    with pytest.raises(ValueError, match="pass tiles="):
+        sd.sddmm_rows_cuda(*planes, dy, x, rb=fmt.rb, kt=8, mode="fp32")
 
 
 def test_trainable_layer_on_card(cuda):

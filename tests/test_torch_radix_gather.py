@@ -219,3 +219,119 @@ def test_plain_version_rounds_products_and_wrapper_refuses_cpu():
         trg.radix_rows_cuda(*args, rb=128, kt=4, mode="fp32x2")
     with pytest.raises(ValueError, match="X is on"):
         trg.radix_spmm(fmt, torch.zeros((400, 4), device="meta"))
+
+
+# ------------------------------------------------------------------- row walk
+# On the card #9 walks the format's row walk (kernels/row_walk.py), the
+# decode dg and span share: each live slot once, sorted by (y_rows row,
+# slot), all of X's columns in one launch (x of one column: the one-column
+# walk).  Its function in plain PyTorch (``walk_rows_plain``) must equal
+# ``radix_rows_plain`` and, unpacked, the JAX kernel in interpret mode and
+# the oracle.
+
+from test_torch_dg_gather import _assert_walk_covers  # noqa: E402
+from tpusparse_torch.kernels import row_walk as rw  # noqa: E402
+
+
+def _walk_vs_plain_jax(tfmt, jfmt, jmat, x, kt, mode):
+    """The walk's plain version against radix_rows_plain (1e-5 of |A|.|X|)
+    and, unpacked, against the JAX radix_spmm and the oracle."""
+    xp = torch.nn.functional.pad(torch.from_numpy(x), (0, -(-x.shape[1] // kt) * kt - x.shape[1]))
+    bf16 = mode == "bf16"
+    walk = trg.radix_row_walk(tfmt)
+    got = rw.walk_rows_plain(walk, tfmt.vals, xp, bf16=bf16)
+    args = (tfmt.c0, tfmt.cols, tfmt.lrow)
+    want = trg.radix_rows_plain(*args, tfmt.vals, tfmt.nc_p, xp, rb=tfmt.rb, kt=kt, mode=mode)
+    scale = trg.radix_rows_plain(*args, tfmt.vals.abs(), tfmt.nc_p, xp.abs(), rb=tfmt.rb, kt=kt,
+                                 mode="fp32x2")
+    assert float(((got - want).abs() / scale.clamp(min=1.0)).max()) <= 1e-5
+    y = trg.unpack_by_deal(tfmt, got)[:, :x.shape[1]].numpy()
+    ref = spmm_reference(jmat, x.astype(np.float64))
+    if jfmt is not None:
+        yj = np.asarray(jrg.radix_spmm(jfmt, x))
+        np.testing.assert_allclose(y, yj, rtol=0, atol=TOL[mode] * max(np.abs(ref).max(), 1.0))
+    check_result(y, ref, rtol=8e-2 if bf16 else 1e-5)
+    return walk
+
+
+@pytest.mark.parametrize("kt,mode,deal,k", [(1, "fp32x2", None, 1), (1, "bf16", "index", 1),
+                                            (2, "fp32x2", "blocks", 2), (4, "fp32x2", None, 3),
+                                            (4, "bf16", "length", 4), (8, "fp32x2", "index", 8),
+                                            (16, "bf16", None, 40), (32, "fp32x2", None, 32)])
+def test_radix_row_walk_equals_plain_and_jax(kt, mode, deal, k):
+    jmat, tmat, x = _case(m=300, n=3000, k=k, avg=9.0, seed=7)
+    kw = dict(rb=128, S=32, g=64, kt=kt, mode=mode, deal=deal)
+    jfmt = jrg.pack_radix(jmat, **kw)
+    for fmt in (_from_jax(jfmt), trg.pack_radix(tmat, keep_perm=True, device="cpu", **kw)):
+        assert fmt.walk is None                   # a CPU format builds it only when asked
+        walk = _walk_vs_plain_jax(fmt, jfmt, jmat, x, kt, mode)
+        assert trg.radix_row_walk(fmt) is walk and fmt.walk is walk
+        walked = torch.arange(fmt.n_chunks).view(1, -1, 1) < fmt.nc_p.reshape(-1, 1, 1)
+        _assert_walk_covers(walk, (fmt.vals != 0) & walked)
+        assert walk.n_slots == jmat.nnz and walk.n_rows == fmt.n_programs * fmt.rb
+        assert walk.runs == len(np.unique(jmat.rows))
+        assert walk.live_from_values == (fmt.perm_of_nz is None)
+
+
+@pytest.mark.parametrize("case", ["brick_ell", "stored_zero", "empty"])
+def test_radix_row_walk_edges(case):
+    # brick-ELL keeps no perm_of_nz (its live slots are the plane's
+    # nonzeros); a stored zero of perm_of_nz is a live slot; an empty
+    # matrix walks nothing
+    jmat, tmat, x = _case(m=200, n=300, avg=5.0, seed=6)
+    if case == "brick_ell":
+        jm, tm = jms(jmat), tms(tmat)
+        for _ in zip(_brick_pipeline(jops, jm), _brick_pipeline(tops, tm)):
+            pass
+        kw = dict(out_rows=200, rb=64, S=64, g=64, kt=8, mode="fp32x2")
+        jfmt, fmt = jrg.pack_brick_ell(jm, 0, **kw), trg.pack_brick_ell(tm, 0, device="cpu", **kw)
+        walk = _walk_vs_plain_jax(fmt, jfmt, jmat, x, 8, "fp32x2")
+        assert walk.live_from_values and walk.n_slots == jmat.nnz
+        return
+    if case == "empty":
+        tmat = CooMatrix(np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.float32),
+                         (200, 300))
+        fmt = trg.pack_radix(tmat, rb=64, S=64, g=64, kt=8, device="cpu")
+        walk = trg.radix_row_walk(fmt)
+        assert walk.n_slots == 0 and walk.runs == 0
+        y = trg.unpack_by_deal(fmt, rw.walk_rows_plain(walk, fmt.vals, torch.from_numpy(x)))
+        assert y.shape == (200, 8) and not bool(y.any())
+        return
+    vals = tmat.vals.copy()
+    vals[::4] = 0.0
+    zmat = CooMatrix(tmat.rows, tmat.cols, vals, tmat.shape)
+    fmt = trg.pack_radix(zmat, rb=64, S=64, g=64, kt=4, keep_perm=True, device="cpu")
+    walk = trg.radix_row_walk(fmt)
+    live = torch.zeros(fmt.vals.numel(), dtype=torch.bool)
+    live[torch.as_tensor(fmt.perm_of_nz, dtype=torch.long)] = True
+    _assert_walk_covers(walk, live)
+    assert walk.n_slots == zmat.nnz > int(np.count_nonzero(vals)) and not walk.live_from_values
+    _walk_vs_plain_jax(fmt, None, zmat, x, 4, "fp32x2")
+
+
+@pytest.mark.parametrize("case", ["with_values", "values_in_place", "pattern_in_place"])
+def test_radix_row_walk_follows_its_planes(case):
+    # with_values carries the pattern's walk with the new values; a plane
+    # written in place (values or pattern) gives the format a new walk
+    _, tmat, x = _case(seed=8)
+    fmt = trg.pack_radix(tmat, rb=128, S=16, g=128, kt=8, keep_perm=True, device="cpu")
+    pattern = (fmt.c0, fmt.cols, fmt.lrow, fmt.nc_p)
+    walk = trg.radix_row_walk(fmt)
+    assert walk.fresh(pattern, fmt.vals)
+    xt = torch.from_numpy(x)
+    if case == "with_values":
+        new_vals = np.random.default_rng(4).standard_normal(tmat.nnz).astype(np.float32)
+        new = trg.with_values(fmt, new_vals)
+        assert new.walk.slot is walk.slot and new.walk.val_src is new.vals
+        assert trg.radix_row_walk(new) is new.walk
+        y = trg.unpack_by_deal(new, rw.walk_rows_plain(new.walk, new.vals, xt)).numpy()
+        check_result(y, spmm_reference(CooMatrix(tmat.rows, tmat.cols, new_vals, tmat.shape),
+                                       x.astype(np.float64)), rtol=1e-5)
+    elif case == "values_in_place":
+        fmt.vals.neg_()
+        new = trg.radix_row_walk(fmt)
+        assert new is not walk and new.holds(fmt.vals)
+        torch.testing.assert_close(new.val, -walk.val)
+    else:
+        fmt.cols.add_(0)
+        assert not walk.built_from(pattern) and trg.radix_row_walk(fmt) is not walk

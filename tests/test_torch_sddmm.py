@@ -27,7 +27,7 @@ from tpusparse.kernels.span_gather import pack_span as jpack_span
 from tpusparse_torch.autodiff import spmm_trainable
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import sddmm
-from tpusparse_torch.kernels.span_gather import pack_span
+from tpusparse_torch.kernels.span_gather import pack_span, with_values
 from test_fuzz import _random_matrix
 
 TOL = {"fp32": 1e-5, "fp32x2": 2e-3, "bf16": 1e-2}
@@ -204,3 +204,129 @@ def test_fuzz_trainable_grads(seed):
     _, dvj, dxj = _grads_jax(jmat, x, w, **kw)
     _within(dv, dvj, (np.abs(w) @ np.abs(x).T)[mat.rows, mat.cols], TOL["fp32x2"])
     _within(dx, dxj, np.abs(a).T @ np.abs(w), TOL["fp32x2"])
+
+
+# ------------------------------------------------------------------ tile index
+# On the card #14 samples through the pattern's tile index: the (dY_slots
+# row, X column) space cut into tiles of TILE_ROWS x TILE_COLS, every
+# walked slot listed once by tile, the tiles that hold at least
+# TILE_MIN_SLOTS slots computed whole (tensor cores) and sampled, the rest
+# one dot product a slot.  ``sddmm_tiles_plain`` is that function tile by
+# tile in plain PyTorch.
+
+def _two_density_mat(m=320, n=192, seed=24):
+    """Rows [0, 128) 30 % dense (about 2500 slots a tile of 128 x 64), the
+    rest 1 %: in blocks of rows (balance=False) its tiles take both paths."""
+    rng = np.random.default_rng(seed)
+    keep = rng.random((m, n)) < np.where(np.arange(m)[:, None] < 128, 0.3, 0.01)
+    rows, cols = np.nonzero(keep)
+    return JCoo(rows, cols, rng.standard_normal(rows.size).astype(np.float32), (m, n))
+
+
+_PATTERNS = {
+    "two_densities": (_two_density_mat, dict(rb=128, ct=128, g=64, balance=False)),
+    "pruned_weight": (lambda: jbuilder.pruned_weight_coo(256, 192, sparsity=0.9, seed=3),
+                      dict(rb=128, ct=128, g=64)),
+    "power_law": (lambda: jbuilder.power_law_coo(300, 260, avg_nnz_per_row=5.0, seed=0),
+                  dict(rb=64, ct=128, g=64)),
+}
+
+
+def _walked(tfmt):
+    return (torch.arange(tfmt.n_chunks).view(1, -1, 1)
+            < tfmt.nc_p.reshape(-1, 1, 1)).expand(tuple(tfmt.cols.shape))
+
+
+@pytest.mark.parametrize("pattern,min_slots", [("two_densities", None), ("pruned_weight", None),
+                                               ("power_law", None), ("power_law", 1),
+                                               ("two_densities", 10 ** 9)])
+def test_tile_index_covers_every_walked_slot(pattern, min_slots):
+    make, kw = _PATTERNS[pattern]
+    jmat = make()
+    tfmt = pack_span(_tmat(jmat), keep_perm=True, device="cpu", **kw)
+    planes = (tfmt.c0, tfmt.cols, tfmt.lrow, tfmt.nc_p)
+    tiles = sddmm.sddmm_tiles(tfmt)
+    assert sddmm.sddmm_tiles(tfmt) is tiles and tfmt.tiles is tiles
+    # every slot of a walked chunk exactly once, padding included
+    slot, row, col = tiles.slot.long(), tiles.row.long(), tiles.col.long()
+    np.testing.assert_array_equal(np.sort(slot.numpy()),
+                                  np.flatnonzero(_walked(tfmt).reshape(-1).numpy()))
+    c, r, _ = sddmm.slot_rows_cols(*planes, tfmt.rb)
+    np.testing.assert_array_equal(row.numpy(), r[slot].numpy())
+    np.testing.assert_array_equal(col.numpy(), c[slot].numpy())
+    # the tiles by falling count, each a contiguous range within its bounds,
+    # slots rising, every hit tile once
+    t = tiles.tiles.long()
+    np.testing.assert_array_equal((t[:, 3] - t[:, 2]).numpy(), tiles.counts)
+    assert bool((t[1:, 2] == t[:-1, 3]).all()) and int(t[-1, 3]) == tiles.n_slots
+    assert bool((np.diff(tiles.counts) <= 0).all())
+    assert len(set(map(tuple, t[:, :2].tolist()))) == tiles.n_hit_tiles
+    for r0, c0, lo, hi in t.tolist():
+        assert bool(((row[lo:hi] >= r0) & (row[lo:hi] < r0 + sddmm.TILE_ROWS)).all())
+        assert bool(((col[lo:hi] >= c0) & (col[lo:hi] < c0 + sddmm.TILE_COLS)).all())
+        assert bool((slot[lo + 1:hi] > slot[lo:hi - 1]).all())
+    # the dense tiles at a threshold: a prefix of the tiles and of the lists
+    if min_slots is None:
+        min_slots = sddmm.TILE_MIN_SLOTS["fp32x2"]
+    n_dense, d = tiles.dense(min_slots)
+    assert bool((tiles.counts[:n_dense] >= min_slots).all())
+    assert bool((tiles.counts[n_dense:] < min_slots).all())
+    assert d == (int(t[n_dense - 1, 3]) if n_dense else 0)
+    kinds = (d > 0, d < tiles.n_slots)
+    assert kinds == {"two_densities": (min_slots < 10 ** 9, True),
+                     "pruned_weight": (True, False),
+                     "power_law": (min_slots == 1, min_slots > 1)}[pattern]
+
+
+@pytest.mark.parametrize("pattern", list(_PATTERNS))
+@pytest.mark.parametrize("precision", ["fp32x2", "bf16"])
+@pytest.mark.parametrize("k", [8, 20])
+def test_tile_plain_equals_rows_plain_and_jax(pattern, precision, k):
+    # the tile kernel's function, tile by tile, at every slot: against the
+    # port's per-slot plain version everywhere, and against the JAX
+    # function at every slot of a walked chunk (past nc_p the JAX kernel
+    # computes aliased indices; the port's contract is 0 there)
+    make, kw = _PATTERNS[pattern]
+    jmat = make()
+    jfmt, tfmt = _formats(jmat, **kw)
+    m, n = jmat.shape
+    rng = np.random.default_rng(k)
+    x = rng.standard_normal((n, k)).astype(np.float32)
+    dy_slots = rng.standard_normal((tfmt.n_programs * tfmt.rb, k)).astype(np.float32)
+    tiles = sddmm.sddmm_tiles(tfmt)
+    if pattern == "two_densities":  # about 2500 slots a tile, or about 80
+        assert 0 < tiles.dense(sddmm.TILE_MIN_SLOTS[precision])[1] < tiles.n_slots
+    kp = -(-k // 8) * 8
+    xt = torch.nn.functional.pad(torch.from_numpy(x), (0, kp - k))
+    dyt = torch.nn.functional.pad(torch.from_numpy(dy_slots), (0, kp - k))
+    planes = (tfmt.c0, tfmt.cols, tfmt.lrow, tfmt.nc_p)
+    want = sddmm.sddmm_rows_plain(*planes, dyt, xt, rb=tfmt.rb, kt=8, mode=precision)
+    scale = sddmm.sddmm_rows_plain(*planes, dyt.abs(), xt.abs(), rb=tfmt.rb, kt=8, mode="fp32")
+    for min_slots in (1, None):  # every tile dense, then the mode's threshold
+        got = sddmm.sddmm_tiles_plain(tiles, dyt, xt, mode=precision, min_slots=min_slots)
+        got = got.view(tuple(tfmt.cols.shape))
+        _within(got.numpy(), want.numpy(), scale.numpy(), TOL["fp32"])
+    dv_j = np.asarray(jsddmm.span_sddmm(jfmt, jnp.asarray(dy_slots), jnp.asarray(x), ktile=8,
+                                        precision=precision))
+    walked = _walked(tfmt).numpy()
+    tol = TOL["fp32"] if precision == "bf16" else TOL[precision]
+    _within(got.numpy()[walked], dv_j[walked], scale.numpy()[walked], tol)
+
+
+def test_tile_index_follows_its_planes():
+    # kept on the format and carried by with_values (dv reads no values);
+    # an index plane written in place gives a new index; the wrapper
+    # refuses CPU tensors
+    jmat = jbuilder.pruned_weight_coo(256, 192, sparsity=0.9, seed=5)
+    tfmt = pack_span(_tmat(jmat), rb=128, ct=128, g=64, keep_perm=True, device="cpu")
+    tiles = sddmm.sddmm_tiles(tfmt)
+    new = with_values(tfmt, np.ones(jmat.nnz, np.float32))
+    assert new.tiles is tiles and sddmm.sddmm_tiles(new) is tiles
+    tfmt.lrow.add_(0)
+    assert not tiles.built_from((tfmt.c0, tfmt.cols, tfmt.lrow, tfmt.nc_p))
+    assert sddmm.sddmm_tiles(tfmt) is not tiles
+    x = torch.zeros((192, 8))
+    dy = torch.zeros((tfmt.n_programs * tfmt.rb, 8))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sddmm.sddmm_rows_cuda(tfmt.c0, tfmt.cols, tfmt.lrow, tfmt.nc_p, dy, x, rb=tfmt.rb, kt=8,
+                              mode="fp32", tiles=tfmt.tiles)

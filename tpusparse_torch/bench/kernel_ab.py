@@ -7,7 +7,8 @@ on one card in one run: the dg kernels (#1 ``dg_rows_cuda``, #2
 ``span_stream_rows_cuda``), the radix
 kernel (#9, ``radix_rows_cuda``), the stripe kernels (#10
 ``stripe_rows_cuda``, #11 ``stripe_nested_rows_cuda``), the N:M kernel
-(#12, ``nm_rows_cuda``) and the Block-ELL kernel (#13, ``bell_rows_cuda``):
+(#12, ``nm_rows_cuda``), the Block-ELL kernel (#13, ``bell_rows_cuda``)
+and the SDDMM pair (#14 ``sddmm_rows_cuda``, #15 ``dx_rows_cuda``):
 
     python3 tpusparse_torch/bench/kernel_ab.py [--root DIR] [--only PREFIX]
 
@@ -16,10 +17,10 @@ one holding this file), for example an older commit unpacked with ``git
 archive`` into an ignored directory; run it in turns (older, newer, newer,
 older).  The timer is this checkout's ``harness.device_time_fn``, loaded by
 path, so an older checkout that lacks it is timed the same way.  A
-checkout whose dg, dg SpMV, dgt, dgt stream, span and span stream
+checkout whose dg, dg SpMV, dgt, dgt stream, span, span stream and radix
 wrappers take a row walk gets the format's (built before the timing), one
-whose stripe wrapper takes the
-live slots or whose Block-ELL wrapper takes work items gets the format's;
+whose stripe wrapper takes the live slots, whose Block-ELL wrapper takes
+work items or whose SDDMM wrapper takes a tile index gets the format's;
 an older one is called as it was.  ``--only`` keeps the shapes whose name
 starts with one of its comma-separated prefixes ("#3", "#1,#4", "T1",
 ...); a prefix that ends in a digit does not take a longer number ("#1"
@@ -54,10 +55,17 @@ columns [0, 131072)).  #4 (``dgt_spmm(stream_x=True)``'s kernel): config
 ``spmv_multi_fn(mat, 8)``'s at K = 8 and 64 (X of 64 MB, past the 50 MB
 L2).  #9: the SpMV workload's ``radix_span`` default at K = 4 (P8),
 ``spmv_fn(mat, "radix")``'s format at K = 1 and ``brick_ell`` on the
-banded 32768^2 (bandwidth 16, seed 3) at K = 8.  #7: the trainable
-layer's span format of the pruned weight, (P, NC, G) = (8, 1639, 128), at
-K = 512; the SpMV workload's default at K = 8 (``span_colsplit``, two
-launches).  T1: one training step of ``TrainableSparseLinear`` on that
+banded 32768^2 (bandwidth 16, seed 3) at K = 8, and config #1's three
+``radix_span`` tune formats at K = 8.  #7: the trainable layer's span
+format of the pruned weight, (P, NC, G) = (8, 1639, 128), at K = 512; the
+SpMV workload's default at K = 8 (``span_colsplit``, two launches).  #14
+and #15 on that format at K = 512 (dY_slots and X random, #14 in fp32x2
+and bf16, #15 in fp32x2) beside cuSPARSE (``sampled_addmm``; the SpMM of
+W^T) and, for #14, cuBLAS's dense fp32 product dY . X^T; #14 also with
+every tile dense and with every slot on the per-slot path (where the
+checkout has a tile index: the two paths' costs, which set the
+threshold), and on config #1's span format (rb 512, ct 512, g 128) at
+K = 8.  T1: one training step of ``TrainableSparseLinear`` on that
 weight, x [4, 128, 4096], Adam.  For each: the device time a call
 (profiler, 20 calls: the wrapper's kernel and its zero fill), the
 back-to-back time a call (``time_fn``, median of five, host included), the
@@ -216,19 +224,23 @@ def main() -> int:
                lambda v: stripe.stripe_rows_plain(fmt.cols, fmt.lrow, fmt.vals.abs(), v, rb=rb),
                x, csr_lib(a, x[:, :k].contiguous()))
 
-    def csr_lib(a, x):
-        """cuSPARSE's product of A (CSR on the card) with x [N, K]."""
+    def csr_tensor(a):
+        """A as a CSR tensor on the card."""
         order = np.lexsort((a.cols, a.rows))
         crow = torch.zeros(a.shape[0] + 1, dtype=torch.int64)
         crow[1:] = torch.cumsum(torch.bincount(torch.from_numpy(np.asarray(a.rows, np.int64)),
                                                minlength=a.shape[0]), 0)
-        csr = torch.sparse_csr_tensor(crow, torch.from_numpy(np.asarray(a.cols, np.int64)[order]),
-                                      torch.from_numpy(a.vals[order].astype(np.float32)),
-                                      size=a.shape).to(dev)
+        return torch.sparse_csr_tensor(crow, torch.from_numpy(np.asarray(a.cols, np.int64)[order]),
+                                       torch.from_numpy(a.vals[order].astype(np.float32)),
+                                       size=a.shape).to(dev)
+
+    def csr_lib(a, x):
+        """cuSPARSE's product of A (CSR on the card) with x [N, K]."""
+        csr = csr_tensor(a)
         return (lambda v: torch.sparse.mm(csr, v)), x
 
-    def takes_walk(wrapper):
-        return "walk" in inspect.signature(wrapper).parameters
+    def takes_walk(wrapper, name="walk"):
+        return name in inspect.signature(wrapper).parameters
 
     def dgt_shape(name, fmt, a, k, stream=False):
         """#3 or, with ``stream``, #4 on a dgt format at K = k."""
@@ -272,7 +284,9 @@ def main() -> int:
         args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p)
         kw = dict(rb=fmt.rb, kt=fmt.kt, mode=fmt.mode)
         x = rand_x(fmt.shape[1], k, fmt.kt)
-        record(name, lambda v: radix.radix_rows_cuda(*args, v, **kw),
+        walk = (dict(walk=radix.radix_row_walk(fmt), k=k) if takes_walk(radix.radix_rows_cuda)
+                else {})
+        record(name, lambda v: radix.radix_rows_cuda(*args, v, **kw, **walk),
                lambda v: radix.radix_rows_plain(*args, v, **kw),
                lambda v: radix.radix_rows_plain(fmt.c0, fmt.cols, fmt.lrow, fmt.vals.abs(),
                                                 fmt.nc_p, v, **kw),
@@ -301,6 +315,68 @@ def main() -> int:
 
         record(name, run(wrapper, True), run(span.span_rows_plain, False),
                run(span.span_rows_plain, False, True), xs, csr_lib(a, x[:, :k].contiguous()))
+
+    def sddmm_shapes(f1, a):
+        """#14 and #15 on the trainable layer's format ``f1`` of the weight
+        ``a`` at K = 512, and #14 on config #1's span format at K = 8."""
+        gen = torch.Generator(device=dev).manual_seed(3)
+        k = 512
+        x = torch.randn((a.shape[1], k), generator=gen, device=dev)
+        dy = torch.randn((f1.n_programs * f1.rb, k), generator=gen, device=dev)
+        planes = (f1.c0, f1.cols, f1.lrow, f1.nc_p)
+        abs_x = x.abs()
+        dyk = torch.randn((a.shape[0], k), generator=gen, device=dev)   # dY in Y's row order
+        w_csr, xt = csr_tensor(a), x.T.contiguous()
+        has_tiles = takes_walk(sd.sddmm_rows_cuda, "tiles")
+        if wanted("#14"):
+            for mode in ("fp32x2", "bf16"):
+                kw = dict(rb=f1.rb, kt=32, mode=mode)
+                tiles = dict(tiles=sd.sddmm_tiles(f1)) if has_tiles else {}
+                record(f"#14 T1 (8, 1639, 128) K=512 {mode}",
+                       lambda v, kw=kw, tiles=tiles: sd.sddmm_rows_cuda(*planes, v, x, **kw,
+                                                                        **tiles),
+                       lambda v, kw=kw: sd.sddmm_rows_plain(*planes, v, x, **kw),
+                       lambda v, kw=kw: sd.sddmm_rows_plain(*planes, v, abs_x,
+                                                            **dict(kw, mode="fp32")),
+                       dy, (lambda m1: torch.sparse.sampled_addmm(w_csr, m1, xt, beta=0.0), dyk),
+                       lib_name="cuSPARSE sampled_addmm")
+                if mode == "fp32x2":
+                    rec = out["shapes"][f"#14 T1 (8, 1639, 128) K=512 {mode}"]
+                    mm = (functools.partial(torch.mm, dyk), xt)
+                    rec["dense_fp32_mm_device_ms"] = device_ms("#14 cuBLAS dense fp32", *mm)
+                    print(f"#14 T1 cuBLAS dense fp32 dY . X^T (TF32 off): device "
+                          f"{fmt_ms(rec['dense_fp32_mm_device_ms'])} ms", flush=True)
+                if has_tiles:  # each path over the whole pattern
+                    for label, min_slots in (("every tile dense", 1),
+                                             ("every slot per-slot", 2 ** 31 - 1)):
+                        record(f"#14 T1 K=512 {mode}, {label}",
+                               lambda v, kw=kw, m=min_slots: sd.sddmm_rows_cuda(
+                                   *planes, v, x, **kw, tiles=sd.sddmm_tiles(f1), min_slots=m),
+                               lambda v, kw=kw: sd.sddmm_rows_plain(*planes, v, x, **kw),
+                               lambda v, kw=kw: sd.sddmm_rows_plain(*planes, v, abs_x,
+                                                                    **dict(kw, mode="fp32")),
+                               dy)
+            fc = span.pack_span(mat, rb=512, ct=512, g=128, keep_perm=True, device=dev)
+            pc = (fc.c0, fc.cols, fc.lrow, fc.nc_p)
+            xc = rand_x(32768, 8, 8)
+            dyc = rand_x(fc.n_programs * fc.rb, 8, 8)
+            kw = dict(rb=fc.rb, kt=8, mode="fp32x2")
+            tiles = dict(tiles=sd.sddmm_tiles(fc)) if has_tiles else {}
+            record("#14 config #1 span rb512 ct512 g128 K=8",
+                   lambda v: sd.sddmm_rows_cuda(*pc, v, xc, **kw, **tiles),
+                   lambda v: sd.sddmm_rows_plain(*pc, v, xc, **kw),
+                   lambda v: sd.sddmm_rows_plain(*pc, v, xc.abs(), **dict(kw, mode="fp32")),
+                   dyc)
+        if wanted("#15"):
+            vals = f1.vals.float().contiguous()
+            kw = dict(n=a.shape[1], rb=f1.rb, kt=32, mode="fp32x2")
+            args = (f1.c0, f1.cols, f1.lrow, vals, f1.nc_p)
+            record("#15 T1 (8, 1639, 128) K=512 fp32x2",
+                   lambda v: sd.dx_rows_cuda(*args, v, **kw),
+                   lambda v: sd.dx_rows_plain(*args, v, **kw),
+                   lambda v: sd.dx_rows_plain(f1.c0, f1.cols, f1.lrow, vals.abs(), f1.nc_p, v,
+                                              **kw), dy, csr_lib(a.transpose(), dyk),
+                   lib_name="cuSPARSE SpMM of W^T")
 
     mat = builder.power_law_coo(32768, 32768, avg_nnz_per_row=32.0, alpha=1.8, seed=42)
     pw = builder.pruned_weight_coo(4096, 4096, 0.9, seed=3)
@@ -475,6 +551,14 @@ def main() -> int:
                          ktile=8)
         radix_shape("#9 banded 32768^2 brick_ell K=8 (P11)",
                     build_plan(band, sched, device=dev).formats[0], band, 8)
+        from tpusparse_torch.tune import _radix_configs
+
+        for rb, s_, g in _radix_configs(mat.density, 8):  # config #1's radix_span tune rows
+            sched = Schedule(family="radix_span", rb=rb, sublanes=s_, g=g, unroll=4, ktile=8)
+            radix_shape(f"#9 config #1 radix_span rb{rb} S={s_} g{g} K=8",
+                        build_plan(mat, sched, device=dev).formats[0], mat, 8)
+    if wanted("#14") or wanted("#15"):
+        sddmm_shapes(span.pack_span(pw, rb=512, ct=512, g=128, keep_perm=True, device=dev), pw)
     out["graph_replay"] = sorted(graph_read)
     print(json.dumps(out))
     return 0

@@ -43,24 +43,7 @@
 // gathered and Y; 2 flops per slot and column.  See PERF.md for the times
 // against the bound on the card.
 
-#include <type_traits>
-
 #include "row_walk.cuh"
-
-namespace {
-
-// walk1_kernel takes 1, 2 or 4 steps of 32 slots a warp at once.
-template <typename Fn>
-int by_steps(int steps, Fn fn) {
-  switch (steps) {
-    case 1: return fn(std::integral_constant<int, 1>{});
-    case 2: return fn(std::integral_constant<int, 2>{});
-    case 4: return fn(std::integral_constant<int, 4>{});
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -85,14 +68,15 @@ int dg_walk_info(int pw, int bf16, int* out) {
 // The one-column walk kernel over the S slots of a walk (row, col, slot
 // int32 [S]): values vals[slot[i]] from a value plane with gather, else the
 // walk's own vals[i]; y [rows] must be zeroed; x is [N] fp32; spw slots a
-// warp, wpb warps a block, `steps` steps of 32 slots loaded at once.
-// Returns the cudaError_t of the launch (0 on success).
+// warp, wpb warps a block, `steps` steps of 32 slots loaded at once; bf16
+// rounds each product.  Returns the cudaError_t of the launch (0 on
+// success).
 int dg_spmv_launch(const void* row, const void* col, const void* slot, const void* vals,
                    const void* x, void* y, int S, int spw, int wpb, int steps, int gather,
-                   void* stream) {
-  return by_steps(steps, [&](auto u) {
+                   int bf16, void* stream) {
+  return runs::by_steps(steps, [&](auto u) {
     return runs::walk1_launch<decltype(u)::value>(row, col, slot, vals, x, y, S, spw, wpb,
-                                                  gather, stream);
+                                                  gather, bf16, stream);
   });
 }
 
@@ -101,9 +85,8 @@ int dg_spmv_launch(const void* row, const void* col, const void* slot, const voi
 // bytes, blocks an SM holds.  Returns a cudaError_t.
 int dg_walk1_info(int steps, int wpb, int* out) {
   if (wpb < 1 || wpb > runs::kThreads / 32) return static_cast<int>(cudaErrorInvalidValue);
-  return by_steps(steps, [&](auto u) {
-    return runs::kernel_info(reinterpret_cast<const void*>(runs::walk1_kernel<decltype(u)::value>),
-                             out, 32 * wpb);
+  return runs::by_steps(steps, [&](auto u) {
+    return runs::kernel_info(runs::walk1_kernel_of<decltype(u)::value>(0), out, 32 * wpb);
   });
 }
 

@@ -1,8 +1,10 @@
 // radix_gather.cu - the Hopper counterpart of the TPU kernel in
 // tpusparse/kernels/radix_gather.py:
-//   radix_spmm_launch  replaces _radix_kernel (radix_gather.py:441), kt 1, 2,
-//                      4, 8, 16 or 32, modes fp32x2 and bf16.  It serves the
-//                      radix_span and brick_ell families and SpMV "radix".
+//   radix_walk_launch  replaces _radix_kernel (radix_gather.py:441) for X of
+//                      2 columns and more (kt 2-32, or kt 1 past one column);
+//   radix_spmv_launch  replaces it for x of one column (kt 1: SpMV "radix").
+// Both serve the radix_span and brick_ell families, in modes fp32x2 and
+// bf16, and launch a kernel of row_walk.cuh over the format's row walk.
 //
 // Function.  The format is the JAX package's RadixFormat: P programs of NC
 // chunks of G slots; c0 [P,1,NC] holds each chunk's window start column (a
@@ -10,67 +12,78 @@
 // the window, program-local row and value; nc_p [P] the real chunk count
 // of each program.  For each program p, chunk j < nc_p[p] and slot s whose
 // value v is not zero:
-//     y_rows[p*rb + lrow, t*KT + k] += v * X[c0[p,j] + cols, t*KT + k]
-// for every K-tile t and k < KT.  The TPU kernel reached the same sum
-// through X packed spr rows to a 128-lane word and three one-hot MXU dots
-// (gather, collapse, scatter) with the product split into hi/lo bf16; that
-// is mechanism of the TPU, not of the function, and none of it is needed
-// where a thread loads the row of X it needs.
+//     y_rows[p*rb + lrow, k] += v * X[c0[p,j] + cols, k]
+// for every column k of X.  The TPU kernel reached the same sum through X
+// packed spr rows to a 128-lane word and three one-hot MXU dots (gather,
+// collapse, scatter) over K-tiles of kt, with the product split into hi/lo
+// bf16; that is mechanism of the TPU, not of the function, and none of it
+// is needed where a lane loads the row of X it needs.
 //
 // Precision.  fp32x2: product and sum in fp32.  bf16: each fp32 product is
 // rounded to bf16 once and summed in fp32 (radix_gather.py:33-37).
 //
-// Design (simple and right first).  The slot decode is dg's and span's
-// (column c0 + cols, row lrow), so this is gather_common.cuh's
-// gather_kernel with the WindowSlots decode.  What radix adds is
-// its own K-tiles: spmm's default takes radix only at K = 2 to 4, where the
-// window kernels' KT of 8 would pad X two to four times and multiply the
-// per-slot atomics alike.  So KT runs 1, 2, 4, 8, 16, 32; below 4 one thread
-// carries a slot's whole row of X (one 8-byte load at KT = 2), at 4 one
-// 16-byte load.  The [rb, KT] row tile lives in shared memory where it fits
-// the opt-in limit (rb = 2048 at KT = 32 takes the global-atomic branch).
+// Design.  A slot decodes as dg's and span's do (column c0 + cols, row
+// p*rb + lrow), so the format gets the same row walk (kernels/row_walk.py:
+// its live slots listed once per pattern in (row, slot) order, kept on the
+// format) and the same two kernels:
+//   radix_walk_launch: walk_kernel, all of X's columns in one walk (panels
+//   of up to 512), each row run summed in registers and added by float4
+//   atomics.  X of 2 columns arrives padded to 4 (one 32-byte sector a
+//   gathered row either way).
+//   radix_spmv_launch: walk1_kernel, a warp's 32 lanes on 32 neighbouring
+//   slots, row runs summed by a segmented warp scan and added by one
+//   scalar atomic each; its bf16 flavour rounds each product.
+// Neither has a shared atomic.  The kernel this replaces walked every slot
+// of a chunk, padding included (3.49 slots for every nonzero of the SpMV
+// workload's radix format), and added each product by a shared-memory
+// atomic (a CAS loop on this card) into an [rb, kt] row tile per K-tile.
 //
-// Bound.  Memory: 12 bytes per slot of the format walked (cols, lrow,
-// vals), 4 per chunk (c0), the X rows gathered and Y; 2 flops per live slot
-// and column.  See PERF.md for its time against the bound on the card.
+// Bound.  Memory: the walk's 12 bytes a live slot (row, column, value; with
+// a caller's plane the slot index and a gathered value), the X rows
+// gathered and Y; 2 flops per slot and column.  See PERF.md for the times
+// against the bound on the card.
 
-#include "gather_common.cuh"
+#include "row_walk.cuh"
 
 extern "C" {
 
-// 1 when a block of (rb, kt) keeps its [rb, kt] tile in shared memory,
-// 0 when it takes the global-atomic branch.
-int radix_uses_shared_tile(int rb, int kt) {
-  return gather::tile_bytes(rb, kt) <= static_cast<size_t>(gather::optin_shared_bytes());
+// The row walk kernel over the S slots of a walk (row, col, slot int32
+// [S]): values vals[slot[i]] from a value plane with gather, else the
+// walk's own vals[i]; y [rows, ld] must be zeroed; x is [N, ld] fp32; the
+// first kc columns in panels of pw, bs slots a block.  Returns the
+// cudaError_t of the launch (0 on success).
+int radix_walk_launch(const void* row, const void* col, const void* slot, const void* vals,
+                      const void* x, void* y, int S, int ld, int kc, int pw, int bf16, int bs,
+                      int gather, void* stream) {
+  return runs::walk_launch(row, col, slot, vals, x, y, S, ld, kc, pw, bf16, bs, gather, stream);
 }
 
-// y [P*rb, Kp] must be zeroed; x is [N, Kp] fp32, Kp a multiple of kt.
-// Returns the cudaError_t of the launch (0 on success).
-int radix_spmm_launch(const void* c0, const void* cols, const void* lrow, const void* vals,
-                      const void* nc_p, const void* x, void* y, int P, int NC, int G, int rb,
-                      int N, int Kp, int kt, int bf16, int splits, void* stream) {
-  const gather::WindowSlots slots{static_cast<const int*>(c0), static_cast<const int*>(cols),
-                                  static_cast<const int*>(lrow), N};
-  const auto* v = static_cast<const float*>(vals);
-  const auto* n = static_cast<const int*>(nc_p);
-  const auto* x_ = static_cast<const float*>(x);
-  auto* y_ = static_cast<float*>(y);
-  auto s = static_cast<cudaStream_t>(stream);
-#define RADIX_CASE(KT)                                                                      \
-  if (kt == KT) {                                                                           \
-    return bf16 ? gather::launch_window_kt<KT, true>(slots, v, n, x_, y_, P, NC, G, rb, Kp, \
-                                                     splits, s)                             \
-                : gather::launch_window_kt<KT, false>(slots, v, n, x_, y_, P, NC, G, rb, Kp, \
-                                                      splits, s);                           \
-  }
-  RADIX_CASE(1)
-  RADIX_CASE(2)
-  RADIX_CASE(4)
-  RADIX_CASE(8)
-  RADIX_CASE(16)
-  RADIX_CASE(32)
-#undef RADIX_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+// The one-column walk kernel over the S slots of a walk: as dg_spmv_launch
+// (dg_gather.cu), bf16 rounding each product.  Returns the cudaError_t of
+// the launch.
+int radix_spmv_launch(const void* row, const void* col, const void* slot, const void* vals,
+                      const void* x, void* y, int S, int spw, int wpb, int steps, int gather,
+                      int bf16, void* stream) {
+  return runs::by_steps(steps, [&](auto u) {
+    return runs::walk1_launch<decltype(u)::value>(row, col, slot, vals, x, y, S, spw, wpb,
+                                                  gather, bf16, stream);
+  });
+}
+
+// The row walk kernel of (pw, bf16) into out[0..3]: registers a thread,
+// local (spill) bytes a thread, static shared bytes, blocks an SM holds.
+// Returns a cudaError_t.
+int radix_walk_info(int pw, int bf16, int* out) {
+  return runs::kernel_info(runs::walk_kernel_of(pw, bf16), out);
+}
+
+// The one-column walk kernel of `steps` at wpb warps a block, products
+// rounded to bf16 or not, into out[0..3] as radix_walk_info.
+int radix_walk1_info(int steps, int wpb, int bf16, int* out) {
+  if (wpb < 1 || wpb > runs::kThreads / 32) return static_cast<int>(cudaErrorInvalidValue);
+  return runs::by_steps(steps, [&](auto u) {
+    return runs::kernel_info(runs::walk1_kernel_of<decltype(u)::value>(bf16), out, 32 * wpb);
+  });
 }
 
 }  // extern "C"

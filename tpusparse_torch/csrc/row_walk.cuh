@@ -5,17 +5,19 @@
 //   walk_kernel<PW, BF16>  X of 4 to 512 columns a panel: row_runs.cuh's
 //       slot streams, each run added by atomicAdd(float4*), which sm_90
 //       compiles to REDG.E.ADD.F32x4.  dg_gather.cu (#1, behind
-//       dg_walk_launch), dgt_gather.cu (#3 and #4, behind dgt_spmm_launch)
-//       and span_gather.cu (#7 and #8, behind span_spmm_launch) each
-//       instantiate it.
-//   walk1_kernel<U>  x one column (SpMV): a warp's lanes on 32 slots a step,
-//       each run summed by a warp-segmented scan and added by one scalar
-//       atomicAdd (RED.E.ADD.F32).  dg_gather.cu (#2, behind
-//       dg_spmv_launch) instantiates it.
+//       dg_walk_launch), dgt_gather.cu (#3 and #4, behind dgt_spmm_launch),
+//       span_gather.cu (#7 and #8, behind span_spmm_launch) and
+//       radix_gather.cu (#9, behind radix_walk_launch) each instantiate it.
+//   walk1_kernel<U, BF16>  x one column (SpMV): a warp's lanes on 32 slots a
+//       step, each run summed by a warp-segmented scan and added by one
+//       scalar atomicAdd (RED.E.ADD.F32).  dg_gather.cu (#2, behind
+//       dg_spmv_launch) and radix_gather.cu (#9 at K = 1, behind
+//       radix_spmv_launch) instantiate it.
 //
-// Why a walk.  The dg, dgt and span formats store slots in the TPU's order:
-// a dg or span chunk is sorted by column, a dgt tile by (window, residue
-// class), so in slot order almost every slot is a run of its own
+// Why a walk.  The dg, dgt, span and radix formats store slots in the TPU's
+// order: a dg, span or radix chunk is sorted by column (a brick-ELL chunk
+// by stored order), a dgt tile by (window, residue class), so in slot order
+// almost every slot is a run of its own
 // (1,677,723 runs for as many slots at the trainable layer's span format;
 // 10,228,376 for 10,228,408 at the 262144^2 dgt8 format).  Summing runs in
 // registers needs a row order, which none of them stores.  The wrapper derives it
@@ -47,6 +49,8 @@
 // slot at K <= 8) and Y once; 2 flops per slot and column.
 
 #pragma once
+
+#include <type_traits>
 
 #include "row_runs.cuh"
 
@@ -136,7 +140,8 @@ int walk_launch(const void* wrow, const void* wcol, const void* wslot, const voi
 // one, and its last lane adds the run's sum into y once.  Lane 31's run
 // may go on in the next step: its sum and row are carried in registers,
 // and lane 0 of the next step either takes it into its own run or adds it.
-template <int U>
+// BF16 rounds each product to bf16 before it is summed (in fp32).
+template <int U, bool BF16>
 __global__ void __launch_bounds__(kThreads)
 walk1_kernel(const int* __restrict__ wrow, const int* __restrict__ wcol,
              const int* __restrict__ wslot, const float* __restrict__ vals,
@@ -163,7 +168,10 @@ walk1_kernel(const int* __restrict__ wrow, const int* __restrict__ wcol,
       v[u] = in ? (wslot != nullptr ? vals[wslot[i]] : vals[i]) : 0.f;  // uniform branch
     }
 #pragma unroll
-    for (int u = 0; u < U; ++u) p[u] = v[u] != 0.f ? v[u] * x[col[u]] : 0.f;
+    for (int u = 0; u < U; ++u) {
+      p[u] = v[u] != 0.f ? v[u] * x[col[u]] : 0.f;
+      if constexpr (BF16) p[u] = __bfloat162float(__float2bfloat16_rn(p[u]));
+    }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int r = row[u];
@@ -191,14 +199,34 @@ walk1_kernel(const int* __restrict__ wrow, const int* __restrict__ wcol,
   if (lane == 0 && carry_row >= 0) atomicAdd(y + carry_row, carry);
 }
 
+// walk1_kernel takes 1, 2 or 4 steps of 32 slots a warp at once: fn called
+// with the step count as a std::integral_constant.
+template <typename Fn>
+int by_steps(int steps, Fn fn) {
+  switch (steps) {
+    case 1: return fn(std::integral_constant<int, 1>{});
+    case 2: return fn(std::integral_constant<int, 2>{});
+    case 4: return fn(std::integral_constant<int, 4>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The one-column walk kernel of U steps, products rounded to bf16 or not.
+template <int U>
+const void* walk1_kernel_of(int bf16) {
+  return bf16 ? reinterpret_cast<const void*>(walk1_kernel<U, true>)
+              : reinterpret_cast<const void*>(walk1_kernel<U, false>);
+}
+
 // Launches walk1_kernel<U> over the S slots of a walk (wrow, wcol, wslot
 // int32 [S]) for y [rows] (zeroed) and x [N] fp32: spw slots a warp (a
 // multiple of 32), wpb warps a block (1 to 8); the values vals[wslot[i]]
-// with gather, else vals[i].  At least one block, so an empty walk is a
-// launch too.  Returns a cudaError_t.
+// with gather, else vals[i]; bf16 rounds each product.  At least one block,
+// so an empty walk is a launch too.  Returns a cudaError_t.
 template <int U>
 int walk1_launch(const void* wrow, const void* wcol, const void* wslot, const void* vals,
-                 const void* x, void* y, int S, int spw, int wpb, int gather, void* stream) {
+                 const void* x, void* y, int S, int spw, int wpb, int gather, int bf16,
+                 void* stream) {
   const int64_t per_block = static_cast<int64_t>(spw) * wpb;
   if (S < 0 || spw < 32 || spw % 32 || wpb < 1 || wpb > kThreads / 32 ||
       static_cast<int64_t>(S) + per_block + 32 * U >= (int64_t{1} << 31)) {
@@ -212,9 +240,9 @@ int walk1_launch(const void* wrow, const void* wcol, const void* wslot, const vo
   const auto* x_ = static_cast<const float*>(x);
   auto* y_ = static_cast<float*>(y);
   void* args[] = {&r, &c, &sl, &v, &x_, &y_, &S, &spw};
-  const cudaError_t err =
-      cudaLaunchKernel(reinterpret_cast<const void*>(walk1_kernel<U>), dim3(blocks),
-                       dim3(32 * wpb), args, 0, static_cast<cudaStream_t>(stream));
+  const cudaError_t err = cudaLaunchKernel(walk1_kernel_of<U>(bf16), dim3(blocks),
+                                           dim3(32 * wpb), args, 0,
+                                           static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 

@@ -174,12 +174,6 @@ def sm_count(dev: torch.device) -> int:
     return _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
 
 
-def launch_splits(dev: torch.device, blocks_per_split: int, nc: int) -> int:
-    """Blocks per program of a gather kernel: enough for about four blocks
-    per SM, at most one per chunk."""
-    return max(1, min(nc, cdiv(4 * sm_count(dev), max(blocks_per_split, 1))))
-
-
 def check_operands(x: torch.Tensor, fields, *, ndim: int) -> None:
     """Raises unless X is an ``ndim``-D contiguous, 16-byte aligned float32
     CUDA tensor and every ``(name, tensor, dtype, shape)`` of ``fields`` a

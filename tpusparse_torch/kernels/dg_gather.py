@@ -41,8 +41,8 @@ from tpusparse_torch.kernels import build
 from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info,
                                             pad_dense_cols, prep_x, resolve_device,
                                             unpack_by_deal, window_rows_plain)
-from tpusparse_torch.kernels.row_walk import (WALK1_GEOMETRY, RowWalk, build_row_walk,
-                                              launch_walk, launch_walk1, live_slots)
+from tpusparse_torch.kernels.row_walk import (WALK1_GEOMETRY, RowWalk, launch_walk,
+                                              launch_walk1, window_row_walk)
 from tpusparse_torch.levels import Level
 
 PRECISIONS = ("fp32x2", "bf16")
@@ -338,28 +338,13 @@ def with_values(fmt: DgFormat, new_vals) -> DgFormat:
 
 # ------------------------------------------------------------------- row walk
 
-def build_dg_walk(c0, cols, lrow, vals, nc_p, *, rb, n, perm_of_nz=None) -> RowWalk:
-    """The row walk of dg planes: the live slots (those of ``perm_of_nz``
-    where given, else the nonzeros of ``vals`` in a chunk before ``nc_p``)
-    with their y_rows row ``p*rb + lrow`` and X column ``c0 + cols``, as
-    ``dg_rows_plain`` decodes them (a column at or past ``n`` left out),
-    sorted by (row, slot)."""
-    P, NC, _ = cols.shape
-    col = c0.reshape(P, NC, 1).long() + cols.long()
-    row = torch.arange(P, device=cols.device).view(P, 1, 1) * rb + lrow.long()
-    walked = torch.arange(NC, device=cols.device).view(1, NC, 1) < nc_p.reshape(P, 1, 1)
-    return build_row_walk(row, col, live_slots(vals, walked, perm_of_nz), vals,
-                          pattern=(c0, cols, lrow, nc_p), live_from_values=perm_of_nz is None,
-                          n_rows=P * rb, n_cols=n)
-
-
 def dg_row_walk(fmt: DgFormat) -> RowWalk:
-    """The format's row walk, built at first use and kept on the format;
-    built anew where a plane was replaced or written in place since."""
-    if fmt.walk is None or not fmt.walk.fresh((fmt.c0, fmt.cols, fmt.lrow, fmt.nc_p), fmt.vals):
-        fmt.walk = build_dg_walk(fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p, rb=fmt.rb,
-                                 n=fmt.shape[1], perm_of_nz=fmt.perm_of_nz)
-    return fmt.walk
+    """The format's row walk (``row_walk.window_row_walk``): the live slots
+    with their y_rows row ``p*rb + lrow`` and X column ``c0 + cols``, as
+    ``dg_rows_plain`` decodes them, sorted by (row, slot); built at first
+    use and kept on the format, built anew where a plane was replaced or
+    written in place since."""
+    return window_row_walk(fmt)
 
 
 # --------------------------------------------------------------- plain versions
@@ -388,7 +373,7 @@ def _lib():
     lib.dg_walk_launch.restype = i32
     lib.dg_walk_info.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
     lib.dg_walk_info.restype = i32
-    lib.dg_spmv_launch.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    lib.dg_spmv_launch.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
     lib.dg_spmv_launch.restype = i32
     lib.dg_walk1_info.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
     lib.dg_walk1_info.restype = i32

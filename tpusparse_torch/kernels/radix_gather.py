@@ -9,23 +9,29 @@ window of W = S * spr columns starting at ``c0``, a multiple of 8 * spr
 of X into one 128-lane word (``pack_x_radix``) so that three one-hot MXU
 dots could gather, collapse and scatter a chunk; the lane packing, the
 dots and the fp32x2 hi/lo split are TPU mechanism and are not ported.  On
-the card a slot's column is ``c0 + cols`` and a thread loads that row of X,
-so the window only bounds the chunk; keeping it lets the tests feed the
-JAX packer's arrays to the port's kernel (``radix_format_from_numpy``).
-``pack_brick_ell`` cuts the same format from the interleaved ELL storage
-of the ``brick_ell`` family.
+the card a slot's column is ``c0 + cols`` and its row ``p*rb + lrow``, as
+in the dg and span formats, so the window only bounds the chunk; keeping
+it lets the tests feed the JAX packer's arrays to the port's kernel
+(``radix_format_from_numpy``).  ``pack_brick_ell`` cuts the same format
+from the interleaved ELL storage of the ``brick_ell`` family.
 
 Kernel (CUDA C++, ``tpusparse_torch/csrc/radix_gather.cu``) beside its plain
 PyTorch version of the same function:
 
   radix_rows_cuda / radix_rows_plain   replace ``_radix_kernel``
 
-Each computes ``y_rows[p*rb + lrow] += v * X[c0 + cols]`` at K-tiles of kt
-in {1, 2, 4, 8, 16, 32}; ``unpack_by_deal`` then maps the slots back to
-matrix rows.  Precision: fp32x2 computes in fp32 (at least the TPU's
-class); bf16 rounds each fp32 product to bf16 once (radix_gather.py:33-37)
-and sums in fp32.  A wrapper launches its kernel for CUDA tensors and
-raises on any failure; only CPU tensors take the plain version.
+Each computes ``y_rows[p*rb + lrow] += v * X[c0 + cols]`` for X of Kp
+columns, Kp a multiple of the format's kt in {1, 2, 4, 8, 16, 32};
+``unpack_by_deal`` then maps the slots back to matrix rows.  The wrapper
+launches a row walk kernel of ``csrc/row_walk.cuh`` over the format's row
+walk (``radix_row_walk``, the decode dg and span share): ``walk1_kernel``
+for x of one column (the radix SpMV), else ``walk_kernel`` over all of
+Kp's columns at once (X of 2 columns padded to 4), so kt is no longer a
+K-tile on the card.  Precision: fp32x2 computes in fp32 (at least the
+TPU's class); bf16 rounds each fp32 product to bf16 once
+(radix_gather.py:33-37) and sums in fp32.  A wrapper launches its kernel
+for CUDA tensors and raises on any failure; only CPU tensors take the
+plain version.
 """
 
 from __future__ import annotations
@@ -41,10 +47,11 @@ import torch
 from tpusparse_torch.format import live_chunk_counts
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import build
-from tpusparse_torch.kernels.common import (cdiv, check_operands, launch_checked,
-                                            launch_splits, pad_dense_cols, prep_x,
-                                            resolve_device, round_up, to_device,
-                                            unpack_by_deal, window_rows_plain)
+from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info,
+                                            pad_dense_cols, prep_x, resolve_device, round_up,
+                                            to_device, unpack_by_deal, window_rows_plain)
+from tpusparse_torch.kernels.row_walk import (WALK1_GEOMETRY, RowWalk, launch_walk,
+                                              launch_walk1, walk_geometry, window_row_walk)
 from tpusparse_torch.kernels.span_gather import span_chunk_numpy
 from tpusparse_torch.levels import Level
 
@@ -89,7 +96,9 @@ class RadixFormat:
     time): 'blocks' (slot == row), 'index' (slot = (r % P) * rb + r // P)
     or 'arbitrary' (the gather through ``slot_of_origrow``).  Every field
     equals the JAX ``RadixFormat``'s; ``perm_of_nz`` (numpy, host) maps each
-    input nonzero to its flat slot (``pack_radix(keep_perm=True)``).
+    input nonzero to its flat slot (``pack_radix(keep_perm=True)``).  ``walk``
+    is the port's own: the row walk the kernel walks (``radix_row_walk``),
+    built on the card at the first launch and not part of ``memory_bytes``.
     """
 
     c0: Any
@@ -109,6 +118,7 @@ class RadixFormat:
     nnz_real: int
     perm_of_nz: Any = None
     deal: str = "arbitrary"
+    walk: RowWalk | None = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -367,13 +377,15 @@ def pack_brick_ell(
 
 def with_values(fmt: RadixFormat, new_vals) -> RadixFormat:
     """Values-only update: the same pattern with new values, in the nonzero
-    order given to pack_radix (requires keep_perm=True)."""
+    order given to pack_radix (requires keep_perm=True).  The row walk, of
+    the pattern, is carried over with the new values."""
     assert fmt.perm_of_nz is not None, "pack_radix(..., keep_perm=True) required"
     flat = np.zeros(fmt.n_programs * fmt.n_chunks * fmt.chunk_g, dtype=np.float32)
     flat[np.asarray(fmt.perm_of_nz)] = np.asarray(new_vals, dtype=np.float32)
-    vals = flat.reshape(fmt.n_programs, fmt.n_chunks, fmt.chunk_g)
-    return dataclasses.replace(fmt, vals=torch.from_numpy(vals).to(fmt.device),
-                               nnz_real=int(np.count_nonzero(vals)))
+    vals = torch.from_numpy(flat.reshape(fmt.n_programs, fmt.n_chunks, fmt.chunk_g))
+    vals = vals.to(fmt.device)
+    return dataclasses.replace(fmt, vals=vals, nnz_real=int(np.count_nonzero(flat)),
+                               walk=None if fmt.walk is None else fmt.walk.for_plane(vals))
 
 
 def radix_format_from_numpy(fields: dict, *, device="cuda", **static) -> RadixFormat:
@@ -422,6 +434,19 @@ def radix_rows_plain(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode):
     return window_rows_plain(c0, cols, lrow, vals, nc_p, x, rb=rb, bf16=mode == "bf16")
 
 
+# ------------------------------------------------------------------- row walk
+
+def radix_row_walk(fmt: RadixFormat) -> RowWalk:
+    """The format's row walk (``row_walk.window_row_walk``): the live slots
+    (those of ``perm_of_nz`` where ``pack_radix(keep_perm=True)`` kept it,
+    else the plane's nonzeros in a chunk before ``nc_p``, as for
+    ``pack_brick_ell``'s formats) with their y_rows row ``p*rb + lrow`` and
+    X column ``c0 + cols``, sorted by (row, slot); built at first use and
+    kept on the format, built anew where a plane was replaced or written in
+    place since."""
+    return window_row_walk(fmt)
+
+
 # ---------------------------------------------------------------- CUDA kernel
 
 @functools.cache
@@ -429,22 +454,41 @@ def _lib():
     """csrc/radix_gather.cu, built at first use, with its C signatures."""
     lib = build.library("radix_gather")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.radix_spmm_launch.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
-    lib.radix_spmm_launch.restype = i32
-    lib.radix_uses_shared_tile.argtypes = [i32, i32]
-    lib.radix_uses_shared_tile.restype = i32
+    lib.radix_walk_launch.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+    lib.radix_walk_launch.restype = i32
+    lib.radix_spmv_launch.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+    lib.radix_spmv_launch.restype = i32
+    lib.radix_walk_info.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
+    lib.radix_walk_info.restype = i32
+    lib.radix_walk1_info.argtypes = [i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
+    lib.radix_walk1_info.restype = i32
     return lib
 
 
-def radix_uses_shared_tile(rb: int, kt: int) -> bool:
-    """Whether a launch of (rb, kt) keeps its row tile in shared memory
-    (False: the kernel's global-atomic branch)."""
-    return bool(_lib().radix_uses_shared_tile(rb, kt))
+def radix_walk_info(kp: int, mode: str, geometry: tuple[int, int, int] = WALK1_GEOMETRY) -> dict:
+    """The row walk kernel that ``radix_rows_cuda`` launches for X of
+    ``kp`` columns in ``mode`` (the one-column walk of ``geometry`` at kp =
+    1): registers a thread, spilled (local) bytes a thread, static shared
+    bytes and blocks an SM holds."""
+    bf16 = int(mode == "bf16")
+    if kp == 1:
+        _, wpb, steps = geometry
+        return kernel_info(_lib().radix_walk1_info, "radix_walk1_info", steps, wpb, bf16)
+    return kernel_info(_lib().radix_walk_info, "radix_walk_info", walk_geometry(kp)[1], bf16)
 
 
-def radix_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode):
+def radix_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode, walk=None, k=None):
     """CUDA ``_radix_kernel`` (tpusparse/kernels/radix_gather.py:441): y_rows
-    [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in RADIX_KTS."""
+    [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in RADIX_KTS, from one
+    launch of a row walk kernel over ``walk``, the format's live slots in
+    row order (``radix_row_walk(fmt)``; one built from other planes, or
+    before they were written, is refused): the one-column walk at Kp = 1,
+    else the walk kernel over all Kp columns at once (X of 2 columns is
+    copied into 4, which a gathered row costs either way).  The values are
+    ``vals``'s: streamed from the walk where it holds them, else gathered
+    through its slot index.  ``k``: the columns of X that carry the product
+    (the rest is the kt padding; None: all Kp); the kernel reads and writes
+    them rounded up to 4, the rest of y_rows stays zero."""
     P, NC, G = cols.shape
     check_operands(x, (("c0", c0, torch.int32, (P, 1, NC)),
                        ("cols", cols, torch.int32, (P, NC, G)),
@@ -453,12 +497,15 @@ def radix_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode):
                        ("nc_p", nc_p, torch.int32, (P, 1, 1))), ndim=2)
     if kt not in RADIX_KTS or mode not in PRECISIONS or x.shape[1] % kt:
         raise ValueError(f"radix kernel: kt={kt}, mode={mode}, X {tuple(x.shape)}")
-    n, kp = x.shape
-    y = torch.zeros((P * rb, kp), dtype=torch.float32, device=x.device)
-    launch_checked(_lib().radix_spmm_launch, "radix_spmm_launch",
-                   (c0, cols, lrow, vals, nc_p, x, y),
-                   (P, NC, G, rb, n, kp, kt, int(mode == "bf16"),
-                    launch_splits(x.device, P * (kp // kt), NC)))
+    lib, pattern, rows, bf16 = _lib(), (c0, cols, lrow, nc_p), P * rb, mode == "bf16"
+    kp = x.shape[1]
+    if kp == 1:
+        y = launch_walk1(lib.radix_spmv_launch, "radix_spmv_launch", walk, pattern, vals,
+                         x.view(-1), rows=rows, bf16=bf16).view(rows, 1)
+    else:
+        x4 = pad_dense_cols(x, round_up(kp, 4)).contiguous()
+        y = launch_walk(lib.radix_walk_launch, "radix_walk_launch", walk, pattern, vals, x4,
+                        rows=rows, k=kp if k is None else min(k, kp), bf16=bf16)[:, :kp]
     radix_rows_cuda.launches += 1
     return y
 
@@ -490,16 +537,20 @@ def max_ktin(fmt: RadixFormat, kt_count: int, unroll: int) -> int:
 
 def radix_spmm(fmt: RadixFormat, x, *, unroll: int = 4, ktin: int | None = None) -> torch.Tensor:
     """Y[M, K] = A . X[N, K] with A in RadixFormat (kt and mode fixed at
-    pack time; K > kt runs K-tiles of kt on the grid).  ``unroll`` and
-    ``ktin`` steered the TPU kernel's loops and change nothing here.  CUDA
-    formats run the kernel, CPU formats its plain version."""
+    pack time; X padded to a multiple of kt).  ``unroll`` and ``ktin``
+    steered the TPU kernel's loops and change nothing here.  CUDA formats
+    run the kernel over the format's row walk, CPU formats its plain
+    version."""
     x = prep_x(x, fmt.device)
     m, n_cols = fmt.shape
     k = x.shape[1]
     assert x.shape[0] == n_cols, f"X rows {x.shape[0]} != A cols {n_cols}"
     kt = fmt.kt
     x = pad_dense_cols(x, cdiv(k, kt) * kt).contiguous()
-    rows_fn = radix_rows_cuda if fmt.device.type == "cuda" else radix_rows_plain
-    y_rows = rows_fn(fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p, x, rb=fmt.rb, kt=kt,
-                     mode=fmt.mode)
+    args = (fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p, x)
+    if fmt.device.type == "cuda":
+        y_rows = radix_rows_cuda(*args, rb=fmt.rb, kt=kt, mode=fmt.mode,
+                                 walk=radix_row_walk(fmt), k=k)
+    else:
+        y_rows = radix_rows_plain(*args, rb=fmt.rb, kt=kt, mode=fmt.mode)
     return unpack_by_deal(fmt, y_rows)[:, :k]

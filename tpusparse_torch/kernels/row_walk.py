@@ -1,29 +1,30 @@
-"""row_walk — the row order that the dg (#1, #2), dgt (#3, #4) and span
-(#7, #8) kernels walk.
+"""row_walk — the row order that the dg (#1, #2), dgt (#3, #4), span
+(#7, #8) and radix (#9) kernels walk.
 
-None of these formats stores its slots by row: a dg or span chunk is
-sorted by column, a dgt tile by window and residue class, so in slot order
-almost every slot is a row run of its own.  The kernels
-(``csrc/row_walk.cuh``: ``walk_kernel`` for X of 4 columns and more,
-``walk1_kernel`` for x of one, the dg SpMV) sum each row run in registers
-and add it into y_rows once, so they walk a derived list instead: every
-live slot of the pattern once, as (y_rows row, X column, flat slot index),
-sorted by (row, slot).  The list is built on the device with torch ops
-from the decode the plain versions use, at a format's first launch on the
-card, and kept on the format (``DgFormat.walk``, ``DgtFormat.walk``, ``SpanFormat.walk``),
-so that ``dataclasses.replace`` carries it; ``with_values`` gives it the
-new plane's values (``RowWalk.for_plane``).  It also holds the values of
-the plane it was built from in its order, which the kernel streams when a
-caller multiplies by that very plane as it stood then; any other plane
-(the trainable path's ``v * mask``) is gathered through the slot index.
-Streaming the values took a third off the SpMV kernel's time on the card
-(PERF.md).
+None of these formats stores its slots by row: a dg, span or radix chunk
+is sorted by column (a brick-ELL chunk by stored order), a dgt tile by
+window and residue class, so in slot order almost every slot is a row run
+of its own.  The kernels (``csrc/row_walk.cuh``: ``walk_kernel`` for X of
+4 columns and more, ``walk1_kernel`` for x of one, the dg and radix SpMV)
+sum each row run in registers and add it into y_rows once, so they walk a
+derived list instead: every live slot of the pattern once, as (y_rows
+row, X column, flat slot index), sorted by (row, slot).  The list is built
+on the device with torch ops from the decode the plain versions use, at a
+format's first launch on the card, and kept on the format
+(``DgFormat.walk``, ``DgtFormat.walk``, ``SpanFormat.walk``,
+``RadixFormat.walk``), so that ``dataclasses.replace`` carries it;
+``with_values`` gives it the new plane's values (``RowWalk.for_plane``).
+It also holds the values of the plane it was built from in its order,
+which the kernel streams when a caller multiplies by that very plane as it
+stood then; any other plane (the trainable path's ``v * mask``) is
+gathered through the slot index.  Streaming the values took a third off
+the SpMV kernel's time on the card (PERF.md).
 
 A walk remembers the planes it was decoded from and their version
 counters, so a plane written in place (``load_state_dict`` into a layer's
-buffers) is seen: ``dg_row_walk``, ``dgt_row_walk`` and ``span_row_walk``
-build the walk anew, and the wrappers refuse a walk that is not the
-planes' they are given.
+buffers) is seen: ``dg_row_walk``, ``dgt_row_walk``, ``span_row_walk`` and
+``radix_row_walk`` build the walk anew, and the wrappers refuse a walk
+that is not the planes' they are given.
 
 Live slots are the pattern's: where the format kept ``perm_of_nz`` those
 slots, a stored zero included (training may make it nonzero); otherwise the
@@ -98,25 +99,25 @@ class RowWalk:
         """The same walk with the values of ``vals`` (a plane of the same
         pattern, the format's shape), for a values-only update."""
         return dataclasses.replace(self, val=_walk_values(vals, self.slot), val_src=vals,
-                                   val_version=_version(vals))
+                                   val_version=version_of(vals))
 
     def built_from(self, pattern) -> bool:
         """Whether the walk was decoded from the index planes ``pattern``
         as they stand: the same tensors, not written since."""
         return (len(pattern) == len(self.pattern)
                 and all(a is b for a, b in zip(pattern, self.pattern))
-                and tuple(map(_version, pattern)) == self.versions)
+                and tuple(map(version_of, pattern)) == self.versions)
 
     def holds(self, vals) -> bool:
         """Whether ``val`` holds the values of ``vals`` as it stands."""
-        return vals is self.val_src and _version(vals) == self.val_version
+        return vals is self.val_src and version_of(vals) == self.val_version
 
     def fresh(self, pattern, vals) -> bool:
         """Whether the walk is that of a format with these planes now."""
         return self.built_from(pattern) and self.holds(vals)
 
 
-def _version(t):
+def version_of(t):
     """``t``'s version counter, which every in-place write raises (None
     for an inference tensor, which keeps none)."""
     return None if t.is_inference() else t._version
@@ -156,12 +157,39 @@ def build_row_walk(row, col, live, vals, *, pattern, live_from_values: bool, n_r
                    col=col[idx].to(torch.int32).contiguous(),
                    slot=idx.to(torch.int32).contiguous(), val=_walk_values(vals, idx),
                    val_src=vals, pattern=tuple(pattern),
-                   versions=tuple(map(_version, pattern)), val_version=_version(vals),
+                   versions=tuple(map(version_of, pattern)), val_version=version_of(vals),
                    live_from_values=live_from_values, n_rows=n_rows, n_cols=n_cols,
                    plane_slots=plane, runs=runs, build_seconds=0.0)
     if walk.row.is_cuda:
         torch.cuda.synchronize(walk.row.device)
     return dataclasses.replace(walk, build_seconds=time.perf_counter() - t0)
+
+
+def build_window_walk(c0, cols, lrow, vals, nc_p, *, rb, n, perm_of_nz=None) -> RowWalk:
+    """The row walk of the window formats (dg, span, segment-span, radix
+    and brick-ELL planes), whose slot names X's column ``c0 + cols`` and
+    y_rows row ``p*rb + lrow``: the live slots (those of ``perm_of_nz``
+    where given, else the nonzeros of ``vals`` in a chunk before ``nc_p``)
+    with that row and column (a column at or past ``n`` left out), sorted
+    by (row, slot)."""
+    P, NC, G = cols.shape
+    col = c0.reshape(P, NC, 1).long() + cols.long()
+    row = torch.arange(P, device=cols.device).view(P, 1, 1) * rb + lrow.long()
+    walked = torch.arange(NC, device=cols.device).view(1, NC, 1) < nc_p.reshape(P, 1, 1)
+    return build_row_walk(row, col, live_slots(vals, walked, perm_of_nz), vals,
+                          pattern=(c0, cols, lrow, nc_p), live_from_values=perm_of_nz is None,
+                          n_rows=P * rb, n_cols=n)
+
+
+def window_row_walk(fmt) -> RowWalk:
+    """The row walk of a window format (``DgFormat``, ``SpanFormat``,
+    ``SegmentSpanFormat``, ``RadixFormat``), built at first use and kept on
+    the format as ``fmt.walk``; built anew where a plane was replaced or
+    written in place since."""
+    if fmt.walk is None or not fmt.walk.fresh((fmt.c0, fmt.cols, fmt.lrow, fmt.nc_p), fmt.vals):
+        fmt.walk = build_window_walk(fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p, rb=fmt.rb,
+                                     n=fmt.shape[1], perm_of_nz=getattr(fmt, "perm_of_nz", None))
+    return fmt.walk
 
 
 def walk_geometry(kc: int) -> tuple[int, int, int]:
@@ -199,7 +227,8 @@ def check_walk(name: str, walk: RowWalk, pattern, vals, x, *, rows: int) -> None
         raise ValueError(f"{name} walks the format's row walk: pass walk=")
     if not walk.built_from(pattern):
         raise ValueError(f"{name}: the row walk was not built from these index planes as "
-                         "they stand (take it from dg_row_walk, dgt_row_walk or span_row_walk)")
+                         "they stand (take it from dg_row_walk, dgt_row_walk, span_row_walk or "
+                         "radix_row_walk)")
     if (walk.row.device != x.device or walk.plane_slots != vals.numel()
             or walk.n_cols != x.shape[0] or walk.n_rows != rows):
         raise ValueError(f"{name}: the row walk ({walk.plane_slots} slots, {walk.n_rows} "
@@ -230,16 +259,17 @@ def launch_walk(fn, name: str, walk: RowWalk, pattern, vals, x, *, rows: int,
 
 
 def launch_walk1(fn, name: str, walk: RowWalk, pattern, vals, x, *, rows: int,
-                 geometry: tuple[int, int, int] = WALK1_GEOMETRY):
+                 geometry: tuple[int, int, int] = WALK1_GEOMETRY, bf16: bool = False):
     """y_rows [rows] from one launch of the one-column walk kernel ``fn``
     over ``walk`` (checked as ``launch_walk`` checks it), with the value
     plane ``vals`` and x [N] (checked by the caller); ``geometry``: slots a
-    warp, warps a block and steps of 32 slots loaded at once."""
+    warp, warps a block and steps of 32 slots loaded at once; ``bf16``
+    rounds each product to bf16."""
     check_walk(name, walk, pattern, vals, x, rows=rows)
     gather = gathers(walk, vals, name)
     y = torch.zeros(walk.n_rows, dtype=torch.float32, device=x.device)
     launch_checked(fn, name, (walk.row, walk.col, walk.slot, vals if gather else walk.val, x, y),
-                   (walk.n_slots, *geometry, int(gather)))
+                   (walk.n_slots, *geometry, int(gather), int(bf16)))
     return y
 
 

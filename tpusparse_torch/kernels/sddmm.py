@@ -20,26 +20,48 @@ plain PyTorch version of the same function:
   sddmm_rows_cuda / sddmm_rows_plain  replace ``_sddmm_kernel``
   dx_rows_cuda    / dx_rows_plain     replace ``_dx_kernel``
 
-A wrapper launches its kernel for CUDA tensors and raises on any failure;
-only CPU tensors take the plain version.  The TPU's bf16 hi/lo packing and
-its one-hot gathers are not ported: fp32 and fp32x2 compute in fp32, bf16
-rounds where the TPU kernels' bf16 operands did (csrc/sddmm.cu).
+``sddmm_rows_cuda`` samples through the pattern's tile index
+(``sddmm_tiles``, kept on the format as ``fmt.tiles``): the (dY_slots row,
+X column) space cut into tiles of ``TILE_ROWS`` x ``TILE_COLS``, every
+walked slot listed by tile, the tiles that hold the most slots first.  A
+tile holding at least ``TILE_MIN_SLOTS[mode]`` slots is computed whole on
+the tensor cores from operand panels staged in shared memory, and its
+slots read their entries; the slots of sparser tiles take one dot product
+each (``sddmm_tiles_plain`` is the same function in plain PyTorch, tile
+by tile).  A wrapper launches its kernel for CUDA tensors and raises on
+any failure; only CPU tensors take the plain version.  The TPU's bf16
+hi/lo packing and its one-hot gathers are not ported: fp32 and fp32x2
+compute in fp32's class (3xTF32 in the tile kernel), bf16 rounds where the
+TPU kernels' bf16 operands did (csrc/sddmm.cu).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import time
+from typing import Any
 
 import numpy as np
 import torch
 
 from tpusparse_torch.kernels import build
-from tpusparse_torch.kernels.common import (cdiv, check_operands, launch_checked,
+from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info, launch_checked,
                                             pad_dense_cols, prep_x)
+from tpusparse_torch.kernels.row_walk import version_of
 from tpusparse_torch.kernels.span_gather import (SpanFormat, pack_span, slot_rows_cols,
                                                  with_values)
 from tpusparse_torch.kernels.tile_onehot import PRECISIONS, choose_kt, default_ktile
+
+#: the tile kernel's tile: rows of dY_slots by columns of X (csrc/sddmm.cu)
+TILE_ROWS, TILE_COLS = 128, 64
+#: by mode, the fewest slots a tile holds that the tile kernel computes
+#: whole; a sparser tile's slots take one dot product each.  Where the
+#: two paths cost the same at the trainable 4096^2 layer, K = 512 (a tile
+#: of the 3xTF32 kernel as much as 580 per-slot dots, of the bf16 one
+#: 310; measured on the card, PERF.md)
+TILE_MIN_SLOTS = {"fp32": 576, "fp32x2": 576, "bf16": 320}
 
 
 # ------------------------------------------------------------------ host helpers
@@ -83,6 +105,110 @@ def packed_to_nz(fmt: SpanFormat, packed) -> torch.Tensor:
     return flat[torch.as_tensor(fmt.perm_of_nz, dtype=torch.long, device=flat.device)]
 
 
+# ------------------------------------------------------------------ tile index
+
+@dataclasses.dataclass(frozen=True)
+class SddmmTiles:
+    """Every walked slot of a span pattern (a chunk before ``nc_p``, a
+    column of X) listed by tile of ``TILE_ROWS`` dY_slots rows x
+    ``TILE_COLS`` X columns, on the format's device:
+
+      row   [S] int32  the slot's row of dY_slots (p * rb + lrow)
+      col   [S] int32  its column c0 + cols, a row of X
+      slot  [S] int32  its flat index in the [P, NC, G] plane
+      tiles [H, 4] int32  each tile that holds a slot: first row, first
+                          column and the range [start, end) of its slots
+                          in the lists
+
+    The tiles run from the one that holds the most slots down (by position
+    where they hold as many), each tile's slots together and rising, so the
+    tiles dense at any threshold are a prefix of ``tiles`` and their slots
+    a prefix of the lists (``dense``).  ``counts`` (numpy, host) is each
+    tile's slot count.  ``pattern`` (the index planes it was derived from)
+    and ``versions`` (their version counters then) tie it to the planes as
+    they stood; ``n_rows`` (P * rb), ``n_cols`` (X's rows) and
+    ``plane_slots`` (P * NC * G) to its format."""
+
+    row: Any
+    col: Any
+    slot: Any
+    tiles: Any
+    counts: Any
+    pattern: tuple
+    versions: tuple
+    n_rows: int
+    n_cols: int
+    plane_slots: int
+    build_seconds: float
+
+    @property
+    def n_slots(self) -> int:
+        return self.row.numel()
+
+    @property
+    def n_hit_tiles(self) -> int:
+        return self.tiles.shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        return 12 * self.n_slots + 16 * self.n_hit_tiles
+
+    def dense(self, min_slots: int) -> tuple[int, int]:
+        """(T, D): the T tiles that hold at least ``min_slots`` slots, the
+        first T of ``tiles``, and their D slots, the first D of the lists."""
+        t = int(np.searchsorted(-self.counts, -min_slots, side="right"))
+        return t, int(self.counts[:t].sum())
+
+    def built_from(self, pattern) -> bool:
+        """Whether the index was derived from the index planes ``pattern``
+        as they stand: the same tensors, not written since."""
+        return (len(pattern) == len(self.pattern)
+                and all(a is b for a, b in zip(pattern, self.pattern))
+                and tuple(map(version_of, pattern)) == self.versions)
+
+
+def build_sddmm_tiles(c0, cols, lrow, nc_p, *, rb, n) -> SddmmTiles:
+    """The tile index of span planes for X of ``n`` rows, derived on their
+    device with torch ops."""
+    t0 = time.perf_counter()
+    P, NC, G = cols.shape
+    if P * NC * G >= 2 ** 31:
+        raise ValueError(f"{P * NC * G} slots: the tile index lists them with int32")
+    col, row, walked = slot_rows_cols(c0, cols, lrow, nc_p, rb)
+    idx = torch.nonzero(walked & (col < n)).reshape(-1)            # rising slots
+    row, col = row[idx], col[idx]
+    n_tc = cdiv(n, TILE_COLS)
+    key, order = torch.sort((row // TILE_ROWS) * n_tc + col // TILE_COLS, stable=True)
+    keys, counts = torch.unique_consecutive(key, return_counts=True)
+    # the tiles by falling count, each tile's slots together and rising
+    by_count = torch.sort(counts, descending=True, stable=True)[1]
+    rank = torch.empty_like(by_count)
+    rank[by_count] = torch.arange(len(by_count), device=by_count.device)
+    order = order[torch.sort(rank.repeat_interleave(counts), stable=True)[1]]
+    idx, row, col = idx[order], row[order], col[order]
+    keys, counts = keys[by_count], counts[by_count]
+    ends = torch.cumsum(counts, 0)
+    tiles = torch.stack([(keys // n_tc) * TILE_ROWS, (keys % n_tc) * TILE_COLS, ends - counts,
+                         ends], dim=1).to(torch.int32).contiguous()
+    pattern = (c0, cols, lrow, nc_p)
+    index = SddmmTiles(row=row.to(torch.int32).contiguous(), col=col.to(torch.int32).contiguous(),
+                       slot=idx.to(torch.int32).contiguous(), tiles=tiles,
+                       counts=counts.cpu().numpy(), pattern=pattern,
+                       versions=tuple(map(version_of, pattern)), n_rows=P * rb, n_cols=n,
+                       plane_slots=P * NC * G, build_seconds=0.0)
+    return dataclasses.replace(index, build_seconds=time.perf_counter() - t0)
+
+
+def sddmm_tiles(fmt: SpanFormat) -> SddmmTiles:
+    """The format's tile index, built at first use and kept on the format
+    (``fmt.tiles``); built anew where an index plane was replaced or
+    written in place since (dv reads no values: they change nothing)."""
+    pattern = (fmt.c0, fmt.cols, fmt.lrow, fmt.nc_p)
+    if fmt.tiles is None or not fmt.tiles.built_from(pattern):
+        fmt.tiles = build_sddmm_tiles(*pattern, rb=fmt.rb, n=fmt.shape[1])
+    return fmt.tiles
+
+
 # --------------------------------------------------------------- plain versions
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -105,6 +231,32 @@ def sddmm_rows_plain(c0, cols, lrow, nc_p, dy_slots, x, *, rb, kt, mode):
     dv = torch.zeros(P * NC * G, dtype=torch.float32, device=x.device)
     dv[live] = (gx * gd).sum(dim=1)
     return dv.reshape(P, NC, G)
+
+
+def sddmm_tiles_plain(tiles: SddmmTiles, dy_slots, x, *, mode, min_slots=None) -> torch.Tensor:
+    """The tile kernel's function in plain PyTorch, tile by tile: dv [P *
+    NC * G] (flat; 0 off the index) with the product of each tile that
+    holds at least ``min_slots`` slots (default ``TILE_MIN_SLOTS[mode]``)
+    computed whole from its dY_slots and X rows and sampled at its slots,
+    and each other slot's dot product; bf16 rounds X and dY before the
+    products."""
+    n_dense, d = tiles.dense(TILE_MIN_SLOTS[mode] if min_slots is None else min_slots)
+    if mode == "bf16":
+        dy_slots, x = _bf16(dy_slots), _bf16(x)
+    dv = torch.zeros(tiles.plane_slots, dtype=torch.float32, device=x.device)
+    row, col, slot = tiles.row.long(), tiles.col.long(), tiles.slot.long()
+    if n_dense:
+        t = tiles.tiles[:n_dense].long()
+        # a zero row past dY's and X's last, for the rows a tile runs past
+        dyz = torch.cat([dy_slots, dy_slots.new_zeros((1, dy_slots.shape[1]))])
+        xz = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+        rr = (t[:, :1] + torch.arange(TILE_ROWS, device=t.device)).clamp(max=dy_slots.shape[0])
+        cc = (t[:, 1:2] + torch.arange(TILE_COLS, device=t.device)).clamp(max=x.shape[0])
+        prod = torch.bmm(dyz[rr], xz[cc].transpose(1, 2))          # [T, rows, cols]
+        tile_of = torch.repeat_interleave(torch.arange(len(t), device=t.device), t[:, 3] - t[:, 2])
+        dv[slot[:d]] = prod[tile_of, row[:d] - t[tile_of, 0], col[:d] - t[tile_of, 1]]
+    dv[slot[d:]] = (dy_slots[row[d:]] * x[col[d:]]).sum(dim=1)
+    return dv
 
 
 def dx_rows_plain(c0, cols, lrow, vals, nc_p, dy_slots, *, n, rb, kt, mode):
@@ -134,7 +286,17 @@ def _lib():
     for fn in (lib.sddmm_launch, lib.dx_launch):
         fn.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
         fn.restype = i32
+    lib.sddmm_info.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
+    lib.sddmm_info.restype = i32
     return lib
+
+
+def sddmm_info(kind: str, mode: str) -> dict:
+    """The tile kernel (``kind`` "tile") or the per-slot kernel ("slot") of
+    ``mode``: registers a thread, spilled (local) bytes a thread, static
+    shared bytes and blocks an SM holds."""
+    return kernel_info(_lib().sddmm_info, "sddmm_info", ("tile", "slot").index(kind),
+                       int(mode == "bf16"))
 
 
 def _check(c0, cols, lrow, nc_p, dy_slots, rb, kt, mode, extra=()):
@@ -151,19 +313,36 @@ def _check(c0, cols, lrow, nc_p, dy_slots, rb, kt, mode, extra=()):
     return P, NC, G, kp
 
 
-def sddmm_rows_cuda(c0, cols, lrow, nc_p, dy_slots, x, *, rb, kt, mode):
+def sddmm_rows_cuda(c0, cols, lrow, nc_p, dy_slots, x, *, rb, kt, mode, tiles=None,
+                    min_slots=None):
     """CUDA ``_sddmm_kernel`` (tpusparse/kernels/sddmm.py:72): dv [P, NC,
     G] for dY_slots [P*rb, Kp] and X [N, Kp] fp32, Kp a multiple of kt in
-    {8, 16, 32}."""
+    {8, 16, 32}, through ``tiles``, the pattern's tile index
+    (``sddmm_tiles(fmt)``; one built from other planes, or before they were
+    written, is refused): the tile kernel over the tiles that hold at least
+    ``min_slots`` slots (default ``TILE_MIN_SLOTS[mode]``), the per-slot
+    kernel over the rest of the slots."""
     P, NC, G, kp = _check(c0, cols, lrow, nc_p, dy_slots, rb, kt, mode)
     n = x.shape[0]
     if x.device != dy_slots.device or x.dtype != torch.float32 or x.ndim != 2 or \
             x.shape[1] != kp or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"X must be a contiguous, 16-byte aligned float32 [N, {kp}] "
                          f"tensor on {dy_slots.device}")
-    dv = torch.empty((P, NC, G), dtype=torch.float32, device=x.device)
-    launch_checked(_lib().sddmm_launch, "sddmm_launch", (c0, cols, lrow, nc_p, dy_slots, x, dv),
-                   (P, NC, G, rb, n, kp, int(mode == "bf16")))
+    if not isinstance(tiles, SddmmTiles):
+        raise ValueError("sddmm_rows_cuda samples through the pattern's tile index: pass tiles=")
+    if not tiles.built_from((c0, cols, lrow, nc_p)):
+        raise ValueError("sddmm_rows_cuda: the tile index was not built from these index planes "
+                         "as they stand (take it from sddmm_tiles)")
+    if (tiles.row.device != x.device or tiles.plane_slots != P * NC * G
+            or tiles.n_rows != P * rb or tiles.n_cols != n or tiles.tiles.data_ptr() % 16):
+        raise ValueError(f"sddmm_rows_cuda: the tile index ({tiles.plane_slots} slots, "
+                         f"{tiles.n_rows} rows, {tiles.n_cols} columns, on {tiles.row.device}) "
+                         "is not this format's")
+    n_dense, d = tiles.dense(TILE_MIN_SLOTS[mode] if min_slots is None else min_slots)
+    dv = torch.zeros((P, NC, G), dtype=torch.float32, device=x.device)
+    launch_checked(_lib().sddmm_launch, "sddmm_launch",
+                   (tiles.tiles, tiles.row, tiles.col, tiles.slot, dy_slots, x, dv),
+                   (n_dense, d, tiles.n_slots, P * rb, n, kp, int(mode == "bf16")))
     sddmm_rows_cuda.launches += 1
     return dv
 
@@ -202,7 +381,8 @@ def span_sddmm(fmt: SpanFormat, dy_slots, x, *, ktile: int | None = None,
     ``dy_slots`` [P*RB, K] is dY in slot order (``rows_to_slots``), ``x``
     [N, K] the forward's dense operand.  Padding slots hold what their
     aliased indices compute; mask with ``occupancy_mask``.  CUDA formats
-    run the kernel, CPU formats its plain version."""
+    run the kernel through the format's tile index (built at the first
+    call), CPU formats its plain version."""
     assert precision in PRECISIONS, precision
     dev = fmt.device
     x, dy = prep_x(x, dev), prep_x(dy_slots, dev)
@@ -212,9 +392,10 @@ def span_sddmm(fmt: SpanFormat, dy_slots, x, *, ktile: int | None = None,
     kt = _k_tile(k, ktile)
     kp = cdiv(k, kt) * kt
     x, dy = pad_dense_cols(x, kp).contiguous(), pad_dense_cols(dy, kp).contiguous()
-    rows_fn = sddmm_rows_cuda if dev.type == "cuda" else sddmm_rows_plain
-    return rows_fn(fmt.c0, fmt.cols, fmt.lrow, fmt.nc_p, dy, x, rb=fmt.rb, kt=kt,
-                   mode=precision)
+    args = (fmt.c0, fmt.cols, fmt.lrow, fmt.nc_p, dy, x)
+    if dev.type == "cuda":
+        return sddmm_rows_cuda(*args, rb=fmt.rb, kt=kt, mode=precision, tiles=sddmm_tiles(fmt))
+    return sddmm_rows_plain(*args, rb=fmt.rb, kt=kt, mode=precision)
 
 
 def span_dx(fmt: SpanFormat, vals, dy_slots, *, ktile: int | None = None,

@@ -46,7 +46,7 @@ from tpusparse_torch.kernels import build
 from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info,
                                             pad_dense_cols, prep_x, resolve_device,
                                             unpack_slots, value_dtype, window_rows_plain)
-from tpusparse_torch.kernels.row_walk import RowWalk, build_row_walk, launch_walk, live_slots
+from tpusparse_torch.kernels.row_walk import RowWalk, launch_walk, window_row_walk
 from tpusparse_torch.kernels.tile_onehot import PRECISIONS, choose_kt, default_ktile
 from tpusparse_torch.levels import Level
 
@@ -64,9 +64,10 @@ class SpanFormat:
       slot_of_origrow [M] int32
 
     ``nc_p`` is the port's own field (the chunk walk's count per program):
-    the kernels walk only a program's real chunks.  So is ``walk``, the
-    row walk both wrappers' kernel walks (``span_row_walk``), built on the
-    card at the first launch and not part of ``memory_bytes``.  Every
+    the kernels walk only a program's real chunks.  So are ``walk``, the
+    row walk both wrappers' kernel walks (``span_row_walk``), and
+    ``tiles``, the SDDMM kernel's tile index (``sddmm.sddmm_tiles``), each
+    built on the card at its first launch and not part of ``memory_bytes``.  Every
     other field equals the JAX ``SpanFormat``'s.  ``perm_of_nz`` (numpy, host) maps each input
     nonzero to its flat slot (``pack_span(keep_perm=True)``).
     """
@@ -86,6 +87,7 @@ class SpanFormat:
     nnz_real: int
     perm_of_nz: Any = None
     walk: RowWalk | None = dataclasses.field(default=None, repr=False, compare=False)
+    tiles: Any = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -297,27 +299,12 @@ def slot_rows_cols(c0, cols, lrow, nc_p, rb):
     return col, row, walked
 
 
-def build_span_walk(c0, cols, lrow, vals, nc_p, *, rb, n, perm_of_nz=None) -> RowWalk:
-    """The row walk of span planes (also a SegmentSpanFormat's): the live
-    slots (those of ``perm_of_nz`` where given, else the nonzeros of
-    ``vals`` in a chunk before ``nc_p``) with their y_rows row p*rb + lrow
-    and their column c0 + cols of X [n, ...], sorted by (row, slot)."""
-    P = cols.shape[0]
-    col, row, walked = slot_rows_cols(c0, cols, lrow, nc_p, rb)
-    live = live_slots(vals, walked.view(cols.shape), perm_of_nz)
-    return build_row_walk(row, col, live, vals, pattern=(c0, cols, lrow, nc_p),
-                          live_from_values=perm_of_nz is None, n_rows=P * rb, n_cols=n)
-
-
 def span_row_walk(fmt) -> RowWalk:
-    """The row walk of a SpanFormat or SegmentSpanFormat, built at first
-    use and kept on the format; built anew where a plane was replaced or
-    written in place since."""
-    if fmt.walk is None or not fmt.walk.fresh((fmt.c0, fmt.cols, fmt.lrow, fmt.nc_p), fmt.vals):
-        fmt.walk = build_span_walk(fmt.c0, fmt.cols, fmt.lrow, fmt.vals, fmt.nc_p, rb=fmt.rb,
-                                   n=fmt.shape[1],
-                                   perm_of_nz=getattr(fmt, "perm_of_nz", None))
-    return fmt.walk
+    """The row walk of a SpanFormat or SegmentSpanFormat
+    (``row_walk.window_row_walk``), built at first use and kept on the
+    format; built anew where a plane was replaced or written in place
+    since."""
+    return window_row_walk(fmt)
 
 
 # --------------------------------------------------------------- plain versions
