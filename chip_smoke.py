@@ -120,7 +120,7 @@ KERNEL_OF = {"dg": "walk_kernel", "dg1": "walk1_kernel", "dgt": "walk_kernel",
              "stripe": "stripe_kernel", "stripe_nested": "stripe_nested_kernel",
              "nm": "nm_kernel", "bell": "bell_wgmma_kernel, bell_tf32_kernel",
              "sddmm": "sddmm_tf32_tile_kernel, sddmm_bf16_tile_kernel, sddmm_slot_kernel",
-             "dx": "dx_kernel"}
+             "dx": "dx_walk_kernel, dx_prep_kernel"}
 
 
 def candidates_digest(described) -> str:
@@ -328,9 +328,9 @@ def main() -> int:
             ("span_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("walk_kernel",)),
             ("radix_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"),
              ("walk1_kernel", "walk_kernel")),
-            ("sddmm", ("HGMMA", "HMMA", "ATOMS", "ATOMG", "ATOM.", "RED"),
+            ("sddmm", ("HGMMA", "HMMA", "ATOMS", "ATOMG", "ATOM.", "RED", "UBLKCP"),
              ("sddmm_tf32_tile_kernel", "sddmm_bf16_tile_kernel", "sddmm_slot_kernel",
-              "dx_kernel"))):
+              "dx_walk_kernel", "dx_prep_kernel"))):
         by_family = {}
         for fn, ops in sass_by_kernel(lib_name, opcodes).items():
             fam = by_family.setdefault(kernel_family(fn, names), {})
@@ -386,10 +386,17 @@ def main() -> int:
         log(f"[build] {fam}: {n_op} {op} sites")
         if not n_op:
             raise AssertionError(f"{fam} lacks {op}: {sd_ops}")
-    atomics = {fam: ops for fam, ops in sd_ops.items() if fam != "dx_kernel" and any(
+    # #15: the column walk stages by bulk copies (UBLKCP, the TMA); no
+    # kernel of sddmm.cu adds by an atomic (#14 writes each slot once, #15
+    # each row of dX once)
+    n_op = sum(n for o, n in sd_ops.get("dx_walk_kernel", {}).items() if o.startswith("UBLKCP"))
+    log(f"[build] dx_walk_kernel: {n_op} UBLKCP (bulk copy) sites")
+    if not n_op:
+        raise AssertionError(f"dx_walk_kernel lacks its bulk copies: {sd_ops}")
+    atomics = {fam: ops for fam, ops in sd_ops.items() if any(
         o.startswith(("ATOM", "RED")) for o in ops)}
     if atomics:
-        raise AssertionError(f"an SDDMM value-gradient kernel adds by atomics: {atomics}")
+        raise AssertionError(f"an SDDMM kernel adds by atomics: {atomics}")
 
     # ---- 3. each kernel against its plain version, on the card
     def check_vs_plain(which, label, desc, got, want, scale, tol):
@@ -1512,11 +1519,46 @@ def main() -> int:
         del got, want, scale
         if not dx:
             return
-        got = sd.dx_rows_cuda(*planes, vals, fmt.nc_p, dy, n=n, **kw)
+        index = sd.dx_index(fmt)
+        got = sd.dx_rows_cuda(*planes, vals, fmt.nc_p, dy, n=n, **kw, index=index)
+        again = sd.dx_rows_cuda(*planes, vals, fmt.nc_p, dy, n=n, **kw, index=index)
         want = sd.dx_rows_plain(*planes, vals, fmt.nc_p, dy, n=n, **kw)
         scale = sd.dx_rows_plain(*planes, vals.abs(), fmt.nc_p, dy.abs(), n=n,
                                  **dict(kw, mode="fp32"))
-        check_vs_plain("dx", label, desc, got, want, scale, tol)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"#15 at {label}: two launches on the same input differ")
+        check_vs_plain("dx", label, desc + f", {index.n_staged} of {index.n_slots} slots staged "
+                       f"in {index.n_pieces} pieces, two launches bit for bit", got, want, scale,
+                       tol)
+
+    def dx_index_line(label, fmt):
+        """The [kernel] line of #15's column index on ``fmt``: its slots,
+        staged windows and pieces, its bytes, its first build (at the first
+        backward) and a rebuild, the walk kernel's resources."""
+        index = sd.dx_index(fmt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = sd.build_dx_index(fmt.c0, fmt.cols, fmt.lrow, fmt.nc_p, rb=fmt.rb,
+                                  n=fmt.shape[1])
+        torch.cuda.synchronize()
+        rebuild = time.perf_counter() - t0
+        if not (torch.equal(again.slot, index.slot) and torch.equal(again.row, index.row)):
+            raise AssertionError(f"#15's column index at {label} is not built the same way twice")
+        per_piece = (index.pieces[:, 2] - index.pieces[:, 1]).cpu().numpy()
+        parts = []
+        for mode in ("fp32x2", "bf16"):
+            wi = sd.sddmm_info("dx", mode)
+            parts.append(f"{mode} walk kernel (panel 128) {wi['registers']} registers, "
+                         f"{wi['spill_bytes']} spill bytes, {wi['blocks_per_sm']} block an SM")
+        log(f"[kernel] dx_rows_cuda column index at {label}: tiles of {sd.DX_TILE_COLS} columns, "
+            f"windows of {sd.DX_WIN_ROWS} rows; {index.n_slots} walked slots, {index.n_staged} "
+            f"staged in {index.n_pieces} pieces (slots a piece: median "
+            f"{int(np.median(per_piece)) if len(per_piece) else 0}, most "
+            f"{int(per_piece.max()) if len(per_piece) else 0}); {index.nbytes / 2**20:.2f} MiB, "
+            f"built in {index.build_seconds * 1e3:.1f} ms at first use, rebuilt in "
+            f"{rebuild * 1e3:.1f} ms; " + "; ".join(parts))
+        return index
 
     # T0 at the JAX tests' shape: the K-tile loop of 8 and its tail
     small_t = builder.power_law_coo(300, 260, avg_nnz_per_row=5.0, seed=0)
@@ -1539,14 +1581,16 @@ def main() -> int:
     t_half = tiles_line("both paths (4096^2, half 90 %, half 99.5 % pruned)", f_half)
     if not 0 < t_half[1] < t_half[2]:
         raise AssertionError("the two-density pattern does not take both of #14's paths")
+    dx_index_line("both paths (4096^2, half 90 %, half 99.5 % pruned)", f_half)
     for mode in ("fp32x2", "bf16"):
         for k in (512, 100):
-            pair_vs_plain("both paths", f_half, k, 32, mode, dx=False)
+            pair_vs_plain("both paths", f_half, k, 32, mode)
     f_c1 = span.pack_span(mat, rb=512, ct=512, g=128, keep_perm=True, device=dev)
     if tiles_line("config #1's pattern", f_c1)[0]:
         raise AssertionError("config #1's pattern has a dense tile")
+    dx_index_line("config #1's pattern", f_c1)
     for mode in ("fp32x2", "bf16"):
-        pair_vs_plain("config #1", f_c1, 8, 8, mode, dx=False)
+        pair_vs_plain("config #1", f_c1, 8, 8, mode)
 
     # T1: the pruned 4096^2 weight as a trainable layer with bias, x [4,
     # 128, 4096]; MSE against a fixed target, five Adam steps
@@ -1567,6 +1611,7 @@ def main() -> int:
     # T0 at the path's own format and K: #14 and #15, and the forward's
     # span kernel (#7) on the masked value plane the layer hands it
     t_t1 = tiles_line("T1 (8, 1639, 128)", f1)
+    dx_index_line("T1 (8, 1639, 128)", f1)
     if t_t1[1] != t_t1[2]:
         raise AssertionError("T1's pattern has a tile for the per-slot path")
     for mode in ("fp32", "fp32x2", "bf16"):
@@ -2195,14 +2240,43 @@ def main() -> int:
             dyc1_m)},
         tiles_c1.nbytes + 4 * (dyc1.numel() + xc1.numel() + f_c1.cols.numel()),
         2.0 * mat.nnz * 8, *fp32_peak)
-    stats["dx"] = dense_tile_yardstick(
-        "dx", f"T1 span_dx, pruned 4096^2 planes {geo1}, K={k1}, fp32x2",
-        lambda d: sd.dx_rows_cuda(*planes1, vals1, f1.nc_p, d, n=n_in, **kw1),
-        lambda d: sd.dx_rows_plain(*planes1, vals1, f1.nc_p, d, n=n_in, **kw1), dy_slots1,
-        sparse_step, x1,
-        {"cuSPARSE SpMM of W^T (torch.sparse.mm)": (
-            functools.partial(torch.sparse.mm, pwt_csr), dyk_t)},
-        plane_bytes + 4 * slots1 + rows_bytes + 4 * n_in * k1, flops1, *fp32_peak)
+    # #15 at T1 in fp32x2 and bf16, against cuSPARSE's SpMM of W^T and
+    # cuBLAS's dense fp32 W^T . dY (TF32 off); its bytes: the column index,
+    # the value plane, dY_slots and dX once; its operations 2 * nnz * K
+    index1 = sd.dx_index(f1)
+    wt_dense = torch.zeros((n_in, m_out), device=dev)
+    wt_dense[cols_t, rows_t] = torch.as_tensor(pw.vals, dtype=torch.float32, device=dev)
+    dx_bytes = index1.nbytes + 4 * slots1 + rows_bytes + 4 * n_in * k1
+    for mode in ("fp32x2", "bf16"):
+        kw_m = dict(kw1, mode=mode)
+        st = dense_tile_yardstick(
+            "dx", f"T1 span_dx, pruned 4096^2 planes {geo1}, K={k1}, {mode}",
+            lambda d, kw_m=kw_m: sd.dx_rows_cuda(*planes1, vals1, f1.nc_p, d, n=n_in, **kw_m,
+                                                 index=index1),
+            lambda d, kw_m=kw_m: sd.dx_rows_plain(*planes1, vals1, f1.nc_p, d, n=n_in, **kw_m),
+            dy_slots1, sparse_step, x1,
+            {"cuSPARSE SpMM of W^T (torch.sparse.mm)": (
+                functools.partial(torch.sparse.mm, pwt_csr), dyk_t),
+             "cuBLAS dense fp32 mm (W^T . dY, TF32 off)": (
+                functools.partial(torch.mm, wt_dense), dyk_t)},
+            dx_bytes, flops1, *fp32_peak)
+        stats.setdefault("dx", st)
+    del wt_dense
+    # #15 on config #1's pattern at K = 8: most windows sparse (their dY
+    # rows read from L2), against cuSPARSE's SpMM of A^T
+    index_c1 = sd.dx_index(f_c1)
+    vals_c1 = f_c1.vals.float().contiguous()
+    mat_t_csr = csr_of(mat.transpose())
+    dense_tile_yardstick(
+        "dx", "config #1's pattern (span rb 512 ct 512 g 128), K=8, fp32x2: sparse windows",
+        lambda d: sd.dx_rows_cuda(*planes_c1[:3], vals_c1, f_c1.nc_p, d, n=N, **kw_c1,
+                                  index=index_c1),
+        lambda d: sd.dx_rows_plain(*planes_c1[:3], vals_c1, f_c1.nc_p, d, n=N, **kw_c1), dyc1,
+        lambda d: sd.span_dx(f_c1, vals_c1, d), dyc1,
+        {"cuSPARSE SpMM of A^T (torch.sparse.mm)": (
+            functools.partial(torch.sparse.mm, mat_t_csr), dyc1_m)},
+        index_c1.nbytes + 4 * (f_c1.cols.numel() + dyc1.numel() + N * 8), 2.0 * mat.nnz * 8,
+        *fp32_peak)
 
     def t1_forward(_):
         with torch.no_grad():

@@ -1239,9 +1239,10 @@ def _sddmm_vs_plain(fmt, k, mode, dev, min_slots=None, kt=None):
 def test_sddmm_kernels_match_plain(cuda, k, mode):
     """#14 and #15 against their plain versions at the JAX tests' shape,
     K-tile 8 (the K loop and its tail): 1e-5 of |dY|·|X| and |A|^T·|dY|
-    (the same products; dX's atomic sums vary in order).  #14 through the
+    (the same products, summed in another order).  #14 through the
     format's own tile index (per-slot: the tiles are sparse) and an index
-    whose every tile is dense (the tile kernel)."""
+    whose every tile is dense (the tile kernel); #15 through the format's
+    column index."""
     a = builder.power_law_coo(300, 260, avg_nnz_per_row=5.0, seed=0)
     fmt = span.pack_span(a, rb=64, ct=128, g=64, keep_perm=True, device=cuda)
     for min_slots in (None, 1):
@@ -1253,7 +1254,8 @@ def test_sddmm_kernels_match_plain(cuda, k, mode):
                                 dtype=torch.float32)
     planes = (fmt.c0, fmt.cols, fmt.lrow)
     before = sd.dx_rows_cuda.launches
-    got = sd.dx_rows_cuda(*planes, fmt.vals, fmt.nc_p, dy, n=260, rb=64, kt=8, mode=mode)
+    got = sd.dx_rows_cuda(*planes, fmt.vals, fmt.nc_p, dy, n=260, rb=64, kt=8, mode=mode,
+                          index=sd.dx_index(fmt))
     want = sd.dx_rows_plain(*planes, fmt.vals, fmt.nc_p, dy, n=260, rb=64, kt=8, mode=mode)
     scale = sd.dx_rows_plain(*planes, fmt.vals.abs(), fmt.nc_p, dy.abs(), n=260, rb=64, kt=8,
                              mode="fp32")
@@ -1319,6 +1321,118 @@ def test_sddmm_tile_index_follows_its_planes(cuda):
     assert sd.sddmm_tiles(fmt) is not tiles
     with pytest.raises(ValueError, match="pass tiles="):
         sd.sddmm_rows_cuda(*planes, dy, x, rb=fmt.rb, kt=8, mode="fp32")
+
+
+def _dx_vs_plain(fmt, k, kt, mode, dev, stage_min=None, vals=None):
+    """#15 against its plain version and against the plain walk of its
+    index, relative to |A|^T·|dY|, through the format's column index or,
+    with ``stage_min``, one built to stage the windows holding that many
+    slots.  Checks one counted launch, the same bits from a second launch
+    and the output's shape.  Returns (max error, the index)."""
+    kp = -(-k // kt) * kt
+    gen = torch.Generator(device=dev).manual_seed(k)
+    dy = torch.zeros((fmt.n_programs * fmt.rb, kp), device=dev)
+    dy[:, :k] = torch.randn((fmt.n_programs * fmt.rb, k), generator=gen, device=dev)
+    vals = fmt.vals.float() if vals is None else vals
+    planes = (fmt.c0, fmt.cols, fmt.lrow)
+    n = fmt.shape[1]
+    index = (sd.dx_index(fmt) if stage_min is None else
+             sd.build_dx_index(*planes, fmt.nc_p, rb=fmt.rb, n=n, stage_min=stage_min))
+    kw = dict(n=n, rb=fmt.rb, kt=kt, mode=mode)
+    before = sd.dx_rows_cuda.launches
+    got = sd.dx_rows_cuda(*planes, vals, fmt.nc_p, dy, **kw, index=index)
+    assert sd.dx_rows_cuda.launches == before + 1
+    again = sd.dx_rows_cuda(*planes, vals, fmt.nc_p, dy, **kw, index=index)
+    want = sd.dx_rows_plain(*planes, vals, fmt.nc_p, dy, **kw)
+    walked = sd.dx_index_plain(index, vals, dy, mode=mode)
+    scale = sd.dx_rows_plain(*planes, vals.abs(), fmt.nc_p, dy.abs(), **dict(kw, mode="fp32"))
+    torch.cuda.synchronize()
+    assert got.shape == (n, kp) and torch.equal(got, again)
+    err = max(float(((got - w).abs() / scale.clamp(min=1e-30)).max()) for w in (want, walked))
+    return err, index
+
+
+@pytest.mark.parametrize("case", ["t1_weight", "both_paths", "power_law"])
+@pytest.mark.parametrize("stage", ["default", "every_window", "no_window"])
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("k", [20, 150, 512])
+def test_dx_kernel_matches_plain(cuda, case, stage, mode, k):
+    # #15 against its plain version at every column: the trainable layer's
+    # 90 % pruned weight (every window staged), a pattern whose windows take
+    # both paths and a power law of 4000 columns in 9 programs of 480 rows
+    # (sparse windows; neither a multiple of the tile or the window); each
+    # also with every window staged and with none; K = 20 and 150 (padded
+    # to 24 and 160) end in a panel that is partly past the row
+    if case == "t1_weight":
+        fmt = span.pack_span(builder.pruned_weight_coo(1024, 768, sparsity=0.9, seed=3), rb=512,
+                             ct=512, g=128, keep_perm=True, device=cuda)
+    elif case == "both_paths":
+        fmt = span.pack_span(_half_dense_coo(), rb=512, ct=512, g=128, balance=False,
+                             keep_perm=True, device=cuda)
+    else:
+        fmt = span.pack_span(builder.power_law_coo(4096, 4000, avg_nnz_per_row=16.0, seed=21),
+                             rb=480, ct=512, g=128, keep_perm=True, device=cuda)
+    stage_min = {"every_window": 1, "no_window": 2 ** 31 - 1}.get(stage)
+    err, index = _dx_vs_plain(fmt, k, 8 if k == 20 else 32, mode, cuda, stage_min)
+    assert index.n_slots == int(fmt.nc_p.sum()) * fmt.chunk_g      # every walked slot
+    if stage == "every_window":
+        assert index.n_staged == index.n_slots
+    elif stage == "no_window":
+        assert index.n_staged == 0 and index.n_pieces == 0
+    elif case == "t1_weight":
+        assert index.n_staged == index.n_slots
+    elif case == "both_paths":
+        assert 0 < index.n_staged < index.n_slots
+    assert err <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["fp32x2", "bf16"])
+def test_dx_kernel_edges(cuda, mode):
+    # chunks of G = 8192 slots (past the 4096 the kernel this replaced
+    # staged), K = 4 and 20 (a panel of one float4, a tail), a value written
+    # after the index was built, and an empty pattern (nnz = 0)
+    w = builder.pruned_weight_coo(1024, 1024, sparsity=0.8, seed=7)
+    fmt = span.pack_span(w, rb=1024, ct=1024, g=8192, keep_perm=True, device=cuda)
+    assert fmt.chunk_g == 8192
+    for k, kt in ((4, 8), (20, 8), (64, 32)):
+        assert _dx_vs_plain(fmt, k, kt, mode, cuda)[0] <= 1e-5
+    vals = fmt.vals.float().clone()
+    index = sd.dx_index(fmt)
+    vals.view(-1)[index.slot[:: 7].long()] = 3.0
+    assert _dx_vs_plain(fmt, 20, 8, mode, cuda, vals=vals)[0] <= 1e-5
+    assert sd.dx_index(fmt) is index
+    from tpusparse_torch.io.mtx import CooMatrix
+
+    empty = CooMatrix(np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.float32),
+                      (300, 260))
+    fmt0 = span.pack_span(empty, rb=64, ct=128, g=64, keep_perm=True, device=cuda)
+    dy = torch.ones((fmt0.n_programs * fmt0.rb, 8), device=cuda)
+    before = sd.dx_rows_cuda.launches
+    got = sd.dx_rows_cuda(fmt0.c0, fmt0.cols, fmt0.lrow, fmt0.vals.float(), fmt0.nc_p, dy, n=260,
+                          rb=64, kt=8, mode=mode, index=sd.dx_index(fmt0))
+    torch.cuda.synchronize()
+    assert sd.dx_rows_cuda.launches == before + 1
+    assert got.shape == (260, 8) and not bool(got.any())
+
+
+def test_dx_index_follows_its_planes(cuda):
+    # a plane written in place gives the format a new column index; a stale
+    # one, or one of another format, is refused; so is a missing one
+    fmt = span.pack_span(builder.pruned_weight_coo(512, 512, sparsity=0.9, seed=4), rb=256,
+                         ct=512, g=128, keep_perm=True, device=cuda)
+    index = sd.dx_index(fmt)
+    assert sd.dx_index(fmt) is index and fmt.dx_index is index
+    dy = torch.ones((fmt.n_programs * fmt.rb, 8), device=cuda)
+    planes = (fmt.c0, fmt.cols, fmt.lrow)
+    kw = dict(n=512, rb=fmt.rb, kt=8, mode="fp32")
+    with pytest.raises(ValueError, match="is not this format's"):
+        sd.dx_rows_cuda(*planes, fmt.vals, fmt.nc_p, dy, **dict(kw, n=511), index=index)
+    fmt.cols.add_(0)
+    with pytest.raises(ValueError, match="not built from these index planes"):
+        sd.dx_rows_cuda(*planes, fmt.vals, fmt.nc_p, dy, **kw, index=index)
+    assert sd.dx_index(fmt) is not index
+    with pytest.raises(ValueError, match="pass index="):
+        sd.dx_rows_cuda(*planes, fmt.vals, fmt.nc_p, dy, **kw)
 
 
 def test_trainable_layer_on_card(cuda):

@@ -330,3 +330,139 @@ def test_tile_index_follows_its_planes():
     with pytest.raises(ValueError, match="CUDA tensors"):
         sddmm.sddmm_rows_cuda(tfmt.c0, tfmt.cols, tfmt.lrow, tfmt.nc_p, dy, x, rb=tfmt.rb, kt=8,
                               mode="fp32", tiles=tfmt.tiles)
+
+
+# ---------------------------------------------------------------- column index
+# On the card #15 walks the pattern's column index: the walked slots by tile
+# of DX_TILE_COLS columns of A, by window of DX_WIN_ROWS rows of dY_slots,
+# by column, then row; a window holding at least ``stage_min`` slots is
+# staged in pieces of at most DX_PIECE_SLOTS, the rest read from L2.
+# ``dx_index_plain`` is that function walked from the index.
+
+def _gappy_mat(m=400, n=300, seed=31):
+    """Rows [0, 64) and [192, 256) 20 % dense, [320, 400) 1 %, none else:
+    in blocks of rows (rb 200, balance=False), windows of every kind and
+    empty ones; neither 300 columns nor 2 programs x 200 rows a multiple of
+    the tile or the window."""
+    rng = np.random.default_rng(seed)
+    r = np.arange(m)[:, None]
+    dens = np.where((r < 64) | ((r >= 192) & (r < 256)), 0.2, np.where(r >= 320, 0.01, 0.0))
+    rows, cols = np.nonzero(rng.random((m, n)) < dens)
+    return JCoo(rows, cols, rng.standard_normal(rows.size).astype(np.float32), (m, n))
+
+
+_DX_PATTERNS = dict(_PATTERNS, gappy=(_gappy_mat, dict(rb=200, ct=128, g=64, balance=False)))
+
+
+@pytest.mark.parametrize("pattern", list(_DX_PATTERNS))
+@pytest.mark.parametrize("stage_min", [None, 1, 2 ** 31 - 1])
+def test_dx_index_covers_every_walked_slot(pattern, stage_min):
+    make, kw = _DX_PATTERNS[pattern]
+    jmat = make()
+    tfmt = pack_span(_tmat(jmat), keep_perm=True, device="cpu", **kw)
+    planes = (tfmt.c0, tfmt.cols, tfmt.lrow, tfmt.nc_p)
+    if stage_min is None:
+        index = sddmm.dx_index(tfmt)
+        assert sddmm.dx_index(tfmt) is index and tfmt.dx_index is index
+        stage_min = sddmm.DX_WIN_ROWS
+    else:
+        index = sddmm.build_dx_index(*planes, rb=tfmt.rb, n=jmat.shape[1], stage_min=stage_min)
+    c, d = sddmm.DX_TILE_COLS, sddmm.DX_WIN_ROWS
+    # every slot of a walked chunk exactly once, at its own column and row
+    slot = index.slot.long()
+    np.testing.assert_array_equal(np.sort(slot.numpy()),
+                                  np.flatnonzero(_walked(tfmt).reshape(-1).numpy()))
+    col, row = index.entries()
+    want_col, want_row, _ = sddmm.slot_rows_cols(*planes, tfmt.rb)
+    np.testing.assert_array_equal(col.numpy(), want_col[slot].numpy())
+    np.testing.assert_array_equal(row.numpy(), want_row[slot].numpy())
+    # positions: a permutation of each tile's columns
+    assert index.n_tiles == -(-jmat.shape[1] // c)
+    assert bool((index.colpos.sort(dim=1)[0] == torch.arange(c)).all())
+    # staged: the windows holding at least stage_min slots, pieces of one
+    # tile and window, at most DX_PIECE_SLOTS slots, rows within the window
+    tile, win = col // c, row // d
+    key = tile * (-(-index.n_rows // d)) + win
+    per_win = torch.bincount(key)[key]
+    staged = torch.zeros(index.n_slots, dtype=torch.bool)
+    for (w0, lo, hi, _), t in zip(index.pieces.tolist(),
+                                  torch.repeat_interleave(torch.arange(index.n_tiles), torch.diff(
+                                      index.tile_pieces.long())).tolist()):
+        assert 0 < hi - lo <= sddmm.DX_PIECE_SLOTS and w0 % d == 0
+        assert bool((tile[lo:hi] == t).all() & (win[lo:hi] == w0 // d).all())
+        assert bool((index.row[lo:hi] < d).all())
+        staged[lo:hi] = True
+    assert int(staged.sum()) == index.n_staged
+    np.testing.assert_array_equal(staged.numpy(), (per_win >= stage_min).numpy())
+    # within a tile's sparse part and within a piece: by position, then row
+    off = index.piece_off.long()
+    assert bool((off[:, c + 1:] == 0).all())
+    for t in range(index.n_tiles):
+        u = index.uoff[t].long()
+        assert bool((torch.diff(u) >= 0).all())
+        for p in range(c):
+            assert bool((torch.diff(row[u[p]:u[p + 1]]) >= 0).all())
+    kinds = (index.n_staged > 0, index.n_staged < index.n_slots)
+    if pattern in ("two_densities", "gappy") and stage_min == sddmm.DX_WIN_ROWS:
+        assert kinds == (True, True)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "fp32x2", "bf16"])
+@pytest.mark.parametrize("k", [12, 20, 24])
+def test_dx_index_plain_matches_rows_plain_and_jax(k, precision):
+    # the column walk's function, walked from the index (staged and sparse
+    # windows): against the port's plain version and the JAX function at
+    # the fp32 rule.  bf16: both round at the same places; fp32x2: the port
+    # computes in fp32 (csrc/sddmm.cu), so it is held to the JAX fp32
+    # function here (the JAX fp32x2 split into bf16 halves is held at 2e-3
+    # in test_span_sddmm_and_dx_match_jax)
+    jmat = _gappy_mat()
+    kw = _DX_PATTERNS["gappy"][1]
+    jfmt, tfmt = _formats(jmat, **kw)
+    rng = np.random.default_rng(k)
+    dy_slots = rng.standard_normal((tfmt.n_programs * tfmt.rb, k)).astype(np.float32)
+    kp = -(-k // 8) * 8
+    dyt = torch.nn.functional.pad(torch.from_numpy(dy_slots), (0, kp - k))
+    index = sddmm.dx_index(tfmt)
+    assert 0 < index.n_staged < index.n_slots
+    planes = (tfmt.c0, tfmt.cols, tfmt.lrow)
+    vals = tfmt.vals.float()
+    n = jmat.shape[1]
+    got = sddmm.dx_index_plain(index, vals, dyt, mode=precision)
+    want = sddmm.dx_rows_plain(*planes, vals, tfmt.nc_p, dyt, n=n, rb=tfmt.rb, kt=8,
+                               mode=precision)
+    scale = sddmm.dx_rows_plain(*planes, vals.abs(), tfmt.nc_p, dyt.abs(), n=n, rb=tfmt.rb,
+                                kt=8, mode="fp32")
+    assert got.shape == (n, kp)
+    _within(got.numpy(), want.numpy(), scale.numpy(), TOL["fp32"])
+    dx_j = np.asarray(jsddmm.span_dx(jfmt, jfmt.vals, jnp.asarray(dy_slots), ktile=8,
+                                     precision="bf16" if precision == "bf16" else "fp32"))
+    _within(got.numpy()[:, :k], dx_j, scale.numpy()[:, :k], TOL["fp32"])
+
+
+def test_dx_index_follows_its_planes():
+    # kept on the format and carried by with_values; rebuilt after an index
+    # plane is written in place, not when the values change; a value written
+    # after the index was built shows in dX; the wrapper refuses CPU tensors
+    jmat = jbuilder.pruned_weight_coo(256, 192, sparsity=0.9, seed=5)
+    tfmt = pack_span(_tmat(jmat), rb=128, ct=128, g=64, keep_perm=True, device="cpu")
+    index = sddmm.dx_index(tfmt)
+    new = with_values(tfmt, np.ones(jmat.nnz, np.float32))
+    assert new.dx_index is index and sddmm.dx_index(new) is index
+    dy = torch.as_tensor(np.random.default_rng(3).standard_normal((tfmt.n_programs * tfmt.rb, 8)),
+                         dtype=torch.float32)
+    vals = tfmt.vals.float().clone()
+    before = sddmm.dx_index_plain(index, vals, dy, mode="fp32")
+    vals.view(-1)[int(index.slot[0])] += 2.0
+    assert sddmm.dx_index(tfmt) is index
+    after = sddmm.dx_index_plain(index, vals, dy, mode="fp32")
+    want = sddmm.dx_rows_plain(tfmt.c0, tfmt.cols, tfmt.lrow, vals, tfmt.nc_p, dy, n=192,
+                               rb=tfmt.rb, kt=8, mode="fp32")
+    assert not torch.equal(before, after)
+    assert float((after - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    tfmt.lrow.add_(0)
+    assert not index.built_from((tfmt.c0, tfmt.cols, tfmt.lrow, tfmt.nc_p))
+    assert sddmm.dx_index(tfmt) is not index
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sddmm.dx_rows_cuda(tfmt.c0, tfmt.cols, tfmt.lrow, vals, tfmt.nc_p, dy, n=192, rb=tfmt.rb,
+                           kt=8, mode="fp32", index=tfmt.dx_index)

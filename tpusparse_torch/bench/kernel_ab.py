@@ -20,7 +20,8 @@ path, so an older checkout that lacks it is timed the same way.  A
 checkout whose dg, dg SpMV, dgt, dgt stream, span, span stream and radix
 wrappers take a row walk gets the format's (built before the timing), one
 whose stripe wrapper takes the live slots, whose Block-ELL wrapper takes
-work items or whose SDDMM wrapper takes a tile index gets the format's;
+work items, whose SDDMM wrapper takes a tile index or whose transpose
+apply takes a column index gets the format's;
 an older one is called as it was.  ``--only`` keeps the shapes whose name
 starts with one of its comma-separated prefixes ("#3", "#1,#4", "T1",
 ...); a prefix that ends in a digit does not take a longer number ("#1"
@@ -59,13 +60,15 @@ banded 32768^2 (bandwidth 16, seed 3) at K = 8, and config #1's three
 ``radix_span`` tune formats at K = 8.  #7: the trainable layer's span
 format of the pruned weight, (P, NC, G) = (8, 1639, 128), at K = 512; the
 SpMV workload's default at K = 8 (``span_colsplit``, two launches).  #14
-and #15 on that format at K = 512 (dY_slots and X random, #14 in fp32x2
-and bf16, #15 in fp32x2) beside cuSPARSE (``sampled_addmm``; the SpMM of
-W^T) and, for #14, cuBLAS's dense fp32 product dY . X^T; #14 also with
-every tile dense and with every slot on the per-slot path (where the
-checkout has a tile index: the two paths' costs, which set the
-threshold), and on config #1's span format (rb 512, ct 512, g 128) at
-K = 8.  T1: one training step of ``TrainableSparseLinear`` on that
+and #15 on that format at K = 512 (dY_slots and X random, both in fp32x2
+and bf16; #15 on the masked value plane the layer hands it) beside
+cuSPARSE (``sampled_addmm``; the SpMM of W^T) and, in fp32x2, cuBLAS's
+dense fp32 product (dY . X^T; W^T . dY), TF32 off; #14 also with every
+tile dense and with every slot on the per-slot path (where the checkout
+has a tile index: the two paths' costs, which set the threshold); both
+on config #1's span format (rb 512, ct 512, g 128) at K = 8 (#15 beside
+cuSPARSE's SpMM of A^T).  Where the checkout's #15 takes a column index,
+its bytes and first build time are printed.  T1: one training step of ``TrainableSparseLinear`` on that
 weight, x [4, 128, 4096], Adam.  For each: the device time a call
 (profiler, 20 calls: the wrapper's kernel and its zero fill), the
 back-to-back time a call (``time_fn``, median of five, host included), the
@@ -368,15 +371,48 @@ def main() -> int:
                    lambda v: sd.sddmm_rows_plain(*pc, v, xc.abs(), **dict(kw, mode="fp32")),
                    dyc)
         if wanted("#15"):
-            vals = f1.vals.float().contiguous()
-            kw = dict(n=a.shape[1], rb=f1.rb, kt=32, mode="fp32x2")
-            args = (f1.c0, f1.cols, f1.lrow, vals, f1.nc_p)
-            record("#15 T1 (8, 1639, 128) K=512 fp32x2",
-                   lambda v: sd.dx_rows_cuda(*args, v, **kw),
+            vals = (f1.vals.float() * torch.from_numpy(sd.occupancy_mask(f1)).to(dev)).contiguous()
+            has_index = takes_walk(sd.dx_rows_cuda, "index")
+            wt_csr = csr_tensor(a.transpose())
+            wt = wt_csr.to_dense()                                      # W^T [in, out]
+            for mode in ("fp32x2", "bf16"):
+                kw = dict(n=a.shape[1], rb=f1.rb, kt=32, mode=mode)
+                index = dict(index=sd.dx_index(f1)) if has_index else {}
+                args = (f1.c0, f1.cols, f1.lrow, vals, f1.nc_p)
+                name = f"#15 T1 (8, 1639, 128) K=512 {mode}"
+                record(name, lambda v, kw=kw, index=index: sd.dx_rows_cuda(*args, v, **kw, **index),
+                       lambda v, kw=kw: sd.dx_rows_plain(*args, v, **kw),
+                       lambda v, kw=kw: sd.dx_rows_plain(f1.c0, f1.cols, f1.lrow, vals.abs(),
+                                                         f1.nc_p, v, **dict(kw, mode="fp32")),
+                       dy, ((lambda m1: torch.sparse.mm(wt_csr, m1)), dyk),
+                       lib_name="cuSPARSE SpMM of W^T")
+                if mode == "fp32x2":
+                    rec = out["shapes"][name]
+                    mm = (functools.partial(torch.mm, wt), dyk)
+                    rec["dense_fp32_mm_device_ms"] = device_ms("#15 cuBLAS dense fp32", *mm)
+                    print(f"#15 T1 cuBLAS dense fp32 W^T . dY (TF32 off): device "
+                          f"{fmt_ms(rec['dense_fp32_mm_device_ms'])} ms", flush=True)
+                if has_index:
+                    idx = sd.dx_index(f1)
+                    out["shapes"][name]["index"] = dict(
+                        bytes=idx.nbytes, build_ms=idx.build_seconds * 1e3, slots=idx.n_slots,
+                        staged=idx.n_staged, pieces=idx.n_pieces)
+                    print(f"#15 T1 column index: {idx.nbytes / 2**20:.2f} MiB, built in "
+                          f"{idx.build_seconds * 1e3:.1f} ms (the first, cold), {idx.n_slots} "
+                          f"slots, {idx.n_staged} staged in {idx.n_pieces} pieces", flush=True)
+            fc = span.pack_span(mat, rb=512, ct=512, g=128, keep_perm=True, device=dev)
+            vc = fc.vals.float().contiguous()
+            dyc = rand_x(fc.n_programs * fc.rb, 8, 8)
+            dyc_m = rand_x(mat.shape[0], 8, 8)                          # a dY in Y's row order
+            kw = dict(n=mat.shape[1], rb=fc.rb, kt=8, mode="fp32x2")
+            index = dict(index=sd.dx_index(fc)) if has_index else {}
+            args = (fc.c0, fc.cols, fc.lrow, vc, fc.nc_p)
+            record("#15 config #1 span rb512 ct512 g128 K=8",
+                   lambda v: sd.dx_rows_cuda(*args, v, **kw, **index),
                    lambda v: sd.dx_rows_plain(*args, v, **kw),
-                   lambda v: sd.dx_rows_plain(f1.c0, f1.cols, f1.lrow, vals.abs(), f1.nc_p, v,
-                                              **kw), dy, csr_lib(a.transpose(), dyk),
-                   lib_name="cuSPARSE SpMM of W^T")
+                   lambda v: sd.dx_rows_plain(fc.c0, fc.cols, fc.lrow, vc.abs(), fc.nc_p, v,
+                                              **dict(kw, mode="fp32")), dyc,
+                   csr_lib(mat.transpose(), dyc_m), lib_name="cuSPARSE SpMM of A^T")
 
     mat = builder.power_law_coo(32768, 32768, avg_nnz_per_row=32.0, alpha=1.8, seed=42)
     pw = builder.pruned_weight_coo(4096, 4096, 0.9, seed=3)

@@ -1,5 +1,5 @@
 // gather_common.cuh - the staging pieces that the N:M, Block-ELL and SDDMM
-// tile kernels (#12, #13, #14) share: the dynamic shared memory they stage
+// kernels (#12, #13, #14, #15) share: the dynamic shared memory they stage
 // tiles in, the opt-in past 48 KB of it, and the cp.async copies.  No
 // kernel of the port adds products by shared atomics one slot at a time any
 // more: the dg, dgt, span and radix kernels #1-#4, #7-#9 walk row runs
@@ -11,7 +11,10 @@
 //   OptIn  a kernel's dynamic shared-memory limit raised to the device's
 //       opt-in size, once per kernel and device (optin_shared_bytes);
 //   cp_async*  the cp.async copies (global to shared, bypassing registers)
-//       with which the N:M, Block-ELL and SDDMM tile kernels stage tiles.
+//       with which the N:M, Block-ELL and SDDMM kernels stage tiles;
+//   mbar_*, bulk_copy  shared-memory barriers (mbarrier) and the bulk copies
+//       (TMA) that land on them, between a warp that stages and the warps
+//       that read the stages (#15's column walk).
 //
 // Linkage.  Every definition below is internal to the library that includes
 // this header (an unnamed namespace): the sources are separate shared
@@ -61,6 +64,49 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// mbarriers in shared memory: `count` arrivals complete a phase; a waiter
+// names the parity of the phase it waits for.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(smem_addr(bar))
+      : "memory");
+}
+// Arrives on `bar` and adds `bytes` to the bytes its phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// A bulk copy (the TMA) of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared, its landing counted on `bar`.
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(smem)),
+      "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 // The most dynamic shared memory a block of the current device may opt

@@ -1,8 +1,8 @@
 // sddmm.cu - the Hopper counterparts of the two TPU kernels in
 // tpusparse/kernels/sddmm.py, the gradients of Y = A(v) . X over a fixed
 // span pattern with trainable values v:
-//   sddmm_launch  replaces _sddmm_kernel (sddmm.py:72), the value gradient;
-//   dx_launch     replaces _dx_kernel    (sddmm.py:167), the input gradient.
+//   sddmm_launch    replaces _sddmm_kernel (sddmm.py:72), the value gradient;
+//   dx_walk_launch  replaces _dx_kernel    (sddmm.py:167), the input gradient.
 //
 // Function.  The format is the JAX package's SpanFormat (span_gather.cu):
 // c0 [P,1,NC] each chunk's window start, cols [P,NC,G] a slot's column
@@ -16,7 +16,7 @@
 //           with occupancy_mask; slots of chunks past nc_p, and a column
 //           past X, get 0 from the caller's zeroed dv);
 //   dx:     dX[col, k] += vals[p,j,s] * dY_slots[row, k]
-//           (slots whose value is not zero), dX [N, Kp] zeroed by the caller.
+//           (slots whose value is not zero), dX [N, Kp] written whole.
 // The TPU gathered both rows with one-hot MXU dots (_gather_rows) and ran a
 // grid of K-tiles that added into one resident block; here the K-tiles are
 // a loop inside the kernel.
@@ -57,38 +57,60 @@
 // A pattern with tiles of both kinds takes one launch of each; one kind,
 // one launch.
 //
-// Design of dx:
-//   dx_kernel: one block of 128 threads per (chunk, program), the chunk's
-//   three planes staged in shared memory.  The threads split into streams
-//   of tps threads (one float4 column of dY each, up to 128 threads); each
-//   stream walks a contiguous run of the chunk's slots.  A chunk's slots
-//   are sorted by column (pack_span), so a stream sums the products of
-//   equal columns in registers and adds the sum into dX with one fp32
-//   atomicAdd per column and k when the column changes.  A pruned weight's
-//   chunk of 128 slots holds a few columns (about 51 nonzeros per column
-//   per program at 90 % sparsity and rb = 512), so this takes about 40x
-//   fewer atomics than one per product.  The atomics make the order of
-//   the sums vary from run to run: dX agrees with its plain version to
-//   rounding, not bit for bit.
-//
-// Bound.  Both do 2 flops per slot and column of K (1.72 GFLOP at the
-// pruned 4096^2 weight, K = 512: 0.026 ms at the fp32 peak of 67 TFLOP/s;
-// each input once is 37 MB, 0.011 ms at 3.35 TB/s).  The tile kernel does
-// the dense product of its tiles instead, on the tensor cores; see PERF.md
-// for the times against the bound on the card.
+// Design of dx: a column walk over staged windows of dY.  dX = A^T . dY
+// reads each slot's dY row once per column of K it serves; the kernel this
+// replaces (one block per chunk, each slot's row read from L2, runs of equal
+// columns added by scalar fp32 atomics) read 2 KB a slot at the pruned
+// 4096^2 weight, K = 512: 3.4 GB from L2 a launch, 0.40 ms at about the L2's
+// rate, at 6 % of the operations' bound.  Here the wrapper lists every walked
+// slot once per pattern (kernels/sddmm.py, dx_index: a slot's row and flat
+// index, 8 bytes a slot), by tile of kDxCols columns of A (rows of dX), in a
+// tile by window of kDxRows rows of dY_slots, in a window by column, then row.
+// A window that holds at least the index's threshold of slots (kDxRows by
+// default) is staged; its slots are cut into pieces of at most kDxPiece (in
+// row order: a row may hold many slots of one column, a chunk's padding),
+// each with its first dY row, its range in the lists and each column's range
+// within it.  The other slots of a tile, the sparse windows',
+// are listed by column, then row, apart from the pieces.
+//   dx_prep_kernel: each listed slot's row beside its value, gathered once a
+//   call from the caller's value plane (values change at every optimizer
+//   step, the pattern does not); in bf16 also dY rounded to bf16 once.
+//   dx_walk_kernel<TPS, BF16>: one block per (tile, panel of 4 * TPS columns
+//   of K).  The tile's columns are dealt to groups of TPS lanes (one float4
+//   of the panel a lane), CPG columns a group, by falling slot count (the
+//   index's column order), and a group keeps its columns' sums in registers
+//   over the whole walk.  It walks first its columns' sparse slots, each dY
+//   row read from L2 (four slots' loads in flight), then the tile's pieces:
+//   one more warp stages each piece's kDxRows x panel window of dY (by bulk
+//   copies, the TMA: one where the panel is the whole row, else one a row),
+//   its slots and its column ranges in shared memory,
+//   kDxStages deep, on mbarriers that the walking warps wait on and release
+//   warp by warp, so no warp waits for a slower one; a slot then costs one
+//   float4 shared load and four FMAs a lane.  At the end each group writes
+//   its columns' rows of dX once, plain stores: no atomics, no zero fill (a
+//   block writes every column of its tile), and the same bits from run to
+//   run (each column's sum in one order: its sparse slots, then the
+//   pieces, rows rising).
+// Bound on this card.  The operations' bound is 2 flops a slot and column of
+// K (0.026 ms at the pruned weight, K = 512).  The design's own floor is
+// shared memory: a slot is one 16-byte load a lane, 512 bytes a warp at 128
+// bytes a clock an SM: 1.68M slots x 512 columns x 4 bytes = 3.44 GB of
+// shared loads, 0.10 ms over 132 SMs at 1.98 GHz.  From L2 it reads dY once
+// per tile (268 MB at that weight) and the lists once per panel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "gather_common.cuh"
 #include "tensor_core.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;             // dx_kernel and sddmm_slot_kernel
-constexpr int kMaxPlaneSmem = 48 * 1024;  // dx's staged planes: G <= 4096 slots
-constexpr int kSlotSteps = 8;             // sddmm_slot_kernel: rounds of slots a block
+constexpr int kThreads = 128;  // sddmm_slot_kernel
+constexpr int kSlotSteps = 8;  // sddmm_slot_kernel: rounds of slots a block
 
 // The tile kernel: kBM rows of dY by kBN columns (rows of X), kBK deep a
 // stage, 256 threads.
@@ -409,78 +431,274 @@ sddmm_slot_kernel(const int* __restrict__ trow, const int* __restrict__ tcol,
   }
 }
 
-// Adds one column's summed products into dX (a column at or past N, which
-// a checked format has none of, is dropped).
-__device__ __forceinline__ void flush(float* dx, int64_t col, int N, int q4, int q,
-                                      const float4& acc) {
-  if (col >= N) return;
-  float* d = dx + (col * q4 + q) * 4;
-  atomicAdd(d + 0, acc.x);
-  atomicAdd(d + 1, acc.y);
-  atomicAdd(d + 2, acc.z);
-  atomicAdd(d + 3, acc.w);
+// ---- dx: the column walk (#15).  The index's geometry (kernels/sddmm.py:
+// DX_TILE_COLS, DX_WIN_ROWS, DX_PIECE_SLOTS, DX_OFF_LD).
+constexpr int kDxCols = 128;           // columns of A (rows of dX) a tile
+constexpr int kDxRows = 64;            // rows of dY_slots a window
+constexpr int kDxPiece = 2048;         // the most slots a piece holds
+constexpr int kDxOffLd = kDxCols + 4;  // a piece's column offsets, padded to 16 bytes
+constexpr int kDxStages = 4;
+constexpr int kDxUnroll = 4;           // slots whose loads are in flight together
+constexpr int kDxPrepThreads = 256;    // dx_prep_kernel
+
+// Columns a group of TPS lanes owns, the groups' threads (a multiple of 32)
+// and the block's: one more warp, which stages.
+__host__ __device__ constexpr int dx_cpg(int tps) { return tps >= 4 ? tps / 4 : 1; }
+__host__ __device__ constexpr int dx_walkers(int tps) { return kDxCols / dx_cpg(tps) * tps; }
+__host__ __device__ constexpr int dx_threads(int tps) { return dx_walkers(tps) + 32; }
+// A stage: the piece's slots (row within the window, value) [kDxPiece + 2:
+// copied from an even slot to an even slot, 16-byte aligned], the window of
+// dY [kDxRows][TPS] float4, the column offsets [kDxOffLd].  The staged
+// kernel's shared memory: the stages, then a stage's two mbarriers and the
+// parity of its piece's first slot.
+constexpr int kDxEntBytes = (kDxPiece + 2) * 8;
+__host__ __device__ constexpr int dx_stage_bytes(int tps) {
+  return kDxEntBytes + kDxRows * tps * 16 + kDxOffLd * 4;
+}
+__host__ __device__ constexpr int dx_smem_bytes(int tps) {
+  return kDxStages * dx_stage_bytes(tps) + kDxStages * (8 + 8 + 4);
 }
 
+__device__ __forceinline__ float4 bf16_round4(float4 d) {
+  return make_float4(bf16_round(d.x), bf16_round(d.y), bf16_round(d.z), bf16_round(d.w));
+}
+
+// ent[i] = (row[i], vals[slot[i]]): every listed slot's row beside its value;
+// with dyr, also dyr = dY rounded to bf16 (n4 float4s).
+__global__ void __launch_bounds__(kDxPrepThreads)
+dx_prep_kernel(const int* __restrict__ row, const int* __restrict__ slot,
+               const float* __restrict__ vals, int2* __restrict__ ent, int S,
+               const float4* __restrict__ dy, float4* __restrict__ dyr, int64_t n4) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kDxPrepThreads;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kDxPrepThreads + threadIdx.x;
+  for (int64_t i = first; i < S; i += stride) {
+    ent[i] = make_int2(row[i], __float_as_int(vals[slot[i]]));
+  }
+  if (dyr != nullptr) {
+    for (int64_t i = first; i < n4; i += stride) dyr[i] = bf16_round4(dy[i]);
+  }
+}
+
+// acc += v * d, elementwise; BF16 (d already rounded to bf16): each product
+// rounded to bf16, two by one conversion, and summed in fp32.
 template <bool BF16>
-__global__ void __launch_bounds__(kThreads)
-dx_kernel(const int* __restrict__ c0, const int* __restrict__ cols,
-          const int* __restrict__ lrow, const float* __restrict__ vals,
-          const int* __restrict__ nc_p, const float4* __restrict__ dy, float* __restrict__ dx,
-          int NC, int G, int rb, int N, int q4, int tps) {
-  extern __shared__ int planes[];  // cols [G], lrow [G], vals [G]
-  const int j = blockIdx.x;
-  const int p = blockIdx.y;
-  if (j >= nc_p[p]) return;
-  const int64_t chunk = static_cast<int64_t>(p) * NC + j;
-  const int64_t base = chunk * G;
-  int* cs = planes;
-  int* ls = cs + G;
-  float* vs = reinterpret_cast<float*>(ls + G);
-  for (int e = threadIdx.x; e < G; e += kThreads) {
-    cs[e] = cols[base + e];
-    ls[e] = lrow[base + e];
-    vs[e] = vals[base + e];
+__device__ __forceinline__ void add_product(float4& acc, float v, float4 d) {
+  if constexpr (BF16) {
+    const __nv_bfloat162 xy = __floats2bfloat162_rn(v * d.x, v * d.y);
+    const __nv_bfloat162 zw = __floats2bfloat162_rn(v * d.z, v * d.w);
+    acc.x += __low2float(xy);
+    acc.y += __high2float(xy);
+    acc.z += __low2float(zw);
+    acc.w += __high2float(zw);
+  } else {
+    acc.x = fmaf(v, d.x, acc.x);
+    acc.y = fmaf(v, d.y, acc.y);
+    acc.z = fmaf(v, d.z, acc.z);
+    acc.w = fmaf(v, d.w, acc.w);
+  }
+}
+
+// Slots [lo, hi) of ent (rows ent.x of dy, float4 column qc) into acc,
+// kDxUnroll slots' loads in flight together; a value of 0 is skipped.
+template <bool BF16>
+__device__ __forceinline__ void walk_from_l2(float4& acc, const int2* __restrict__ ent, int lo,
+                                             int hi, const float4* __restrict__ dy, int q4,
+                                             int qc) {
+  int i = lo;
+  for (; i + kDxUnroll <= hi; i += kDxUnroll) {
+    int2 e[kDxUnroll];
+    float4 d[kDxUnroll];
+#pragma unroll
+    for (int u = 0; u < kDxUnroll; ++u) e[u] = ent[i + u];
+#pragma unroll
+    for (int u = 0; u < kDxUnroll; ++u) {
+      d[u] = __int_as_float(e[u].y) != 0.f ? dy[static_cast<int64_t>(e[u].x) * q4 + qc]
+                                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kDxUnroll; ++u) {
+      const float v = __int_as_float(e[u].y);
+      if (v != 0.f) add_product<BF16>(acc, v, d[u]);
+    }
+  }
+  for (; i < hi; ++i) {
+    const int2 e = ent[i];
+    const float v = __int_as_float(e.y);
+    if (v != 0.f) add_product<BF16>(acc, v, dy[static_cast<int64_t>(e.x) * q4 + qc]);
+  }
+}
+
+// Slots [lo, hi) of a staged piece (se: its slots, sd: its window of dY)
+// into acc, kDxUnroll slots' loads in flight together.
+template <int TPS, bool BF16>
+__device__ __forceinline__ void walk_staged(float4& acc, const int2* se, const float4* sd, int lo,
+                                            int hi, int sub) {
+  int i = lo;
+  for (; i + kDxUnroll <= hi; i += kDxUnroll) {
+    int2 e[kDxUnroll];
+    float4 d[kDxUnroll];
+#pragma unroll
+    for (int u = 0; u < kDxUnroll; ++u) e[u] = se[i + u];
+#pragma unroll
+    for (int u = 0; u < kDxUnroll; ++u) d[u] = sd[e[u].x * TPS + sub];
+#pragma unroll
+    for (int u = 0; u < kDxUnroll; ++u) {
+      const float v = __int_as_float(e[u].y);
+      if (v != 0.f) add_product<BF16>(acc, v, d[u]);
+    }
+  }
+  for (; i < hi; ++i) {
+    const int2 e = se[i];
+    const float v = __int_as_float(e.y);
+    if (v != 0.f) add_product<BF16>(acc, v, sd[e.x * TPS + sub]);
+  }
+}
+
+// Block (t, z) computes rows [t * kDxCols, t * kDxCols + kDxCols) of dX (a
+// row at or past N is not written), float4 columns [z * TPS, z * TPS + TPS)
+// of its q4, from dy [R, q4] (in BF16, dY already rounded to bf16).  The
+// index, for tile t:
+//   colpos [T, kDxCols]  the tile's column (0..kDxCols-1) at each position;
+//       group g owns positions [g * CPG, g * CPG + CPG);
+//   uoff [T, kDxCols + 1]  each position's sparse slots, [uoff[p], uoff[p+1])
+//       of ent (rows of dY_slots, rising);
+//   tile_pieces [T + 1]  the tile's pieces [tile_pieces[t], tile_pieces[t+1]);
+//   pieces [H] (first dY row, start, end, 0)  a piece's slots [start, end) of
+//       ent, rows given within its window;
+//   piece_off [H, kDxOffLd]  position p's slots [off[p], off[p+1]) of the
+//       piece's, counted from its start.
+// The last warp stages piece after piece by bulk copies (the TMA;
+// kDxStages deep, each stage's landing counted in bytes on an mbarrier, its
+// release by every walking warp on another), so a warp that finishes a
+// piece goes on to the next without waiting for the others.
+template <int TPS, bool BF16>
+__global__ void __launch_bounds__(dx_threads(TPS), 1)
+dx_walk_kernel(const int2* __restrict__ ent, const int4* __restrict__ pieces,
+               const int* __restrict__ piece_off, const int* __restrict__ tile_pieces,
+               const int* __restrict__ uoff, const int* __restrict__ colpos,
+               const float4* __restrict__ dy, float4* __restrict__ dx, int R, int N, int q4) {
+  constexpr int CPG = dx_cpg(TPS), NW = dx_walkers(TPS), kStage = dx_stage_bytes(TPS);
+  uint8_t* raw = reinterpret_cast<uint8_t*>(gather::gather_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(raw + kDxStages * kStage);  // after the stages
+  uint64_t* empty = full + kDxStages;
+  const int t = blockIdx.x;
+  const int q0 = blockIdx.y * TPS;
+  const int h0 = tile_pieces[t], n = tile_pieces[t + 1] - h0;
+  int* skew = reinterpret_cast<int*>(empty + kDxStages);
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < kDxStages; ++b) {
+      gather::mbar_init(full + b, 1);
+      gather::mbar_init(empty + b, NW / 32);
+    }
   }
   __syncthreads();
-  const int streams = kThreads / tps;
-  const int stream = static_cast<int>(threadIdx.x) / tps;
-  const int sub = threadIdx.x % tps;
-  const int per = (G + streams - 1) / streams;
-  const int s_lo = min(stream * per, G);
-  const int s_hi = min(s_lo + per, G);
-  const int64_t start = c0[chunk];
-  const float4* dprog = dy + static_cast<int64_t>(p) * rb * q4;
-  for (int q = sub; q < q4; q += tps) {
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    int cur = -1;
-    for (int s = s_lo; s < s_hi; ++s) {
-      const float v = vs[s];
-      if (v == 0.f) continue;
-      const int c = cs[s];
-      if (c != cur) {
-        if (cur >= 0) flush(dx, start + cur, N, q4, q, acc);
-        acc = make_float4(0.f, 0.f, 0.f, 0.f);
-        cur = c;
+
+  if (threadIdx.x >= NW) {  // the staging warp: bulk copies (the TMA)
+    const int lane = threadIdx.x - NW;
+    const unsigned row_bytes = 16u * min(TPS, q4 - q0);  // the panel's float4s present
+    int4 pc = n > 0 ? pieces[h0] : make_int4(0, 0, 0, 0);
+    for (int s = 0; s < n; ++s) {
+      const int b = s % kDxStages;
+      const int4 next = s + 1 < n ? pieces[h0 + s + 1] : pc;  // loaded while stage s is copied
+      if (s >= kDxStages) gather::mbar_wait(empty + b, (s / kDxStages - 1) & 1);
+      uint8_t* st = raw + b * kStage;
+      const int lo = pc.y & ~1, hi = (pc.z + 1) & ~1;  // ent holds S + 1 slots
+      const int rows = min(kDxRows, R - pc.x);         // rows past R are never read
+      if (lane == 0) {
+        skew[b] = pc.y & 1;
+        gather::mbar_expect_tx(full + b, 8u * (hi - lo) + rows * row_bytes + kDxOffLd * 4);
       }
-      float4 d = dprog[static_cast<int64_t>(ls[s]) * q4 + q];
-      if constexpr (BF16) {
-        acc.x += bf16_round(v * bf16_round(d.x));
-        acc.y += bf16_round(v * bf16_round(d.y));
-        acc.z += bf16_round(v * bf16_round(d.z));
-        acc.w += bf16_round(v * bf16_round(d.w));
+      __syncwarp();
+      if (lane == 0 && hi > lo) gather::bulk_copy(st, ent + lo, 8u * (hi - lo), full + b);
+      if (lane == 1) {
+        gather::bulk_copy(st + kDxEntBytes + kDxRows * TPS * 16,
+                          piece_off + static_cast<int64_t>(h0 + s) * kDxOffLd, kDxOffLd * 4,
+                          full + b);
+      }
+      if (q4 == TPS) {  // the panel is the whole row: the window is one run of bytes
+        if (lane == 2) {
+          gather::bulk_copy(st + kDxEntBytes, dy + static_cast<int64_t>(pc.x) * q4,
+                            rows * row_bytes, full + b);
+        }
       } else {
-        acc.x = fmaf(v, d.x, acc.x);
-        acc.y = fmaf(v, d.y, acc.y);
-        acc.z = fmaf(v, d.z, acc.z);
-        acc.w = fmaf(v, d.w, acc.w);
+        for (int r = lane; r < rows; r += 32) {
+          gather::bulk_copy(st + kDxEntBytes + r * TPS * 16,
+                            dy + (static_cast<int64_t>(pc.x) + r) * q4 + q0, row_bytes, full + b);
+        }
       }
+      pc = next;
     }
-    if (cur >= 0) flush(dx, start + cur, N, q4, q, acc);
+    return;
+  }
+
+  const int g = threadIdx.x / TPS, sub = threadIdx.x % TPS;
+  const int q = q0 + sub;
+  const int qc = min(q, q4 - 1);  // a lane past q4 reads a valid float4 and writes nothing
+  const int p0 = g * CPG;
+  float4 acc[CPG];
+#pragma unroll
+  for (int c = 0; c < CPG; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // the sparse slots of the group's columns, while the first stages land
+  {
+    const int* uo = uoff + static_cast<int64_t>(t) * (kDxCols + 1) + p0;
+    int lim[CPG + 1];
+#pragma unroll
+    for (int c = 0; c <= CPG; ++c) lim[c] = uo[c];
+#pragma unroll
+    for (int c = 0; c < CPG; ++c) walk_from_l2<BF16>(acc[c], ent, lim[c], lim[c + 1], dy, q4, qc);
+  }
+
+  // the pieces, as they land
+  for (int s = 0; s < n; ++s) {
+    const int b = s % kDxStages;
+    gather::mbar_wait(full + b, (s / kDxStages) & 1);
+    const uint8_t* st = raw + b * kStage;
+    const int2* se = reinterpret_cast<const int2*>(st) + skew[b];
+    const float4* sd = reinterpret_cast<const float4*>(st + kDxEntBytes);
+    const int* so = reinterpret_cast<const int*>(st + kDxEntBytes + kDxRows * TPS * 16);
+#pragma unroll
+    for (int c = 0; c < CPG; ++c) {
+      walk_staged<TPS, BF16>(acc[c], se, sd, so[p0 + c], so[p0 + c + 1], sub);
+    }
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) gather::mbar_arrive(empty + b);  // the warp is done with it
+  }
+
+  if (q < q4) {
+    const int* cp = colpos + static_cast<int64_t>(t) * kDxCols + p0;
+#pragma unroll
+    for (int c = 0; c < CPG; ++c) {
+      const int64_t col = static_cast<int64_t>(t) * kDxCols + cp[c];
+      if (col < N) dx[col * q4 + q] = acc[c];
+    }
   }
 }
 
-bool bad_geometry(int P, int NC, int G, int rb, int N, int Kp) {
-  return P < 1 || P > 65535 || NC < 1 || G < 1 || rb < 1 || N < 1 || Kp < 4 || Kp % 4;
+template <int TPS>
+const void* dx_walk_kernel_of(int bf16) {
+  return bf16 ? reinterpret_cast<const void*>(dx_walk_kernel<TPS, true>)
+              : reinterpret_cast<const void*>(dx_walk_kernel<TPS, false>);
+}
+
+// The walk kernel of TPS lanes a group (1, 2, 4, ..., 32), or nullptr.
+const void* dx_walk_kernel_for(int tps, int bf16) {
+  switch (tps) {
+    case 1: return dx_walk_kernel_of<1>(bf16);
+    case 2: return dx_walk_kernel_of<2>(bf16);
+    case 4: return dx_walk_kernel_of<4>(bf16);
+    case 8: return dx_walk_kernel_of<8>(bf16);
+    case 16: return dx_walk_kernel_of<16>(bf16);
+    case 32: return dx_walk_kernel_of<32>(bf16);
+    default: return nullptr;
+  }
+}
+
+// The OptIn of a kernel: log2(tps), the bf16 ones at + 6.
+int dx_optin_index(int tps, int bf16) {
+  int i = 0;
+  while ((1 << i) < tps) ++i;
+  return i + (bf16 ? 6 : 0);
 }
 
 }  // namespace
@@ -534,27 +752,31 @@ int sddmm_launch(const void* tiles, const void* row, const void* col, const void
 }
 
 // The tile kernel (kind 0: sddmm_tf32_tile_kernel, or with bf16
-// sddmm_bf16_tile_kernel) or the per-slot kernel (kind 1), into out[0..3]: registers a thread, local (spill) bytes a
-// thread, static shared bytes, blocks an SM holds (at the tile kernel's
-// dynamic shared memory).  Returns a cudaError_t.
+// sddmm_bf16_tile_kernel), the per-slot kernel (kind 1) or dx's walk kernel
+// at panels of 128 columns (kind 2), into out[0..3]: registers a thread,
+// local (spill) bytes a thread, static shared bytes, blocks an SM holds (at
+// the kernel's dynamic shared memory).  Returns a cudaError_t.
 int sddmm_info(int kind, int bf16, int* out) {
   cudaFuncAttributes attr{};
   const void* kernel =
-      kind == 0 ? (bf16 ? reinterpret_cast<const void*>(sddmm_bf16_tile_kernel)
-                        : reinterpret_cast<const void*>(sddmm_tf32_tile_kernel))
-                : (bf16 ? reinterpret_cast<const void*>(sddmm_slot_kernel<true>)
-                        : reinterpret_cast<const void*>(sddmm_slot_kernel<false>));
+      kind == 0   ? (bf16 ? reinterpret_cast<const void*>(sddmm_bf16_tile_kernel)
+                          : reinterpret_cast<const void*>(sddmm_tf32_tile_kernel))
+      : kind == 1 ? (bf16 ? reinterpret_cast<const void*>(sddmm_slot_kernel<true>)
+                          : reinterpret_cast<const void*>(sddmm_slot_kernel<false>))
+                  : dx_walk_kernel_for(32, bf16);
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = kind == 0 ? (bf16 ? kBf16Smem : kTf32Smem) : 0;
+  const size_t smem = kind == 0   ? (bf16 ? kBf16Smem : kTf32Smem)
+                      : kind == 1 ? 0
+                                  : static_cast<size_t>(dx_smem_bytes(32));
   int blocks = 0;
-  if (kind == 0 && smem > static_cast<size_t>(attr.maxDynamicSharedSizeBytes)) {
+  if (smem > static_cast<size_t>(attr.maxDynamicSharedSizeBytes)) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                gather::optin_shared_bytes());
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, kernel, kind == 0 ? kTileThreads : kThreads, smem);
+  const int threads = kind == 0 ? kTileThreads : kind == 1 ? kThreads : dx_threads(32);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.localSizeBytes);
@@ -563,26 +785,57 @@ int sddmm_info(int kind, int bf16, int* out) {
   return 0;
 }
 
-// dx [N, Kp] fp32 must be zeroed; vals [P,NC,G] fp32; dy [P*rb, Kp] fp32,
-// 16-byte aligned, Kp a multiple of 4; G at most 4096.  Returns the
-// cudaError_t of the launch.
-int dx_launch(const void* c0, const void* cols, const void* lrow, const void* vals,
-              const void* nc_p, const void* dy, void* dx, int P, int NC, int G, int rb, int N,
-              int Kp, int bf16, void* stream) {
-  const size_t smem = static_cast<size_t>(3) * G * sizeof(int);
-  if (bad_geometry(P, NC, G, rb, N, Kp) || smem > kMaxPlaneSmem) {
+// The column walk of dX [N, Kp] fp32 (written whole; Kp a multiple of 4)
+// from dy [R, Kp] fp32 (16-byte aligned) and the value plane vals fp32,
+// through the index (kernels/sddmm.py, DxIndex): row, slot int32 [S] (the
+// listed slots), pieces int32 [H, 4], piece_off int32 [H, kDxOffLd] (both
+// 16-byte aligned), tile_pieces int32 [T + 1], uoff int32 [T, kDxCols + 1],
+// colpos int32 [T, kDxCols].  Scratch: ent int2 [S + 1]; with bf16, dyr [R, Kp]
+// fp32 (16-byte aligned; read only with bf16).
+// Launches dx_prep_kernel (where S > 0 or with bf16), then dx_walk_kernel
+// over T tiles by the panels of Kp.  Returns the cudaError_t of the
+// launches (0 on success).
+int dx_walk_launch(const void* row, const void* slot, const void* vals, const void* pieces,
+                   const void* piece_off, const void* tile_pieces, const void* uoff,
+                   const void* colpos, const void* dy, void* dx, void* ent, void* dyr, int S,
+                   int T, int R, int N, int Kp, int bf16, void* stream) {
+  if (S < 0 || T < 1 || R < 1 || N < 1 || static_cast<int64_t>(T) * kDxCols < N || Kp < 4 ||
+      Kp % 4 || (bf16 && dyr == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int q4 = Kp / 4;
-  const int tps = threads_per_slot(q4, kThreads);
-  const dim3 grid(NC, P);
+  int q4 = Kp / 4;
+  const int tps = threads_per_slot(q4, 32);
+  const void* kernel = dx_walk_kernel_for(tps, bf16);
+  static gather::OptIn optin[12];  // one per kernel, in this library
+  cudaError_t err = optin[dx_optin_index(tps, bf16)].ensure(kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
   auto s = static_cast<cudaStream_t>(stream);
-  auto kernel = bf16 ? dx_kernel<true> : dx_kernel<false>;
-  kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const int*>(c0), static_cast<const int*>(cols), static_cast<const int*>(lrow),
-      static_cast<const float*>(vals), static_cast<const int*>(nc_p),
-      static_cast<const float4*>(dy), static_cast<float*>(dx), NC, G, rb, N, q4, tps);
-  return static_cast<int>(cudaGetLastError());
+  auto* e = static_cast<int2*>(ent);
+  const auto* d = static_cast<const float4*>(bf16 ? dyr : dy);
+  const int64_t n4 = bf16 ? static_cast<int64_t>(R) * q4 : 0;
+  if (S > 0 || n4 > 0) {
+    const int64_t work = std::max<int64_t>(S, n4);
+    const int blocks = static_cast<int>(
+        std::min<int64_t>((work + kDxPrepThreads - 1) / kDxPrepThreads, 132 * 16));
+    dx_prep_kernel<<<blocks, kDxPrepThreads, 0, s>>>(
+        static_cast<const int*>(row), static_cast<const int*>(slot),
+        static_cast<const float*>(vals), e, S, static_cast<const float4*>(dy),
+        static_cast<float4*>(bf16 ? dyr : nullptr), n4);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const auto* en = static_cast<const int2*>(e);
+  const auto* pc = static_cast<const int4*>(pieces);
+  const auto* po = static_cast<const int*>(piece_off);
+  const auto* tp = static_cast<const int*>(tile_pieces);
+  const auto* uo = static_cast<const int*>(uoff);
+  const auto* cp = static_cast<const int*>(colpos);
+  auto* out = static_cast<float4*>(dx);
+  void* args[] = {&en, &pc, &po, &tp, &uo, &cp, &d, &out, &R, &N, &q4};
+  const dim3 grid(T, (q4 + tps - 1) / tps);
+  err = cudaLaunchKernel(kernel, grid, dim3(dx_threads(tps)), args,
+                         dx_smem_bytes(tps), s);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // extern "C"

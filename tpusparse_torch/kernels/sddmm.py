@@ -28,8 +28,15 @@ tile holding at least ``TILE_MIN_SLOTS[mode]`` slots is computed whole on
 the tensor cores from operand panels staged in shared memory, and its
 slots read their entries; the slots of sparser tiles take one dot product
 each (``sddmm_tiles_plain`` is the same function in plain PyTorch, tile
-by tile).  A wrapper launches its kernel for CUDA tensors and raises on
-any failure; only CPU tensors take the plain version.  The TPU's bf16
+by tile).  ``dx_rows_cuda`` walks the pattern's column index (``dx_index``,
+kept on the format as ``fmt.dx_index``): the walked slots by tile of
+``DX_TILE_COLS`` columns of A, by window of ``DX_WIN_ROWS`` rows of
+dY_slots, by column; each group of lanes keeps its columns' sums in
+registers, the dY rows of a window holding at least ``stage_min`` slots
+staged in shared memory, the others read from L2 (``dx_index_plain`` is
+the same function in plain PyTorch, walked from the index).  A wrapper
+launches its kernel for CUDA tensors and raises on any failure; only CPU
+tensors take the plain version.  The TPU's bf16
 hi/lo packing and its one-hot gathers are not ported: fp32 and fp32x2
 compute in fp32's class (3xTF32 in the tile kernel), bf16 rounds where the
 TPU kernels' bf16 operands did (csrc/sddmm.cu).
@@ -62,6 +69,18 @@ TILE_ROWS, TILE_COLS = 128, 64
 #: of the 3xTF32 kernel as much as 580 per-slot dots, of the bf16 one
 #: 310; measured on the card, PERF.md)
 TILE_MIN_SLOTS = {"fp32": 576, "fp32x2": 576, "bf16": 320}
+#: the transpose apply's column walk (csrc/sddmm.cu, dx_walk_kernel): tiles
+#: of DX_TILE_COLS columns of A (rows of dX), windows of DX_WIN_ROWS rows of
+#: dY_slots, a staged window cut into pieces of at most DX_PIECE_SLOTS slots,
+#: a piece's column offsets padded to DX_OFF_LD int32
+DX_TILE_COLS, DX_WIN_ROWS, DX_PIECE_SLOTS = 128, 64, 2048
+DX_OFF_LD = DX_TILE_COLS + 4
+# A tile's columns are dealt by falling slot count to 16 groups of 8 in a
+# snake, and a group's 8 take the snake's rounds in the order 0, 7, 1, 6,
+# 2, 5, 3, 4: every aligned 1, 2, 4 or 8 of them (the kernel's groups at
+# each panel width) then carries about as many slots as the next.
+_DEAL_GROUPS, _DEAL_DEPTH = 16, 8
+_ROUND_AT = (0, 2, 4, 6, 7, 5, 3, 1)  # the position of round k within its group
 
 
 # ------------------------------------------------------------------ host helpers
@@ -106,6 +125,14 @@ def packed_to_nz(fmt: SpanFormat, packed) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ tile index
+
+def _built_from(index, pattern) -> bool:
+    """Whether ``index`` (its ``pattern`` and ``versions``) was derived from
+    the index planes ``pattern`` as they stand."""
+    return (len(pattern) == len(index.pattern)
+            and all(a is b for a, b in zip(pattern, index.pattern))
+            and tuple(map(version_of, pattern)) == index.versions)
+
 
 @dataclasses.dataclass(frozen=True)
 class SddmmTiles:
@@ -162,9 +189,7 @@ class SddmmTiles:
     def built_from(self, pattern) -> bool:
         """Whether the index was derived from the index planes ``pattern``
         as they stand: the same tensors, not written since."""
-        return (len(pattern) == len(self.pattern)
-                and all(a is b for a, b in zip(pattern, self.pattern))
-                and tuple(map(version_of, pattern)) == self.versions)
+        return _built_from(self, pattern)
 
 
 def build_sddmm_tiles(c0, cols, lrow, nc_p, *, rb, n) -> SddmmTiles:
@@ -207,6 +232,204 @@ def sddmm_tiles(fmt: SpanFormat) -> SddmmTiles:
     if fmt.tiles is None or not fmt.tiles.built_from(pattern):
         fmt.tiles = build_sddmm_tiles(*pattern, rb=fmt.rb, n=fmt.shape[1])
     return fmt.tiles
+
+
+# ------------------------------------------------------------- column index
+
+def _run_starts(keys: torch.Tensor) -> torch.Tensor:
+    """For sorted ``keys``, the index of the first element of each one's run."""
+    _, counts = torch.unique_consecutive(keys, return_counts=True)
+    return torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+
+
+def _ranges(starts: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """The indices of the ranges [starts, starts + counts), one after another."""
+    total = int(counts.sum())
+    first = torch.cumsum(counts, 0) - counts
+    return (torch.repeat_interleave(starts - first, counts)
+            + torch.arange(total, device=counts.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class DxIndex:
+    """Every walked slot of a span pattern (a chunk before ``nc_p``, a
+    column of A below ``n_cols``) listed once for the transpose apply's
+    column walk, on the format's device.  Tile t holds columns [t * C, t * C
+    + C) of A, C = ``DX_TILE_COLS``; its columns are dealt to positions by
+    falling slot count (``colpos`` [T, C] int32: the column at each
+    position).  Window w holds rows [w * D, w * D + D) of dY_slots, D =
+    ``DX_WIN_ROWS``.  A (tile, window) holding at least ``stage_min`` slots
+    is staged, cut into pieces of at most ``DX_PIECE_SLOTS`` slots (in
+    (row, slot) order); the other slots of a tile are its sparse ones.
+    The lists, tile by tile, hold the tile's sparse slots, then its pieces
+    by window; each by position, then row:
+
+      row   [S] int32  the slot's row of dY_slots (in a piece: within its
+                       window)
+      slot  [S] int32  its flat index in the [P, NC, G] plane
+      uoff  [T, C + 1] int32  position p's sparse slots [uoff[t, p],
+                       uoff[t, p + 1]) of the lists
+      tile_pieces [T + 1] int32  tile t's pieces [tile_pieces[t],
+                       tile_pieces[t + 1])
+      pieces [H, 4] int32  a piece's first row of dY_slots, its slots
+                       [start, end) of the lists, 0
+      piece_off [H, DX_OFF_LD] int32  position p's slots [off[p], off[p +
+                       1]) of the piece's, from its start (C + 1 used)
+
+    ``pattern`` (the index planes it was derived from) and ``versions``
+    (their version counters then) tie it to the planes as they stood;
+    ``n_rows`` (P * rb), ``n_cols`` (A's columns) and ``plane_slots`` (P *
+    NC * G) to its format; ``n_staged`` counts the pieces' slots.  It holds
+    no value: the kernel reads the caller's value plane at each launch."""
+
+    row: Any
+    slot: Any
+    uoff: Any
+    tile_pieces: Any
+    pieces: Any
+    piece_off: Any
+    colpos: Any
+    n_staged: int
+    pattern: tuple
+    versions: tuple
+    n_rows: int
+    n_cols: int
+    plane_slots: int
+    build_seconds: float
+
+    @property
+    def n_slots(self) -> int:
+        return self.row.numel()
+
+    @property
+    def n_tiles(self) -> int:
+        return self.colpos.shape[0]
+
+    @property
+    def n_pieces(self) -> int:
+        return self.pieces.shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (
+            self.row, self.slot, self.uoff, self.tile_pieces, self.pieces, self.piece_off,
+            self.colpos))
+
+    def built_from(self, pattern) -> bool:
+        """Whether the index was derived from the index planes ``pattern``
+        as they stand: the same tensors, not written since."""
+        return _built_from(self, pattern)
+
+    def entries(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Each listed slot's column of A and row of dY_slots (long [S]),
+        walked from the index as the kernel walks it: the sparse ranges of
+        each tile's positions, then its pieces' ranges.  Raises unless the
+        ranges cover the lists exactly once."""
+        c, dev = DX_TILE_COLS, self.row.device
+        col = torch.full((self.n_slots,), -1, dtype=torch.long, device=dev)
+        row = self.row.long().clone()
+        uoff, colpos = self.uoff.long(), self.colpos.long()
+        cnt = (uoff[:, 1:] - uoff[:, :-1]).reshape(-1)
+        at_u = _ranges(uoff[:, :-1].reshape(-1), cnt)
+        tp = torch.repeat_interleave(torch.arange(self.n_tiles * c, device=dev), cnt)
+        col[at_u] = tp // c * c + colpos.reshape(-1)[tp]
+        off = self.piece_off[:, :c + 1].long()
+        cnt = (off[:, 1:] - off[:, :-1]).reshape(-1)
+        at_p = _ranges((self.pieces[:, 1:2].long() + off[:, :-1]).reshape(-1), cnt)
+        hp = torch.repeat_interleave(torch.arange(self.n_pieces * c, device=dev), cnt)
+        h, pos = hp // c, hp % c
+        tile_of = torch.repeat_interleave(torch.arange(self.n_tiles, device=dev),
+                                          torch.diff(self.tile_pieces.long()))
+        col[at_p] = tile_of[h] * c + colpos[tile_of[h], pos]
+        row[at_p] += self.pieces[h, 0].long()
+        hits = torch.bincount(torch.cat([at_u, at_p]), minlength=self.n_slots)
+        if hits.numel() != self.n_slots or not bool((hits == 1).all()):
+            raise ValueError("the column index's ranges do not cover its lists exactly once")
+        return col, row
+
+
+def build_dx_index(c0, cols, lrow, nc_p, *, rb, n, stage_min=DX_WIN_ROWS) -> DxIndex:
+    """The column index of span planes for A of ``n`` columns, derived on
+    their device with torch ops; a window holding at least ``stage_min``
+    slots is staged."""
+    t0 = time.perf_counter()
+    P, NC, G = cols.shape
+    if P * NC * G >= 2 ** 31:
+        raise ValueError(f"{P * NC * G} slots: the column index lists them with int32")
+    c, d, dev = DX_TILE_COLS, DX_WIN_ROWS, cols.device
+    n_rows = P * rb
+    n_tiles, n_win = cdiv(n, c), cdiv(n_rows, d)
+    col, row, walked = slot_rows_cols(c0, cols, lrow, nc_p, rb)
+    idx = torch.nonzero(walked & (col < n)).reshape(-1)            # rising slots
+    row, col = row[idx], col[idx]
+    tile, win = col // c, row // d
+    # each tile's columns by falling slot count, dealt to positions
+    by_count = torch.sort(torch.bincount(col, minlength=n_tiles * c).view(n_tiles, c), dim=1,
+                          descending=True, stable=True)[1]
+    rank = torch.arange(c, device=dev)
+    rnd, i = rank // _DEAL_GROUPS, rank % _DEAL_GROUPS
+    group = torch.where(rnd % 2 == 0, i, _DEAL_GROUPS - 1 - i)
+    pos_of_rank = (group * _DEAL_DEPTH
+                   + torch.as_tensor(_ROUND_AT, device=dev)[rnd]).expand(n_tiles, c)
+    colpos = torch.empty_like(by_count).scatter_(1, pos_of_rank, by_count)
+    pos = torch.empty_like(by_count).scatter_(1, by_count, pos_of_rank)[tile, col % c]
+    # the staged windows, cut into pieces by their slots' order (row, slot):
+    # a row may hold many slots of one column (a chunk's padding)
+    tw = tile * n_win + win
+    _, inv, per_win = torch.unique(tw, return_inverse=True, return_counts=True)
+    staged = per_win[inv] >= stage_min
+    piece = torch.zeros_like(row)
+    at = torch.nonzero(staged).reshape(-1)
+    if at.numel():
+        at = at[torch.sort(tile[at] * n_rows + row[at], stable=True)[1]]
+        rank = torch.arange(at.numel(), device=dev) - _run_starts(tw[at])
+        piece[at] = rank // DX_PIECE_SLOTS
+    max_pieces = cdiv(int(per_win.max()), DX_PIECE_SLOTS) if per_win.numel() else 1
+    # the lists: tile, then its sparse slots before its pieces; position, row
+    span_t = n_win * max_pieces + 1
+    major = tile * span_t + torch.where(staged, 1 + win * max_pieces + piece, 0)
+    order = torch.sort(pos * n_rows + row, stable=True)[1]
+    order = order[torch.sort(major[order], stable=True)[1]]
+    idx, row, tile, pos, win = idx[order], row[order], tile[order], pos[order], win[order]
+    staged, major = staged[order], major[order]
+    # the pieces: runs of a staged part of a tile
+    at = torch.nonzero(staged).reshape(-1)
+    keys, per_piece = torch.unique_consecutive(major[at], return_counts=True)
+    start = at[torch.cumsum(per_piece, 0) - per_piece]
+    n_pieces = keys.numel()
+    pieces = torch.stack([((keys % span_t) - 1) // max_pieces * d, start, start + per_piece,
+                          torch.zeros_like(start)], dim=1).to(torch.int32).contiguous()
+    piece_of = torch.repeat_interleave(torch.arange(n_pieces, device=dev), per_piece)
+    per_pos = torch.bincount(piece_of * c + pos[at], minlength=n_pieces * c).view(n_pieces, c)
+    piece_off = torch.zeros((n_pieces, DX_OFF_LD), dtype=torch.int32, device=dev)
+    piece_off[:, 1:c + 1] = torch.cumsum(per_pos, 1)
+    tile_pieces = torch.zeros(n_tiles + 1, dtype=torch.int32, device=dev)
+    tile_pieces[1:] = torch.cumsum(torch.bincount(keys // span_t, minlength=n_tiles), 0)
+    # each tile's sparse slots by position, from the tile's start in the lists
+    sparse = ~staged
+    per_tile = torch.bincount(tile, minlength=n_tiles)
+    first = (torch.cumsum(per_tile, 0) - per_tile).view(-1, 1)
+    per_pos = torch.bincount(tile[sparse] * c + pos[sparse], minlength=n_tiles * c)
+    uoff = torch.cat([first, first + torch.cumsum(per_pos.view(n_tiles, c), 1)], dim=1)
+    pattern = (c0, cols, lrow, nc_p)
+    return DxIndex(row=torch.where(staged, row - win * d, row).to(torch.int32).contiguous(),
+                   slot=idx.to(torch.int32).contiguous(),
+                   uoff=uoff.to(torch.int32).contiguous(), tile_pieces=tile_pieces,
+                   pieces=pieces, piece_off=piece_off, colpos=colpos.to(torch.int32).contiguous(),
+                   n_staged=at.numel(), pattern=pattern,
+                   versions=tuple(map(version_of, pattern)), n_rows=n_rows, n_cols=n,
+                   plane_slots=P * NC * G, build_seconds=time.perf_counter() - t0)
+
+
+def dx_index(fmt: SpanFormat) -> DxIndex:
+    """The format's column index, built at first use and kept on the format
+    (``fmt.dx_index``); built anew where an index plane was replaced or
+    written in place since (the values change nothing: the kernel reads
+    them at each launch)."""
+    pattern = (fmt.c0, fmt.cols, fmt.lrow, fmt.nc_p)
+    if fmt.dx_index is None or not fmt.dx_index.built_from(pattern):
+        fmt.dx_index = build_dx_index(*pattern, rb=fmt.rb, n=fmt.shape[1])
+    return fmt.dx_index
 
 
 # --------------------------------------------------------------- plain versions
@@ -276,6 +499,22 @@ def dx_rows_plain(c0, cols, lrow, vals, nc_p, dy_slots, *, n, rb, kt, mode):
     return dx.index_add_(0, col[live], prod)
 
 
+def dx_index_plain(index: DxIndex, vals, dy_slots, *, mode) -> torch.Tensor:
+    """The column walk's function in plain PyTorch, walked from the index:
+    dX [n, Kp] with each listed slot's product added into its column, in the
+    kernel's order (per column its sparse slots, then its pieces', rows
+    rising) by one ``index_add_``; slots whose value is 0 skipped, bf16
+    rounding dY and then each product."""
+    col, row = index.entries()
+    v = vals.reshape(-1).float()[index.slot.long()]
+    live = v != 0
+    gd = dy_slots.index_select(0, row[live])
+    prod = _bf16(v[live].view(-1, 1) * _bf16(gd)) if mode == "bf16" else v[live].view(-1, 1) * gd
+    dx = torch.zeros((index.n_cols, dy_slots.shape[1]), dtype=torch.float32,
+                     device=dy_slots.device)
+    return dx.index_add_(0, col[live], prod)
+
+
 # ---------------------------------------------------------------- CUDA kernels
 
 @functools.cache
@@ -283,8 +522,9 @@ def _lib():
     """csrc/sddmm.cu, built at first use, with its C signatures."""
     lib = build.library("sddmm")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.sddmm_launch, lib.dx_launch):
-        fn.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+    lib.sddmm_launch.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+    lib.dx_walk_launch.argtypes = [ptr] * 12 + [i32] * 6 + [ptr]
+    for fn in (lib.sddmm_launch, lib.dx_walk_launch):
         fn.restype = i32
     lib.sddmm_info.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
     lib.sddmm_info.restype = i32
@@ -292,10 +532,11 @@ def _lib():
 
 
 def sddmm_info(kind: str, mode: str) -> dict:
-    """The tile kernel (``kind`` "tile") or the per-slot kernel ("slot") of
-    ``mode``: registers a thread, spilled (local) bytes a thread, static
-    shared bytes and blocks an SM holds."""
-    return kernel_info(_lib().sddmm_info, "sddmm_info", ("tile", "slot").index(kind),
+    """The tile kernel (``kind`` "tile"), the per-slot kernel ("slot") or
+    the column walk at panels of 128 columns ("dx") of ``mode``: registers a
+    thread, spilled (local) bytes a thread, static shared bytes and blocks
+    an SM holds."""
+    return kernel_info(_lib().sddmm_info, "sddmm_info", ("tile", "slot", "dx").index(kind),
                        int(mode == "bf16"))
 
 
@@ -347,17 +588,37 @@ def sddmm_rows_cuda(c0, cols, lrow, nc_p, dy_slots, x, *, rb, kt, mode, tiles=No
     return dv
 
 
-def dx_rows_cuda(c0, cols, lrow, vals, nc_p, dy_slots, *, n, rb, kt, mode):
+def dx_rows_cuda(c0, cols, lrow, vals, nc_p, dy_slots, *, n, rb, kt, mode, index=None):
     """CUDA ``_dx_kernel`` (tpusparse/kernels/sddmm.py:167): dX [n, Kp] =
-    A(vals)^T . dY over the same span planes, by fp32 atomics (the order
-    of the sums varies from run to run)."""
+    A(vals)^T . dY over the same span planes, through ``index``, the
+    pattern's column index (``dx_index(fmt)``, or ``build_dx_index`` for
+    another staging threshold; one built from other planes, or before they
+    were written, is refused).  Every column's sum is taken in one order:
+    two launches give the same bits."""
     P, NC, G = cols.shape
     _check(c0, cols, lrow, nc_p, dy_slots, rb, kt, mode,
            (("vals", vals, torch.float32, (P, NC, G)),))
     kp = dy_slots.shape[1]
-    dx = torch.zeros((n, kp), dtype=torch.float32, device=dy_slots.device)
-    launch_checked(_lib().dx_launch, "dx_launch", (c0, cols, lrow, vals, nc_p, dy_slots, dx),
-                   (P, NC, G, rb, n, kp, int(mode == "bf16")))
+    if not isinstance(index, DxIndex):
+        raise ValueError("dx_rows_cuda walks the pattern's column index: pass index=")
+    if not index.built_from((c0, cols, lrow, nc_p)):
+        raise ValueError("dx_rows_cuda: the column index was not built from these index planes "
+                         "as they stand (take it from dx_index)")
+    if (index.row.device != dy_slots.device or index.plane_slots != P * NC * G
+            or index.n_rows != P * rb or index.n_cols != n or index.pieces.data_ptr() % 16
+            or index.piece_off.data_ptr() % 16):
+        raise ValueError(f"dx_rows_cuda: the column index ({index.plane_slots} slots, "
+                         f"{index.n_rows} rows, {index.n_cols} columns, on {index.row.device}) "
+                         "is not this format's")
+    dev = dy_slots.device
+    dx = torch.empty((n, kp), dtype=torch.float32, device=dev)
+    ent = torch.empty((index.n_slots + 1, 2), dtype=torch.int32, device=dev)  # copied in pairs
+    bf16 = mode == "bf16"
+    dyr = torch.empty_like(dy_slots) if bf16 else dx   # bf16: dY rounded once (else unread)
+    launch_checked(_lib().dx_walk_launch, "dx_walk_launch",
+                   (index.row, index.slot, vals, index.pieces, index.piece_off,
+                    index.tile_pieces, index.uoff, index.colpos, dy_slots, dx, ent, dyr),
+                   (index.n_slots, index.n_tiles, P * rb, n, kp, int(bf16)))
     dx_rows_cuda.launches += 1
     return dx
 
@@ -413,10 +674,11 @@ def span_dx(fmt: SpanFormat, vals, dy_slots, *, ktile: int | None = None,
     assert dy.shape[0] == fmt.n_programs * fmt.rb, f"dY_slots {tuple(dy.shape)}"
     kt = _k_tile(k, ktile)
     dy = pad_dense_cols(dy, cdiv(k, kt) * kt).contiguous()
-    rows_fn = dx_rows_cuda if dev.type == "cuda" else dx_rows_plain
-    dx = rows_fn(fmt.c0, fmt.cols, fmt.lrow, vals.float().contiguous(), fmt.nc_p, dy,
-                 n=fmt.shape[1], rb=fmt.rb, kt=kt, mode=precision)
-    return dx[:, :k]
+    args = (fmt.c0, fmt.cols, fmt.lrow, vals.float().contiguous(), fmt.nc_p, dy)
+    kw = dict(n=fmt.shape[1], rb=fmt.rb, kt=kt, mode=precision)
+    if dev.type == "cuda":
+        return dx_rows_cuda(*args, **kw, index=dx_index(fmt))[:, :k]
+    return dx_rows_plain(*args, **kw)[:, :k]
 
 
 def sddmm(mat, a, b, *, rb: int = 512, ct: int = 512, g: int = 128,

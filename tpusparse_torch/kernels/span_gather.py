@@ -65,9 +65,11 @@ class SpanFormat:
 
     ``nc_p`` is the port's own field (the chunk walk's count per program):
     the kernels walk only a program's real chunks.  So are ``walk``, the
-    row walk both wrappers' kernel walks (``span_row_walk``), and
-    ``tiles``, the SDDMM kernel's tile index (``sddmm.sddmm_tiles``), each
-    built on the card at its first launch and not part of ``memory_bytes``.  Every
+    row walk both wrappers' kernel walks (``span_row_walk``), ``tiles``,
+    the SDDMM kernel's tile index (``sddmm.sddmm_tiles``), and
+    ``dx_index``, the transpose apply's column walk (``sddmm.dx_index``),
+    each built on the card at its first launch and not part of
+    ``memory_bytes``.  Every
     other field equals the JAX ``SpanFormat``'s.  ``perm_of_nz`` (numpy, host) maps each input
     nonzero to its flat slot (``pack_span(keep_perm=True)``).
     """
@@ -88,6 +90,7 @@ class SpanFormat:
     perm_of_nz: Any = None
     walk: RowWalk | None = dataclasses.field(default=None, repr=False, compare=False)
     tiles: Any = dataclasses.field(default=None, repr=False, compare=False)
+    dx_index: Any = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
