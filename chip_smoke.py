@@ -76,11 +76,13 @@ its wrapper launches.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -170,6 +172,76 @@ def grad_errors(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor):
     rel = float((diff / (want.double().abs() + 1e-3)).max())
     cond = float((diff / scale.double().clamp(min=1e-30)).max())
     return rel, cond
+
+
+def pagerank64(mat, iters: int, damping: float = 0.85) -> np.ndarray:
+    """Float64 power iteration in push orientation with the drivers' rule:
+    a vertex of out-degree 0 spreads its rank uniformly."""
+    import scipy.sparse as sp
+
+    n = mat.shape[0]
+    deg = np.bincount(mat.cols, minlength=n).astype(np.float64)
+    w = sp.csr_matrix((1.0 / deg[mat.cols], (mat.rows, mat.cols)), shape=(n, n))
+    dangling = deg == 0
+    r = np.full(n, 1.0 / n)
+    for _ in range(iters):
+        r = (1.0 - damping) / n + damping * (w @ r + r[dangling].sum() / n)
+    return r
+
+
+@contextlib.contextmanager
+def numpy_walks():
+    """The packers' native walks swapped for their numpy versions (the
+    plain versions the tests hold them to) inside the block."""
+    from tpusparse_torch import native
+    from tpusparse_torch.kernels import dg_gather as dg
+    from tpusparse_torch.kernels import dgt_gather as dgt
+    from tpusparse_torch.kernels import span_gather as span
+
+    swap = {"span_pack": span.span_chunk_numpy, "span_pack_aligned": dg._aligned_chunk_numpy,
+            "dgt_runs_multi": dgt.dgt_runs_multi_numpy, "dgt_runs": dgt.dgt_runs_numpy}
+    saved = {k: getattr(native, k) for k in swap}
+    for k, v in swap.items():
+        setattr(native, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(native, k, v)
+
+
+def format_on_cpu(fmt):
+    """A copy of a packed format with every tensor on the CPU (its row walk
+    and other derived indexes left to be built there)."""
+    import dataclasses
+
+    moved = {}
+    for f in dataclasses.fields(fmt):
+        v = getattr(fmt, f.name)
+        if isinstance(v, torch.Tensor):
+            moved[f.name] = v.cpu()
+        elif f.name in ("walk", "tiles", "dx_index"):
+            moved[f.name] = None
+    return dataclasses.replace(fmt, **moved)
+
+
+def same_format(a, b) -> None:
+    """Raises unless every field of formats a (native walks) and b (numpy
+    walks) is equal."""
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "walk":
+            continue
+        if isinstance(va, torch.Tensor):
+            if va.dtype != vb.dtype or not torch.equal(va, vb):
+                raise AssertionError(f"{type(a).__name__}.{f.name} differs")
+        elif isinstance(va, np.ndarray) or isinstance(vb, np.ndarray):
+            if not np.array_equal(va, vb):
+                raise AssertionError(f"{type(a).__name__}.{f.name} differs")
+        elif va != vb:
+            raise AssertionError(f"{type(a).__name__}.{f.name}: {va} != {vb}")
 
 
 def main() -> int:
@@ -862,10 +934,16 @@ def main() -> int:
     cache = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tpusparse_torch",
                          "_build", "tune_cache")
 
-    def run_tune(path, x, a=None):
-        with tpusparse_torch.config_override(cache_dir=cache):
+    tune_dirs = {}
+
+    def run_tune(path, x, a=None, save=False):
+        """The tune of ``path``; with ``save``, in a cache dir of its own that
+        holds no cached winner, so that it saves its winner's artifact."""
+        cdir = tempfile.mkdtemp(prefix=f"{path}_", dir=os.path.dirname(cache)) if save else cache
+        tune_dirs[path] = cdir
+        with tpusparse_torch.config_override(cache_dir=cdir):
             zero_counts()
-            res_ = tune(mat if a is None else a, x, use_cache=False)
+            res_ = tune(mat if a is None else a, x, use_cache=save)
             read_counts(path)
         best_of = {}
         for row in res_.table:
@@ -915,7 +993,7 @@ def main() -> int:
     # P3 / P9: the JAX package's 25 candidates in its order; brick_ell is
     # refused at its gate and rows past the padding bound are refused, as
     # there
-    res, best_by_family = run_tune("tune_k8", xs[8])
+    res, best_by_family = run_tune("tune_k8", xs[8], save=True)
     rows_k8 = [row["schedule"] for row in res.table]
     assert [r["family"] for r in rows_k8] == TUNE_K8_FAMILIES, [r["family"] for r in rows_k8]
     assert candidates_digest(rows_k8) == TUNE_K8_DIGEST
@@ -1737,6 +1815,219 @@ def main() -> int:
             f"launches: {', '.join(launched) or 'none (the xla method: torch bmm, both ways)'}")
     log(f"[t0-t2] training phases: {time.perf_counter() - t_train_phases:.1f} s")
 
+    # ---- G0-G3: the host helpers at the SpMV size, graph analytics on the
+    # same matrix (push orientation), SpGEMM on config #1, persistence.
+    # Every number beside the card's name and power limit.
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    from tpusparse_torch import artifacts, graph, results
+    from tpusparse_torch import spgemm as sg
+    from tpusparse_torch.bench import spgemm_crossover
+    from tpusparse_torch.io.mtx import read_mtx, write_mtx
+    from tpusparse_torch.tune import _span_configs, matrix_signature
+
+    t_new_phases = time.perf_counter()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # G0: each packer at 262144^2 through the native helpers and through the
+    # numpy walks (their plain versions): every array equal, both times
+    rb_dgt8 = dgt.auto_rb_dgt(SPMV_N, SPMV_N, big.nnz)
+    rb_s, ct_s, g_s = _span_configs(big.density)[0]
+    packers = {
+        "dg kt=1 rb=4096 ns=4 g=2048": lambda: dg.pack_dg(big, rb=4096, ns=4, g=2048, kt=1),
+        f"dgt8 rb={rb_dgt8} g=512 nw=4": lambda: dgt.pack_dgt(big, rb=rb_dgt8, g=512, kt=8,
+                                                              resid=True, nw=4),
+        f"span rb={rb_s} ct={ct_s} g={g_s}": lambda: span.pack_span(big, rb=rb_s, ct=ct_s,
+                                                                    g=g_s),
+        "P8 radix_span rb=1024 S=128 g=1024 kt=4": lambda: radix.pack_radix(
+            big, rb=1024, S=128, g=1024, kt=4),
+    }
+    for label, pack in packers.items():
+        f_nat, t_nat = timed(pack)
+        with numpy_walks():
+            f_np, t_np = timed(pack)
+        same_format(f_nat, f_np)
+        log(f"[native] pack {label} at 262144^2 ({big.nnz} nnz): native helpers {t_nat:.2f} s, "
+            f"numpy walks {t_np:.2f} s ({t_np / t_nat:.1f}x); every array equal  ({power})")
+        del f_nat, f_np
+    torch.cuda.empty_cache()
+    mtx_dir = tempfile.mkdtemp(prefix="mtx_", dir=os.path.dirname(cache))
+    mtx_path = os.path.join(mtx_dir, "config1.mtx")
+    _, t_w = timed(lambda: write_mtx(mtx_path, mat))
+    by_path, t_path = timed(lambda: read_mtx(mtx_path))
+    with open(mtx_path) as fh:
+        by_file, t_file = timed(lambda: read_mtx(fh))
+    for a_, b_ in ((by_path, by_file), (by_path, mat)):
+        assert a_.shape == b_.shape and np.array_equal(a_.rows, b_.rows) and \
+            np.array_equal(a_.cols, b_.cols)
+    assert np.array_equal(by_path.vals, by_file.vals)
+    assert np.array_equal(by_path.vals, np.asarray(mat.vals, np.float64))
+    log(f"[native] config #1 .mtx ({os.path.getsize(mtx_path) / 2**20:.1f} MiB, {mat.nnz} "
+        f"entries): write_mtx {t_w:.2f} s; read_mtx by path (native parser) {t_path:.2f} s, "
+        f"by file object (Python reader) {t_file:.2f} s ({t_file / t_path:.1f}x); equal, and "
+        f"equal to the matrix written  ({power})")
+    os.remove(mtx_path)
+    del by_path, by_file
+
+    # G1: graph analytics at 262144^2 in push orientation (entry (u, v) is the
+    # edge v -> u): scipy's csgraph runs on A^T
+    n_g = SPMV_N
+    at_csr = sp.csr_matrix((np.ones(big.nnz), (big.cols, big.rows)), shape=(n_g, n_g))
+    pr_run, t_pack = timed(lambda: graph.pagerank_fn(big, tol=0.0, max_iter=20))
+    zero_counts()
+    (r_pr, it_pr), t_pr = timed(pr_run)
+    read_counts("graph_pagerank_262k")
+    t_pr_warm = min(timed(pr_run)[1] for _ in range(3))
+    assert it_pr == 20 and need("graph_pagerank_262k", "dg1") == 20
+    r64 = pagerank64(big, 20)
+    l1 = float(np.abs(r_pr.cpu().double().numpy() - r64).sum())
+    if not l1 <= 1e-5:
+        raise AssertionError(f"PageRank: L1 distance {l1:.3e} to float64 > 1e-5")
+    log(f"[graph] pagerank_fn(tol=0, max_iter=20) 262144^2: {it_pr} iterations, first run "
+        f"{t_pr:.3f} s (the row walk built), warm {t_pr_warm * 1e3:.2f} ms (best of 3; "
+        f"{t_pr_warm / it_pr * 1e3:.3f} ms an iteration, a host sync each; plan packed in "
+        f"{t_pack:.2f} s: {pr_run.matvec.meta}); L1 distance to a float64 power iteration "
+        f"{l1:.2e} (<= 1e-5); {kernels['dg1']['paths']['graph_pagerank_262k']} launches of "
+        f"dg1_rows_cuda  ({power})")
+    vs_plain("graph_pagerank", pr_run.matvec.format, 1, 1, "fp32x2", tol)
+    bfs_run, t_pack = timed(lambda: graph.bfs_fn(big, max_iter=32))
+    zero_counts()
+    (level, it_bfs), t_bfs = timed(lambda: bfs_run(0))
+    read_counts("graph_bfs_262k")
+    assert need("graph_bfs_262k", "dg1") == it_bfs
+    dist = csgraph.shortest_path(at_csr, unweighted=True, indices=0)
+    want_level = np.where(dist <= 32, dist, -1).astype(np.int32)
+    if not np.array_equal(level.cpu().numpy(), want_level):
+        raise AssertionError("BFS levels differ from scipy's shortest_path")
+    log(f"[graph] bfs_fn(max_iter=32) from 0: {it_bfs} iterations, {t_bfs:.3f} s (packed in "
+        f"{t_pack:.2f} s), {int((want_level >= 0).sum())} vertices reached, deepest level "
+        f"{int(want_level.max())}; levels equal scipy's unweighted shortest_path on A^T; "
+        f"{it_bfs} launches of dg1_rows_cuda, one a level  ({power})")
+    vs_plain("graph_bfs", bfs_run.matvec.format, 1, 1, "fp32x2", tol)
+    w_abs = CooMatrix(big.rows, big.cols, np.abs(np.asarray(big.vals)), big.shape)
+    sssp_run = graph.sssp_fn(w_abs)
+    (d_ss, it_ss), t_ss = timed(lambda: sssp_run(0))
+    at_w = sp.csr_matrix((w_abs.vals, (big.cols, big.rows)), shape=(n_g, n_g))
+    d_ref = csgraph.dijkstra(at_w, indices=0)
+    d_got = d_ss.cpu().double().numpy()
+    fin = np.isfinite(d_ref)
+    if not np.array_equal(np.isfinite(d_got), fin) or \
+            not (np.abs(d_got[fin] - d_ref[fin]) <= 1e-5 * np.abs(d_ref[fin])).all():
+        raise AssertionError("SSSP differs from scipy's dijkstra beyond rtol 1e-5")
+    rel_ss = float((np.abs(d_got[fin] - d_ref[fin]) / np.maximum(d_ref[fin], 1e-30)).max())
+    log(f"[graph] sssp from 0, weights |vals|: {it_ss} iterations (max_iter "
+        f"{tpusparse_torch.get_config().graph_max_iter}), {t_ss:.3f} s (segment min, no "
+        f"kernel of the port); max rel err to scipy's dijkstra on A^T {rel_ss:.2e} "
+        f"(rtol 1e-5), {int(fin.sum())} reachable  ({power})")
+    label_cc, t_cc = timed(lambda: graph.connected_components(big))
+    n_comp, lab = csgraph.connected_components(
+        sp.csr_matrix((np.ones(big.nnz), (big.rows, big.cols)), shape=(n_g, n_g)),
+        directed=False)
+    least = np.full(n_comp, n_g, dtype=np.int64)
+    np.minimum.at(least, lab, np.arange(n_g))
+    if not np.array_equal(label_cc, least[lab]):
+        raise AssertionError("connected components differ from scipy's")
+    log(f"[graph] connected_components: {t_cc:.3f} s (label propagation, segment min), "
+        f"{n_comp} components, equal to scipy's (labels mapped to the least vertex)  ({power})")
+    del at_csr, at_w, w_abs, r64
+
+    # G2: SpGEMM, config #1 . power_law(32768, 32768, 8, seed 13) on the
+    # device route, and the crossover against scipy from 256^2 up
+    b13 = builder.power_law_coo(N, N, avg_nnz_per_row=8.0, seed=13)
+    sg._RUNNER_CACHE.clear()
+    zero_counts()
+    c_dev, t_first = timed(lambda: sg.spgemm(mat, b13, method="device"))
+    read_counts("spgemm_32k")
+    runner = next(iter(sg._RUNNER_CACHE.values()))
+    n_tiles = runner.last_stats["tiles"]
+    assert need("spgemm_32k", "dg") == n_tiles == -(-N // 128)
+    c_ref = sg.spgemm_host(mat, b13)
+    keep_ref = c_ref.vals != 0  # scipy keeps what cancels exactly; the device drops it
+    if not (np.array_equal(c_dev.rows, c_ref.rows[keep_ref])
+            and np.array_equal(c_dev.cols, c_ref.cols[keep_ref])):
+        raise AssertionError("SpGEMM pattern differs from scipy's")
+    rel_c = np.abs(c_dev.vals - c_ref.vals[keep_ref]) / np.maximum(np.abs(c_ref.vals[keep_ref]),
+                                                                  1.0)
+    if not rel_c.max(initial=0) <= 1e-4:
+        raise AssertionError(f"SpGEMM: max rel err {rel_c.max():.3e} > 1e-4")
+    f_a = runner.plan.formats[0]
+    assert runner.plan.meta["schedule"]["family"] == "dg_span" and f_a.kt == 32
+    log(f"[spgemm] config #1 . power_law(32768^2, 8, seed 13), method='device': nnz(C) "
+        f"{c_dev.nnz}, {sg.spgemm_flops(mat, b13):.4g} FLOPs, {t_first:.2f} s first call (A "
+        f"packed: {runner.plan.meta['schedule']['family']} kt={f_a.kt} rb={f_a.rb}); "
+        f"{n_tiles} tiles of 128 in {runner.last_stats['groups']} groups (host syncs); max rel "
+        f"err to scipy {rel_c.max(initial=0):.2e} (rtol 1e-4), the pattern scipy's; "
+        f"{n_tiles} launches of dg_rows_cuda, one a tile of B  ({power})")
+    vs_plain("spgemm", f_a, 128, f_a.kt, f_a.mode, tol)
+    pairs = spgemm_crossover.products()
+    pairs["config #1 . 32768^2 avg 8 (seed 13)"] = (mat, b13)
+    spgemm_crossover.crossover(pairs, reps=3, log=log, note=power)
+    del c_dev, c_ref, runner
+    torch.cuda.empty_cache()
+
+    # G3: persistence: P3's tune saved its winner; the artifact gives back
+    # the schedule and every saved array, the same Y, and results.aggregate
+    # its best row
+    sig = matrix_signature(mat)
+    adir = os.path.join(tune_dirs["tune_k8"], "artifacts", sig)
+    (run_dir,) = os.listdir(adir)
+    art_path = os.path.join(adir, run_dir)
+    art_mib = sum(os.path.getsize(os.path.join(art_path, f)) for f in os.listdir(art_path)) / 2**20
+    (sched_l, fmts_l, perf_l), t_load = timed(lambda: artifacts.load_plan_artifact(art_path))
+    _, fmts_c, _ = artifacts.load_plan_artifact(art_path, device="cpu")
+    assert sched_l == json.loads(json.dumps(best.describe()))
+    assert len(fmts_l) == len(win.formats) and perf_l["k"] == 8
+    xd8 = torch.as_tensor(xs[8], device=dev)
+    abs_mat = CooMatrix(mat.rows, mat.cols, np.abs(np.asarray(mat.vals)), mat.shape)
+    scale8 = torch.as_tensor(spmm_reference(abs_mat, np.abs(xs[8]).astype(np.float64)),
+                             device=dev)
+    for f_o, f_l, f_c in zip(win.formats, fmts_l, fmts_c):
+        kind = type(f_o).__name__
+        for name in artifacts.saved_fields(type(f_o)):
+            v_o, v_l = getattr(f_o, name), getattr(f_l, name)
+            same = (torch.equal(v_o, v_l) if isinstance(v_o, torch.Tensor)
+                    else np.array_equal(v_o, v_l) if isinstance(v_o, np.ndarray)
+                    else v_o == v_l)
+            if not same:
+                raise AssertionError(f"artifact {kind}.{name} differs")
+        # the plain version on the CPU, the original's planes copied there:
+        # the same function on the same planes gives the same bits
+        x_c = torch.from_numpy(xs[8])
+        if not torch.equal(artifacts.format_spmm(format_on_cpu(f_o), x_c),
+                           artifacts.format_spmm(f_c, x_c)):
+            raise AssertionError(f"{kind}: Y of the loaded artifact differs on the CPU")
+        # the kernel on the card: rows split over blocks add their partial
+        # sums by float atomics in the order the blocks finish, so two calls
+        # on one format may differ in the last bits; the loaded format is
+        # held to that spread
+        y_o, y_o2, y_l = (artifacts.format_spmm(f, xd8) for f in (f_o, f_o, f_l))
+        rel_rr, ab_rr = rel_err(y_o2, y_o, scale8)
+        rel_l, ab_l = rel_err(y_l, y_o, scale8)
+        if not rel_l <= 1e-6:
+            raise AssertionError(f"{kind}: Y of the loaded artifact differs on the card: "
+                                 f"{rel_l:.3e} of |A|.|x|")
+        bits = "bitwise equal" if torch.equal(y_l, y_o) else "not bitwise equal"
+        log(f"[persist] {kind}: every saved array equal; Y of the loaded format bitwise equal "
+            f"on the CPU (plain version); on the card {bits}: max abs {ab_l:.2e} "
+            f"({rel_l:.2e} of |A|.|x|), the original's own call-to-call "
+            f"spread {ab_rr:.2e} ({rel_rr:.2e})  ({power})")
+    best_rows, n_rows = results.aggregate(
+        [os.path.join(tune_dirs["tune_k8"], "results.jsonl")])
+    row_b = best_rows[(sig, 8)]
+    assert row_b["seconds"] == res.best_seconds and row_b["schedule"]["family"] == best.family
+    log(f"[persist] tune_k8's winner ({best.family}, {len(fmts_l)} format(s), {art_mib:.1f} MiB "
+        f"on disk) loaded in {t_load:.2f} s; results.aggregate over {n_rows} rows reports the "
+        f"best row {row_b['seconds'] * 1e3:.4f} ms, {row_b['gflops']:.2f} GF/s  ({power})")
+    log(f"[g0-g3] host helpers, graph, SpGEMM and persistence phases: "
+        f"{time.perf_counter() - t_new_phases:.1f} s")
+
     launches = {w: sum(rec["paths"].values()) for w, rec in kernels.items()}
     for w, n_l in launches.items():
         if n_l < 1:
@@ -2393,6 +2684,8 @@ def main() -> int:
                  hyb_plans[512], torch.as_tensor(xs[8], device=dev))
     for name, f in steps_t.items():
         profile_call(f"T1 training step, {name}, 4096^2, x [4, 128, 4096]", f, x1, calls=10)
+    profile_call("G1 pagerank_fn(tol=0, max_iter=20) 262144^2, one run of 20 iterations "
+                 "(#2 each, a host sync each)", lambda _: pr_run(), None, calls=3)
     profile_call("P14 block_ell_spmm(pallas, bf16), K=256",
                  functools.partial(be.block_ell_spmm, f14, precision="bf16", method="pallas"),
                  xk14)

@@ -5,7 +5,9 @@ build_tile_plan, build_stripe_plan and the SpMV entry points at a medium
 size; the N:M and Block-ELL kernels in every mode and layout, SparseLinear
 with a folded activation, and the dense, block_ell and hybrid_cols families;
 the SDDMM and transpose-apply kernels against their plain versions, and
-the trainable and differentiable layers' gradients.
+the trainable and differentiable layers' gradients; the graph drivers and
+SpGEMM against their CPU path and scipy, and a format packed by the native
+host helpers against one packed by the numpy walks.
 Marked ``gpu``; without a CUDA device every test skips (the ``cuda``
 fixture decides, so every pytest worker collects the same tests).  Run on
 the card with ``python -m pytest tests/test_torch_gpu.py -q -m gpu``.
@@ -1482,3 +1484,79 @@ def test_differentiable_layers_on_card(cuda, ctor):
     want = t @ w
     scale = np.abs(t) @ np.abs(w)
     assert (np.abs(x.grad.double().cpu().numpy() - want) / np.maximum(scale, 1.0)).max() < 2e-3
+
+
+# --------------------------------------------------- graph, SpGEMM, native packers
+
+def _graphs():
+    """A path graph, a graph with unreachable and isolated vertices, and a
+    power-law graph of 4096 vertices (push orientation)."""
+    src = np.arange(11, dtype=np.int64)
+    path = tpusparse_torch.CooMatrix(src + 1, src, np.ones(11), (12, 12)).sort_row_major()
+    islands = tpusparse_torch.CooMatrix(np.array([1, 2, 8, 9]), np.array([0, 1, 7, 8]),
+                                        np.full(4, 1.5), (14, 14)).sort_row_major()
+    return {"path": path, "islands": islands,
+            "power_law": builder.power_law_coo(4096, 4096, avg_nnz_per_row=8.0, seed=3)}
+
+
+@pytest.mark.parametrize("name", ["path", "islands", "power_law"])
+def test_graph_drivers_on_card_equal_their_cpu_path(cuda, name):
+    from tpusparse_torch import graph
+
+    g = _graphs()[name]
+    w = tpusparse_torch.CooMatrix(g.rows, g.cols, np.abs(np.asarray(g.vals)), g.shape)
+    dg.dg1_rows_cuda.launches = 0
+    for src in (0, g.shape[0] // 2):
+        np.testing.assert_array_equal(graph.bfs(g, src), graph.bfs(g, src, device="cpu"))
+        d, dc = graph.sssp(w, src), graph.sssp(w, src, device="cpu")
+        assert np.array_equal(np.isinf(d), np.isinf(dc))
+        np.testing.assert_allclose(d[np.isfinite(d)], dc[np.isfinite(dc)], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(graph.connected_components(g),
+                                  graph.connected_components(g, device="cpu"))
+    # tol = 0 stops where an iteration changes no rank; the two paths sum in
+    # other orders, so on a graph that converges within 20 they may stop
+    # apart: compare the ranks
+    r, it = graph.pagerank_fn(g, tol=0.0, max_iter=20)()
+    rc, itc = graph.pagerank_fn(g, tol=0.0, max_iter=20, device="cpu")()
+    assert r.is_cuda and it <= 20 and itc <= 20
+    np.testing.assert_allclose(r.cpu().numpy(), rc.numpy(), rtol=0, atol=1e-6)
+    assert dg.dg1_rows_cuda.launches >= 20  # BFS levels and PageRank: the dg SpMV kernel
+
+
+@pytest.mark.parametrize("tile_cols", [64, 128])
+def test_spgemm_on_card_matches_scipy(cuda, tile_cols):
+    from tpusparse_torch import spgemm as sg
+    from tpusparse_torch.oracle import spgemm_reference
+
+    a = builder.power_law_coo(2048, 1536, avg_nnz_per_row=8.0, seed=12)
+    b = builder.power_law_coo(1536, 3000, avg_nnz_per_row=6.0, seed=13)
+    dg.dg_rows_cuda.launches = 0
+    c = sg.spgemm(a, b, tile_cols=tile_cols, method="device")
+    want = spgemm_reference(a, b)
+    assert dg.dg_rows_cuda.launches == -(-3000 // tile_cols)  # one launch of #1 a tile of B
+    assert c.shape == want.shape and c.nnz == want.nnz
+    np.testing.assert_array_equal(c.rows, want.rows)
+    np.testing.assert_array_equal(c.cols, want.cols)
+    np.testing.assert_allclose(c.vals, want.vals, rtol=1e-4, atol=1e-4)
+    sg._RUNNER_CACHE.clear()
+
+
+def test_native_packed_format_gives_numpy_packed_y(cuda, mat, monkeypatch):
+    from tpusparse_torch import native
+
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal((mat.shape[1], 8)),
+                        dtype=torch.float32, device=cuda)
+    packs = {"dg": lambda: dg.pack_dg(mat, rb=1024, ns=8, g=512, kt=8),
+             "dgt": lambda: dgt.pack_dgt(mat, rb=512, g=512, kt=8, nw=8),
+             "span": lambda: span.pack_span(mat, rb=512, ct=1024, g=512),
+             "radix": lambda: radix.pack_radix(mat, rb=1024, S=128, g=1024, kt=8)}
+    runs = {"dg": dg.dg_spmm, "dgt": dgt.dgt_spmm, "span": span.span_spmm,
+            "radix": radix.radix_spmm}
+    native_y = {k: runs[k](f(), x) for k, f in packs.items()}
+
+    monkeypatch.setattr(native, "span_pack", span.span_chunk_numpy)
+    monkeypatch.setattr(native, "span_pack_aligned", dg._aligned_chunk_numpy)
+    monkeypatch.setattr(native, "dgt_runs_multi", dgt.dgt_runs_multi_numpy)
+    for k, f in packs.items():
+        got = runs[k](f(), x)
+        torch.testing.assert_close(got, native_y[k], rtol=1e-5, atol=1e-5)

@@ -1,12 +1,13 @@
 """tpusparse_torch.kernels.span_gather against the JAX package's span_gather.
 
 The packer must emit the JAX packer's arrays (the JAX side may run its
-native span_pack; the port runs the numpy walk, which must agree), and the
-port's span_spmm on the CPU (the kernels' plain versions) must match the
-JAX span_spmm (Pallas interpret mode, as tests/test_span_kernel.py runs it)
-and the oracle.  Tolerances: fp32 1e-5 of max|ref|; fp32x2 1e-4 of
-max|ref| (the JAX side's hi/lo bf16 split of X; the port computes fp32 and
-is held to 1e-5 against the oracle); bf16 5e-2.
+native span_pack; the port runs its own native walk, whose numpy version
+must agree with the JAX one), and the port's span_spmm on the CPU (the
+kernels' plain versions) must match the JAX span_spmm (Pallas interpret
+mode, as tests/test_span_kernel.py runs it) and the oracle.  Tolerances:
+fp32 1e-5 of max|ref|; fp32x2 1e-4 of max|ref| (the JAX side's hi/lo bf16
+split of X; the port computes fp32 and is held to 1e-5 against the
+oracle); bf16 5e-2.
 """
 
 import numpy as np
@@ -70,9 +71,12 @@ def test_span_chunk_walk_equals_jax():
     cols_s = np.concatenate([np.sort(rng.integers(0, 900, 40)), np.sort(rng.integers(0, 900, 90))])
     lrow_s = rng.integers(0, 16, 130)
     vals_s = rng.standard_normal(130).astype(np.float32)
-    want = jspan.span_chunk_numpy(cols_s, lrow_s, vals_s, starts, 16, 120, keep_perm=True)
-    got = tspan.span_chunk_numpy(cols_s, lrow_s, vals_s, starts, 16, 120, keep_perm=True)
-    for a, b in zip(want, got):
+    # the port's walk has the native walk's returns: (c0, cols, lrow, vals,
+    # nc, dest), an empty program counted as one chunk
+    c0, cols, lrow, vals, dest, nc = jspan.span_chunk_numpy(cols_s, lrow_s, vals_s, starts, 16,
+                                                            120, keep_perm=True)
+    got = tspan.span_chunk_numpy(cols_s, lrow_s, vals_s, starts, 16, 120, want_dest=True)
+    for a, b in zip((c0, cols, lrow, vals, np.maximum(nc, 1), dest), got):
         np.testing.assert_array_equal(a, b)
 
 

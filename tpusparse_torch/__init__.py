@@ -19,9 +19,18 @@ pruned-weight serving surface: ``nn.SparseLinear`` (``from_coo``,
 ``autodiff.spmm_fn`` (the backward on A^T's plan), ``autodiff.spmm_trainable``
 and ``kernels.sddmm`` (trainable values: the SDDMM value gradient and the
 transpose apply), ``nn.TrainableSparseLinear`` and the differentiable
-``SparseLinear.from_coo`` / ``from_block``.  Still to port: the graph
-algorithms and SpGEMM, the multi-device paths, the host helpers, the
-headline benchmark and the bench tools (ROADMAP.md A.4, A.10-A.12).
+``SparseLinear.from_coo`` / ``from_block``; graph analytics
+(``graph.semiring_spmv``, ``bfs``, ``sssp``, ``pagerank``,
+``connected_components``, their plus_times and or_and matvecs on the dg
+SpMV kernel) and SpGEMM (``spgemm.spgemm``, ``spgemm_fn``: A's plan on the
+card, B's column tiles densified and re-sparsified there); the native host
+helpers (``native``: the .mtx parser and the packers' walks, built by g++
+from ``csrc/tpusparse_host.cpp``) and the artifact store (``artifacts``,
+``results``; ``tune`` saves its winner).  Still to port: the multi-device
+paths (``dist/``), the headline benchmark and the bench tools, the
+real-data loaders (``io/realdata.py``), the command line (``__main__.py``),
+``transforms/compress.py`` and ``examples/04`` (ROADMAP.md A.4 parts 1-3,
+A.11-A.12).
 """
 
 from tpusparse_torch.config import Config, config_override, get_config, set_config
@@ -63,6 +72,9 @@ def __getattr__(name):
         "autotune": "tpusparse_torch.tune.tune",
         "SpmmPlan": "tpusparse_torch.generator.SpmmPlan",
         "spmv": "tpusparse_torch.spmv.spmv",
+        "spgemm": "tpusparse_torch.spgemm.spgemm",
+        "spgemm_fn": "tpusparse_torch.spgemm.spgemm_fn",
+        "semiring_spmv": "tpusparse_torch.graph.semiring_spmv",
         "SparseLinear": "tpusparse_torch.nn.SparseLinear",
         "batched_spmm": "tpusparse_torch.batched.batched_spmm",
         "spmm_fn": "tpusparse_torch.autodiff.spmm_fn",
@@ -92,6 +104,9 @@ __all__ = [
     "autotune",
     "SpmmPlan",
     "spmv",
+    "spgemm",
+    "spgemm_fn",
+    "semiring_spmv",
     "SparseLinear",
     "batched_spmm",
     "spmm_fn",

@@ -21,6 +21,12 @@ class Config:
     padding_rate_up_bound: float = 4.0  # reject schedules that pad > 4x nnz
     operator_runtime_check: bool = True
 
+    # Semiring / graph hooks (reference config stubs: Semiring, Graph_Algorithm)
+    performance_flag: str = "throughput"  # 'throughput' | 'latency' | 'graph'
+    semiring: str = "plus_times"          # 'plus_times' | 'min_plus' | 'or_and'
+    graph_algorithm: str = "none"         # 'none' | 'bfs' | 'pr' | 'cc'
+    graph_max_iter: int = 100
+
     # Tuner
     float_rate: float = 2.0             # FLOPs per (nnz, dense col): mul+add
     # Plausibility guard (reference GFLOPS_UP_BOUND, executor.cc:51-55).

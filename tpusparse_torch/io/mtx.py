@@ -6,10 +6,13 @@ The reference reads row-major-sorted COO ``.mtx`` files: lines starting with
 and the generated-program reader cuda_code/kernel_lib.hpp:237-560 which is a
 full mmio implementation supporting pattern/symmetric banners).
 
-Counterpart of ``tpusparse/io/mtx.py`` on the numpy path: general /
-pattern / symmetric real & integer matrices, 1-based indices, comment lines,
-rows sorted row-major on load.  The native C++ parser of the JAX package is
-a host helper still to be ported; file paths use the Python reader here.
+Counterpart of ``tpusparse/io/mtx.py``: general / pattern / symmetric /
+skew-symmetric real & integer matrices, 1-based indices, comment lines,
+rows sorted row-major on load.  A file path goes through the native C++
+parser (``native.parse_mtx``); a file object through the Python reader.
+Graph mode (config ``performance_flag == 'graph'``) mirrors struct.cc:53-75:
+transpose for BFS/PageRank push-style traversal, and drop values / dedup
+for connected components.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import io as _io
 import os
 
 import numpy as np
+
+from tpusparse_torch.config import get_config
 
 
 @dataclasses.dataclass
@@ -81,6 +86,12 @@ class CooMatrix:
     def row_lengths(self) -> np.ndarray:
         return np.bincount(self.rows, minlength=self.shape[0]).astype(np.int64)
 
+    def to_csr_ptr(self) -> np.ndarray:
+        """Row-pointer array [m+1] (requires row-major order)."""
+        ptr = np.zeros(self.shape[0] + 1, dtype=np.int64)
+        np.add.at(ptr, self.rows + 1, 1)
+        return np.cumsum(ptr)
+
     def to_dense(self, dtype=np.float32) -> np.ndarray:
         out = np.zeros(self.shape, dtype=dtype)
         np.add.at(out, (self.rows, self.cols), self.vals.astype(dtype))
@@ -92,14 +103,34 @@ class CooMatrix:
         rows, cols = np.nonzero(dense)
         return cls(rows.astype(np.int64), cols.astype(np.int64), dense[rows, cols], dense.shape)
 
+    @classmethod
+    def from_scipy(cls, sp_mat) -> "CooMatrix":
+        """From any scipy.sparse matrix."""
+        coo = sp_mat.tocoo()
+        return cls(coo.row.astype(np.int64), coo.col.astype(np.int64),
+                   np.asarray(coo.data), tuple(coo.shape)).sort_row_major()
 
-def read_mtx(path_or_file) -> CooMatrix:
-    """Read a Matrix-Market (or bare COO) file into a row-major CooMatrix."""
-    if hasattr(path_or_file, "read"):
-        text_iter = iter(path_or_file.read().splitlines())
-    else:
-        with open(path_or_file, "r") as f:
-            text_iter = iter(f.read().splitlines())
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        return sp.coo_matrix((self.vals, (self.rows, self.cols)), shape=self.shape)
+
+
+def read_mtx(path_or_file, graph_mode: str | None = None) -> CooMatrix:
+    """Read a Matrix-Market (or bare COO) file into a row-major CooMatrix.
+
+    A path goes through the native C++ parser (``native.parse_mtx``, built
+    at first use), a file object through the Python reader.  ``graph_mode``
+    overrides config: None uses ``get_config().graph_algorithm`` when
+    ``performance_flag == 'graph'``; 'bfs'/'pr' transpose the matrix, 'cc'
+    drops values to 1 and dedups (struct.cc:53-75).
+    """
+    if not hasattr(path_or_file, "read"):
+        from tpusparse_torch import native
+
+        rows, cols, vals, dims = native.parse_mtx(os.fspath(path_or_file))
+        return _apply_graph_mode(CooMatrix(rows, cols, vals, dims), graph_mode)
+    text_iter = iter(path_or_file.read().splitlines())
 
     symmetric = False
     skew = False
@@ -157,12 +188,26 @@ def read_mtx(path_or_file) -> CooMatrix:
                 f"entry index out of range for declared shape {dims}: "
                 f"rows [{min(rows_l)}, {max(rows_l)}], cols [{min(cols_l)}, {max(cols_l)}] (0-based)"
             )
-    return CooMatrix(
+    mat = CooMatrix(
         np.asarray(rows_l, dtype=np.int64),
         np.asarray(cols_l, dtype=np.int64),
         np.asarray(vals_l, dtype=np.float64),
         dims,
     ).sort_row_major()
+    return _apply_graph_mode(mat, graph_mode)
+
+
+def _apply_graph_mode(mat: CooMatrix, graph_mode: str | None) -> CooMatrix:
+    """Graph-mode loader post-processing (struct.cc:53-75)."""
+    cfg = get_config()
+    mode = graph_mode
+    if mode is None and cfg.performance_flag == "graph":
+        mode = cfg.graph_algorithm
+    if mode in ("bfs", "pr"):
+        mat = mat.transpose()
+    elif mode == "cc":
+        mat = CooMatrix(mat.rows, mat.cols, np.ones_like(mat.vals), mat.shape).dedup()
+    return mat
 
 
 def write_mtx(path: str | os.PathLike, mat: CooMatrix, comment: str = "") -> None:

@@ -7,6 +7,9 @@ compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 library's file name carries a hash of the source and the flags, so a stale
 build is never loaded and processes that build at once do not collide.
 A missing ``nvcc`` or a failed build raises; nothing falls back.
+
+The host helpers (``csrc/tpusparse_host.cpp``, ``tpusparse_torch/native.py``)
+are built the same way by ``g++`` (or ``$CXX``): ``host_library``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ SOURCES = ("dg_gather", "dgt_gather", "tile_onehot", "span_gather", "radix_gathe
            "stripe_gather", "nm_structured", "block_ell", "sddmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+HOST_SOURCE = "tpusparse_host"
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-Wall", "-Wextra")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -99,3 +105,44 @@ def library(name: str) -> ctypes.CDLL:
         build((name,))
         lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
     return lib
+
+
+def cxx_path() -> str:
+    """The host compiler: ``$CXX`` where set, else ``g++`` on the PATH."""
+    cxx = os.environ.get("CXX") or "g++"
+    found = shutil.which(cxx)
+    if not found:
+        raise RuntimeError(f"host compiler {cxx!r} not found (set CXX or put g++ on PATH): "
+                           "the host helpers are built from source at first use")
+    return found
+
+
+def host_library() -> ctypes.CDLL:
+    """The loaded host helper library (``csrc/tpusparse_host.cpp``), built by
+    the host compiler at first use into ``_build/`` under a name hashed from
+    the source, the compiler and the flags; written to a temporary file and
+    renamed, so processes that build it at once do not collide.  A missing
+    compiler or a failed build raises."""
+    with _lock:
+        lib = _libs.get(HOST_SOURCE)
+        if lib is not None:
+            return lib
+        cxx = cxx_path()
+        src_path = CSRC / f"{HOST_SOURCE}.cpp"
+        digest = hashlib.sha256(src_path.read_bytes() + " ".join((cxx, *CXX_FLAGS)).encode())
+        path = BUILD_DIR / f"lib{HOST_SOURCE}-{digest.hexdigest()[:12]}.so"
+        if not path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+            t0 = time.perf_counter()
+            proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(src_path)],
+                                  capture_output=True, text=True)
+            build_info[HOST_SOURCE] = {"seconds": time.perf_counter() - t0,
+                                       "log": proc.stdout + proc.stderr}
+            if proc.returncode:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"host build failed ({cxx} exit {proc.returncode}):\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, path)
+        lib = _libs[HOST_SOURCE] = ctypes.CDLL(str(path))
+        return lib

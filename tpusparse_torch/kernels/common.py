@@ -86,6 +86,43 @@ def to_device(dev: torch.device, a, dtype=torch.int32) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
 
+def lex_order(minor: np.ndarray, major: np.ndarray) -> np.ndarray:
+    """``np.lexsort((minor, major))`` for nonnegative integer keys: one
+    stable argsort of ``major * (max(minor) + 1) + minor``, the same order
+    (ties kept in input order) at about half lexsort's time on 10M keys,
+    where the sort was most of a pack."""
+    minor = np.asarray(minor, dtype=np.int64)
+    major = np.asarray(major, dtype=np.int64)
+    span = int(minor.max(initial=0)) + 1
+    return np.argsort(major * span + minor, kind="stable")
+
+
+def fill_chunks(chunks, cols_s, lrow_s, vals_s, g: int, want_dest: bool):
+    """The [P, NC, G] planes of a chunk walk's (c0, first, end) chunks per
+    program, as the native fill writes them (the numpy walks' shared
+    half): (c0, cols, lrow, vals, nc_per_program[, dest]), where a program
+    with no chunk counts one."""
+    p_count = len(chunks)
+    nc = max(max((len(c) for c in chunks), default=1), 1)
+    c0_2d = np.zeros((p_count, nc), dtype=np.int32)
+    cols_f = np.zeros((p_count, nc, g), dtype=np.int32)
+    lrow_f = np.zeros((p_count, nc, g), dtype=np.int32)
+    vals_f = np.zeros((p_count, nc, g), dtype=np.float32)
+    dest = np.zeros(cols_s.size, dtype=np.int64) if want_dest else None
+    for p in range(p_count):
+        for ci, (c0, i, j) in enumerate(chunks[p]):
+            n = j - i
+            c0_2d[p, ci] = c0
+            cols_f[p, ci, :n] = cols_s[i:j] - c0
+            lrow_f[p, ci, :n] = lrow_s[i:j]
+            vals_f[p, ci, :n] = vals_s[i:j]
+            if want_dest:
+                dest[i:j] = (p * nc + ci) * g + np.arange(n)
+    nc_arr = np.asarray([max(len(c), 1) for c in chunks], dtype=np.int64)
+    out = (c0_2d, cols_f, lrow_f, vals_f, nc_arr)
+    return (*out, dest) if want_dest else out
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 

@@ -36,10 +36,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from tpusparse_torch import native
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import build
-from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info,
-                                            pad_dense_cols, prep_x, resolve_device,
+from tpusparse_torch.kernels.common import (cdiv, check_operands, fill_chunks, kernel_info,
+                                            lex_order, pad_dense_cols, prep_x, resolve_device,
                                             unpack_by_deal, window_rows_plain)
 from tpusparse_torch.kernels.row_walk import (WALK1_GEOMETRY, RowWalk, launch_walk,
                                               launch_walk1, window_row_walk)
@@ -164,40 +165,27 @@ def dg_format_from_numpy(fields: dict, *, device="cuda", **static) -> DgFormat:
                     perm_of_nz=None if perm is None else np.asarray(perm))
 
 
-def _aligned_chunk_numpy(cols_s, lrow_s, vals_s, starts, g, W, align, *,
-                         keep_perm=False):
-    """The packer's chunk walk: per program, cut the column-sorted nonzeros
-    into chunks of at most g slots within one aligned window of W columns
-    (the same walk as the JAX package's native span_pack_aligned)."""
-    p_count = len(starts) - 1
+def _aligned_chunk_numpy(cols_sorted, lrow_sorted, vals_sorted, p_starts, g: int,
+                         window: int, align: int, want_dest: bool = False):
+    """The aligned-window chunk walk in numpy, the plain version of
+    ``native.span_pack_aligned`` (which the packer runs), with its
+    signature and returns: per program, cut the column-sorted nonzeros into
+    chunks of at most g slots within one aligned window of ``window``
+    columns."""
+    cols_s = np.asarray(cols_sorted)
+    p_count = len(p_starts) - 1
     chunks: list[list[tuple[int, int, int]]] = [[] for _ in range(p_count)]
     for p in range(p_count):
-        lo, hi = int(starts[p]), int(starts[p + 1])
+        lo, hi = int(p_starts[p]), int(p_starts[p + 1])
         colp = cols_s[lo:hi]
         i = lo
         while i < hi:
             c0 = int(cols_s[i]) & ~(align - 1)
-            j_span = lo + int(np.searchsorted(colp, c0 + W, side="left"))
+            j_span = lo + int(np.searchsorted(colp, c0 + window, side="left"))
             j = min(i + g, j_span, hi)
             chunks[p].append((c0, i, j))
             i = j
-    nc = max(max((len(c) for c in chunks), default=1), 1)
-    c0_2d = np.zeros((p_count, nc), dtype=np.int32)
-    cols_f = np.zeros((p_count, nc, g), dtype=np.int32)
-    lrow_f = np.zeros((p_count, nc, g), dtype=np.int32)
-    vals_f = np.zeros((p_count, nc, g), dtype=np.float32)
-    dest = np.zeros(cols_s.size, dtype=np.int64) if keep_perm else None
-    for p in range(p_count):
-        for ci, (c0, i, j) in enumerate(chunks[p]):
-            n = j - i
-            c0_2d[p, ci] = c0
-            cols_f[p, ci, :n] = cols_s[i:j] - c0
-            lrow_f[p, ci, :n] = lrow_s[i:j]
-            vals_f[p, ci, :n] = vals_s[i:j]
-            if keep_perm:
-                dest[i:j] = (p * nc + ci) * g + np.arange(n)
-    nc_arr = np.asarray([len(c) for c in chunks], dtype=np.int64)
-    return c0_2d, cols_f, lrow_f, vals_f, nc_arr, dest
+    return fill_chunks(chunks, cols_s, lrow_sorted, vals_sorted, g, want_dest)
 
 
 def pack_dg(
@@ -269,12 +257,14 @@ def pack_dg(
         p_arr = rows // rb
         lrow_arr = rows % rb
         slot_of_local = (np.arange(row_num) // rb) * rb + np.arange(row_num) % rb
-    order = np.lexsort((cols, p_arr))
+    order = lex_order(cols, p_arr)
     lrow_s, cols_s, vals_s = lrow_arr[order], cols[order], np.asarray(vals)[order]
     starts = np.searchsorted(p_arr[order], np.arange(p_count + 1))
 
-    c0_2d, cols_f, lrow_f, vals_f, nc_arr, dest_sorted = _aligned_chunk_numpy(
-        cols_s, lrow_s, vals_s, starts, g, W, wt, keep_perm=keep_perm)
+    packed = native.span_pack_aligned(cols_s, lrow_s, vals_s, starts, g, W, wt,
+                                      want_dest=keep_perm)
+    c0_2d, cols_f, lrow_f, vals_f, nc_arr = packed[:5]
+    dest_sorted = packed[5] if keep_perm else None
     nc = c0_2d.shape[1]
 
     slot_of_origrow = np.full(out_rows, -1, dtype=np.int32)

@@ -45,9 +45,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from tpusparse_torch import native
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import build
-from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info,
+from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info, lex_order,
                                             pad_dense_cols, prep_x, resolve_device)
 from tpusparse_torch.kernels.dg_gather import PRECISIONS
 from tpusparse_torch.kernels.row_walk import RowWalk, build_row_walk, launch_walk, live_slots
@@ -134,8 +135,8 @@ def auto_rb_dgt(m: int, n: int, nnz: int, *, nw: int = 4, ngrp: int = 8) -> int:
 
 
 # ---------------------------------------------------------------- pack walks
-# Copied from the JAX package's numpy code (its native dgt_runs /
-# dgt_runs_multi are not ported; ROADMAP.md A.4), so both emit one format.
+# The JAX package's walks: the run walks by the native host helpers, their
+# numpy versions beside them, so both packages emit one format.
 
 def _rank_within_groups(key: np.ndarray) -> np.ndarray:
     """rank of each element within its equal-key group (stable)."""
@@ -162,12 +163,15 @@ def _runs(bucket_arr, cols, lrow_arr, *, col_span, ngrp, resid):
     nwin_mat = int(cdiv(col_span, 128))
     ncls = ngrp if resid else 1
     klass = (lrow_arr % ngrp) if resid else np.zeros(nnz, dtype=np.int64)
-    order = np.lexsort((cols, bucket_arr))
+    order = lex_order(cols, bucket_arr)
     b_s = bucket_arr[order]
     cls_s = klass[order]
-    run_key = b_s * nwin_mat + (cols // 128)[order]
-    uniq, run_id = np.unique(run_key, return_inverse=True)
-    run_id = run_id.reshape(-1)
+    run_key = b_s * nwin_mat + (cols // 128)[order]  # non-decreasing in this order
+    new_run = np.empty(nnz, dtype=bool)
+    new_run[:1] = True
+    np.not_equal(run_key[1:], run_key[:-1], out=new_run[1:])
+    run_id = np.cumsum(new_run) - 1
+    uniq = run_key[new_run]
     cnt = np.bincount(run_id * ncls + cls_s,
                       minlength=uniq.size * ncls).reshape(uniq.size, ncls)
     return order, b_s, cls_s, run_id, uniq // nwin_mat, uniq % nwin_mat, cnt, ncls
@@ -200,14 +204,14 @@ def _dgt_fill(order, b_s, cols, lrow_arr, vals, gtile, pos, sel, cls_s,
     return wins_f, cols_f, lrw_f, vals_f, nc_arr, flat, order
 
 
-def _dgt_walk_multi(bucket_arr, cols, lrow_arr, vals, *, n_buckets, col_span,
-                    ngrp, cap, T, g, nw, resid, max_open=8):
-    """The multi-open-tile walk (pack default): every tile with free room
-    stays open while its window base is within nw of the current run, so
-    later windows' overflow classes top up earlier tiles."""
-    nnz = cols.size
-    order, b_s, cls_s, run_id, run_b, run_win, cnt, ncls = _runs(
-        bucket_arr, cols, lrow_arr, col_span=col_span, ngrp=ngrp, resid=resid)
+def dgt_runs_multi_numpy(run_b, run_win, cnt, cap, nw, n_buckets, max_open=8):
+    """The multi-open-tile run walk in numpy (the plain version of
+    ``native.dgt_runs_multi``, which the packer runs): every tile with free
+    room stays open while its window base is within nw of the current run,
+    so later windows' overflow classes top up earlier tiles.  Returns
+    (seg_run, seg_cls, seg_tile, seg_fill, seg_cnt, seg_sel, wins_b,
+    wins_t, wins_w, tot_tiles)."""
+    ncls = cnt.shape[1]
     seg_run, seg_cls, seg_tile, seg_fill, seg_cnt, seg_sel = ([] for _ in range(6))
     wins_b, wins_t, wins_w = [], [], []
     tot_tiles = np.zeros(n_buckets, dtype=np.int64)
@@ -266,15 +270,23 @@ def _dgt_walk_multi(bucket_arr, cols, lrow_arr, vals, *, n_buckets, col_span,
                 opens = opens[-max_open:]
     if cur_b >= 0:
         tot_tiles[cur_b] = ntiles
+    return (*(np.asarray(a, dtype=np.int64) for a in (seg_run, seg_cls, seg_tile, seg_fill,
+                                                      seg_cnt, seg_sel, wins_b, wins_t,
+                                                      wins_w)), tot_tiles)
+
+
+def _dgt_walk_multi(bucket_arr, cols, lrow_arr, vals, *, n_buckets, col_span,
+                    ngrp, cap, T, g, nw, resid, max_open=8):
+    """The multi-open-tile walk (pack default) over the (bucket, window)
+    runs, by ``native.dgt_runs_multi``, then each nonzero's (tile, slot)."""
+    nnz = cols.size
+    order, b_s, cls_s, run_id, run_b, run_win, cnt, ncls = _runs(
+        bucket_arr, cols, lrow_arr, col_span=col_span, ngrp=ngrp, resid=resid)
+    (seg_run, seg_cls, seg_tile, seg_fill, seg_cnt, seg_sel, wins_b, wins_t, wins_w,
+     tot_tiles) = native.dgt_runs_multi(run_b, run_win, cnt, cap, nw, n_buckets, max_open)
 
     # expand segments to per-nz assignments: nz sorted stably by (run, cls)
     # align 1:1 with segments sorted stably by (run, cls) repeated by count
-    seg_run = np.asarray(seg_run, dtype=np.int64)
-    seg_cls = np.asarray(seg_cls, dtype=np.int64)
-    seg_tile = np.asarray(seg_tile, dtype=np.int64)
-    seg_fill = np.asarray(seg_fill, dtype=np.int64)
-    seg_cnt = np.asarray(seg_cnt, dtype=np.int64)
-    seg_sel = np.asarray(seg_sel, dtype=np.int64)
     sord = np.argsort(seg_run * ncls + seg_cls, kind="stable")
     cnts = seg_cnt[sord]
     total = int(cnts.sum())
@@ -293,15 +305,13 @@ def _dgt_walk_multi(bucket_arr, cols, lrow_arr, vals, *, n_buckets, col_span,
                      n_buckets=n_buckets, ngrp=ngrp, T=T, g=g, resid=resid)
 
 
-def _dgt_walk(bucket_arr, cols, lrow_arr, vals, *, n_buckets, col_span,
-              ngrp, cap, T, g, nw, resid):
-    """The single-open-tile walk: a run first tops up the carried open tile
-    (if its window is within the tile's reach), then fills fresh
-    single-window tiles, the last of which becomes the new open tile."""
-    order, b_s, cls_s, run_id, run_b, run_win, cnt, ncls = _runs(
-        bucket_arr, cols, lrow_arr, col_span=col_span, ngrp=ngrp, resid=resid)
-    n_runs = run_b.size
-    rank = _rank_within_groups(run_id * ncls + cls_s)  # rank in (run, class)
+def dgt_runs_numpy(run_b, run_win, cnt, cap, nw, n_buckets):
+    """The single-open-tile run walk in numpy (the plain version of
+    ``native.dgt_runs``): a run first tops up the carried open tile (if its
+    window is within the tile's reach), then fills fresh single-window
+    tiles, the last of which becomes the new open tile.  Returns (take,
+    open_tile, open_fill, join_pos, new_base, fresh_n, tot_tiles)."""
+    n_runs, ncls = cnt.shape
     take = np.zeros((n_runs, ncls), dtype=np.int64)
     open_tile = np.zeros(n_runs, dtype=np.int64)
     open_fill = np.zeros((n_runs, ncls), dtype=np.int64)
@@ -346,6 +356,18 @@ def _dgt_walk(bucket_arr, cols, lrow_arr, vals, *, n_buckets, col_span,
             open_w = w
     if cur_b >= 0:
         tot_tiles[cur_b] = ntiles
+    return take, open_tile, open_fill, join_pos, new_base, fresh_n, tot_tiles
+
+
+def _dgt_walk(bucket_arr, cols, lrow_arr, vals, *, n_buckets, col_span,
+              ngrp, cap, T, g, nw, resid):
+    """The single-open-tile walk over the (bucket, window) runs, by
+    ``native.dgt_runs``, then each nonzero's (tile, slot)."""
+    order, b_s, cls_s, run_id, run_b, run_win, cnt, ncls = _runs(
+        bucket_arr, cols, lrow_arr, col_span=col_span, ngrp=ngrp, resid=resid)
+    rank = _rank_within_groups(run_id * ncls + cls_s)  # rank in (run, class)
+    take, open_tile, open_fill, join_pos, new_base, fresh_n, tot_tiles = native.dgt_runs(
+        run_b, run_win, cnt, cap, nw, n_buckets)
 
     t_of = take[run_id, cls_s]
     in_open = rank < t_of

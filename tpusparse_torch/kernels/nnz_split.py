@@ -24,13 +24,13 @@ from typing import Any
 import numpy as np
 import torch
 
-from tpusparse_torch.format import SegmentFormat
+from tpusparse_torch import native
+from tpusparse_torch.format import SegmentFormat, live_chunk_counts
 from tpusparse_torch.io.mtx import CooMatrix
-from tpusparse_torch.kernels.common import (cdiv, pad_dense_cols, prep_x, resolve_device,
-                                            round_up, to_device)
+from tpusparse_torch.kernels.common import (cdiv, lex_order, pad_dense_cols, prep_x,
+                                            resolve_device, round_up, to_device)
 from tpusparse_torch.kernels.row_walk import RowWalk
-from tpusparse_torch.kernels.span_gather import (span_chunk_numpy, span_row_walk,
-                                                 span_rows_cuda, span_rows_plain)
+from tpusparse_torch.kernels.span_gather import span_row_walk, span_rows_cuda, span_rows_plain
 from tpusparse_torch.kernels.stripe_gather import (prep_stripe_x, stripe_rows_cuda,
                                                    stripe_rows_plain)
 from tpusparse_torch.kernels.tile_onehot import PRECISIONS, choose_kt, default_ktile
@@ -105,6 +105,39 @@ class SegmentSpanFormat:
                    for a in (self.c0, self.cols, self.lrow, self.vals, self.row_of_slot))
 
 
+def segment_span_format_from_numpy(fields: dict, *, device="cuda", **static) -> SegmentSpanFormat:
+    """A SegmentSpanFormat from the JAX ``SegmentSpanFormat``'s arrays
+    (``c0``, ``cols``, ``lrow``, ``vals``, ``row_of_slot``; ``nc_p`` derived
+    from ``vals`` unless given) and static fields (``n_blocks``,
+    ``n_chunks``, ``chunk_g``, ``rb``, ``ct``, ``shape``, ``nnz_real``);
+    shapes and index ranges are checked, since the kernel reads X and
+    writes the slots at these indices without bounds checks."""
+    dev = resolve_device(device)
+    names = ("c0", "cols", "lrow", "vals", "row_of_slot")
+    arrs = {k: np.asarray(fields[k]) for k in names}
+    vals = arrs["vals"].astype(np.float32)
+    P, NC, G = static["n_blocks"], static["n_chunks"], static["chunk_g"]
+    rb, ct, (m, n) = static["rb"], static["ct"], static["shape"]
+    arrs["nc_p"] = (np.asarray(fields["nc_p"]) if fields.get("nc_p") is not None
+                    else live_chunk_counts(vals))
+    want = {"c0": (P, 1, NC), "cols": (P, NC, G), "lrow": (P, NC, G), "vals": (P, NC, G),
+            "nc_p": (P, 1, 1), "row_of_slot": (P * rb,)}
+    for k, shp in want.items():
+        if arrs[k].shape != shp:
+            raise ValueError(f"SegmentSpanFormat.{k}: shape {arrs[k].shape}, want {shp}")
+    live = vals != 0
+    col = arrs["c0"].reshape(P, NC, 1).astype(np.int64) + arrs["cols"]
+    if (live.any() and (col[live].min() < 0 or col[live].max() >= n)) or \
+            arrs["cols"].min(initial=0) < 0 or arrs["cols"].max(initial=0) >= ct or \
+            arrs["lrow"].min(initial=0) < 0 or arrs["lrow"].max(initial=0) >= rb or \
+            arrs["nc_p"].min(initial=0) < 0 or arrs["nc_p"].max(initial=0) > NC or \
+            arrs["row_of_slot"].max(initial=-1) >= m:
+        raise ValueError("SegmentSpanFormat indices out of range")
+    arrs["vals"] = vals
+    return SegmentSpanFormat(**{k: to_device(dev, a, torch.float32 if k == "vals" else torch.int32)
+                                for k, a in arrs.items()}, **static)
+
+
 def pack_segment_span(mat: CooMatrix, *, block_nnz: int = 4096, ct: int = 512, g: int = 256,
                       device="cuda") -> SegmentSpanFormat:
     """Cut the row-major nonzeros into equal ``block_nnz`` blocks (rows may
@@ -136,9 +169,9 @@ def pack_segment_span(mat: CooMatrix, *, block_nnz: int = 4096, ct: int = 512, g
         max_seg = max(max_seg, u.size)
     rb = round_up(max_seg, 8)
 
-    order = np.lexsort((cols, blk))
+    order = lex_order(cols, blk)
     starts = np.searchsorted(blk[order], np.arange(p_count + 1))
-    c0_2d, cols_f, lrow_f, vals_f, _, nc_arr = span_chunk_numpy(
+    c0_2d, cols_f, lrow_f, vals_f, nc_arr = native.span_pack(
         cols[order], seg[order], vals[order], starts, g, ct - 8)
 
     row_of_slot = np.full(p_count * rb, -1, dtype=np.int32)

@@ -45,14 +45,14 @@ import numpy as np
 import torch
 
 from tpusparse_torch.format import live_chunk_counts
+from tpusparse_torch import native
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import build
-from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info,
+from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info, lex_order,
                                             pad_dense_cols, prep_x, resolve_device, round_up,
                                             to_device, unpack_by_deal, window_rows_plain)
 from tpusparse_torch.kernels.row_walk import (WALK1_GEOMETRY, RowWalk, launch_walk,
                                               launch_walk1, walk_geometry, window_row_walk)
-from tpusparse_torch.kernels.span_gather import span_chunk_numpy
 from tpusparse_torch.levels import Level
 
 PRECISIONS = ("fp32x2", "bf16")
@@ -223,12 +223,14 @@ def pack_radix(
         p_arr = rows // rb
         lrow_arr = rows % rb
         slot_of_local = (np.arange(row_num) // rb) * rb + np.arange(row_num) % rb
-    order = np.lexsort((cols, p_arr))
+    order = lex_order(cols, p_arr)
     lrow_s, cols_s, vals_s = lrow_arr[order], cols[order], np.asarray(vals)[order]
     starts = np.searchsorted(p_arr[order], np.arange(p_count + 1))
 
-    c0_2d, cols_f, lrow_f, vals_f, dest_sorted, nc_arr = span_chunk_numpy(
-        cols_s, lrow_s, vals_s, starts, g, span_budget, keep_perm=keep_perm)
+    packed = native.span_pack(cols_s, lrow_s, vals_s, starts, g, span_budget,
+                              want_dest=keep_perm)
+    c0_2d, cols_f, lrow_f, vals_f, nc_arr = packed[:5]
+    dest_sorted = packed[5] if keep_perm else None
     # realign window starts from the walk's 8 to 8*spr
     delta = (c0_2d % align).astype(np.int32)
     c0_2d = c0_2d - delta

@@ -8,11 +8,10 @@ chunks of at most ``g`` slots whose columns fit one window of ``ct``
 columns starting at ``c0`` (a multiple of 8).  On the TPU the window
 bounded a one-hot MXU gather over an X block that had to stay in VMEM; on
 the card a thread loads the row of X it needs, so the window only bounds
-the chunk.  ``span_chunk_numpy`` is the packer's walk (the JAX package may
-run its native ``span_pack`` instead, which gives the same arrays; the
-port's native host helpers are ROADMAP.md A.4).  The TPU's bf16 hi/lo
-packing of X and its one-hot dots are not ported: fp32 and fp32x2 compute
-in fp32, bf16 rounds each product.
+the chunk.  The packer's walk is the native host helper
+``native.span_pack``; ``span_chunk_numpy`` is its plain numpy version.
+The TPU's bf16 hi/lo packing of X and its one-hot dots are not ported:
+fp32 and fp32x2 compute in fp32, bf16 rounds each product.
 
 Kernels (CUDA C++, ``tpusparse_torch/csrc/span_gather.cu``), each beside its
 plain PyTorch version of the same function:
@@ -41,10 +40,11 @@ import numpy as np
 import torch
 
 from tpusparse_torch.format import live_chunk_counts
+from tpusparse_torch import native
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import build
-from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info,
-                                            pad_dense_cols, prep_x, resolve_device,
+from tpusparse_torch.kernels.common import (cdiv, check_operands, fill_chunks, kernel_info,
+                                            lex_order, pad_dense_cols, prep_x, resolve_device,
                                             unpack_slots, value_dtype, window_rows_plain)
 from tpusparse_torch.kernels.row_walk import RowWalk, launch_walk, window_row_walk
 from tpusparse_torch.kernels.tile_onehot import PRECISIONS, choose_kt, default_ktile
@@ -109,15 +109,19 @@ class SpanFormat:
 SPAN_FIELDS = ("c0", "cols", "lrow", "vals", "slot_of_origrow")
 
 
-def span_chunk_numpy(cols_s, lrow_s, vals_s, starts, g, span_budget, *, keep_perm=False):
-    """The packer's span chunker: cut each program's column-sorted nz into
-    chunks of <= G nz whose columns fit a ``span_budget``-wide window.
-    Returns (c0 [P, NC], cols/lrow [P, NC, G], vals [P, NC, G], dest_sorted
-    or None, nc_per_program [P])."""
-    p_count = len(starts) - 1
+def span_chunk_numpy(cols_sorted, lrow_sorted, vals_sorted, p_starts, g: int,
+                     span_budget: int, want_dest: bool = False):
+    """The span chunk walk in numpy, the plain version of
+    ``native.span_pack``, with its signature and returns: cut each
+    program's column-sorted nz into chunks of <= G nz whose columns fit a
+    ``span_budget``-wide window.  Returns (c0 [P, NC], cols/lrow [P, NC,
+    G], vals [P, NC, G], nc_per_program [P] (1 for a program with no
+    nonzero)[, dest [nnz]])."""
+    cols_s = np.asarray(cols_sorted)
+    p_count = len(p_starts) - 1
     chunks: list[list[tuple[int, int, int]]] = [[] for _ in range(p_count)]
     for p in range(p_count):
-        lo, hi = int(starts[p]), int(starts[p + 1])
+        lo, hi = int(p_starts[p]), int(p_starts[p + 1])
         colp = cols_s[lo:hi]
         i = lo
         while i < hi:
@@ -126,24 +130,7 @@ def span_chunk_numpy(cols_s, lrow_s, vals_s, starts, g, span_budget, *, keep_per
             j = min(i + g, j_span, hi)
             chunks[p].append((c0, i, j))
             i = j
-
-    nc = max(max((len(c) for c in chunks), default=1), 1)
-    c0_2d = np.zeros((p_count, nc), dtype=np.int32)
-    cols_f = np.zeros((p_count, nc, g), dtype=np.int32)
-    lrow_f = np.zeros((p_count, nc, g), dtype=np.int32)
-    vals_f = np.zeros((p_count, nc, g), dtype=np.float32)
-    dest_sorted = np.zeros(cols_s.size, dtype=np.int64) if keep_perm else None
-    for p in range(p_count):
-        for ci, (c0, i, j) in enumerate(chunks[p]):
-            n = j - i
-            c0_2d[p, ci] = c0
-            cols_f[p, ci, :n] = cols_s[i:j] - c0
-            lrow_f[p, ci, :n] = lrow_s[i:j]
-            vals_f[p, ci, :n] = vals_s[i:j]
-            if keep_perm:
-                dest_sorted[i:j] = (p * nc + ci) * g + np.arange(n)
-    nc_arr = np.asarray([len(c) for c in chunks], dtype=np.int64)
-    return c0_2d, cols_f, lrow_f, vals_f, dest_sorted, nc_arr
+    return fill_chunks(chunks, cols_s, lrow_sorted, vals_sorted, g, want_dest)
 
 
 def pack_span(
@@ -205,12 +192,14 @@ def pack_span(
         p_arr = rows // rb
         lrow_arr = rows % rb
         slot_of_local = (np.arange(row_num) // rb) * rb + np.arange(row_num) % rb
-    order = np.lexsort((cols, p_arr))
+    order = lex_order(cols, p_arr)
     lrow_s, cols_s, vals_s = lrow_arr[order], cols[order], np.asarray(vals)[order]
     starts = np.searchsorted(p_arr[order], np.arange(p_count + 1))
 
-    c0_2d, cols_f, lrow_f, vals_f, dest_sorted, nc_arr = span_chunk_numpy(
-        cols_s, lrow_s, vals_s, starts, g, span_budget, keep_perm=keep_perm)
+    packed = native.span_pack(cols_s, lrow_s, vals_s, starts, g, span_budget,
+                              want_dest=keep_perm)
+    c0_2d, cols_f, lrow_f, vals_f, nc_arr = packed[:5]
+    dest_sorted = packed[5] if keep_perm else None
     nc = c0_2d.shape[1]
 
     slot_of_origrow = np.full(out_rows, -1, dtype=np.int32)

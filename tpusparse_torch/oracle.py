@@ -14,19 +14,43 @@ from tpusparse_torch.config import get_config
 from tpusparse_torch.io.mtx import CooMatrix
 
 
-def spmm_reference(mat: CooMatrix, x: np.ndarray) -> np.ndarray:
-    """Y[M, K] = A[M, N] . X[N, K] on the host (or y[M] = A . x[N])."""
+def spmm_reference(mat: CooMatrix, x: np.ndarray, semiring: str = "plus_times") -> np.ndarray:
+    """Y[M, K] = A[M, N] . X[N, K] on the host (or y[M] = A . x[N]), under
+    the semiring: plus_times (*, +), min_plus (+, min; an empty row is
+    +inf) or or_and (&, |; boolean)."""
     m, n = mat.shape
     assert x.shape[0] == n, f"X rows {x.shape[0]} != A cols {n}"
-    y = np.zeros((m,) + x.shape[1:], dtype=np.result_type(mat.vals.dtype, x.dtype))
-    np.add.at(y, mat.rows, mat.vals[:, None] * x[mat.cols] if x.ndim == 2 else mat.vals * x[mat.cols])
-    return y
+    vals = mat.vals[:, None] if x.ndim == 2 else mat.vals
+    if semiring == "plus_times":
+        y = np.zeros((m,) + x.shape[1:], dtype=np.result_type(mat.vals.dtype, x.dtype))
+        np.add.at(y, mat.rows, vals * x[mat.cols])
+        return y
+    if semiring == "min_plus":
+        y = np.full((m,) + x.shape[1:], np.inf, dtype=np.result_type(mat.vals.dtype, x.dtype))
+        np.minimum.at(y, mat.rows, vals + x[mat.cols])
+        return y
+    if semiring == "or_and":
+        y = np.zeros((m,) + x.shape[1:], dtype=bool)
+        np.logical_or.at(y, mat.rows, vals.astype(bool) & x[mat.cols].astype(bool))
+        return y
+    raise ValueError(f"unknown semiring: {semiring}")
 
 
 def spmv_reference(mat: CooMatrix, x: np.ndarray) -> np.ndarray:
     """y[M] = A[M, N] . x[N] on the host."""
     assert x.ndim == 1
     return spmm_reference(mat, x)
+
+
+def spgemm_reference(a: CooMatrix, b: CooMatrix) -> CooMatrix:
+    """C = A . B, both sparse, via scipy (host oracle only)."""
+    import scipy.sparse as sp
+
+    sa = sp.coo_matrix((a.vals, (a.rows, a.cols)), shape=a.shape).tocsr()
+    sb = sp.coo_matrix((b.vals, (b.rows, b.cols)), shape=b.shape).tocsr()
+    sc = (sa @ sb).tocoo()
+    return CooMatrix(sc.row.astype(np.int64), sc.col.astype(np.int64), sc.data,
+                     sc.shape).sort_row_major()
 
 
 def tolerance_for(dtype) -> float:

@@ -21,6 +21,7 @@ import json
 import math
 import os
 import time
+import warnings
 from typing import Sequence
 
 import numpy as np
@@ -45,6 +46,21 @@ def matrix_signature(mat: CooMatrix) -> str:
     h.update(np.ascontiguousarray(mat.rows[:4096]).tobytes())
     h.update(np.ascontiguousarray(mat.cols[:4096]).tobytes())
     return h.hexdigest()[:16]
+
+
+def matrix_digest(mat: CooMatrix) -> str:
+    """A hash of the whole matrix: its shape, every index and every value
+    (one O(nnz) pass).  It keys what holds the matrix's values (SpGEMM's
+    runners, the tune's saved formats), where ``matrix_signature``, which
+    reads only the shape, the nnz and the first 4096 entries, keys the
+    tuned schedule."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(np.asarray(mat.shape, dtype=np.int64).tobytes())
+    for a in (mat.rows, mat.cols, mat.vals):
+        a = np.ascontiguousarray(a)
+        h.update(a.dtype.str.encode())
+        h.update(a)
+    return h.hexdigest()
 
 
 def _span_configs(density: float) -> list[tuple[int, int, int]]:
@@ -391,4 +407,23 @@ def tune(
         os.makedirs(cfg.cache_dir, exist_ok=True)
         with open(cache_file, "w") as f:
             json.dump({"schedule": sched.describe(), "seconds": sec, "device": where}, f)
+        # persist the winner's packed formats (data_source/<id> analogue) in
+        # a directory named by the matrix's values, K and the winner's plan:
+        # a re-tune that keeps its winner writes nothing.  A failure to save
+        # is said, and the tune's result stands
+        try:
+            from tpusparse_torch.artifacts import artifact_path, save_plan_artifact
+
+            desc = sched.describe()
+            run_id = hashlib.blake2b(
+                json.dumps([matrix_digest(mat), k, desc], sort_keys=True,
+                           default=str).encode(), digest_size=8).hexdigest()
+            if not os.path.exists(os.path.join(artifact_path(sig, run_id), "schedule.json")):
+                save_plan_artifact(sig, desc, plan.formats,
+                                   perf={"seconds": sec, "gflops": gflops(mat.nnz, k, sec,
+                                                                          cfg.float_rate),
+                                         "k": k, "device": where}, run_id=run_id)
+        except (OSError, ValueError, TypeError, KeyError) as e:
+            warnings.warn(f"tune: the winner's artifact was not saved: "
+                          f"{type(e).__name__}: {e}", stacklevel=2)
     return TuneResult(best=plan, best_schedule=sched, best_seconds=sec, table=table)
