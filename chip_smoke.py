@@ -95,9 +95,6 @@ SEED = 42
 SPMV_N = 262144          # the SpMV workload (tpusparse/bench/suite.py:364-365)
 SPMV_AVG = 40.0
 SPMV_SEED = 9
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
-FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores, published
-BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM bf16 dense tensor cores, published
 REPS = 5                    # back-to-back readings per yardstick, interleaved
 # P9: the JAX package's default_candidates(headline, 8), all 25 rows in its
 # order (tpusparse/tune.py:90-313), by family and as a digest of every
@@ -151,15 +148,6 @@ def rel_err(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor | None = 
     if scale is not None:
         denom = torch.maximum(denom, scale.double())
     return float((diff / denom).max()), float(diff.max())
-
-
-def bound_ms(nnz: int, m: int, n: int, k: int) -> tuple[float, str]:
-    """Least time for Y = A X on the card: the CSR bytes of A (nnz values
-    and column indices, M+1 row pointers), X and Y each moved once over HBM,
-    against 2 nnz K fp32 flops at the fp32 peak."""
-    t_bytes = (nnz * 8 + (m + 1) * 4 + n * k * 4 + m * k * 4) / HBM_BYTES_PER_S
-    t_ops = 2.0 * nnz * k / FP32_FLOPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def grad_errors(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor):
@@ -251,6 +239,11 @@ def main() -> int:
     try:
         import tpusparse_torch
         from tpusparse_torch.bench.harness import device_time_fn, gflops, graph_time_fn, time_fn
+        # the published peaks and the CSR floor of the kernels line's bound,
+        # one with bench/sol.py's table
+        from tpusparse_torch.bench.sol import (BF16_TC_FLOPS_PER_S, FP32_FLOPS_PER_S,
+                                               HBM_BYTES_PER_S)
+        from tpusparse_torch.bench.sol import csr_bound_ms as bound_ms
         from tpusparse_torch.format import pack_tile
         from tpusparse_torch.generator import build_stripe_plan, prepare_stripe_format
         from tpusparse_torch.io import builder
@@ -1873,7 +1866,6 @@ def main() -> int:
         f"entries): write_mtx {t_w:.2f} s; read_mtx by path (native parser) {t_path:.2f} s, "
         f"by file object (Python reader) {t_file:.2f} s ({t_file / t_path:.1f}x); equal, and "
         f"equal to the matrix written  ({power})")
-    os.remove(mtx_path)
     del by_path, by_file
 
     # G1: graph analytics at 262144^2 in push orientation (entry (u, v) is the
@@ -2028,6 +2020,146 @@ def main() -> int:
     log(f"[g0-g3] host helpers, graph, SpGEMM and persistence phases: "
         f"{time.perf_counter() - t_new_phases:.1f} s")
 
+    # ---- B1-B5: the command line, the session probe, the library
+    # yardsticks, matrices from data on disk and the suite's SpMV section.
+    # Every number beside the card's name and power limit.
+    from tpusparse_torch.bench import baselines, microbench, suite
+    from tpusparse_torch.io import realdata
+
+    t_bench_phases = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    want8 = spmm_reference(mat, xs[8].astype(np.float64))
+
+    # B1: python -m tpusparse_torch on G0's config #1 .mtx at K = 8, in a
+    # process of its own with a fresh cache (so its tune times every
+    # candidate); the winner it names is rebuilt here, called once with the
+    # counts at 0 and held to the oracle; then --graph cc on the same file
+    cli_env = dict(os.environ, HOME=tempfile.mkdtemp(prefix="cli_home_",
+                                                     dir=os.path.dirname(cache)))
+
+    def cli(*argv):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "tpusparse_torch", *argv], cwd=root,
+                           env=cli_env, capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"python -m tpusparse_torch {' '.join(argv)} exited "
+                                 f"{r.returncode}: {r.stderr[-3000:]}")
+        return json.loads(r.stdout.strip().splitlines()[-1]), r.stderr, time.perf_counter() - t0
+
+    out_cli, err_cli, t_cli = cli(mtx_path, "8")
+    n_rows_cli = sum(1 for line in err_cli.splitlines() if line.startswith("  "))
+    log(f"[cli] python -m tpusparse_torch config1.mtx 8: exit 0 in {t_cli:.1f} s (process "
+        f"start, .mtx read, tune over {n_rows_cli} candidate rows)  ({power})")
+    log(f"[cli] {json.dumps(out_cli)}")
+    assert (out_cli["matrix"], out_cli["k"], out_cli["nnz"]) == (mtx_path, 8, mat.nnz)
+    assert out_cli["seconds"] > 0 and out_cli["gflops"] > 0
+    sched_cli = Schedule(**{k: tuple(v) if isinstance(v, list) else v
+                            for k, v in out_cli["best_schedule"].items()})
+    zero_counts()
+    y_cli = build_plan(mat, sched_cli, device=dev)(torch.as_tensor(xs[8], device=dev))
+    torch.cuda.synchronize()
+    read_counts("cli_winner_k8")
+    assert y_cli.is_cuda and y_cli.shape == (M, 8) and bool(torch.isfinite(y_cli).all())
+    # the tuner's tolerance for the winner's precision (fp32x2 2e-3, bf16 1e-2
+    # of |A|.|x|, fp32 1e-5)
+    cfg = tpusparse_torch.get_config()
+    check_result(y_cli.cpu().numpy(), want8,
+                 rtol={"fp32x2": 2e-3, "bf16": cfg.tol_bf16}.get(sched_cli.precision,
+                                                                 cfg.tol_fp32),
+                 scale=scale8.cpu().numpy() if sched_cli.precision == "bf16" else None)
+    n_cli = {kernels[w]["name"]: rec["paths"]["cli_winner_k8"] for w, rec in kernels.items()
+             if rec["paths"]["cli_winner_k8"]}
+    assert n_cli, "the command line's winner launched no kernel"
+    log(f"[cli] its winner ({sched_cli.family}, {sched_cli.precision}) rebuilt here: oracle ok "
+        f"(the tuner's tolerance); launches {n_cli}")
+    out_cc, _, t_cc_cli = cli(mtx_path, "--graph", "cc")
+    cc_csr = sp.csr_matrix((np.ones(mat.nnz), (mat.rows, mat.cols)), shape=mat.shape)
+    n_comp_cc = csgraph.connected_components(cc_csr, directed=False)[0]
+    if out_cc != {"algorithm": "cc", "n_components": int(n_comp_cc)}:
+        raise AssertionError(f"--graph cc gave {out_cc}; scipy counts {n_comp_cc} components")
+    log(f"[cli] python -m tpusparse_torch config1.mtx --graph cc: {json.dumps(out_cc)} in "
+        f"{t_cc_cli:.1f} s, scipy's count  ({power})")
+    os.remove(mtx_path)
+    del y_cli, cc_csr
+
+    # B2: the session probe: every axis within its bounds
+    probe = microbench.session_probe()
+    for name, (lo, hi) in microbench.PROBE_BOUNDS.items():
+        if not lo <= probe[name] <= hi or "implausible" in probe:
+            raise AssertionError(f"probe {name} {probe[name]} outside [{lo}, {hi}]: {probe}")
+    log(f"[probe] stream {probe['stream_gbs']:.1f} GB/s (reduce {probe['reduce_gbs']:.1f}), "
+        f"bf16 tensor cores {probe['mxu_tflops']:.1f} TFLOP/s, fp32 {probe['fp32_tflops']:.2f} "
+        f"TFLOP/s; bounds {microbench.PROBE_BOUNDS}; norms to the anchor window: stream "
+        f"{probe['norm_stream']}, bf16 {probe['norm']}, fp32 {probe['norm_fp32']}"
+        f"{'; violations ' + json.dumps(probe['violations']) if 'violations' in probe else ''}"
+        f"  ({power})")
+
+    # B3: the three library yardsticks at config #1, K = 8, against the
+    # oracle at 1e-5 of |A|.|x| (the kernels' scale against their plain
+    # versions): an fp32 sum over a hub row of config #1 (4441 entries,
+    # their |terms| summing to 2834, Y near 1) is off by up to 1e-4 in any
+    # order of fp32 adds, so 1e-5 of max(|Y|, 1) would judge the rounding
+    xd8 = torch.as_tensor(xs[8], device=dev)
+    scale8_np = scale8.cpu().numpy()
+    for bname in ("dense_spmm_fn", "csr_spmm_fn", "segment_spmm_fn"):
+        bfn = getattr(baselines, bname)(mat)
+        y_b = bfn(xd8)
+        assert y_b.is_cuda and y_b.dtype == torch.float32 and bool(torch.isfinite(y_b).all())
+        err_b = np.abs(y_b.cpu().double().numpy() - want8)
+        check_result(y_b.cpu().numpy(), want8, rtol=tpusparse_torch.get_config().tol_fp32,
+                     scale=scale8_np)
+        b_ms = time_fn(bfn, xd8) * 1e3
+        log(f"[baseline] {bname} config #1 K=8: max abs err {err_b.max():.2e}, "
+            f"{(err_b / np.maximum(np.abs(want8), 1.0)).max():.2e} of max(|Y|, 1), "
+            f"{(err_b / np.maximum(np.maximum(np.abs(want8), 1.0), scale8_np)).max():.2e} of "
+            f"|A|.|x| (<= 1e-5); time_fn {b_ms:.4f} ms a call  ({power})")
+        del bfn, y_b
+    torch.cuda.empty_cache()
+
+    # B4: matrices from data on disk, through spmm (its default schedule)
+    for rname, make in (("real_imports", lambda: realdata.import_graph_coo(max_files=400)),
+                        ("real_cooc", lambda: realdata.cooccurrence_coo(max_files=400))):
+        t0 = time.perf_counter()
+        rm = make()
+        t_make = time.perf_counter() - t0
+        xr = np.random.default_rng(0).standard_normal((rm.shape[1], 8)).astype(np.float32)
+        zero_counts()
+        y_r = tpusparse_torch.spmm(rm, xr)
+        torch.cuda.synchronize()
+        read_counts(rname)
+        assert y_r.is_cuda and tuple(y_r.shape) == (rm.shape[0], 8)
+        assert bool(torch.isfinite(y_r).all())
+        check_result(y_r.cpu().numpy(), spmm_reference(rm, xr.astype(np.float64)), rtol=2e-3)
+        n_r = {kernels[w]["name"]: rec["paths"][rname] for w, rec in kernels.items()
+               if rec["paths"][rname]}
+        assert n_r, f"{rname} launched no kernel"
+        log(f"[real] {rname}: {rm.shape[0]}x{rm.shape[1]}, {rm.nnz} nnz, built in {t_make:.1f} s "
+            f"from the Python sources on disk; spmm K=8 ({default_schedule(rm, 8).family}) "
+            f"oracle ok at rtol 2e-3; launches {n_r}  ({power})")
+
+    # B5: the suite's SpMV section, quick (65536^2), into a fresh cache dir
+    suite_dir = tempfile.mkdtemp(prefix="suite_", dir=os.path.dirname(cache))
+    with tpusparse_torch.config_override(cache_dir=suite_dir):
+        zero_counts()
+        rows_s = suite.run_suite(quick=True, only="spmv",
+                                 out_path=os.path.join(suite_dir, "BENCH_SUITE.jsonl"))
+        read_counts("suite_spmv")
+    bad = [r for r in rows_s if "error" in r or "rejected" in r]
+    if bad:
+        raise AssertionError(f"the suite's spmv section failed: {bad}")
+    want_rows = {"spmv_multi/dgt_k8"} | {f"spmv_powerlaw/{m_}" for m_ in
+                                         ("dg", "dgt8", "radix", "span")} | {"spmv_small/segment"}
+    assert {r.get("bench") for r in rows_s[1:]} == want_rows
+    for r in rows_s[1:]:
+        log(f"[suite] {r['bench']}: " + ", ".join(
+            f"{k_} {v_:.4g}" if isinstance(v_, float) else f"{k_} {v_}"
+            for k_, v_ in r.items() if k_ not in ("bench", "ts")) + f"  ({power})")
+    n_s = {kernels[w]["name"]: rec["paths"]["suite_spmv"] for w, rec in kernels.items()
+           if rec["paths"]["suite_spmv"]}
+    log(f"[suite] spmv section launches: {n_s}")
+    log(f"[b1-b5] command line, probe, yardsticks, real data and suite phases: "
+        f"{time.perf_counter() - t_bench_phases:.1f} s")
+
     launches = {w: sum(rec["paths"].values()) for w, rec in kernels.items()}
     for w, n_l in launches.items():
         if n_l < 1:
@@ -2042,14 +2174,7 @@ def main() -> int:
         """A as a CSR tensor on the card, for cuSPARSE (made once per matrix)."""
         if id(a) in csr_cache:
             return csr_cache[id(a)][1]
-        m, n = a.shape
-        rows_t = torch.from_numpy(np.asarray(a.rows, np.int64))
-        crow = torch.zeros(m + 1, dtype=torch.int64)
-        crow[1:] = torch.cumsum(torch.bincount(rows_t, minlength=m), 0)
-        order = np.lexsort((a.cols, a.rows))
-        csr = torch.sparse_csr_tensor(crow, torch.from_numpy(np.asarray(a.cols, np.int64)[order]),
-                                      torch.from_numpy(a.vals[order].astype(np.float32)),
-                                      size=(m, n)).to(dev)
+        csr = a.to_csr_tensor(device=dev)
         csr_cache[id(a)] = (a, csr)  # holds a, so its id is not reused
         return csr
 
@@ -2628,10 +2753,11 @@ def main() -> int:
         raise AssertionError("a timed training step gave a loss that is not finite")
 
     # ---- 8. where the time of one call goes: the tuner's winner at K = 8,
-    # P1 (K = 256) and P2 (262144^2, K = 8)
+    # P1 (K = 256) and P2 (262144^2, K = 8); with ``host_ops``, the host
+    # ops that took longest too
     from torch.profiler import ProfilerActivity, profile
 
-    def profile_call(label, fn, x, calls=20):
+    def profile_call(label, fn, x, calls=20, host_ops=0):
         def back_to_back():
             t0 = time.perf_counter()
             for _ in range(calls):
@@ -2658,6 +2784,13 @@ def main() -> int:
                " (the profiler saw no device time: not measured)"))
         for key, (t_dev, n) in sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:8]:
             log(f"[profile]   {t_dev:8.2f} us  x{n:g}  {key[:90]}")
+        host = sorted((e for e in prof.key_averages()  # the profiler's own set-up left out
+                       if e.device_type == torch.autograd.DeviceType.CPU
+                       and e.key != "Activity Buffer Request"),
+                      key=lambda e: -e.self_cpu_time_total)[:host_ops]
+        for e in host:
+            log(f"[profile]   host {e.self_cpu_time_total / calls:8.2f} us  "
+                f"x{e.count / calls:g}  {e.key[:80]}")
 
     profile_call(f"spmm K=8 tune winner ({best.family})", win.fn,
                  torch.as_tensor(xs[8], device=dev))
@@ -2689,6 +2822,24 @@ def main() -> int:
     profile_call("P14 block_ell_spmm(pallas, bf16), K=256",
                  functools.partial(be.block_ell_spmm, f14, precision="bf16", method="pallas"),
                  xk14)
+    # the small calls where the suite found the port's winners behind
+    # cuSPARSE: the suite's 16384^2 power law (avg 16, seed 1) at K = 8 by
+    # its default plan and by cuSPARSE, and its quick SpMV matrix
+    # (65536^2, avg 40, seed 9) by spmv_fn('dg') (#2)
+    s16 = builder.power_law_coo(16384, 16384, avg_nnz_per_row=16.0, seed=1)
+    x16 = torch.as_tensor(np.random.default_rng(0).standard_normal((16384, 8)),
+                          dtype=torch.float32, device=dev)
+    s16_sched = default_schedule(s16, 8)
+    s16_csr = s16.to_csr_tensor(device=dev)
+    profile_call(f"suite 16384^2 power law K=8, default plan ({s16_sched.family})",
+                 build_plan(s16, s16_sched, device=dev).fn, x16, host_ops=6)
+    profile_call("suite 16384^2 power law K=8, cuSPARSE", lambda v: torch.sparse.mm(s16_csr, v),
+                 x16, host_ops=6)
+    s65 = builder.power_law_coo(65536, 65536, avg_nnz_per_row=40.0, seed=9)
+    profile_call("suite quick SpMV 65536^2, spmv_fn('dg') (#2)", spmv_fn(s65, "dg", device=dev),
+                 torch.as_tensor(np.random.default_rng(4).standard_normal(65536),
+                                 dtype=torch.float32, device=dev), host_ops=6)
+    del s16_csr, s65
     log(f"[tune] winners: headline K=256 {tune256_winner[0]} {tune256_winner[1] * 1e3:.4f} ms; "
         f"column-skewed K=8 {tune_cs_winner[0]} {tune_cs_winner[1] * 1e3:.4f} ms  ({power})")
 

@@ -6,8 +6,10 @@ size; the N:M and Block-ELL kernels in every mode and layout, SparseLinear
 with a folded activation, and the dense, block_ell and hybrid_cols families;
 the SDDMM and transpose-apply kernels against their plain versions, and
 the trainable and differentiable layers' gradients; the graph drivers and
-SpGEMM against their CPU path and scipy, and a format packed by the native
-host helpers against one packed by the numpy walks.
+SpGEMM against their CPU path and scipy, a format packed by the native
+host helpers against one packed by the numpy walks, and the bench tools:
+the session probe's readings within their bounds and the three library
+yardsticks at config #1 against the oracle.
 Marked ``gpu``; without a CUDA device every test skips (the ``cuda``
 fixture decides, so every pytest worker collects the same tests).  Run on
 the card with ``python -m pytest tests/test_torch_gpu.py -q -m gpu``.
@@ -1560,3 +1562,43 @@ def test_native_packed_format_gives_numpy_packed_y(cuda, mat, monkeypatch):
     for k, f in packs.items():
         got = runs[k](f(), x)
         torch.testing.assert_close(got, native_y[k], rtol=1e-5, atol=1e-5)
+
+
+def test_session_probe_within_bounds(cuda):
+    from tpusparse_torch.bench import microbench as mb
+
+    probe = mb.session_probe()
+    assert probe["device"] == torch.cuda.get_device_name(cuda)
+    assert "implausible" not in probe, probe
+    for name, (lo, hi) in mb.PROBE_BOUNDS.items():
+        assert lo <= probe[name] <= hi, (name, probe[name])
+    for key in ("norm_stream", "norm", "norm_fp32"):
+        assert probe[key] > 0
+
+
+@pytest.mark.parametrize("make", ["dense_spmm_fn", "csr_spmm_fn", "segment_spmm_fn"])
+def test_baselines_on_card_at_config1(cuda, make):
+    from tpusparse_torch.bench import baselines
+    from tpusparse_torch.io.mtx import CooMatrix as CooMatrixT
+
+    c1 = builder.power_law_coo(32768, 32768, avg_nnz_per_row=32.0, alpha=1.8, seed=42)
+    x = np.random.default_rng(0).standard_normal((c1.shape[1], 8)).astype(np.float32)
+    y = getattr(baselines, make)(c1)(x)
+    assert y.device == cuda and y.dtype == torch.float32
+    # 1e-5 of |A|.|x|: fp32 sums over config #1's hub rows (up to 4471
+    # entries) round by up to 1e-4 against a Y near 1, in any order of adds
+    absm = CooMatrixT(c1.rows, c1.cols, np.abs(c1.vals), c1.shape)
+    check_result(y.cpu().numpy(), spmm_reference(c1, x.astype(np.float64)), rtol=1e-5,
+                 scale=spmm_reference(absm, np.abs(x).astype(np.float64)))
+
+
+def test_family_cost_on_card(cuda, monkeypatch):
+    from tpusparse_torch.bench import microbench as mb
+
+    # the family costs on a small power law: one row a family, each timed on the card
+    monkeypatch.setattr(mb, "CONFIG1", dict(m=4096, avg_nnz_per_row=16.0, alpha=1.8, seed=42))
+    rows = mb.measure_family_costs(quick=True)
+    assert len({r["family"] for r in rows}) == len(rows) >= 5
+    for r in rows:
+        assert "rejected" in r or (r["ns_per_nz"] > 0 and r["device"] ==
+                                   torch.cuda.get_device_name(cuda)), r

@@ -25,7 +25,12 @@ def test_import_loads_no_jax_and_no_tpusparse():
             "tpusparse_torch.batched, tpusparse_torch.nn, tpusparse_torch.format, "
             "tpusparse_torch.generator, tpusparse_torch.transforms, tpusparse_torch.ops, "
             "tpusparse_torch.spmv, tpusparse_torch.native, tpusparse_torch.graph, "
-            "tpusparse_torch.spgemm, tpusparse_torch.artifacts, tpusparse_torch.results; "
+            "tpusparse_torch.spgemm, tpusparse_torch.artifacts, tpusparse_torch.results, "
+            "tpusparse_torch.__main__, tpusparse_torch.io.realdata, "
+            "tpusparse_torch.transforms.compress, tpusparse_torch.bench.baselines, "
+            "tpusparse_torch.bench.microbench, tpusparse_torch.bench.sol, "
+            "tpusparse_torch.bench.suite, tpusparse_torch.bench.zoo, "
+            "tpusparse_torch.bench.report; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'tpusparse' or m.startswith('tpusparse.')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -26,17 +26,20 @@ SpMV kernel) and SpGEMM (``spgemm.spgemm``, ``spgemm_fn``: A's plan on the
 card, B's column tiles densified and re-sparsified there); the native host
 helpers (``native``: the .mtx parser and the packers' walks, built by g++
 from ``csrc/tpusparse_host.cpp``) and the artifact store (``artifacts``,
-``results``; ``tune`` saves its winner).  Still to port: the multi-device
-paths (``dist/``), the headline benchmark and the bench tools, the
-real-data loaders (``io/realdata.py``), the command line (``__main__.py``),
-``transforms/compress.py`` and ``examples/04`` (ROADMAP.md A.4 parts 1-3,
-A.11-A.12).
+``results``; ``tune`` saves its winner); the command line
+(``python -m tpusparse_torch``), the bench tools (``bench.baselines``,
+``microbench`` with the card's probe, ``sol``, ``suite``, ``zoo``,
+``report``), the real-data loaders (``io.realdata``), the torch
+conversions of ``CooMatrix`` and ``narrow_dtype``, and
+``transforms.compress``.  Still to port: the multi-device paths
+(``dist/``), the headline benchmark, and ``examples/`` (ROADMAP.md A.4
+parts 1 and 3, A.11-A.12).
 """
 
 from tpusparse_torch.config import Config, config_override, get_config, set_config
 from tpusparse_torch.io.mtx import CooMatrix, read_mtx, write_mtx
 from tpusparse_torch.levels import Level
-from tpusparse_torch.meta.item import MetaDataItem
+from tpusparse_torch.meta.item import MetaDataItem, narrow_dtype
 from tpusparse_torch.meta.set import MetaDataSet
 
 __version__ = "0.1.0"
@@ -95,6 +98,7 @@ __all__ = [
     "Level",
     "MetaDataSet",
     "MetaDataItem",
+    "narrow_dtype",
     "CooMatrix",
     "read_mtx",
     "write_mtx",

@@ -227,19 +227,9 @@ def main() -> int:
                lambda v: stripe.stripe_rows_plain(fmt.cols, fmt.lrow, fmt.vals.abs(), v, rb=rb),
                x, csr_lib(a, x[:, :k].contiguous()))
 
-    def csr_tensor(a):
-        """A as a CSR tensor on the card."""
-        order = np.lexsort((a.cols, a.rows))
-        crow = torch.zeros(a.shape[0] + 1, dtype=torch.int64)
-        crow[1:] = torch.cumsum(torch.bincount(torch.from_numpy(np.asarray(a.rows, np.int64)),
-                                               minlength=a.shape[0]), 0)
-        return torch.sparse_csr_tensor(crow, torch.from_numpy(np.asarray(a.cols, np.int64)[order]),
-                                       torch.from_numpy(a.vals[order].astype(np.float32)),
-                                       size=a.shape).to(dev)
-
     def csr_lib(a, x):
         """cuSPARSE's product of A (CSR on the card) with x [N, K]."""
-        csr = csr_tensor(a)
+        csr = a.to_csr_tensor(device=dev)
         return (lambda v: torch.sparse.mm(csr, v)), x
 
     def takes_walk(wrapper, name="walk"):
@@ -329,7 +319,7 @@ def main() -> int:
         planes = (f1.c0, f1.cols, f1.lrow, f1.nc_p)
         abs_x = x.abs()
         dyk = torch.randn((a.shape[0], k), generator=gen, device=dev)   # dY in Y's row order
-        w_csr, xt = csr_tensor(a), x.T.contiguous()
+        w_csr, xt = a.to_csr_tensor(device=dev), x.T.contiguous()
         has_tiles = takes_walk(sd.sddmm_rows_cuda, "tiles")
         if wanted("#14"):
             for mode in ("fp32x2", "bf16"):
@@ -373,7 +363,7 @@ def main() -> int:
         if wanted("#15"):
             vals = (f1.vals.float() * torch.from_numpy(sd.occupancy_mask(f1)).to(dev)).contiguous()
             has_index = takes_walk(sd.dx_rows_cuda, "index")
-            wt_csr = csr_tensor(a.transpose())
+            wt_csr = a.transpose().to_csr_tensor(device=dev)
             wt = wt_csr.to_dense()                                      # W^T [in, out]
             for mode in ("fp32x2", "bf16"):
                 kw = dict(n=a.shape[1], rb=f1.rb, kt=32, mode=mode)

@@ -56,16 +56,6 @@ def device_ms(fn, x) -> tuple[float, str]:
     return harness.graph_time_fn(fn, x) * 1e3, "graph replay"
 
 
-def csr_of(a, dev):
-    order = np.lexsort((a.cols, a.rows))
-    crow = torch.zeros(a.shape[0] + 1, dtype=torch.int64)
-    crow[1:] = torch.cumsum(torch.bincount(torch.from_numpy(np.asarray(a.rows, np.int64)),
-                                           minlength=a.shape[0]), 0)
-    return torch.sparse_csr_tensor(crow, torch.from_numpy(np.asarray(a.cols, np.int64)[order]),
-                                   torch.from_numpy(a.vals[order].astype(np.float32)),
-                                   size=a.shape).to(dev)
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -98,7 +88,7 @@ def main() -> int:
         want = dg.dg1_rows_plain(*planes, x, rb=fmt.rb).double()
         scale = dg.dg1_rows_plain(fmt.c0, fmt.cols, fmt.lrow, fmt.vals.abs(), fmt.nc_p,
                                   x.abs(), rb=fmt.rb).double().clamp(min=1.0)
-        csr = csr_of(a, dev)
+        csr = a.to_csr_tensor(device=dev)
         lib_ms, lib_how = device_ms(lambda v: torch.sparse.mm(csr, v), x.view(-1, 1))
         rec = {"slots": walk.n_slots, "runs": walk.runs, "cusparse_ms": lib_ms,
                "cusparse_read": lib_how, "points": []}

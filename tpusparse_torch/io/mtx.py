@@ -115,6 +115,50 @@ class CooMatrix:
 
         return sp.coo_matrix((self.vals, (self.rows, self.cols)), shape=self.shape)
 
+    @classmethod
+    def from_torch(cls, t) -> "CooMatrix":
+        """From a torch tensor: sparse COO/CSR/CSC or dense, on any device
+        (the pruned-LLM checkpoint path: such weights arrive as torch
+        tensors).  Values come out float32."""
+        import torch
+
+        if t.layout != torch.strided:
+            t = t.coalesce() if t.layout == torch.sparse_coo else t.to_sparse_coo().coalesce()
+            idx = t.indices().cpu().numpy()
+            return cls(idx[0].astype(np.int64), idx[1].astype(np.int64),
+                       t.values().detach().cpu().float().numpy(), tuple(t.shape)).sort_row_major()
+        return cls.from_dense(t.detach().cpu().float().numpy())
+
+    def to_torch(self, device="cuda"):
+        """A coalesced ``torch.sparse_coo_tensor`` of float32 values on
+        ``device`` (duplicates summed)."""
+        import torch
+
+        from tpusparse_torch.kernels.common import resolve_device
+
+        idx = torch.from_numpy(np.stack([self.rows, self.cols]))
+        vals = torch.from_numpy(np.asarray(self.vals, np.float32))
+        return torch.sparse_coo_tensor(idx, vals, size=tuple(self.shape)).coalesce().to(
+            resolve_device(device))
+
+    def to_csr_tensor(self, device="cuda", dtype=None):
+        """A ``torch.sparse_csr_tensor`` (int64 indices, each row's entries
+        in column order, ``dtype`` values, float32 by default) on ``device``:
+        the operand of cuSPARSE's product through ``torch.sparse.mm``.
+        Duplicate entries stay, and the product sums them."""
+        import torch
+
+        from tpusparse_torch.kernels.common import resolve_device
+
+        m, n = self.shape
+        order = np.lexsort((self.cols, self.rows))
+        crow = torch.zeros(m + 1, dtype=torch.int64)
+        crow[1:] = torch.cumsum(torch.bincount(torch.from_numpy(self.rows), minlength=m), 0)
+        csr = torch.sparse_csr_tensor(
+            crow, torch.from_numpy(self.cols[order]),
+            torch.from_numpy(np.asarray(self.vals)[order].astype(np.float32)), size=(m, n))
+        return csr.to(device=resolve_device(device), dtype=dtype or torch.float32)
+
 
 def read_mtx(path_or_file, graph_mode: str | None = None) -> CooMatrix:
     """Read a Matrix-Market (or bare COO) file into a row-major CooMatrix.

@@ -1,8 +1,11 @@
-"""Metadata items (counterpart of ``tpusparse/meta/item.py``).
+"""Metadata items and dtype narrowing (counterpart of
+``tpusparse/meta/item.py``).
 
-The reference's ``universal_array`` is a type-erased typed array
-(reference: code_source_data.hpp:10-76); here an item holds a plain numpy
-array.  The JAX package's dtype narrowing is not needed by this slice.
+The reference's ``universal_array`` is a type-erased typed array with
+data-type compression: ``get_compress_data_type`` shrinks u64 index arrays
+to u8/u16/u32 by their range (reference: code_source_data.hpp:10-76,
+code_source_data.cc).  Here an item holds a plain numpy array, and
+:func:`narrow_dtype` is the narrowing.
 """
 
 from __future__ import annotations
@@ -12,6 +15,29 @@ import dataclasses
 import numpy as np
 
 from tpusparse_torch.levels import Level
+
+
+def narrow_dtype(arr: np.ndarray, *, allow_unsigned: bool = False, min_bits: int = 8) -> np.ndarray:
+    """Shrink an integer array to the smallest dtype that holds its range,
+    keeping at least ``min_bits`` bits (the reference's
+    ``get_compress_data_type`` / ``find_most_suitable_data_type``).
+    Floating arrays are returned unchanged: value precision is a schedule
+    decision, not an automatic one."""
+    if not np.issubdtype(arr.dtype, np.integer):
+        return arr
+    if arr.size == 0:
+        return arr.astype(np.int32 if not allow_unsigned else np.uint32)
+    lo, hi = int(arr.min()), int(arr.max())
+    kinds = ([(np.uint8, 8), (np.uint16, 16), (np.uint32, 32), (np.uint64, 64)]
+             if (allow_unsigned and lo >= 0)
+             else [(np.int8, 8), (np.int16, 16), (np.int32, 32), (np.int64, 64)])
+    for dt, bits in kinds:
+        if bits < min_bits:
+            continue
+        info = np.iinfo(dt)
+        if lo >= info.min and hi <= info.max:
+            return arr.astype(dt)
+    return arr
 
 
 @dataclasses.dataclass

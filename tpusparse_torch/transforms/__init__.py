@@ -12,9 +12,9 @@ over a MetaDataSet that records its provenance on ``ms.trace``.
   interleave storage                      transforms.interleave
   bitmap / segment arrays                 transforms.segment
 
-The JAX package's model-driven index compression (``transforms/compress.py``)
-lets a TPU kernel compute a stripe's row index instead of loading it; the
-card kernels load it, so it is not ported (ROADMAP.md A.7).
+``transforms.compress`` detects the closed forms of the JAX package's
+model-driven index compression; no card kernel consumes them yet (the
+kernels load every index plane).
 """
 
 from tpusparse_torch.transforms.block import (
