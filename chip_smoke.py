@@ -55,6 +55,17 @@ entry points a user calls:
   ``from_block`` on P14's weight (K = 256), backward included (T2); one
   whole training step timed against the same step on the dense weight.
 
+- the multi-device layer (phase D, after B1-B5) on virtual ranks of the
+  card, at the headline size: the sharded stripe SpMM on a 2 x 2 mesh
+  (D1); the five halo rings at D = 4 on ``["cuda:0"] * 4`` and the span,
+  radix, dg and dgt rings on a 4 x 2 mesh, each against the oracle and one
+  bucket of each against its kernel's plain version, each ring's launches
+  a path of the kernels line (D2); one profiled call of each ring: device
+  busy, shift time and the share of it beside a kernel on another stream,
+  failing on a shift on the kernels' stream or a host sync inside the ring
+  (D3); ``dryrun_multichip(4)`` with its train step (D4); the scaling
+  harness and the projection's quick run (D5); each port example once (D6).
+
 Every result is checked against the host oracle; the kernels are timed
 against their bound, their plain versions and cuSPARSE (the kernels line's
 ``ms``, ``plain_ms`` and ``library_ms`` are device times a call from the
@@ -230,6 +241,220 @@ def same_format(a, b) -> None:
                 raise AssertionError(f"{type(a).__name__}.{f.name} differs")
         elif va != vb:
             raise AssertionError(f"{type(a).__name__}.{f.name}: {va} != {vb}")
+
+
+# phase D: each halo ring on config #1 (packer kwargs, builder kwargs, its
+# kernel by wrapper key, the oracle tolerance of tests/test_dist.py)
+RINGS_D = {
+    "stripe": ("pack_halo_stripe", {"rows_per_stripe": 64}, "build_halo_spmm", {}, "stripe",
+               1e-4),
+    "span": ("pack_halo_span", {}, "build_halo_span_spmm", {}, "span", 1e-3),
+    "radix": ("pack_halo_radix", {"rows_per_program": 1024, "S": 128, "g": 256, "kt": 8},
+              "build_halo_radix_spmm", {"kt": 8}, "radix", 2e-3),
+    "dg": ("pack_halo_dg", {}, "build_halo_dg_spmm", {"kt": 8}, "dg", 5e-4),
+    "dgt": ("pack_halo_dgt", {"rows_per_program": 512, "g": 256, "kt": 8, "resid": True,
+                              "nw": 8, "walk": "multi"},
+            "build_halo_dgt_spmm", {"scatter": "select"}, "dgt", 1e-3),
+}
+
+
+def phase_d(mat, dev, power, kernels, zero_counts, read_counts, need, root):
+    """D1-D6: the sharded stripe SpMM and the five halo rings on config #1
+    over virtual ranks of the card (``["cuda:0"] * 4``; the ranks share its
+    bandwidth, so no number here is a scaling figure), each against the
+    oracle and one bucket of each against its kernel's plain version; one
+    profiled call of each ring (its shifts off the kernels' stream, no host
+    sync inside it); the dry run; the scaling harness and the projection;
+    each port example once."""
+    from tpusparse_torch.bench import projection, scaling
+    from tpusparse_torch.bench.harness import time_fn
+    from tpusparse_torch.bench.ring_profile import check_ring_overlap, ring_graph, ring_overlap
+    from tpusparse_torch.dist import build_sharded_stripe_spmm, make_mesh
+    from tpusparse_torch.dist import overlap as ov
+    from tpusparse_torch.dist.dryrun import dryrun_multichip
+    from tpusparse_torch.generator import prepare_stripe_format
+    from tpusparse_torch.io.mtx import CooMatrix
+    from tpusparse_torch.oracle import check_result, spmm_reference
+
+    t_d = time.perf_counter()
+    name = f"cuda:{dev.index}"
+    abs_mat = CooMatrix(mat.rows, mat.cols, np.abs(np.asarray(mat.vals)), mat.shape)
+    xd = {k: np.random.default_rng(0).standard_normal((N, k)).astype(np.float32)
+          for k in (8, 16)}
+    want = {k: spmm_reference(mat, v.astype(np.float64)) for k, v in xd.items()}
+    scale = {k: spmm_reference(abs_mat, np.abs(v).astype(np.float64)) for k, v in xd.items()}
+
+    def oracle(label, y, k, tol):
+        """Y against the oracle at ``tol``, the denominator max(|Y|, 1, |A|.|x|):
+        fp32 sums over config #1's hub rows (up to 4471 entries) round by up
+        to 1e-4 of a Y near 1 in any order of adds (B3); the plain relative
+        error is logged beside it."""
+        got = y.cpu().numpy()
+        assert y.is_cuda and got.shape == (M, k) and np.isfinite(got).all()
+        check_result(got, want[k], rtol=tol, scale=scale[k], what=label)
+        plain = float((np.abs(got - want[k]) / np.maximum(np.abs(want[k]), 1.0)).max())
+        cond = float((np.abs(got - want[k]) / np.maximum(np.maximum(np.abs(want[k]), 1.0),
+                                                          scale[k])).max())
+        return plain, cond
+
+    # D1: the sharded stripe SpMM on a 2 x 2 mesh of the card, K = 16
+    fmt_s, _ = prepare_stripe_format(mat, work_per_stripe=1024, nnz_multiple=8, device=dev)
+    fn_s, put_s = build_sharded_stripe_spmm(fmt_s, make_mesh(2, 2, [name] * 4))
+    args_s = put_s(xd[16])
+    zero_counts()
+    y = fn_s(*args_s)
+    torch.cuda.synchronize()
+    read_counts("sharded_stripe_2x2")
+    plain, cond = oracle("D1 sharded stripe", y, 16, 1e-4)
+    log(f"[ring] D1 sharded stripe SpMM, 2 x 2 mesh of {name}, K=16: oracle ok at 1e-4 "
+        f"(rel err {plain:.2e}, over |A|.|x| {cond:.2e}), "
+        f"{need('sharded_stripe_2x2', 'stripe')} launches of stripe_rows_cuda, "
+        f"{time_fn(lambda a: fn_s(*a), args_s) * 1e3:.4f} ms a call (time_fn)  ({power})")
+
+    # D2: the five rings at D = 4, and four of them on a 4 x 2 mesh (K = 16)
+    rings = {}
+    for kind, (pack, pkw, build, bkw, which, tol) in RINGS_D.items():
+        t0 = time.perf_counter()
+        fmt = getattr(ov, pack)(mat, 4, device=dev, **pkw)
+        t_pack = time.perf_counter() - t0
+        for n_k, k in ((1, 8), (2, 16)):
+            if n_k == 2 and kind == "stripe":
+                continue            # the stripe ring does not shard K (JAX allow_k_shard=False)
+            path = f"ring_{kind}_d4" if n_k == 1 else f"ring_{kind}_4x2"
+            t0 = time.perf_counter()
+            fn, put = getattr(ov, build)(fmt, make_mesh(4, n_k, [name] * (4 * n_k)), **bkw)
+            args = put(xd[k])
+            torch.cuda.synchronize()
+            t_build = time.perf_counter() - t0
+            zero_counts()
+            y = fn(*args)
+            torch.cuda.synchronize()
+            read_counts(path)
+            plain, cond = oracle(path, y, k, tol)
+            n_l = need(path, which)
+            assert n_l == 4 * n_k * 4, (path, n_l)
+            ms = time_fn(lambda a, fn=fn: fn(*a), args) * 1e3
+            rings[path] = (fn, args, which, n_l)
+            log(f"[ring] D2 {path}: oracle ok at {tol:g} (rel err {plain:.2e}, over |A|.|x| "
+                f"{cond:.2e}), {n_l} launches of {kernels[which]['name']}, pad "
+                f"{fmt.padding_rate:.3f}, pack {t_pack:.2f} s, build (placing, walks) "
+                f"{t_build:.2f} s, {ms:.4f} ms a call (time_fn)  ({power})")
+        # one bucket (rank 0, chunk 0) against its kernel's plain version
+        fn, args, which, _ = rings[f"ring_{kind}_d4"]
+        run = fn.buckets[(0, dev)][0]
+        x0 = args[2][0][(0, 0)]
+        kl, kt = args[2][2], args[2][1]
+        got = torch.zeros((run.planes[0].shape[0] * fmt.rb, x0.shape[1]), device=dev)
+        run(x0, got, kt, kl)
+        planes = run.planes
+        vals_i = 2 if kind == "stripe" else 3
+        abs_planes = tuple(p.abs() if i == vals_i else p for i, p in enumerate(planes))
+        want_b = torch.zeros_like(got)
+        scale_b = torch.zeros_like(got)
+        plain_fn = (stripe_plain_of(fmt) if kind == "stripe" else plain_of(kind, fmt, bkw))
+        want_b += plain_fn(planes, x0)
+        scale_b += plain_fn(abs_planes, x0.abs())
+        rel, err = rel_err(got, want_b, scale_b)
+        assert rel <= 1e-5, (kind, rel)
+        kernels[which]["err"] = max(kernels[which]["err"], err)
+        log(f"[ring] D2 ring_{kind}_d4 bucket (rank 0, chunk 0) against "
+            f"{kernels[which]['name']}'s plain version: {rel:.2e} of |A|.|x| (max abs {err:.2e})")
+
+    log(f"[ring] D1-D2: {time.perf_counter() - t_d:.1f} s")
+
+    # D3: one profiled call of each ring: device busy, shift time and the
+    # share of it that runs beside a kernel on another stream; then the
+    # same call captured into a CUDA graph and replayed, the host out of
+    # the way
+    t0 = time.perf_counter()
+    for path, (fn, args, which, n_l) in rings.items():
+        prof = ring_overlap(fn, args, expect=n_l, shifts=n_l // 4 * 3)
+        check_ring_overlap(prof, path)
+        log(f"[ring] D3 {path}: device busy {prof['busy_us']:.1f} us, bucket kernels "
+            f"{prof['kernel_us']:.1f} us ({prof['n_kernels']}), shifts {prof['shift_us']:.1f} us "
+            f"({prof['n_shifts']} copies), overlap share {prof['overlap_share']:.3f}, kernel "
+            f"streams {prof['kernel_streams']}, shift streams {prof['shift_streams']}, no host "
+            f"sync inside  ({power})")
+        try:
+            g = ring_graph(fn, args, shifts=n_l // 4 * 3)
+        except Exception as e:  # noqa: BLE001 - a reading, said in the log
+            log(f"[ring] D3 {path} in a CUDA graph: not measured ({type(e).__name__}: {e})")
+            continue
+        share = ("not measured (" + g["graph_note"] + ")" if g["graph_overlap_share"] is None
+                 else f"{g['graph_overlap_share']:.3f}")
+        shift = "-" if g["graph_shift_us"] is None else f"{g['graph_shift_us']:.1f}"
+        log(f"[ring] D3 {path} in a CUDA graph: {g['graph_ms']:.4f} ms a replay, device busy "
+            f"{g['graph_busy_us']:.1f} us, shifts {shift} us, overlap share {share}  ({power})")
+    log(f"[ring] D3: {time.perf_counter() - t0:.1f} s")
+
+    # D4: the dry run on four virtual ranks of the card, the train step included
+    zero_counts()
+    t0 = time.perf_counter()
+    out_dr = dryrun_multichip(4, device=name)
+    torch.cuda.synchronize()
+    read_counts("dryrun_d4")
+    for which in ("stripe", "span", "radix", "dg", "dgt", "sddmm", "dx"):
+        need("dryrun_d4", which)
+    log(f"[ring] D4 dryrun_multichip(4) on {name}: losses {out_dr['losses']}, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # D5: the scaling harness (8192^2, avg 32, K = 32, D = 1, 2, 4, radix ring)
+    # on virtual ranks of the card, and the projection's quick run
+    t0 = time.perf_counter()
+    zero_counts()
+    for r in scaling.measure_scaling(device=name):
+        assert "efficiency" not in r
+        log(f"[scaling] {json.dumps(r)}  ({power})")
+    read_counts("scaling")
+    res = projection.run(quick=True, device=name, probe=False)
+    for r in res["ring_bucket_ab"] + res["projection"]:
+        log(f"[projection] {json.dumps(r)}  ({power})")
+    log(f"[projection] T1 {res['t1_d1_ring_bucket_us']} us, single-card dgt "
+        f"{res['t1_single_card_dgt_spmm_us']} us, shift in a CUDA graph (lower bound for "
+        f"NCCL) {res['shift_us_lower_bound_for_nccl']} us, issued from Python "
+        f"{res['shift_us_issued_from_python']} us  ({power})")
+    log(f"[ring] D5: {time.perf_counter() - t0:.1f} s")
+
+    # D6: each port example once on the card, the six processes started together
+    home = tempfile.mkdtemp(prefix="examples_home_", dir=os.path.join(root, "tpusparse_torch",
+                                                                       "_build"))
+    env = dict(os.environ, HOME=home)
+    t0 = time.perf_counter()
+    procs = {p: subprocess.Popen([sys.executable, os.path.join(root, "examples", p)], cwd=root,
+                                 env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True)
+             for p in sorted(os.listdir(os.path.join(root, "examples")))
+             if p.startswith("torch_0") and p.endswith(".py")}
+    assert len(procs) == 6, sorted(procs)
+    for p, proc in procs.items():
+        out_p, _ = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"examples/{p} exited {proc.returncode}: {out_p[-3000:]}")
+        log(f"[example] {p}: exit 0; {out_p.strip().splitlines()[-1][:160]}")
+    log(f"[example] six examples on the card in {time.perf_counter() - t0:.1f} s (together)")
+    log(f"[ring] phase D: {time.perf_counter() - t_d:.1f} s  ({power})")
+
+
+def plain_of(kind, fmt, bkw):
+    """The plain version of a window ring's bucket kernel: (planes, x) ->
+    y_rows."""
+    from tpusparse_torch.kernels import dg_gather as dg
+    from tpusparse_torch.kernels import dgt_gather as dgt
+    from tpusparse_torch.kernels import radix_gather as radix
+    from tpusparse_torch.kernels import span_gather as span
+
+    if kind == "dgt":
+        return lambda planes, x: dgt.dgt_rows_plain(*planes, x, rb=fmt.rb, kt=fmt.kt,
+                                                    mode=fmt.mode, resid=fmt.resid)
+    plain = {"span": span.span_rows_plain, "radix": radix.radix_rows_plain,
+             "dg": dg.dg_rows_plain}[kind]
+    return lambda planes, x: plain(*planes, x, rb=fmt.rb, kt=bkw.get("kt", 8), mode="fp32x2")
+
+
+def stripe_plain_of(fmt):
+    from tpusparse_torch.kernels import stripe_gather as stripe
+
+    return lambda planes, x: stripe.stripe_rows_plain(*planes[:3], x, rb=fmt.rb)
 
 
 def main() -> int:
@@ -2159,6 +2384,9 @@ def main() -> int:
     log(f"[suite] spmv section launches: {n_s}")
     log(f"[b1-b5] command line, probe, yardsticks, real data and suite phases: "
         f"{time.perf_counter() - t_bench_phases:.1f} s")
+
+    # ---- D1-D6: the multi-device layer on virtual ranks of this card
+    phase_d(mat, dev, power, kernels, zero_counts, read_counts, need, root)
 
     launches = {w: sum(rec["paths"].values()) for w, rec in kernels.items()}
     for w, n_l in launches.items():

@@ -9,7 +9,10 @@ the trainable and differentiable layers' gradients; the graph drivers and
 SpGEMM against their CPU path and scipy, a format packed by the native
 host helpers against one packed by the numpy walks, and the bench tools:
 the session probe's readings within their bounds and the three library
-yardsticks at config #1 against the oracle.
+yardsticks at config #1 against the oracle; the multi-device layer: each
+halo ring and the sharded stripe SpMM on virtual ranks of the card against
+the same ring on CPU ranks, its shifts off the kernels' stream, and the
+dry run.
 Marked ``gpu``; without a CUDA device every test skips (the ``cuda``
 fixture decides, so every pytest worker collects the same tests).  Run on
 the card with ``python -m pytest tests/test_torch_gpu.py -q -m gpu``.
@@ -1602,3 +1605,78 @@ def test_family_cost_on_card(cuda, monkeypatch):
     for r in rows:
         assert "rejected" in r or (r["ns_per_nz"] > 0 and r["device"] ==
                                    torch.cuda.get_device_name(cuda)), r
+
+
+# ----------------------------------------------------------- multi-device
+
+RING_CASES = {  # packer kwargs, builder kwargs, wrapper, at the 4096^2 fixture
+    "stripe": ("pack_halo_stripe", {"rows_per_stripe": 64}, "build_halo_spmm", {},
+               stripe.stripe_rows_cuda),
+    "span": ("pack_halo_span", {"rows_per_program": 256, "ct": 512, "g": 128},
+             "build_halo_span_spmm", {}, span.span_rows_cuda),
+    "radix": ("pack_halo_radix", {"rows_per_program": 256, "S": 32, "g": 128, "kt": 8},
+              "build_halo_radix_spmm", {"kt": 8}, radix.radix_rows_cuda),
+    "dg": ("pack_halo_dg", {"rows_per_program": 256, "ns": 2, "g": 128, "kt": 8},
+           "build_halo_dg_spmm", {"kt": 8}, dg.dg_rows_cuda),
+    "dgt": ("pack_halo_dgt", {"rows_per_program": 256, "g": 256, "kt": 8},
+            "build_halo_dgt_spmm", {}, dgt.dgt_rows_cuda),
+}
+
+
+def _abs_scale(m, x):
+    from tpusparse_torch.io.mtx import CooMatrix as CooMatrixT
+
+    absm = CooMatrixT(m.rows, m.cols, np.abs(np.asarray(m.vals)), m.shape)
+    return spmm_reference(absm, np.abs(x).astype(np.float64))
+
+
+@pytest.mark.parametrize("kind,n_k", [(k, n) for k in RING_CASES for n in (1, 2)
+                                      if not (k == "stripe" and n == 2)])
+def test_ring_on_virtual_ranks_matches_plain_ring(cuda, mat, kind, n_k):
+    """Each halo ring on ["cuda:0"] * 4 (and a 4 x 2 mesh but for the stripe
+    ring, which does not shard K, as in the JAX package) against the same
+    ring on CPU ranks, which run the plain kernels, at 1e-5 of |A|.|x|;
+    each call launches its kernel D * n_k * D times; the shifts run off the
+    kernels' stream and no host sync falls inside the ring."""
+    from tpusparse_torch.bench.ring_profile import check_ring_overlap, ring_overlap
+    from tpusparse_torch.dist import make_mesh
+    from tpusparse_torch.dist import overlap as ov
+
+    pack, pkw, build, bkw, wrapper = RING_CASES[kind]
+    x = np.random.default_rng(3).standard_normal((mat.shape[1], 8 * n_k)).astype(np.float32)
+    name = f"cuda:{cuda.index}"
+    fn, put = getattr(ov, build)(getattr(ov, pack)(mat, 4, device=cuda, **pkw),
+                                 make_mesh(4, n_k, [name] * (4 * n_k)), **bkw)
+    args = put(x)
+    before = wrapper.launches
+    y = fn(*args)
+    assert wrapper.launches - before == 4 * n_k * 4
+    pfn, pput = getattr(ov, build)(getattr(ov, pack)(mat, 4, device="cpu", **pkw),
+                                   make_mesh(4, n_k, ["cpu"] * (4 * n_k)), **bkw)
+    check_result(y.cpu().numpy(), pfn(*pput(x)).numpy(), rtol=1e-5, scale=_abs_scale(mat, x))
+    check_result(y.cpu().numpy(), spmm_reference(mat, x.astype(np.float64)), rtol=1e-3,
+                 scale=_abs_scale(mat, x))
+    check_ring_overlap(ring_overlap(fn, args, expect=4 * n_k * 4, shifts=4 * n_k * 3),
+                       f"{kind} ring")
+
+
+@pytest.mark.parametrize("n_row,n_k", [(2, 2), (4, 1)])
+def test_sharded_stripe_on_card_matches_plain(cuda, mat, n_row, n_k):
+    from tpusparse_torch.dist import build_sharded_stripe_spmm, make_mesh
+
+    x = np.random.default_rng(4).standard_normal((mat.shape[1], 16)).astype(np.float32)
+    fmt, _ = prepare_stripe_format(mat, work_per_stripe=1024, nnz_multiple=8, device=cuda)
+    fn, put = build_sharded_stripe_spmm(fmt, make_mesh(n_row, n_k, [cuda] * (n_row * n_k)))
+    before = stripe.stripe_rows_cuda.launches
+    y = fn(*put(x))
+    assert stripe.stripe_rows_cuda.launches - before == n_row * n_k
+    pfmt, _ = prepare_stripe_format(mat, work_per_stripe=1024, nnz_multiple=8, device="cpu")
+    pfn, pput = build_sharded_stripe_spmm(pfmt, make_mesh(n_row, n_k, ["cpu"] * (n_row * n_k)))
+    check_result(y.cpu().numpy(), pfn(*pput(x)).numpy(), rtol=1e-5, scale=_abs_scale(mat, x))
+
+
+def test_dryrun_multichip_on_card(cuda):
+    from tpusparse_torch.dist.dryrun import dryrun_multichip
+
+    out = dryrun_multichip(4, device=f"cuda:{cuda.index}")
+    assert out["losses"][-1] < out["losses"][0]

@@ -1,5 +1,6 @@
 """tpusparse_torch stands alone: importing it loads no JAX and no module of
-the JAX package, and no file of the port (nor chip_smoke.py) imports them."""
+the JAX package, and no file of the port (nor chip_smoke.py, nor the port's
+examples) imports them."""
 
 import os
 import re
@@ -30,7 +31,10 @@ def test_import_loads_no_jax_and_no_tpusparse():
             "tpusparse_torch.transforms.compress, tpusparse_torch.bench.baselines, "
             "tpusparse_torch.bench.microbench, tpusparse_torch.bench.sol, "
             "tpusparse_torch.bench.suite, tpusparse_torch.bench.zoo, "
-            "tpusparse_torch.bench.report; "
+            "tpusparse_torch.bench.report, tpusparse_torch.dist, tpusparse_torch.dist.shard, "
+            "tpusparse_torch.dist.overlap, tpusparse_torch.dist.dryrun, "
+            "tpusparse_torch.bench.scaling, tpusparse_torch.bench.projection, "
+            "tpusparse_torch.bench.ring_profile; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'tpusparse' or m.startswith('tpusparse.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -42,7 +46,8 @@ def test_import_loads_no_jax_and_no_tpusparse():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
-    [*(ROOT / "tpusparse_torch").rglob("*.py"), ROOT / "chip_smoke.py"]))
+    [*(ROOT / "tpusparse_torch").rglob("*.py"), ROOT / "chip_smoke.py",
+     *(ROOT / "examples").glob("torch_*.py")]))
 def test_no_jax_or_tpusparse_import_in_source(path):
     text = (ROOT / path).read_text()
     assert not FORBIDDEN.search(text), FORBIDDEN.search(text).group(0)

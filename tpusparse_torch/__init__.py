@@ -31,9 +31,11 @@ from ``csrc/tpusparse_host.cpp``) and the artifact store (``artifacts``,
 ``microbench`` with the card's probe, ``sol``, ``suite``, ``zoo``,
 ``report``), the real-data loaders (``io.realdata``), the torch
 conversions of ``CooMatrix`` and ``narrow_dtype``, and
-``transforms.compress``.  Still to port: the multi-device paths
-(``dist/``), the headline benchmark, and ``examples/`` (ROADMAP.md A.4
-parts 1 and 3, A.11-A.12).
+``transforms.compress``; the multi-device paths (``dist``: ``make_mesh``,
+the sharded stripe SpMM, the five halo rings on a mesh of devices in one
+process or over ``torch.distributed``, the dry run), ``bench.scaling``,
+``bench.projection`` and the port's examples (``examples/torch_0*.py``).
+Still to port: the headline benchmark (ROADMAP.md A.4 part 1).
 """
 
 from tpusparse_torch.config import Config, config_override, get_config, set_config
@@ -84,6 +86,9 @@ def __getattr__(name):
         "spmm_trainable": "tpusparse_torch.autodiff.spmm_trainable",
         "sddmm": "tpusparse_torch.kernels.sddmm.sddmm",
         "TrainableSparseLinear": "tpusparse_torch.nn.TrainableSparseLinear",
+        "make_mesh": "tpusparse_torch.dist.shard.make_mesh",
+        "shard_stripe_format": "tpusparse_torch.dist.shard.shard_stripe_format",
+        "build_sharded_stripe_spmm": "tpusparse_torch.dist.shard.build_sharded_stripe_spmm",
     }
     if name in lazy_map:
         return _lazy(lazy_map[name])
@@ -117,4 +122,7 @@ __all__ = [
     "spmm_trainable",
     "sddmm",
     "TrainableSparseLinear",
+    "make_mesh",
+    "shard_stripe_format",
+    "build_sharded_stripe_spmm",
 ]

@@ -386,7 +386,8 @@ def dg_walk_info(pw: int, mode: str) -> dict:
     return kernel_info(_lib().dg_walk_info, "dg_walk_info", pw, int(mode == "bf16"))
 
 
-def dg_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode, walk=None, k=None):
+def dg_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode, walk=None, k=None,
+                 out=None):
     """CUDA ``_dg_kernel`` (tpusparse/kernels/dg_gather.py:318): y_rows
     [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in {8, 16, 32}, from
     one launch of the row walk kernel over ``walk``, the format's live
@@ -395,12 +396,13 @@ def dg_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode, walk=None, k=No
     values are ``vals``'s: streamed from the walk where it holds them, else
     gathered through its slot index.  ``k``: the columns of X that carry
     the product (the rest is the kt padding; None: all Kp); the kernel
-    reads and writes them rounded up to 4, the rest of y_rows stays zero."""
+    reads and writes them rounded up to 4, the rest of y_rows stays zero.
+    ``out``: y_rows [P*rb, Kp] to add into, returned in its place."""
     _check_format(c0, cols, lrow, vals, nc_p, x, 2)
     if kt not in (8, 16, 32) or mode not in PRECISIONS or x.shape[1] % kt:
         raise ValueError(f"dg kernel: kt={kt}, mode={mode}, X {tuple(x.shape)}")
     y = launch_walk(_lib().dg_walk_launch, "dg_walk_launch", walk, (c0, cols, lrow, nc_p),
-                    vals, x, rows=cols.shape[0] * rb, k=k, bf16=mode == "bf16")
+                    vals, x, rows=cols.shape[0] * rb, k=k, bf16=mode == "bf16", out=out)
     dg_rows_cuda.launches += 1
     return y
 

@@ -743,7 +743,8 @@ def _check(wins, cols, lrw, vals, nc_p, x, kt, mode):
         raise ValueError(f"dgt kernel: kt={kt}, mode={mode}, X {tuple(x.shape)}")
 
 
-def dgt_rows_cuda(wins, cols, lrw, vals, nc_p, x, *, rb, kt, mode, resid, walk=None, k=None):
+def dgt_rows_cuda(wins, cols, lrw, vals, nc_p, x, *, rb, kt, mode, resid, walk=None, k=None,
+                  out=None):
     """CUDA ``_dgt_kernel`` (tpusparse/kernels/dgt_gather.py:667): y_rows
     [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in {8, 16, 32}, from
     one launch of the row walk kernel over ``walk``, the format's live
@@ -754,10 +755,10 @@ def dgt_rows_cuda(wins, cols, lrw, vals, nc_p, x, *, rb, kt, mode, resid, walk=N
     else gathered through its slot index.  ``k``: the columns of X
     that carry the product (the rest is the kt padding; None: all Kp); the
     kernel reads and writes them rounded up to 4, the rest of y_rows stays
-    zero."""
+    zero.  ``out``: y_rows [P*rb, Kp] to add into, returned in its place."""
     _check(wins, cols, lrw, vals, nc_p, x, kt, mode)
     y = launch_walk(_lib().dgt_spmm_launch, "dgt_spmm_launch", walk, (wins, cols, lrw, nc_p),
-                    vals, x, rows=cols.shape[0] * rb, k=k, bf16=mode == "bf16")
+                    vals, x, rows=cols.shape[0] * rb, k=k, bf16=mode == "bf16", out=out)
     dgt_rows_cuda.launches += 1
     return y
 

@@ -479,7 +479,8 @@ def radix_walk_info(kp: int, mode: str, geometry: tuple[int, int, int] = WALK1_G
     return kernel_info(_lib().radix_walk_info, "radix_walk_info", walk_geometry(kp)[1], bf16)
 
 
-def radix_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode, walk=None, k=None):
+def radix_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode, walk=None, k=None,
+                    out=None):
     """CUDA ``_radix_kernel`` (tpusparse/kernels/radix_gather.py:441): y_rows
     [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in RADIX_KTS, from one
     launch of a row walk kernel over ``walk``, the format's live slots in
@@ -490,7 +491,8 @@ def radix_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode, walk=None, k
     ``vals``'s: streamed from the walk where it holds them, else gathered
     through its slot index.  ``k``: the columns of X that carry the product
     (the rest is the kt padding; None: all Kp); the kernel reads and writes
-    them rounded up to 4, the rest of y_rows stays zero."""
+    them rounded up to 4, the rest of y_rows stays zero.  ``out``: y_rows
+    [P*rb, Kp] to add into (Kp a multiple of 4), returned in its place."""
     P, NC, G = cols.shape
     check_operands(x, (("c0", c0, torch.int32, (P, 1, NC)),
                        ("cols", cols, torch.int32, (P, NC, G)),
@@ -501,13 +503,16 @@ def radix_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode, walk=None, k
         raise ValueError(f"radix kernel: kt={kt}, mode={mode}, X {tuple(x.shape)}")
     lib, pattern, rows, bf16 = _lib(), (c0, cols, lrow, nc_p), P * rb, mode == "bf16"
     kp = x.shape[1]
+    if out is not None and kp % 4:
+        raise ValueError(f"radix kernel: out= needs X of a multiple of 4 columns, not {kp}")
     if kp == 1:
         y = launch_walk1(lib.radix_spmv_launch, "radix_spmv_launch", walk, pattern, vals,
                          x.view(-1), rows=rows, bf16=bf16).view(rows, 1)
     else:
         x4 = pad_dense_cols(x, round_up(kp, 4)).contiguous()
         y = launch_walk(lib.radix_walk_launch, "radix_walk_launch", walk, pattern, vals, x4,
-                        rows=rows, k=kp if k is None else min(k, kp), bf16=bf16)[:, :kp]
+                        rows=rows, k=kp if k is None else min(k, kp), bf16=bf16,
+                        out=out)[:, :kp]
     radix_rows_cuda.launches += 1
     return y
 

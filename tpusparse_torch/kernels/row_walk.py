@@ -237,7 +237,7 @@ def check_walk(name: str, walk: RowWalk, pattern, vals, x, *, rows: int) -> None
 
 
 def launch_walk(fn, name: str, walk: RowWalk, pattern, vals, x, *, rows: int,
-                k: int | None, bf16: bool):
+                k: int | None, bf16: bool, out=None):
     """y_rows [rows, Kp] from one launch of a library's row walk kernel
     ``fn`` over ``walk``, which must be decoded from the index planes
     ``pattern`` as they stand (``check_walk``), with the value plane
@@ -245,17 +245,35 @@ def launch_walk(fn, name: str, walk: RowWalk, pattern, vals, x, *, rows: int,
     caller); ``k`` is the number of X's columns that carry the product
     (None: all Kp), the rest zero padding that the kernel neither reads nor
     writes.  The kernel streams the walk's own values where it holds those
-    of ``vals``, else gathers from ``vals`` (``gathers``)."""
+    of ``vals``, else gathers from ``vals`` (``gathers``).  ``out``: a
+    contiguous fp32 [rows, Kp] tensor on X's device that the kernel adds
+    into (it adds each row run into y_rows), returned in place of a new
+    zeroed y_rows: a caller that sums several launches (a ring's steps)
+    saves a pass over y_rows a launch."""
     check_walk(name, walk, pattern, vals, x, rows=rows)
     kp = x.shape[1]
     kc, pw, bs = walk_geometry(kp if k is None else min(k, kp))
     if kp % 4 or kc > kp:
         raise ValueError(f"{name}: X {tuple(x.shape)} is not padded to a multiple of 4")
     gather = gathers(walk, vals, name)
-    y = torch.zeros((walk.n_rows, kp), dtype=torch.float32, device=x.device)
+    if out is None:
+        y = torch.zeros((walk.n_rows, kp), dtype=torch.float32, device=x.device)
+    else:
+        check_out(name, out, (walk.n_rows, kp), x.device)
+        y = out
     launch_checked(fn, name, (walk.row, walk.col, walk.slot, vals if gather else walk.val, x, y),
                    (walk.n_slots, kp, kc, pw, int(bf16), bs, int(gather)))
     return y
+
+
+def check_out(name: str, out, shape, device) -> None:
+    """Raises unless ``out`` is a contiguous fp32 tensor of ``shape`` on
+    ``device``: the y_rows a kernel adds into."""
+    if (not isinstance(out, torch.Tensor) or out.dtype != torch.float32
+            or tuple(out.shape) != tuple(shape) or out.device != device
+            or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous float32 tensor {tuple(shape)} on "
+                         f"{device}")
 
 
 def launch_walk1(fn, name: str, walk: RowWalk, pattern, vals, x, *, rows: int,

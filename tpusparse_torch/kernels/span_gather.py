@@ -347,7 +347,8 @@ def _check(c0, cols, lrow, vals, nc_p, x, kt, mode):
         raise ValueError(f"span kernel: kt={kt}, mode={mode}, X {tuple(x.shape)}")
 
 
-def span_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode, walk=None, k=None):
+def span_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode, walk=None, k=None,
+                   out=None):
     """CUDA ``_span_kernel`` (tpusparse/kernels/span_gather.py:270): y_rows
     [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in {8, 16, 32}, from
     one launch of the row walk kernel over ``walk``, the format's live
@@ -358,10 +359,10 @@ def span_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode, walk=None, k=
     its slot index (a caller's plane of the same shape).  ``k``: the columns of X that
     carry the product (the rest is the kt padding; None: all Kp); the
     kernel reads and writes them rounded up to 4, the rest of y_rows stays
-    zero."""
+    zero.  ``out``: y_rows [P*rb, Kp] to add into, returned in its place."""
     _check(c0, cols, lrow, vals, nc_p, x, kt, mode)
     y = launch_walk(_lib().span_spmm_launch, "span_spmm_launch", walk, (c0, cols, lrow, nc_p),
-                    vals, x, rows=cols.shape[0] * rb, k=k, bf16=mode == "bf16")
+                    vals, x, rows=cols.shape[0] * rb, k=k, bf16=mode == "bf16", out=out)
     span_rows_cuda.launches += 1
     return y
 

@@ -46,7 +46,7 @@ from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info, l
 # the stripe kernels take radix's K-tiles: 1, 2, 4, 8, 16 or 32 columns
 from tpusparse_torch.kernels.radix_gather import RADIX_KTS as STRIPE_KTS
 from tpusparse_torch.kernels.radix_gather import choose_kt
-from tpusparse_torch.kernels.row_walk import walk_geometry
+from tpusparse_torch.kernels.row_walk import check_out, walk_geometry
 from tpusparse_torch.kernels.tile_onehot import STREAM_BLOCK_SLOTS, STREAM_PANELS
 
 #: the nested kernel's panel widths (columns a slot stream carries)
@@ -227,13 +227,14 @@ def _check_kt(kt, x, what):
         raise ValueError(f"{what}: kt={kt}, X {tuple(x.shape)}")
 
 
-def stripe_rows_cuda(cols, lrow, vals, x, *, rb, kt, live):
+def stripe_rows_cuda(cols, lrow, vals, x, *, rb, kt, live, out=None):
     """CUDA ``_stripe_kernel`` (tpusparse/kernels/stripe_gather.py:35):
     y_slots [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt; vals fp32 or
     bf16; ``live`` [P] int32 the stripes' live slots (``live_p``), the only
     ones walked, each stripe cut into blocks of slots (``stripe_geometry``:
     X of 1 or 2 columns is read padded to 4, and the first Kp columns of
-    the kernel's y_slots returned)."""
+    the kernel's y_slots returned).  ``out``: y_slots [P*rb, Kp] to add
+    into (Kp a multiple of 4), returned in its place."""
     P, _, C = cols.shape
     vdt = vals.dtype if vals.dtype in (torch.float32, torch.bfloat16) else torch.float32
     check_operands(x, (("cols", cols, torch.int32, (P, 1, C)),
@@ -243,7 +244,13 @@ def stripe_rows_cuda(cols, lrow, vals, x, *, rb, kt, live):
     _check_kt(kt, x, "stripe kernel")
     n, kp = x.shape
     kp4, pw, bs = stripe_geometry(kp)
-    y = torch.zeros((P * rb, kp4), dtype=torch.float32, device=x.device)
+    if out is None:
+        y = torch.zeros((P * rb, kp4), dtype=torch.float32, device=x.device)
+    elif kp4 != kp:
+        raise ValueError(f"stripe kernel: out= needs X of a multiple of 4 columns, not {kp}")
+    else:
+        check_out("stripe_rows_cuda", out, (P * rb, kp), x.device)
+        y = out
     launch_checked(_lib().stripe_spmm_launch, "stripe_spmm_launch",
                    (cols, lrow, vals, live, pad_dense_cols(x, kp4).contiguous(), y),
                    (P, C, rb, n, kp4, pw, bs, int(vals.dtype == torch.bfloat16)))
