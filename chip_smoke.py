@@ -21,8 +21,8 @@ entry points a user calls:
   (``tile_onehot``, the stream kernel) and at the SpMV size with K = 8
   (``span_colsplit``: two span launches), ``tune`` at the headline size at
   K = 8 (now with span and tile rows) and K = 256 (tile rows),
-  ``span_spmm(stream=True)`` at both sizes, ``tile_spmm`` resident at
-  K = 32 and ``spmv_fn(mat, "span")`` at the SpMV size;
+  ``span_spmm(stream=True)`` at both sizes and ``tile_spmm`` resident at
+  K = 32;
 - the radix, stripe and segment families: ``spmm`` at the SpMV size with
   K = 4 (P8: the ``radix_span`` default), ``tune`` at the headline size at
   K = 8 with the JAX package's 25 candidates in its order (P9: radix,
@@ -65,6 +65,18 @@ entry points a user calls:
   failing on a shift on the kernels' stream or a host sync inside the ring
   (D3); ``dryrun_multichip(4)`` with its train step (D4); the scaling
   harness and the projection's quick run (D5); each port example once (D6).
+
+- past the TPU limits the port does not enforce (phase S, after D):
+  ``spmv_fn(mat, "dgt8")`` at web-Google's shape, a power-law 916428 x
+  916428 matrix with about 5.1M nonzeros (S1; the JAX package refuses
+  dgt8 past 294,912 columns); ``spmv_fn(mat, "span")`` at the SpMV size
+  with x as one column through the one-column walk (S2);
+  ``TrainableSparseLinear`` at ogbn-arxiv's shape, a power-law 169343 x
+  169343 pattern with about 1.17M nonzeros and x [128, 169343], three Adam
+  steps with the first step's output and both gradients held to float64
+  formulas on the host (S3; the JAX package refuses in_features past
+  131,072); ``measured_stream_bandwidth_gbs()`` beside the probe's stream
+  (S4); the flagship ``entry()`` (S5).
 
 Every result is checked against the host oracle; the kernels are timed
 against their bound, their plain versions and cuSPARSE (the kernels line's
@@ -119,13 +131,21 @@ TUNE_K8_DIGEST = "732d834f35bea5d0"
 # three hybrid_cols rows first), as digests (tests/test_torch_slice.py)
 TUNE_K256_DIGEST = "9fb84dc28e3a4f01"
 TUNE_COLSKEW_K8_DIGEST = "dd00bb2181d7e2a7"
+# phase S: web-Google's shape (SNAP web-Google: 916,428 nodes, 5,105,039
+# edges) and ogbn-arxiv's (169,343 nodes, 1,166,243 edges, 128 features),
+# synthetic power laws of the same size (power_law_coo floors each row's
+# length, so the averages are those that give the published counts:
+# 5,104,512 and 1,166,753 nonzeros)
+WEB_N, WEB_AVG, WEB_SEED = 916428, 6.155, 3
+ARXIV_N, ARXIV_AVG, ARXIV_K, ARXIV_SEED = 169343, 7.592, 128, 4
 
 
 # the CUDA kernel each wrapper launches (the kernels line's "kernel"): the
-# row walks of csrc/row_walk.cuh serve #1-#4 and #7-#9
+# row walks of csrc/row_walk.cuh serve #1-#4 and #7-#9 (#7's one-column
+# walk: the span SpMV)
 KERNEL_OF = {"dg": "walk_kernel", "dg1": "walk1_kernel", "dgt": "walk_kernel",
              "dgt_stream": "walk_kernel", "tile": "tile_stream_kernel",
-             "tile_stream": "tile_stream_kernel", "span": "walk_kernel",
+             "tile_stream": "tile_stream_kernel", "span": "walk_kernel, walk1_kernel",
              "span_stream": "walk_kernel", "radix": "walk_kernel, walk1_kernel",
              "stripe": "stripe_kernel", "stripe_nested": "stripe_nested_kernel",
              "nm": "nm_kernel", "bell": "bell_wgmma_kernel, bell_tf32_kernel",
@@ -457,13 +477,285 @@ def stripe_plain_of(fmt):
     return lambda planes, x: stripe.stripe_rows_plain(*planes[:3], x, rb=fmt.rb)
 
 
+CARD_MS_PROFILER = "device, profiler"
+
+
+def card_ms(fn, x, graph=False):
+    """(ms, how) for one call of ``fn(x)`` on the card: the profiler's
+    device time (``device_time_fn``), else (with ``graph``, for a call
+    that never waits for the card) a CUDA graph's replay of 20 calls, else
+    ``time_fn``'s back-to-back reading, host included."""
+    from tpusparse_torch.bench.harness import device_time_fn, graph_time_fn, time_fn
+
+    try:
+        return device_time_fn(fn, x) * 1e3, CARD_MS_PROFILER
+    except RuntimeError:
+        pass
+    if graph:
+        try:
+            return graph_time_fn(fn, x) * 1e3, "device, a CUDA graph's replay"
+        except Exception:  # noqa: BLE001 - the reading that stands in is named
+            pass
+    return time_fn(fn, x) * 1e3, "time_fn, back to back, host included"
+
+
+def phase_s(big, xv, ref_v, stream_gbs, dev, power, kernels, zero_counts, read_counts, need):
+    """S1-S5: the paths past the TPU limits the port no longer enforces, at
+    the published sizes: the dgt8 SpMV at web-Google's shape (S1), the span
+    SpMV with x as one column at the SpMV workload's size (S2),
+    ``TrainableSparseLinear`` at ogbn-arxiv's shape for three steps (S3),
+    ``measured_stream_bandwidth_gbs`` beside the probe's stream (S4) and
+    the flagship ``entry()`` (S5).  Each kernel launch of a path is held
+    against its plain version at 1e-5 of |A|.|x|; every time carries the
+    card's name and power limit.  Returns the calls for phase 8's
+    profile, {label: (fn, x, calls)}, and S1's and S2's products for
+    phase 7's yardsticks, {"s1"/"s2": (format, A, x, whole call, pack
+    seconds)}."""
+    import scipy.sparse as sp
+
+    from tpusparse_torch.bench import measured_stream_bandwidth_gbs
+    from tpusparse_torch.bench.harness import time_fn
+    from tpusparse_torch.bench.microbench import PROBE_BOUNDS
+    from tpusparse_torch import entry
+    from tpusparse_torch.io import builder
+    from tpusparse_torch.kernels import dg_gather as dg
+    from tpusparse_torch.kernels import dgt_gather as dgt
+    from tpusparse_torch.kernels import row_walk
+    from tpusparse_torch.kernels import sddmm as sd
+    from tpusparse_torch.kernels import span_gather as span
+    from tpusparse_torch.nn import TrainableSparseLinear
+    from tpusparse_torch.oracle import check_result, spmm_reference
+    from tpusparse_torch.spmv import spmv_fn
+
+    t_s = time.perf_counter()
+
+    def vs_plain(which, label, got, want, scale):
+        rel, err = rel_err(got, want, scale)
+        log(f"[s] {kernels[which]['name']} at {label}: {rel:.2e} of |A|.|x| against its plain "
+            f"version (tol 1e-5), max abs err {err:.2e}")
+        if not rel <= 1e-5:
+            raise AssertionError(f"{kernels[which]['name']} at {label} disagrees with its plain "
+                                 f"version: {rel:.3e}")
+        kernels[which]["err"] = max(kernels[which]["err"], err)
+
+    def spmv_path(path, which, make, a, x, want, tag):
+        """Makes an SpMV entry point's fn and calls it once with the counts
+        at 0; Y against the oracle at 2e-3; returns (fn, pack seconds)."""
+        zero_counts()
+        t0 = time.perf_counter()
+        fn = make()
+        torch.cuda.synchronize()
+        t_pack = time.perf_counter() - t0
+        y = fn(x)
+        torch.cuda.synchronize()
+        read_counts(path)
+        assert y.is_cuda and tuple(y.shape) == (a.shape[0],) and bool(torch.isfinite(y).all())
+        check_result(y.cpu().numpy(), want, rtol=2e-3)
+        log(f"[{tag}] {path}: {a.shape[0]}x{a.shape[1]}, nnz {a.nnz}: oracle ok at rtol 2e-3, "
+            f"{need(path, which)} launch(es) of {kernels[which]['name']}, making the fn "
+            f"{t_pack:.2f} s (packing included)")
+        return fn, t_pack
+
+    # S1: the dgt8 SpMV at web-Google's shape (SNAP: 916,428 nodes, 5,105,039
+    # edges), synthetic: past the JAX package's 294,912-column gate
+    t0 = time.perf_counter()
+    web = builder.power_law_coo(WEB_N, WEB_N, avg_nnz_per_row=WEB_AVG, seed=WEB_SEED)
+    xw = np.random.default_rng(5).standard_normal(WEB_N).astype(np.float32)
+    want_w = spmm_reference(web, xw.astype(np.float64))
+    log(f"[s1] web-Google shape: {WEB_N}x{WEB_N}, nnz {web.nnz}, power law seed {WEB_SEED}; "
+        f"made with its oracle in {time.perf_counter() - t0:.1f} s")
+    fn_w, pack_w = spmv_path("spmv_dgt8_webgoogle", "dgt", lambda: spmv_fn(web, "dgt8"), web,
+                             xw, want_w, "s1")
+    f = fn_w.format
+    walk = dgt.dgt_row_walk(f)
+    xwd = torch.as_tensor(xw, device=dev)
+    xp = dg.pad_dense_cols(xwd.view(-1, 1), f.kt).contiguous()
+    args = (f.wins, f.cols, f.lrw, f.vals, f.nc_p)
+    kw = dict(rb=f.rb, kt=f.kt, mode=f.mode, resid=f.resid)
+    kern = functools.partial(dgt.dgt_rows_cuda, *args, walk=walk, k=1, **kw)
+    plain = functools.partial(dgt.dgt_rows_plain, *args, **kw)
+    vs_plain("dgt", "S1 web-Google dgt8", kern(xp), plain(xp),
+             dgt.dgt_rows_plain(f.wins, f.cols, f.lrw, f.vals.abs(), f.nc_p, xp.abs(), **kw))
+    log(f"[s1] dgt8 format: rb={f.rb} P={f.n_programs} NC={f.n_chunks} G={f.chunk_g} "
+        f"pad={f.padding_rate:.3f} {f.memory_bytes / 2**20:.1f} MiB, pack {pack_w:.2f} s; row "
+        f"walk {walk.n_slots} live slots, {walk.runs} row runs, {walk.nbytes / 2**20:.1f} MiB, "
+        f"built in {walk.build_seconds * 1e3:.1f} ms")
+    profiles = {"S1 web-Google dgt8 SpMV, spmv_fn('dgt8') (#3)": (fn_w, xwd, 10)}
+    sticks = {"s1": (f, web, xw, fn_w, pack_w)}
+    del f, walk, kern, plain, xp
+
+    # S2: the span SpMV at the SpMV workload's size, x as one column through
+    # the one-column walk (timed in phase 7 beside the launch at x widened
+    # to 8 columns, the JAX package's 8-sublane rule)
+    fn_v, pack_v = spmv_path("spmv_span_262k", "span", lambda: spmv_fn(big, "span"), big, xv,
+                             ref_v, "s2")
+    f = fn_v.format
+    walk = span.span_row_walk(f)
+    xvd = torch.as_tensor(xv, device=dev)
+    x1 = xvd.view(-1, 1).contiguous()
+    args = (f.c0, f.cols, f.lrow, f.vals, f.nc_p)
+    kern = functools.partial(span.span_rows_cuda, *args, rb=f.rb, kt=1, mode="fp32x2",
+                             walk=walk)
+    plain = functools.partial(span.span_rows_plain, *args, rb=f.rb, kt=1, mode="fp32x2")
+    scale = span.span_rows_plain(f.c0, f.cols, f.lrow, f.vals.abs(), f.nc_p, x1.abs(),
+                                 rb=f.rb, kt=1, mode="fp32")
+    vs_plain("span", "S2 SpMV 262144^2, one column", kern(x1), plain(x1), scale)
+    vs_plain("span", "S2 SpMV 262144^2, one column, against walk_rows_plain", kern(x1),
+             row_walk.walk_rows_plain(walk, f.vals, x1), scale)
+    spw, wpb, steps = row_walk.WALK1_GEOMETRY
+    info = span.span_walk1_info("fp32x2")
+    log(f"[s2] span format: rb={f.rb} ct={f.ct} g={f.chunk_g} P={f.n_programs} "
+        f"NC={f.n_chunks} pad={f.padding_rate:.3f} {f.memory_bytes / 2**20:.1f} MiB, pack "
+        f"{pack_v:.2f} s; one-column walk: {spw} slots a warp, {wpb} warps a block, {steps} "
+        f"steps, {max(-(-walk.n_slots // (spw * wpb)), 1)} blocks; {info['registers']} "
+        f"registers, {info['spill_bytes']} spill bytes, {info['blocks_per_sm']} blocks an SM; "
+        f"{walk.runs} row runs for {walk.n_slots} live slots")
+    profiles["S2 SpMV 262144^2, spmv_fn('span') (#7, x as one column)"] = (fn_v, xvd, 10)
+    sticks["s2"] = (f, big, xv, fn_v, pack_v)
+    del f, walk, kern, plain, scale
+
+    # S3: TrainableSparseLinear at ogbn-arxiv's shape (169,343 nodes,
+    # 1,166,243 edges, 128 features): three Adam steps, the first checked
+    # against float64 formulas on the host
+    t0 = time.perf_counter()
+    arx = builder.power_law_coo(ARXIV_N, ARXIV_N, avg_nnz_per_row=ARXIV_AVG, seed=ARXIV_SEED)
+    layer = TrainableSparseLinear(arx, device=dev)   # rb 512, ct 512, g 128, fp32x2
+    torch.cuda.synchronize()
+    t_make = time.perf_counter() - t0
+    f = layer.fmt
+    mask = torch.from_numpy(sd.occupancy_mask(f)).to(dev)
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.standard_normal((ARXIV_K, ARXIV_N)).astype(np.float32), device=dev)
+    tgt = torch.as_tensor(rng.standard_normal((ARXIV_K, ARXIV_N)).astype(np.float32),
+                          device=dev)
+    log(f"[s3] TrainableSparseLinear(power law {ARXIV_N}x{ARXIV_N}, nnz {arx.nnz}, seed "
+        f"{ARXIV_SEED}, bias): planes (P, NC, G) = ({f.n_programs}, {f.n_chunks}, "
+        f"{f.chunk_g}), pad {f.padding_rate:.3f}, {f.memory_bytes / 2**20:.1f} MiB, made in "
+        f"{t_make:.2f} s; x [{ARXIV_K}, {ARXIV_N}]: K = {ARXIV_K}")
+    # #7 on the masked plane the layer hands it, #14 and #15 at the layer's
+    # format and K, each against its plain version
+    kt = sd._k_tile(ARXIV_K, None)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    xr = torch.randn((ARXIV_N, ARXIV_K), generator=gen, device=dev)
+    dyr = torch.randn((f.n_programs * f.rb, ARXIV_K), generator=gen, device=dev)
+    planes = (f.c0, f.cols, f.lrow)
+    plane = (layer.vals.detach() * mask).contiguous()
+    kw = dict(rb=f.rb, kt=kt, mode="fp32x2")
+    vs_plain("span", "S3 forward",
+             span.span_rows_cuda(*planes, plane, f.nc_p, xr, walk=span.span_row_walk(f),
+                                 k=ARXIV_K, **kw),
+             span.span_rows_plain(*planes, plane, f.nc_p, xr, **kw),
+             span.span_rows_plain(*planes, plane.abs(), f.nc_p, xr.abs(), **kw))
+    vs_plain("sddmm", "S3 value gradient",
+             sd.sddmm_rows_cuda(*planes, f.nc_p, dyr, xr, tiles=sd.sddmm_tiles(f), **kw),
+             sd.sddmm_rows_plain(*planes, f.nc_p, dyr, xr, **kw),
+             sd.sddmm_rows_plain(*planes, f.nc_p, dyr.abs(), xr.abs(), **kw))
+    vs_plain("dx", "S3 transpose apply",
+             sd.dx_rows_cuda(*planes, plane, f.nc_p, dyr, n=ARXIV_N, index=sd.dx_index(f), **kw),
+             sd.dx_rows_plain(*planes, plane, f.nc_p, dyr, n=ARXIV_N, **kw),
+             sd.dx_rows_plain(*planes, plane.abs(), f.nc_p, dyr.abs(), n=ARXIV_N, **kw))
+    del xr, dyr
+    torch.cuda.empty_cache()
+
+    a64 = sp.csr_matrix((arx.vals.astype(np.float64), (arx.rows, arx.cols)), shape=arx.shape)
+    opt = torch.optim.Adam(layer.parameters(), lr=1e-2)
+    losses = []
+    zero_counts()
+    for step in range(3):
+        xg = x.detach().requires_grad_(True)
+        opt.zero_grad(set_to_none=True)
+        y = layer(xg)
+        y.retain_grad()
+        loss = 0.5 * ((y - tgt) ** 2).sum()
+        loss.backward()
+        if step == 0:  # the output and both gradients against float64 formulas
+            xt = x.T.double().cpu().numpy()                     # X [N, K]
+            dyt = y.grad.T.double().cpu().numpy()               # dY [N, K]
+            want = {"y (span forward)": a64 @ xt,
+                    "x.grad (transpose apply)": a64.T @ dyt}
+            want_dv = np.empty(arx.nnz)
+            for lo in range(0, arx.nnz, 1 << 17):               # sum_k dY[r,k] X[c,k]
+                hi = min(lo + (1 << 17), arx.nnz)
+                want_dv[lo:hi] = np.einsum("ik,ik->i", dyt[arx.rows[lo:hi]],
+                                           xt[arx.cols[lo:hi]])
+            got = {"y (span forward)": y.detach().T.double().cpu().numpy(),
+                   "x.grad (transpose apply)": xg.grad.T.double().cpu().numpy()}
+            rel = np.abs(got["y (span forward)"] - want["y (span forward)"]).max() / max(
+                np.abs(want["y (span forward)"]).max(), 1.0)
+            log(f"[s3] step 0 y against scipy A.X in float64: {rel:.2e} of max(|Y|, 1) "
+                f"(< 1e-3)")
+            if not rel < 1e-3:
+                raise AssertionError(f"S3 y off scipy's: {rel:.3e}")
+            got_dv = sd.packed_to_nz(f, layer.vals.grad).double().cpu().numpy()
+            for name, g_, w_ in (("vals.grad (SDDMM)", got_dv, want_dv),
+                                 ("x.grad (transpose apply)", got["x.grad (transpose apply)"],
+                                  want["x.grad (transpose apply)"])):
+                rel = float((np.abs(g_ - w_) / (np.abs(w_) + 1e-3)).max())
+                log(f"[s3] step 0 {name} against float64 on the host: rel err {rel:.2e} "
+                    f"(< 3e-2, floor 1e-3)")
+                if not rel < 3e-2:
+                    raise AssertionError(f"S3 {name} off its float64 reference: {rel:.3e}")
+            del xt, dyt, want, want_dv, got, got_dv
+        opt.step()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    read_counts("trainable_arxiv")
+    for which in ("span", "sddmm", "dx"):
+        if need("trainable_arxiv", which) != 3:
+            raise AssertionError(f"S3: 3 steps launched {which} "
+                                 f"{kernels[which]['paths']['trainable_arxiv']} times")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"S3: the loss did not fall: {losses}")
+
+    def step_fn(xb):
+        xs = xb.detach().requires_grad_(True)
+        opt.zero_grad(set_to_none=True)
+        loss = 0.5 * ((layer(xs) - tgt) ** 2).sum()
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    ms, how = card_ms(step_fn, x)
+    log(f"[s3] 3 Adam steps (lr 1e-2, half the squared error against a fixed target): loss "
+        f"{losses[0]:.1f} -> {losses[-1]:.1f}; a launch each of span_rows_cuda, "
+        f"sddmm_rows_cuda and dx_rows_cuda a step; a step {ms:.4f} ms ({how}), "
+        f"{time_fn(step_fn, x, iters=5) * 1e3:.4f} ms by time_fn  ({power})")
+    profiles["S3 TrainableSparseLinear step, ogbn-arxiv shape, K = 128"] = (step_fn, x, 5)
+    del y, xg, a64, plane
+    torch.cuda.empty_cache()
+
+    # S4: the JAX package's stream reading beside the probe's
+    gbs = measured_stream_bandwidth_gbs()
+    lo, hi = PROBE_BOUNDS["stream_gbs"]
+    log(f"[s4] measured_stream_bandwidth_gbs() {gbs:.1f} GB/s (x * 1.0000001 over 1 GiB, "
+        f"time_fn), session_probe's stream_gbs {stream_gbs:.1f}; bounds [{lo}, {hi}]  "
+        f"({power})")
+    if not lo <= gbs <= hi:
+        raise AssertionError(f"measured_stream_bandwidth_gbs {gbs} outside [{lo}, {hi}]")
+
+    # S5: the flagship entry() on the card
+    zero_counts()
+    fn_e, (x_e,) = entry()
+    y = fn_e(x_e)
+    torch.cuda.synchronize()
+    read_counts("entry")
+    assert y.is_cuda and tuple(y.shape) == (512, 16) and bool(torch.isfinite(y).all())
+    check_result(y.cpu().numpy(), spmm_reference(fn_e.matrix, x_e.cpu().double().numpy()),
+                 rtol=2e-3)
+    log(f"[s5] entry(): Y {tuple(y.shape)} against the oracle ok at rtol 2e-3, "
+        f"{need('entry', 'dgt')} launch of dgt_rows_cuda, {time_fn(fn_e, x_e) * 1e3:.4f} ms a "
+        f"call (time_fn)  ({power})")
+    log(f"[s] phase S: {time.perf_counter() - t_s:.1f} s  ({power})")
+    return profiles, sticks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
         import tpusparse_torch
-        from tpusparse_torch.bench.harness import device_time_fn, gflops, graph_time_fn, time_fn
+        from tpusparse_torch.bench.harness import gflops, time_fn
         # the published peaks and the CSR floor of the kernels line's bound,
         # one with bench/sol.py's table
         from tpusparse_torch.bench.sol import (BF16_TC_FLOPS_PER_S, FP32_FLOPS_PER_S,
@@ -578,8 +870,8 @@ def main() -> int:
     # N:M, Block-ELL and SDDMM libraries; the atomics of the tile, stripe, dg,
     # dgt, span and radix libraries, where the stream kernels of #5/#6, #10
     # and #11 and the row walk kernel of #1, #3, #4, #7, #8 and #9 must add
-    # by vector reductions (REDG...F32x4), the one-column walk of #2 and #9
-    # by scalar ones (RED...F32), and no kernel may hold a shared atomic
+    # by vector reductions (REDG...F32x4), the one-column walk of #2, #7 and
+    # #9 by scalar ones (RED...F32), and no kernel may hold a shared atomic
     # (ATOMS: a CAS loop for fp32 adds)
     functions = {}  # every kernel function of a library, by library
 
@@ -615,7 +907,8 @@ def main() -> int:
              ("stripe_nested_kernel", "stripe_kernel")),
             ("dg_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("walk1_kernel", "walk_kernel")),
             ("dgt_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("walk_kernel",)),
-            ("span_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"), ("walk_kernel",)),
+            ("span_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"),
+             ("walk1_kernel", "walk_kernel")),
             ("radix_gather", ("ATOMS", "ATOMG", "ATOM.", "RED"),
              ("walk1_kernel", "walk_kernel")),
             ("sddmm", ("HGMMA", "HMMA", "ATOMS", "ATOMG", "ATOM.", "RED", "UBLKCP"),
@@ -648,8 +941,9 @@ def main() -> int:
             f"{sum(n for op, n in ops.items() if 'F32x4' in op)} float4 reduction sites")
         if cas or not any("F32x4" in op for op in ops):
             raise AssertionError(f"{fam}: shared atomics, or no float4 reduction: {ops}")
-    # #2's and #9's one-column walk adds each row run by one scalar reduction
-    for lib_name in ("dg_gather", "radix_gather"):
+    # the one-column walk of #2, #7 and #9 adds each row run by one scalar
+    # reduction
+    for lib_name in ("dg_gather", "span_gather", "radix_gather"):
         ops = sass_ops[lib_name].get("walk1_kernel", {})
         cas = sum(n for op, n in ops.items() if op.startswith("ATOMS"))
         red = sum(n for op, n in ops.items() if op.startswith("RED") and "ADD.F32" in op)
@@ -658,8 +952,8 @@ def main() -> int:
         if cas or not red:
             raise AssertionError(f"walk1_kernel ({lib_name}): shared atomics, or no fp32 "
                                  f"reduction: {ops}")
-    # #4 and #8 launch the walk kernel of #3 and #7, #9 the two walks: the
-    # dgt, span and radix libraries hold nothing else
+    # #4 and #8 launch the walk kernel of #3 and #7, #7 and #9 the two walks:
+    # the dgt, span and radix libraries hold nothing else
     for lib_name in ("dgt_gather", "span_gather", "radix_gather"):
         fns = functions.get(lib_name, set())
         walks = all("walk_kernel" in f or "walk1_kernel" in f for f in fns)
@@ -1344,13 +1638,8 @@ def main() -> int:
     assert f_b0.walk is span.span_row_walk(f_b0)
     walk_line("span_stream", "P2's first sub-format, stream=True", f_b0.walk, 8)
 
-    # P7: SpMV through the span kernel, x widened to 8 columns
-    run_path("spmv_span_262k", "span", lambda: spmv_fn(big, "span"), xv, ref_v, (SPMV_N,))
-    f_sv = spmv_fns["spmv_span_262k"].format
-    log(f"[spmv]   span format: rb={f_sv.rb} ct={f_sv.ct} g={f_sv.chunk_g} "
-        f"P={f_sv.n_programs} NC={f_sv.n_chunks} pad={f_sv.padding_rate:.3f} "
-        f"{f_sv.memory_bytes / 2**20:.1f} MiB")
-    win_vs_plain("span", "spmv", f_sv, 8, "fp32x2")
+    # P7, SpMV through the span kernel with x as one column, runs as S2 in
+    # phase S
 
     # P8: the default at 262144 x 262144, K = 4 is radix_span: X of K = 4
     # padded to dg's kt of 8 is 8 MB, past its gate; radix's kt = 4 makes
@@ -2388,6 +2677,10 @@ def main() -> int:
     # ---- D1-D6: the multi-device layer on virtual ranks of this card
     phase_d(mat, dev, power, kernels, zero_counts, read_counts, need, root)
 
+    # ---- S1-S5: past the TPU limits, at web-Google's and ogbn-arxiv's shapes
+    s_profiles, s_sticks = phase_s(big, xv, ref_v, probe["stream_gbs"], dev, power, kernels, zero_counts,
+                         read_counts, need)
+
     launches = {w: sum(rec["paths"].values()) for w, rec in kernels.items()}
     for w, n_l in launches.items():
         if n_l < 1:
@@ -2406,27 +2699,15 @@ def main() -> int:
         csr_cache[id(a)] = (a, csr)  # holds a, so its id is not reused
         return csr
 
-    def dev_ms(name, fn, x, host_ms):
-        """The device time a call of ``fn(x)`` in ms: the profiler's, or
-        where it sees no whole window a CUDA graph's replay of 20 calls
-        (not for the plain versions, whose boolean indexing waits for the
-        card), or ``host_ms`` (time_fn's reading); the last two said in the
-        log."""
-        try:
-            return device_time_fn(fn, x) * 1e3
-        except RuntimeError as e:
-            err = e
-        if name == "plain":
-            log(f"[yardstick]   {name}: {err}; its time_fn reading stands in")
-            return host_ms
-        try:
-            t = graph_time_fn(fn, x) * 1e3
-        except Exception as e:  # noqa: BLE001 - said in the log
-            log(f"[yardstick]   {name}: {err}; no CUDA graph either ({type(e).__name__}); its "
-                "time_fn reading stands in")
-            return host_ms
-        log(f"[yardstick]   {name}: {err}; a CUDA graph's replay reads {t:.4f} ms a call")
-        return t
+    def dev_ms(name, fn, x):
+        """The device time a call of ``fn(x)`` in ms (``card_ms``; no CUDA
+        graph for the plain versions, whose boolean indexing waits for the
+        card); a reading other than the profiler's is said in the log."""
+        ms, how = card_ms(fn, x, graph=name != "plain")
+        if how != CARD_MS_PROFILER:
+            log(f"[yardstick]   {name}: the profiler saw no whole window of device time; "
+                f"{how} reads {ms:.4f} ms a call")
+        return ms
 
     def time_cold(fn, x, iters=20):
         """Median seconds of one call with L2 cold: a 1 GiB buffer, twenty
@@ -2467,7 +2748,7 @@ def main() -> int:
                 runs[name].append(time_fn(f, arg))
         t = {name: float(np.median(v)) for name, v in runs.items()}
         # the card's own time a call, host excluded: the kernels line's ms
-        dev_t = {name: dev_ms(name, f, arg, t[name] * 1e3) for name, f, arg in
+        dev_t = {name: dev_ms(name, f, arg) for name, f, arg in
                  (("kernel", kern, xk), ("plain", plain, xk), ("library", lib, x2))}
         t["kernel_cold"] = time_cold(kern, xk)
         t["library_cold"] = time_cold(lib, x2)
@@ -2534,12 +2815,16 @@ def main() -> int:
         plain = functools.partial(plain_fn, *args, rb=fmt.rb, **kw)
         return measure(which, label, [fmt], a, k, kern, plain, xk, xd, whole, pack, bound_k)
 
-    def win_yardstick(which, label, parts, a, k, x, whole, pack=None, bound_k=None):
+    def win_yardstick(which, label, parts, a, k, x, whole, pack=None, bound_k=None, kt=None):
         """``measure`` for a tile or span kernel over ``parts``, a list of
-        (format, first column of X): the launches of one product."""
+        (format, first column of X): the launches of one product, X padded
+        to the K-tile ``kt`` (by default ``span_spmm``'s: 1 for the span
+        kernel on one column, else 8, 16 or 32)."""
         xd = torch.as_tensor(x, device=dev)
         x2 = xd.view(-1, 1) if xd.ndim == 1 else xd
-        kt = tile.choose_kt(min(tile.default_ktile(x2.shape[1]), 32))
+        if kt is None:
+            kt = 1 if which == "span" and x2.shape[1] == 1 else \
+                tile.choose_kt(min(tile.default_ktile(x2.shape[1]), 32))
         xp = dg.pad_dense_cols(x2, -(-x2.shape[1] // kt) * kt)
         is_tile, stream = which.startswith("tile"), which.endswith("_stream")
         calls = []
@@ -2660,8 +2945,17 @@ def main() -> int:
                   xs[8], best_tile.fn, best_by_family["tile_onehot"]["pack_seconds"])
     win_yardstick("span_stream", "262144^2, P2's first sub-format (P5)", [(f_b0, 0)], sub0, 8,
                   xb8_0, sstream_b)
-    win_yardstick("span", "262144^2, spmv_fn('span') (P7)", [(f_sv, 0)], big, 8,
-                  xv, spmv_fns["spmv_span_262k"], pack_s["spmv_span_262k"], bound_k=1)
+    # S1 and S2: the dgt8 SpMV at web-Google's shape; the span SpMV with x
+    # as one column (kt 1, the one-column walk) and, as P7 ran it before,
+    # widened to 8 (kt 8, the kernel reading a panel of 4)
+    f_s1, a_s1, x_s1, fn_s1, pack_s1 = s_sticks["s1"]
+    yardstick("dgt", "web-Google 916428^2 spmv dgt8 (S1)", f_s1, a_s1, 1, x_s1, fn_s1, pack_s1)
+    f_s2, a_s2, x_s2, fn_s2, pack_s2 = s_sticks.pop("s2")
+    win_yardstick("span", "262144^2, spmv_fn('span') (S2), x as one column", [(f_s2, 0)], a_s2,
+                  1, x_s2, fn_s2, pack_s2)
+    win_yardstick("span", "262144^2, spmv_fn('span')'s format, x widened to 8 (P7 before)",
+                  [(f_s2, 0)], a_s2, 1, x_s2, fn_s2, kt=8)
+    del s_sticks, f_s1, a_s1, x_s1, fn_s1, f_s2, a_s2, x_s2, fn_s2
     yardstick("dg", "headline, default schedule", plan64.formats[0], mat, 64, xs[64],
               plan64.fn)
     yardstick("dgt", "spmv dgt8", fmt8, big, 1, xv, spmv_fns["spmv_dgt8_262k"],
@@ -2692,7 +2986,7 @@ def main() -> int:
                 runs[n].append(time_fn(f, a))
         t = {n: float(np.median(v)) * 1e3 for n, v in runs.items()}
         lib0 = next(iter(libs))
-        dev_t = {name: dev_ms(name, f, arg, t[name]) for name, f, arg in
+        dev_t = {name: dev_ms(name, f, arg) for name, f, arg in
                  (("kernel", kern, xk), ("plain", plain, xk),
                   *((n, f, a) for n, (f, a) in libs.items()))}
         cold = time_cold(kern, xk) * 1e3
@@ -3047,6 +3341,8 @@ def main() -> int:
         profile_call(f"T1 training step, {name}, 4096^2, x [4, 128, 4096]", f, x1, calls=10)
     profile_call("G1 pagerank_fn(tol=0, max_iter=20) 262144^2, one run of 20 iterations "
                  "(#2 each, a host sync each)", lambda _: pr_run(), None, calls=3)
+    for label, (f, x_, calls) in s_profiles.items():
+        profile_call(label, f, x_, calls=calls)
     profile_call("P14 block_ell_spmm(pallas, bf16), K=256",
                  functools.partial(be.block_ell_spmm, f14, precision="bf16", method="pallas"),
                  xk14)

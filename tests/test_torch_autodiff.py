@@ -99,8 +99,9 @@ def test_auto_ktile_equals_jax():
 
 
 def test_auto_ktile_reduces_and_grads_match():
-    # a tiny vmem_budget forces the K-tile down (20 -> 10, the kernels take
-    # 16); the gradients still match the dense formulas
+    # a tiny vmem_budget forces the JAX K-tile down (20 -> 10); the port
+    # accepts the knob and its K-tile follows x, so the gradients match the
+    # dense formulas, also at a budget where the JAX package refuses
     mat = _tmat(jbuilder.power_law_coo(300, 260, avg_nnz_per_row=5.0, seed=0))
     rng = np.random.default_rng(2)
     k = 20
@@ -115,5 +116,42 @@ def test_auto_ktile_reduces_and_grads_match():
     assert np.max(np.abs(got - want) / (np.abs(want) + 1e-3)) < 3e-2
     want = mat.to_dense().T @ w
     assert np.max(np.abs(x.grad.numpy() - want) / (np.abs(want) + 1e-3)) < 3e-2
+    fn, v0 = spmm_trainable(mat, rb=64, ct=128, g=64, vmem_budget=5200, device="cpu")
+    x.grad = None
+    v = v0.clone().requires_grad_(True)
+    (fn(v, x) * torch.as_tensor(w)).sum().backward()
+    got = packed_to_nz(fn.fmt, v.grad).numpy()
+    want = dA[mat.rows, mat.cols]
+    assert np.max(np.abs(got - want) / (np.abs(want) + 1e-3)) < 3e-2
+    want = mat.to_dense().T @ w
+    assert np.max(np.abs(x.grad.numpy() - want) / (np.abs(want) + 1e-3)) < 3e-2
+
+
+def test_trainable_runs_past_the_jax_width_gate():
+    # 140,000 input features: the JAX package's 4 MiB VMEM budget refuses
+    # any width past 131,072; the port's kernels stage no X.  Output and
+    # both gradients against float64 formulas, at T1's tolerances
+    n, k = 140_000, 8
+    jmat = jbuilder.power_law_coo(64, n, avg_nnz_per_row=6.0, seed=4)
+    mat = _tmat(jmat)
     with pytest.raises(ValueError, match="exceeds the VMEM budget"):
-        spmm_trainable(mat, rb=64, ct=128, g=64, vmem_budget=5200, device="cpu")[0](v, x)
+        j_auto_ktile(n, k, 4 * 2**20)
+    rng = np.random.default_rng(5)
+    x64 = rng.standard_normal((n, k))
+    w = rng.standard_normal((64, k))
+    x = torch.as_tensor(x64, dtype=torch.float32).requires_grad_(True)
+    fn, v0 = spmm_trainable(mat, device="cpu")
+    v = v0.clone().requires_grad_(True)
+    y = fn(v, x)
+    (y * torch.as_tensor(w, dtype=torch.float32)).sum().backward()
+    xf = x.detach().double().numpy()
+    want_y = np.zeros((64, k))
+    np.add.at(want_y, mat.rows, mat.vals[:, None].astype(np.float64) * xf[mat.cols])
+    assert y.shape == (64, k)
+    assert np.max(np.abs(y.detach().numpy() - want_y)) <= 1e-3 * max(np.abs(want_y).max(), 1)
+    want_dv = np.einsum("ik,ik->i", w[mat.rows], xf[mat.cols])    # sum_k dY[r,k] X[c,k]
+    got_dv = packed_to_nz(fn.fmt, v.grad).numpy()
+    assert np.max(np.abs(got_dv - want_dv) / (np.abs(want_dv) + 1e-3)) < 3e-2
+    want_dx = np.zeros((n, k))                                    # A^T . dY
+    np.add.at(want_dx, mat.cols, mat.vals[:, None].astype(np.float64) * w[mat.rows])
+    assert np.max(np.abs(x.grad.numpy() - want_dx) / (np.abs(want_dx) + 1e-3)) < 3e-2

@@ -12,7 +12,9 @@ the session probe's readings within their bounds and the three library
 yardsticks at config #1 against the oracle; the multi-device layer: each
 halo ring and the sharded stripe SpMM on virtual ranks of the card against
 the same ring on CPU ranks, its shifts off the kernels' stream, and the
-dry run.
+dry run; past the TPU limits: the dgt8 SpMV past 294,912 columns and the
+span SpMV at one column, each kernel against its plain version, and
+``measured_stream_bandwidth_gbs`` within the probe's stream bounds.
 Marked ``gpu``; without a CUDA device every test skips (the ``cuda``
 fixture decides, so every pytest worker collects the same tests).  Run on
 the card with ``python -m pytest tests/test_torch_gpu.py -q -m gpu``.
@@ -1680,3 +1682,64 @@ def test_dryrun_multichip_on_card(cuda):
 
     out = dryrun_multichip(4, device=f"cuda:{cuda.index}")
     assert out["losses"][-1] < out["losses"][0]
+
+
+def test_dgt8_spmv_past_the_jax_width_gate(cuda):
+    # 400,000 columns: the JAX package refuses dgt8 past 294,912 (its VMEM
+    # residency for X); the walk (#3) stages no X
+    wide = builder.power_law_coo(2048, 400_000, avg_nnz_per_row=8.0, seed=3)
+    x = np.random.default_rng(9).standard_normal(400_000).astype(np.float32)
+    fn = spmv_fn(wide, "dgt8")
+    before = dgt.dgt_rows_cuda.launches
+    y = fn(x)
+    assert y.is_cuda and y.shape == (2048,) and dgt.dgt_rows_cuda.launches == before + 1
+    check_result(y.cpu().numpy(), spmm_reference(wide, x.astype(np.float64)), rtol=2e-3)
+    f = fn.format
+    xp = dg.pad_dense_cols(torch.as_tensor(x, device=cuda).view(-1, 1), 8).contiguous()
+    args = (f.wins, f.cols, f.lrw, f.vals, f.nc_p)
+    kw = dict(rb=f.rb, kt=f.kt, mode=f.mode, resid=f.resid)
+    got = dgt.dgt_rows_cuda(*args, xp, walk=dgt.dgt_row_walk(f), k=1, **kw)
+    scale = dgt.dgt_rows_plain(f.wins, f.cols, f.lrw, f.vals.abs(), f.nc_p, xp.abs(), **kw)
+    assert _err(got, dgt.dgt_rows_plain(*args, xp, **kw), scale, cuda) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["fp32x2", "bf16"])
+def test_span_spmv_one_column_on_card(cuda, mat, mode):
+    # the span SpMV runs x as one column through the one-column walk
+    # kernel (span_rows_cuda at kt = 1), counted as #7's launch
+    x = np.random.default_rng(10).standard_normal(4096).astype(np.float32)
+    fn = spmv_fn(mat, "span")
+    before = span.span_rows_cuda.launches
+    y = fn(x)
+    assert y.is_cuda and y.shape == (4096,) and span.span_rows_cuda.launches == before + 1
+    check_result(y.cpu().numpy(), spmm_reference(mat, x.astype(np.float64)), rtol=2e-3)
+    f = fn.format
+    x1 = torch.as_tensor(x, device=cuda).view(-1, 1).contiguous()
+    # span_spmm at K = 1 is the same one launch at kt = 1, whatever ktile
+    y1 = span.span_spmm(f, x1, ktile=8)
+    assert y1.shape == (4096, 1) and span.span_rows_cuda.launches == before + 2
+    check_result(y1[:, 0].cpu().numpy(), spmm_reference(mat, x.astype(np.float64)), rtol=2e-3)
+    args = (f.c0, f.cols, f.lrow, f.vals, f.nc_p)
+    walk = span.span_row_walk(f)
+    got = span.span_rows_cuda(*args, x1, rb=f.rb, kt=1, mode=mode, walk=walk)
+    assert got.shape == (f.n_programs * f.rb, 1) and span.span_rows_cuda.launches == before + 3
+    want = span.span_rows_plain(*args, x1, rb=f.rb, kt=1, mode=mode)
+    scale = span.span_rows_plain(f.c0, f.cols, f.lrow, f.vals.abs(), f.nc_p, x1.abs(), rb=f.rb,
+                                 kt=1, mode="fp32")
+    assert _err(got, want, scale, cuda) <= 1e-5
+    assert _err(got, rw.walk_rows_plain(walk, f.vals, x1, bf16=mode == "bf16"), scale,
+                cuda) <= 1e-5
+    info = span.span_walk1_info(mode)
+    assert info["spill_bytes"] == 0 and info["shared_bytes"] == 0
+    with pytest.raises(ValueError, match="span kernel"):  # kt = 1 takes one column only
+        span.span_rows_cuda(*args, x1.expand(-1, 8).contiguous(), rb=f.rb, kt=1, mode=mode,
+                            walk=walk)
+
+
+def test_measured_stream_bandwidth_within_probe_bounds(cuda):
+    from tpusparse_torch.bench import measured_stream_bandwidth_gbs
+    from tpusparse_torch.bench.microbench import PROBE_BOUNDS
+
+    lo, hi = PROBE_BOUNDS["stream_gbs"]
+    gbs = measured_stream_bandwidth_gbs()
+    assert lo <= gbs <= hi, gbs

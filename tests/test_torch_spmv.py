@@ -68,8 +68,8 @@ def test_dgt8_matches_jax():
 
 
 def test_span_matches_jax():
-    # x widened to 8 columns through the span kernel, at the tuner's first
-    # span point (tpusparse/spmv.py:118-133)
+    # at the tuner's first span point (tpusparse/spmv.py:118-133); the JAX
+    # package widens x to 8 columns, the port runs it as one
     from tpusparse.tune import _span_configs
 
     jmat, tmat = _mats(seed=16)
@@ -79,6 +79,86 @@ def test_span_matches_jax():
     ref = spmv_reference(jmat, x.astype(np.float64))
     assert (fn.format.rb, fn.format.ct, fn.format.chunk_g) == _span_configs(jmat.density)[0]
     np.testing.assert_allclose(fn(x).numpy(), yj, rtol=0, atol=1e-4 * np.abs(ref).max())
+
+
+def test_dgt8_runs_past_the_jax_width_gate():
+    # the JAX package refuses N * 32 bytes past 9 MB (294,912 columns: its
+    # VMEM residency for X); the port's walk stages no X, so the oracle is
+    # the judge at 300,000 columns
+    jmat = jbuilder.power_law_coo(512, 300_000, avg_nnz_per_row=8.0, seed=3)
+    tmat = CooMatrix(jmat.rows, jmat.cols, jmat.vals, jmat.shape)
+    with pytest.raises(AssertionError, match="VMEM"):
+        jspmv.spmv_fn(jmat, "dgt8")
+    x = np.random.default_rng(4).standard_normal(300_000).astype(np.float32)
+    fn = tspmv.spmv_fn(tmat, "dgt8", device="cpu")
+    assert isinstance(fn.format, DgtFormat) and fn.format.kt == 8
+    y = fn(x)
+    assert y.shape == (512,) and bool(torch.isfinite(y).all())
+    check_result(y.numpy(), spmv_reference(jmat, x.astype(np.float64)), rtol=2e-3)
+
+
+@pytest.mark.parametrize("seed", [16, 17])
+def test_span_runs_x_as_one_column(seed, monkeypatch):
+    # the span SpMV hands its plain version (on the card: the one-column
+    # walk kernel, span_rows_cuda at kt = 1) x as one column, never widened
+    # to the TPU's 8
+    from tpusparse_torch.kernels import span_gather as tspan
+
+    seen = []
+    plain = tspan.span_rows_plain
+
+    def spy(*args, **kw):
+        seen.append((tuple(args[5].shape), kw["kt"]))
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(tspan, "span_rows_plain", spy)
+    jmat, tmat = _mats(seed=seed)
+    x = np.random.default_rng(6).standard_normal(400).astype(np.float32)
+    fn = tspmv.spmv_fn(tmat, "span", device="cpu")
+    y = fn(x)
+    assert seen == [((400, 1), 1)]
+    assert y.shape == (300,)
+    check_result(y.numpy(), spmv_reference(jmat, x.astype(np.float64)), rtol=2e-3)
+    # the same Y as the span SpMM at K = 1 on the same format
+    np.testing.assert_allclose(tspan.span_spmm(fn.format, x[:, None]).numpy()[:, 0], y.numpy(),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("path", ["plan", "trainable", "stream"])
+def test_span_spmm_takes_one_column_at_kt_1(path, monkeypatch):
+    # every K = 1 span call walks x as one column (kt = 1, on the card the
+    # one-column walk kernel), whatever K-tile its caller asks for: a span
+    # Schedule's plan (ktile 8), spmm_trainable; the stream wrapper keeps
+    # its kt of 8
+    from tpusparse_torch.autodiff import spmm_trainable
+    from tpusparse_torch.kernels import span_gather as tspan
+    from tpusparse_torch.schedule import Schedule, build_plan
+
+    seen = []
+    name = "span_stream_rows_plain" if path == "stream" else "span_rows_plain"
+    plain = getattr(tspan, name)
+
+    def spy(*args, **kw):
+        seen.append((tuple(args[5].shape), kw["kt"]))
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(tspan, name, spy)
+    jmat, tmat = _mats(seed=18)
+    x = np.random.default_rng(7).standard_normal((400, 1)).astype(np.float32)
+    want = spmm_reference(jmat, x.astype(np.float64))
+    if path == "plan":
+        plan = build_plan(tmat, Schedule(family="span_onehot", rb=64, ct=128, g=32, ktile=8),
+                          device="cpu")
+        y = plan(x)
+    elif path == "trainable":
+        fn, v0 = spmm_trainable(tmat, rb=64, ct=128, g=32, device="cpu")
+        y = fn(v0, torch.from_numpy(x))
+    else:
+        fmt = tspan.pack_span(tmat, rb=64, ct=128, g=32, device="cpu")
+        y = tspan.span_spmm(fmt, x, stream=True)
+    assert seen == [((400, 8), 8)] if path == "stream" else seen == [((400, 1), 1)]
+    assert tuple(y.shape) == (300, 1)
+    check_result(y.detach().numpy(), want, rtol=2e-3)
 
 
 @pytest.mark.parametrize("col_split", [None, 1, 2, 3])

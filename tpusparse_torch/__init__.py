@@ -9,7 +9,7 @@ beside a plain PyTorch version of the same function.
 
 Entry points run on the card (``device="cuda"``, the default) and raise
 when there is none; only ``device="cpu"`` runs the plain versions.  Ported
-so far: ``spmm``, ``tune.tune`` and ``schedule.build_plan`` with every
+so far: ``spmm``, ``entry`` (the flagship dgt SpMM), ``tune.tune`` and ``schedule.build_plan`` with every
 schedule family (the sort and bucket options included),
 ``generator.build_stripe_plan`` and ``build_tile_plan``, SpMV (``spmv``,
 ``spmv.spmv_fn`` with every method, ``spmv.spmv_multi_fn``), and the
@@ -63,6 +63,32 @@ def spmm(mat, x, schedule=None, device="cuda"):
     return plan(x)
 
 
+def entry(device="cuda"):
+    """The flagship single-device forward (``__graft_entry__.py::entry``):
+    returns ``(fn, (x,))``, ``fn(x) -> Y [512, 16]`` the dgt SpMM of the
+    JAX entry's matrix (``power_law_coo(512, 384, avg_nnz_per_row=6.0,
+    seed=0)``) in its pack (rb 128, g 128, kt 16, fp32x2, nw 4) on
+    ``device``, x [384, 16] fp32 from ``default_rng(0)`` on it.  On the
+    card ``fn`` launches the dgt kernel (#3); on the CPU its plain
+    version."""
+    import numpy as np
+    import torch
+
+    from tpusparse_torch.io import builder
+    from tpusparse_torch.kernels.dgt_gather import dgt_spmm, pack_dgt
+
+    mat = builder.power_law_coo(512, 384, avg_nnz_per_row=6.0, seed=0)
+    fmt = pack_dgt(mat, rb=128, g=128, kt=16, mode="fp32x2", nw=4, device=device)
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal((384, 16)),
+                        dtype=torch.float32, device=fmt.device)
+
+    def fn(x):
+        return dgt_spmm(fmt, x)
+
+    fn.format, fn.matrix = fmt, mat
+    return fn, (x,)
+
+
 def _lazy(name):
     import importlib
 
@@ -108,6 +134,7 @@ __all__ = [
     "read_mtx",
     "write_mtx",
     "spmm",
+    "entry",
     "Schedule",
     "build_plan",
     "autotune",

@@ -60,10 +60,10 @@ def _auto_ktile(n: int, k: int, vmem_budget: int) -> int:
     the forward/SDDMM X pack is N*2*kt*2 bytes (bf16 hi+lo) and span_dx
     keeps an [N_pad, kt] fp32 output block resident (N*kt*4 bytes).
 
-    A TPU VMEM budget, kept as the JAX package has it (the kernels here
-    stage no X; ROADMAP.md A.4 re-derives this gate with the others from
-    measurements on the card).  The kernels take min(kt, 32) snapped to 8,
-    16 or 32."""
+    A TPU VMEM budget, kept callable as the JAX package has it; the
+    trainable path here does not call it: the card's kernels (#7, #14,
+    #15) stage no X, so their K-tile follows x (``sddmm._k_tile``) and no
+    width is refused."""
     kt = max(k if k <= 128 else 128, 8)  # sub-8-sublane Mosaic trap floor
     while kt > 8 and n * kt * 4 > vmem_budget:
         kt = max((kt + 1) // 2, 8)  # halving from e.g. 20 must not pass 8
@@ -86,6 +86,10 @@ def spmm_trainable(mat: CooMatrix, *, rb: int = 512, ct: int = 512, g: int = 128
 
     Returns ``(fn, v0)``: ``v0`` [P, NC, G] float32 on ``device`` is the
     packed value plane holding ``mat.vals`` (the parameter to train).
+    ``vmem_budget`` sized the JAX package's K-tile to the TPU's VMEM
+    (``_auto_ktile``), which refused in_features past 131,072 at the
+    default; it is accepted and changes nothing here, where the K-tile
+    follows x as in ``span_spmm``, so no width is refused.
     Gradients:
 
       dv = SDDMM(pattern; dY, X)   (kernels/sddmm.span_sddmm, masked)
@@ -97,33 +101,29 @@ def spmm_trainable(mat: CooMatrix, *, rb: int = 512, ct: int = 512, g: int = 128
     from tpusparse_torch.kernels import sddmm as _sddmm
     from tpusparse_torch.kernels.span_gather import pack_span, span_spmm
 
-    del k_hint  # the K-tile follows x at call time, as in span_spmm
+    del k_hint, vmem_budget  # the K-tile follows x at call time, as in span_spmm
     fmt = pack_span(mat, rb=rb, ct=ct, g=g, keep_perm=True, device=device)
     dev = fmt.device
     mask = torch.from_numpy(_sddmm.occupancy_mask(fmt)).to(dev)
     inv_slot = torch.from_numpy(_sddmm.origrow_of_slot(fmt)).to(dev, torch.long)
     v0 = fmt.vals.float().clone()
-    n = mat.shape[1]
 
     class _Trainable(torch.autograd.Function):
         @staticmethod
         def forward(ctx, v, x):
-            kt = _auto_ktile(n, x.shape[1], vmem_budget)
             ctx.save_for_backward(v, x)
-            return span_spmm(fmt, x, ktile=kt, precision=precision, vals=v * mask)
+            return span_spmm(fmt, x, precision=precision, vals=v * mask)
 
         @staticmethod
         def backward(ctx, dy):
             v, x = ctx.saved_tensors
-            kt = _auto_ktile(n, x.shape[1], vmem_budget)
             # dY rows into slot order once; both gradient kernels read slots
             dy_slots = _sddmm.rows_to_slots(prep_x(dy, dev), inv_slot)
             dv = dx = None
             if ctx.needs_input_grad[0]:
-                dv = _sddmm.span_sddmm(fmt, dy_slots, x, ktile=kt,
-                                       precision=precision) * mask
+                dv = _sddmm.span_sddmm(fmt, dy_slots, x, precision=precision) * mask
             if ctx.needs_input_grad[1]:
-                dx = _sddmm.span_dx(fmt, v * mask, dy_slots, ktile=kt, precision=precision)
+                dx = _sddmm.span_dx(fmt, v * mask, dy_slots, precision=precision)
             return dv, dx
 
     def fn(v, x):

@@ -131,3 +131,21 @@ def gflops(nnz: int, k: int, seconds: float, float_rate: float = 2.0) -> float:
     """Reference GFLOP formula: FLOAT_RATE * nnz * K / time
     (code_generator.cc:622-629)."""
     return float_rate * nnz * k / seconds / 1e9
+
+
+def measured_stream_bandwidth_gbs(nbytes: int = 1 << 30, device="cuda") -> float:
+    """Empirical HBM stream bandwidth (read + write) for the roofline, in
+    GB/s: ``x * 1.0000001`` over an fp32 tensor of ``nbytes`` on the card
+    (one read and one write of it a call), timed by ``time_fn`` (CUDA
+    events, 10 calls after 1), 2 * bytes over the seconds of a call.  Runs
+    on a card only: without one, or for ``device="cpu"``, it raises."""
+    from tpusparse_torch.kernels.common import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError(f"measured_stream_bandwidth_gbs reads a card's HBM, not {dev}")
+    n = nbytes // 4
+    rows = max(n // 8192, 8)
+    a = torch.ones((rows, 8192), dtype=torch.float32, device=dev)
+    sec = time_fn(lambda x: x * 1.0000001, a, iters=10, warmup=1)
+    return 2 * a.numel() * 4 / sec / 1e9

@@ -3,6 +3,8 @@
 //   span_spmm_launch  replaces _span_kernel        (span_gather.py:270) and
 //                     _span_kernel_stream (span_gather.py:329): both
 //                     wrappers launch it, over the same row walk.
+//   span_walk1_launch replaces _span_kernel for x of one column (span_spmm
+//                     at K = 1, the SpMV "span"; kt 1), over the same row walk.
 //
 // Function.  The format is the JAX package's SpanFormat: P programs of NC
 // chunks of G slots whose columns, sorted, fit one window; c0 [P,1,NC]
@@ -39,6 +41,12 @@
 // few slots read it, and its slots, in column order, would add product by
 // product into a shared row tile (a CAS loop a column on this card).
 //
+// x of one column takes row_walk.cuh's walk1_kernel, as the dg and radix
+// SpMVs do: a warp's 32 lanes on 32 neighbouring slots, row runs summed by
+// a segmented warp scan, one scalar atomic a run; the TPU kernel took x
+// widened to 8 columns (its 8-sublane minimum), which walk_kernel would
+// read as a panel of 4.
+//
 // Bound.  Memory: the walk's 12 bytes a live slot (with a caller's plane
 // the slot index and a gathered value), the X rows gathered and Y; 2 flops
 // per slot and column.  See PERF.md for the times against the bound on the
@@ -64,6 +72,27 @@ int span_spmm_launch(const void* row, const void* col, const void* slot, const v
 // Returns a cudaError_t.
 int span_walk_info(int pw, int bf16, int* out) {
   return runs::kernel_info(runs::walk_kernel_of(pw, bf16), out);
+}
+
+// The one-column walk kernel over the S slots of a walk: as dg_spmv_launch
+// (dg_gather.cu), bf16 rounding each product.  Returns the cudaError_t of
+// the launch.
+int span_walk1_launch(const void* row, const void* col, const void* slot, const void* vals,
+                      const void* x, void* y, int S, int spw, int wpb, int steps, int gather,
+                      int bf16, void* stream) {
+  return runs::by_steps(steps, [&](auto u) {
+    return runs::walk1_launch<decltype(u)::value>(row, col, slot, vals, x, y, S, spw, wpb,
+                                                  gather, bf16, stream);
+  });
+}
+
+// The one-column walk kernel of `steps` at wpb warps a block, products
+// rounded to bf16 or not, into out[0..3] as span_walk_info.
+int span_walk1_info(int steps, int wpb, int bf16, int* out) {
+  if (wpb < 1 || wpb > runs::kThreads / 32) return static_cast<int>(cudaErrorInvalidValue);
+  return runs::by_steps(steps, [&](auto u) {
+    return runs::kernel_info(runs::walk1_kernel_of<decltype(u)::value>(bf16), out, 32 * wpb);
+  });
 }
 
 }  // extern "C"

@@ -1,5 +1,7 @@
 """The multi-device dry run (counterpart of ``__graft_entry__.py``'s
-``dryrun_multichip`` and ``_train_step_dryrun``).
+``dryrun_multichip`` and ``_train_step_dryrun``; its ``entry``, the
+single-device flagship forward, is ``tpusparse_torch.entry``, imported
+here as the JAX file holds both).
 
     python -m tpusparse_torch.dist.dryrun N [--device cpu]
 
@@ -28,6 +30,7 @@ import sys
 import numpy as np
 import torch
 
+from tpusparse_torch import entry  # noqa: F401 - the JAX file's sibling of dryrun_multichip
 from tpusparse_torch.io import builder
 from tpusparse_torch.oracle import check_result, spmm_reference
 

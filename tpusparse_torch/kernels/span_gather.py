@@ -21,7 +21,11 @@ plain PyTorch version of the same function:
 
 Both launch the row walk kernel over the format's ``span_row_walk``: the
 TPU's stream variant staged each chunk's window of X because X could not
-stay in VMEM, and on the card a slot reads the row of X it needs.
+stay in VMEM, and on the card a slot reads the row of X it needs.  X of
+one column (``span_spmm`` at K = 1, the SpMV ``spmv_fn('span')``) runs at
+kt = 1: ``span_rows_cuda`` launches the one-column walk kernel over the
+same walk, as the dg and radix SpMVs do; the JAX package widened x to 8
+columns, the TPU's 8-sublane minimum.
 
 Each computes ``y_rows[p*rb + lrow] += v * X[c0 + cols]``; the slot gather
 through ``slot_of_origrow`` then gives Y.  A wrapper launches its kernel for
@@ -46,7 +50,8 @@ from tpusparse_torch.kernels import build
 from tpusparse_torch.kernels.common import (cdiv, check_operands, fill_chunks, kernel_info,
                                             lex_order, pad_dense_cols, prep_x, resolve_device,
                                             unpack_slots, value_dtype, window_rows_plain)
-from tpusparse_torch.kernels.row_walk import RowWalk, launch_walk, window_row_walk
+from tpusparse_torch.kernels.row_walk import (WALK1_GEOMETRY, RowWalk, launch_walk,
+                                              launch_walk1, window_row_walk)
 from tpusparse_torch.kernels.tile_onehot import PRECISIONS, choose_kt, default_ktile
 from tpusparse_torch.levels import Level
 
@@ -326,6 +331,10 @@ def _lib():
     lib.span_spmm_launch.restype = i32
     lib.span_walk_info.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
     lib.span_walk_info.restype = i32
+    lib.span_walk1_launch.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+    lib.span_walk1_launch.restype = i32
+    lib.span_walk1_info.argtypes = [i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
+    lib.span_walk1_info.restype = i32
     return lib
 
 
@@ -336,14 +345,25 @@ def span_walk_info(pw: int, mode: str) -> dict:
     return kernel_info(_lib().span_walk_info, "span_walk_info", pw, int(mode == "bf16"))
 
 
-def _check(c0, cols, lrow, vals, nc_p, x, kt, mode):
+def span_walk1_info(mode: str, geometry: tuple[int, int, int] = WALK1_GEOMETRY) -> dict:
+    """The one-column walk kernel of ``geometry`` (slots a warp, warps a
+    block, steps at once) in ``mode`` in this library: registers a thread,
+    spilled (local) bytes a thread, static shared bytes and blocks of the
+    geometry's warps an SM holds."""
+    _, wpb, steps = geometry
+    return kernel_info(_lib().span_walk1_info, "span_walk1_info", steps, wpb,
+                       int(mode == "bf16"))
+
+
+def _check(c0, cols, lrow, vals, nc_p, x, kt, mode, kts=(8, 16, 32)):
     P, NC, G = cols.shape
     check_operands(x, (("c0", c0, torch.int32, (P, 1, NC)),
                        ("cols", cols, torch.int32, (P, NC, G)),
                        ("lrow", lrow, torch.int32, (P, NC, G)),
                        ("vals", vals, torch.float32, (P, NC, G)),
                        ("nc_p", nc_p, torch.int32, (P, 1, 1))), ndim=2)
-    if kt not in (8, 16, 32) or mode not in PRECISIONS or x.shape[1] % kt:
+    if (kt not in kts or mode not in PRECISIONS or x.shape[1] % kt
+            or (kt == 1) != (x.shape[1] == 1)):
         raise ValueError(f"span kernel: kt={kt}, mode={mode}, X {tuple(x.shape)}")
 
 
@@ -353,16 +373,25 @@ def span_rows_cuda(c0, cols, lrow, vals, nc_p, x, *, rb, kt, mode, walk=None, k=
     [P*rb, Kp] for X [N, Kp] fp32, Kp a multiple of kt in {8, 16, 32}, from
     one launch of the row walk kernel over ``walk``, the format's live
     slots in row order (``span_row_walk(fmt)``; one built from other
-    planes, or before they were written, is refused).  The values are
+    planes, or before they were written, is refused); at kt = 1, X of one
+    column (the SpMV), one launch of the one-column walk kernel over the
+    same walk (bf16 rounds each product; no ``out``).  The values are
     ``vals``'s: streamed from the walk where it holds them (``vals`` is the
     packed plane it was built from, unwritten since), else gathered through
     its slot index (a caller's plane of the same shape).  ``k``: the columns of X that
     carry the product (the rest is the kt padding; None: all Kp); the
     kernel reads and writes them rounded up to 4, the rest of y_rows stays
     zero.  ``out``: y_rows [P*rb, Kp] to add into, returned in its place."""
-    _check(c0, cols, lrow, vals, nc_p, x, kt, mode)
-    y = launch_walk(_lib().span_spmm_launch, "span_spmm_launch", walk, (c0, cols, lrow, nc_p),
-                    vals, x, rows=cols.shape[0] * rb, k=k, bf16=mode == "bf16", out=out)
+    _check(c0, cols, lrow, vals, nc_p, x, kt, mode, kts=(1, 8, 16, 32))
+    lib, pattern, rows = _lib(), (c0, cols, lrow, nc_p), cols.shape[0] * rb
+    if kt == 1:
+        if out is not None:
+            raise ValueError("span kernel: out= takes X of kt 8, 16 or 32 columns")
+        y = launch_walk1(lib.span_walk1_launch, "span_walk1_launch", walk, pattern, vals,
+                         x.view(-1), rows=rows, bf16=mode == "bf16").view(rows, 1)
+    else:
+        y = launch_walk(lib.span_spmm_launch, "span_spmm_launch", walk, pattern, vals, x,
+                        rows=rows, k=k, bf16=mode == "bf16", out=out)
     span_rows_cuda.launches += 1
     return y
 
@@ -408,6 +437,8 @@ def span_spmm(
     must be zero elsewhere: on the card, a format without ``perm_of_nz``
     refuses a plane that is not.
     ``unroll`` steered the TPU kernel's loop only and changes nothing here.
+    X of one column runs at kt = 1 whatever ``ktile`` (the one-column walk
+    kernel; the stream wrapper takes kt 8).
     CUDA formats run a kernel, CPU formats its plain version."""
     assert precision in PRECISIONS, precision
     if vals is None:
@@ -422,7 +453,8 @@ def span_spmm(
     assert x.shape[0] == n_cols, f"X rows {x.shape[0]} != A cols {n_cols}"
     if ktile is None:
         ktile = default_ktile(k)
-    kt = choose_kt(min(ktile, 32))
+    # one column walks at kt = 1 (the one-column walk kernel), not the TPU's 8
+    kt = 1 if k == 1 and not stream else choose_kt(min(ktile, 32))
     x = pad_dense_cols(x, cdiv(k, kt) * kt).contiguous()
     on_card = fmt.device.type == "cuda"
     args = (fmt.c0, fmt.cols, fmt.lrow, vals, fmt.nc_p, x)
@@ -437,3 +469,4 @@ def span_spmm(
     else:
         y_rows = span_rows_plain(*args, rb=fmt.rb, kt=kt, mode=precision)
     return unpack_slots(y_rows, fmt.slot_of_origrow)[:, :k]
+

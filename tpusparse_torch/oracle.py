@@ -53,6 +53,12 @@ def spgemm_reference(a: CooMatrix, b: CooMatrix) -> CooMatrix:
                      sc.shape).sort_row_major()
 
 
+def batched_spmm_reference(mat: CooMatrix, x: np.ndarray) -> np.ndarray:
+    """Y[B, M, K] = A . X[B, N, K] (shared sparsity across the batch)."""
+    assert x.ndim == 3
+    return np.stack([spmm_reference(mat, x[b]) for b in range(x.shape[0])])
+
+
 def tolerance_for(dtype) -> float:
     cfg = get_config()
     dt = np.dtype(dtype) if dtype != "bfloat16" else None

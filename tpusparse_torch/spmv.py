@@ -5,9 +5,13 @@ Methods, decision for decision as in the JAX package:
   'dg'       the one-column row walk kernel (``dg1_rows_cuda``) over the
              row walk of a kt = 1 dg format, rb = 4096, ns = 4.
   'dgt8'     the dgt kernel at kt = 8 (``dgt_rows_cuda``) on x zero-padded
-             to 8 columns, rb from ``auto_rb_dgt``.
-  'span'     the span kernel (``span_rows_cuda``) on x widened to 8
-             columns, at the first of the tuner's span points.
+             to 8 columns, rb from ``auto_rb_dgt``, at any width (the JAX
+             package refuses N * 32 bytes past 9 MB, its VMEM residency for
+             X; the card's walk stages no X).
+  'span'     the span kernel (``span_rows_cuda``) at kt = 1, x as one
+             column through the one-column walk kernel, at the first of
+             the tuner's span points (the JAX package widens x to 8
+             columns, the TPU's 8-sublane minimum: the same Y).
   'radix'    the radix kernel at kt = 1 (``radix_rows_cuda``), rb = 2048,
              S = 128, g = 1024.
   'stripe'   the stripe kernel (``stripe_rows_cuda``) through
@@ -21,10 +25,10 @@ Methods, decision for decision as in the JAX package:
              <= 6 MB), else 'segment'.
 
 ``spmv_multi_fn`` fuses m <= 8 independent SpMVs into one K = m dgt call,
-with the JAX package's column split for large N.  The size gates are
-TPU-derived (the v5e's VMEM residency limits for X) and kept so both
-packages take the same decisions until they are re-derived for the card
-(ROADMAP.md A.4).  Every entry point runs on ``device`` ("cuda" by
+with the JAX package's column split for large N.  The size gates that
+choose among methods ('auto', the column split) are TPU-derived (the
+v5e's VMEM residency limits for X) and kept so both packages take the same
+decisions until they are re-derived for the card (ROADMAP.md A.4).  Every entry point runs on ``device`` ("cuda" by
 default; no card raises unless ``device="cpu"``).
 """
 
@@ -69,7 +73,6 @@ def spmv_fn(mat: CooMatrix, method: str = "auto", *, device="cuda"):
     if method == "dgt8":
         from tpusparse_torch.kernels.dgt_gather import auto_rb_dgt, dgt_spmv, pack_dgt
 
-        assert n * 32 <= 9 * 1024 * 1024, "x3 resident would bust VMEM"  # TPU-derived gate
         rb = auto_rb_dgt(m, n, mat.nnz) if m >= 256 else max(8, 8 * cdiv(m, 8))
         fmt = pack_dgt(mat, rb=rb, g=512, kt=8, mode="fp32x2", resid=True, nw=4,
                        device=dev)
@@ -90,7 +93,7 @@ def spmv_fn(mat: CooMatrix, method: str = "auto", *, device="cuda"):
 
         def fn(x):
             assert tuple(x.shape) == (n,), f"x shape {tuple(x.shape)} != ({n},)"
-            return plan(_as_x(x, dev)[:, None].expand(n, 8))[:, 0]
+            return plan(_as_x(x, dev)[:, None])[:, 0]
 
         fn.format = plan.formats[0]
         return fn

@@ -12,6 +12,8 @@ over a MetaDataSet that records its provenance on ``ms.trace``.
   interleave storage                      transforms.interleave
   bitmap / segment arrays                 transforms.segment
 
+  model-driven index compression          transforms.compress
+
 ``transforms.compress`` detects the closed forms of the JAX package's
 model-driven index compression; no card kernel consumes them yet (the
 kernels load every index plane).
@@ -29,6 +31,7 @@ from tpusparse_torch.transforms.block import (
     block_merge_path,
     merge_adjacent_blocks,
 )
+from tpusparse_torch.transforms.compress import CompressInfo, detect_compression
 from tpusparse_torch.transforms.div import div_by_row_nnz, fixed_div_by_rows
 from tpusparse_torch.transforms.interleave import interleave_storage
 from tpusparse_torch.transforms.pad import (
@@ -37,8 +40,15 @@ from tpusparse_torch.transforms.pad import (
     pad_empty_rows,
     pad_nnz_to_multiple,
     pad_row_nnz_to_multiple,
+    pad_rows_to_multiple,
+    padding_rate,
 )
-from tpusparse_torch.transforms.segment import segment_offset, segment_ptr, thread_bit_map
+from tpusparse_torch.transforms.segment import (
+    parent_bit_map_of_thread,
+    segment_offset,
+    segment_ptr,
+    thread_bit_map,
+)
 from tpusparse_torch.transforms.sort import (
     get_row_order_by_col,
     get_row_order_by_length,
@@ -47,6 +57,7 @@ from tpusparse_torch.transforms.sort import (
 )
 
 __all__ = [
+    "CompressInfo",
     "add_block_sizes",
     "add_child_offsets",
     "add_relative_to_parent",
@@ -56,6 +67,7 @@ __all__ = [
     "block_fixed_nnz",
     "block_group_children",
     "block_merge_path",
+    "detect_compression",
     "div_by_row_nnz",
     "fixed_div_by_rows",
     "get_row_order_by_col",
@@ -67,6 +79,9 @@ __all__ = [
     "pad_empty_rows",
     "pad_nnz_to_multiple",
     "pad_row_nnz_to_multiple",
+    "pad_rows_to_multiple",
+    "padding_rate",
+    "parent_bit_map_of_thread",
     "remove_empty_rows_in_end",
     "reorder_by_row_order",
     "segment_offset",

@@ -1,6 +1,7 @@
 """Padding transforms (counterpart of ``tpusparse/transforms/pad.py``).
 
-Reference steps covered: col-pad-to-multiple ``..._by_col_pad_in_sub_matrix`` @1049-1146,
+Reference steps covered: row-pad ``modify_*_by_row_pad_in_sub_matrix``
+@722-827, col-pad-to-multiple ``..._by_col_pad_in_sub_matrix`` @1049-1146,
 col-pad-parent-to-max-row ``..._by_col_pad_parent_blk_to_max_row_size``
 @1385-1481 (ELL), empty-row pad ``..._by_empty_pad_in_submatrix`` @1482-1559,
 nnz-pad ``modify_*_by_nnz_pad`` @3849-3944.  All pad with val=0 (the
@@ -57,6 +58,26 @@ def _pad_col_for_rows(ms: MetaDataSet, sub: int, pad_rows: np.ndarray) -> np.nda
     if rows.size:
         last_col[rows] = cols  # row-major order: final write per row = last col
     return last_col[pad_rows]
+
+
+def pad_rows_to_multiple(ms: MetaDataSet, sub: int, multiple: int) -> list[str]:
+    """Grow the logical row count to a multiple (reference row-pad).  Padded
+    rows are empty; ``original_row_of_sorted`` gets -1 sentinels so output
+    recovery discards them."""
+    assert multiple > 0
+    row_num = ms.row_num(sub)
+    target = -(-row_num // multiple) * multiple
+    if target == row_num:
+        return []
+    begin = int(ms.get_scalar(Level.GLOBAL, "begin_row_index", sub))
+    ms.add(Level.GLOBAL, "end_row_index", sub, np.int64(begin + target), replace=True)
+    if ms.has(Level.ROW, "original_row_of_sorted", sub):
+        rec = ms.get(Level.ROW, "original_row_of_sorted", sub)
+        rec = np.concatenate([rec, np.full(target - rec.size, -1, dtype=np.int64)])
+        ms.add(Level.ROW, "original_row_of_sorted", sub, rec, replace=True)
+    ms.trace.record("pad_rows_to_multiple", [f"global_end_row_index_{sub}"],
+                    [f"global_end_row_index_{sub}"], multiple=multiple, new_row_num=target)
+    return _drop_parallel_levels(ms, sub)
 
 
 def pad_empty_rows(ms: MetaDataSet, sub: int) -> list[str]:
@@ -199,3 +220,9 @@ def pad_blocks_to_uniform_nnz(ms: MetaDataSet, sub: int, level: Level, multiple_
         uniform_nnz=c, added=int(deficit.sum()),
     )
     return c
+
+
+def padding_rate(ms: MetaDataSet, sub: int, original_nnz: int) -> float:
+    """Current nnz / original nnz — schedules exceeding the config bound
+    ``padding_rate_up_bound`` are rejected (reference PADDING_RATE_UP_BOUND)."""
+    return ms.nnz(sub) / max(original_nnz, 1)

@@ -2,8 +2,8 @@
 ``tpusparse/transforms/segment.py``).
 
 Reference steps covered: thread_bit_map @3945 (row-start bit per nz,
-transform_step/thread_bit_map.cc:16-60), segment_ptr @4061,
-segment_offset @4091.
+transform_step/thread_bit_map.cc:16-60), parent_bit_map_of_thread @3974,
+segment_ptr @4061, segment_offset @4091.
 
 When nnz-direction blocking splits rows across blocks, each block produces
 per-(block, row) partial sums and one combine pass adds them into Y (the
@@ -35,6 +35,35 @@ def thread_bit_map(ms: MetaDataSet, sub: int, level: Level = Level.THREAD) -> np
         f"thread_bit_map[{level.block_name}]",
         [f"row_nz_row_indices_{sub}", f"{level.short_name}_first_nz_indices_{sub}"],
         [f"{level.short_name}_bit_map_of_thread_{sub}"],
+    )
+    return bm
+
+
+def parent_bit_map_of_thread(
+    ms: MetaDataSet, sub: int, child: Level, parent: Level
+) -> np.ndarray:
+    """Bit per child block: 1 if the child block's first row differs from the
+    previous child block's last row within the same parent (i.e. the child
+    starts a fresh row segment; reference parent_bit_map_of_thread)."""
+    rows, _, _ = ms.coo(sub)
+    c_nzs = ms.get(child, "first_nz_indices", sub).astype(np.int64)
+    p_nzs = ms.get(parent, "first_nz_indices", sub).astype(np.int64)
+    n_child = c_nzs.size - 1
+    bm = np.zeros(n_child, dtype=np.int8)
+    for b in range(n_child):
+        lo = c_nzs[b]
+        if lo >= rows.size:
+            continue
+        if b == 0 or lo in p_nzs[:-1]:
+            bm[b] = 1
+        else:
+            prev_last = c_nzs[b] - 1
+            bm[b] = 1 if rows[lo] != rows[prev_last] else 0
+    ms.add(child, "parent_bit_map_of_thread", sub, bm, replace=True)
+    ms.trace.record(
+        f"parent_bit_map_of_thread[{child.block_name}->{parent.block_name}]",
+        [f"{child.short_name}_first_nz_indices_{sub}"],
+        [f"{child.short_name}_parent_bit_map_of_thread_{sub}"],
     )
     return bm
 
