@@ -19,12 +19,14 @@ entry points a user calls:
   and K = 64 at the SpMV size, where X outgrows the 50 MB L2);
 - the wide-K and large-N paths: ``spmm`` at the headline size with K = 256
   (``tile_onehot``, the stream kernel) and at the SpMV size with K = 8
-  (``span_colsplit``: two span launches), ``tune`` at the headline size at
+  (the card's default, one ``dg_span`` format, beside the TPU's decision,
+  ``span_colsplit``: two span launches), ``tune`` at the headline size at
   K = 8 (now with span and tile rows) and K = 256 (tile rows),
   ``span_spmm(stream=True)`` at both sizes and ``tile_spmm`` resident at
   K = 32;
 - the radix, stripe and segment families: ``spmm`` at the SpMV size with
-  K = 4 (P8: the ``radix_span`` default), ``tune`` at the headline size at
+  K = 4 (P8: the ``radix_span`` default of both records, ``dg_span`` timed
+  beside it), ``tune`` at the headline size at
   K = 8 with the JAX package's 25 candidates in its order (P9: radix,
   brick-ELL, stripe, segment and bucketed rows too), ``build_plan`` with
   ``stripe_total``, ``stripe_nested``, ``nnz_segment``, ``segment_span``
@@ -37,7 +39,8 @@ entry points a user calls:
   int8 and in ``mode="throughput"``, ``nm_spmm`` and ``batched_spmm``,
   and ``SparseLinear.from_dense`` of a 90 %-pruned weight (P13);
   ``SparseLinear.from_block`` (15 % of 128-blocks, seed 6) in bf16, fp32
-  and int8 and ``block_ell_spmm(method="pallas")`` (P14); ``build_plan``
+  and int8 (each on the Block-ELL kernel, the card's default method) and
+  ``block_ell_spmm(method="pallas")`` (P14); ``build_plan``
   with ``dense`` at the headline, K = 256, ``block_ell`` and
   ``hybrid_cols`` (panel widths 2048 and 512 on a column-skewed 32768 x
   32768 matrix, alpha 1.6, seed 9) (P15); ``tune`` on that matrix at K = 8
@@ -77,6 +80,17 @@ entry points a user calls:
   formulas on the host (S3; the JAX package refuses in_features past
   131,072); ``measured_stream_bandwidth_gbs()`` beside the probe's stream
   (S4); the flagship ``entry()`` (S5).
+
+- the card's own schedule gates (phase L, after S;
+  ``tpusparse_torch.gates``): ``spmm`` at ogbn-arxiv's shape, K = 128, one
+  dg format beside the TPU's 21 span column ranges (L1); ogbn-products'
+  shape, a power-law 2449029 x 2449029 matrix with about 61.9M nonzeros:
+  ``spmm`` at K = 100 against scipy's float64 product, ``spmv_fn('auto')``
+  on the dg SpMV kernel beside the segment reduction, 20 PageRank
+  iterations and BFS (L2); ``tune`` at the SpMV size, K = 8, on the card's
+  candidate list (L3; P2 and P8 run the card's defaults in phase 6); the
+  ``block_ell`` plan and ``from_block`` on the Block-ELL kernel (L4, in
+  P14, P15 and T2).
 
 Every result is checked against the host oracle; the kernels are timed
 against their bound, their plain versions and cuSPARSE (the kernels line's
@@ -138,6 +152,10 @@ TUNE_COLSKEW_K8_DIGEST = "dd00bb2181d7e2a7"
 # 5,104,512 and 1,166,753 nonzeros)
 WEB_N, WEB_AVG, WEB_SEED = 916428, 6.155, 3
 ARXIV_N, ARXIV_AVG, ARXIV_K, ARXIV_SEED = 169343, 7.592, 128, 4
+# phase L2: ogbn-products' shape (2,449,029 nodes, 61,859,140 edges, 100
+# features), a synthetic power law (seed 5) whose average gives about the
+# published count (61.86M nonzeros)
+PRODUCTS_N, PRODUCTS_AVG, PRODUCTS_K, PRODUCTS_SEED = 2449029, 25.494, 100, 5
 
 
 # the CUDA kernel each wrapper launches (the kernels line's "kernel"): the
@@ -749,6 +767,237 @@ def phase_s(big, xv, ref_v, stream_gbs, dev, power, kernels, zero_counts, read_c
     return profiles, sticks
 
 
+def scipy_product(a, x64):
+    """A . X in float64 by scipy's CSR product (the host reference of phase L:
+    the oracle's np.add.at would hold nnz x K float64 products at once); A
+    a CooMatrix or a scipy matrix already made from one."""
+    import scipy.sparse as sp
+
+    if not sp.issparse(a):
+        a = sp.csr_matrix((np.asarray(a.vals, np.float64), (a.rows, a.cols)), shape=a.shape)
+    return a @ x64
+
+
+def phase_l(big, xb8, dev, power, kernels, zero_counts, read_counts, need, fmt_vs_plain,
+            run_tune, gate_calls):
+    """L1-L3: the card's own gates (``tpusparse_torch.gates.CARD_GATES``)
+    where the TPU's (``TPU_GATES``) part from them, each beside the TPU's
+    decision in the same run: ``spmm`` at ogbn-arxiv's shape, K = 128, one
+    dg format against the TPU's 21 span column ranges (L1); ogbn-products'
+    shape (2,449,029 nodes, 61,859,140 edges, 100 features): ``spmm`` at K =
+    100, ``spmv_fn('auto')`` on the dg SpMV kernel (#2) beside the segment
+    route, 20 PageRank iterations on #2 and BFS (L2); ``tune`` at the SpMV
+    workload, K = 8, its table (L3; P2 and P8 run the card's defaults in
+    phase 6, L4 the Block-ELL kernel in P14-P15 and T2; ``gate_calls``,
+    their (tag, label, fn, x, A, K), are timed here).  Every time carries
+    the card's name and power limit.  Returns the calls for phase 8's
+    profile, {label: (fn, x, calls)}."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    import tpusparse_torch
+    from tpusparse_torch import graph
+    from tpusparse_torch.bench.baselines import csr_spmm_fn
+    from tpusparse_torch.bench.harness import time_fn
+    from tpusparse_torch.bench.sol import csr_bound_ms
+    from tpusparse_torch.gates import TPU_GATES
+    from tpusparse_torch.io import builder
+    from tpusparse_torch.oracle import check_result
+    from tpusparse_torch.schedule import build_plan, default_schedule
+    from tpusparse_torch.spmv import spmv_fn
+
+    t_l = time.perf_counter()
+    profiles = {}
+
+    def times(tag, label, fn, x, a, k):
+        """The whole call by time_fn and its device time, one line."""
+        ms_dev, how = card_ms(fn, x, graph=True)
+        ms = time_fn(fn, x) * 1e3
+        log(f"[{tag}] {label}: whole call {ms:.4f} ms by time_fn, {ms_dev:.4f} ms ({how}), "
+            f"{2.0 * a.nnz * k / (ms * 1e-3) / 1e9:.1f} GF/s  ({power})")
+        return ms, ms_dev
+
+    def path(name, which, fn, x, want, rtol=2e-3):
+        """One call with the counts at 0 just before and read just after; Y
+        against the float64 product; returns (Y, launches of ``which``)."""
+        zero_counts()
+        y = fn(x)
+        torch.cuda.synchronize()
+        read_counts(name)
+        assert y.is_cuda and tuple(y.shape) == want.shape and bool(torch.isfinite(y).all())
+        check_result(y.cpu().numpy(), want, rtol=rtol)
+        return y, need(name, which)
+
+    for tag, label, fn, x, a, k in gate_calls:   # P2, P8 and P14's decisions
+        times(tag, label, fn, x, a, k)
+
+    # L1: ogbn-arxiv's shape at K = 128 (S3's matrix): the card's default
+    # is one dg format, the TPU's splits X into 21 column ranges of span
+    arx = builder.power_law_coo(ARXIV_N, ARXIV_N, avg_nnz_per_row=ARXIV_AVG, seed=ARXIV_SEED)
+    x64 = np.random.default_rng(11).standard_normal((ARXIV_N, ARXIV_K))
+    want = scipy_product(arx, x64)
+    xa = torch.as_tensor(x64, dtype=torch.float32, device=dev)
+    card = default_schedule(arx, ARXIV_K)
+    tpu = default_schedule(arx, ARXIV_K, gates=TPU_GATES)
+    assert (card.family, card.ktile) == ("dg_span", 32), card
+    assert (tpu.family, tpu.col_split) == ("span_colsplit", 21), tpu
+    _, n_card = path("spmm_arxiv_k128", "dg", lambda v: tpusparse_torch.spmm(arx, v), xa, want)
+    _, n_tpu = path("spmm_arxiv_k128_tpu", "span",
+                    lambda v: tpusparse_torch.spmm(arx, v, gates=TPU_GATES), xa, want)
+    assert (n_card, n_tpu) == (1, 21), (n_card, n_tpu)
+    t0 = time.perf_counter()
+    plan_c = build_plan(arx, card)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan_t = build_plan(arx, tpu, gates=TPU_GATES)
+    t_tpu = time.perf_counter() - t0
+    f = plan_c.formats[0]
+    log(f"[l1] ogbn-arxiv shape {ARXIV_N}^2, nnz {arx.nnz}, K={ARXIV_K}: the card's default "
+        f"dg_span rb={f.rb} ns={f.ns} g={f.chunk_g} kt={f.kt} pad {f.padding_rate:.3f}, "
+        f"{f.memory_bytes / 2**20:.1f} MiB, pack {t_card:.2f} s: {n_card} launch of "
+        f"dg_rows_cuda a call; the TPU's span_colsplit(21): pad {plan_t.meta['padding_rate']:.3f}"
+        f", {sum(g.memory_bytes for g in plan_t.formats) / 2**20:.1f} MiB, pack {t_tpu:.2f} s, "
+        f"{n_tpu} launches of span_rows_cuda a call; both against scipy's float64 A.X at 2e-3")
+    fmt_vs_plain("L1 ogbn-arxiv K=128", f, ARXIV_K)
+    fmt_vs_plain("L1 ogbn-arxiv, the TPU's first range", plan_t.formats[0], ARXIV_K)
+    times("l1", "the card's default (dg_span)", plan_c.fn, xa, arx, ARXIV_K)
+    times("l1", "the TPU's decision (span_colsplit(21))", plan_t.fn, xa, arx, ARXIV_K)
+    csr = csr_spmm_fn(arx, device=dev)
+    times("l1", "cuSPARSE (torch.sparse.mm of CSR)", csr, xa, arx, ARXIV_K)
+    bound, by = csr_bound_ms(arx.nnz, ARXIV_N, ARXIV_N, ARXIV_K)
+    log(f"[l1] the CSR bound {bound:.4f} ms ({by})")
+    profiles["L1 ogbn-arxiv K=128, the card's default (dg_span)"] = (plan_c.fn, xa, 10)
+    profiles["L1 ogbn-arxiv K=128, the TPU's decision (span_colsplit(21))"] = (plan_t.fn, xa, 5)
+    del plan_t, csr, want, x64
+
+    # L2: ogbn-products' shape (2,449,029 nodes, 61,859,140 edges, 100
+    # features), a synthetic power law whose average gives the published
+    # count; past the JAX package's 1,572,864-column gate of the SpMV and
+    # graph drivers
+    t0 = time.perf_counter()
+    prod = builder.power_law_coo(PRODUCTS_N, PRODUCTS_N, avg_nnz_per_row=PRODUCTS_AVG,
+                                 seed=PRODUCTS_SEED)
+    n, k = PRODUCTS_N, PRODUCTS_K
+    log(f"[l2] ogbn-products shape {n}^2: nnz {prod.nnz} (published 61,859,140), made in "
+        f"{time.perf_counter() - t0:.1f} s; host COO {prod.nnz * 24 / 2**30:.2f} GiB; on the "
+        f"card X and Y {n * k * 4 / 2**30:.2f} GiB each, the row walk "
+        f"{prod.nnz * 16 / 2**30:.2f} GiB")
+    rng = np.random.default_rng(12)
+    xp_host = rng.standard_normal((n, k), dtype=np.float32)
+    xp = torch.as_tensor(xp_host, device=dev)
+    t0 = time.perf_counter()
+    prod_csr = sp.csr_matrix((np.asarray(prod.vals, np.float64), (prod.rows, prod.cols)),
+                             shape=prod.shape)
+    want = scipy_product(prod_csr, xp_host.astype(np.float64))
+    t_ref = time.perf_counter() - t0
+    sched_p = default_schedule(prod, k)
+    assert (sched_p.family, sched_p.ktile) == ("dg_span", 32), sched_p
+    t0 = time.perf_counter()
+    plan_p = build_plan(prod, sched_p)
+    t_pack = time.perf_counter() - t0
+    _, n_l = path("spmm_products_k100", "dg", plan_p.fn, xp, want)
+    fp = plan_p.formats[0]
+    log(f"[l2] spmm K={k}, the card's default dg_span rb={fp.rb} ns={fp.ns} g={fp.chunk_g} "
+        f"kt={fp.kt} pad {fp.padding_rate:.3f}, {fp.memory_bytes / 2**30:.2f} GiB, pack "
+        f"{t_pack:.1f} s: {n_l} launch of dg_rows_cuda, every row at all {k} columns within "
+        f"2e-3 of scipy's float64 A.X ({t_ref:.1f} s on the host)")
+    times("l2", f"spmm K={k}, the card's default (dg_span)", plan_p.fn, xp, prod, k)
+    csr = csr_spmm_fn(prod, device=dev)
+    times("l2", f"spmm K={k}, cuSPARSE", csr, xp, prod, k)
+    bound, by = csr_bound_ms(prod.nnz, n, n, k)
+    log(f"[l2] the CSR bound at K={k}: {bound:.4f} ms ({by}); the TPU's decision "
+        f"({default_schedule(prod, k, gates=TPU_GATES).family}, "
+        f"{default_schedule(prod, k, gates=TPU_GATES).col_split} ranges) not run: its span "
+        "formats pad past the card's memory at this density")
+    profiles[f"L2 ogbn-products spmm K={k}, the card's default (dg_span)"] = (plan_p.fn, xp, 5)
+    del csr, want, xp_host
+
+    # the SpMV: 'auto' takes the dg SpMV kernel (#2) at any N on the card;
+    # the TPU's 'auto' takes the segment reduction past 1,572,864 columns
+    xv_host = rng.standard_normal(n).astype(np.float32)
+    xv = torch.as_tensor(xv_host, device=dev)
+    want_v = scipy_product(prod_csr, xv_host.astype(np.float64))
+    del prod_csr
+    t0 = time.perf_counter()
+    fn_auto = spmv_fn(prod, "auto")
+    t_pack = time.perf_counter() - t0
+    _, n_l = path("spmv_auto_products", "dg1", fn_auto, xv, want_v)
+    assert n_l == 1
+    fmt_vs_plain("L2 ogbn-products spmv_fn('auto')", fn_auto.format, 1)
+    fa = fn_auto.format
+    log(f"[l2] spmv_fn('auto'): dg kt=1 rb={fa.rb} ns={fa.ns} g={fa.chunk_g} pad "
+        f"{fa.padding_rate:.3f}, pack {t_pack:.1f} s: {n_l} launch of dg1_rows_cuda, oracle "
+        "ok at 2e-3")
+    fn_seg = spmv_fn(prod, "segment")
+    check_result(fn_seg(xv).cpu().numpy(), want_v, rtol=2e-3)
+    times("l2", "spmv_fn('auto') (#2)", fn_auto, xv, prod, 1)
+    times("l2", "spmv_fn('segment') (index_add_, the TPU's 'auto' here)", fn_seg, xv, prod, 1)
+    csr_v = csr_spmm_fn(prod, device=dev)
+    times("l2", "SpMV by cuSPARSE", lambda v: csr_v(v[:, None])[:, 0], xv, prod, 1)
+    bound, by = csr_bound_ms(prod.nnz, n, n, 1)
+    log(f"[l2] the SpMV CSR bound {bound:.4f} ms ({by})")
+    profiles["L2 ogbn-products spmv_fn('auto') (#2)"] = (fn_auto, xv, 10)
+    profiles["L2 ogbn-products spmv_fn('segment')"] = (fn_seg, xv, 10)
+    del csr_v, want_v
+
+    # PageRank, 20 iterations, one launch of #2 each, against float64; BFS
+    # against scipy's csgraph on A^T (push orientation)
+    t0 = time.perf_counter()
+    pr_run = graph.pagerank_fn(prod, tol=0.0, max_iter=20)
+    t_pack = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    r_pr, it_pr = pr_run()
+    torch.cuda.synchronize()
+    t_pr = time.perf_counter() - t0
+    read_counts("graph_pagerank_products")
+    assert it_pr == 20 and need("graph_pagerank_products", "dg1") == 20
+    assert pr_run.matvec.meta["method"] == "dg"
+    l1 = float(np.abs(r_pr.cpu().double().numpy() - pagerank64(prod, 20)).sum())
+    if not l1 <= 1e-5:
+        raise AssertionError(f"L2 PageRank: L1 distance {l1:.3e} to float64 > 1e-5")
+    log(f"[l2] pagerank_fn(tol=0, max_iter=20): {it_pr} iterations in {t_pr:.3f} s (the row "
+        f"walk built; plan packed in {t_pack:.1f} s), 20 launches of dg1_rows_cuda; L1 "
+        f"distance to a float64 power iteration {l1:.2e} (<= 1e-5)  ({power})")
+    del pr_run, r_pr
+    t0 = time.perf_counter()
+    bfs_run = graph.bfs_fn(prod, max_iter=32)
+    t_pack = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    level, it_bfs = bfs_run(0)
+    torch.cuda.synchronize()
+    t_bfs = time.perf_counter() - t0
+    read_counts("graph_bfs_products")
+    assert need("graph_bfs_products", "dg1") == it_bfs
+    at_csr = sp.csr_matrix((np.ones(prod.nnz), (prod.cols, prod.rows)), shape=(n, n))
+    dist = csgraph.shortest_path(at_csr, unweighted=True, indices=0)
+    want_level = np.where(dist <= 32, dist, -1).astype(np.int32)
+    if not np.array_equal(level.cpu().numpy(), want_level):
+        raise AssertionError("L2 BFS levels differ from scipy's shortest_path")
+    log(f"[l2] bfs_fn(max_iter=32) from 0: {it_bfs} levels in {t_bfs:.3f} s (packed in "
+        f"{t_pack:.1f} s), {int((want_level >= 0).sum())} vertices reached; levels equal "
+        f"scipy's unweighted shortest_path on A^T; {it_bfs} launches of dg1_rows_cuda  "
+        f"({power})")
+    del bfs_run, at_csr, dist, prod
+    torch.cuda.empty_cache()
+
+    # L3: tune at the SpMV workload, K = 8, under the card's record: the dg,
+    # dgt and radix rows the TPU's gates cut, span_onehot for span_colsplit,
+    # brick_ell; its table (P2 and P8 run the card's defaults in phase 6)
+    t0 = time.perf_counter()
+    res, best_of = run_tune("tune_p2_k8", xb8, a=big)
+    for which in ("dg", "dgt", "radix", "span"):
+        need("tune_p2_k8", which)
+    b = res.best_schedule
+    log(f"[l3] tune at 262144^2, K=8: {len(res.table)} rows in {time.perf_counter() - t0:.1f} "
+        f"s, winner {b.family} {res.best_seconds * 1e3:.4f} ms by the tuner's time_fn  "
+        f"({power})")
+    del res, best_of
+    log(f"[l] phase L: {time.perf_counter() - t_l:.1f} s  ({power})")
+    return profiles
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -762,6 +1011,7 @@ def main() -> int:
                                                HBM_BYTES_PER_S)
         from tpusparse_torch.bench.sol import csr_bound_ms as bound_ms
         from tpusparse_torch.format import pack_tile
+        from tpusparse_torch.gates import TPU_GATES
         from tpusparse_torch.generator import build_stripe_plan, prepare_stripe_format
         from tpusparse_torch.io import builder
         from tpusparse_torch.batched import batched_spmm
@@ -1353,6 +1603,9 @@ def main() -> int:
 
     for rec in kernels.values():
         rec["paths"] = {}
+    # the calls whose gate decisions phase L times (the profiler is first
+    # used after phase D: D3 needs every record of its ring calls)
+    gate_calls = []
     xs = {}
     for k, which in ((8, "dg"), (1, "dg1"), (64, "dg"), (32, "dg")):
         xs[k] = np.random.default_rng(0).standard_normal((N, k)).astype(np.float32)
@@ -1502,16 +1755,20 @@ def main() -> int:
                             for k, v in row["schedule"].items()})
         return build_plan(mat, sched)
 
-    # P3 / P9: the JAX package's 25 candidates in its order; brick_ell is
-    # refused at its gate and rows past the padding bound are refused, as
-    # there
+    # P3 / P9: the JAX package's 25 candidates in its order (the card's
+    # record gives the same list at config #1); brick_ell, which the TPU's
+    # 4 MB gate refuses, and the rows the padding bound refused by their
+    # packed planes run: the card's bound weighs the slots a kernel reads
     res, best_by_family = run_tune("tune_k8", xs[8], save=True)
     rows_k8 = [row["schedule"] for row in res.table]
     assert [r["family"] for r in rows_k8] == TUNE_K8_FAMILIES, [r["family"] for r in rows_k8]
     assert candidates_digest(rows_k8) == TUNE_K8_DIGEST
     assert candidates_digest(c.describe() for c in default_candidates(mat, 8)) == TUNE_K8_DIGEST
     brick_row = res.table[TUNE_K8_FAMILIES.index("brick_ell")]
-    assert not brick_row["ok"] and "brick_ell chunk blocks" in brick_row["error"]
+    assert brick_row["ok"], brick_row
+    log(f"[tune] tune_k8 brick_ell (refused by the TPU's 4 MB gate): pad "
+        f"{brick_row['padding_rate']:.2f}, read {brick_row['read_rate']:.2f}, "
+        f"{brick_row['seconds'] * 1e3:.4f} ms  ({power})")
     assert {"dg_span", "dgt_span", "radix_span", "span_onehot", "tile_onehot", "stripe_total",
             "nnz_segment", "bucketed"} <= set(best_by_family)
     for which in ("dg", "dgt", "span", "tile", "radix", "stripe"):
@@ -1590,23 +1847,37 @@ def main() -> int:
     assert multi.formats[0].walk is dgt.dgt_row_walk(multi.formats[0])  # one walk, both
     walk_line("dgt_stream", "spmv size, stream_x", multi.formats[0].walk, 64)
 
-    # P2: the default at 262144 x 262144, K = 8 is span_colsplit(2): X is
-    # 8 MB, past every dg and radix gate of the TPU-derived decision tree
+    # P2 (L3): the card's default at 262144 x 262144, K = 8 is one dg_span
+    # format; the TPU's record takes span_colsplit(2) there (X is 8 MB, past
+    # every dg and radix gate of its decision tree), run beside it
     sched_b8 = default_schedule(big, 8)
-    assert (sched_b8.family, sched_b8.col_split) == ("span_colsplit", 2)
+    assert (sched_b8.family, sched_b8.ktile) == ("dg_span", 8), sched_b8
+    run_entry("spmm_262k_k8", "dg",
+              lambda: functools.partial(tpusparse_torch.spmm, big), xb8, ref_b8,
+              (SPMV_N, 8), tag="spmm")
+    assert kernels["dg"]["paths"]["spmm_262k_k8"] == 1
+    plan_b8c = build_plan(big, sched_b8)
+    f_b8c = plan_b8c.formats[0]
+    log(f"[spmm] 262144^2 K=8, the card's default: dg_span rb={f_b8c.rb} ns={f_b8c.ns} "
+        f"g={f_b8c.chunk_g} kt={f_b8c.kt} P={f_b8c.n_programs} NC={f_b8c.n_chunks} "
+        f"pad={f_b8c.padding_rate:.3f} {f_b8c.memory_bytes / 2**20:.1f} MiB")
+    fmt_vs_plain("spmv", f_b8c, 8)                                  # the path's own format
+    walk_line("dg", "P2, the card's default", dg.dg_row_walk(f_b8c), 8)
+    sched_b8t = default_schedule(big, 8, gates=TPU_GATES)
+    assert (sched_b8t.family, sched_b8t.col_split) == ("span_colsplit", 2)
     zero_counts()
     t0 = time.perf_counter()
-    y = tpusparse_torch.spmm(big, xb8)
+    y = tpusparse_torch.spmm(big, xb8, gates=TPU_GATES)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    read_counts("spmm_262k_k8")
+    read_counts("spmm_262k_k8_tpu")
     assert y.is_cuda and y.shape == (SPMV_N, 8) and bool(torch.isfinite(y).all())
     check_result(y.cpu().numpy(), ref_b8, rtol=2e-3)
-    assert need("spmm_262k_k8", "span") == 2
-    log(f"[spmm] 262144^2 K=8: span_colsplit(2) rb={sched_b8.rb} ct={sched_b8.ct} "
-        f"g={sched_b8.g}: oracle ok at rtol 2e-3, 2 launches of span_rows_cuda, first call "
-        f"{dt:.2f} s (packing included)")
-    plan_b8 = build_plan(big, sched_b8)
+    assert need("spmm_262k_k8_tpu", "span") == 2
+    log(f"[spmm] 262144^2 K=8, the TPU's decision: span_colsplit(2) rb={sched_b8t.rb} "
+        f"ct={sched_b8t.ct} g={sched_b8t.g}: oracle ok at rtol 2e-3, 2 launches of "
+        f"span_rows_cuda, first call {dt:.2f} s (packing included)")
+    plan_b8 = build_plan(big, sched_b8t, gates=TPU_GATES)
     for f, (lo, hi), t_p in zip(plan_b8.formats, plan_b8.meta["col_ranges"],
                                 plan_b8.meta["pack_seconds"]):
         log(f"[spmm]   columns [{lo}, {hi}): ct={f.ct} P={f.n_programs} NC={f.n_chunks} "
@@ -1615,6 +1886,10 @@ def main() -> int:
         win_vs_plain("span", "spmv", f, 8, "fp32x2")                # the path's own formats
         win_vs_plain("span", "spmv", f, 8, "bf16")
         walk_line("span", f"P2 columns [{lo}, {hi})", span.span_row_walk(f), 8)
+    xb8d = torch.as_tensor(xb8, device=dev)
+    for label, fn_ in (("the card's default (dg_span)", plan_b8c.fn),
+                       ("the TPU's decision (span_colsplit(2))", plan_b8.fn)):
+        gate_calls.append(("l3", f"P2 262144^2 K=8, {label}", fn_, xb8d, big, 8))
 
     # P5: the span stream kernel, on the headline's best span tune row at
     # K = 8 and on P2's first sub-format
@@ -1641,13 +1916,16 @@ def main() -> int:
     # P7, SpMV through the span kernel with x as one column, runs as S2 in
     # phase S
 
-    # P8: the default at 262144 x 262144, K = 4 is radix_span: X of K = 4
-    # padded to dg's kt of 8 is 8 MB, past its gate; radix's kt = 4 makes
-    # 4 MB, inside it
+    # P8 (L3): the default at 262144 x 262144, K = 4 is radix_span on both
+    # records: X of K = 4 padded to dg's kt of 8 is 8 MB, past the TPU's dg
+    # gate, and at K = 2-4 the card keeps the TPU's radix decision, which it
+    # measures faster than dg there (radix's kt of 4 moves half dg's
+    # columns); dg_span at kt 8 is timed beside it
     xb4 = np.random.default_rng(4).standard_normal((SPMV_N, 4)).astype(np.float32)
     ref_b4 = spmm_reference(big, xb4.astype(np.float64))
     sched_b4 = default_schedule(big, 4)
     assert (sched_b4.family, sched_b4.ktile) == ("radix_span", 4)
+    assert sched_b4 == default_schedule(big, 4, gates=TPU_GATES)
     zero_counts()
     t0 = time.perf_counter()
     y = tpusparse_torch.spmm(big, xb4)
@@ -1667,6 +1945,13 @@ def main() -> int:
         f"1 launch of radix_rows_cuda, first call {dt:.2f} s (packing included)")
     radix_vs_plain("spmv", f_b4, 4)                        # the path's own format
     radix_vs_plain("spmv", f_b4, 4, kt=8)
+    plan_b4d = build_plan(big, Schedule(family="dg_span", rb=1024, ns=8, g=512, unroll=8,
+                                        ktile=8))
+    check_result(plan_b4d(xb4).cpu().numpy(), ref_b4, rtol=2e-3)
+    xb4d = torch.as_tensor(xb4, device=dev)
+    for label, fn_ in (("the default (radix_span, on both records)", plan_b4.fn),
+                       ("dg_span at kt 8", plan_b4d.fn)):
+        gate_calls.append(("l3", f"P8 262144^2 K=4, {label}", fn_, xb4d, big, 4))
 
     def stripe_line(label, f, ks):
         """The stripe kernel's [kernel] line on format f: resources, blocks,
@@ -1955,9 +2240,13 @@ def main() -> int:
     log(f"[p14] A 4096x4096, 15 % of 128-blocks (seed 6): nnz {a14.nnz}, {f14.n_blocks} blocks, "
         f"MB={f14.mb} BMAX={f14.bmax} pad={f14.padding_rate:.2f}, bf16 "
         f"{f14.memory_bytes / 2**20:.1f} MiB; x [2, 128, 4096]")
+    # L4: from_block in bf16 and fp32 runs the Block-ELL kernel (#13), the
+    # card's default method (the TPU's record takes the batched product)
     for prec, bound in (("bf16", "bf16"), ("fp32", "fp32")):
-        run_dense_path(f"block_layer_{prec}", None, SparseLinear.from_block(a14, precision=prec),
-                       x14, want14, scale14, bound, "p14")
+        layer_b = SparseLinear.from_block(a14, precision=prec)
+        _, n_l = run_dense_path(f"block_layer_{prec}", "bell", layer_b, x14, want14, scale14,
+                                bound, "p14")
+        assert n_l == 1, n_l  # its format is fmt14[prec]'s, held to its plain version below
         run_dense_path(f"bell_pallas_{prec}", "bell",
                        functools.partial(be.block_ell_spmm, fmt14[prec], precision=prec,
                                          method="pallas"),
@@ -1967,6 +2256,11 @@ def main() -> int:
     xp14 = be.pad_dense_rows(xk14, 4096).contiguous()
     for prec in ("bf16", "fp32"):
         bell_vs_plain("p14", fmt14[prec], xp14, prec)
+        for label, method in (("the card's default (the kernel, #13)", None),
+                              ("the TPU's xla method (torch bmm)", "xla")):
+            gate_calls.append(("l4", f"P14 K=256 block_ell_spmm {prec}, {label}",
+                               functools.partial(be.block_ell_spmm, fmt14[prec], precision=prec,
+                                                 method=method), xk14, a14, 256))
     x_amax = xp14.abs().amax(dim=0)
     xq14 = torch.clamp(torch.round(xp14 / torch.where(x_amax > 0, x_amax / 127.0, 1.0)),
                        -127, 127).to(torch.int8).contiguous()
@@ -2008,8 +2302,16 @@ def main() -> int:
     log(f"[p15]   dense_k256 whole call, median of {REPS}: {t_dense_mm:.4f} ms  ({power})")
     del plan_dense, y
     torch.cuda.empty_cache()
-    plan_bell = build_plan(a14, Schedule(family="block_ell", precision="bf16", row_interval=128))
-    run_dense_path("block_ell_plan", None, plan_bell, xk14, want14k, scale14k, "bf16", "p15")
+    # L4: the block_ell plan runs the Block-ELL kernel (#13) in bf16 and fp32
+    for prec in ("bf16", "fp32"):
+        plan_bell = build_plan(a14, Schedule(family="block_ell", precision=prec,
+                                             row_interval=128))
+        _, n_l = run_dense_path("block_ell_plan" + ("" if prec == "bf16" else "_fp32"), "bell",
+                                plan_bell, xk14, want14k, scale14k, prec, "p15")
+        assert n_l == 1, n_l
+        bell_vs_plain(f"L4 block_ell plan ({prec})'s format", plan_bell.formats[0],
+                      be.pad_dense_rows(xk14, 4096).contiguous(), prec)
+    del plan_bell
     cs = builder.power_law_col_coo(M, N, AVG_NNZ_PER_ROW, alpha=1.6, seed=9)
     ccount = np.bincount(cs.cols, minlength=N)
     share = float(np.sort(ccount)[-128:].sum()) / cs.nnz
@@ -2317,9 +2619,10 @@ def main() -> int:
         val, bound = dense_bound_check(f"{path} x.grad", xb2.grad, want, scale, prec)
         launched = [f"{rec['paths'][path]} {rec['name']}" for rec in kernels.values()
                     if rec["paths"][path]]
+        assert need(path, "bell") == 2  # the forward's and the backward's
         log(f"[t2] SparseLinear.from_block({prec}, differentiable=True), x {list(xb2.shape)}: "
             f"x.grad within the {prec} bound ({val:.2e} < {bound:g}) of the dense product; "
-            f"launches: {', '.join(launched) or 'none (the xla method: torch bmm, both ways)'}")
+            f"launches: {', '.join(launched)}")
     log(f"[t0-t2] training phases: {time.perf_counter() - t_train_phases:.1f} s")
 
     # ---- G0-G3: the host helpers at the SpMV size, graph analytics on the
@@ -2681,6 +2984,12 @@ def main() -> int:
     s_profiles, s_sticks = phase_s(big, xv, ref_v, probe["stream_gbs"], dev, power, kernels, zero_counts,
                          read_counts, need)
 
+    # ---- L1-L4: the card's own gates beside the TPU's (L3's P2 and P8 run
+    # in phase 6, L4 in P14, P15 and T2)
+    l_profiles = phase_l(big, xb8, dev, power, kernels, zero_counts, read_counts, need,
+                         fmt_vs_plain, run_tune, gate_calls)
+    del gate_calls
+
     launches = {w: sum(rec["paths"].values()) for w, rec in kernels.items()}
     for w, n_l in launches.items():
         if n_l < 1:
@@ -2894,7 +3203,7 @@ def main() -> int:
                               tile32, t_pack256),
         "tile_stream": win_yardstick("tile_stream", "headline, spmm default (P1)", [(f256, 0)],
                                      mat, 256, xs[256], tile256, t_pack256),
-        "span": win_yardstick("span", "262144^2, spmm default span_colsplit(2) (P2)",
+        "span": win_yardstick("span", "262144^2, the TPU's decision span_colsplit(2) (P2)",
                               [(f, lo) for f, (lo, _) in zip(plan_b8.formats,
                                                              plan_b8.meta["col_ranges"])],
                               big, 8, xb8, plan_b8.fn, sum(plan_b8.meta["pack_seconds"])),
@@ -3105,11 +3414,12 @@ def main() -> int:
     layer14_i8 = SparseLinear.from_block(a14, precision="int8")
     bell_stats(fmt14["int8"], "int8", "P14 SparseLinear.from_block(int8, W8A8), K=256",
                layer14_i8, x14)
-    for prec in ("bf16", "fp32"):
+    for prec in ("bf16", "fp32"):  # L4: the card's default beside the TPU's, one run
         layer14 = SparseLinear.from_block(a14, precision=prec)
-        log(f"[yardstick]   P14 SparseLinear.from_block({prec}) (xla method: torch bmm), "
-            f"median of {REPS}: "
-            + f"{float(np.median([time_fn(layer14, x14) for _ in range(REPS)])) * 1e3:.4f} ms")
+        log(f"[l4] P14 SparseLinear.from_block({prec}) (the kernel, #13), median of {REPS}: "
+            + f"{float(np.median([time_fn(layer14, x14) for _ in range(REPS)])) * 1e3:.4f} ms "
+            f"by time_fn  ({power})")
+
     stats["nm"], stats["bell"] = nm_k128, bell_bf16
 
     # #14 and #15 at T1's shapes: the trainable layer's format, K = 512, the
@@ -3318,13 +3628,15 @@ def main() -> int:
                  torch.as_tensor(xs[8], device=dev))
     profile_call("P1 spmm K=256 (tile_onehot, stream kernel)", plan256.fn,
                  torch.as_tensor(xs[256], device=dev), calls=10)
-    profile_call("P2 spmm 262144^2 K=8 (span_colsplit(2))", plan_b8.fn,
+    profile_call("P2 spmm 262144^2 K=8, the card's default (dg_span)", plan_b8c.fn,
+                 torch.as_tensor(xb8, device=dev), calls=10)
+    profile_call("P2 spmm 262144^2 K=8, the TPU's decision (span_colsplit(2))", plan_b8.fn,
                  torch.as_tensor(xb8, device=dev), calls=10)
     profile_call("SpMV 262144^2 spmv_fn('dgt8') (#3)", spmv_fns["spmv_dgt8_262k"],
                  torch.as_tensor(xv, device=dev), calls=10)
     profile_call("SpMV 262144^2 spmv_fn('auto') (#2)", spmv_fns["spmv_auto_262k"],
                  torch.as_tensor(xv, device=dev), calls=10)
-    profile_call("P8 spmm 262144^2 K=4 (radix_span)", plan_b4.fn,
+    profile_call("P8 spmm 262144^2 K=4 (radix_span, on both records)", plan_b4.fn,
                  torch.as_tensor(xb4, device=dev), calls=10)
     profile_call("P13 SparseLinear.from_nm(bf16), x [4, 128, 4096]", layers13["bf16"], x13)
     profile_call("P13 SparseLinear.from_dense(k_hint=512) (tile_onehot, #5), x [4, 128, 4096]",
@@ -3343,6 +3655,9 @@ def main() -> int:
                  "(#2 each, a host sync each)", lambda _: pr_run(), None, calls=3)
     for label, (f, x_, calls) in s_profiles.items():
         profile_call(label, f, x_, calls=calls)
+    for label, (f, x_, calls) in l_profiles.items():
+        profile_call(label, f, x_, calls=calls)
+    del l_profiles
     profile_call("P14 block_ell_spmm(pallas, bf16), K=256",
                  functools.partial(be.block_ell_spmm, f14, precision="bf16", method="pallas"),
                  xk14)

@@ -44,6 +44,7 @@ from tpusparse_torch.kernels import tile_onehot as tile
 from tpusparse_torch.meta.set import create_init_metadata_set
 from tpusparse_torch.oracle import check_result, spmm_reference
 from tpusparse_torch.nn import SparseLinear, TrainableSparseLinear
+from tpusparse_torch.gates import TPU_GATES
 from tpusparse_torch.schedule import KERNEL_FAMILIES, Schedule, build_plan, default_schedule
 from tpusparse_torch.spmv import spmv_fn, spmv_multi_fn
 from tpusparse_torch.tune import tune
@@ -605,19 +606,20 @@ def test_span_value_plane_on_card(cuda, mat):
 @pytest.fixture(scope="module")
 def wide():
     # 262144 columns: X of 8 fp32 columns is 8 MB, past every dg and radix
-    # gate, so K = 8 takes span_colsplit(2) and K = 5 span_onehot
+    # gate of the TPU's record, where K = 8 takes span_colsplit(2) and K = 5
+    # span_onehot; the card's record takes dg_span at both
     return builder.power_law_coo(4096, 262144, avg_nnz_per_row=16.0, seed=22)
 
 
 @pytest.mark.parametrize("k,family,counter,launches", [
-    (8, "span_colsplit", "span", 2), (5, "span_onehot", "span", 1),
+    (8, "dg_span", "dg", 1), (5, "dg_span", "dg", 1),
     (200, "tile_onehot", "tile", 1),
 ])
 def test_spmm_wide_and_large_paths_on_card(cuda, mat, wide, k, family, counter, launches):
     a = mat if family == "tile_onehot" else wide
     x = np.random.default_rng(k).standard_normal((a.shape[1], k)).astype(np.float32)
     assert default_schedule(a, k).family == family
-    wrapper = span.span_rows_cuda if counter == "span" else tile.tile_rows_cuda
+    wrapper = {"dg": dg.dg_rows_cuda, "tile": tile.tile_rows_cuda}[counter]
     before = wrapper.launches
     y = tpusparse_torch.spmm(a, x)
     assert y.is_cuda and y.shape == (a.shape[0], k)
@@ -970,6 +972,7 @@ def test_stripe_nested_kernel_edges(cuda, k):
 @pytest.fixture(scope="module")
 def spmv_size():
     # P8: the SpMV workload's matrix, where spmm's default at K = 4 is radix
+    # on both records (the card keeps the TPU's decision at K = 2-4)
     return builder.power_law_coo(262144, 262144, avg_nnz_per_row=40.0, seed=9)
 
 
@@ -978,6 +981,7 @@ def test_spmm_radix_default_on_card(cuda, spmv_size):
                         dtype=torch.float32, device=cuda)
     sched = default_schedule(spmv_size, 4)
     assert (sched.family, sched.ktile) == ("radix_span", 4)
+    assert sched == default_schedule(spmv_size, 4, gates=TPU_GATES)
     before = radix.radix_rows_cuda.launches
     y = tpusparse_torch.spmm(spmv_size, x)
     assert y.is_cuda and y.shape == (262144, 4) and radix.radix_rows_cuda.launches == before + 1
@@ -1151,7 +1155,7 @@ def test_sparse_linear_block_on_card(cuda, precision):
     before = be.bell_rows_cuda.launches
     y = layer(x)
     assert y.is_cuda and y.shape == (2, 64, 2048)
-    assert be.bell_rows_cuda.launches == before + (precision == "int8")
+    assert be.bell_rows_cuda.launches == before + 1  # the kernel: the card's default method
     w = a.to_dense(np.float64)
     xs = x.double().cpu().numpy()
     want, scale = xs @ w.T, np.abs(xs) @ np.abs(w).T

@@ -16,6 +16,7 @@ from tpusparse.io.mtx import CooMatrix as JCoo
 from tpusparse.oracle import spmm_reference as jspmm_reference
 from tpusparse_torch import graph as tg
 from tpusparse_torch.config import config_override, get_config
+from tpusparse_torch.gates import TPU_GATES
 from tpusparse_torch.io import builder
 from tpusparse_torch.io.mtx import CooMatrix, read_mtx, write_mtx
 from tpusparse_torch.oracle import spmm_reference
@@ -82,12 +83,12 @@ def test_semiring_spmv_takes_the_config_semiring():
 def test_matvec_plan_meta_and_product_equal_jax(semiring, shape):
     m, n = shape
     mat = builder.power_law_coo(m, n, avg_nnz_per_row=6.0 if n < 10**6 else 2.0, seed=2)
-    fn = tg.matvec_plan(mat, semiring=semiring, device="cpu")
+    fn = tg.matvec_plan(mat, semiring=semiring, device="cpu", gates=TPU_GATES)
     jfn = jg.matvec_plan(_jax(mat), semiring=semiring)
     assert fn.meta == jfn.meta
     # x > 4 MB of fp32 at n = 1.6M: past the TPU-derived gate, the segment path
-    assert fn.meta["method"] == ("dg" if n * 4 <= tg.DG_X_BYTES and semiring != "min_plus"
-                                 else "segment")
+    assert fn.meta["method"] == ("dg" if n * 4 <= TPU_GATES.dg_x_bytes
+                                 and semiring != "min_plus" else "segment")
     x = np.abs(np.random.default_rng(0).standard_normal(n)).astype(np.float32)
     if semiring == "or_and":
         x = (x > 1.0).astype(np.float32)

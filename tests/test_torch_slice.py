@@ -17,6 +17,7 @@ from tpusparse.io import builder as jbuilder
 from tpusparse.oracle import check_result, spmm_reference
 from tpusparse_torch import schedule as tsched
 from tpusparse_torch import tune as ttune
+from tpusparse_torch.gates import TPU_GATES
 from tpusparse_torch.io import builder as tbuilder
 from tpusparse_torch.io.mtx import CooMatrix, read_mtx, write_mtx
 
@@ -96,7 +97,7 @@ def test_time_fn_refuses_a_cpu_output():
 def test_default_schedule_equals_jax(n, k):
     tmat = CooMatrix(np.array([0]), np.array([0]), np.array([1.0]), (10, n))
     jmat = tpusparse.CooMatrix(np.array([0]), np.array([0]), np.array([1.0]), (10, n))
-    assert tsched.default_schedule(tmat, k).describe() == \
+    assert tsched.default_schedule(tmat, k, gates=TPU_GATES).describe() == \
         jsched.default_schedule(jmat, k).describe()
 
 
@@ -107,7 +108,7 @@ def test_default_candidates_equal_jax_dg_block(k, full):
     jmat = jbuilder.power_law_coo(500, 600, avg_nnz_per_row=8.0, seed=4)
     tmat = CooMatrix(jmat.rows, jmat.cols, jmat.vals, jmat.shape)
     want = [s.describe() for s in jtune.default_candidates(jmat, k, full=full)]
-    got = [s.describe() for s in ttune.default_candidates(tmat, k, full=full)]
+    got = [s.describe() for s in ttune.default_candidates(tmat, k, full=full, gates=TPU_GATES)]
     assert got == want
     assert any(s["family"] == "dgt_span" for s in got) == (k > 1)
 
@@ -120,7 +121,7 @@ def test_default_candidates_equal_jax_without_unported_families(k, full, n):
     jmat = jbuilder.power_law_coo(500, n, avg_nnz_per_row=8.0, seed=4)
     tmat = CooMatrix(jmat.rows, jmat.cols, jmat.vals, jmat.shape)
     want = [s.describe() for s in jtune.default_candidates(jmat, k, full=full)]
-    got = [s.describe() for s in ttune.default_candidates(tmat, k, full=full)]
+    got = [s.describe() for s in ttune.default_candidates(tmat, k, full=full, gates=TPU_GATES)]
     assert got == want
     fams = [s["family"] for s in got]
     assert fams.count("tile_onehot") == (9 if full else 3)
@@ -134,7 +135,7 @@ def test_default_candidates_insert_auto_rb_dgt_like_jax():
     jmat = jbuilder.power_law_coo(8192, 60000, avg_nnz_per_row=2.0, seed=9)
     tmat = CooMatrix(jmat.rows, jmat.cols, jmat.vals, jmat.shape)
     want = [s.describe() for s in jtune.default_candidates(jmat, 8)]
-    got = [s.describe() for s in ttune.default_candidates(tmat, 8)]
+    got = [s.describe() for s in ttune.default_candidates(tmat, 8, gates=TPU_GATES)]
     assert got == want and [s["rb"] for s in got if s["family"] == "dgt_span"][0] > 512
 
 
@@ -403,7 +404,7 @@ def test_brick_ell_gate_is_jax():
     with pytest.raises(RuntimeError, match="brick_ell chunk blocks"):
         jsched.build_plan(jmat, jsched.Schedule(**sk))
     with pytest.raises(tsched.CandidateRejected, match="brick_ell chunk blocks"):
-        tsched.build_plan(tmat, tsched.Schedule(**sk), device="cpu")
+        tsched.build_plan(tmat, tsched.Schedule(**sk), device="cpu", gates=TPU_GATES)
 
 
 @pytest.mark.parametrize("k", [2, 4])
@@ -412,11 +413,11 @@ def test_spmm_default_takes_radix_span_like_jax(k):
     # rounded up to a power of two) holds
     tmat = tbuilder.power_law_coo(64, 262144, avg_nnz_per_row=8.0, seed=5)
     jmat = tpusparse.CooMatrix(tmat.rows, tmat.cols, tmat.vals, tmat.shape)
-    sched = tsched.default_schedule(tmat, k)
+    sched = tsched.default_schedule(tmat, k, gates=TPU_GATES)
     assert sched.family == "radix_span" and sched.ktile == k
     assert sched.describe() == jsched.default_schedule(jmat, k).describe()
     x = _x(262144, k, seed=23)
-    y = tpusparse_torch.spmm(tmat, x, device="cpu")
+    y = tpusparse_torch.spmm(tmat, x, device="cpu", gates=TPU_GATES)
     want = spmm_reference(jmat, x.astype(np.float64))
     assert y.shape == (64, k)
     np.testing.assert_allclose(y.numpy(), np.asarray(tpusparse.spmm(jmat, x)), rtol=0,
@@ -432,7 +433,7 @@ def test_default_candidates_equal_jax(k, full):
     tmat = tbuilder.power_law_coo(600, 800, avg_nnz_per_row=5.0, seed=24)
     jmat = tpusparse.CooMatrix(tmat.rows, tmat.cols, tmat.vals, tmat.shape)
     jall = jtune.default_candidates(jmat, k, full=full)
-    got = [s.describe() for s in ttune.default_candidates(tmat, k, full=full)]
+    got = [s.describe() for s in ttune.default_candidates(tmat, k, full=full, gates=TPU_GATES)]
     assert got == [s.describe() for s in jall]
     fams = {s["family"] for s in got}
     assert ({"dense", "block_ell", "hybrid_cols"} <= fams) == full
@@ -453,7 +454,8 @@ def test_chip_smoke_tune_list_is_jax():
     assert chip_smoke.candidates_digest(s.describe() for s in jlist) == chip_smoke.TUNE_K8_DIGEST
     tmat = CooMatrix(jmat.rows, jmat.cols, jmat.vals, jmat.shape)
     assert chip_smoke.candidates_digest(
-        s.describe() for s in ttune.default_candidates(tmat, 8)) == chip_smoke.TUNE_K8_DIGEST
+        s.describe() for s in ttune.default_candidates(tmat, 8, gates=TPU_GATES)) == \
+        chip_smoke.TUNE_K8_DIGEST
 
 
 def test_no_card_means_no_quiet_cpu_run():
@@ -568,7 +570,7 @@ def test_default_candidates_equal_jax_with_dense_tile_rows(which, k, request):
         tmat = request.getfixturevalue(which)
     jmat = tpusparse.CooMatrix(tmat.rows, tmat.cols, tmat.vals, tmat.shape)
     jlist = [s.describe() for s in jtune.default_candidates(jmat, k)]
-    got = [s.describe() for s in ttune.default_candidates(tmat, k)]
+    got = [s.describe() for s in ttune.default_candidates(tmat, k, gates=TPU_GATES)]
     assert got == jlist
     fams = [s["family"] for s in got]
     assert ("dense" in fams) == (k == 256 or which == "blocky")
@@ -589,4 +591,4 @@ def test_chip_smoke_dense_tile_lists_are_jax(headline, colskew_headline):
         jlist = jtune.default_candidates(jmat, k)
         assert chip_smoke.candidates_digest(s.describe() for s in jlist) == digest
         assert chip_smoke.candidates_digest(
-            s.describe() for s in ttune.default_candidates(tmat, k)) == digest
+            s.describe() for s in ttune.default_candidates(tmat, k, gates=TPU_GATES)) == digest

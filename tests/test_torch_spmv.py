@@ -17,6 +17,7 @@ from tpusparse.io.mtx import CooMatrix as JCoo
 from tpusparse.oracle import check_result, spmm_reference, spmv_reference
 from tpusparse_torch import oracle as toracle
 from tpusparse_torch import spmv as tspmv
+from tpusparse_torch.gates import TPU_GATES
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels.dg_gather import DgFormat
 from tpusparse_torch.kernels.dgt_gather import DgtFormat
@@ -48,10 +49,38 @@ def test_spmv_fn_matches_oracle(method, fmt_type):
     check_result(tspmv.spmv(tmat, x, method, device="cpu").numpy(), want, rtol=1e-5)
 
 
+@pytest.mark.parametrize("slotless_rows", [False, True])
+def test_dealt_unpack_keeps_its_index(slotless_rows):
+    # a dg format dealt by row length unpacks through slot_of_origrow: the
+    # int64 index and the mask of the rows with a slot (None where all have
+    # one) are made once and kept while the slots stand; a row without a
+    # slot (a sub-format's rows of another) reads 0
+    from tpusparse_torch.kernels.dg_gather import dg_spmv, pack_dg
+
+    jmat, tmat = _mats(m=300, n=400, avg=6.0, seed=21)
+    fmt = pack_dg(tmat, rb=64, ns=4, g=512, kt=1, mode="fp32x2", device="cpu")
+    assert fmt.deal not in ("blocks", "index")
+    x = np.random.default_rng(5).standard_normal(400).astype(np.float32)
+    want = spmv_reference(jmat, x.astype(np.float64))
+    check_result(dg_spmv(fmt, x).numpy(), want, rtol=1e-5)
+    kept = fmt.unpack_index
+    assert kept[3] is None
+    check_result(dg_spmv(fmt, x).numpy(), want, rtol=1e-5)
+    assert fmt.unpack_index is kept
+    if slotless_rows:
+        fmt.slot_of_origrow[::3] = -1  # written in place: made anew, with a mask
+        want[::3] = 0.0
+    else:
+        fmt.slot_of_origrow.add_(0)    # written in place: made anew
+    check_result(dg_spmv(fmt, x).numpy(), want, rtol=1e-5)
+    assert fmt.unpack_index is not kept
+    assert (fmt.unpack_index[3] is not None) == slotless_rows
+
+
 def test_auto_takes_segment_past_the_size_gate():
     tmat = CooMatrix(np.array([0, 3]), np.array([5, 1_999_999]), np.array([2.0, -1.0]),
                      (4, 2_000_000))
-    fn = tspmv.spmv_fn(tmat, "auto", device="cpu")
+    fn = tspmv.spmv_fn(tmat, "auto", device="cpu", gates=TPU_GATES)  # the JAX gate
     assert not hasattr(fn, "format")                    # segment: no kernel format
     x = np.zeros(2_000_000, np.float32)
     x[5], x[-1] = 3.0, 4.0
@@ -181,7 +210,7 @@ def test_spmv_multi_fn_auto_split_equals_jax():
     cols = rng.integers(0, 600_000, 500)
     jmat = JCoo(rows, cols, rng.standard_normal(500), (64, 600_000)).sort_row_major()
     tmat = CooMatrix(jmat.rows, jmat.cols, jmat.vals, jmat.shape)
-    fn = tspmv.spmv_multi_fn(tmat, 2, device="cpu")
+    fn = tspmv.spmv_multi_fn(tmat, 2, device="cpu", gates=TPU_GATES)  # the JAX rule
     assert fn.n_splits == jspmv.spmv_multi_fn(jmat, 2).n_splits == 3
     xs = rng.standard_normal((600_000, 2)).astype(np.float32)
     check_result(fn(xs).numpy(), spmm_reference(jmat, xs.astype(np.float64)), rtol=1e-5)

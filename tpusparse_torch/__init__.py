@@ -39,6 +39,7 @@ Still to port: the headline benchmark (ROADMAP.md A.4 part 1).
 """
 
 from tpusparse_torch.config import Config, config_override, get_config, set_config
+from tpusparse_torch.gates import CARD_GATES, TPU_GATES, Gates
 from tpusparse_torch.io.mtx import CooMatrix, read_mtx, write_mtx
 from tpusparse_torch.levels import Level
 from tpusparse_torch.meta.item import MetaDataItem, narrow_dtype
@@ -47,19 +48,23 @@ from tpusparse_torch.meta.set import MetaDataSet
 __version__ = "0.1.0"
 
 
-def spmm(mat, x, schedule=None, device="cuda"):
+def spmm(mat, x, schedule=None, device="cuda", *, gates=None):
     """One-shot SpMM: Y = A @ X as a tensor on ``device``.  X is [N, K]
-    (numpy or a tensor on ``device``).  With no schedule, takes the JAX
-    package's default for the K regime (``dg_span`` at K <= 128 where X
-    passes the size gate, ``radix_span`` at K <= 32 where only its gate
-    holds, ``span_onehot`` or ``span_colsplit`` past them, ``tile_onehot``
-    at K > 128); pass a Schedule to control it, or use
+    (numpy or a tensor on ``device``).  With no schedule, takes the default
+    for the K regime under ``gates`` (``tpusparse_torch.gates``; the card's
+    ``CARD_GATES`` when None): on the card ``dg_span`` at K <= 128 at any
+    N, ``tile_onehot`` at K > 128; under ``TPU_GATES`` the JAX package's
+    (``dg_span`` where X passes its size gate, ``radix_span`` at K <= 32
+    where only radix's holds, ``span_onehot`` or ``span_colsplit`` past
+    them).  Pass a Schedule to control it, or use
     ``tpusparse_torch.tune.tune`` for the autotuned path."""
+    from tpusparse_torch.gates import CARD_GATES
     from tpusparse_torch.schedule import build_plan, default_schedule
 
+    gates = CARD_GATES if gates is None else gates
     if schedule is None:
-        schedule = default_schedule(mat, x.shape[-1])
-    plan = build_plan(mat, schedule, device=device)
+        schedule = default_schedule(mat, x.shape[-1], gates=gates)
+    plan = build_plan(mat, schedule, device=device, gates=gates)
     return plan(x)
 
 
@@ -135,6 +140,9 @@ __all__ = [
     "write_mtx",
     "spmm",
     "entry",
+    "Gates",
+    "CARD_GATES",
+    "TPU_GATES",
     "Schedule",
     "build_plan",
     "autotune",

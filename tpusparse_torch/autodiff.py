@@ -55,28 +55,6 @@ def spmm_fn(mat: CooMatrix, schedule=None, t_schedule=None, *, k_hint: int | Non
     return fn
 
 
-def _auto_ktile(n: int, k: int, vmem_budget: int) -> int:
-    """Largest K-tile whose span-family residency fits ``vmem_budget``:
-    the forward/SDDMM X pack is N*2*kt*2 bytes (bf16 hi+lo) and span_dx
-    keeps an [N_pad, kt] fp32 output block resident (N*kt*4 bytes).
-
-    A TPU VMEM budget, kept callable as the JAX package has it; the
-    trainable path here does not call it: the card's kernels (#7, #14,
-    #15) stage no X, so their K-tile follows x (``sddmm._k_tile``) and no
-    width is refused."""
-    kt = max(k if k <= 128 else 128, 8)  # sub-8-sublane Mosaic trap floor
-    while kt > 8 and n * kt * 4 > vmem_budget:
-        kt = max((kt + 1) // 2, 8)  # halving from e.g. 20 must not pass 8
-    if n * kt * 4 > vmem_budget:
-        raise ValueError(
-            f"trainable span residency {n * kt * 4 / 2**20:.1f} MB at kt={kt} "
-            f"exceeds the VMEM budget ({vmem_budget / 2**20:.0f} MB); N={n} "
-            "is too wide for the resident trainable path — shard the matrix "
-            "column-wise (dist/overlap halo ring) or raise vmem_budget at "
-            "your own risk")
-    return kt
-
-
 def spmm_trainable(mat: CooMatrix, *, rb: int = 512, ct: int = 512, g: int = 128,
                    precision: str = "fp32x2", k_hint: int | None = None,
                    vmem_budget: int = 4 * 2**20, device="cuda"):
@@ -86,10 +64,11 @@ def spmm_trainable(mat: CooMatrix, *, rb: int = 512, ct: int = 512, g: int = 128
 
     Returns ``(fn, v0)``: ``v0`` [P, NC, G] float32 on ``device`` is the
     packed value plane holding ``mat.vals`` (the parameter to train).
-    ``vmem_budget`` sized the JAX package's K-tile to the TPU's VMEM
-    (``_auto_ktile``), which refused in_features past 131,072 at the
-    default; it is accepted and changes nothing here, where the K-tile
-    follows x as in ``span_spmm``, so no width is refused.
+    ``vmem_budget`` is deprecated: it sized the JAX package's K-tile to
+    the TPU's VMEM (``tpusparse/autodiff.py::_auto_ktile``), which refused
+    in_features past 131,072 at the default; it is accepted, for the JAX
+    signature, and changes nothing here, where the K-tile follows x as in
+    ``span_spmm``, so no width is refused.
     Gradients:
 
       dv = SDDMM(pattern; dY, X)   (kernels/sddmm.span_sddmm, masked)

@@ -88,9 +88,10 @@ def time_ring_bucket(fmt, x_chunk, *, scatter: str, unroll: int = 8, device: int
     ``reps`` ``time_fn`` readings at or above a physical floor (the walk's
     bytes and X's rows read once at the card's published stream; a reading
     below it is a timing misfire, discarded as the JAX harness discards
-    them), and the profiler's device time beside it.  ``unroll`` steered
-    the TPU kernel and changes nothing."""
-    from tpusparse_torch.bench.harness import device_time_fn, time_fn
+    them), and the device time beside it: the profiler's, or where it
+    drops records in every window a CUDA graph's replay (``device_how``).
+    ``unroll`` steered the TPU kernel and changes nothing."""
+    from tpusparse_torch.bench.harness import device_time_fn, graph_time_fn, time_fn
     from tpusparse_torch.bench.sol import HBM_BYTES_PER_S
 
     del unroll
@@ -108,7 +109,11 @@ def time_ring_bucket(fmt, x_chunk, *, scatter: str, unroll: int = 8, device: int
                  "discarded")
     if not vals:
         raise RuntimeError(f"all bucket timings below the {lo * 1e6:.2f} us floor")
-    return {"seconds": float(np.median(vals)), "device_seconds": device_time_fn(run, x_chunk),
+    try:
+        dev_s, how = device_time_fn(run, x_chunk), "profiler"
+    except RuntimeError:  # the profiler dropped records in every window
+        dev_s, how = graph_time_fn(run, x_chunk), "graph"
+    return {"seconds": float(np.median(vals)), "device_seconds": dev_s, "device_how": how,
             "floor_seconds": lo, "live_slots": run.walk.n_slots}
 
 

@@ -68,20 +68,25 @@ def ring_overlap(fn, args, *, kernels=("walk_kernel", "stripe_kernel"), expect: 
                  shifts: int | None = None, warmup: int = 2) -> dict:
     """The profile of one call ``fn(*args)`` of a ring whose bucket kernels'
     names hold one of ``kernels`` (``analyse_ring_trace``); ``expect``: the
-    bucket launches a call makes (D * n_k * D), three tries to see them
-    all; ``shifts``: the shifts it makes (D * n_k * (D - 1)), checked where
-    given."""
+    bucket launches a call makes (D * n_k * D), ``TRIES`` tries to see them
+    all (the profiler may drop records); ``shifts``: the shifts it makes (D
+    * n_k * (D - 1)), checked where given."""
     import torch
 
     for _ in range(warmup):
         fn(*args)
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(TRIES):
         events = _trace(fn, args)
         if len(_bucket_kernels(events, kernels)) >= expect:
             return analyse_ring_trace(events, kernels=kernels, shifts=shifts)
-    raise RuntimeError(f"the profiler saw fewer than {expect} bucket kernels in three tries: "
-                       "not measured")
+    raise RuntimeError(f"the profiler saw fewer than {expect} bucket kernels in {TRIES} "
+                       "tries: not measured")
+
+
+#: profiled calls ``ring_overlap`` takes to see every bucket kernel of one
+#: (a smoke run on the card saw three in a row drop records)
+TRIES = 6
 
 
 def _device_events(events):

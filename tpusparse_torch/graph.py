@@ -31,17 +31,12 @@ import numpy as np
 import torch
 
 from tpusparse_torch.config import get_config
+from tpusparse_torch.gates import CARD_GATES, Gates
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels.common import prep_x, resolve_device
+from tpusparse_torch.spmv import pack_dg_spmv, takes_dg
 
 SEMIRINGS = ("plus_times", "min_plus", "or_and")
-
-#: TPU-derived gate (tpusparse/graph.py:95): the packed dg plan where x of
-#: N fp32 fits 6 MB of the v5e's VMEM, else the segment path.  The card
-#: gathers x through L2 at any N; the gate joins the ones queued for
-#: re-derivation from H100 measurements (ROADMAP.md A.4 part 3).
-DG_X_BYTES = 6 * 1024 * 1024
-
 
 def _segment_spmv(rows, cols, vals, x, *, semiring: str, m: int) -> torch.Tensor:
     """y[M] under ``semiring`` as one gather of x and one segment reduction
@@ -84,7 +79,8 @@ def semiring_spmv(mat: CooMatrix, x, semiring: str | None = None, *,
 
 
 def matvec_plan(mat: CooMatrix, semiring: str = "plus_times",
-                vals: np.ndarray | None = None, *, device="cuda"):
+                vals: np.ndarray | None = None, *, device="cuda",
+                gates: Gates = CARD_GATES):
     """Packed repeated-matvec plan for the iterative drivers.
 
     Runs CalculationMethodChooseOperator so ``calculation_method`` lives in
@@ -92,7 +88,9 @@ def matvec_plan(mat: CooMatrix, semiring: str = "plus_times",
     once, as the JAX package does:
 
       plus_times  the dg kt=1 format, run by the dg SpMV kernel (#2,
-                  ``dg_spmv``), where x passes the TPU-derived gate
+                  ``dg_spmv``), where ``spmv.takes_dg``: at any N on the
+                  card's record (the default), on the TPU's where x fits
+                  6 MB (tpusparse/graph.py:95); else a segment reduction
       or_and      plus_times on 0/1 values + a >0 threshold (counts and
                   boolean OR agree for non-negative values; exact in f32
                   below 2^24 per row)
@@ -112,13 +110,12 @@ def matvec_plan(mat: CooMatrix, semiring: str = "plus_times",
     OperatorExecutor(ms).add_and_run(CalculationMethodChooseOperator(0, method=semiring))
     method_code = int(ms.get(Level.GLOBAL, "calculation_method", 0))
 
-    if method_code in (0, 2) and n * 4 <= DG_X_BYTES:  # TPU-derived gate
-        from tpusparse_torch.kernels.dg_gather import dg_spmv, pack_dg
+    if method_code in (0, 2) and takes_dg(n, gates):
+        from tpusparse_torch.kernels.dg_gather import dg_spmv
 
         v = (use_vals != 0).astype(np.float32) if method_code == 2 else use_vals
-        rb = 4096 if m >= 4096 else max(64, 64 * (-(-m // 64)))
-        fmt = pack_dg(CooMatrix(mat.rows, mat.cols, v, mat.shape), rb=rb, ns=4,
-                      g=2048 if mat.nnz > 1 << 20 else 512, kt=1, mode="fp32x2", device=dev)
+        fmt = pack_dg_spmv(CooMatrix(mat.rows, mat.cols, v, mat.shape), device=dev,
+                           gates=gates)
 
         if method_code == 2:
             def fn(x):

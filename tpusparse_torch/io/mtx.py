@@ -56,7 +56,12 @@ class CooMatrix:
         return self.nnz / float(max(m * n, 1))
 
     def sort_row_major(self) -> "CooMatrix":
-        order = np.lexsort((self.cols, self.rows))
+        """The entries in (row, column) order, ties in their given order:
+        ``np.lexsort((cols, rows))``, as one stable argsort of the int64
+        key row * N + column (the same order, an order of magnitude
+        faster at tens of millions of entries)."""
+        key = np.asarray(self.rows, np.int64) * self.shape[1] + self.cols
+        order = np.argsort(key, kind="stable")
         return CooMatrix(self.rows[order], self.cols[order], self.vals[order], self.shape)
 
     def is_row_major_sorted(self) -> bool:
@@ -68,10 +73,14 @@ class CooMatrix:
         return CooMatrix(self.cols, self.rows, self.vals, (n, m)).sort_row_major()
 
     def dedup(self) -> "CooMatrix":
-        """Remove duplicate (row, col) entries keeping the first occurrence."""
-        key = self.rows * self.shape[1] + self.cols
-        _, idx = np.unique(key, return_index=True)
-        idx.sort()
+        """Remove duplicate (row, col) entries keeping the first occurrence
+        (in row-major order, the first of each run of equal entries)."""
+        key = np.asarray(self.rows, np.int64) * self.shape[1] + self.cols
+        if key.size and bool(np.all(key[1:] >= key[:-1])):
+            idx = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+        else:
+            _, idx = np.unique(key, return_index=True)
+            idx.sort()
         return CooMatrix(self.rows[idx], self.cols[idx], self.vals[idx], self.shape)
 
     def sum_duplicates(self) -> "CooMatrix":

@@ -14,9 +14,10 @@ for array the JAX package's:
                                      nb_p (``bell_work``; the port's own,
                                      not in ``memory_bytes``)
 
-``block_ell_spmm`` has the JAX package's two methods: ``xla`` (the
-default: gather the X tiles and run one batched product, which is XLA code
-there and a torch ``bmm`` here) and ``pallas`` (the kernel).  int8 formats
+``block_ell_spmm`` has the JAX package's two methods: ``xla`` (the JAX
+package's default: gather the X tiles and run one batched product, which
+is XLA code there and a torch ``bmm`` here) and ``pallas`` (the kernel,
+the port's default: ``gates.CARD_GATES.block_ell_method``).  int8 formats
 quantize X per column and run the integer product on the kernel's int8
 instantiation whatever the method, since torch has no int8 batched
 product on CUDA; the rank-1 rescale follows in torch.
@@ -44,6 +45,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from tpusparse_torch.gates import CARD_GATES
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels import build
 from tpusparse_torch.kernels.common import (cdiv, launch_checked, matmul_f32, pad_dense_cols,
@@ -333,14 +335,18 @@ def bell_int8(fmt: BlockEllFormat, x: torch.Tensor) -> torch.Tensor:
 
 
 def block_ell_spmm(fmt: BlockEllFormat, x, *, ktile: int | None = None,
-                   precision: str = "bf16", method: str = "xla") -> torch.Tensor:
-    """Y[M, K] = A . X[N, K] with A in BlockEllFormat.  ``method='xla'``
-    (default) runs the batched product, ``'pallas'`` the kernel; int8
-    formats run the quantized integer product on the kernel whatever
-    ``precision`` and ``method`` say.  ``ktile`` was the TPU kernel's K
-    tile and changes nothing here.  CUDA formats run on the card, CPU
-    formats the plain versions."""
+                   precision: str = "bf16", method: str | None = None) -> torch.Tensor:
+    """Y[M, K] = A . X[N, K] with A in BlockEllFormat.  ``method='pallas'``
+    runs the kernel (#13), ``'xla'`` the JAX package's default, the batched
+    product; None (the default) takes ``CARD_GATES.block_ell_method``, the
+    kernel, which beats the batched product on the card in bf16 and fp32
+    (PERF.md, "Gates").  int8 formats run the quantized integer product on
+    the kernel whatever ``precision`` and ``method`` say.  ``ktile`` was
+    the TPU kernel's K tile and changes nothing here.  CUDA formats run on
+    the card, CPU formats the plain versions."""
     assert precision in PRECISIONS, precision
+    if method is None:
+        method = CARD_GATES.block_ell_method
     if method not in ("xla", "pallas"):
         raise ValueError(f"method {method!r}: 'xla' or 'pallas'")
     m, n = fmt.shape

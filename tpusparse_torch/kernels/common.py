@@ -169,14 +169,39 @@ def unpack_by_deal(fmt, y_rows: torch.Tensor) -> torch.Tensor:
     """Y's rows from the pre-unpack row block of a dealt format (dg, radix):
     ``fmt.deal`` 'blocks' (slot == row) slices, 'index' (slot = (r % P) *
     rb + r // P) reshapes and transposes, anything else gathers through
-    ``slot_of_origrow``."""
+    ``slot_of_origrow``, by the gather index that ``deal_index`` keeps on
+    the format."""
     if fmt.deal == "blocks":
         return y_rows[: fmt.shape[0]]
     if fmt.deal == "index":
         P = fmt.n_programs
         return (y_rows.reshape(P, fmt.rb, *y_rows.shape[1:])
                 .transpose(0, 1).reshape(P * fmt.rb, *y_rows.shape[1:])[: fmt.shape[0]])
-    return unpack_slots(y_rows, fmt.slot_of_origrow)
+    idx, valid = deal_index(fmt)
+    got = y_rows.index_select(0, idx)
+    if valid is None:
+        return got
+    return torch.where(valid.view(-1, *([1] * (y_rows.ndim - 1))), got, 0.0)
+
+
+def deal_index(fmt):
+    """(index, valid) of a dealt format's unpack: ``slot_of_origrow`` as an
+    int64 gather index (a row without a slot reads slot 0) and the mask of
+    the rows with a slot, None where every row has one.  Made at the first
+    call and kept on the format as ``fmt.unpack_index`` while
+    ``slot_of_origrow`` stands, so that a call gathers and masks Y without
+    converting, clamping and comparing the slots anew (host work the SpMV's
+    short calls would wait on)."""
+    slot = fmt.slot_of_origrow
+    kept = getattr(fmt, "unpack_index", None)
+    version = None if slot.is_inference() else slot._version
+    if kept is None or kept[0] is not slot or kept[1] != version:
+        idx = slot.long()
+        valid = idx >= 0
+        kept = (slot, version, idx.clamp(min=0),
+                None if bool(valid.all()) else valid.contiguous())
+        fmt.unpack_index = kept
+    return kept[2], kept[3]
 
 
 def window_rows_plain(start, cols, lrow, vals, nc_p, x, *, rb, scale=1, bf16=False):

@@ -293,11 +293,14 @@ def pack_brick_ell(
     kt: int = 8,
     mode: str = "fp32x2",
     device="cuda",
+    max_slots: int | None = None,
 ) -> RadixFormat:
     """Brick-ELL packing (tpusparse/kernels/radix_gather.py:314): chunks cut
     in the STORED (ELL-padded, interleaved) order instead of column order,
     the reference's headline layout (col-pad-parent-to-max + interlance
     storage, data_transform_step.hpp:1385-1693) in the radix format.
+    ``max_slots``: planes of more slots raise ``ValueError`` before they
+    are allocated (the caller's memory or the row walk's int32 index).
 
     Expects the metadata set after SortOperator (length),
     FixedIntervalRowBlockingOperator(8), EllBlockPadOperator and
@@ -341,6 +344,9 @@ def pack_brick_ell(
             i = j
 
     nc = max(max((len(c) for c in chunks), default=1), 1)
+    if max_slots is not None and p_count * nc * g > max_slots:
+        raise ValueError(f"brick_ell planes of {p_count * nc * g} slots (NC={nc}) pass the "
+                         f"limit of {max_slots}")
     c0_2d = np.zeros((p_count, nc), dtype=np.int32)
     cols_f = np.zeros((p_count, nc, g), dtype=np.int32)
     lrow_f = np.zeros((p_count, nc, g), dtype=np.int32)

@@ -52,6 +52,12 @@ WALK_PANELS = tuple(WALK_BLOCK_SLOTS)
 #: the one-column walk kernel's geometry: slots a warp, warps a block and
 #: steps of 32 slots a warp loads at once (chosen on the card, PERF.md)
 WALK1_GEOMETRY = (256, 4, 2)
+#: the walk indexes a format's value plane with int32 (and a kernel's last
+#: block reads up to two blocks of slots past its end): a plane of this
+#: many slots or more has no row walk
+WALK_SLOT_LIMIT = 2 ** 31 - 2 * max(WALK_BLOCK_SLOTS.values())
+#: bytes of the walk a live slot: row, column, slot and value
+WALK_SLOT_BYTES = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +99,7 @@ class RowWalk:
 
     @property
     def nbytes(self) -> int:
-        return 16 * self.n_slots
+        return WALK_SLOT_BYTES * self.n_slots
 
     def for_plane(self, vals) -> "RowWalk":
         """The same walk with the values of ``vals`` (a plane of the same
@@ -146,7 +152,7 @@ def build_row_walk(row, col, live, vals, *, pattern, live_from_values: bool, n_r
     column at or past ``n_cols`` is left out."""
     t0 = time.perf_counter()
     plane = live.numel()
-    if plane + 2 * max(WALK_BLOCK_SLOTS.values()) >= 2 ** 31:
+    if plane >= WALK_SLOT_LIMIT:
         raise ValueError(f"{plane} slots: the row walk indexes them with int32")
     col = col.reshape(-1)
     idx = torch.nonzero(live.reshape(-1) & (col < n_cols)).reshape(-1)  # rising slots

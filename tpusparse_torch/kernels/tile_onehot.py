@@ -24,9 +24,11 @@ to 512 columns (``stream_geometry``), sums each row run in registers and
 adds it into y_rows with float4 atomics.
 
 ``tile_spmm`` picks between the wrappers by the JAX package's rule (X of
-more than 6 MB in the TPU's packed layout streams), and each counts its own
-launches.  A wrapper launches its kernel for
-CUDA tensors and raises on any failure; only CPU tensors take the plain
+more than 6 MB in the TPU's packed layout streams, ``uses_stream``), and
+each counts its own launches.  Both launch one kernel over one format, so
+on the card the rule decides nothing but which wrapper counts the launch,
+and it stays the JAX package's.  A wrapper launches its kernel for CUDA
+tensors and raises on any failure; only CPU tensors take the plain
 version.
 """
 
@@ -47,8 +49,8 @@ from tpusparse_torch.kernels.common import (cdiv, check_operands, kernel_info,
 
 PRECISIONS = ("bf16", "fp32x2", "fp32")
 #: TPU-derived: the VMEM footprint above which the JAX package streams X
-#: (tile_onehot.py:179); kept so both packages pick the same kernel until
-#: it is re-derived for the card (ROADMAP.md A.4)
+#: (tile_onehot.py:179); kept so both packages pick the same wrapper (on
+#: the card both launch one kernel, so it only names the counter)
 _RESIDENT_X_BYTES = 6 * 1024 * 1024
 
 

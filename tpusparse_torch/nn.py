@@ -135,7 +135,7 @@ class SparseLinear(torch.nn.Module):
     def from_block(cls, mat: CooMatrix, *, bs: int = 128, precision: str = "bf16",
                    bias=None, differentiable: bool = False, device="cuda") -> "SparseLinear":
         """Block-sparse weight in Block-ELL (``block_ell_spmm``'s default
-        method; ``precision='int8'`` quantizes W per row and X per column,
+        method, the kernel; ``precision='int8'`` quantizes W per row and X per column,
         W8A8 on the kernel's integer product).  ``differentiable=True``
         runs the backward on A^T's Block-ELL format (a transposed
         block-sparse matrix is block-sparse with transposed blocks); int8

@@ -22,17 +22,19 @@ import torch
 
 from tpusparse_torch.format import (block_nnz_before_pad, pack_segment, pack_stripe,
                                     pack_stripe_nested, pack_tile)
+from tpusparse_torch.gates import CARD_GATES, Gates, dg_ns
 from tpusparse_torch.generator import SpmmPlan
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels.block_ell import block_ell_spmm, pack_block_ell
 from tpusparse_torch.kernels.common import matmul_f32, prep_x, resolve_device
-from tpusparse_torch.kernels.dg_gather import (PRECISIONS, choose_kt_dg, dg_spmm,
-                                               dg_spmv, pack_dg)
+from tpusparse_torch.kernels.dg_gather import (PRECISIONS, choose_kt_dg, dg_geometry,
+                                               dg_spmm, dg_spmv, pack_dg)
 from tpusparse_torch.kernels.dgt_gather import dgt_spmm, pack_dgt
 from tpusparse_torch.kernels.nnz_split import (pack_segment_span, segment_span_spmm,
                                                segment_spmm)
 from tpusparse_torch.kernels.radix_gather import (choose_kt, pack_brick_ell, pack_radix,
                                                   radix_spmm)
+from tpusparse_torch.kernels.row_walk import WALK_SLOT_BYTES, WALK_SLOT_LIMIT
 from tpusparse_torch.kernels.span_gather import pack_span, span_spmm
 from tpusparse_torch.kernels.stripe_gather import stripe_nested_spmm, stripe_spmm
 from tpusparse_torch.kernels.tile_onehot import tile_spmm
@@ -110,52 +112,82 @@ class Schedule:
 TPU_ONLY_FIELDS = ("unroll", "scatter", "pipe", "rowhot_i8")
 
 
-def default_schedule(mat: CooMatrix, k: int | None = None) -> Schedule:
-    """The JAX package's default family for the K regime, decision for
-    decision.  Its gates are TPU-derived: 6 MB is the share of the v5e's
+#: X a ``span_colsplit`` range holds, in the TPU's layout (its 4 MB of
+#: VMEM); the TPU's record splits X past its gates into such ranges
+COLSPLIT_RANGE_BYTES = 4 * 1024 * 1024
+
+
+def default_schedule(mat: CooMatrix, k: int | None = None, *,
+                     gates: Gates = CARD_GATES) -> Schedule:
+    """The default family for the K regime, one decision tree read with
+    ``gates`` (``tpusparse_torch.gates``).  Under ``TPU_GATES`` it is the
+    JAX package's, decision for decision: 6 MB is the share of the v5e's
     VMEM that a resident X block may take (x3 for dg, the lane-packed X
-    for radix and span).  The card keeps X in HBM and gathers rows through
-    L2, so these gates are queued for re-derivation from H100 measurements
-    (ROADMAP.md A.4); until then the port takes the same decisions."""
-    n = mat.shape[1]
+    for radix and span), and X past every gate is split into column ranges
+    of 4 MB.  Under ``CARD_GATES`` (the default) no X gate binds, since the
+    card's kernels stage no X: K <= 128 takes ``dg_span`` at dg's K-tile,
+    its window spanning X where the default window would pad its chunks
+    past the tuner's padding bound (``gates.dg_ns``), but at K = 2-4 where
+    the TPU's tree takes ``radix_span`` (measured faster on the card there:
+    its K-tile of 2 or 4 moves fewer columns than dg's 8).  At config #1
+    both records give the same schedule."""
+    m, n = mat.shape
     kt = 128 if k is None else min(k, 128)
-    x_bytes = n * 2 * kt * 2  # TPU-derived: fp32x2 packs hi+lo bf16 per X row
+    x_bytes = n * 2 * kt * 2  # the TPU's fp32x2 layout: hi+lo bf16 per X row
     if k is not None and k > 128:
         return Schedule()  # tile_onehot (streams X, safe at any N)
+
+    def dg(rb, ns, g, unroll, ktile):
+        wt = dg_geometry(ktile, "fp32x2")[0]
+        ns = dg_ns(mat.nnz, m, n, rb=rb, ns=ns, g=g, wt=wt, gates=gates)
+        return Schedule(family="dg_span", rb=rb, ns=ns, g=g, unroll=unroll, ktile=ktile)
+
     if k is not None and k <= 32:
         kt_d = choose_kt_dg(k)
-        if kt_d == 1 and n * 4 <= 6 * 1024 * 1024:  # TPU-derived gate
-            return Schedule(family="dg_span", rb=4096, ns=4, g=2048,
-                            unroll=8, ktile=1)
-        if kt_d > 1 and n * kt_d * 4 <= 6 * 1024 * 1024:  # TPU-derived gate
-            return Schedule(family="dg_span", rb=1024, ns=8, g=512,
-                            unroll=8, ktile=kt_d)
+        if kt_d == 1 and gates.x_fits(n * 4, k):
+            return dg(4096, 4, 2048, 8, 1)
+        if kt_d > 1 and gates.x_fits(n * kt_d * 4, k):
+            return dg(1024, 8, 512, 8, kt_d)
         kt_r = choose_kt(k)
-        if n * kt_r * 4 <= 6 * 1024 * 1024:  # TPU-derived gate
+        if gates.x_fits(n * kt_r * 4, k):
             return Schedule(family="radix_span", rb=1024, sublanes=128, g=1024,
                             unroll=4, ktile=kt_r)
-    if k is not None and k <= 128 and n * 32 * 4 <= 6 * 1024 * 1024:  # TPU-derived gate
+        if gates.x_bytes is None:  # the card's, K = 2-4: dg past radix's window too
+            return dg(1024, 8, 512, 8, kt_d)
+    if k is not None and k <= 128 and gates.x_fits(n * 32 * 4):
         # dg at kt=32 beat span at 32 < K <= 128 on the v5e
-        return Schedule(family="dg_span", rb=512, ns=8, g=512, unroll=8,
-                        ktile=32)
-    if x_bytes <= 6 * 1024 * 1024:  # TPU-derived gate
+        return dg(512, 8, 512, 8, 32)
+    if gates.x_fits(x_bytes):
         return Schedule(family="span_onehot", rb=512, ct=1024, g=512, unroll=4)
     if k is not None:
         return Schedule(family="span_colsplit",
-                        col_split=-(-x_bytes // (4 * 1024 * 1024)),
+                        col_split=-(-x_bytes // COLSPLIT_RANGE_BYTES),
                         rb=512, ct=1024, g=512, unroll=4)
     return Schedule()
 
 
-#: TPU-derived: the VMEM a brick_ell program's chunk blocks may take on the
-#: v5e (tpusparse/schedule.py:284-293); kept so the port refuses brick_ell
-#: exactly where the JAX package does
-BRICK_ELL_BLOCK_BYTES = 4 * 1024 * 1024
+#: bytes a slot of brick_ell's planes (column, row, value) and, at worst,
+#: of its row walk
+BRICK_SLOT_BYTES = 12 + WALK_SLOT_BYTES
 
 
-def _build_sub_plan(ms, ex, sub: int, sched: Schedule, out_rows: int, device):
+def brick_slot_limit(device) -> int:
+    """The most slots brick_ell's planes may take: below the row walk's
+    int32 index and, on a CUDA ``device``, within the card's memory a new
+    tensor can take (the free memory ``mem_get_info`` reports and what
+    PyTorch's caching allocator holds unused, which it reuses first), at
+    ``BRICK_SLOT_BYTES`` a slot.  The packer refuses past it before it
+    allocates the planes on the host."""
+    if getattr(device, "type", None) != "cuda":
+        return WALK_SLOT_LIMIT
+    free, _ = torch.cuda.mem_get_info(device)
+    free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return min(WALK_SLOT_LIMIT, free // BRICK_SLOT_BYTES)
+
+
+def _build_sub_plan(ms, ex, sub: int, sched: Schedule, out_rows: int, device, gates: Gates):
     """Run distributing and implementing for one sub-matrix; return
-    (format, fn).
+    (format, fn).  ``gates`` holds brick_ell's chunk-block refusal.
 
     Launch geometry flows through the metadata set as in the JAX package:
     GridBlockOperator writes GLOBAL ``ktile``/``k_unroll`` and the plan
@@ -244,10 +276,17 @@ def _build_sub_plan(ms, ex, sub: int, sched: Schedule, out_rows: int, device):
             ex.add_and_run(FixedIntervalRowBlockingOperator(sub, Level.TBLOCK, 8))
             ex.add_and_run(EllBlockPadOperator(sub, Level.TBLOCK))
             ex.add_and_run(InterleaveStorageOperator(sub, Level.TBLOCK))
-            fmt = pack_brick_ell(ms, sub, out_rows=out_rows, rb=sched.rb, S=sched.sublanes,
-                                 g=sched.g, kt=kt, mode=mode, device=device)
+            try:
+                fmt = pack_brick_ell(ms, sub, out_rows=out_rows, rb=sched.rb, S=sched.sublanes,
+                                     g=sched.g, kt=kt, mode=mode, device=device,
+                                     max_slots=brick_slot_limit(device))
+            except ValueError as e:
+                if "brick_ell planes" not in str(e):
+                    raise
+                raise CandidateRejected(f"{e}: the card's memory or the row walk's int32 "
+                                        "index") from e
             blk_bytes = fmt.n_chunks * fmt.chunk_g * 12
-            if blk_bytes > BRICK_ELL_BLOCK_BYTES:
+            if gates.brick_block_bytes is not None and blk_bytes > gates.brick_block_bytes:
                 raise CandidateRejected(
                     f"brick_ell chunk blocks need {blk_bytes / 2**20:.0f} MB of the TPU's "
                     f"VMEM (NC={fmt.n_chunks}): the interleaved layout has no column "
@@ -294,7 +333,8 @@ def _build_span_colsplit_plan(mat: CooMatrix, sched: Schedule, device) -> SpmmPl
     format, and the plan sums the partial products with a torch add on the
     format's device.  Every sub-format gathers back to the full output rows,
     so the sum is a plain add.  The split exists because the TPU kernel
-    needed X resident in VMEM; the port keeps the JAX decision."""
+    needed X resident in VMEM: the TPU's record (``TPU_GATES``) takes it
+    past its X gates, the card's never does."""
     m, n = mat.shape
     s = max(int(sched.col_split), 2)
     width = -(-n // s)
@@ -388,16 +428,19 @@ def _build_dense_plan(mat: CooMatrix, sched: Schedule, device) -> SpmmPlan:
               "format_bytes": a.numel() * a.element_size(), "device": str(device)})
 
 
-def _build_block_ell_plan(mat: CooMatrix, sched: Schedule, device) -> SpmmPlan:
+def _build_block_ell_plan(mat: CooMatrix, sched: Schedule, device, gates: Gates) -> SpmmPlan:
     """The block-sparse dense-tile family (tpusparse/schedule.py:359): BS
     is the Schedule's ``row_interval`` where it is 64, 128 or 256, else
-    128; the plan runs ``block_ell_spmm``'s default method."""
+    128; the plan runs ``gates.block_ell_method``: the kernel (#13) on the
+    card's record, the JAX package's batched product (``xla``) on the
+    TPU's."""
     bs = sched.row_interval if sched.row_interval in (64, 128, 256) else 128
     fmt = pack_block_ell(mat, bs=bs, dtype=_dense_dtype(sched), device=device)
     prec = "bf16" if sched.precision == "bf16" else "fp32"
 
     def fn(x):
-        return block_ell_spmm(fmt, x, precision=prec, ktile=sched.ktile)
+        return block_ell_spmm(fmt, x, precision=prec, ktile=sched.ktile,
+                              method=gates.block_ell_method)
 
     return SpmmPlan(
         fn=fn, formats=[fmt], shape=mat.shape,
@@ -407,7 +450,7 @@ def _build_block_ell_plan(mat: CooMatrix, sched: Schedule, device) -> SpmmPlan:
               "operator_history": "block_ell", "device": str(device)})
 
 
-def _build_hybrid_cols_plan(mat: CooMatrix, sched: Schedule, device) -> SpmmPlan:
+def _build_hybrid_cols_plan(mat: CooMatrix, sched: Schedule, device, gates: Gates) -> SpmmPlan:
     """Hot-column hybrid (tpusparse/schedule.py:383): the ``hot_cols``
     most-populated columns (128 at least, rounded up to a multiple of 128)
     become a dense (M, C) panel, multiplied as the dense family does with
@@ -441,10 +484,10 @@ def _build_hybrid_cols_plan(mat: CooMatrix, sched: Schedule, device) -> SpmmPlan
     rest_plan = None
     if rest.nnz:
         rest_sched = (sched.bucket_schedules[0] if sched.bucket_schedules
-                      else default_schedule(rest, sched.ktile or 8))
+                      else default_schedule(rest, sched.ktile or 8, gates=gates))
         if sched.ktile is not None:
             rest_sched = dataclasses.replace(rest_sched, ktile=sched.ktile)
-        rest_plan = build_plan(rest, rest_sched, device=device)
+        rest_plan = build_plan(rest, rest_sched, device=device, gates=gates)
 
     def panel_mm(x):
         return matmul_f32(panel, x.index_select(0, hot_d).to(dt))
@@ -471,9 +514,16 @@ def _build_hybrid_cols_plan(mat: CooMatrix, sched: Schedule, device) -> SpmmPlan
               "hot_cols": int(C), "covered_nnz": covered, "device": str(device)})
 
 
-def build_plan(mat: CooMatrix, sched: Schedule, *, device="cuda") -> SpmmPlan:
+def build_plan(mat: CooMatrix, sched: Schedule, *, device="cuda",
+               gates: Gates = CARD_GATES) -> SpmmPlan:
     """Plan for ``sched`` with its formats on ``device`` (CUDA by default;
-    raises when no card is present unless ``device="cpu"``).  As in the JAX
+    raises when no card is present unless ``device="cpu"``).  ``gates``
+    (``tpusparse_torch.gates``): under ``TPU_GATES`` brick_ell is refused
+    where its chunk blocks pass the TPU's 4 MB and the ``block_ell`` plan
+    runs the batched product, as in the JAX package; under ``CARD_GATES``
+    (the default) the ``block_ell`` plan runs the kernel and brick_ell is
+    refused only where its planes pass ``brick_slot_limit``, as on both
+    records.  As in the JAX
     package (tpusparse/schedule.py:558): ``dense``, ``block_ell``,
     ``hybrid_cols``, ``span_colsplit`` and ``segment_span`` build their own
     formats; every other family runs the
@@ -487,9 +537,9 @@ def build_plan(mat: CooMatrix, sched: Schedule, *, device="cuda") -> SpmmPlan:
     if sched.family == "dense":
         return _build_dense_plan(mat, sched, dev)
     if sched.family == "block_ell":
-        return _build_block_ell_plan(mat, sched, dev)
+        return _build_block_ell_plan(mat, sched, dev, gates)
     if sched.family == "hybrid_cols":
-        return _build_hybrid_cols_plan(mat, sched, dev)
+        return _build_hybrid_cols_plan(mat, sched, dev, gates)
     if sched.family == "span_colsplit":  # as in the JAX package, before sort and buckets
         return _build_span_colsplit_plan(mat, sched, dev)
     if sched.family == "segment_span":
@@ -517,7 +567,7 @@ def build_plan(mat: CooMatrix, sched: Schedule, *, device="cuda") -> SpmmPlan:
 
     formats, fns = [], []
     for s in subs:
-        fmt, fn = _build_sub_plan(ms, ex, s, sub_scheds[s], mat.shape[0], dev)
+        fmt, fn = _build_sub_plan(ms, ex, s, sub_scheds[s], mat.shape[0], dev, gates)
         formats.append(fmt)
         fns.append(fn)
 

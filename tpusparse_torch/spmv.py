@@ -21,15 +21,18 @@ Methods, decision for decision as in the JAX package:
              one float4 of X a slot).
   'segment'  plain torch: ``index_add_`` of vals * x[cols] over rows.  The
              JAX version is XLA code, no Pallas kernel, so no kernel here.
-  'auto'     'dg' when x passes the JAX package's size gate (N*4 bytes
-             <= 6 MB), else 'segment'.
+  'auto'     'dg' where ``takes_dg``: on the card's record
+             (``CARD_GATES``, the default) at any N, on the TPU's where x
+             fits 6 MB (N*4 bytes, the JAX package's gate); else
+             'segment'.
 
-``spmv_multi_fn`` fuses m <= 8 independent SpMVs into one K = m dgt call,
-with the JAX package's column split for large N.  The size gates that
-choose among methods ('auto', the column split) are TPU-derived (the
-v5e's VMEM residency limits for X) and kept so both packages take the same
-decisions until they are re-derived for the card (ROADMAP.md A.4).  Every entry point runs on ``device`` ("cuda" by
-default; no card raises unless ``device="cpu"``).
+``spmv_multi_fn`` fuses m <= 8 independent SpMVs into one K = m dgt call;
+on the TPU's record with the JAX package's column split for large N, on
+the card's in one format at any N.  The size gates ('auto', the column
+split, dg's window) are read from ``gates`` (``tpusparse_torch.gates``):
+the card's walks read x through L2 at any N (PERF.md, "Gates").  Every
+entry point runs on ``device`` ("cuda" by default; no card raises unless
+``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpusparse_torch.gates import CARD_GATES, Gates, dg_ns
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels.common import cdiv, resolve_device
 
@@ -50,19 +54,44 @@ def _as_x(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
 
 
-def spmv_fn(mat: CooMatrix, method: str = "auto", *, device="cuda"):
+#: X a column range of ``spmv_multi_fn``'s split holds on the TPU's record
+#: (the JAX package's, from its compile limits on the v5e)
+MULTI_RANGE_BYTES = 8 * 1024 * 1024
+
+
+def takes_dg(n: int, gates: Gates = CARD_GATES) -> bool:
+    """Whether an SpMV of x of ``n`` fp32 takes the dg SpMV plan
+    (``spmv_fn('auto')``, ``graph.matvec_plan``) under ``gates``, rather
+    than a segment reduction: where x passes ``gates.dg_x_bytes``."""
+    return gates.dg_x_bytes is None or n * 4 <= gates.dg_x_bytes
+
+
+def pack_dg_spmv(mat: CooMatrix, *, device, gates: Gates = CARD_GATES):
+    """The kt = 1 dg format of the SpMV plans (``spmv_fn('dg')``,
+    ``graph.matvec_plan``): rb 4096 (a multiple of 64 below it), 4 window
+    tiles of 1024 columns (spanning x where ``gates.dg_ns`` widens them), g
+    2048 past 1M nonzeros else 512."""
+    from tpusparse_torch.kernels.dg_gather import pack_dg
+
+    m, n = mat.shape
+    rb = 4096 if m >= 4096 else max(64, 64 * cdiv(m, 64))
+    g = 2048 if mat.nnz > 1 << 20 else 512
+    ns = dg_ns(mat.nnz, m, n, rb=rb, ns=4, g=g, wt=1024, gates=gates)
+    return pack_dg(mat, rb=rb, ns=ns, g=g, kt=1, mode="fp32x2", device=device)
+
+
+def spmv_fn(mat: CooMatrix, method: str = "auto", *, device="cuda",
+            gates: Gates = CARD_GATES):
     """Returns ``fn(x[N]) -> y[M]`` for repeated application, the matrix
-    packed once on ``device``."""
+    packed once on ``device``; ``gates`` decides 'auto' and dg's window."""
     dev = resolve_device(device)
     m, n = mat.shape
     if method == "auto":
-        method = "dg" if n * 4 <= 6 * 1024 * 1024 else "segment"  # TPU-derived gate
+        method = "dg" if takes_dg(n, gates) else "segment"
     if method == "dg":
-        from tpusparse_torch.kernels.dg_gather import dg_spmv, pack_dg
+        from tpusparse_torch.kernels.dg_gather import dg_spmv
 
-        rb = 4096 if m >= 4096 else max(64, 64 * cdiv(m, 64))
-        fmt = pack_dg(mat, rb=rb, ns=4, g=2048 if mat.nnz > 1 << 20 else 512,
-                      kt=1, mode="fp32x2", device=dev)
+        fmt = pack_dg_spmv(mat, device=dev, gates=gates)
 
         def fn(x):
             assert tuple(x.shape) == (n,), f"x shape {tuple(x.shape)} != ({n},)"
@@ -133,18 +162,21 @@ def spmv_fn(mat: CooMatrix, method: str = "auto", *, device="cuda"):
     raise ValueError(f"unknown spmv method {method!r}")
 
 
-def spmv(mat: CooMatrix, x, method: str = "auto", *, device="cuda"):
-    return spmv_fn(mat, method, device=device)(x)
+def spmv(mat: CooMatrix, x, method: str = "auto", *, device="cuda",
+         gates: Gates = CARD_GATES):
+    return spmv_fn(mat, method, device=device, gates=gates)(x)
 
 
 def spmv_multi_fn(mat: CooMatrix, n_vectors: int = 8, col_split: int | None = None, *,
-                  device="cuda"):
+                  device="cuda", gates: Gates = CARD_GATES):
     """Returns ``fn(X[N, m]) -> Y[M, m]``: m independent SpMVs fused into
     one K = m dgt call (kt = 8).  ``col_split`` packs each column range as
-    its own dgt format and sums the partial products; by default X of more
-    than 16 MB is split into ranges of at most 8 MB (the JAX package's
-    rule, from its compile limits on the v5e: TPU-derived).  ``fn.n_splits``
-    is the number of formats."""
+    its own dgt format and sums the partial products; by default
+    (``col_split=None``) ``gates`` decides: the TPU's record splits X of
+    more than 16 MB into ranges of at most 8 MB (the JAX package's rule,
+    from its compile limits on the v5e), the card's never splits (the walk
+    reads X through L2 at any N).  ``fn.n_splits`` is the number of
+    formats."""
     from tpusparse_torch.kernels.dgt_gather import auto_rb_dgt, dgt_spmm, pack_dgt
 
     dev = resolve_device(device)
@@ -153,8 +185,8 @@ def spmv_multi_fn(mat: CooMatrix, n_vectors: int = 8, col_split: int | None = No
     assert 1 <= n_vectors <= kt, "pack with ktile > 8 for more vectors"
     if col_split is None:
         x_bytes = n * kt * 4
-        col_split = (1 if x_bytes <= 16 * 1024 * 1024  # TPU-derived gate
-                     else max(2, -(-x_bytes // (8 * 1024 * 1024))))
+        col_split = (1 if gates.multi_split_bytes is None or x_bytes <= gates.multi_split_bytes
+                     else max(2, -(-x_bytes // MULTI_RANGE_BYTES)))
 
     def _pack(sub, width):
         rb = auto_rb_dgt(m, width, sub.nnz) if m >= 256 else max(8, 8 * cdiv(m, 8))

@@ -29,14 +29,20 @@ import torch
 
 from tpusparse_torch.bench.harness import gflops, time_fn, time_fn_host
 from tpusparse_torch.config import get_config
+from tpusparse_torch.gates import CARD_GATES, Gates
 from tpusparse_torch.generator import SpmmPlan
+from tpusparse_torch.format import SegmentFormat, StripeFormat
 from tpusparse_torch.io.mtx import CooMatrix
 from tpusparse_torch.kernels.common import resolve_device
-from tpusparse_torch.kernels.dg_gather import choose_kt_dg
-from tpusparse_torch.kernels.dgt_gather import auto_rb_dgt, dgt_geometry
-from tpusparse_torch.kernels.radix_gather import choose_kt
+from tpusparse_torch.kernels.dg_gather import DgFormat, choose_kt_dg
+from tpusparse_torch.kernels.dgt_gather import DgtFormat, auto_rb_dgt, dgt_geometry
+from tpusparse_torch.kernels.nnz_split import SegmentSpanFormat
+from tpusparse_torch.kernels.radix_gather import RadixFormat, choose_kt
+from tpusparse_torch.kernels.row_walk import WALK_SLOT_BYTES
+from tpusparse_torch.kernels.span_gather import SpanFormat
 from tpusparse_torch.oracle import check_result, spmm_reference
-from tpusparse_torch.schedule import KERNEL_FAMILIES, CandidateRejected, Schedule, build_plan
+from tpusparse_torch.schedule import (COLSPLIT_RANGE_BYTES, KERNEL_FAMILIES, CandidateRejected,
+                                      Schedule, build_plan)
 
 
 def matrix_signature(mat: CooMatrix) -> str:
@@ -105,7 +111,8 @@ def _radix_configs(density: float, kt: int) -> list[tuple[int, int, int]]:
     return out[:3]
 
 
-def default_candidates(mat: CooMatrix, k: int, *, full: bool = False) -> list[Schedule]:
+def default_candidates(mat: CooMatrix, k: int, *, full: bool = False,
+                       gates: Gates = CARD_GATES) -> list[Schedule]:
     """The JAX package's candidate list (tpusparse/tune.py:90-313), block
     for block in its order: dg's density-sized (rb, ns, g) points (with
     ``full`` the wider grid, unrolls and bf16); dgt's points; radix's
@@ -122,16 +129,19 @@ def default_candidates(mat: CooMatrix, k: int, *, full: bool = False) -> list[Sc
     2048, 512 and N/8, bf16 first, ranked ahead of everything past a 0.6
     share; the ``dense`` row (A's bf16 copy within 4 GB, and density past
     2 % or K >= 256); and the ``block_ell`` row where the 128-blocks are
-    more than a quarter full.  The X-size gates (6 MB) are the JAX
-    package's VMEM gates, TPU-derived and queued for re-derivation
-    (ROADMAP.md A.4)."""
+    more than a quarter full.  The X-size gates are read from ``gates``:
+    under ``TPU_GATES`` the JAX package's (6 MB of the v5e's VMEM), the
+    list equal to its own; under ``CARD_GATES`` (the default) none binds,
+    so a wide matrix keeps the dg, dgt and radix rows and takes the
+    ``span_onehot`` rows in place of ``span_colsplit``.  At config #1 both
+    give the same 25 rows."""
     lengths = mat.row_lengths()
     max_len = int(lengths.max()) if lengths.size else 0
     avg_len = float(lengths.mean()) if lengths.size else 0.0
     skewed = max_len > 32 * max(avg_len, 1.0)
     cands: list[Schedule] = []
     kt_dg = choose_kt_dg(k)
-    if k <= 128 and mat.shape[1] * kt_dg * 4 <= 6 * 1024 * 1024:
+    if k <= 128 and gates.x_fits(mat.shape[1] * kt_dg * 4):
         density = max(mat.density, 1e-8)
         if kt_dg == 1:
             dg_cfgs = [(4096, 4, 2048), (4096, 4, 1024), (1024, 8, 512)]
@@ -159,8 +169,7 @@ def default_candidates(mat: CooMatrix, k: int, *, full: bool = False) -> list[Sc
                     cands.append(Schedule(family="dg_span", rb=rb, ns=ns,
                                           g=g, unroll=8, ktile=kt_c,
                                           precision="bf16"))
-    if 2 <= kt_dg <= 32 and k <= 128 and \
-            mat.shape[1] * max(kt_dg, 8) * 4 <= 6 * 1024 * 1024:  # TPU-derived gate
+    if 2 <= kt_dg <= 32 and k <= 128 and gates.x_fits(mat.shape[1] * max(kt_dg, 8) * 4):
         _, ngrp_dgt = dgt_geometry(max(kt_dg, 8), "fp32x2")
         rb_auto = auto_rb_dgt(mat.shape[0], mat.shape[1], mat.nnz, ngrp=ngrp_dgt)
         dgt_cfgs = [(True, 512, 8, 512, 8, False), (True, 256, 4, 512, 8, False),
@@ -177,7 +186,7 @@ def default_candidates(mat: CooMatrix, k: int, *, full: bool = False) -> list[Sc
             cands.append(Schedule(family="dgt_span", rb=rb, nw=nw, resid=resid, g=g_c,
                                   unroll=u_c, ktile=max(kt_dg, 8), rowhot_i8=i8))
     kt_r = choose_kt(k)
-    if k <= 128 and mat.shape[1] * kt_r * 4 <= 6 * 1024 * 1024:  # TPU-derived gate
+    if k <= 128 and gates.x_fits(mat.shape[1] * kt_r * 4):
         for kt_c in ([kt_r] if kt_r <= 8 else list(dict.fromkeys([kt_r, 8]))):
             radix_cfgs = _radix_configs(mat.density, kt_c)
             if not full and kt_c != kt_r:
@@ -196,9 +205,9 @@ def default_candidates(mat: CooMatrix, k: int, *, full: bool = False) -> list[Sc
         if k <= 32 or full:
             cands.append(Schedule(family="brick_ell", sort=True, rb=1024, sublanes=256,
                                   g=512, unroll=4, ktile=kt_r))
-    x_bytes = mat.shape[1] * 2 * min(k, 128) * 2  # TPU-derived: X as hi+lo bf16
+    x_bytes = mat.shape[1] * 2 * min(k, 128) * 2  # the TPU's layout: X as hi+lo bf16
     if k <= 128:
-        if x_bytes <= 6 * 1024 * 1024:  # TPU-derived gate
+        if gates.x_fits(x_bytes):
             unrolls = (2, 4, 8) if full else (4,)
             precisions = ("fp32x2", "bf16") if full else ("fp32x2",)
             for rb, ct, g in _span_configs(mat.density):
@@ -207,7 +216,7 @@ def default_candidates(mat: CooMatrix, k: int, *, full: bool = False) -> list[Sc
                         cands.append(Schedule(family="span_onehot", rb=rb, ct=ct, g=g,
                                               unroll=u, precision=prec))
         else:
-            s = -(-x_bytes // (4 * 1024 * 1024))
+            s = -(-x_bytes // COLSPLIT_RANGE_BYTES)
             for rb, ct, g in _span_configs(mat.density)[:2]:
                 cands.append(Schedule(family="span_colsplit", col_split=s, rb=rb, ct=ct,
                                       g=g, unroll=4))
@@ -258,6 +267,45 @@ def default_candidates(mat: CooMatrix, k: int, *, full: bool = False) -> list[Sc
     return cands
 
 
+def slots_read(fmt) -> int | None:
+    """The slots a format's kernel reads on the card, where it reads only
+    live ones: the row walks of the dg, dgt, span, segment-span, radix and
+    brick-ELL formats (#1-#4, #7-#9), one a live slot, and the stripe
+    kernel over each stripe's live slots (stripe and segment formats, #10);
+    None for a format whose kernel reads its packed planes (tile, nested
+    stripe) or its dense blocks."""
+    if isinstance(fmt, (StripeFormat, SegmentFormat)):
+        return int(fmt.live_p.sum())
+    if isinstance(fmt, (DgFormat, DgtFormat, SpanFormat, RadixFormat, SegmentSpanFormat)):
+        return int(fmt.nnz_real)
+    return None
+
+
+def read_rate(plan: SpmmPlan, nnz: int) -> float | None:
+    """The slots a plan's kernels read over the nonzeros, where every
+    format of it reads only live slots (``slots_read``); else None."""
+    reads = [slots_read(f) for f in plan.formats]
+    if not reads or None in reads or plan.meta.get("format_bytes"):
+        return None
+    return sum(reads) / max(nnz, 1)
+
+
+def index_bytes(fmt) -> int:
+    """The bytes of the port's own indexes a format carries on the card,
+    which ``memory_bytes`` (the JAX package's count) leaves out: the row
+    walk, 16 B a live slot, of every format with one (built at its first
+    launch: counted whether or not it is built yet), and where built, the
+    SDDMM tile index (#14, ``fmt.tiles``) and the transpose apply's column
+    index (#15, ``fmt.dx_index``)."""
+    n = 0
+    if not isinstance(fmt, (StripeFormat, SegmentFormat)) and slots_read(fmt) is not None:
+        n += WALK_SLOT_BYTES * slots_read(fmt)
+    for extra in (getattr(fmt, "tiles", None), getattr(fmt, "dx_index", None)):
+        if extra is not None:
+            n += int(extra.nbytes)
+    return n
+
+
 @dataclasses.dataclass
 class TuneResult:
     best: SpmmPlan
@@ -283,10 +331,16 @@ def tune(
     full: bool = False,
     budget: int | None = None,
     device="cuda",
+    gates: Gates = CARD_GATES,
 ) -> TuneResult:
     """Enumerate + time candidates on ``device``, keep the min
     (token_test.cc min-time).  ``full=True`` sweeps the wider grid;
-    ``budget`` caps the number of candidates tried (cached winner first)."""
+    ``budget`` caps the number of candidates tried (cached winner first).
+    ``gates`` (``tpusparse_torch.gates``) gives the candidate list's gates,
+    what the padding bound counts (the card's: the slots read, for the
+    families that read live slots only; the TPU's: the packed planes) and
+    the plans' (brick_ell's refusal); a row's ``format_bytes`` counts the
+    port's own indexes too under the card's (``index_bytes``)."""
     dev = resolve_device(device)
     cfg = get_config()
     x_host = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
@@ -299,7 +353,7 @@ def tune(
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
     if candidates is None:
-        candidates = default_candidates(mat, k, full=full)
+        candidates = default_candidates(mat, k, full=full, gates=gates)
         if use_cache and os.path.exists(cache_file):
             try:
                 with open(cache_file) as f:
@@ -348,7 +402,7 @@ def tune(
         timed[sched.plan_key()] = row
         try:
             t_pack = time.time()
-            plan = build_plan(mat, sched, device=dev)
+            plan = build_plan(mat, sched, device=dev, gates=gates)
             row["pack_seconds"] = round(time.time() - t_pack, 4)
             if validate:
                 y = plan(xd).cpu().numpy()
@@ -362,10 +416,14 @@ def tune(
                          else None)
                 check_result(y, want, rtol=tol, scale=scale)
             # the bound weighs padding against real nonzeros; an empty
-            # matrix has none, and every candidate is all padding
-            if mat.nnz and plan.meta["padding_rate"] > cfg.padding_rate_up_bound:
+            # matrix has none, and every candidate is all padding.  On the
+            # card's record it weighs the slots a kernel reads where it
+            # reads only live ones, not the packed planes
+            pad = plan.meta["padding_rate"]
+            read = read_rate(plan, mat.nnz) if gates.padding_counts == "read" else None
+            if mat.nnz and (pad if read is None else read) > cfg.padding_rate_up_bound:
                 raise CandidateRejected(
-                    f"padding rate {plan.meta['padding_rate']:.2f} exceeds bound"
+                    f"padding rate {pad if read is None else read:.2f} exceeds bound"
                 )
             sec = timer(plan.fn, xd, iters=iters, warmup=1)
             g = gflops(mat.nnz, k, sec, cfg.float_rate)
@@ -381,8 +439,12 @@ def tune(
             # hybrid its remainder's formats) in meta; the others their formats
             fmt_bytes = (plan.meta.get("format_bytes")
                          or sum(f.memory_bytes for f in plan.formats))
-            row.update(seconds=sec, gflops=g, padding_rate=plan.meta["padding_rate"],
-                       format_bytes=fmt_bytes, ok=True)
+            if gates.padding_counts == "read":  # the card's: its own indexes too
+                fmt_bytes += sum(index_bytes(f) for f in plan.formats)
+            row.update(seconds=sec, gflops=g, padding_rate=pad, format_bytes=fmt_bytes,
+                       ok=True)
+            if read is not None:
+                row["read_rate"] = read
             if best is None or sec < best[1]:
                 best = (plan, sec, sched)
         except (AssertionError, CandidateRejected) as e:
